@@ -1,14 +1,19 @@
 """Model zoo of the port: ``get_model(name, **kw)`` builds by registry name.
 
-This slice ports the causal-LM family only; the registry grows with the
-training slices (LeNet-5, MLP, ResNet, ViT in the JAX package).
+Ported so far: the causal-LM family (serving), LeNet-5 and the MLP
+(training), under the JAX package's registry names.  ResNet and ViT come
+with later slices.
 """
 
 from __future__ import annotations
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.causal_lm import CausalLM
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import LeNet5
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.mlp import MLP
 
 _REGISTRY = {
+    "mlp": MLP,
+    "lenet5": LeNet5,
     "causal_lm": CausalLM,
 }
 
@@ -23,4 +28,4 @@ def get_model(name: str, **kwargs):
     return cls(**kwargs)
 
 
-__all__ = ["CausalLM", "get_model"]
+__all__ = ["CausalLM", "LeNet5", "MLP", "get_model"]

@@ -1,9 +1,12 @@
-"""convert.py: JAX causal-LM parameter trees into the port, strictly.
+"""convert.py: JAX parameter trees into the port, strictly.
 
 Round trip: a flax tree, made numpy, converted and loaded into the port's
-model, gives back every leaf exactly (dense kernels transposed).  A tree
-with a missing, extra or misshapen leaf raises with the leaf's path.
+model, gives back every leaf exactly (dense kernels transposed, conv
+kernels HWIO -> OIHW).  A tree with a missing, extra or misshapen leaf
+raises with the leaf's path.  Causal LM, LeNet-5 and the MLP.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +17,11 @@ import torch
 from distributed_tensorflow_ibm_mnist_tpu.models import get_model as jax_get_model
 from distributed_tensorflow_ibm_mnist_tpu_torch.convert import (
     causal_lm_state_dict,
+    lenet5_state_dict,
     load_causal_lm,
+    load_lenet5,
+    load_mlp,
+    mlp_state_dict,
 )
 
 torch.set_num_threads(1)
@@ -79,3 +86,68 @@ def test_unexpected_leaf_names_its_path():
     params = _params_np({"heads_kv": 2})
     with pytest.raises(ValueError, match="block_0/(q_proj|kv_proj)"):
         causal_lm_state_dict(params, KW)
+
+
+# LeNet-5 and the MLP: conv kernels HWIO -> OIHW, dense kernels transposed
+
+
+@functools.cache
+def _image_params(name):
+    kw = {"hidden": (64, 32)} if name == "mlp" else {}
+    model = jax_get_model(name, num_classes=10, **kw)
+    params = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 28, 28, 1)))["params"]
+    return jax.tree.map(np.asarray, params), kw
+
+
+IMAGE_MODELS = {"lenet5": (lenet5_state_dict, load_lenet5),
+                "mlp": (mlp_state_dict, load_mlp)}
+
+
+@pytest.mark.parametrize("name", sorted(IMAGE_MODELS))
+def test_image_model_round_trip_is_exact(name):
+    to_state, load = IMAGE_MODELS[name]
+    params, kw = _image_params(name)
+    model = load(params, device="cpu", **kw)
+    state = model.state_dict()
+    assert set(to_state(params, kw)) == set(state)
+    n_leaves = 0
+    for path, leaf in _flat(params):
+        n_leaves += 1
+        module, kind = path
+        got = state[f"{module}.{'weight' if kind == 'kernel' else kind}"].numpy()
+        if kind == "kernel":
+            want = leaf.transpose(3, 2, 0, 1) if leaf.ndim == 4 else leaf.T
+        else:
+            want = leaf
+        np.testing.assert_array_equal(got, want, err_msg="/".join(path))
+    assert n_leaves == len(state)
+
+
+@pytest.mark.parametrize("name", sorted(IMAGE_MODELS))
+def test_image_model_missing_leaf_names_its_path(name):
+    to_state, _ = IMAGE_MODELS[name]
+    params, kw = _image_params(name)
+    params = {k: dict(v) for k, v in params.items()}
+    del params["logits"]["bias"]
+    with pytest.raises(ValueError, match="logits/bias"):
+        to_state(params, kw)
+
+
+@pytest.mark.parametrize("name", sorted(IMAGE_MODELS))
+def test_image_model_extra_leaf_names_its_path(name):
+    to_state, _ = IMAGE_MODELS[name]
+    params, kw = _image_params(name)
+    params = {**params, "extra": {"kernel": np.zeros((3, 3), np.float32)}}
+    with pytest.raises(ValueError, match="extra/kernel"):
+        to_state(params, kw)
+
+
+@pytest.mark.parametrize("name, leaf", [("lenet5", "conv2"), ("lenet5", "fc1"),
+                                        ("mlp", "dense_1")])
+def test_image_model_wrong_shape_names_its_path(name, leaf):
+    to_state, _ = IMAGE_MODELS[name]
+    params, kw = _image_params(name)
+    params = {k: dict(v) for k, v in params.items()}
+    params[leaf]["kernel"] = params[leaf]["kernel"][..., :-1]
+    with pytest.raises(ValueError, match=f"{leaf}/kernel"):
+        to_state(params, kw)
