@@ -32,9 +32,40 @@ never JAX or the JAX package.  Phases, one JSON line each:
    the best test accuracy must reach 0.99, the loss stay finite, and K1
    and K2 must each launch once per step taken; then
    ``measure_throughput(epochs=2)`` and one epoch under ``torch.profiler``;
-6. the ``kernels`` line: per kernel, its launches on its path's run
-   (serving for K3, training for K1/K2), largest error, times and bound;
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. flash backward kernels — every entry of ``csrc/flash_bwd.cu`` against
+   the plain backward on the card: K4 (fused) at (1, 8192, 8, 64) bf16
+   causal; K5 (grouped) at (1, 8192, 4, 128) bf16 causal, the summed result
+   and each group's float32 partials against the plain backward over that
+   group's q rows; K6a (dkv) and K6b (dq) at the same shape; then each
+   entry at the edge cases (S=1000, GQA with H_kv=2, window 128,
+   non-causal, float32, D=128); then the public ``flash_attention_bwd``
+   on each route (forced by its routing constants) at (1, 8192, 4, 128)
+   and under GQA at (1, 2048, 8, 64) with H_kv=2, so the wrapper's own
+   sums of grouped partials and per-kv-head dK/dV are held too.
+   Tolerances are relative to the reference's largest magnitude;
+7. flash timings at the LM training path's shapes — K4 at (8, 8192, 8,
+   64), K5, K6a and K6b at (8, 8192, 4, 128), K3 at (8, 8192, 8, 64) —
+   beside their bounds, the plain versions (at batch 1: batch 8 does not
+   fit the plain version's float32 score matrices) and PyTorch's
+   ``scaled_dot_product_attention`` (its backward alone, through
+   ``torch.autograd.grad`` with ``retain_graph``, for the backward
+   kernels);
+8. lm_training — ``Trainer.fit()`` on the repo's long-context LM
+   (``bench.py``'s ``bench_lm8k``: causal_lm, dim 512, depth 4, 8 heads,
+   vocab 256, S=8192, bf16, ``attn="flash"``, retrieval 64/16, batch 8,
+   Adam 1e-3, one epoch): the loss must stay finite, K3 must launch depth x
+   (steps + eval batches) times, K4 depth x steps and no other backward
+   kernel; then ``measure_throughput(epochs=1)`` and one profiled step;
+9. lm_grad_check — the trained weights loaded into ``attn="vanilla"``: at
+   B=1, S=8192 the loss and every parameter's gradient must agree with the
+   flash model's within the stated relative tolerance;
+10. lm_routes — two 2-step ``fit()`` runs of the head_dim-128 sibling (4
+   heads): as it stands K5 launches depth x steps times; with
+   ``_GROUPED_BWD=False`` K6a and K6b do;
+11. the ``kernels`` line: per kernel, its launches on its path's run
+   (serving for K3, the LM runs for K4-K6, LeNet training for K1/K2),
+   largest error, times and bound;
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; the launches made to compare or time a kernel are not counted.
@@ -75,15 +106,23 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+BWD_COUNTERS = {"flash_bwd_fused": "fused_launches",
+                "flash_bwd_grouped": "grouped_launches",
+                "flash_bwd_dkv": "dkv_launches", "flash_bwd_dq": "dq_launches"}
+
+
 def reset_counts(fa, xent) -> None:
     """Zero every kernel's launch counter (just before a path is driven)."""
     fa.flash_attention_fwd.launches = 0
+    for attr in BWD_COUNTERS.values():
+        setattr(fa.flash_attention_bwd, attr, 0)
     xent.softmax_xent.fwd_launches = 0
     xent.softmax_xent.bwd_launches = 0
 
 
 def read_counts(fa, xent) -> dict:
     return {"flash_fwd": fa.flash_attention_fwd.launches,
+            **{k: getattr(fa.flash_attention_bwd, a) for k, a in BWD_COUNTERS.items()},
             "xent_fwd": xent.softmax_xent.fwd_launches,
             "xent_bwd": xent.softmax_xent.bwd_launches}
 
@@ -434,6 +473,393 @@ def phase_training(torch, fa, xent, port) -> dict:
     return {**rec, "throughput": tp}
 
 
+# ---------------------------------------------------------------- causal LM
+
+# bench.py:254-262, the LM the repo trains at full width ("bench_lm8k");
+# Adam 1e-3 is RunConfig's default
+LM_CFG = dict(name="bench_lm8k", model="causal_lm",
+              model_kwargs={"dim": 512, "depth": DEPTH, "heads": 8, "attn": "flash"},
+              dataset="retrieval", dataset_kwargs={"vocab": 256, "seq_len": 8192},
+              n_train=64, n_test=16, batch_size=8, epochs=1, quiet=True,
+              eval_batch_size=8)
+# bench.py:277-282: its head_dim-128 sibling, cut to 2 steps and 1 eval batch
+LM_D128_CFG = dict(LM_CFG, name="bench_lm8k_d128", n_train=16, n_test=8,
+                   model_kwargs={"dim": 512, "depth": DEPTH, "heads": 4, "attn": "flash"})
+LM_SEQ = 8192
+# bf16: P and dS enter the products rounded to bf16 (as on the TPU) while
+# the plain version keeps them float32, and the outputs round to bf16.
+# float32: sums in another order, and K4/K5's dQ adds by atomics in an order
+# that changes from run to run.  Both relative to the reference's largest
+# magnitude.
+BWD_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}
+
+
+def bwd_inputs(torch, fa, gen, b, s, h, hkv, d, dtype, causal=True, window=0):
+    """q, k, v, dO from ``gen``; lse from K3; delta = rowsum(dO * O)."""
+    def mk(heads):
+        return torch.randn((b, s, heads, d), generator=gen, device="cuda").to(dtype)
+    q, k, v, g = mk(h), mk(hkv), mk(hkv), mk(h)
+    with torch.no_grad():
+        out, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+    delta = (g.float() * out.float()).sum(-1)
+    return q, k, v, g, lse, delta
+
+
+def per_kv(x, hkv):
+    """Per-q-head (B, S, H, D) -> per-kv-head sums, float32."""
+    b, s, h, d = x.shape
+    return x.float().view(b, s, hkv, h // hkv, d).sum(3)
+
+
+def compare(name, got: dict, ref: dict, dtype, extra: dict) -> tuple[float, float]:
+    """Emit one check record; raise when an output disagrees.  Returns the
+    largest absolute and relative errors."""
+    tol = BWD_TOL[str(dtype)]
+    errs = {}
+    for key, a in got.items():
+        r = ref[key]
+        abs_err = (a.float() - r).abs().max().item()
+        errs[key] = (abs_err, abs_err / max(r.abs().max().item(), 1e-30))
+    finite = all(bool(a.float().isfinite().all()) for a in got.values())
+    rec = {"phase": "kernel_check", "kernel": name, **extra, "dtype": str(dtype),
+           "max_abs_err": {k: e[0] for k, e in errs.items()},
+           "rel_err": {k: e[1] for k, e in errs.items()}, "rel_tol": tol}
+    emit(rec)
+    check(finite, f"non-finite {name} output {rec}")
+    check(all(e[1] <= tol for e in errs.values()), f"{name} disagrees: {rec}")
+    return max(e[0] for e in errs.values()), max(e[1] for e in errs.values())
+
+
+def check_bwd_entries(torch, fa, gen, b, s, h, hkv, d, dtype, causal, window, which,
+                      n_groups=4):
+    """Run the named entries at one shape against the plain backward; returns
+    {entry: (abs_err, rel_err)}."""
+    args = bwd_inputs(torch, fa, gen, b, s, h, hkv, d, dtype, causal, window)
+    q = args[0]
+    ref = dict(zip(("dq", "dk", "dv"),
+                   fa.flash_attention_bwd_plain(*args, causal, window)))
+    extra = {"shape": [b, s, h, d], "heads_kv": hkv, "causal": causal, "window": window}
+    out = {}
+    for entry in which:
+        if entry == "flash_bwd_fused":
+            dq, dk, dv = fa._launch_fused(*args, causal, window, fa.Route("fused", 1, s))
+            got = {"dq": dq, "dk": per_kv(dk, hkv), "dv": per_kv(dv, hkv)}
+        elif entry == "flash_bwd_grouped":
+            rows = -(-s // n_groups)
+            route = fa.Route("grouped", n_groups, rows)
+            dq, dk, dv = fa._launch_fused(*args, causal, window, route)
+            torch.cuda.synchronize()
+            got = {"dq": dq, "dk": per_kv(dk.sum(0), hkv), "dv": per_kv(dv.sum(0), hkv)}
+            # each group's float32 partials against the plain backward over
+            # that group's q rows
+            for i in range(n_groups):
+                _, pk, pv = fa.flash_attention_bwd_plain(
+                    *args, causal, window, q_rows=(i * rows, (i + 1) * rows))
+                compare(entry, {"dk": per_kv(dk[i], hkv), "dv": per_kv(dv[i], hkv)},
+                        {"dk": pk, "dv": pv}, dtype,
+                        {**extra, "group": i, "groups": n_groups,
+                         "output": "float32 partials"})
+        elif entry == "flash_bwd_dkv":
+            dk, dv = fa._launch_dkv(*args, causal, window)
+            got = {"dk": per_kv(dk, hkv), "dv": per_kv(dv, hkv)}
+        else:
+            got = {"dq": fa._launch_dq(*args, causal, window)}
+        torch.cuda.synchronize()
+        check("dq" not in got or got["dq"].dtype == q.dtype, f"{entry}: dq dtype")
+        out[entry] = compare(entry, got, ref, dtype, extra)
+    return out
+
+
+BWD_ENTRIES = ("flash_bwd_fused", "flash_bwd_grouped", "flash_bwd_dkv", "flash_bwd_dq")
+
+# routing constants that force each route
+FORCE_ROUTE = {"fused": {"_FUSED_DQ_VMEM_BUDGET": 1 << 40},
+               "grouped": {"_FUSED_DQ_VMEM_BUDGET": 0},
+               "split": {"_FUSED_DQ_VMEM_BUDGET": 0, "_GROUPED_BWD": False}}
+ROUTE_ENTRIES = {"fused": ("flash_bwd_fused",), "grouped": ("flash_bwd_grouped",),
+                 "split": ("flash_bwd_dkv", "flash_bwd_dq")}
+
+
+def check_public_routes(torch, fa, gen, b, s, h, hkv, d, dtype, group_budget=None):
+    """The public ``flash_attention_bwd`` on each route, forced by its
+    routing constants, against the plain backward: the wrapper's own sums
+    (grouped partials, dK/dV per kv head) on the card.  ``group_budget``,
+    when given, replaces ``_GROUPED_DQ_VMEM_BUDGET`` on the grouped route
+    (0: one q tile per group).  Returns {entry: (abs_err, rel_err)}."""
+    args = bwd_inputs(torch, fa, gen, b, s, h, hkv, d, dtype)
+    ref = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(*args, True)))
+    out = {}
+    for route, consts in FORCE_ROUTE.items():
+        if route == "grouped" and group_budget is not None:
+            consts = {**consts, "_GROUPED_DQ_VMEM_BUDGET": group_budget}
+        saved = {name: getattr(fa, name) for name in consts}
+        try:
+            for name, value in consts.items():
+                setattr(fa, name, value)
+            picked = fa.bwd_route(s, d, dtype)
+            before = {a: getattr(fa.flash_attention_bwd, a) for a in BWD_COUNTERS.values()}
+            got = fa.flash_attention_bwd(*args, True)
+            torch.cuda.synchronize()
+        finally:
+            for name, value in saved.items():
+                setattr(fa, name, value)
+        ran = {e for e, a in BWD_COUNTERS.items()
+               if getattr(fa.flash_attention_bwd, a) != before[a]}
+        check(picked.name == route and ran == set(ROUTE_ENTRIES[route]),
+              f"forcing {route} at {(b, s, h, hkv, d)}: route {picked}, ran {sorted(ran)}")
+        check(all(x.dtype == dtype for x in got), f"{route}: output dtypes")
+        err = compare("flash_attention_bwd", dict(zip(("dq", "dk", "dv"), got)), ref, dtype,
+                      {"shape": [b, s, h, d], "heads_kv": hkv, "causal": True, "window": 0,
+                       "route": route, "groups": picked.groups})
+        out.update({e: err for e in ROUTE_ENTRIES[route]})
+    return out
+
+
+def phase_flash_bwd_kernels(torch, fa) -> dict:
+    """Every backward entry against the plain backward: at the LM path's
+    shapes, then at the edge cases."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+    check(fa.bwd_route(LM_SEQ, 64, bf16).name == "fused"
+          and fa.bwd_route(LM_SEQ, 128, bf16) == fa.Route("grouped", 4, 2048),
+          "the LM shapes do not take the JAX routes (fused at D=64, 4 groups at D=128)")
+    errs = {e: (0.0, 0.0) for e in BWD_ENTRIES}
+
+    def fold(found):
+        for e, (a, r) in found.items():
+            errs[e] = (max(errs[e][0], a), max(errs[e][1], r))
+
+    fold(check_bwd_entries(torch, fa, gen, 1, LM_SEQ, 8, 8, 64, bf16, True, 0,
+                           ["flash_bwd_fused"]))
+    fold(check_bwd_entries(torch, fa, gen, 1, LM_SEQ, 4, 4, 128, bf16, True, 0,
+                           ["flash_bwd_grouped", "flash_bwd_dkv", "flash_bwd_dq"]))
+    edges = [dict(s=1000),                        # padding: 1000 is no tile multiple
+             dict(s=1024, hkv=2),                 # GQA
+             dict(s=1024, window=128),            # sliding window
+             dict(s=1024, causal=False),
+             dict(s=1024, dtype=f32),
+             dict(s=1024, d=128)]
+    for c in edges:
+        fold(check_bwd_entries(torch, fa, gen, 1, c["s"], 8, c.get("hkv", 8),
+                               c.get("d", 64), c.get("dtype", bf16), c.get("causal", True),
+                               c.get("window", 0), BWD_ENTRIES))
+    # the public wrapper on every route: at the head_dim-128 LM shape, and
+    # under GQA, where it sums dK/dV per kv head (4 groups of one tile)
+    fold(check_public_routes(torch, fa, gen, 1, LM_SEQ, 4, 4, 128, bf16))
+    fold(check_public_routes(torch, fa, gen, 1, 2048, 8, 2, 64, bf16, group_budget=0))
+    return errs
+
+
+def attn_bytes(q, k, v, *extra) -> float:
+    return float(sum(x.numel() * x.element_size() for x in (q, k, v, *extra)))
+
+
+def phase_flash_time(torch, fa) -> dict:
+    """K3-K6 at the LM training path's shapes, beside their bounds, their
+    plain versions (batch 1) and SDPA."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16 = torch.bfloat16
+    timed = {}
+
+    def sdpa_bwd(q, k, v, g):
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        gt = g.transpose(1, 2)
+        return lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+
+    def record(name, shape, ms, plain_ms, library_ms, flops, nbytes, library_call,
+               plain_note="plain version at batch 1"):
+        rec = {"phase": "kernel_time", "kernel": name, "shape": shape, "dtype": "bf16",
+               "causal": True, "ms": ms, "plain_ms": plain_ms, "plain_shape":
+               [1, *shape[1:]], "plain_note": plain_note, "library_ms": library_ms,
+               "library_call": library_call, **bound(flops, nbytes, H100_BF16_FLOPS)}
+        emit(rec)
+        timed[name] = rec
+
+    slow = dict(reps=3, inner=2, sleep=0)
+    for h, d, names in ((8, 64, ("flash_fwd", "flash_bwd_fused")),
+                        (4, 128, ("flash_bwd_grouped", "flash_bwd_dkv", "flash_bwd_dq"))):
+        b, s = 8, LM_SEQ
+        q, k, v, g, lse, delta = bwd_inputs(torch, fa, gen, b, s, h, h, d, bf16)
+        small = bwd_inputs(torch, fa, gen, 1, s, h, h, d, bf16)
+        pairs = b * h * live_pairs(s, True, 0)
+        stats = (lse, delta)
+        plain_bwd = gpu_ms(lambda: fa.flash_attention_bwd_plain(*small, True), torch, **slow)
+        library = gpu_ms(sdpa_bwd(q, k, v, g), torch, **slow)
+        lib_call = ("torch.autograd.grad through F.scaled_dot_product_attention("
+                    "is_causal=True), its backward alone (retain_graph=True): dq, dk, dv")
+        route = fa.Route("grouped", 4, 2048) if d == 128 else fa.Route("fused", 1, s)
+        args = (q, k, v, g, lse, delta, True, 0)
+        for name in names:
+            if name == "flash_fwd":
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                out = torch.empty_like(q)
+                record(name, [b, s, h, d],
+                       gpu_ms(lambda: fa.flash_attention_fwd(q, k, v, True), torch, **slow),
+                       gpu_ms(lambda: fa.flash_attention_plain(*small[:3], True), torch, **slow),
+                       gpu_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                              torch, **slow),
+                       4.0 * d * pairs, attn_bytes(q, k, v, out, lse),
+                       "F.scaled_dot_product_attention(is_causal=True)")
+            elif name in ("flash_bwd_fused", "flash_bwd_grouped"):
+                record(name, [b, s, h, d],
+                       gpu_ms(lambda: fa._launch_fused(*args, route), torch, **slow),
+                       plain_bwd, library, 5 * 2.0 * d * pairs,
+                       attn_bytes(q, k, v, g, *stats, q, k, v), lib_call)
+            elif name == "flash_bwd_dkv":  # S, dP, dV, dK: 4 products
+                record(name, [b, s, h, d],
+                       gpu_ms(lambda: fa._launch_dkv(*args), torch, **slow),
+                       plain_bwd, library, 4 * 2.0 * d * pairs,
+                       attn_bytes(q, k, v, g, *stats, k, v), lib_call,
+                       "the whole plain backward (dq, dk, dv) at batch 1")
+            else:  # S, dP, dQ: 3 products
+                record(name, [b, s, h, d],
+                       gpu_ms(lambda: fa._launch_dq(*args), torch, **slow),
+                       plain_bwd, library, 3 * 2.0 * d * pairs,
+                       attn_bytes(q, k, v, g, *stats, q), lib_call,
+                       "the whole plain backward (dq, dk, dv) at batch 1")
+        del q, k, v, g, lse, delta, small
+        torch.cuda.empty_cache()
+    return timed
+
+
+def phase_lm_training(torch, fa, xent, port) -> dict:
+    """bench_lm8k through Trainer.fit(), then its throughput and one
+    profiled step."""
+    Trainer, RunConfig = port
+    cfg = RunConfig(**LM_CFG)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, xent)
+    summary = trainer.fit()
+    counts = read_counts(fa, xent)
+    steps = trainer.state.step
+    eval_batches = -(-cfg.n_test // cfg.eval_batch_size)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec = {"phase": "lm_training", "config": LM_CFG,
+           "dtype": "bf16", "setup_s": round(setup_s, 3), "steps": steps,
+           "eval_batches": eval_batches, "total_time_s": summary["total_time_s"],
+           "epoch_time_s": trainer.history[0]["epoch_time_s"],
+           "train_loss": trainer.history[0]["train_loss"],
+           "test_loss": trainer.history[0]["test_loss"],
+           "test_accuracy": trainer.history[0]["test_accuracy"],
+           "tokens_per_sec_per_chip": summary["tokens_per_sec_per_chip"],
+           "mfu": summary["mfu"],
+           "model_tflops_per_sec_per_chip": summary["model_tflops_per_sec_per_chip"],
+           "flops_per_sequence": trainer._flops_per_image,
+           "peak_mem_gb": round(peak_gb, 3), "launches": counts}
+    emit(rec)
+    losses = [trainer.history[0]["train_loss"], trainer.history[0]["test_loss"]]
+    check(all(math.isfinite(x) for x in losses), f"non-finite LM loss: {losses}")
+    check(counts["flash_fwd"] == DEPTH * (steps + eval_batches),
+          f"K3 launched {counts['flash_fwd']} times, expected depth x (steps + eval "
+          f"batches) = {DEPTH * (steps + eval_batches)}")
+    check(counts["flash_bwd_fused"] == DEPTH * steps,
+          f"K4 launched {counts['flash_bwd_fused']} times, expected depth x steps = "
+          f"{DEPTH * steps}")
+    check(counts["flash_bwd_grouped"] == counts["flash_bwd_dkv"]
+          == counts["flash_bwd_dq"] == 0, f"another backward kernel ran: {counts}")
+
+    tp = trainer.measure_throughput(epochs=1)
+    tp["s_per_step"] = cfg.batch_size / tp["images_per_sec"]
+    emit({"phase": "lm_throughput", **tp})
+    check(math.isfinite(tp["last_loss"]), f"non-finite throughput loss {tp}")
+
+    def one_step():
+        t = time.perf_counter()
+        trainer._run_epoch(trainer.state, trainer.train_images[:cfg.batch_size],
+                           trainer.train_labels[:cfg.batch_size])["loss"][-1].item()
+        return time.perf_counter() - t
+
+    emit(profile_run(torch, one_step, "lm training step",
+                     {"flash_fwd_device_s": "flash_fwd", "flash_bwd_device_s": "flash_bwd"}))
+    return {**rec, "throughput": tp, "trainer": trainer}
+
+
+# measured on an H100: loss 6e-7, worst gradient 9e-3 (the embedding)
+LM_GRAD_TOL = {"loss": 1e-3, "grad": 3e-2}
+
+
+def phase_lm_grad_check(torch, trainer, get_model, steps_mod) -> dict:
+    """The trained weights under attn="vanilla": loss and every gradient at
+    B=1, S=8192 against the flash model's, relative to each reference's
+    largest magnitude (bf16 model: the two attentions round at different
+    places, and the difference crosses 4 blocks)."""
+    flash = trainer.model
+    kw = dict(num_classes=256, dim=512, depth=DEPTH, heads=8, dtype=torch.bfloat16)
+    vanilla = get_model("causal_lm", attn="vanilla", device="cuda", **kw)
+    vanilla.load_state_dict(flash.state_dict())
+    batch = {"image": trainer.train_images[:1], "label": trainer.train_labels[:1]}
+    out = {}
+    for name, model in (("flash", flash), ("vanilla", vanilla)):
+        loss, _ = steps_mod.make_loss_fn(model)(batch)
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[name] = (loss.item(), dict(zip(params, grads)))
+        torch.cuda.synchronize()
+    loss_rel = abs(out["flash"][0] - out["vanilla"][0]) / abs(out["vanilla"][0])
+    grad_rel = {}
+    for key, gv in out["vanilla"][1].items():
+        gf = out["flash"][1][key]
+        grad_rel[key] = ((gf.float() - gv.float()).abs().max()
+                         / gv.float().abs().max().clamp_min(1e-30)).item()
+    worst = max(grad_rel, key=grad_rel.get)
+    rec = {"phase": "lm_grad_check", "shape": [1, LM_SEQ], "loss_flash": out["flash"][0],
+           "loss_vanilla": out["vanilla"][0], "loss_rel_err": loss_rel,
+           "grad_rel_err_max": grad_rel[worst], "grad_rel_err_worst_param": worst,
+           "grad_rel_err_median": statistics.median(grad_rel.values()),
+           "params": len(grad_rel), "tol": LM_GRAD_TOL}
+    emit(rec)
+    check(all(math.isfinite(g) for g in grad_rel.values()), f"non-finite gradient {rec}")
+    check(loss_rel <= LM_GRAD_TOL["loss"], f"flash vs vanilla loss: {rec}")
+    check(grad_rel[worst] <= LM_GRAD_TOL["grad"], f"flash vs vanilla gradients: {rec}")
+    del vanilla
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_lm_routes(torch, fa, xent, port) -> dict:
+    """The head_dim-128 LM for 2 steps: through K5 as it stands, through
+    K6a + K6b with _GROUPED_BWD=False."""
+    Trainer, RunConfig = port
+    cfg = RunConfig(**LM_D128_CFG)
+    runs = {}
+    for route, grouped in (("grouped", True), ("split", False)):
+        fa._GROUPED_BWD = grouped
+        try:
+            trainer = Trainer(cfg, device="cuda")
+            reset_counts(fa, xent)
+            summary = trainer.fit()
+            counts = read_counts(fa, xent)
+        finally:
+            fa._GROUPED_BWD = True
+        steps = trainer.state.step
+        loss = trainer.history[0]["train_loss"]
+        rec = {"phase": "lm_route", "route": route, "config": cfg.name, "heads": 4,
+               "head_dim": 128, "steps": steps, "train_loss": loss,
+               "total_time_s": summary["total_time_s"], "launches": counts}
+        emit(rec)
+        check(math.isfinite(loss), f"non-finite loss {rec}")
+        want = ({"flash_bwd_grouped": DEPTH * steps} if grouped else
+                {"flash_bwd_dkv": DEPTH * steps, "flash_bwd_dq": DEPTH * steps})
+        others = [k for k in BWD_COUNTERS if k not in want]
+        check(all(counts[k] == n for k, n in want.items())
+              and all(counts[k] == 0 for k in others),
+              f"{route} route launches {counts}, expected {want} and no other")
+        runs[route] = rec
+        trainer.close()
+        del trainer
+        torch.cuda.empty_cache()
+    return runs
+
+
 def profile_run(torch, run, of: str, focus: dict) -> dict:
     """One more run under torch.profiler: device time by kernel and the
     device's busy share of the wall time (the profiler's own overhead
@@ -481,13 +907,17 @@ def main() -> int:
             make_generator,
             make_prefill,
         )
+        from distributed_tensorflow_ibm_mnist_tpu_torch.core import steps as steps_mod
         from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
         from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
         from distributed_tensorflow_ibm_mnist_tpu_torch.ops import _build
         from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
         from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
         from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine
-        from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import get_preset
+        from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import (
+            RunConfig,
+            get_preset,
+        )
     except ImportError as e:
         print(f"chip_smoke: the PyTorch port is not beside this script: {e}",
               file=sys.stderr)
@@ -499,6 +929,11 @@ def main() -> int:
         torch, fa, xent, (get_model, InferenceEngine, make_prefill, make_generator))
     xk = phase_xent_kernels(torch, xent)
     training = phase_training(torch, fa, xent, (Trainer, get_preset))
+    bwd_errs = phase_flash_bwd_kernels(torch, fa)
+    flash_timed = phase_flash_time(torch, fa)
+    lm = phase_lm_training(torch, fa, xent, (Trainer, RunConfig))
+    phase_lm_grad_check(torch, lm.pop("trainer"), get_model, steps_mod)
+    routes = phase_lm_routes(torch, fa, xent, (Trainer, RunConfig))
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -512,11 +947,32 @@ def main() -> int:
                 by: [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by")} for r in timed]}
 
+    def bwd_entry(name, replaces, launches):
+        rec = flash_timed[name]
+        return {**entry(name, "flash_bwd.cu", replaces, launches, bwd_errs[name][0],
+                        [rec], "by_shape"),
+                "max_rel_err": bwd_errs[name][1], "plain_shape": rec["plain_shape"],
+                "plain_note": rec["plain_note"], "library_call": rec["library_call"]}
+
     counts = training["launches"]
+    k3_entry = entry("flash_fwd", "flash_fwd.cu", "ops/flash_attention.py:208",
+                     serving["flash_launches"], k3["max_abs_err"], k3["timed"], "by_seq")
+    # K3 at the LM training shape, launches on the LM training run
+    k3_entry["lm_training"] = {**{k: flash_timed["flash_fwd"][k] for k in (
+        "shape", "ms", "plain_ms", "plain_shape", "library_ms", "bound_ms", "bound_by")},
+        "launches": lm["launches"]["flash_fwd"]}
     print(json.dumps({"kernels": [
         # K3 at S=512, the largest serving bucket; launches on the serving run
-        entry("flash_fwd", "flash_fwd.cu", "ops/flash_attention.py:208",
-              serving["flash_launches"], k3["max_abs_err"], k3["timed"], "by_seq"),
+        k3_entry,
+        # K4 on the bench_lm8k run; K5 and K6a/b on the head_dim-128 runs
+        bwd_entry("flash_bwd_fused", "ops/flash_attention.py:340",
+                  lm["launches"]["flash_bwd_fused"]),
+        bwd_entry("flash_bwd_grouped", "ops/flash_attention.py:399",
+                  routes["grouped"]["launches"]["flash_bwd_grouped"]),
+        bwd_entry("flash_bwd_dkv", "ops/flash_attention.py:304",
+                  routes["split"]["launches"]["flash_bwd_dkv"]),
+        bwd_entry("flash_bwd_dq", "ops/flash_attention.py:460",
+                  routes["split"]["launches"]["flash_bwd_dq"]),
         # K1/K2 at (128, 10), the training step's; launches on the training run
         entry("xent_fwd", "xent.cu", "ops/xent.py:40", counts["xent_fwd"],
               xk["max_abs_err"]["xent_fwd"], xk["timed"]["xent_fwd"], "by_shape"),

@@ -9,11 +9,17 @@ The counterparts of the JAX package's ``core/steps.py``:
 * ``make_train_step`` — forward, backward (autograd) and the optimizer
   update, in place; ``grad_accum > 1`` averages the gradients of that many
   microbatches before the one update;
-* ``make_epoch_runner`` — one epoch over the device-resident uint8 dataset:
-  a permutation drawn on the device, each minibatch gathered there with
-  ``index_select``; per-step metrics stay on the device as tensors;
+* ``make_epoch_runner`` — one epoch over the device-resident dataset (uint8
+  images or int32 tokens): a permutation drawn on the device, each
+  minibatch gathered there with ``index_select``; per-step metrics stay on
+  the device as tensors;
 * ``make_eval_fn`` — batched full-test-set accuracy and unsmoothed loss,
   summed on the device, off the fused kernels as in JAX (``:355``, ``:393``).
+
+Labels may carry extra dims: the causal LM's (B, S) per-position labels
+against (B, S, V) logits.  Loss and accuracy are then means over every
+scored position, as optax's mean is, and eval's denominator counts scored
+positions, not sequences (JAX ``steps.py:368-400``).
 
 PyTorch runs eagerly, so nothing here is compiled: each step is a sequence
 of kernel launches from the host, and nothing reads a value back to the
@@ -41,10 +47,11 @@ def _as_input(images: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-example integer-label cross-entropy, (N,) float32: the port's
-    form of ``optax.softmax_cross_entropy_with_integer_labels``."""
+    """Integer-label cross-entropy over the last axis, float32 of the
+    labels' shape: the port's form of
+    ``optax.softmax_cross_entropy_with_integer_labels``."""
     x = logits.float()
-    return torch.logsumexp(x, -1) - x.gather(1, labels.long()[:, None])[:, 0]
+    return torch.logsumexp(x, -1) - x.gather(-1, labels.long()[..., None])[..., 0]
 
 
 def _smoothed_cross_entropy(logits, labels, smoothing: float) -> torch.Tensor:
@@ -59,8 +66,9 @@ def make_loss_fn(model, label_smoothing: float = 0.0, fused_xent: bool = False,
     """Cross-entropy loss closure over the port's model.
 
     Returns ``loss_fn(batch, train) -> (loss, logits)``; the batch's
-    ``image`` is uint8 or float NHWC, its ``label`` int.  ``label_smoothing``
-    applies to the training loss only.
+    ``image`` is uint8 or float NHWC (or (B, S) int tokens for the causal
+    LM), its ``label`` int, (B,) or (B, S).  ``label_smoothing`` applies to
+    the training loss only.
     """
     if fused_xent and label_smoothing > 0.0:
         raise ValueError(
@@ -78,8 +86,9 @@ def make_loss_fn(model, label_smoothing: float = 0.0, fused_xent: bool = False,
         labels = batch["label"]
         if train and label_smoothing > 0.0:
             loss = _smoothed_cross_entropy(logits, labels, label_smoothing).mean()
-        elif fused_xent:
-            loss = softmax_xent_mean(logits, labels)
+        elif fused_xent:  # the kernels take (N, C) rows
+            loss = softmax_xent_mean(logits.reshape(-1, logits.shape[-1]),
+                                     labels.reshape(-1))
         else:
             loss = cross_entropy(logits, labels).mean()
         return loss, logits
@@ -162,7 +171,8 @@ def make_epoch_runner(model, optimizer, batch_size: int, label_smoothing: float 
 
 def make_eval_fn(model, batch_size: int = 2000):
     """Full-dataset eval: ``eval_fn(images, labels)`` -> ``{"accuracy",
-    "loss"}`` as device scalars (unsmoothed loss, plain cross-entropy)."""
+    "loss"}`` as device scalars (unsmoothed loss, plain cross-entropy),
+    averaged over every scored label: examples, or token positions."""
 
     @torch.no_grad()
     def eval_fn(images: torch.Tensor, labels: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -174,6 +184,7 @@ def make_eval_fn(model, batch_size: int = 2000):
             logits = model(_as_input(imgs), train=False)
             correct += (logits.argmax(-1) == labs).sum()
             loss_sum += cross_entropy(logits, labs).sum()
-        return {"accuracy": correct / n, "loss": loss_sum / n}
+        denom = labels.numel()  # scored positions: n x (labels per example)
+        return {"accuracy": correct / denom, "loss": loss_sum / denom}
 
     return eval_fn

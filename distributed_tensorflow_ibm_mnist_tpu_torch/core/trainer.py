@@ -1,10 +1,13 @@
 """The port's Trainer: one run's model, optimizer, data and loop.
 
-The counterpart of the JAX package's ``core/trainer.py`` for the path
-this slice ports: one device, the dataset resident on it as uint8, LeNet-5
-or the MLP, any optimizer/schedule of ``core/optim.py``, the loss routed
-as ``core/steps.py`` routes it (``fused_xent=True`` runs the K1/K2 CUDA
-kernels).  Semantics follow the JAX Trainer:
+The counterpart of the JAX package's ``core/trainer.py`` for the paths
+ported so far: one device, the dataset resident on it (uint8 images, or
+int32 token sequences), LeNet-5 or the MLP on images and the causal LM on
+``dataset="retrieval"``, any optimizer/schedule of ``core/optim.py``, the
+loss routed as ``core/steps.py`` routes it (``fused_xent=True`` runs the
+K1/K2 CUDA kernels).  The causal LM's ``attn="flash"`` trains through the
+flash kernels (K3 forward, K4/K5/K6 backward).  Semantics follow the JAX
+Trainer:
 
 * ``fit()`` (``trainer.py:1493-1772``): per-epoch metrics stay on the
   device and are read back once per eval interval; eval every
@@ -18,6 +21,11 @@ kernels).  Semantics follow the JAX Trainer:
   restored after.
 * The epoch's data order is a pure function of ``(seed, epoch)``, as JAX's
   ``fold_in(data_rng, epoch)`` makes it.
+* The attention's causal flag is derived as JAX derives it
+  (``trainer.py:305-348``): ``model_kwargs["causal"]``, else
+  ``config.causal``, else the family's default (True for causal_lm).
+* Token data adds ``tokens_per_sec_per_chip`` to the ``summary`` and
+  throughput records.
 
 Left out, because they describe XLA and there is nothing honest to put in
 them: ``n_compiled_programs``, ``compile_time_s`` and ``compile_by_site``.
@@ -30,11 +38,13 @@ FLOPs are counted analytically (``utils/flops.py``).
 Refused with ``NotImplementedError`` naming the ROADMAP.md item that will
 port them: dp/tp/sp/pp > 1, ``fsdp``, ``sharded_update``, ``dcn_dp`` > 1,
 ``input_mode="stream"``, ``remat``, ``checkpoint_dir``/``resume``,
-``profile_dir``, and the chaos, tracer and telemetry hooks.
+``profile_dir``, the chaos, tracer and telemetry hooks, and the causal
+LM's dropout, MoE blocks and ``pos="learned"``.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 import time
 from typing import Any
@@ -49,7 +59,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.core.steps import (
     make_eval_fn,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.data import load_dataset
-from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+from distributed_tensorflow_ibm_mnist_tpu_torch.models import CausalLM, get_model
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.debug import (
     TrainingDiverged,
@@ -60,11 +70,11 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import mfu as _mfu
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import model_flops_per_image
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.metrics import MetricWriter
 
-TRAINABLE = ("lenet5", "mlp")
+TRAINABLE = ("lenet5", "mlp", "causal_lm")
 _DP = "'Data-parallel training across GPUs with NCCL'"
 _PARALLEL = "'Remaining parallelism and utilities'"
 _FOLLOW_UPS = "'Training follow-ups'"
-_LM = "'Causal-LM training'"
+_LM_FOLLOW_UPS = "'Causal-LM training follow-ups'"
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -98,15 +108,24 @@ def _refuse_unported(config: RunConfig, hooks: dict[str, Any]) -> None:
         raise _later("checkpointing (checkpoint_dir / resume)", _FOLLOW_UPS)
     if config.profile_dir:
         raise _later("profile_dir", _FOLLOW_UPS)
-    if config.dataset == "retrieval":
-        raise _later("training on token data (dataset='retrieval')", _LM)
     if config.model not in TRAINABLE:
         if config.model in ("resnet20", "resnet50", "vit"):
             raise _later(f"training {config.model!r}", _FOLLOW_UPS)
-        if config.model == "causal_lm":
-            raise _later("training 'causal_lm'", _LM)
         raise ValueError(
             f"unknown model {config.model!r}; the port trains: {list(TRAINABLE)}")
+    if config.model == "causal_lm":
+        kw = config.model_kwargs
+        if kw.get("dropout", 0.0) > 0.0:
+            raise _later("dropout in the causal LM's blocks", _LM_FOLLOW_UPS)
+        if kw.get("moe_every", 0):
+            raise _later("MoE blocks (moe_every)", _LM_FOLLOW_UPS)
+        if kw.get("pos", "rope") == "learned":
+            raise _later("pos='learned'", _LM_FOLLOW_UPS)
+    if (config.model == "causal_lm") != (config.dataset == "retrieval"):
+        raise ValueError(
+            "causal_lm trains on token sequences (dataset='retrieval') and the "
+            f"image models on images; got model={config.model!r}, "
+            f"dataset={config.dataset!r}")
 
 
 def _seed_words(*key: int) -> int:
@@ -133,6 +152,7 @@ class Trainer:
         self.num_classes = data["num_classes"]
         self.data_synthetic: bool = bool(data.get("synthetic", True))
         image_shape = tuple(data["train_images"].shape[1:])
+        tokens = data["train_images"].ndim == 2  # (N, S) token sequences
         if config.model == "lenet5" and image_shape != (28, 28, 1):
             raise ValueError(f"lenet5 takes (28, 28, 1) images, not {image_shape}")
 
@@ -147,6 +167,14 @@ class Trainer:
         in_features = int(np.prod(image_shape))
         if config.model == "mlp":
             model_kwargs.setdefault("in_features", in_features)
+        # the attention's causal flag: model_kwargs, then config, then the
+        # family's default; a family with its own causal knob receives it
+        family_causal = config.model == "causal_lm"
+        self.causal = bool(model_kwargs["causal"] if "causal" in model_kwargs
+                           else config.causal if config.causal is not None
+                           else family_causal)
+        if family_causal and config.causal is not None:
+            model_kwargs.setdefault("causal", self.causal)
         self._data_seed = _seed_words(config.seed, 1)
         self.model = get_model(
             config.model, num_classes=self.num_classes, device=self.device,
@@ -161,16 +189,23 @@ class Trainer:
             label_smoothing=config.label_smoothing, fused_xent=config.fused_xent,
             grad_accum=config.grad_accum)
         self._eval = make_eval_fn(self.model, config.eval_batch_size)
+        flops_kw = model_kwargs
+        if config.model == "causal_lm":  # the architecture, defaults filled in
+            flops_kw = {name: par.default for name, par
+                        in inspect.signature(CausalLM).parameters.items()}
+            flops_kw.update(model_kwargs)
         self._flops_per_image = model_flops_per_image(
-            config.model, model_kwargs, self.num_classes, in_features)
+            config.model, flops_kw, self.num_classes, in_features,
+            seq_len=self._hot_seq_len(data), causal=self.causal)
 
         def put(key, dtype):
             return torch.from_numpy(np.ascontiguousarray(data[key])).to(
                 self.device, dtype)
 
-        self.train_images = put("train_images", torch.uint8)
+        inputs = torch.int32 if tokens else torch.uint8
+        self.train_images = put("train_images", inputs)
         self.train_labels = put("train_labels", torch.int32)
-        self.test_images = put("test_images", torch.uint8)
+        self.test_images = put("test_images", inputs)
         self.test_labels = put("test_labels", torch.int32)
         self.history: list[dict[str, Any]] = []
         self._owns_writer = writer is None
@@ -180,6 +215,20 @@ class Trainer:
     def n_chips(self) -> int:
         """Devices the run occupies: the images/sec/chip denominator."""
         return 1
+
+    @staticmethod
+    def _hot_seq_len(data: dict) -> int | None:
+        """Sequence length the attention sees on the training path: the
+        token length of rank-2 (LM) data; None for images (the port has no
+        patchifying model yet)."""
+        shape = data["train_images"].shape
+        return int(shape[1]) if len(shape) == 2 else None
+
+    def _tokens_per_sec(self, sequences_per_sec: float) -> float | None:
+        """sequences/sec -> tokens/sec for token data; None for images."""
+        if self.train_images.ndim != 2:
+            return None
+        return round(sequences_per_sec * self.train_images.shape[1], 1)
 
     def _device_name(self) -> str:
         if self.device.type == "cuda":
@@ -241,7 +290,7 @@ class Trainer:
                     f"non-finite loss during throughput measurement: {last_loss}")
             images = self.steps_per_epoch * cfg.batch_size * epochs
             ips_chip = images / wall / self.n_chips
-            return {
+            result = {
                 "images_per_sec": round(images / wall, 1),
                 "images_per_sec_per_chip": round(ips_chip, 1),
                 "epochs": epochs,
@@ -253,6 +302,10 @@ class Trainer:
                 "last_loss": last_loss,
                 "device": self._device_name(),
             }
+            tokens = self._tokens_per_sec(ips_chip)
+            if tokens is not None:
+                result["tokens_per_sec_per_chip"] = tokens
+            return result
         finally:
             self.state.restore(snap)
 
@@ -341,5 +394,8 @@ class Trainer:
             "param_count": self.state.param_count(),
             **self._mfu_fields(ips_chip),
         }
+        tokens = self._tokens_per_sec(ips_chip)
+        if tokens is not None:
+            summary["tokens_per_sec_per_chip"] = tokens
         self.writer.write("summary", **summary)
         return summary

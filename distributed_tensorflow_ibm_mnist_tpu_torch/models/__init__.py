@@ -1,8 +1,8 @@
 """Model zoo of the port: ``get_model(name, **kw)`` builds by registry name.
 
-Ported so far: the causal-LM family (serving), LeNet-5 and the MLP
-(training), under the JAX package's registry names.  ResNet and ViT come
-with later slices.
+Ported so far: the causal-LM family (serving and training), LeNet-5 and
+the MLP (training), under the JAX package's registry names.  ResNet and
+ViT come with later slices.
 """
 
 from __future__ import annotations

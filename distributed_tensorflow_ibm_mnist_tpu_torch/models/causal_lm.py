@@ -9,6 +9,9 @@ own ``logits`` projection or, with ``tie_embeddings``, ``x @ embed^T``.
 Calls:
 
 * ``model(tokens)`` — (B, S) int tokens -> (B, S, V) float32 logits;
+  ``model(tokens, train=True)`` is the same forward (the training step
+  passes ``train``; with dropout 0 it changes nothing), differentiable
+  through either attention;
 * ``model(tokens, sow_kv=True)`` — also returns ``{"block_i": (k, v)}``,
   each block's post-RoPE K/V from the normal forward (the port's form of
   flax's ``sow_kv``: the flash prefill builds the decode cache from it);
@@ -29,6 +32,7 @@ import torch
 from torch import nn
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
+    LM_FOLLOW_UPS,
     LayerNorm,
     TransformerBlock,
     _not_in_slice,
@@ -52,11 +56,11 @@ class CausalLM(nn.Module):
         if window < 0:
             raise ValueError(f"window must be >= 0, got {window}")
         if pos == "learned":
-            raise _not_in_slice("pos='learned'", "the training slice")
+            raise _not_in_slice("pos='learned'", LM_FOLLOW_UPS)
         if pos not in ("rope", "none"):
             raise ValueError(f"unknown pos {pos!r}; use 'rope' or 'none'")
         if moe_every:
-            raise _not_in_slice("a MoE model", "the MoE serving slice")
+            raise _not_in_slice("a MoE model", LM_FOLLOW_UPS)
         device = resolve_device(device)
         self.num_classes, self.dim, self.depth = num_classes, dim, depth
         self.heads, self.heads_kv = heads, heads_kv or heads
@@ -99,8 +103,9 @@ class CausalLM(nn.Module):
                 p.copy_(torch.randn(p.shape, generator=generator,
                                     device=generator.device) * std)
 
-    def forward(self, tokens: torch.Tensor, cache: dict | None = None,
-                max_len: int = 0, ragged: bool = False, sow_kv: bool = False):
+    def forward(self, tokens: torch.Tensor, train: bool = False,
+                cache: dict | None = None, max_len: int = 0, ragged: bool = False,
+                sow_kv: bool = False):
         x = self.embed(tokens.long())
         kvs = {}
         for i, block in enumerate(self.blocks):

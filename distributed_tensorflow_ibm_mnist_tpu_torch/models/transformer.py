@@ -19,9 +19,13 @@ the flax ``cache`` collection: k/v (B, max_len, H_kv, D) in ``dtype`` and a
 (B,) int32 cursor.  Unlike flax, decode updates it IN PLACE (one cache per
 engine, no copy per step) and returns nothing for it.
 
-Out of this slice, each raising ``NotImplementedError``: MoE blocks,
-int8 weights, the int8 KV cache and the paged cache (serving slices), and
-dropout (training).  ``StackedBlocks`` (pipeline training) is not ported.
+Not ported yet, each raising ``NotImplementedError`` that names what ports
+it: MoE blocks and dropout (ROADMAP.md queue 1, 'Causal-LM training
+follow-ups'), int8 weights, the int8 KV cache and the paged cache (serving
+slices).  ``StackedBlocks`` (pipeline training) is not ported.  Training
+runs this forward under autograd: ``attn="flash"`` differentiates through
+the flash kernels' ``torch.autograd.Function``, ``"vanilla"`` through plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -133,6 +137,9 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+LM_FOLLOW_UPS = "ROADMAP.md queue 1, 'Causal-LM training follow-ups',"
+
+
 def _not_in_slice(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not in the PyTorch port yet ({where} ports it)")
@@ -153,7 +160,7 @@ class TransformerBlock(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
         if use_moe:
-            raise _not_in_slice("a MoE block", "the MoE serving slice")
+            raise _not_in_slice("a MoE block", LM_FOLLOW_UPS)
         if quant != "none":
             raise _not_in_slice(f"quant={quant!r}", "the int8 serving slice")
         if kv_cache_dtype != "native":
@@ -162,7 +169,7 @@ class TransformerBlock(nn.Module):
         if page_size:
             raise _not_in_slice("the paged KV cache", "the paged-KV serving slice")
         if dropout > 0.0:
-            raise _not_in_slice("dropout", "the training slice")
+            raise _not_in_slice("dropout in a transformer block", LM_FOLLOW_UPS)
         hkv = heads_kv or heads
         if heads % hkv:
             raise ValueError(f"heads ({heads}) must be a multiple of heads_kv ({hkv})")

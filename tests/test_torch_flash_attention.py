@@ -1,4 +1,5 @@
-"""The port's flash-attention forward (K3) against the JAX Pallas kernel.
+"""The port's flash-attention forward (K3) against the JAX Pallas kernel
+(the backward's tests are in ``test_torch_flash_bwd.py``).
 
 The JAX kernel runs as its own tests run it on the CPU (Pallas interpret
 mode); the port runs its plain version, directly and through the wrapper's
@@ -113,12 +114,22 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
 
 
 def test_wrapper_refuses_inputs_that_need_a_gradient():
-    q = torch.zeros(1, 8, 4, 32, requires_grad=True)
-    k = torch.zeros(1, 8, 4, 32)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fa.flash_attention(q, k, k, True)
+    """``flash_attention_fwd`` (the (out, lse) entry) has no gradient and
+    refuses inputs that need one; ``flash_attention`` is differentiable,
+    and its gradient equals the plain backward's from the plain lse and
+    delta = rowsum(dO * O)."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(13, 32, 4, 2))
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=q.shape).astype(np.float32))
+    with pytest.raises(RuntimeError, match="without a gradient"):
+        fa.flash_attention_fwd(q.clone().requires_grad_(), k, v, True)
     with torch.no_grad():
-        fa.flash_attention(q, k, k, True)
+        fa.flash_attention_fwd(q.clone().requires_grad_(), k, v, True)
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(fa.flash_attention(qr, kr, vr, True), (qr, kr, vr), g)
+    out, lse = fa.flash_attention_plain(q, k, v, True)
+    want = fa.flash_attention_bwd_plain(q, k, v, g, lse, (g * out).sum(-1), True)
+    for name, a, w in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=1e-6, err_msg=f"d{name}")
 
 
 def test_module_imports_and_runs_on_cpu_without_nvcc(tmp_path):
