@@ -8,13 +8,17 @@ Run from the repository root, with one GPU visible::
 It imports only the port (``distributed_tensorflow_ibm_mnist_tpu_torch``),
 never JAX or the JAX package.  Phases, one JSON line each:
 
-1. device — the card, its ``nvidia-smi`` name and power limit, and the
+1. device — the card, its ``nvidia-smi`` name and power limit, the
    seconds to build every CUDA source of the port with nvcc (one nvcc per
-   source, all started together);
+   source, all started together), the tensor-core instructions (``HMMA``,
+   ``HGMMA``) in each library's machine code (``cuobjdump --dump-sass``;
+   it fails if ``flash_fwd`` or ``flash_bwd`` has none) and the registers
+   and spill bytes of every kernel instance from the ptxas log;
 2. kernels — the flash-attention forward (K3) against its plain PyTorch
-   version on the card, at the serving path's shapes and the edge cases,
-   with the stated tolerances; at the path's shapes the kernel, the plain
-   version and one PyTorch library call are timed with CUDA events;
+   version on the card, at the serving path's shapes and the edge cases
+   (head_dim 32, 40 and 128 among them), with the stated tolerances; at
+   the path's shapes the kernel, the plain version and one PyTorch
+   library call are timed with CUDA events;
 3. serving — the full-width flash-prefill LM (causal_lm, vocab 256, dim
    512, depth 4, 8 heads, bf16, seeded random weights) serves 16 requests
    through ``InferenceEngine``; every request must finish with its whole
@@ -38,7 +42,8 @@ never JAX or the JAX package.  Phases, one JSON line each:
    and each group's float32 partials against the plain backward over that
    group's q rows; K6a (dkv) and K6b (dq) at the same shape; then each
    entry at the edge cases (S=1000, GQA with H_kv=2, window 128,
-   non-causal, float32, D=128); then the public ``flash_attention_bwd``
+   non-causal, float32, D=128, D=40, D=32); then the public
+   ``flash_attention_bwd``
    on each route (forced by its routing constants) at (1, 8192, 4, 128)
    and under GQA at (1, 2048, 8, 64) with H_kv=2, so the wrapper's own
    sums of grouped partials and per-kv-head dK/dV are held too.
@@ -62,9 +67,9 @@ never JAX or the JAX package.  Phases, one JSON line each:
 10. lm_routes — two 2-step ``fit()`` runs of the head_dim-128 sibling (4
    heads): as it stands K5 launches depth x steps times; with
    ``_GROUPED_BWD=False`` K6a and K6b do;
-11. the ``kernels`` line: per kernel, its launches on its path's run
-   (serving for K3, the LM runs for K4-K6, LeNet training for K1/K2),
-   largest error, times and bound;
+11. the ``kernels`` line: per kernel, its design, its launches on its
+   path's run (serving for K3, the LM runs for K4-K6, LeNet training for
+   K1/K2), largest error, times and bound;
 12. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before a path is driven and read
@@ -79,10 +84,13 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 H100_BF16_FLOPS = 989e12   # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_F32_FLOPS = 67e12     # float32 outside the tensor cores, same sheet
@@ -168,6 +176,40 @@ def gpu_ms(fn, torch, reps: int = 25, inner: int = 20, sleep: int = 2_000_000) -
     return statistics.median(times)
 
 
+def sass_counts(cuobjdump: str, lib) -> dict:
+    """Tensor-core instructions in a built library's machine code:
+    ``HMMA`` (mma.sync) and ``HGMMA`` (wgmma)."""
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HMMA", "HGMMA")}
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Registers and spill bytes of each kernel instance, from the
+    ``-Xptxas -v`` log that the build keeps beside each library."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    if shutil.which("c++filt"):  # demangled where the tool is present
+        names = subprocess.run(["c++filt"], input="\n".join(r["kernel"] for r in rows),
+                               capture_output=True, text=True).stdout.splitlines()
+        for r, name in zip(rows, names):
+            r["kernel"] = re.sub(r"\(anonymous namespace\)::|\(.*\)$", "", name)
+    return rows
+
+
 def phase_device(torch, build) -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -176,12 +218,20 @@ def phase_device(torch, build) -> dict:
     print(smi_line, flush=True)  # the card's name and power limit, raw
     t0 = time.perf_counter()
     libs = build.build_all()
+    build_s = time.perf_counter() - t0
+    cuobjdump = str(Path(build.nvcc_path()).with_name("cuobjdump"))
+    sass = {name: sass_counts(cuobjdump, lib) for name, lib in sorted(libs.items())}
+    ptxas = {name: ptxas_report(lib.with_suffix(".log").read_text())
+             for name, lib in sorted(libs.items())}
     rec = {"phase": "device", "name": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
            "torch": torch.__version__, "cuda": torch.version.cuda,
-           "build_s": round(time.perf_counter() - t0, 3),
-           "built": sorted(libs)}
+           "build_s": round(build_s, 3), "built": sorted(libs),
+           "tensor_core_instructions": sass, "ptxas": ptxas}
     emit(rec)
+    for name in ("flash_fwd", "flash_bwd"):
+        check(sass[name]["HMMA"] + sass[name]["HGMMA"] > 0,
+              f"{name}: no HMMA/HGMMA instruction in its machine code: {sass[name]}")
     return rec
 
 
@@ -204,6 +254,9 @@ def phase_kernels(torch, fa) -> dict:
         dict(s=512, causal=False),
         dict(s=512, dtype=f32),
         dict(s=512, d=128),
+        dict(s=512, d=40),            # a multiple of 8, not of 16: zero-padded
+        dict(s=512, d=32),
+        dict(s=1000, d=40, dtype=f32),
     ]
     max_err = 0.0
     for c in cases:
@@ -229,15 +282,19 @@ def phase_kernels(torch, fa) -> dict:
         max_err = max(max_err, err)
 
     timed = []
+    # these calls take about as long to enqueue as to run: a 20M-cycle
+    # sleep (~10 ms) keeps the host off the clock
+    sleep = 20_000_000
     for s in SLICE_SEQS:
         q, k, v = qkv(s)
         out, lse = fa.flash_attention_fwd(q, k, v, True)
-        ms = gpu_ms(lambda: fa.flash_attention_fwd(q, k, v, True), torch)
-        plain_ms = gpu_ms(lambda: fa.flash_attention_plain(q, k, v, True), torch)
+        ms = gpu_ms(lambda: fa.flash_attention_fwd(q, k, v, True), torch, sleep=sleep)
+        plain_ms = gpu_ms(lambda: fa.flash_attention_plain(q, k, v, True), torch,
+                          sleep=sleep)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = gpu_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True), torch)
+                qt, kt, vt, is_causal=True), torch, sleep=sleep)
         flops = 4 * q.shape[3] * q.shape[2] * live_pairs(s, True, 0)
         nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, out, lse))
         rec = {"phase": "kernel_time", "kernel": "flash_fwd", "shape": [1, s, 8, 64],
@@ -640,7 +697,10 @@ def phase_flash_bwd_kernels(torch, fa) -> dict:
              dict(s=1024, window=128),            # sliding window
              dict(s=1024, causal=False),
              dict(s=1024, dtype=f32),
-             dict(s=1024, d=128)]
+             dict(s=1024, d=128),
+             dict(s=1000, d=40),                  # a multiple of 8, not of 16
+             dict(s=1024, d=32),
+             dict(s=1000, d=40, dtype=f32)]
     for c in edges:
         fold(check_bwd_entries(torch, fa, gen, 1, c["s"], 8, c.get("hkv", 8),
                                c.get("d", 64), c.get("dtype", bf16), c.get("causal", True),
@@ -896,6 +956,15 @@ def profile_run(torch, run, of: str, focus: dict) -> dict:
             "top_kernels": top(kernels), "top_ops": top(ops)}
 
 
+# Each kernel's design as it stands: "tensor-core bf16" for the bf16
+# instances on mma.sync, "scalar" for CUDA-core float32 FMAs.  The flash
+# kernels' float32 instances stay scalar (the tensor cores have no float32
+# product that keeps the 1e-4 checks).
+DESIGN = {"flash_fwd": "tensor-core bf16", "flash_bwd_fused": "tensor-core bf16",
+          "flash_bwd_grouped": "tensor-core bf16", "flash_bwd_dkv": "tensor-core bf16",
+          "flash_bwd_dq": "scalar", "xent_fwd": "scalar", "xent_bwd": "scalar"}
+
+
 def main() -> int:
     import torch
 
@@ -940,8 +1009,9 @@ def main() -> int:
         return {"name": name, "route": "cuda",
                 "source": f"distributed_tensorflow_ibm_mnist_tpu_torch/csrc/{source}",
                 "replaces": f"distributed_tensorflow_ibm_mnist_tpu/{replaces}",
-                "launches": launches, "max_abs_err": max_err, "max_err": max_err,
-                "ms": head["ms"], "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
+                "design": DESIGN[name], "launches": launches, "max_abs_err": max_err,
+                "max_err": max_err, "ms": head["ms"], "kernel_ms": head["ms"],
+                "plain_ms": head["plain_ms"],
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"], "shape": head["shape"],
                 by: [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",

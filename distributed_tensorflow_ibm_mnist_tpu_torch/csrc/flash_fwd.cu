@@ -11,34 +11,42 @@
 // input dtype; lse is (B, S, H) contiguous float32 (the flash_block_fwd
 // contract).
 //
-// Design.  One thread block of 256 threads owns one (batch*head, 64-row
-// q-tile).  The TPU's sequential k grid axis becomes a loop inside the block
-// over 64-row k/v tiles staged in shared memory; the running max m, sum l
-// and the (64 x D) accumulator stay on chip (m, l in shared memory, the
-// accumulator in registers, 4 rows x ceil(D/16) columns per thread) for
-// the whole walk, so the (S x S) score matrix never reaches device memory.
-// The loop bounds come from `causal` and `window` (k <= q and k > q -
-// window), so a dead tile is never loaded: the CUDA form of the Pallas
-// kernel's clamp/liveness pair.  Products run as scalar FMAs in float32 on
-// values read in the input dtype (a bf16 x bf16 product is exact in f32,
-// so this is the input-dtype matmul with f32 accumulation); P is rounded
-// to the input dtype before the PV product, as the TPU kernel does.
+// Two designs, chosen by the dtype flag (is_bf16), not as a fallback:
 //
-// What bounds it at the serving slice's prefill shapes (B=1, S <= 512,
-// H=8, D=64, bf16, causal): on the roofline, the bytes.  S=512 needs
-// 0.27 GFLOP against 2.1 MB of q/k/v/o/lse, ~127 FLOP per byte, below the
-// H100's bf16 ridge (~295), so the least time is ~0.6 us.  This first
-// kernel computes on the CUDA cores, so in practice it is bound by FMA
-// issue and shared-memory reads, and by latency: at S=512 its grid is
-// only 64 blocks for 132 SMs, and each block loads a tile, then computes,
-// with no overlap.  The register micro-tile (4 x 4 scores, 4 x ceil(D/16)
-// outputs per thread) reuses each shared-memory read 4 times and the odd
-// row stride keeps the reads free of bank conflicts.  Tensor-core
-// products, more blocks per sequence and overlapped loads are the next
-// steps; right and simple comes first.
+// * bf16: flash_fwd_tc, on the tensor cores.  A block of 4 warps owns one
+//   (batch*head, 64-row q-tile); each warp owns 16 q rows, whose Q stays in
+//   registers as mma.sync A fragments for the whole walk.  The TPU's
+//   sequential k grid axis is a loop over 64-row K/V tiles, held in shared
+//   memory as bf16 (rows padded by 16 bytes: ldmatrix without bank
+//   conflicts) and loaded by cp.async into a two-stage ring, so the next
+//   tile's copy overlaps this tile's products.  S = Q K^T and O += P V run
+//   as mma.sync m16n8k16 (bf16 in, float32 accumulators); the running max
+//   and sum stay in registers (quad shuffles); P is rounded to bf16 in
+//   registers and is the PV product's A operand as it stands (the TPU
+//   kernel's MXU-operand cast), with no trip through shared memory.  Head
+//   dims below the instance's width (32, 64 or 128) are zero-padded in
+//   shared memory.  The loop bounds come from `causal` and `window`
+//   (k <= q and k > q - window), so a dead tile is never loaded, and only
+//   tiles that cross a mask edge build the mask.
+// * float32: flash_fwd_kernel, scalar float32 FMAs on the CUDA cores (the
+//   tensor cores have no float32 product that keeps the float32 checks);
+//   no path the port trains or serves runs attention in float32.
+//
+// What bounds it.  At the LM training shape (B=8, S=8192, H=8, D=64, bf16,
+// causal) the work is 0.55 TFLOP of products against 0.27 GB of inputs and
+// outputs: operations, 0.56 ms at the bf16 tensor-core peak.  mma.sync
+// reaches a fraction of that peak (wgmma alone reaches all of it), and
+// each warp reads the whole K/V tile from shared memory for its 16 rows,
+// so ldmatrix traffic is the next limit.  At the serving prefill shapes
+// (B=1, S <= 512) the bytes bound it (~0.6 us at S=512) and the grid is
+// small (64 blocks at S=512 for 132 SMs), so launch latency and the one
+// wave's tail decide.  Next: wgmma with TMA-fed K/V tiles and a producer
+// warp, and more blocks per sequence at small S.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -48,15 +56,6 @@ constexpr int NT = 256;           // threads per block
 constexpr int PS = BK + 1;        // padded row stride of the P tile
 constexpr float NEG = -1e30f;     // masked score (the TPU kernel's _NEG)
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Params {
   const void* q;
@@ -75,8 +74,10 @@ size_t smem_bytes(int d) {
   return sizeof(float) * (size_t)(BQ * dp + 2 * BK * dp + BQ * PS + 3 * BQ);
 }
 
+// ------------------------------------------------------- float32: scalar
+
 // NJ: columns of 16 over head_dim held per thread (D <= 16 * NJ).
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D;
@@ -95,14 +96,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   const int h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);  // GQA: q head h reads kv head h / group
   const int q0 = blockIdx.x * BQ;
-  const T* qg = static_cast<const T*>(p.q) + b * p.qb + h * p.qh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.kb + hk * p.kh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.vb + hk * p.vh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.qb + h * p.qh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.kb + hk * p.kh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.vb + hk * p.vh;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, d = i - r * D;
     const int q = q0 + r;
-    Qs[r * DP + d] = q < p.S ? to_f(qg[(long long)q * p.qs + d]) : 0.f;
+    Qs[r * DP + d] = q < p.S ? qg[(long long)q * p.qs + d] : 0.f;
   }
   if (tid < BQ) {
     m_s[tid] = NEG;
@@ -130,8 +131,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
       const int r = i / D, d = i - r * D;
       const int kk = k0 + r;
       const bool in = kk < p.S;
-      Ks[r * DP + d] = in ? to_f(kg[(long long)kk * p.ks + d]) : 0.f;
-      Vs[r * DP + d] = in ? to_f(vg[(long long)kk * p.vs + d]) : 0.f;
+      Ks[r * DP + d] = in ? kg[(long long)kk * p.ks + d] : 0.f;
+      Vs[r * DP + d] = in ? vg[(long long)kk * p.vs + d] : 0.f;
     }
     __syncthreads();
 
@@ -189,9 +190,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        // P enters the PV product in the input dtype; l sums the f32 p
-        Ps[r * PS + lane] = to_f(from_f<T>(pa));
-        Ps[r * PS + lane + 32] = to_f(from_f<T>(pc));
+        Ps[r * PS + lane] = pa;
+        Ps[r * PS + lane + 32] = pc;
         __syncwarp();
         if (lane == 0) {
           const float corr = exp2f(m_prev - m_new);
@@ -225,8 +225,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   }
   __syncthreads();
 
-  // finalize: out = acc / l in the input dtype, lse = m ln2 + ln l
-  T* og = static_cast<T*>(p.o);
+  // finalize: out = acc / l, lse = m ln2 + ln l
+  float* og = static_cast<float*>(p.o);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = tr * 4 + i;
@@ -238,28 +238,221 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tc + 16 * j;
-      if (d < D) og[row * D + d] = from_f<T>(acc[i][j] / l);
+      if (d < D) og[row * D + d] = acc[i][j] / l;
     }
     if (tc == 0) p.lse[row] = m_s[r] * LN2 + logf(l);
   }
 }
 
-template <typename T, int NJ>
+template <int NJ>
 int launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.S + BQ - 1) / BQ, p.B * p.H);
-  flash_fwd_kernel<T, NJ><<<grid, NT, smem, stream>>>(p);
+  flash_fwd_kernel<NJ><<<grid, NT, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(const Params& p, cudaStream_t stream) {
-  if (p.D <= 32) return launch<T, 2>(p, stream);
-  if (p.D <= 64) return launch<T, 4>(p, stream);
-  return launch<T, 8>(p, stream);
+  if (p.D <= 32) return launch<2>(p, stream);
+  if (p.D <= 64) return launch<4>(p, stream);
+  return launch<8>(p, stream);
+}
+
+// ------------------------------------------------------------ bf16: mma.sync
+
+constexpr int TBQ = 64;   // q rows per block: 4 warps x 16
+constexpr int TBK = 64;   // k rows per K/V tile
+constexpr int TNT = 128;  // threads per block
+
+template <int DT>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(tc::bf16) * (size_t)(TBQ + 4 * TBK) * (DT + 8);  // Q, 2 x (K, V)
+}
+
+// DT: the instance's head-dim width (a multiple of 16, D <= DT).
+template <int DT>
+__global__ void __launch_bounds__(TNT) flash_fwd_tc(Params p) {
+  using tc::bf16;
+  constexpr int LD = DT + 8;     // padded shared row, elements
+  constexpr int KD = DT / 16;    // k-steps over head_dim
+  constexpr int NS = TBK / 8;    // score n-tiles over a K tile
+  constexpr int NO = DT / 8;     // output n-tiles over head_dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // TBQ x LD
+  bf16* Ks = Qs + TBQ * LD;                       // 2 stages x TBK x LD
+  bf16* Vs = Ks + 2 * TBK * LD;                   // 2 stages x TBK x LD
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = blockIdx.x * TBQ;
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.qb + h * p.qh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.kb + hk * p.kh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vb + hk * p.vh;
+
+  // live k range, as the scalar kernel's
+  const int q_hi = min(q0 + TBQ, p.S) - 1;
+  const int k_end = p.causal ? q_hi + 1 : p.S;
+  int k_begin = (p.causal && p.window) ? max(0, q0 - p.window + 1) : 0;
+  k_begin = (k_begin / TBK) * TBK;
+  const int n_tiles = (k_end - k_begin + TBK - 1) / TBK;
+
+  tc::load_rows<TBQ, DT, TNT>(Qs, qg, p.qs, q0, p.S, p.D);
+  tc::load_rows<TBK, DT, TNT>(Ks, kg, p.ks, k_begin, p.S, p.D);
+  tc::load_rows<TBK, DT, TNT>(Vs, vg, p.vs, k_begin, p.S, p.D);
+  tc::cp_async_commit();
+
+  uint32_t qf[KD][4];  // this warp's 16 q rows, A fragments
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  // rows gid and gid + 8 of this warp: running max (base-2 units) and this
+  // thread's share of the running sum (summed over the quad at the end)
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};
+  const int row0 = q0 + warp * 16 + gid;  // this thread's first q row
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_begin + it * TBK;
+    const int st = it & 1;
+    // this tile has landed, and every warp is past the previous tile: its
+    // stage may be refilled
+    tc::cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_tiles) {  // the next tile's copy overlaps this tile
+      tc::load_rows<TBK, DT, TNT>(Ks + (st ^ 1) * TBK * LD, kg, p.ks, k0 + TBK, p.S, p.D);
+      tc::load_rows<TBK, DT, TNT>(Vs + (st ^ 1) * TBK * LD, vg, p.vs, k0 + TBK, p.S, p.D);
+      tc::cp_async_commit();
+    }
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        tc::ldmatrix_x4(qf[kk], Qs + (warp * 16 + tc::a_row(lane)) * LD + kk * 16 +
+                                    tc::a_col(lane));
+    }
+    const bf16* Kt = Ks + st * TBK * LD;
+    const bf16* Vt = Vs + st * TBK * LD;
+
+    // S = Q K^T, 16 x TBK per warp
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t kb[4];
+        tc::ldmatrix_x4(kb, Kt + (np * 16 + tc::b_row(lane)) * LD + kk * 16 + tc::b_col(lane));
+        tc::mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+        tc::mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+
+    // masks, only on a tile that crosses an edge: the sequence end, the
+    // diagonal or the window's far edge
+    const bool edge = k0 + TBK > p.S ||
+                      (p.causal && (k0 + TBK - 1 > q0 ||
+                                    (p.window && k0 <= q0 + TBQ - 1 - p.window)));
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = row0 + (e >> 1) * 8;
+          const int kk = k0 + j * 8 + 2 * tig + (e & 1);
+          bool live = kk < p.S;
+          if (p.causal) {
+            live = live && kk <= q;
+            if (p.window) live = live && kk > q - p.window;
+          }
+          if (!live) s[j][e] = tc::neg_inf();
+        }
+    }
+
+    // online softmax in base 2, rows gid (r = 0) and gid + 8 (r = 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = tc::neg_inf();
+#pragma unroll
+      for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[r], mx * p.scale_log2);
+      const float corr = exp2f(m_r[r] - m_new);
+      m_r[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float pe = exp2f(fmaf(s[j][e], p.scale_log2, -m_new));  // masked: 0
+          s[j][e] = pe;
+          sum += pe;
+        }
+      l_r[r] = l_r[r] * corr + sum;  // l sums the float32 p
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][2 * r] *= corr;
+        o[n][2 * r + 1] *= corr;
+      }
+    }
+
+    // O += P V: P rounded to bf16 in registers is the A operand
+#pragma unroll
+    for (int kk = 0; kk < TBK / 16; ++kk) {
+      uint32_t pa[4];
+      tc::c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        uint32_t vb[4];
+        tc::ldmatrix_x4_t(vb, Vt + (kk * 16 + tc::a_row(lane)) * LD + np * 16 + tc::a_col(lane));
+        tc::mma_bf16(o[2 * np], pa, vb[0], vb[1]);
+        tc::mma_bf16(o[2 * np + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+  // finalize: out = acc / l in bf16, lse = m ln2 + ln l
+  bf16* og = static_cast<bf16*>(p.o);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l = l == 0.f ? 1.f : l;  // a fully-masked row
+    const int q = row0 + r * 8;
+    if (q >= p.S) continue;
+    const long long row = ((long long)b * p.S + q) * p.H + h;
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int d = n * 8 + 2 * tig;
+      if (d < p.D)
+        *reinterpret_cast<__nv_bfloat162*>(og + row * p.D + d) =
+            __floats2bfloat162_rn(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    }
+    if (tig == 0) p.lse[row] = m_r[r] * LN2 + logf(l);
+  }
+}
+
+template <int DT>
+int launch_tc(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes<DT>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc<DT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.S + TBQ - 1) / TBQ, p.B * p.H);
+  flash_fwd_tc<DT><<<grid, TNT, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_tc(const Params& p, cudaStream_t stream) {
+  if (p.D <= 32) return launch_tc<32>(p, stream);
+  if (p.D <= 64) return launch_tc<64>(p, stream);
+  return launch_tc<128>(p, stream);
 }
 
 }  // namespace
@@ -278,5 +471,5 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   Params p{q, k, v, o, static_cast<float*>(lse), B, S, H, Hkv, D,
            qb, qs, qh, kb, ks, kh, vb, vs, vh, causal, window, scale_log2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(p, s) : dispatch<float>(p, s);
+  return is_bf16 ? dispatch_tc(p, s) : dispatch(p, s);
 }

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
 own into ``build/kernels/<name>-<hash>.so`` at the repository root (a
-directory ``.gitignore`` lists).  The hash covers the source and the
-compiler flags, so an edited source rebuilds at its next use and an
+directory ``.gitignore`` lists).  The hash covers the source, every shared
+header ``csrc/*.cuh`` (which any source may include) and the compiler
+flags, so an edited source or header rebuilds at its next use and an
 unchanged one is reused.  Nothing here runs at import: a machine without
 ``nvcc`` imports the package and runs the plain PyTorch versions; only a
 kernel launch needs the library.
@@ -54,8 +55,11 @@ def sources() -> list[str]:
 
 def library_path(name: str) -> Path:
     """Where ``csrc/<name>.cu`` builds to; the name carries the hash of the
-    source and the flags."""
+    source, the shared headers and the flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -101,3 +105,12 @@ def build_all() -> dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
     return ctypes.CDLL(str(build(name)))
+
+
+def entry(name: str, fn: str, argtypes: dict):
+    """The C entry ``fn`` of ``csrc/<name>.cu``, its argument types set from
+    ``argtypes[fn]`` and its result a C int (a cudaError_t value)."""
+    f = getattr(load(name), fn)
+    f.argtypes = argtypes[fn]
+    f.restype = ctypes.c_int
+    return f

@@ -31,7 +31,10 @@ as the JAX wrapper does.
 
 On CUDA tensors the wrappers launch the hand-written Hopper kernels in
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (built by ``ops/_build.py``
-at first use) or raise: there is no fallback.  On CPU tensors they run the
+at first use) or raise: there is no fallback.  bf16 inputs take the
+tensor-core designs of K3, K4, K5 and K6a (mma.sync on cp.async-fed bf16
+tiles; each bf16 view must be 16-byte aligned); float32 inputs, and K6b in
+both dtypes, take the scalar CUDA-core designs.  On CPU tensors they run the
 same functions in plain PyTorch (:func:`flash_attention_plain`,
 :func:`flash_attention_bwd_plain`), which the CPU tests hold against the JAX
 kernels.  Launch counters, plain integers counted where a kernel launches:
@@ -170,22 +173,42 @@ def _validate(q, k, v, causal: bool, window: int) -> None:
 
 
 def _check_last_dim(**tensors) -> None:
+    """Every kernel reads rows through their strides: the last dim must be
+    contiguous.  The bf16 kernels also copy 16-byte chunks with cp.async,
+    so each base pointer and each batch/seq/head stride (of a dim longer
+    than 1) must be 16-byte aligned; a misaligned view raises (no copy is
+    made behind its back)."""
     for name, t in tensors.items():
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim "
                              f"(strides {t.stride()})")
+        if t.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(st * 2 % 16 for st, n in
+                                         zip(t.stride()[:3], t.shape[:3]) if n > 1)):
+            raise ValueError(
+                f"{name} must be 16-byte aligned for the bf16 kernels' cp.async "
+                f"copies: data_ptr % 16 = {t.data_ptr() % 16}, strides {t.stride()}")
+
+
+_PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+# The ctypes argument types of every C entry in csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu, in declaration order: every pointer and the stream as
+# c_void_p, strides as 64-bit ints (tests/test_torch_build.py holds each
+# list against its C declaration).
+ARGTYPES = {
+    "flash_fwd": [_PTR] * 5 + [_I32] * 5 + [_I64] * 9 + [_I32, _I32, _F32, _I32, _PTR],
+    "flash_bwd_fused": ([_PTR] * 9 + [_I32] * 5 + [_STRIDES] + [_I32] * 4
+                        + [_F32, _I32, _PTR]),
+    "flash_bwd_dkv": [_PTR] * 8 + [_I32] * 5 + [_STRIDES] + [_I32] * 2 + [_F32, _I32, _PTR],
+    "flash_bwd_dq": [_PTR] * 7 + [_I32] * 5 + [_STRIDES] + [_I32] * 2 + [_F32, _I32, _PTR],
+}
 
 
 @functools.cache
 def _kernel():
-    """The ``flash_fwd`` C entry point with its argument types declared
-    (every pointer and the stream as c_void_p, strides as 64-bit ints)."""
-    fn = _build.load("flash_fwd").flash_fwd
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([ptr] * 5 + [i32] * 5 + [i64] * 9
-                   + [i32, i32, ctypes.c_float, i32, ptr])
-    fn.restype = ctypes.c_int
-    return fn
+    """The ``flash_fwd`` C entry point with its argument types declared."""
+    return _build.entry("flash_fwd", "flash_fwd", ARGTYPES)
 
 
 def _launch(q, k, v, causal: bool, window: int):
@@ -276,16 +299,8 @@ def bwd_route(s: int, d: int, dtype: torch.dtype) -> Route:
 @functools.cache
 def _bwd_kernels():
     """The three ``flash_bwd`` C entry points with their argument types."""
-    lib = _build.load("flash_bwd")
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    strides = ctypes.POINTER(ctypes.c_longlong)
-    fused, dkv, dq = lib.flash_bwd_fused, lib.flash_bwd_dkv, lib.flash_bwd_dq
-    fused.argtypes = [ptr] * 9 + [i32] * 5 + [strides] + [i32] * 4 + [f32, i32, ptr]
-    dkv.argtypes = [ptr] * 8 + [i32] * 5 + [strides] + [i32] * 2 + [f32, i32, ptr]
-    dq.argtypes = [ptr] * 7 + [i32] * 5 + [strides] + [i32] * 2 + [f32, i32, ptr]
-    for fn in (fused, dkv, dq):
-        fn.restype = ctypes.c_int
-    return fused, dkv, dq
+    return tuple(_build.entry("flash_bwd", name, ARGTYPES)
+                 for name in ("flash_bwd_fused", "flash_bwd_dkv", "flash_bwd_dq"))
 
 
 def _bwd_args(q, k, v, g, lse, delta, causal: bool, window: int) -> tuple:

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from types import SimpleNamespace
 
 import torch
 
@@ -80,16 +81,22 @@ def _validate(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return labels.to(torch.int32)  # int64 -> int32; no copy when already int32
 
 
+_PTR, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# The ctypes argument types of the C entries in csrc/xent.cu, in declaration
+# order: pointers and the stream as c_void_p, strides 64-bit
+# (tests/test_torch_build.py holds each list against its C declaration).
+ARGTYPES = {
+    "xent_fwd": [_PTR, _PTR, _PTR, _I32, _I32, _I64, _I32, _PTR],
+    "xent_bwd": [_PTR, _PTR, _PTR, _I64, _PTR, _I32, _I32, _I64, _I32, _PTR],
+}
+
+
 @functools.cache
 def _kernels():
     """The ``xent_fwd`` / ``xent_bwd`` C entry points, argument types
-    declared (pointers and the stream as c_void_p, strides 64-bit)."""
-    lib = _build.load("xent")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.xent_fwd.argtypes = [ptr, ptr, ptr, i32, i32, i64, i32, ptr]
-    lib.xent_bwd.argtypes = [ptr, ptr, ptr, i64, ptr, i32, i32, i64, i32, ptr]
-    lib.xent_fwd.restype = lib.xent_bwd.restype = ctypes.c_int
-    return lib
+    declared."""
+    return SimpleNamespace(**{name: _build.entry("xent", name, ARGTYPES)
+                              for name in ARGTYPES})
 
 
 def _stream(t: torch.Tensor) -> int:
