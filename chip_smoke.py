@@ -10,10 +10,12 @@ never JAX or the JAX package.  Phases, one JSON line each:
 
 1. device — the card, its ``nvidia-smi`` name and power limit, the
    seconds to build every CUDA source of the port with nvcc (one nvcc per
-   source, all started together), the tensor-core instructions (``HMMA``,
-   ``HGMMA``) in each library's machine code (``cuobjdump --dump-sass``;
-   it fails if ``flash_fwd`` or ``flash_bwd`` has none) and the registers
-   and spill bytes of every kernel instance from the ptxas log;
+   source, all started together), the tensor-core instructions (``HMMA``
+   for mma.sync, ``HGMMA`` for wgmma) in each library's machine code
+   (``cuobjdump --dump-sass``; it fails unless each flash library holds
+   the instruction of every design it uses: ``check_tensor_cores``) and
+   the registers and spill bytes of every kernel instance from the ptxas
+   log;
 2. kernels — the flash-attention forward (K3) against its plain PyTorch
    version on the card, at the serving path's shapes and the edge cases
    (head_dim 32, 40 and 128 among them), with the stated tolerances; at
@@ -41,20 +43,21 @@ never JAX or the JAX package.  Phases, one JSON line each:
    causal; K5 (grouped) at (1, 8192, 4, 128) bf16 causal, the summed result
    and each group's float32 partials against the plain backward over that
    group's q rows; K6a (dkv) and K6b (dq) at the same shape; then each
-   entry at the edge cases (S=1000, GQA with H_kv=2, window 128,
-   non-causal, float32, D=128, D=40, D=32); then the public
-   ``flash_attention_bwd``
+   entry at the edge cases (S=1000 and 1030, GQA with H_kv=2, window 128,
+   non-causal, float32, D=128, D=40, D=32, and batch 2 with q, k, v views
+   of one (B, S, 3, H, D) tensor); then the public ``flash_attention_bwd``
    on each route (forced by its routing constants) at (1, 8192, 4, 128)
    and under GQA at (1, 2048, 8, 64) with H_kv=2, so the wrapper's own
    sums of grouped partials and per-kv-head dK/dV are held too.
-   Tolerances are relative to the reference's largest magnitude;
+   Tolerances are relative to the reference's largest magnitude; K6b's
+   dQ is also held row by row (``row_rel_err``);
 7. flash timings at the LM training path's shapes — K4 at (8, 8192, 8,
    64), K5, K6a and K6b at (8, 8192, 4, 128), K3 at (8, 8192, 8, 64) —
    beside their bounds, the plain versions (at batch 1: batch 8 does not
    fit the plain version's float32 score matrices) and PyTorch's
-   ``scaled_dot_product_attention`` (its backward alone, through
-   ``torch.autograd.grad`` with ``retain_graph``, for the backward
-   kernels);
+   ``scaled_dot_product_attention`` (for the backward kernels its backward
+   alone, ``sdpa_grad``: with respect to q, k, v for K4/K5, k, v for K6a
+   and q for K6b);
 8. lm_training — ``Trainer.fit()`` on the repo's long-context LM
    (``bench.py``'s ``bench_lm8k``: causal_lm, dim 512, depth 4, 8 heads,
    vocab 256, S=8192, bf16, ``attn="flash"``, retrieval 64/16, batch 8,
@@ -67,10 +70,17 @@ never JAX or the JAX package.  Phases, one JSON line each:
 10. lm_routes — two 2-step ``fit()`` runs of the head_dim-128 sibling (4
    heads): as it stands K5 launches depth x steps times; with
    ``_GROUPED_BWD=False`` K6a and K6b do;
-11. the ``kernels`` line: per kernel, its design, its launches on its
+11. lm_split — the head_dim-128 LM at S=32768 (batch 2, 2 steps, 1 eval
+   batch), where the JAX rule itself takes the split route: K6a and K6b
+   must each launch depth x steps times and no other backward kernel, the
+   loss stay finite; K6b's dQ at (2, 32768, 4, 128), on q/k/v views of
+   one (B, S, 3, H, D) tensor as the model gives them, against the fused
+   walk's (also row by row), and K6b timed there; the step time,
+   tokens/s and one profiled step with K6b's share of device time;
+12. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2), largest error, times and bound;
-12. the last line: ``{"ok": true, "device": {...}}``.
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; the launches made to compare or time a kernel are not counted.
@@ -210,6 +220,25 @@ def ptxas_report(log: str) -> list[dict]:
     return rows
 
 
+# The tensor-core instruction of each bf16 design in the machine code, and
+# the designs each flash library's kernels use: mma.sync (K3, K4, K5, K6a)
+# and wgmma (K6b).
+TC_INSTRUCTION = {"mma.sync": "HMMA", "wgmma": "HGMMA"}
+TC_DESIGNS = {"flash_fwd": ("mma.sync",), "flash_bwd": ("mma.sync", "wgmma")}
+
+
+def check_tensor_cores(sass: dict, designs: dict) -> None:
+    """Fail unless each library's machine code (``sass``: instruction
+    counts by library) holds the tensor-core instruction of every design
+    that ``designs`` says it uses."""
+    for name, used in designs.items():
+        for design in used:
+            op = TC_INSTRUCTION[design]
+            check(sass[name][op] > 0,
+                  f"{name}: its {design} design compiled to no {op} instruction: "
+                  f"{sass[name]}")
+
+
 def phase_device(torch, build) -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -229,9 +258,7 @@ def phase_device(torch, build) -> dict:
            "build_s": round(build_s, 3), "built": sorted(libs),
            "tensor_core_instructions": sass, "ptxas": ptxas}
     emit(rec)
-    for name in ("flash_fwd", "flash_bwd"):
-        check(sass[name]["HMMA"] + sass[name]["HGMMA"] > 0,
-              f"{name}: no HMMA/HGMMA instruction in its machine code: {sass[name]}")
+    check_tensor_cores(sass, TC_DESIGNS)
     return rec
 
 
@@ -549,13 +576,41 @@ LM_SEQ = 8192
 # that changes from run to run.  Both relative to the reference's largest
 # magnitude.
 BWD_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-4}
+# K6b's dQ is also held row by row: each (batch, position, head) row's
+# error norm over that row's reference norm.  Causal dQ rows shrink about
+# as 1/sqrt(position), so a measure against the largest magnitude would let
+# the late half of a long sequence go wrong unseen.  A row whose reference
+# norm is below ROW_FLOOR of the largest (causal row 0's dQ is zero) is
+# measured against that floor instead.
+# ROW_TOL is about 3x the worst row seen on an H100 over every shape
+# checked (bf16 4.8e-3 against the plain backward, 2.9e-3 against the
+# fused walk at S=32768; float32 7.6e-7).
+ROW_TOL = {"torch.bfloat16": 1.5e-2, "torch.float32": 5e-6}
+ROW_FLOOR = 1e-3
 
 
-def bwd_inputs(torch, fa, gen, b, s, h, hkv, d, dtype, causal=True, window=0):
-    """q, k, v, dO from ``gen``; lse from K3; delta = rowsum(dO * O)."""
-    def mk(heads):
-        return torch.randn((b, s, heads, d), generator=gen, device="cuda").to(dtype)
-    q, k, v, g = mk(h), mk(hkv), mk(hkv), mk(h)
+def row_rel_err(got, ref) -> float:
+    """The largest error norm of a row of the last dim over its reference
+    norm (floored at ROW_FLOOR of the largest)."""
+    err = (got.float() - ref.float()).norm(dim=-1)
+    norm = ref.float().norm(dim=-1)
+    return (err / norm.clamp(min=max(ROW_FLOOR * norm.max().item(), 1e-30))).max().item()
+
+
+def bwd_inputs(torch, fa, gen, b, s, h, hkv, d, dtype, causal=True, window=0,
+               packed=False):
+    """q, k, v, dO from ``gen``; lse from K3; delta = rowsum(dO * O).
+    ``packed``: q, k, v are views of one (B, S, 3, H, D) tensor, as the
+    model's qkv projection gives them, and dO is a view of a (B, S, 2, H, D)
+    one, so no batch or seq stride is a contiguous tensor's."""
+    def mk(*heads):
+        return torch.randn((b, s, *heads, d), generator=gen, device="cuda").to(dtype)
+    if packed:
+        check(h == hkv, "packed q, k, v need as many kv heads as q heads")
+        q, k, v = mk(3, h).unbind(2)
+        g = mk(2, h)[:, :, 1]
+    else:
+        q, k, v, g = mk(h), mk(hkv), mk(hkv), mk(h)
     with torch.no_grad():
         out, lse = fa.flash_attention_fwd(q, k, v, causal, window)
     delta = (g.float() * out.float()).sum(-1)
@@ -568,34 +623,42 @@ def per_kv(x, hkv):
     return x.float().view(b, s, hkv, h // hkv, d).sum(3)
 
 
-def compare(name, got: dict, ref: dict, dtype, extra: dict) -> tuple[float, float]:
-    """Emit one check record; raise when an output disagrees.  Returns the
-    largest absolute and relative errors."""
-    tol = BWD_TOL[str(dtype)]
+def compare(name, got: dict, ref: dict, dtype, extra: dict,
+            by_row: bool = False) -> tuple[float, float, float]:
+    """Emit one check record; raise when an output disagrees, relative to
+    the reference's largest magnitude and, with ``by_row``, also row by row
+    (``row_rel_err`` within ROW_TOL).  Returns the largest absolute,
+    relative and row-relative errors."""
+    tol, row_tol = BWD_TOL[str(dtype)], ROW_TOL[str(dtype)]
     errs = {}
     for key, a in got.items():
         r = ref[key]
         abs_err = (a.float() - r).abs().max().item()
-        errs[key] = (abs_err, abs_err / max(r.abs().max().item(), 1e-30))
+        errs[key] = (abs_err, abs_err / max(r.abs().max().item(), 1e-30), row_rel_err(a, r))
     finite = all(bool(a.float().isfinite().all()) for a in got.values())
     rec = {"phase": "kernel_check", "kernel": name, **extra, "dtype": str(dtype),
            "max_abs_err": {k: e[0] for k, e in errs.items()},
-           "rel_err": {k: e[1] for k, e in errs.items()}, "rel_tol": tol}
+           "rel_err": {k: e[1] for k, e in errs.items()}, "rel_tol": tol,
+           "row_rel_err": {k: e[2] for k, e in errs.items()},
+           "row_rel_tol": row_tol if by_row else None}
     emit(rec)
     check(finite, f"non-finite {name} output {rec}")
     check(all(e[1] <= tol for e in errs.values()), f"{name} disagrees: {rec}")
-    return max(e[0] for e in errs.values()), max(e[1] for e in errs.values())
+    check(not by_row or all(e[2] <= row_tol for e in errs.values()),
+          f"{name} disagrees row by row: {rec}")
+    return tuple(max(e[i] for e in errs.values()) for i in range(3))
 
 
 def check_bwd_entries(torch, fa, gen, b, s, h, hkv, d, dtype, causal, window, which,
-                      n_groups=4):
-    """Run the named entries at one shape against the plain backward; returns
-    {entry: (abs_err, rel_err)}."""
-    args = bwd_inputs(torch, fa, gen, b, s, h, hkv, d, dtype, causal, window)
+                      n_groups=4, packed=False):
+    """Run the named entries at one shape against the plain backward; K6b's
+    dQ also row by row.  Returns {entry: (abs_err, rel_err, row_rel_err)}."""
+    args = bwd_inputs(torch, fa, gen, b, s, h, hkv, d, dtype, causal, window, packed)
     q = args[0]
     ref = dict(zip(("dq", "dk", "dv"),
                    fa.flash_attention_bwd_plain(*args, causal, window)))
-    extra = {"shape": [b, s, h, d], "heads_kv": hkv, "causal": causal, "window": window}
+    extra = {"shape": [b, s, h, d], "heads_kv": hkv, "causal": causal, "window": window,
+             "packed_qkv": packed}
     out = {}
     for entry in which:
         if entry == "flash_bwd_fused":
@@ -623,7 +686,7 @@ def check_bwd_entries(torch, fa, gen, b, s, h, hkv, d, dtype, causal, window, wh
             got = {"dq": fa._launch_dq(*args, causal, window)}
         torch.cuda.synchronize()
         check("dq" not in got or got["dq"].dtype == q.dtype, f"{entry}: dq dtype")
-        out[entry] = compare(entry, got, ref, dtype, extra)
+        out[entry] = compare(entry, got, ref, dtype, extra, by_row=entry == "flash_bwd_dq")
     return out
 
 
@@ -642,7 +705,8 @@ def check_public_routes(torch, fa, gen, b, s, h, hkv, d, dtype, group_budget=Non
     routing constants, against the plain backward: the wrapper's own sums
     (grouped partials, dK/dV per kv head) on the card.  ``group_budget``,
     when given, replaces ``_GROUPED_DQ_VMEM_BUDGET`` on the grouped route
-    (0: one q tile per group).  Returns {entry: (abs_err, rel_err)}."""
+    (0: one q tile per group).  Returns {entry: (abs_err, rel_err,
+    row_rel_err)}."""
     args = bwd_inputs(torch, fa, gen, b, s, h, hkv, d, dtype)
     ref = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(*args, True)))
     out = {}
@@ -682,11 +746,11 @@ def phase_flash_bwd_kernels(torch, fa) -> dict:
     check(fa.bwd_route(LM_SEQ, 64, bf16).name == "fused"
           and fa.bwd_route(LM_SEQ, 128, bf16) == fa.Route("grouped", 4, 2048),
           "the LM shapes do not take the JAX routes (fused at D=64, 4 groups at D=128)")
-    errs = {e: (0.0, 0.0) for e in BWD_ENTRIES}
+    errs = {e: (0.0, 0.0, 0.0) for e in BWD_ENTRIES}
 
     def fold(found):
-        for e, (a, r) in found.items():
-            errs[e] = (max(errs[e][0], a), max(errs[e][1], r))
+        for e, err in found.items():
+            errs[e] = tuple(map(max, errs[e], err))
 
     fold(check_bwd_entries(torch, fa, gen, 1, LM_SEQ, 8, 8, 64, bf16, True, 0,
                            ["flash_bwd_fused"]))
@@ -698,18 +762,44 @@ def phase_flash_bwd_kernels(torch, fa) -> dict:
              dict(s=1024, causal=False),
              dict(s=1024, dtype=f32),
              dict(s=1024, d=128),
+             dict(s=1030, d=128),                 # a last 128-row q-tile half past S
+             dict(b=2, s=1030, d=128, packed=True),  # the model's batch and qkv strides
              dict(s=1000, d=40),                  # a multiple of 8, not of 16
              dict(s=1024, d=32),
              dict(s=1000, d=40, dtype=f32)]
     for c in edges:
-        fold(check_bwd_entries(torch, fa, gen, 1, c["s"], 8, c.get("hkv", 8),
+        fold(check_bwd_entries(torch, fa, gen, c.get("b", 1), c["s"], 8, c.get("hkv", 8),
                                c.get("d", 64), c.get("dtype", bf16), c.get("causal", True),
-                               c.get("window", 0), BWD_ENTRIES))
+                               c.get("window", 0), BWD_ENTRIES, packed=c.get("packed", False)))
     # the public wrapper on every route: at the head_dim-128 LM shape, and
     # under GQA, where it sums dK/dV per kv head (4 groups of one tile)
     fold(check_public_routes(torch, fa, gen, 1, LM_SEQ, 4, 4, 128, bf16))
     fold(check_public_routes(torch, fa, gen, 1, 2048, 8, 2, 64, bf16, group_budget=0))
     return errs
+
+
+def sdpa_grad(q, k, v, g, wrt: str):
+    """One PyTorch call as a backward kernel's yardstick: the gradient of
+    ``F.scaled_dot_product_attention(is_causal=True)`` on (B, S, H, D)
+    inputs under the output gradient ``g``, with respect to ``wrt``: "q"
+    (K6b's dQ), "kv" (K6a's dK, dV) or "qkv" (K4, K5).  The forward runs
+    once here; the returned function runs the backward alone
+    (``retain_graph``) and returns the gradients as (B, S, H, D) views.
+    Runs on any device."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(name in wrt)
+                  for name, x in zip("qkv", (q, k, v)))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    leaves = [t for name, t in zip("qkv", (qt, kt, vt)) if name in wrt]
+    gt = g.transpose(1, 2)
+    return lambda: tuple(x.transpose(1, 2) for x in
+                         torch.autograd.grad(out, leaves, gt, retain_graph=True))
+
+
+SDPA_CALL = ("torch.autograd.grad through F.scaled_dot_product_attention(is_causal=True), "
+             "its backward alone (retain_graph=True), with respect to ")
 
 
 def attn_bytes(q, k, v, *extra) -> float:
@@ -718,18 +808,13 @@ def attn_bytes(q, k, v, *extra) -> float:
 
 def phase_flash_time(torch, fa) -> dict:
     """K3-K6 at the LM training path's shapes, beside their bounds, their
-    plain versions (batch 1) and SDPA."""
+    plain versions (batch 1) and SDPA (for the backward kernels, its
+    gradient with respect to what each kernel computes)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(6)
     bf16 = torch.bfloat16
     timed = {}
-
-    def sdpa_bwd(q, k, v, g):
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-        gt = g.transpose(1, 2)
-        return lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
 
     def record(name, shape, ms, plain_ms, library_ms, flops, nbytes, library_call,
                plain_note="plain version at batch 1"):
@@ -749,9 +834,8 @@ def phase_flash_time(torch, fa) -> dict:
         pairs = b * h * live_pairs(s, True, 0)
         stats = (lse, delta)
         plain_bwd = gpu_ms(lambda: fa.flash_attention_bwd_plain(*small, True), torch, **slow)
-        library = gpu_ms(sdpa_bwd(q, k, v, g), torch, **slow)
-        lib_call = ("torch.autograd.grad through F.scaled_dot_product_attention("
-                    "is_causal=True), its backward alone (retain_graph=True): dq, dk, dv")
+        library = {wrt: gpu_ms(sdpa_grad(q, k, v, g, wrt), torch, **slow)
+                   for wrt in (("qkv",) if d == 64 else ("qkv", "kv", "q"))}
         route = fa.Route("grouped", 4, 2048) if d == 128 else fa.Route("fused", 1, s)
         args = (q, k, v, g, lse, delta, True, 0)
         for name in names:
@@ -768,19 +852,19 @@ def phase_flash_time(torch, fa) -> dict:
             elif name in ("flash_bwd_fused", "flash_bwd_grouped"):
                 record(name, [b, s, h, d],
                        gpu_ms(lambda: fa._launch_fused(*args, route), torch, **slow),
-                       plain_bwd, library, 5 * 2.0 * d * pairs,
-                       attn_bytes(q, k, v, g, *stats, q, k, v), lib_call)
+                       plain_bwd, library["qkv"], 5 * 2.0 * d * pairs,
+                       attn_bytes(q, k, v, g, *stats, q, k, v), SDPA_CALL + "(q, k, v)")
             elif name == "flash_bwd_dkv":  # S, dP, dV, dK: 4 products
                 record(name, [b, s, h, d],
                        gpu_ms(lambda: fa._launch_dkv(*args), torch, **slow),
-                       plain_bwd, library, 4 * 2.0 * d * pairs,
-                       attn_bytes(q, k, v, g, *stats, k, v), lib_call,
+                       plain_bwd, library["kv"], 4 * 2.0 * d * pairs,
+                       attn_bytes(q, k, v, g, *stats, k, v), SDPA_CALL + "(k, v)",
                        "the whole plain backward (dq, dk, dv) at batch 1")
             else:  # S, dP, dQ: 3 products
                 record(name, [b, s, h, d],
                        gpu_ms(lambda: fa._launch_dq(*args), torch, **slow),
-                       plain_bwd, library, 3 * 2.0 * d * pairs,
-                       attn_bytes(q, k, v, g, *stats, q), lib_call,
+                       plain_bwd, library["q"], 3 * 2.0 * d * pairs,
+                       attn_bytes(q, k, v, g, *stats, q), SDPA_CALL + "q",
                        "the whole plain backward (dq, dk, dv) at batch 1")
         del q, k, v, g, lse, delta, small
         torch.cuda.empty_cache()
@@ -920,6 +1004,106 @@ def phase_lm_routes(torch, fa, xent, port) -> dict:
     return runs
 
 
+# The head_dim-128 LM where the JAX rule itself takes the split route
+# (K6a then K6b): S=32768, batch 2 (65536 tokens a step, as bench_lm8k's),
+# 2 steps and 1 eval batch
+SPLIT_SEQ = 32768
+LM_SPLIT_CFG = dict(LM_D128_CFG, name="lm32k_d128", n_train=4, n_test=2, batch_size=2,
+                    eval_batch_size=2, dataset_kwargs={"vocab": 256, "seq_len": SPLIT_SEQ})
+
+
+def check_split_dq(torch, fa, gen) -> dict:
+    """K6b at the split route's shape and layout, (2, 32768, 4, 128) with
+    q, k, v views of one (B, S, 3, H, D) tensor as the model gives them:
+    its dQ against the fused tensor-core walk's (K4's design, a second
+    kernel: the plain version does not fit at this length), relative to the
+    largest magnitude and row by row; then K6b timed on the same inputs
+    beside its bound and SDPA's dQ."""
+    bf16 = torch.bfloat16
+    b, s, h, d = 2, SPLIT_SEQ, 4, 128
+    q, k, v, g, lse, delta = args = bwd_inputs(torch, fa, gen, b, s, h, h, d, bf16,
+                                               packed=True)
+    ref = fa._launch_fused(*args, True, 0, fa.Route("fused", 1, s))[0]
+    got = fa._launch_dq(*args, True, 0)
+    torch.cuda.synchronize()
+    abs_err, rel_err, row_err = compare(
+        "flash_bwd_dq", {"dq": got}, {"dq": ref.float()}, bf16,
+        {"shape": [b, s, h, d], "heads_kv": h, "causal": True, "window": 0,
+         "packed_qkv": True, "reference": "flash_bwd_fused's dQ"}, by_row=True)
+    del ref, got
+    slow = dict(reps=3, inner=2, sleep=0)
+    rec = {"phase": "kernel_time", "kernel": "flash_bwd_dq", "shape": [b, s, h, d],
+           "dtype": "bf16", "causal": True,
+           "ms": gpu_ms(lambda: fa._launch_dq(q, k, v, g, lse, delta, True, 0), torch, **slow),
+           "plain_ms": None, "plain_note": "the plain version does not fit at this length",
+           "library_ms": gpu_ms(sdpa_grad(q, k, v, g, "q"), torch, **slow),
+           "library_call": SDPA_CALL + "q",
+           **bound(3 * 2.0 * d * b * h * live_pairs(s, True, 0), attn_bytes(
+               q, k, v, g, lse, delta, q), H100_BF16_FLOPS)}
+    emit(rec)
+    del args, q, k, v, g, lse, delta
+    torch.cuda.empty_cache()
+    return {"abs_err": abs_err, "rel_err": rel_err, "row_rel_err": row_err, "timed": rec}
+
+
+def phase_lm_split(torch, fa, xent, port) -> dict:
+    """The head_dim-128 LM at S=32768 through Trainer.fit(), unforced: the
+    JAX rule's split route, K6a then K6b; then K6b's checks at that length,
+    the step time and one profiled step."""
+    Trainer, RunConfig = port
+    route = fa.bwd_route(SPLIT_SEQ, 128, torch.bfloat16)
+    check(route.name == "split", f"S={SPLIT_SEQ}, D=128 takes the {route} route, not split")
+    cfg = RunConfig(**LM_SPLIT_CFG)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, xent)
+    summary = trainer.fit()
+    counts = read_counts(fa, xent)
+    steps = trainer.state.step
+    loss = trainer.history[0]["train_loss"]
+    rec = {"phase": "lm_split", "config": LM_SPLIT_CFG, "route": route._asdict(),
+           "dtype": "bf16", "setup_s": round(setup_s, 3), "steps": steps,
+           "train_loss": loss, "test_loss": trainer.history[0]["test_loss"],
+           "total_time_s": summary["total_time_s"],
+           "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+           "launches": counts}
+    emit(rec)
+    check(math.isfinite(loss), f"non-finite loss {rec}")
+    want = {"flash_bwd_dkv": DEPTH * steps, "flash_bwd_dq": DEPTH * steps}
+    check(steps > 0 and all(counts[k] == n for k, n in want.items())
+          and all(counts[k] == 0 for k in BWD_COUNTERS if k not in want),
+          f"split route launches {counts}, expected {want} and no other backward kernel")
+
+    kernels = check_split_dq(torch, fa, torch.Generator(device="cuda").manual_seed(7))
+
+    def one_step():
+        t = time.perf_counter()
+        trainer._run_epoch(trainer.state, trainer.train_images[:cfg.batch_size],
+                           trainer.train_labels[:cfg.batch_size])["loss"][-1].item()
+        return time.perf_counter() - t
+
+    walls = [one_step() for _ in range(4)][1:]  # the first warms the allocator
+    s_per_step = statistics.median(walls)
+    tokens = cfg.batch_size * SPLIT_SEQ
+    emit({"phase": "lm_split_throughput", "s_per_step": s_per_step, "step_walls_s": walls,
+          "tokens_per_step": tokens, "tokens_per_sec_per_chip": tokens / s_per_step})
+    prof = profile_run(torch, one_step, "lm split-route training step",
+                       {"flash_bwd_dq_device_s": "flash_bwd_dq",
+                        "flash_bwd_dkv_device_s": "flash_bwd_kv_tc",
+                        "flash_fwd_device_s": "flash_fwd"})
+    if prof["device_busy_s"]:
+        prof["flash_bwd_dq_share_of_device"] = round(
+            prof["flash_bwd_dq_device_s"] / prof["device_busy_s"], 4)
+    emit(prof)
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return {**rec, "s_per_step": s_per_step, "kernels": kernels}
+
+
 def profile_run(torch, run, of: str, focus: dict) -> dict:
     """One more run under torch.profiler: device time by kernel and the
     device's busy share of the wall time (the profiler's own overhead
@@ -956,13 +1140,16 @@ def profile_run(torch, run, of: str, focus: dict) -> dict:
             "top_kernels": top(kernels), "top_ops": top(ops)}
 
 
-# Each kernel's design as it stands: "tensor-core bf16" for the bf16
-# instances on mma.sync, "scalar" for CUDA-core float32 FMAs.  The flash
-# kernels' float32 instances stay scalar (the tensor cores have no float32
-# product that keeps the 1e-4 checks).
-DESIGN = {"flash_fwd": "tensor-core bf16", "flash_bwd_fused": "tensor-core bf16",
-          "flash_bwd_grouped": "tensor-core bf16", "flash_bwd_dkv": "tensor-core bf16",
-          "flash_bwd_dq": "scalar", "xent_fwd": "scalar", "xent_bwd": "scalar"}
+# Each kernel's design as it stands: its bf16 instances on the tensor
+# cores (mma.sync on cp.async-fed tiles, or wgmma on TMA-fed tiles), or
+# "scalar" for CUDA-core float32 FMAs.  The flash kernels' float32
+# instances stay scalar (the tensor cores have no float32 product that
+# keeps the 1e-4 checks).
+MMA_SYNC = "tensor-core bf16: mma.sync on cp.async-fed tiles"
+DESIGN = {"flash_fwd": MMA_SYNC, "flash_bwd_fused": MMA_SYNC, "flash_bwd_grouped": MMA_SYNC,
+          "flash_bwd_dkv": MMA_SYNC,
+          "flash_bwd_dq": "tensor-core bf16: wgmma on TMA-fed tiles, setmaxnreg",
+          "xent_fwd": "scalar", "xent_bwd": "scalar"}
 
 
 def main() -> int:
@@ -1003,6 +1190,7 @@ def main() -> int:
     lm = phase_lm_training(torch, fa, xent, (Trainer, RunConfig))
     phase_lm_grad_check(torch, lm.pop("trainer"), get_model, steps_mod)
     routes = phase_lm_routes(torch, fa, xent, (Trainer, RunConfig))
+    split = phase_lm_split(torch, fa, xent, (Trainer, RunConfig))
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -1021,7 +1209,8 @@ def main() -> int:
         rec = flash_timed[name]
         return {**entry(name, "flash_bwd.cu", replaces, launches, bwd_errs[name][0],
                         [rec], "by_shape"),
-                "max_rel_err": bwd_errs[name][1], "plain_shape": rec["plain_shape"],
+                "max_rel_err": bwd_errs[name][1], "max_row_rel_err": bwd_errs[name][2],
+                "plain_shape": rec["plain_shape"],
                 "plain_note": rec["plain_note"], "library_call": rec["library_call"]}
 
     counts = training["launches"]
@@ -1034,15 +1223,23 @@ def main() -> int:
     print(json.dumps({"kernels": [
         # K3 at S=512, the largest serving bucket; launches on the serving run
         k3_entry,
-        # K4 on the bench_lm8k run; K5 and K6a/b on the head_dim-128 runs
+        # K4 on the bench_lm8k run, K5 on the head_dim-128 run at S=8192;
+        # K6a and K6b on the split route where the JAX rule takes it (S=32768)
         bwd_entry("flash_bwd_fused", "ops/flash_attention.py:340",
                   lm["launches"]["flash_bwd_fused"]),
         bwd_entry("flash_bwd_grouped", "ops/flash_attention.py:399",
                   routes["grouped"]["launches"]["flash_bwd_grouped"]),
-        bwd_entry("flash_bwd_dkv", "ops/flash_attention.py:304",
-                  routes["split"]["launches"]["flash_bwd_dkv"]),
-        bwd_entry("flash_bwd_dq", "ops/flash_attention.py:460",
-                  routes["split"]["launches"]["flash_bwd_dq"]),
+        {**bwd_entry("flash_bwd_dkv", "ops/flash_attention.py:304",
+                     split["launches"]["flash_bwd_dkv"]),
+         "forced_split_launches": routes["split"]["launches"]["flash_bwd_dkv"]},
+        {**bwd_entry("flash_bwd_dq", "ops/flash_attention.py:460",
+                     split["launches"]["flash_bwd_dq"]),
+         "forced_split_launches": routes["split"]["launches"]["flash_bwd_dq"],
+         "lm_split": {**{k: split["kernels"]["timed"][k] for k in (
+             "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+             "launches": split["launches"]["flash_bwd_dq"],
+             "rel_err_vs_fused_dq": split["kernels"]["rel_err"],
+             "row_rel_err_vs_fused_dq": split["kernels"]["row_rel_err"]}},
         # K1/K2 at (128, 10), the training step's; launches on the training run
         entry("xent_fwd", "xent.cu", "ops/xent.py:40", counts["xent_fwd"],
               xk["max_abs_err"]["xent_fwd"], xk["timed"]["xent_fwd"], "by_shape"),

@@ -25,61 +25,63 @@
 //
 // Design.  The TPU walks a sequential grid and carries sums in VMEM scratch
 // from step to step; here blocks run in parallel, so each sequential grid
-// axis becomes a loop inside one block.  The k-tile walk (K4, K5, K6a) has
-// two designs, chosen by the dtype flag (is_bf16) that every entry takes,
-// not as a fallback; K6b keeps the scalar design in both dtypes:
+// axis becomes a loop inside one block.  Each kernel has two designs,
+// chosen by the dtype flag (is_bf16) that every entry takes, not as a
+// fallback:
 //
-// * bf16 K4 / K5 / K6a: flash_bwd_kv_tc, on the tensor cores.  A block of NW
-//   warps (4 at D <= 64, three blocks an SM; 8 at D = 128) owns one
-//   (batch*head, 16 NW-row k-tile, q-row group); warp w owns k rows
-//   16w .. 16w + 15 and keeps their dK, dV in registers (float32 mma.sync
-//   accumulators) for the whole walk over the group's live 64-row q-tiles.
-//   K and V sit in shared memory as bf16 for the walk; Q, dO and the row
-//   statistics come by cp.async into a two-stage ring, so the next
-//   q-tile's copy overlaps this one's products.  Per q-tile each warp
-//   computes S^T = K Q^T and dP^T = V dO^T (mma.sync m16n8k16, operands by
-//   ldmatrix from rows padded by 16 bytes: no bank conflicts), then P^T and
-//   dS^T in registers; rounded to bf16 (the TPU's MXU-operand cast) they are
-//   the A operands of dV += P^T dO and dK += dS^T Q as they stand, with dO
-//   and Q read transposed by ldmatrix.trans.  With dQ (K4, K5), dS^T goes to
-//   shared memory as bf16 and the block adds this tile's dQ = dS K into a
-//   float32 (B, S, H, D) buffer that the wrapper zeroed, by float4
-//   atomicAdd (sm_90: one instruction for four floats).  The order of those
-//   adds changes from run to run, so K4/K5's dQ is not bitwise reproducible
-//   (float32 rounding of the sum only).  With one group dK/dV are written
-//   in bf16 (K4); with G groups (K5) each group writes float32 partials
-//   (G, B, S, H, D) that the wrapper sums and rounds once; K6a is the same
-//   walk without dQ, deterministic.  Head dims below the instance's width
-//   (32, 64 or 128) are zero-padded in shared memory, and only tiles that
-//   cross a mask edge build the mask.
-// * float32 K4 / K5 / K6a: flash_bwd_kv_kernel, scalar float32 FMAs on the
-//   CUDA cores, 256 threads a 64-row k-tile, tiles in shared memory as
-//   float32 with an odd (D + 1) row stride; the tensor cores have no
+// * bf16 K6b: flash_bwd_dq_wg, wgmma on TMA-fed tiles (csrc/wgmma.cuh).
+//   Replaces _dq_kernel (flash_attention.py:460, launched at :853), the
+//   split route's dQ, taken by the JAX rule at long contexts (S = 32768 at
+//   head_dim 128).  Bound: operations.  Three products of 2 D FLOPs a live
+//   (q, k) pair (S = Q K^T, dP = dO V^T, dQ = dS K): at (8, 8192, 4, 128)
+//   causal 1.07e9 pairs, 0.83 TFLOP, 0.83 ms at the bf16 tensor-core peak,
+//   against 0.34 GB of inputs and outputs (0.10 ms at 3.35 TB/s).  Only
+//   wgmma reaches that peak, so the design is Hopper's: a block owns 128
+//   q rows of one (batch, head), two consumer warpgroups of 64 rows each
+//   (wgmma's M; two share each K/V tile, halving its copies against one)
+//   and a producer warpgroup that hands its registers to them
+//   (setmaxnreg: 232 a consumer thread; without it ptxas serializes the
+//   D = 128 instance's wgmma, which ran slower on an H100).  One producer
+//   thread copies Q and dO once by TMA and streams 64-row K/V tiles into
+//   a two-stage ring (full/empty mbarriers; three stages were no faster),
+//   so copies run ahead of the products and no consumer spends
+//   registers or instructions on addresses; TMA's zero fill replaces the
+//   bound checks for rows past S and head dims below the instance's width
+//   (64 or 128).  Each consumer keeps its 64 x D dQ in wgmma accumulators
+//   for the whole walk.  Per k-tile: S and dP by wgmma from shared memory
+//   (128-byte-swizzled boxes, both K-major), P and dS in registers, and
+//   dQ += dS K with dS rounded to bf16 as the register A operand and the
+//   same K tile read MN-major (one copy of K serves two products).  The
+//   next tile's S and dP are issued before this tile's dQ product is
+//   waited for, the two warpgroups interleave on the SM, blocks are
+//   visited longest causal walk first, and only tiles that cross a mask
+//   edge build the mask.  dQ is written once in bf16: deterministic.
+// * bf16 K4 / K5 / K6a: flash_bwd_kv_tc, mma.sync on cp.async-fed tiles
+//   (csrc/tc.cuh).  A block of NW warps (4 at D <= 64, three blocks an
+//   SM; 8 at D = 128) owns one (batch*head, 16 NW-row k-tile, q-row
+//   group); warp w keeps the dK, dV of k rows 16w .. 16w + 15 in registers
+//   for the walk over the group's live 64-row q-tiles, with Q, dO and the
+//   row statistics in a two-stage cp.async ring.  It computes S^T = K Q^T
+//   and dP^T = V dO^T (operands by ldmatrix from rows padded by 16 bytes),
+//   so P^T and dS^T, rounded to bf16, are the A operands of dV += P^T dO
+//   and dK += dS^T Q as they stand.  With dQ (K4, K5), dS^T goes to shared
+//   memory and the block adds this tile's dQ = dS K into a float32 buffer
+//   that the wrapper zeroed, by float4 atomicAdd: K4/K5's dQ is not
+//   bitwise reproducible (float32 rounding of the sum only).  K5 writes
+//   float32 dK/dV partials per group, summed by the wrapper; K6a is the
+//   walk without dQ.  Bound at (8, 8192, 8, 64): five products, 1.4 ms;
+//   mma.sync and the ldmatrix traffic of 16-row warps hold it near 19%.
+// * float32, every entry: flash_bwd_kv_kernel and flash_bwd_dq_kernel,
+//   scalar FMAs on the CUDA cores, 256 threads a 64-row tile, tiles in
+//   shared memory with an odd (D + 1) row stride; the tensor cores have no
 //   float32 product that keeps the float32 checks, and no path the port
 //   trains or serves runs attention in float32.
-// * K6b, both dtypes: flash_bwd_dq_kernel, the scalar design: a block owns
-//   one (batch*head, 64-row q-tile), keeps Q and dO in shared memory and dQ
-//   in registers, and loops over the live k-tiles (k <= q, k > q - window)
-//   as the forward does; deterministic.
-//
-// What bounds it at the training path's shapes (B=8, S=8192, H=8, D=64,
-// bf16, causal): on the roofline, operations.  Five products of 2*D FLOPs
-// per live (q, k) pair, 2.15e9 pairs: 1.37 TFLOP against 0.47 GB of inputs
-// and outputs (0.14 ms at 3.35 TB/s), ~1.4 ms at the bf16 tensor-core
-// peak.  mma.sync reaches only part of that peak (wgmma alone reaches all
-// of it); each warp reads the whole Q/dO tile from shared memory twice
-// (plain for S^T and dP^T, transposed for dV and dK), so ldmatrix traffic
-// is the next limit; the dQ atomics (one float4 per 4 dQ elements per
-// k-tile) and the per-tile barriers follow.  At D=128 the 128 dK/dV
-// accumulator registers a thread leave the kernel at 255 registers with a
-// few bytes of spill (see the ptxas log that the build keeps).  Next:
-// wgmma with TMA-fed Q/dO tiles and a producer warp; K6b on the same
-// building blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tc.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -89,20 +91,6 @@ constexpr int NT = 256;        // threads per block
 constexpr int PS = BK + 1;     // padded row stride of the P / dS tiles
 static_assert(BQ == BK, "load_tile stages BQ rows for either side's tiles");
 constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and back: the product operand the TPU kernel feeds its MXU
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
 
 struct Params {
   const void* q;
@@ -122,24 +110,22 @@ struct Params {
   float scale;         // D^-0.5
 };
 
-// Load rows [r0, r0 + BQ) of a (S, D) slice with row stride `rs` into a
-// float tile of row stride D + 1; rows at or past `end` read as 0.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long rs,
+// Load rows [r0, r0 + BQ) of a (S, D) float32 slice with row stride `rs`
+// into a tile of row stride D + 1; rows at or past `end` read as 0.
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long rs,
                                           int r0, int end, int D) {
   const int DP = D + 1;
   for (int i = threadIdx.x; i < BQ * D; i += NT) {
     const int r = i / D, d = i - r * D;
     const int row = r0 + r;
-    dst[r * DP + d] = row < end ? to_f(src[(long long)row * rs + d]) : 0.f;
+    dst[r * DP + d] = row < end ? src[(long long)row * rs + d] : 0.f;
   }
 }
 
 // The shared recompute chain for one (q-tile, k-tile) pair (_bwd_tile_chain):
 // S = Q K^T and dP = dO V^T as 4 x 4 micro-tiles per thread, then P and dS
-// (masked, rounded to T) into shared memory.  `q_end` masks the q rows past
-// the live range (pass a value past S for no q mask).
-template <typename T>
+// (masked) into shared memory.  `q_end` masks the q rows past the live
+// range (pass a value past S for no q mask).
 __device__ __forceinline__ void tile_chain(const Params& p, const float* Qs,
                                            const float* Gs, const float* Ks,
                                            const float* Vs, const float* lse_s,
@@ -189,8 +175,8 @@ __device__ __forceinline__ void tile_chain(const Params& p, const float* Qs,
       // base-2 recompute against the natural-log lse, as the TPU kernel
       const float pij = live ? exp2f(s[i][j] * scale_log2 - lse_s[r]) : 0.f;
       const float dsij = pij * (dp[i][j] - del_s[r]) * p.scale;
-      Ps[r * PS + c] = round_to<T>(pij);
-      Ds[r * PS + c] = round_to<T>(dsij);
+      Ps[r * PS + c] = pij;
+      Ds[r * PS + c] = dsij;
     }
   }
 }
@@ -266,7 +252,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_kv_kernel(Params p) {
     load_tile(Gs, gg, p.gs, q0, q_end, D);
     load_stats(p, lse_s, del_s, b, h, q0, q_end);
     __syncthreads();
-    tile_chain<float>(p, Qs, Gs, Ks, Vs, lse_s, del_s, Ps, Ds, q0, k0, q_end);
+    tile_chain(p, Qs, Gs, Ks, Vs, lse_s, del_s, Ps, Ds, q0, k0, q_end);
     __syncthreads();
 
     // dV += P^T dO and dK += dS^T Q: this thread's k rows tr*4+i, columns
@@ -344,9 +330,9 @@ __global__ void __launch_bounds__(NT) flash_bwd_kv_kernel(Params p) {
   }
 }
 
-// K6b: one block per (q-tile, batch*head), dQ in registers over the live
-// k-tiles; written once in the input dtype.
-template <typename T, int NJ>
+// Float32 K6b: one block per (q-tile, batch*head), dQ in registers over the
+// live k-tiles; written once.
+template <int NJ>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
   extern __shared__ float smem[];
   const int D = p.D, DP = D + 1;
@@ -363,10 +349,10 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
   const int bh = blockIdx.y;
   const int b = bh / p.H, h = bh % p.H;
   const int hk = h / (p.H / p.Hkv);
-  const T* qg = static_cast<const T*>(p.q) + b * p.qb + h * p.qh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.kb + hk * p.kh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.vb + hk * p.vh;
-  const T* gg = static_cast<const T*>(p.g) + b * p.gb + h * p.gh;
+  const float* qg = static_cast<const float*>(p.q) + b * p.qb + h * p.qh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.kb + hk * p.kh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.vb + hk * p.vh;
+  const float* gg = static_cast<const float*>(p.g) + b * p.gb + h * p.gh;
 
   load_tile(Qs, qg, p.qs, q0, p.S, D);
   load_tile(Gs, gg, p.gs, q0, p.S, D);
@@ -391,7 +377,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
     load_tile(Ks, kg, p.ks, k0, p.S, D);
     load_tile(Vs, vg, p.vs, k0, p.S, D);
     __syncthreads();
-    tile_chain<T>(p, Qs, Gs, Ks, Vs, lse_s, del_s, Ps, Ds, q0, k0, no_q_mask);
+    tile_chain(p, Qs, Gs, Ks, Vs, lse_s, del_s, Ps, Ds, q0, k0, no_q_mask);
     __syncthreads();
     for (int c = 0; c < BK; ++c) {
       float sv[4];
@@ -407,7 +393,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
     }
   }
 
-  T* dq = static_cast<T*>(p.dq);
+  float* dq = static_cast<float*>(p.dq);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int q = q0 + tr * 4 + i;
@@ -416,7 +402,7 @@ __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = tc + 16 * j;
-      if (d < D) dq[at + d] = from_f<T>(acc[i][j]);
+      if (d < D) dq[at + d] = acc[i][j];
     }
   }
 }
@@ -433,15 +419,15 @@ int launch_kv(const Params& p, int n_groups, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NJ>
+template <int NJ>
 int launch_dq(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes(p.D);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, NJ>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.S + BQ - 1) / BQ, p.B * p.H);
-  flash_bwd_dq_kernel<T, NJ><<<grid, NT, smem, stream>>>(p);
+  flash_bwd_dq_kernel<NJ><<<grid, NT, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -453,11 +439,10 @@ int dispatch_kv(const Params& p, int n_groups, cudaStream_t s) {
   return launch_kv<8, DQ, PARTIAL>(p, n_groups, s);
 }
 
-template <typename T>
 int dispatch_dq(const Params& p, cudaStream_t s) {
-  if (p.D <= 32) return launch_dq<T, 2>(p, s);
-  if (p.D <= 64) return launch_dq<T, 4>(p, s);
-  return launch_dq<T, 8>(p, s);
+  if (p.D <= 32) return launch_dq<2>(p, s);
+  if (p.D <= 64) return launch_dq<4>(p, s);
+  return launch_dq<8>(p, s);
 }
 
 // ------------------------------------------------------------ bf16: mma.sync
@@ -752,6 +737,314 @@ int dispatch_kv_tc(const Params& p, int n_groups, cudaStream_t s) {
   return launch_kv_tc<128, 8, DQ, PARTIAL>(p, n_groups, s);
 }
 
+// ------------------------------------------------------ bf16 K6b: wgmma, TMA
+
+constexpr int WQ = 64;          // q rows a consumer warpgroup (wgmma's M)
+constexpr int WK = 64;          // k rows a K/V tile
+constexpr int NCW = 2;          // consumer warpgroups: 128 q rows a block
+constexpr int DQ_STAGES = 2;    // depth of the K/V ring
+constexpr int DQ_THREADS = 128 * (NCW + 1);  // and one producer warpgroup
+// Registers a thread after setmaxnreg: the producer gives up most of its
+// share (one thread of it issues copies) so that each consumer can hold
+// dQ, S, dP and dS (64 + 32 + 32 + 16 at D = 128) with the wgmma pipeline
+// unserialized; 128 x 40 + 256 x 232 <= 65536.
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+// Q and dO for the block, the K/V ring, its barriers, and slack to align
+// the tiles to 1024 bytes (the 128-byte swizzle's period).
+template <int DT>
+constexpr size_t dq_wg_smem_bytes() {
+  return (size_t)(2 * NCW + 2 * DQ_STAGES) * (DT / 64) * wg::BOX_BYTES +
+         (2 * DQ_STAGES + 1) * sizeof(uint64_t) + 1024;
+}
+
+// bf16 K6b: one block per (batch*head, 128-row q-tile); warpgroup w of the
+// two consumers owns q rows 64 w .. 64 w + 63 and keeps their dQ (64 x DT
+// float32) in wgmma accumulators for the whole walk over the live k-tiles.
+// One thread of the producer warpgroup copies the block's Q and dO once,
+// then streams K/V tiles into a DQ_STAGES ring (full / empty mbarriers).
+// Per k-tile each consumer computes S = Q K^T and dP = dO V^T (wgmma, both
+// operands from shared memory), P and dS in registers, and dQ += dS K with
+// dS (bf16) as the register A operand and the same K tile read MN-major.
+// The next tile's S and dP overlap this tile's dQ product; a K/V stage is
+// released once the dQ product that reads it has retired.
+template <int DT>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+    flash_bwd_dq_wg(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tg, Params p) {
+  using tc::bf16;
+  constexpr int NB = DT / 64;                // 64-column boxes a row
+  constexpr int TILE = NB * wg::BOX * wg::BOX;  // elements of a 64-row tile
+  constexpr int KD = DT / 16;                // k-steps of S and dP over head_dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* Qs = reinterpret_cast<bf16*>(base);  // NCW tiles
+  bf16* Gs = Qs + NCW * TILE;                // NCW tiles (dO)
+  bf16* Ks = Gs + NCW * TILE;                // DQ_STAGES tiles
+  bf16* Vs = Ks + DQ_STAGES * TILE;          // DQ_STAGES tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(Vs + DQ_STAGES * TILE);
+  uint64_t* empty = full + DQ_STAGES;
+  uint64_t* qbar = empty + DQ_STAGES;
+
+  // the grid's first blocks take the last q-tiles: the longest causal
+  // walks start first and the diagonal's short ones fill the tail
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * (NCW * WQ);
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  const int hk = h / (p.H / p.Hkv);
+
+  // live k range of the block, as the scalar kernel's (a window's start
+  // aligned down to a tile)
+  const int q_last = min(q0 + NCW * WQ, p.S) - 1;
+  const int k_end = p.causal ? q_last + 1 : p.S;
+  const int k_begin = (p.causal && p.window) ? max(0, q0 - p.window + 1) / WK * WK : 0;
+  const int n_tiles = (k_end - k_begin + WK - 1) / WK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < DQ_STAGES; ++i) {
+      wg::bar_init(full + i, 1);
+      wg::bar_init(empty + i, 128 * NCW);
+    }
+    wg::bar_init(qbar, 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 4 * NCW) {
+    // producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+    if (warp == 4 * NCW && lane == 0) {
+      // Q and dO of the warpgroups with a row before S (a warpgroup wholly
+      // past S reads nothing)
+      const int live_wg = min(NCW, (p.S - q0 + WQ - 1) / WQ);
+      wg::bar_expect(qbar, 2 * live_wg * NB * wg::BOX_BYTES);
+      for (int w = 0; w < live_wg; ++w)
+        for (int nb = 0; nb < NB; ++nb) {
+          const int off = w * TILE + nb * wg::BOX * wg::BOX;
+          wg::tma_load_4d(Qs + off, &tq, qbar, nb * 64, q0 + w * WQ, h, b);
+          wg::tma_load_4d(Gs + off, &tg, qbar, nb * 64, q0 + w * WQ, h, b);
+        }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % DQ_STAGES;
+        wg::bar_wait(empty + st, ((it / DQ_STAGES) & 1) ^ 1);
+        wg::bar_expect(full + st, 2 * NB * wg::BOX_BYTES);
+        const int k0 = k_begin + it * WK;
+        for (int nb = 0; nb < NB; ++nb) {
+          const int off = st * TILE + nb * wg::BOX * wg::BOX;
+          wg::tma_load_4d(Ks + off, &tk, full + st, nb * 64, k0, hk, b);
+          wg::tma_load_4d(Vs + off, &tv, full + st, nb * 64, k0, hk, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warp wq of warpgroup wgi holds rows 16 wq + gid (+ 8) of
+    // the warpgroup's 64
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+    const int wgi = warp / 4, wq = warp % 4;
+    const int gid = lane >> 2, tig = lane & 3;
+    const int qw0 = q0 + wgi * WQ;
+    const bf16* Qw = Qs + wgi * TILE;
+    const bf16* Gw = Gs + wgi * TILE;
+    const float scale_log2 = p.scale * LOG2E;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = qw0 + 16 * wq + gid + 8 * r;
+      const long long at = ((long long)b * p.S + q) * p.H + h;
+      lse2[r] = q < p.S ? p.lse[at] * LOG2E : 0.f;
+      dl[r] = q < p.S ? p.delta[at] : 0.f;
+    }
+    float dq[NB][32], s[32], dp[32];
+    uint32_t da[4][4] = {};  // dS as the A operand of dQ += dS K: 4 k-steps
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      s[i] = dp[i] = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) dq[nb][i] = 0.f;
+    }
+    wg::bar_wait(qbar, 0);
+
+    int pending = -1;  // the K/V stage that the dQ product in flight reads
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % DQ_STAGES;
+      const int k0 = k_begin + it * WK;
+      wg::bar_wait(full + st, (it / DQ_STAGES) & 1);
+      // a tile none of this warpgroup's rows reaches: release it unread
+      const bool live = qw0 < p.S && (!p.causal || (k0 <= qw0 + WQ - 1 &&
+                                                    (!p.window || k0 + WK - 1 > qw0 - p.window)));
+      if (!live) {
+        if (pending >= 0) {
+          wg::wait<0>();
+          wg::bar_arrive(empty + pending);
+          pending = -1;
+        }
+        wg::bar_arrive(empty + st);
+        continue;
+      }
+      const bf16* Kt = Ks + st * TILE;
+      const bf16* Vt = Vs + st * TILE;
+
+      wg::fence_operand(s);
+      wg::fence_operand(dp);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        wg::wgmma_ss(s, wg::kmajor_desc(Qw, kk), wg::kmajor_desc(Kt, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        wg::wgmma_ss(dp, wg::kmajor_desc(Gw, kk), wg::kmajor_desc(Vt, kk), kk > 0);
+      wg::commit();
+      // the previous tile's dQ product has retired: its stage is free
+      wg::wait<1>();
+      wg::fence_operand(da);
+      if (pending >= 0) wg::bar_arrive(empty + pending);
+      pending = st;
+      wg::wait<0>();
+      wg::fence_operand(s);
+      wg::fence_operand(dp);
+
+      // P = exp2(s * scale log2 e - lse log2 e), masked; dS = P (dP -
+      // delta) scale.  Masks only on a tile that crosses an edge: the
+      // sequence end, the diagonal, or the window's far edge.
+      const bool edge = k0 + WK > p.S ||
+                        (p.causal && (k0 + WK - 1 > qw0 ||
+                                      (p.window && k0 <= qw0 + WQ - 1 - p.window)));
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        bool ok = true;
+        if (edge) {
+          const int q = qw0 + 16 * wq + gid + 8 * r;
+          const int kc = k0 + 8 * (i >> 2) + 2 * tig + (i & 1);
+          ok = kc < p.S;
+          if (p.causal) {
+            ok = ok && kc <= q;
+            if (p.window) ok = ok && kc > q - p.window;
+          }
+        }
+        const float pe = ok ? exp2f(fmaf(s[i], scale_log2, -lse2[r])) : 0.f;
+        dp[i] = pe * (dp[i] - dl[r]) * p.scale;
+      }
+      // dS rounded to bf16 (the TPU's MXU-operand cast): n-tiles 2 kk and
+      // 2 kk + 1 of the accumulator are k-step kk's A fragment
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        da[kk][0] = tc::pack_bf16(dp[8 * kk + 0], dp[8 * kk + 1]);
+        da[kk][1] = tc::pack_bf16(dp[8 * kk + 2], dp[8 * kk + 3]);
+        da[kk][2] = tc::pack_bf16(dp[8 * kk + 4], dp[8 * kk + 5]);
+        da[kk][3] = tc::pack_bf16(dp[8 * kk + 6], dp[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) wg::fence_operand(dq[nb]);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          wg::wgmma_rs_t(dq[nb], da[kk], wg::mnmajor_desc(Kt, kk, nb));
+      wg::commit();
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) wg::fence_operand(dq[nb]);
+    }
+    wg::wait<0>();
+    wg::fence_operand(da);
+    if (pending >= 0) wg::bar_arrive(empty + pending);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) wg::fence_operand(dq[nb]);
+
+    // dQ in bf16 through its row layout; rows past S and columns past D
+    // are not written
+    bf16* dqg = static_cast<bf16*>(p.dq);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = qw0 + 16 * wq + gid + 8 * r;
+      if (q >= p.S) continue;
+      const long long at = (((long long)b * p.S + q) * p.H + h) * p.D;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int d = 64 * nb + 8 * j + 2 * tig;
+          if (d < p.D)
+            *reinterpret_cast<__nv_bfloat162*>(dqg + at + d) =
+                __floats2bfloat162_rn(dq[nb][4 * j + 2 * r], dq[nb][4 * j + 2 * r + 1]);
+        }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, a libcuda function, through the runtime's entry
+// point query: the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// A (B, S, heads, D) bf16 tensor with element strides (sb, ss, sh) as a
+// 4-D tensor map (D, S, heads, B), boxes of 64 columns x 64 rows, 128-byte
+// swizzle; out-of-bounds elements (rows past S, columns past D) read as
+// zero.  A dim of extent 1 is never stepped, so its stride may be any
+// value: it gets the packed one, which TMA accepts.  Returns 0, or 1000 +
+// the CUresult of the encoding.
+int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D,
+               long long sb, long long ss, long long sh) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  const long long packed_h = D, packed_s = (long long)heads * D, packed_b = (long long)S * heads * D;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(S > 1 ? ss : packed_s) * 2,
+                                 (cuuint64_t)(heads > 1 ? sh : packed_h) * 2,
+                                 (cuuint64_t)(B > 1 ? sb : packed_b) * 2};
+  const cuuint32_t box[4] = {wg::BOX, wg::BOX, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult rc = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : 1000 + (int)rc;
+}
+
+template <int DT>
+int launch_dq_wg(const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tg;
+  int rc = encode_map(&tq, p.q, p.B, p.S, p.H, p.D, p.qb, p.qs, p.qh);
+  if (!rc) rc = encode_map(&tk, p.k, p.B, p.S, p.Hkv, p.D, p.kb, p.ks, p.kh);
+  if (!rc) rc = encode_map(&tv, p.v, p.B, p.S, p.Hkv, p.D, p.vb, p.vs, p.vh);
+  if (!rc) rc = encode_map(&tg, p.g, p.B, p.S, p.H, p.D, p.gb, p.gs, p.gh);
+  if (rc) return rc;
+  constexpr size_t smem = dq_wg_smem_bytes<DT>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_wg<DT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(p.B * p.H, (p.S + NCW * WQ - 1) / (NCW * WQ));
+  flash_bwd_dq_wg<DT><<<grid, DQ_THREADS, smem, stream>>>(tq, tk, tv, tg, p);
+  return (int)cudaGetLastError();
+}
+
+// DT: the instance's head-dim width, 64 or 128 (one or two boxes a row);
+// D below it reads as zero-filled columns.
+int dispatch_dq_wg(const Params& p, cudaStream_t s) {
+  return p.D <= 64 ? launch_dq_wg<64>(p, s) : launch_dq_wg<128>(p, s);
+}
+
 bool bad_shape(int B, int S, int H, int Hkv, int D) {
   return D < 8 || D > 128 || D % 8 || Hkv < 1 || H % Hkv || S < 1 || B < 1;
 }
@@ -832,5 +1125,5 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const v
                          window, scale);
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_dq<__nv_bfloat16>(p, s) : dispatch_dq<float>(p, s);
+  return is_bf16 ? dispatch_dq_wg(p, s) : dispatch_dq(p, s);
 }

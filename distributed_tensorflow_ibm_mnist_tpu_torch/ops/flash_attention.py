@@ -32,9 +32,9 @@ as the JAX wrapper does.
 On CUDA tensors the wrappers launch the hand-written Hopper kernels in
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (built by ``ops/_build.py``
 at first use) or raise: there is no fallback.  bf16 inputs take the
-tensor-core designs of K3, K4, K5 and K6a (mma.sync on cp.async-fed bf16
-tiles; each bf16 view must be 16-byte aligned); float32 inputs, and K6b in
-both dtypes, take the scalar CUDA-core designs.  On CPU tensors they run the
+tensor-core designs: K3, K4, K5 and K6a as mma.sync on cp.async-fed tiles,
+K6b as wgmma on TMA-fed tiles (each bf16 view must be 16-byte aligned);
+float32 inputs take the scalar CUDA-core designs.  On CPU tensors they run the
 same functions in plain PyTorch (:func:`flash_attention_plain`,
 :func:`flash_attention_bwd_plain`), which the CPU tests hold against the JAX
 kernels.  Launch counters, plain integers counted where a kernel launches:
@@ -174,10 +174,10 @@ def _validate(q, k, v, causal: bool, window: int) -> None:
 
 def _check_last_dim(**tensors) -> None:
     """Every kernel reads rows through their strides: the last dim must be
-    contiguous.  The bf16 kernels also copy 16-byte chunks with cp.async,
-    so each base pointer and each batch/seq/head stride (of a dim longer
-    than 1) must be 16-byte aligned; a misaligned view raises (no copy is
-    made behind its back)."""
+    contiguous.  The bf16 kernels also copy 16-byte chunks with cp.async
+    or TMA, so each base pointer and each batch/seq/head stride (of a dim
+    longer than 1) must be 16-byte aligned; a misaligned view raises (no
+    copy is made behind its back)."""
     for name, t in tensors.items():
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim "
@@ -187,7 +187,8 @@ def _check_last_dim(**tensors) -> None:
                                          zip(t.stride()[:3], t.shape[:3]) if n > 1)):
             raise ValueError(
                 f"{name} must be 16-byte aligned for the bf16 kernels' cp.async "
-                f"copies: data_ptr % 16 = {t.data_ptr() % 16}, strides {t.stride()}")
+                f"and TMA copies: data_ptr % 16 = {t.data_ptr() % 16}, strides "
+                f"{t.stride()}")
 
 
 _PTR, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float

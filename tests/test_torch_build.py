@@ -8,7 +8,11 @@
   ``ops/xent.py``) that matches its declaration parameter by parameter, so
   a C signature cannot change without its caller.
 * The bf16 wrappers refuse a view whose base or strides are not 16-byte
-  aligned (the kernels copy 16-byte chunks with cp.async).
+  aligned (the kernels copy 16-byte chunks with cp.async or TMA).
+* ``chip_smoke.py``'s helpers: the ptxas-log reader, the tensor-core
+  instruction check, the SDPA gradient that is the backward kernels'
+  single-call yardstick (it computes the kernels' function), and the
+  row-by-row error that holds K6b's dQ.
 """
 
 import ctypes
@@ -101,12 +105,17 @@ def test_bf16_views_must_be_16_byte_aligned():
     fa._check_last_dim(v=rows.float()[..., :64])  # float32 takes no cp.async path
 
 
-def test_chip_smoke_reads_registers_and_spills_from_the_ptxas_log():
+@pytest.fixture(scope="module")
+def chip_smoke():
     import sys
 
     sys.path.insert(0, str(_build.CSRC.parents[1]))
     import chip_smoke
 
+    return chip_smoke
+
+
+def test_chip_smoke_reads_registers_and_spills_from_the_ptxas_log(chip_smoke):
     log = """ptxas info    : Compiling entry function '_Z4kernPf' for 'sm_90a'
 ptxas info    : Function properties for _Z4kernPf
     8 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
@@ -121,3 +130,71 @@ ptxas info    : Used 30 registers
         (255, 12, 8), (30, 0, 0)]
     assert [r["kernel"] for r in rows] in (["_Z4kernPf", "_Z5otherv"],
                                            ["kern", "other"])
+
+
+def test_tensor_core_check_passes_hgmma_for_a_wgmma_design(chip_smoke):
+    sass = {"flash_fwd": {"HMMA": 224, "HGMMA": 0}, "flash_bwd": {"HMMA": 1568, "HGMMA": 36}}
+    chip_smoke.check_tensor_cores(sass, chip_smoke.TC_DESIGNS)
+    chip_smoke.check_tensor_cores({"flash_bwd": {"HMMA": 0, "HGMMA": 36}},
+                                  {"flash_bwd": ("wgmma",)})
+
+
+def test_tensor_core_check_fails_an_hmma_only_library_said_to_use_wgmma(chip_smoke):
+    assert "wgmma" in chip_smoke.TC_DESIGNS["flash_bwd"]
+    sass = {"flash_fwd": {"HMMA": 224, "HGMMA": 0}, "flash_bwd": {"HMMA": 1568, "HGMMA": 0}}
+    with pytest.raises(AssertionError, match="flash_bwd: its wgmma design compiled to no HGMMA"):
+        chip_smoke.check_tensor_cores(sass, chip_smoke.TC_DESIGNS)
+
+
+@pytest.mark.parametrize("wrt", ["q", "kv"])
+def test_sdpa_yardstick_computes_the_kernels_function(chip_smoke, wrt):
+    """The yardstick timed beside K6b (wrt q) and K6a (wrt k, v) returns
+    what those kernels compute: the plain backward's dQ, or its dK and dV."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(2, 24, 3, 16)).astype(np.float32))
+                  for _ in range(4))
+    out, lse = fa.flash_attention_plain(q, k, v, causal=True)
+    delta = (g * out).sum(-1)
+    dq, dk, dv = fa.flash_attention_bwd_plain(q, k, v, g, lse, delta, causal=True)
+    got = chip_smoke.sdpa_grad(q, k, v, g, wrt)()
+    want = (dq,) if wrt == "q" else (dk, dv)
+    assert len(got) == len(want)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
+
+
+def _causal_dq_rows(n=32768, d=64):
+    """Rows shaped like a long causal dQ: row i's scale falls as
+    1/sqrt(i + 1), and row 0 is zero."""
+    import numpy as np
+
+    rows = np.random.default_rng(3).normal(size=(n, d)) / np.sqrt(np.arange(1, n + 1))[:, None]
+    rows[0] = 0.0
+    return torch.from_numpy(rows.astype(np.float32))
+
+
+def test_row_error_catches_a_wrong_late_quarter_the_largest_magnitude_misses(chip_smoke):
+    """A dQ whose last quarter is zero passes the check against the largest
+    magnitude (early rows dominate it) but not the row-by-row one."""
+    ref = _causal_dq_rows()
+    got = ref.clone()
+    got[3 * len(got) // 4:] = 0.0
+    tol = chip_smoke.BWD_TOL["torch.bfloat16"]
+    assert (got - ref).abs().max() / ref.abs().max() <= tol
+    assert chip_smoke.row_rel_err(got, ref) >= 0.99
+    assert chip_smoke.row_rel_err(got, ref) > chip_smoke.ROW_TOL["torch.bfloat16"]
+
+
+def test_row_error_passes_bf16_rounding_and_a_zero_row(chip_smoke):
+    """Rounding each element to bf16 stays well inside the row tolerance,
+    and a zero reference row (causal row 0) is measured against the floor
+    instead of dividing by zero."""
+    ref = _causal_dq_rows()
+    got = ref.to(torch.bfloat16)
+    got[0] = 1e-6
+    err = chip_smoke.row_rel_err(got, ref)
+    assert err < 4e-3
+    assert err < chip_smoke.ROW_TOL["torch.bfloat16"]

@@ -214,7 +214,9 @@ def test_flash_block_fwd_is_the_forward_without_a_gradient():
     (16384, 64, torch.bfloat16, "grouped"),
     (1000, 128, torch.float32, "fused"),
     (13 * 512, 128, torch.float32, "split"),  # a prime tile count: no grouping
-], ids=["lm8k", "lm8k-d128", "s16k", "s1000", "prime-tiles"])
+    (32768, 128, torch.bfloat16, "split"),   # the head_dim-128 LM at 32k
+    (65536, 64, torch.bfloat16, "split"),
+], ids=["lm8k", "lm8k-d128", "s16k", "s1000", "prime-tiles", "s32k-d128", "s64k-d64"])
 def test_route_follows_the_jax_rule_at_real_shapes(s, d, dtype, route):
     """The shapes the JAX package routes at its own defaults: its own rule,
     evaluated without a kernel, against the port's."""
