@@ -18,9 +18,11 @@ never JAX or the JAX package.  Phases, one JSON line each:
    log;
 2. kernels — the flash-attention forward (K3) against its plain PyTorch
    version on the card, at the serving path's shapes and the edge cases
-   (head_dim 32, 40 and 128 among them), with the stated tolerances; at
-   the path's shapes the kernel, the plain version and one PyTorch
-   library call are timed with CUDA events;
+   (head_dim 32, 40 and 128 among them; non-causal at the ViT's ragged
+   lengths 49 and 196, at 1000, and batch 2 on q/k/v views of one
+   (B, S, 3, H, D) tensor, these also row by row), with the stated
+   tolerances; at the path's shapes the kernel, the plain version and one
+   PyTorch library call are timed with CUDA events;
 3. serving — the full-width flash-prefill LM (causal_lm, vocab 256, dim
    512, depth 4, 8 heads, bf16, seeded random weights) serves 16 requests
    through ``InferenceEngine``; every request must finish with its whole
@@ -45,7 +47,9 @@ never JAX or the JAX package.  Phases, one JSON line each:
    group's q rows; K6a (dkv) and K6b (dq) at the same shape; then each
    entry at the edge cases (S=1000 and 1030, GQA with H_kv=2, window 128,
    non-causal, float32, D=128, D=40, D=32, and batch 2 with q, k, v views
-   of one (B, S, 3, H, D) tensor); then the public ``flash_attention_bwd``
+   of one (B, S, 3, H, D) tensor; non-causal at S=49, 196 and 1000 and
+   packed at (2, 196, 8, 64), every output row by row); then the public
+   ``flash_attention_bwd``
    on each route (forced by its routing constants) at (1, 8192, 4, 128)
    and under GQA at (1, 2048, 8, 64) with H_kv=2, so the wrapper's own
    sums of grouped partials and per-kv-head dK/dV are held too.
@@ -77,10 +81,31 @@ never JAX or the JAX package.  Phases, one JSON line each:
    one (B, S, 3, H, D) tensor as the model gives them, against the fused
    walk's (also row by row), and K6b timed there; the step time,
    tokens/s and one profiled step with K6b's share of device time;
-12. the ``kernels`` line: per kernel, its design, its launches on its
+12. vit kernels — K3 and K4 at the ViT's attention shape (512, 196, 8,
+   64) bf16 non-causal on packed q/k/v views: against the plain versions
+   entry by entry and row by row, then timed beside their bounds, the
+   plain versions and SDPA (non-causal);
+13. resnet20 and resnet50 — ``Trainer.fit()`` on the presets
+   ``fashion_resnet20_dp32`` and ``cifar_resnet50_dp32`` in single-chip
+   form (dp=1; ResNet-50 with ``grad_accum=4``; batch 4096, momentum 0.9,
+   lr 0.4, warmup-cosine, weight decay 1e-4, synthetic 60k/10k and
+   50k/10k) to the preset's 0.90 target: the best test accuracy must reach
+   it, the loss stay finite and every BatchNorm's running statistics be
+   finite and moved from (0, 1); then ``measure_throughput(epochs=1)``
+   (which must leave them as they were) and one profiled step;
+14. vit — ``Trainer.fit()`` on the repo's compute-bound ViT (dim 512,
+   depth 8, 8 heads, patch 2 on MNIST: 196 tokens, batch 512, Adam 1e-3,
+   ``attn="flash"``, ``fused_xent=True``; 8192/1024 images, one epoch): K3
+   must launch depth x (steps + eval batches) times, K4 depth x steps and
+   no other backward kernel, K1 and K2 once a step, the loss stay finite;
+   its throughput, one profiled step, and flash against vanilla attention
+   on the trained weights at batch 8 (logits within 2e-2 of the largest,
+   gradients within 3e-2);
+15. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
-   K1/K2), largest error, times and bound;
-13. the last line: ``{"ok": true, "device": {...}}``.
+   K1/K2; the ViT run's for K1-K4 beside them), largest error, times and
+   bound;
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; the launches made to compare or time a kernel are not counted.
@@ -269,9 +294,13 @@ def phase_kernels(torch, fa) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
 
-    def qkv(s, h=8, hkv=8, d=64, dtype=bf16):
-        mk = lambda heads: torch.randn((1, s, heads, d), generator=gen,  # noqa: E731
-                                       device="cuda").to(dtype)
+    def qkv(s, h=8, hkv=8, d=64, dtype=bf16, b=1, packed=False):
+        """q, k, v from ``gen``; ``packed``: views of one (B, S, 3, H, D)
+        tensor, as the blocks' qkv projection gives them."""
+        mk = lambda *heads: torch.randn((b, s, *heads, d), generator=gen,  # noqa: E731
+                                        device="cuda").to(dtype)
+        if packed:
+            return mk(3, h).unbind(2)
         return mk(h), mk(hkv), mk(hkv)
 
     cases = [dict(s=s) for s in SLICE_SEQS] + [
@@ -284,28 +313,41 @@ def phase_kernels(torch, fa) -> dict:
         dict(s=512, d=40),            # a multiple of 8, not of 16: zero-padded
         dict(s=512, d=32),
         dict(s=1000, d=40, dtype=f32),
+        # non-causal at the ViT's ragged lengths (196 and 49 tokens: no tile
+        # multiple, and 49 is below one 64-row tile), where every real row
+        # sees the padded key columns unless the sequence-end mask holds;
+        # also held row by row
+        dict(s=196, causal=False), dict(s=196, d=32, causal=False),
+        dict(s=49, causal=False), dict(s=49, d=32, causal=False),
+        dict(s=1000, causal=False),
+        dict(b=2, s=196, causal=False, packed=True),  # the ViT's qkv views
     ]
     max_err = 0.0
     for c in cases:
         s, causal, window = c["s"], c.get("causal", True), c.get("window", 0)
-        dtype = c.get("dtype", bf16)
-        q, k, v = qkv(s, hkv=c.get("hkv", 8), d=c.get("d", 64), dtype=dtype)
+        dtype, b = c.get("dtype", bf16), c.get("b", 1)
+        q, k, v = qkv(s, hkv=c.get("hkv", 8), d=c.get("d", 64), dtype=dtype, b=b,
+                      packed=c.get("packed", False))
         out, lse = fa.flash_attention_fwd(q, k, v, causal, window)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_plain(q, k, v, causal, window)
         err = (out.float() - ref_out.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
+        row_err = row_rel_err(out, ref_out)
         # bf16: P enters PV rounded to bf16 (as on the TPU) while the plain
         # version keeps it f32, and both outputs round to bf16
         tol = 1e-4 if dtype == f32 else 2e-2
         rec = {"phase": "kernel_check", "kernel": "flash_fwd",
-               "shape": [1, s, 8, c.get("d", 64)], "heads_kv": c.get("hkv", 8),
+               "shape": [b, s, 8, c.get("d", 64)], "heads_kv": c.get("hkv", 8),
                "causal": causal, "window": window, "dtype": str(dtype),
+               "packed_qkv": c.get("packed", False),
                "max_abs_err": err, "lse_err": lse_err, "tol": tol,
-               "lse_tol": 1e-3}
+               "lse_tol": 1e-3, "row_rel_err": row_err,
+               "row_rel_tol": None if causal else ROW_TOL[str(dtype)]}
         emit(rec)
         check(bool(torch.isfinite(out.float()).all()), f"non-finite output {rec}")
         check(err <= tol and lse_err <= 1e-3, f"kernel disagrees: {rec}")
+        check(causal or row_err <= ROW_TOL[str(dtype)], f"kernel disagrees row by row: {rec}")
         max_err = max(max_err, err)
 
     timed = []
@@ -401,7 +443,8 @@ def phase_serving(torch, fa, xent, port) -> dict:
 
 
 XENT_SHAPE = (128, 10)   # the training path's: batch 128, 10 classes
-XENT_TIMED = ((128, 10), (2048, 10))
+VIT_XENT_SHAPE = (512, 10)  # the ViT step's: batch 512, float32 logits
+XENT_TIMED = (XENT_SHAPE, VIT_XENT_SHAPE, (2048, 10))  # LeNet's, the ViT's, and larger
 
 
 def xent_cost(n: int, c: int, itemsize: int, backward: bool) -> tuple[float, float]:
@@ -415,7 +458,8 @@ def xent_cost(n: int, c: int, itemsize: int, backward: bool) -> tuple[float, flo
 
 
 def phase_xent_kernels(torch, xent) -> dict:
-    """K1 and K2 against their plain twins, then timed."""
+    """K1 and K2 against their plain twins (at the LeNet's and the ViT's
+    shapes among others), then timed."""
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -429,13 +473,15 @@ def phase_xent_kernels(torch, xent) -> dict:
         return x, y
 
     extreme = torch.tensor([[1e4, -1e4, 0.0, 5.0]] * 8, device="cuda")
-    cases = [dict(shape=XENT_SHAPE), dict(shape=(37, 10)), dict(shape=(100, 257)),
+    cases = [dict(shape=XENT_SHAPE), dict(shape=VIT_XENT_SHAPE, what="vit"),
+             dict(shape=(37, 10)), dict(shape=(100, 257)),
              dict(shape=(8, 128)), dict(shape=XENT_SHAPE, dtype=bf16),
              dict(shape=(8, 4), x=extreme,
                   y=torch.zeros(8, dtype=torch.int32, device="cuda"), what="extreme"),
              dict(shape=(4, 10), what="label out of range",
                   y=torch.tensor([-1, 10, 300, 3], dtype=torch.int32, device="cuda"))]
     errs = {"xent_fwd": 0.0, "xent_bwd": 0.0}
+    vit_errs = {}
     for case in cases:
         n, c = case["shape"]
         dtype = case.get("dtype", f32)
@@ -464,6 +510,8 @@ def phase_xent_kernels(torch, xent) -> dict:
               f"xent kernel disagrees: {rec}")
         errs["xent_fwd"] = max(errs["xent_fwd"], err_f)
         errs["xent_bwd"] = max(errs["xent_bwd"], err_b)
+        if case.get("what") == "vit":
+            vit_errs = {"xent_fwd": err_f, "xent_bwd": err_b}
 
     timed = {"xent_fwd": [], "xent_bwd": []}
     for n, c in XENT_TIMED:
@@ -494,7 +542,7 @@ def phase_xent_kernels(torch, xent) -> dict:
                    **bound(flops, nbytes, H100_F32_FLOPS)}
             emit(rec)
             timed[name].append(rec)
-    return {"max_abs_err": errs, "timed": timed}
+    return {"max_abs_err": errs, "vit_err": vit_errs, "timed": timed}
 
 
 def phase_training(torch, fa, xent, port) -> dict:
@@ -652,7 +700,8 @@ def compare(name, got: dict, ref: dict, dtype, extra: dict,
 def check_bwd_entries(torch, fa, gen, b, s, h, hkv, d, dtype, causal, window, which,
                       n_groups=4, packed=False):
     """Run the named entries at one shape against the plain backward; K6b's
-    dQ also row by row.  Returns {entry: (abs_err, rel_err, row_rel_err)}."""
+    dQ, and every output of a non-causal case, also row by row.  Returns
+    {entry: (abs_err, rel_err, row_rel_err)}."""
     args = bwd_inputs(torch, fa, gen, b, s, h, hkv, d, dtype, causal, window, packed)
     q = args[0]
     ref = dict(zip(("dq", "dk", "dv"),
@@ -686,7 +735,8 @@ def check_bwd_entries(torch, fa, gen, b, s, h, hkv, d, dtype, causal, window, wh
             got = {"dq": fa._launch_dq(*args, causal, window)}
         torch.cuda.synchronize()
         check("dq" not in got or got["dq"].dtype == q.dtype, f"{entry}: dq dtype")
-        out[entry] = compare(entry, got, ref, dtype, extra, by_row=entry == "flash_bwd_dq")
+        out[entry] = compare(entry, got, ref, dtype, extra,
+                             by_row=entry == "flash_bwd_dq" or not causal)
     return out
 
 
@@ -766,7 +816,13 @@ def phase_flash_bwd_kernels(torch, fa) -> dict:
              dict(b=2, s=1030, d=128, packed=True),  # the model's batch and qkv strides
              dict(s=1000, d=40),                  # a multiple of 8, not of 16
              dict(s=1024, d=32),
-             dict(s=1000, d=40, dtype=f32)]
+             dict(s=1000, d=40, dtype=f32),
+             # non-causal at the ViT's ragged lengths (below one tile at 49),
+             # every output row by row
+             dict(s=196, causal=False), dict(s=196, d=32, causal=False),
+             dict(s=49, causal=False), dict(s=49, d=32, causal=False),
+             dict(s=1000, causal=False),
+             dict(b=2, s=196, causal=False, packed=True)]
     for c in edges:
         fold(check_bwd_entries(torch, fa, gen, c.get("b", 1), c["s"], 8, c.get("hkv", 8),
                                c.get("d", 64), c.get("dtype", bf16), c.get("causal", True),
@@ -778,9 +834,9 @@ def phase_flash_bwd_kernels(torch, fa) -> dict:
     return errs
 
 
-def sdpa_grad(q, k, v, g, wrt: str):
+def sdpa_grad(q, k, v, g, wrt: str, causal: bool = True):
     """One PyTorch call as a backward kernel's yardstick: the gradient of
-    ``F.scaled_dot_product_attention(is_causal=True)`` on (B, S, H, D)
+    ``F.scaled_dot_product_attention(is_causal=causal)`` on (B, S, H, D)
     inputs under the output gradient ``g``, with respect to ``wrt``: "q"
     (K6b's dQ), "kv" (K6a's dK, dV) or "qkv" (K4, K5).  The forward runs
     once here; the returned function runs the backward alone
@@ -791,7 +847,7 @@ def sdpa_grad(q, k, v, g, wrt: str):
 
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(name in wrt)
                   for name, x in zip("qkv", (q, k, v)))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     leaves = [t for name, t in zip("qkv", (qt, kt, vt)) if name in wrt]
     gt = g.transpose(1, 2)
     return lambda: tuple(x.transpose(1, 2) for x in
@@ -1104,7 +1160,264 @@ def phase_lm_split(torch, fa, xent, port) -> dict:
     return {**rec, "s_per_step": s_per_step, "kernels": kernels}
 
 
-def profile_run(torch, run, of: str, focus: dict) -> dict:
+# ---------------------------------------------------------------- image models
+
+# the repo's compute-bound ViT point (docs/PERFORMANCE.md:45, BASELINE.md:54):
+# dim 512, depth 8, patch 2 on 28 px MNIST (196 tokens), batch 512, Adam
+# 1e-3; 8 heads (head_dim 64).  Cut: 8192 training and 1024 test images, one
+# epoch (16 steps, 2 eval batches)
+VIT_DEPTH = 8
+VIT_KW = {"dim": 512, "depth": VIT_DEPTH, "heads": 8, "patch_size": 2, "attn": "flash"}
+VIT_CFG = dict(name="vit_d512_p2", model="vit", model_kwargs=VIT_KW, dataset="mnist",
+               synthetic=True, n_train=8192, n_test=1024, batch_size=512,
+               eval_batch_size=512, epochs=1, optimizer="adam", lr=1e-3,
+               fused_xent=True, quiet=True)
+VIT_ATTN = (512, 196, 8, 64)  # (B, S, H, D) at every block's attention
+# flash against vanilla on the same weights at batch 8: logits relative to
+# the largest |logit|, gradients relative to each parameter's largest (the
+# LM's limit); the two attentions round at different places in bf16
+VIT_GRAD_TOL = {"logits": 2e-2, "grad": 3e-2}
+
+
+def phase_vit_kernels(torch, fa) -> dict:
+    """K3 and K4 at the ViT's attention shape, (512, 196, 8, 64) bf16
+    non-causal on q/k/v views of one (B, S, 3, H, D) tensor as its blocks
+    pass them: against the plain versions entry by entry and row by row,
+    then timed beside their bounds, the plain versions and SDPA.  4096
+    (batch, head) rows of 4 k-tiles each; K4's float32 dQ buffer is made
+    and zeroed per call at this batch."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    bf16 = torch.bfloat16
+    b, s, h, d = VIT_ATTN
+    check(fa.bwd_route(s, d, bf16).name == "fused", "the ViT shape does not take K4")
+    q, k, v, g, lse, delta = args = bwd_inputs(torch, fa, gen, b, s, h, h, d, bf16,
+                                               causal=False, packed=True)
+    out, lse2 = fa.flash_attention_fwd(q, k, v, False)
+    ref_out, ref_lse = fa.flash_attention_plain(q, k, v, False)
+    torch.cuda.synchronize()
+    fwd_err = {"max_abs_err": (out.float() - ref_out.float()).abs().max().item(),
+               "lse_err": (lse2 - ref_lse).abs().max().item(),
+               "row_rel_err": row_rel_err(out, ref_out)}
+    rec = {"phase": "kernel_check", "kernel": "flash_fwd", "shape": list(VIT_ATTN),
+           "causal": False, "packed_qkv": True, "dtype": "torch.bfloat16", **fwd_err,
+           "tol": 2e-2, "lse_tol": 1e-3, "row_rel_tol": ROW_TOL["torch.bfloat16"]}
+    emit(rec)
+    check(bool(out.float().isfinite().all()) and fwd_err["max_abs_err"] <= 2e-2
+          and fwd_err["lse_err"] <= 1e-3
+          and fwd_err["row_rel_err"] <= ROW_TOL["torch.bfloat16"],
+          f"flash_fwd disagrees at the ViT shape: {rec}")
+    del out, lse2, ref_out, ref_lse
+    bwd_err = check_bwd_entries(torch, fa, gen, b, s, h, h, d, bf16, False, 0,
+                                ["flash_bwd_fused"], packed=True)["flash_bwd_fused"]
+
+    pairs = b * h * live_pairs(s, False, 0)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    route = fa.Route("fused", 1, s)
+    # a call takes about as long to enqueue as to run: a 20M-cycle sleep
+    # (~10 ms) keeps the host off the clock
+    fast, slow = dict(sleep=20_000_000), dict(reps=5, inner=2, sleep=0)
+    timed = {}
+    for name, kernel, plain, library, flops, nbytes, call in (
+            ("flash_fwd", lambda: fa.flash_attention_fwd(q, k, v, False),
+             lambda: fa.flash_attention_plain(q, k, v, False),
+             lambda: F.scaled_dot_product_attention(qt, kt, vt),
+             4.0 * d * pairs, attn_bytes(q, k, v, q, lse),
+             "F.scaled_dot_product_attention (non-causal)"),
+            ("flash_bwd_fused", lambda: fa._launch_fused(*args, False, 0, route),
+             lambda: fa.flash_attention_bwd_plain(*args, False),
+             sdpa_grad(q, k, v, g, "qkv", causal=False),
+             5 * 2.0 * d * pairs, attn_bytes(q, k, v, g, lse, delta, q, k, v),
+             "torch.autograd.grad through F.scaled_dot_product_attention (non-causal), "
+             "its backward alone (retain_graph=True), with respect to (q, k, v)")):
+        rec = {"phase": "kernel_time", "kernel": name, "shape": list(VIT_ATTN),
+               "dtype": "bf16", "causal": False, "packed_qkv": True,
+               "ms": gpu_ms(kernel, torch, **fast), "plain_ms": gpu_ms(plain, torch, **slow),
+               "plain_shape": list(VIT_ATTN), "library_ms": gpu_ms(library, torch, **fast),
+               "library_call": call, **bound(flops, nbytes, H100_BF16_FLOPS)}
+        emit(rec)
+        timed[name] = rec
+    del args, q, k, v, g, lse, delta, qt, kt, vt
+    torch.cuda.empty_cache()
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "timed": timed}
+
+
+def bn_buffers(model) -> dict:
+    """Every BatchNorm's running statistics, as the model holds them."""
+    return {name: buf for name, buf in model.named_buffers() if "running_" in name}
+
+
+def phase_resnet(torch, fa, xent, port, preset: str, **replace) -> dict:
+    """A ResNet preset in its single-chip form through Trainer.fit() to the
+    preset's target, then its throughput and one profiled step."""
+    Trainer, get_preset = port
+    cfg = get_preset(preset).replace(dp=1, synthetic=True, quiet=True, **replace)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, xent)
+    summary = trainer.fit()
+    counts = read_counts(fa, xent)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = bn_buffers(trainer.model)
+    means = [v for k, v in stats.items() if k.endswith("running_mean")]
+    variances = [v for k, v in stats.items() if k.endswith("running_var")]
+    losses = [r[k] for r in trainer.history for k in ("train_loss", "test_loss") if k in r]
+    rec = {"phase": "resnet_training", "preset": cfg.name, "model": cfg.model,
+           "replace": {"dp": 1, **replace}, "batch_size": cfg.batch_size,
+           "grad_accum": cfg.grad_accum, "optimizer": cfg.optimizer, "lr": cfg.lr,
+           "schedule": cfg.schedule, "warmup_steps": cfg.warmup_steps,
+           "weight_decay": cfg.weight_decay, "synthetic": trainer.data_synthetic,
+           "n_train": int(trainer.train_images.shape[0]),
+           "n_test": int(trainer.test_images.shape[0]), "setup_s": round(setup_s, 3),
+           "steps": trainer.state.step, "epochs_run": summary["epochs_run"],
+           "best_test_accuracy": summary["best_test_accuracy"],
+           "target_accuracy": cfg.target_accuracy,
+           "time_to_target_s": summary["time_to_target_s"],
+           "total_time_s": summary["total_time_s"],
+           "images_per_sec_per_chip_fit": summary["images_per_sec_per_chip"],
+           "mfu_fit": summary["mfu"], "flops_per_image": trainer._flops_per_image,
+           "param_count": summary["param_count"],
+           "epoch_times_s": [r["epoch_time_s"] for r in trainer.history],
+           "train_loss_last": trainer.history[-1]["train_loss"],
+           "bn_layers": len(means),
+           "bn_running_mean_abs_max": max(m.abs().max().item() for m in means),
+           "bn_running_var_range": [min(v.min().item() for v in variances),
+                                    max(v.max().item() for v in variances)],
+           "peak_mem_gb": round(peak_gb, 3), "launches": counts}
+    emit(rec)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    check(summary["best_test_accuracy"] >= cfg.target_accuracy,
+          f"{cfg.model} reached {summary['best_test_accuracy']}, not {cfg.target_accuracy}")
+    check(all(bool(t.isfinite().all()) for t in stats.values()),
+          "non-finite BatchNorm running statistics")
+    check(all(bool((m != 0).any()) for m in means) and all(bool((v != 1).any())
+                                                             for v in variances),
+          "a BatchNorm's running statistics never moved from (0, 1)")
+
+    before = {k: v.clone() for k, v in stats.items()}
+    tp = trainer.measure_throughput(epochs=1)
+    tp["s_per_step"] = cfg.batch_size / tp["images_per_sec"]
+    emit({"phase": "resnet_throughput", "model": cfg.model, **tp})
+    check(math.isfinite(tp["last_loss"]), f"non-finite throughput loss {tp}")
+    check(all(torch.equal(before[k], v) for k, v in bn_buffers(trainer.model).items()),
+          "measure_throughput moved the BatchNorm statistics")
+
+    def one_step():
+        t = time.perf_counter()
+        trainer._run_epoch(trainer.state, trainer.train_images[:cfg.batch_size],
+                           trainer.train_labels[:cfg.batch_size])["loss"][-1].item()
+        return time.perf_counter() - t
+
+    one_step()  # the allocator settles at this exact shape
+    prof = profile_run(torch, one_step, f"{cfg.model} training step", {}, top_n=12)
+    emit(prof)
+    trainer.close()
+    del trainer, stats, means, variances, before
+    torch.cuda.empty_cache()
+    return {**rec, "throughput": tp, "profile": prof}
+
+
+def phase_vit(torch, fa, xent, port, get_model, steps_mod) -> dict:
+    """The ViT through Trainer.fit() with flash attention (K3, K4) and the
+    fused cross-entropy (K1, K2); then its throughput, one profiled step and
+    flash against vanilla attention on the trained weights."""
+    Trainer, RunConfig = port
+    cfg = RunConfig(**VIT_CFG)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, xent)
+    summary = trainer.fit()
+    counts = read_counts(fa, xent)
+    steps = trainer.state.step
+    eval_batches = -(-cfg.n_test // cfg.eval_batch_size)
+    rec = {"phase": "vit_training", "config": VIT_CFG, "dtype": "bf16",
+           "seq_len": trainer.model.seq_len, "setup_s": round(setup_s, 3),
+           "steps": steps, "eval_batches": eval_batches,
+           "train_loss": trainer.history[0]["train_loss"],
+           "test_loss": trainer.history[0]["test_loss"],
+           "test_accuracy": trainer.history[0]["test_accuracy"],
+           "total_time_s": summary["total_time_s"],
+           "images_per_sec_per_chip_fit": summary["images_per_sec_per_chip"],
+           "mfu_fit": summary["mfu"], "flops_per_image": trainer._flops_per_image,
+           "param_count": summary["param_count"],
+           "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+           "launches": counts}
+    emit(rec)
+    losses = [rec["train_loss"], rec["test_loss"]]
+    check(all(math.isfinite(x) for x in losses), f"non-finite ViT loss: {losses}")
+    check(counts["flash_fwd"] == VIT_DEPTH * (steps + eval_batches),
+          f"K3 launched {counts['flash_fwd']} times, expected depth x (steps + eval "
+          f"batches) = {VIT_DEPTH * (steps + eval_batches)}")
+    check(counts["flash_bwd_fused"] == VIT_DEPTH * steps,
+          f"K4 launched {counts['flash_bwd_fused']} times, expected depth x steps")
+    check(counts["flash_bwd_grouped"] == counts["flash_bwd_dkv"]
+          == counts["flash_bwd_dq"] == 0, f"another backward kernel ran: {counts}")
+    check(counts["xent_fwd"] == counts["xent_bwd"] == steps,
+          f"xent launches {counts} != steps taken {steps}")
+    check((cfg.batch_size, trainer.num_classes) == VIT_XENT_SHAPE,
+          f"the ViT step's logits are not the checked K1/K2 shape {VIT_XENT_SHAPE}")
+
+    tp = trainer.measure_throughput(epochs=1)
+    tp["s_per_step"] = cfg.batch_size / tp["images_per_sec"]
+    emit({"phase": "vit_throughput", **tp})
+    check(math.isfinite(tp["last_loss"]), f"non-finite throughput loss {tp}")
+
+    def one_step():
+        t = time.perf_counter()
+        trainer._run_epoch(trainer.state, trainer.train_images[:cfg.batch_size],
+                           trainer.train_labels[:cfg.batch_size])["loss"][-1].item()
+        return time.perf_counter() - t
+
+    prof = profile_run(torch, one_step, "vit training step",
+                       {"flash_fwd_device_s": "flash_fwd",
+                        "flash_bwd_device_s": "flash_bwd"}, top_n=12)
+    if prof["device_busy_s"]:
+        prof["flash_share_of_device"] = round(
+            (prof["flash_fwd_device_s"] + prof["flash_bwd_device_s"])
+            / prof["device_busy_s"], 4)
+    emit(prof)
+
+    # the trained weights under plain attention, at batch 8
+    flash = trainer.model
+    vanilla = get_model("vit", num_classes=10, device="cuda",
+                        **{**VIT_KW, "attn": "vanilla"})
+    vanilla.load_state_dict(flash.state_dict())
+    batch = {"image": trainer.train_images[:8], "label": trainer.train_labels[:8]}
+    out = {}
+    for name, model in (("flash", flash), ("vanilla", vanilla)):
+        loss, logits = steps_mod.make_loss_fn(model)(batch, train=True)
+        params = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(params.values()))
+        out[name] = (logits.detach().float(), dict(zip(params, grads)))
+    torch.cuda.synchronize()
+    ref = out["vanilla"][0]
+    logit_rel = ((out["flash"][0] - ref).abs().max() / ref.abs().max()).item()
+    grad_rel = {key: ((out["flash"][1][key].float() - gv.float()).abs().max()
+                      / gv.float().abs().max().clamp_min(1e-30)).item()
+                for key, gv in out["vanilla"][1].items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    grad_rec = {"phase": "vit_grad_check", "batch": 8, "logit_rel_err": logit_rel,
+                "grad_rel_err_max": grad_rel[worst], "grad_rel_err_worst_param": worst,
+                "grad_rel_err_median": statistics.median(grad_rel.values()),
+                "params": len(grad_rel), "tol": VIT_GRAD_TOL}
+    emit(grad_rec)
+    check(all(math.isfinite(x) for x in grad_rel.values()), f"non-finite gradient {grad_rec}")
+    check(logit_rel <= VIT_GRAD_TOL["logits"], f"flash vs vanilla logits: {grad_rec}")
+    check(grad_rel[worst] <= VIT_GRAD_TOL["grad"], f"flash vs vanilla gradients: {grad_rec}")
+    trainer.close()
+    del trainer, flash, vanilla, out
+    torch.cuda.empty_cache()
+    return {**rec, "throughput": tp, "profile": prof, "grad_check": grad_rec}
+
+
+def profile_run(torch, run, of: str, focus: dict, top_n: int = 8) -> dict:
     """One more run under torch.profiler: device time by kernel and the
     device's busy share of the wall time (the profiler's own overhead
     inflates the wall, so the share is a lower bound).  ``run`` returns its
@@ -1130,7 +1443,7 @@ def profile_run(torch, run, of: str, focus: dict) -> dict:
 
     def top(rows):
         return [{"name": key[:80], "ms": round(us / 1e3, 4), "count": n}
-                for us, key, n in rows[:8]]
+                for us, key, n in rows[:top_n]]
 
     return {"phase": "profile", "of": of, "wall_s": round(wall, 4),
             "kernel_launches": sum(n for _, _, n in kernels),
@@ -1191,6 +1504,10 @@ def main() -> int:
     phase_lm_grad_check(torch, lm.pop("trainer"), get_model, steps_mod)
     routes = phase_lm_routes(torch, fa, xent, (Trainer, RunConfig))
     split = phase_lm_split(torch, fa, xent, (Trainer, RunConfig))
+    vit_kernels = phase_vit_kernels(torch, fa)
+    phase_resnet(torch, fa, xent, (Trainer, get_preset), "fashion_resnet20_dp32")
+    phase_resnet(torch, fa, xent, (Trainer, get_preset), "cifar_resnet50_dp32", grad_accum=4)
+    vit = phase_vit(torch, fa, xent, (Trainer, RunConfig), get_model, steps_mod)
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -1214,19 +1531,38 @@ def main() -> int:
                 "plain_note": rec["plain_note"], "library_call": rec["library_call"]}
 
     counts = training["launches"]
+    timing_keys = ("shape", "ms", "plain_ms", "plain_shape", "library_ms", "bound_ms",
+                   "bound_by")
+
+    def on_vit(name, errs):
+        """A kernel at the ViT's attention shape; launches on the ViT run."""
+        return {**{k: vit_kernels["timed"][name][k] for k in timing_keys},
+                "causal": False, "launches": vit["launches"][name], **errs}
+
+    def on_vit_xent(name):
+        """K1/K2 at the ViT step's (512, 10): held, timed, launches on the ViT run."""
+        rec = next(r for r in xk["timed"][name] if tuple(r["shape"]) == VIT_XENT_SHAPE)
+        return {**{k: rec[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                       "bound_by")},
+                "launches": vit["launches"][name], "max_abs_err": xk["vit_err"][name]}
+
     k3_entry = entry("flash_fwd", "flash_fwd.cu", "ops/flash_attention.py:208",
                      serving["flash_launches"], k3["max_abs_err"], k3["timed"], "by_seq")
     # K3 at the LM training shape, launches on the LM training run
-    k3_entry["lm_training"] = {**{k: flash_timed["flash_fwd"][k] for k in (
-        "shape", "ms", "plain_ms", "plain_shape", "library_ms", "bound_ms", "bound_by")},
-        "launches": lm["launches"]["flash_fwd"]}
+    k3_entry["lm_training"] = {**{k: flash_timed["flash_fwd"][k] for k in timing_keys},
+                               "launches": lm["launches"]["flash_fwd"]}
+    k3_entry["vit_training"] = on_vit("flash_fwd", vit_kernels["fwd_err"])
+    k4_entry = bwd_entry("flash_bwd_fused", "ops/flash_attention.py:340",
+                         lm["launches"]["flash_bwd_fused"])
+    k4_entry["vit_training"] = on_vit("flash_bwd_fused", dict(zip(
+        ("max_abs_err", "max_rel_err", "max_row_rel_err"), vit_kernels["bwd_err"])))
     print(json.dumps({"kernels": [
         # K3 at S=512, the largest serving bucket; launches on the serving run
         k3_entry,
-        # K4 on the bench_lm8k run, K5 on the head_dim-128 run at S=8192;
-        # K6a and K6b on the split route where the JAX rule takes it (S=32768)
-        bwd_entry("flash_bwd_fused", "ops/flash_attention.py:340",
-                  lm["launches"]["flash_bwd_fused"]),
+        # K4 on the bench_lm8k run (and the ViT's), K5 on the head_dim-128
+        # run at S=8192; K6a and K6b on the split route where the JAX rule
+        # takes it (S=32768)
+        k4_entry,
         bwd_entry("flash_bwd_grouped", "ops/flash_attention.py:399",
                   routes["grouped"]["launches"]["flash_bwd_grouped"]),
         {**bwd_entry("flash_bwd_dkv", "ops/flash_attention.py:304",
@@ -1240,11 +1576,14 @@ def main() -> int:
              "launches": split["launches"]["flash_bwd_dq"],
              "rel_err_vs_fused_dq": split["kernels"]["rel_err"],
              "row_rel_err_vs_fused_dq": split["kernels"]["row_rel_err"]}},
-        # K1/K2 at (128, 10), the training step's; launches on the training run
-        entry("xent_fwd", "xent.cu", "ops/xent.py:40", counts["xent_fwd"],
-              xk["max_abs_err"]["xent_fwd"], xk["timed"]["xent_fwd"], "by_shape"),
-        entry("xent_bwd", "xent.cu", "ops/xent.py:53", counts["xent_bwd"],
-              xk["max_abs_err"]["xent_bwd"], xk["timed"]["xent_bwd"], "by_shape"),
+        # K1/K2 at (128, 10), the LeNet step's; launches on the LeNet run
+        # (and at (512, 10) on the ViT run)
+        {**entry("xent_fwd", "xent.cu", "ops/xent.py:40", counts["xent_fwd"],
+                 xk["max_abs_err"]["xent_fwd"], xk["timed"]["xent_fwd"], "by_shape"),
+         "vit_training": on_vit_xent("xent_fwd")},
+        {**entry("xent_bwd", "xent.cu", "ops/xent.py:53", counts["xent_bwd"],
+                 xk["max_abs_err"]["xent_bwd"], xk["timed"]["xent_bwd"], "by_shape"),
+         "vit_training": on_vit_xent("xent_bwd")},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": dev["count"]}}), flush=True)

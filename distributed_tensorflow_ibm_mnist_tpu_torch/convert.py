@@ -5,7 +5,9 @@
 has already made numpy (``jax.tree.map(np.asarray, params)``) into a
 ``state_dict`` for the port's model; this module never sees JAX.
 ``load_causal_lm`` / ``load_lenet5`` / ``load_mlp`` build the port's model
-and load it.
+and load it.  :func:`resnet_state_dict` also takes the flax
+``batch_stats`` tree (``load_resnet``), and :func:`vit_state_dict` maps
+the ViT (``load_vit``).
 
 The mapping, per leaf:
 
@@ -20,8 +22,14 @@ The mapping, per leaf:
   its kernel is only transposed, never row-permuted.
 * ``LayerNorm`` ``scale``/``bias`` -> ``weight``/``bias``.
 * ``Embed`` ``embedding`` -> ``embed.weight``; a tied head reads it too.
+* ``BatchNorm`` ``scale``/``bias`` -> ``weight``/``bias``, and its
+  ``batch_stats`` ``mean``/``var`` -> the ``running_mean``/``running_var``
+  buffers.
+* The ViT's ``pos_embed`` is kept as it is; its ``block_{i}`` map as the
+  causal LM's blocks do.
 
-The conversion is strict: every leaf of the tree is consumed, no expected
+Leaves come out float32 (float64 leaves stay float64).  The conversion
+is strict: every leaf of the tree is consumed, no expected
 leaf may be missing, and every shape must match the configuration; any
 breach raises ``ValueError`` naming the leaf's path.
 """
@@ -33,10 +41,13 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.causal_lm import CausalLM
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import LeNet5
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.mlp import MLP
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.resnet import ARCHS, BatchNorm, ResNet
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import VisionTransformer
 
 _KEEP, _TRANSPOSE, _HWIO = "keep", "transpose", "hwio"  # leaf layout changes
 
@@ -56,34 +67,80 @@ def _dense(out: Expected, path: tuple[str, ...], key: str, fan_in: int, fan_out:
     out[path + ("bias",)] = (f"{key}.bias", (fan_out,), _KEEP)
 
 
-def _expected_leaves(cfg: Mapping) -> Expected:
-    """CausalLM: flax leaf path -> (state_dict key, flax shape, layout change)."""
-    c = _full_cfg(CausalLM, cfg)
-    vocab, dim, heads = c["num_classes"], c["dim"], c["heads"]
+def _norm(out: Expected, path: tuple[str, ...], key: str, n: int):
+    out[path + ("scale",)] = (f"{key}.weight", (n,), _KEEP)
+    out[path + ("bias",)] = (f"{key}.bias", (n,), _KEEP)
+
+
+def _blocks(out: Expected, c: Mapping) -> None:
+    """The pre-norm blocks ``block_{i}`` -> ``blocks.{i}`` (CausalLM, ViT)."""
+    dim, heads = c["dim"], c["heads"]
     hkv = c["heads_kv"] or heads
     hd = dim // heads
-    out: Expected = {("embed", "embedding"): ("embed.weight", (vocab, dim), _KEEP)}
-
-    def norm(path, key):
-        out[path + ("scale",)] = (f"{key}.weight", (dim,), _KEEP)
-        out[path + ("bias",)] = (f"{key}.bias", (dim,), _KEEP)
-
     for i in range(c["depth"]):
         p, k = (f"block_{i}",), f"blocks.{i}"
-        norm(p + ("norm_attn",), f"{k}.norm_attn")
+        _norm(out, p + ("norm_attn",), f"{k}.norm_attn", dim)
         if hkv == heads:
             _dense(out, p + ("qkv",), f"{k}.qkv", dim, 3 * dim)
         else:
             _dense(out, p + ("q_proj",), f"{k}.q_proj", dim, dim)
             _dense(out, p + ("kv_proj",), f"{k}.kv_proj", dim, 2 * hkv * hd)
         _dense(out, p + ("proj",), f"{k}.proj", dim, dim)
-        norm(p + ("norm_mlp",), f"{k}.norm_mlp")
+        _norm(out, p + ("norm_mlp",), f"{k}.norm_mlp", dim)
         _dense(out, p + ("dense_0",), f"{k}.dense_0", dim, c["mlp_ratio"] * dim)
         _dense(out, p + ("dense_1",), f"{k}.dense_1", c["mlp_ratio"] * dim, dim)
-    norm(("norm_out",), "norm_out")
+
+
+def _expected_leaves(cfg: Mapping) -> Expected:
+    """CausalLM: flax leaf path -> (state_dict key, flax shape, layout change)."""
+    c = _full_cfg(CausalLM, cfg)
+    vocab, dim = c["num_classes"], c["dim"]
+    out: Expected = {("embed", "embedding"): ("embed.weight", (vocab, dim), _KEEP)}
+    _blocks(out, c)
+    _norm(out, ("norm_out",), "norm_out", dim)
     if not c["tie_embeddings"]:
         _dense(out, ("logits",), "logits", dim, vocab)
     return out
+
+
+def _vit_leaves(cfg: Mapping) -> Expected:
+    c = _full_cfg(VisionTransformer, cfg)
+    p, dim = c["patch_size"], c["dim"]
+    h, w = c["image_size"]
+    out: Expected = {
+        ("patch_embed", "kernel"): ("patch_embed.weight", (p, p, c["in_channels"], dim),
+                                    _HWIO),
+        ("patch_embed", "bias"): ("patch_embed.bias", (dim,), _KEEP),
+        ("pos_embed",): ("pos_embed", (1, (h // p) * (w // p), dim), _KEEP),
+    }
+    _blocks(out, c)
+    _norm(out, ("norm_out",), "norm_out", dim)
+    _dense(out, ("logits",), "logits", dim, c["num_classes"])
+    return out
+
+
+def _resnet_leaves(cfg: Mapping) -> tuple[Expected, Expected]:
+    """ResNet: the ``params`` and the ``batch_stats`` leaf tables, read off
+    the port's own model built on the meta device (shapes only): its
+    module names are the flax paths, so the architecture lives in
+    models/resnet.py alone, and the flax trees stay the independent side."""
+    arch = {k: v for k, v in cfg.items() if k not in ("device", "generator")}
+    model = ResNet(**arch, device="meta")
+    params: Expected = {}
+    stats: Expected = {}
+    for name, m in model.named_modules():
+        path = tuple(name.split("."))
+        if isinstance(m, nn.Conv2d):
+            o, i, kh, kw = m.weight.shape
+            params[path + ("kernel",)] = (f"{name}.weight", (kh, kw, i, o), _HWIO)
+        elif isinstance(m, nn.Linear):
+            _dense(params, path, name, m.in_features, m.out_features)
+        elif isinstance(m, BatchNorm):
+            n = m.weight.shape[0]
+            _norm(params, path, name, n)
+            stats[path + ("mean",)] = (f"{name}.running_mean", (n,), _KEEP)
+            stats[path + ("var",)] = (f"{name}.running_var", (n,), _KEEP)
+    return params, stats
 
 
 def _leaves(tree: Mapping, prefix: tuple[str, ...] = ()):
@@ -125,7 +182,8 @@ def _convert(params: Mapping, expected: Expected) -> dict[str, torch.Tensor]:
         if path not in expected:
             raise ValueError(f"unexpected leaf {name!r} for this configuration")
         key, shape, layout = expected[path]
-        arr = np.asarray(leaf, np.float32)
+        arr = np.asarray(leaf)
+        arr = arr.astype(np.float64 if arr.dtype == np.float64 else np.float32)
         if arr.shape != shape:
             raise ValueError(
                 f"leaf {name!r} has shape {arr.shape}, expected {shape}")
@@ -161,6 +219,48 @@ def mlp_state_dict(params: Mapping, cfg: Mapping) -> dict[str, torch.Tensor]:
     """flax MLP ``params`` (numpy leaves) -> the port's ``state_dict``;
     ``cfg`` holds ``hidden``, ``num_classes`` and ``in_features``."""
     return _convert(params, _mlp_leaves(cfg))
+
+
+def resnet_state_dict(params: Mapping, batch_stats: Mapping,
+                      cfg: Mapping) -> dict[str, torch.Tensor]:
+    """flax ResNet ``params`` and ``batch_stats`` (numpy leaves) -> the
+    port's ``state_dict``, the BatchNorm buffers included; strict over both
+    trees (a path in an error names its tree).  ``cfg`` holds ``ResNet``'s
+    keywords (``stage_sizes``, ``block``, ``width``, ``low_res``,
+    ``num_classes``, ``in_channels``; ``ARCHS`` has the registry's)."""
+    expected_params, expected_stats = _resnet_leaves(cfg)
+    expected = {("params", *p): v for p, v in expected_params.items()}
+    expected.update({("batch_stats", *p): v for p, v in expected_stats.items()})
+    return _convert({"params": params, "batch_stats": batch_stats}, expected)
+
+
+def vit_state_dict(params: Mapping, cfg: Mapping) -> dict[str, torch.Tensor]:
+    """flax VisionTransformer ``params`` (numpy leaves) -> the port's
+    ``state_dict``; ``cfg`` holds the model's keywords (``patch_size``,
+    ``dim``, ``depth``, ``heads``, ``heads_kv``, ``mlp_ratio``,
+    ``num_classes``, ``image_size``, ``in_channels``; defaults as
+    VisionTransformer's)."""
+    return _convert(params, _vit_leaves(cfg))
+
+
+def load_resnet(params_np: Mapping, batch_stats_np: Mapping, arch: str,
+                device=None, **model_kw) -> ResNet:
+    """The port's ResNet on ``device`` (the GPU unless ``device="cpu"``)
+    holding the JAX parameters and batch statistics (numpy leaves).
+    ``arch`` names a registry architecture (``"resnet20"``, ``"resnet50"``)
+    whose ``ResNet`` keywords ``model_kw`` extends or overrides."""
+    kw = {**ARCHS[arch], **model_kw}
+    model = ResNet(device=device, **kw)
+    model.load_state_dict(resnet_state_dict(params_np, batch_stats_np, kw), strict=True)
+    return model.eval()
+
+
+def load_vit(params_np: Mapping, device=None, **model_kw) -> VisionTransformer:
+    """The port's VisionTransformer on ``device`` holding the JAX
+    parameters ``params_np`` (numpy leaves)."""
+    model = VisionTransformer(device=device, **model_kw)
+    model.load_state_dict(vit_state_dict(params_np, model_kw), strict=True)
+    return model.eval()
 
 
 def load_causal_lm(params_np: Mapping, device=None, **model_kw) -> CausalLM:

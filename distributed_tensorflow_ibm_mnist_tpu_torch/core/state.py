@@ -3,7 +3,8 @@
 The JAX package threads one immutable pytree (step, params, batch_stats,
 opt_state, rng) through its compiled step.  PyTorch runs eagerly and
 updates in place, so here the state is a small mutable record: the step
-count, the model (its parameters), the optimizer (its count and moments)
+count, the model (its parameters, and its buffers: the BatchNorm running
+statistics, JAX's ``batch_stats``), the optimizer (its count and moments)
 and the explicit random generators (the model's own generator, which its
 dropout draws from, and the generator of the epoch permutations).
 ``snapshot`` / ``restore`` copy all of it on the device, for a caller that
@@ -46,10 +47,11 @@ class TrainState:
 
     @torch.no_grad()
     def snapshot(self) -> dict:
-        """Device copies of the parameters and optimizer state, with the
-        step and every generator's state."""
+        """Device copies of the parameters, the model's buffers and the
+        optimizer state, with the step and every generator's state."""
         return {"step": self.step,
                 "params": [p.clone() for p in self.params],
+                "buffers": [b.clone() for b in self.model.buffers()],
                 "optimizer": self.optimizer.state(),
                 "generators": [g.get_state() for g in self.generators]}
 
@@ -58,6 +60,8 @@ class TrainState:
         self.step = snap["step"]
         for p, saved in zip(self.params, snap["params"]):
             p.copy_(saved)
+        for b, saved in zip(self.model.buffers(), snap["buffers"]):
+            b.copy_(saved)
         self.optimizer.load_state(snap["optimizer"])
         for g, s in zip(self.generators, snap["generators"]):
             g.set_state(s)

@@ -2,10 +2,11 @@
 
 The counterpart of the JAX package's ``core/trainer.py`` for the paths
 ported so far: one device, the dataset resident on it (uint8 images, or
-int32 token sequences), LeNet-5 or the MLP on images and the causal LM on
-``dataset="retrieval"``, any optimizer/schedule of ``core/optim.py``, the
-loss routed as ``core/steps.py`` routes it (``fused_xent=True`` runs the
-K1/K2 CUDA kernels).  The causal LM's ``attn="flash"`` trains through the
+int32 token sequences), LeNet-5, the MLP, ResNet-20, ResNet-50 and the
+ViT on images and the causal LM on ``dataset="retrieval"``, any
+optimizer/schedule of ``core/optim.py``, the loss routed as
+``core/steps.py`` routes it (``fused_xent=True`` runs the K1/K2 CUDA
+kernels).  ``attn="flash"`` (the causal LM, the ViT) trains through the
 flash kernels (K3 forward, K4/K5/K6 backward).  Semantics follow the JAX
 Trainer:
 
@@ -17,13 +18,17 @@ Trainer:
   and ``summary`` records under the JAX key names.
 * ``measure_throughput(epochs)`` (``:1207-1278``): one warm-up epoch off
   the clock, then ``epochs`` epochs with one readback at the end; the
-  state (parameters, optimizer, step, generators) is snapshotted first and
-  restored after.
+  state (parameters, BatchNorm statistics, optimizer, step, generators)
+  is snapshotted first and restored after.
 * The epoch's data order is a pure function of ``(seed, epoch)``, as JAX's
   ``fold_in(data_rng, epoch)`` makes it.
 * The attention's causal flag is derived as JAX derives it
-  (``trainer.py:305-348``): ``model_kwargs["causal"]``, else
-  ``config.causal``, else the family's default (True for causal_lm).
+  (``trainer.py:305-381``): ``model_kwargs["causal"]``, else
+  ``config.causal``, else the family's default (True for causal_lm).  A
+  family without a causal knob of its own (the ViT) gets a causal
+  ``attn_fn`` (flash or vanilla, by its ``attn``) when the flag is set.
+* The image models take their input size from the data: ResNets their
+  ``in_channels``, the ViT its ``image_size`` and ``in_channels``.
 * Token data adds ``tokens_per_sec_per_chip`` to the ``summary`` and
   throughput records.
 
@@ -39,11 +44,15 @@ Refused with ``NotImplementedError`` naming the ROADMAP.md item that will
 port them: dp/tp/sp/pp > 1, ``fsdp``, ``sharded_update``, ``dcn_dp`` > 1,
 ``input_mode="stream"``, ``remat``, ``checkpoint_dir``/``resume``,
 ``profile_dir``, the chaos, tracer and telemetry hooks, and the causal
-LM's dropout, MoE blocks and ``pos="learned"``.
+LM's dropout, MoE blocks and ``pos="learned"``.  The models' constructors
+refuse the rest of what they cannot build yet the same way (the ViT's
+dropout, MoE blocks and pipeline stages, cross-replica BatchNorm's
+``axis_name``, ``block_remat``).
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
 import math
 import time
@@ -59,7 +68,13 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.core.steps import (
     make_eval_fn,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.data import load_dataset
-from distributed_tensorflow_ibm_mnist_tpu_torch.models import CausalLM, get_model
+from distributed_tensorflow_ibm_mnist_tpu_torch.models import (
+    CausalLM,
+    VisionTransformer,
+    get_model,
+    model_accepts,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import _resolve_attn
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.debug import (
     TrainingDiverged,
@@ -70,11 +85,11 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import mfu as _mfu
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import model_flops_per_image
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.metrics import MetricWriter
 
-TRAINABLE = ("lenet5", "mlp", "causal_lm")
+TRAINABLE = ("lenet5", "mlp", "resnet20", "resnet50", "vit", "causal_lm")
 _DP = "'Data-parallel training across GPUs with NCCL'"
 _PARALLEL = "'Remaining parallelism and utilities'"
 _FOLLOW_UPS = "'Training follow-ups'"
-_LM_FOLLOW_UPS = "'Causal-LM training follow-ups'"
+_LM_FOLLOW_UPS = "'Causal-LM and ViT training follow-ups'"
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -109,8 +124,6 @@ def _refuse_unported(config: RunConfig, hooks: dict[str, Any]) -> None:
     if config.profile_dir:
         raise _later("profile_dir", _FOLLOW_UPS)
     if config.model not in TRAINABLE:
-        if config.model in ("resnet20", "resnet50", "vit"):
-            raise _later(f"training {config.model!r}", _FOLLOW_UPS)
         raise ValueError(
             f"unknown model {config.model!r}; the port trains: {list(TRAINABLE)}")
     if config.model == "causal_lm":
@@ -155,6 +168,8 @@ class Trainer:
         tokens = data["train_images"].ndim == 2  # (N, S) token sequences
         if config.model == "lenet5" and image_shape != (28, 28, 1):
             raise ValueError(f"lenet5 takes (28, 28, 1) images, not {image_shape}")
+        if not tokens and len(image_shape) != 3:
+            raise ValueError(f"{config.model} takes (H, W, C) images, not {image_shape}")
 
         n_train = data["train_images"].shape[0]
         self.steps_per_epoch = n_train // config.batch_size
@@ -167,6 +182,10 @@ class Trainer:
         in_features = int(np.prod(image_shape))
         if config.model == "mlp":
             model_kwargs.setdefault("in_features", in_features)
+        if config.model in ("resnet20", "resnet50", "vit"):  # sized by the data
+            model_kwargs.setdefault("in_channels", image_shape[2])
+        if config.model == "vit":
+            model_kwargs.setdefault("image_size", image_shape[:2])
         # the attention's causal flag: model_kwargs, then config, then the
         # family's default; a family with its own causal knob receives it
         family_causal = config.model == "causal_lm"
@@ -175,6 +194,12 @@ class Trainer:
                            else family_causal)
         if family_causal and config.causal is not None:
             model_kwargs.setdefault("causal", self.causal)
+        elif (self.causal and model_accepts(config.model, "attn_fn")
+              and not model_accepts(config.model, "causal")):
+            # causal attention for a family with no causal knob of its own
+            # (the ViT): the masked kernel by the model's attn
+            model_kwargs.setdefault("attn_fn", functools.partial(
+                _resolve_attn(None, model_kwargs.get("attn", "vanilla")), causal=True))
         self._data_seed = _seed_words(config.seed, 1)
         self.model = get_model(
             config.model, num_classes=self.num_classes, device=self.device,
@@ -190,13 +215,15 @@ class Trainer:
             grad_accum=config.grad_accum)
         self._eval = make_eval_fn(self.model, config.eval_batch_size)
         flops_kw = model_kwargs
-        if config.model == "causal_lm":  # the architecture, defaults filled in
+        family = {"causal_lm": CausalLM, "vit": VisionTransformer}.get(config.model)
+        if family is not None:  # the architecture, defaults filled in
             flops_kw = {name: par.default for name, par
-                        in inspect.signature(CausalLM).parameters.items()}
+                        in inspect.signature(family).parameters.items()}
             flops_kw.update(model_kwargs)
         self._flops_per_image = model_flops_per_image(
             config.model, flops_kw, self.num_classes, in_features,
-            seq_len=self._hot_seq_len(data), causal=self.causal)
+            seq_len=self._hot_seq_len(data), causal=self.causal,
+            image_shape=image_shape)
 
         def put(key, dtype):
             return torch.from_numpy(np.ascontiguousarray(data[key])).to(
@@ -216,13 +243,15 @@ class Trainer:
         """Devices the run occupies: the images/sec/chip denominator."""
         return 1
 
-    @staticmethod
-    def _hot_seq_len(data: dict) -> int | None:
+    def _hot_seq_len(self, data: dict) -> int | None:
         """Sequence length the attention sees on the training path: the
-        token length of rank-2 (LM) data; None for images (the port has no
-        patchifying model yet)."""
+        token length of rank-2 (LM) data, the patch-grid size of images
+        through a patchifying model (the ViT's ``seq_len``); None
+        otherwise."""
         shape = data["train_images"].shape
-        return int(shape[1]) if len(shape) == 2 else None
+        if len(shape) == 2:
+            return int(shape[1])
+        return getattr(self.model, "seq_len", None)
 
     def _tokens_per_sec(self, sequences_per_sec: float) -> float | None:
         """sequences/sec -> tokens/sec for token data; None for images."""

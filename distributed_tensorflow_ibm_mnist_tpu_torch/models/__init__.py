@@ -1,8 +1,8 @@
 """Model zoo of the port: ``get_model(name, **kw)`` builds by registry name.
 
-Ported so far: the causal-LM family (serving and training), LeNet-5 and
-the MLP (training), under the JAX package's registry names.  ResNet and
-ViT come with later slices.
+Ported: the causal-LM family (serving and training), LeNet-5, the MLP,
+ResNet-20, ResNet-50 and the ViT (training), under the JAX package's
+registry names.
 """
 
 from __future__ import annotations
@@ -10,10 +10,15 @@ from __future__ import annotations
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.causal_lm import CausalLM
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import LeNet5
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.mlp import MLP
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.resnet import ResNet, ResNet20, ResNet50
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import VisionTransformer
 
 _REGISTRY = {
     "mlp": MLP,
     "lenet5": LeNet5,
+    "resnet20": ResNet20,
+    "resnet50": ResNet50,
+    "vit": VisionTransformer,
     "causal_lm": CausalLM,
 }
 
@@ -28,4 +33,17 @@ def get_model(name: str, **kwargs):
     return cls(**kwargs)
 
 
-__all__ = ["CausalLM", "LeNet5", "MLP", "get_model"]
+def model_accepts(name: str, param: str) -> bool:
+    """Whether a registry builder takes the keyword ``param`` (the JAX
+    package's ``model_accepts``)."""
+    import inspect
+
+    try:
+        builder = _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown model {name!r}; available: {sorted(_REGISTRY)}") from None
+    return param in inspect.signature(builder).parameters
+
+
+__all__ = ["CausalLM", "LeNet5", "MLP", "ResNet", "ResNet20", "ResNet50",
+           "VisionTransformer", "get_model", "model_accepts"]

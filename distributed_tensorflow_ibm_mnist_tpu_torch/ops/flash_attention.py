@@ -34,7 +34,9 @@ On CUDA tensors the wrappers launch the hand-written Hopper kernels in
 at first use) or raise: there is no fallback.  bf16 inputs take the
 tensor-core designs: K3, K4, K5 and K6a as mma.sync on cp.async-fed tiles,
 K6b as wgmma on TMA-fed tiles (each bf16 view must be 16-byte aligned);
-float32 inputs take the scalar CUDA-core designs.  On CPU tensors they run the
+float32 inputs take the scalar CUDA-core designs.  The kernels take a
+head_dim that is a multiple of 8 in [8, 128] and raise for any other
+(:func:`check_kernel_head_dim`).  On CPU tensors they run the
 same functions in plain PyTorch (:func:`flash_attention_plain`,
 :func:`flash_attention_bwd_plain`), which the CPU tests hold against the JAX
 kernels.  Launch counters, plain integers counted where a kernel launches:
@@ -163,13 +165,24 @@ def _validate(q, k, v, causal: bool, window: int) -> None:
         raise TypeError(
             f"flash attention takes one dtype of {_DTYPES}, got "
             f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"head_dim must be a multiple of 8 in [8, 128], got {d}")
     if not (q.device == k.device == v.device):
         raise ValueError(
             f"q, k, v must share a device, got {q.device}/{k.device}/{v.device}")
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+
+
+def check_kernel_head_dim(d: int) -> None:
+    """Raise ``ValueError`` for a head_dim that no CUDA kernel instance
+    covers: one that is not a multiple of 8, or is above 128.  The plain
+    versions take any head_dim, as JAX's flash does (it pads only the
+    sequence); every CUDA launcher calls this first, so it runs without a
+    GPU too."""
+    if d % 8 or not 8 <= d <= 128:
+        raise ValueError(
+            f"the CUDA flash kernels take a head_dim that is a multiple of 8 "
+            f"in [8, 128], got {d}; only CPU tensors (the plain versions) take "
+            f"any head_dim")
 
 
 def _check_last_dim(**tensors) -> None:
@@ -213,6 +226,7 @@ def _kernel():
 
 
 def _launch(q, k, v, causal: bool, window: int):
+    check_kernel_head_dim(q.shape[3])
     _check_last_dim(q=q, k=k, v=v)
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -308,6 +322,7 @@ def _bwd_args(q, k, v, g, lse, delta, causal: bool, window: int) -> tuple:
     """The leading arguments every ``flash_bwd`` entry shares: the six
     input pointers, then (after the outputs) the shape, the 12 strides, the
     masks, and the scale and dtype flag."""
+    check_kernel_head_dim(q.shape[3])
     _check_last_dim(q=q, k=k, v=v, g=g)
     b, s, h, d = q.shape
     ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),

@@ -166,6 +166,22 @@ def test_sdpa_yardstick_computes_the_kernels_function(chip_smoke, wrt):
         torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
 
 
+def test_non_causal_sdpa_yardstick_computes_k4s_function(chip_smoke):
+    """The yardstick timed beside K4 at the ViT's shape (non-causal, with
+    respect to q, k and v) returns the plain non-causal backward."""
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(2, 49, 3, 16)).astype(np.float32))
+                  for _ in range(4))
+    out, lse = fa.flash_attention_plain(q, k, v)
+    want = fa.flash_attention_bwd_plain(q, k, v, g, lse, (g * out).sum(-1))
+    got = chip_smoke.sdpa_grad(q, k, v, g, "qkv", causal=False)()
+    assert len(got) == 3
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=0)
+
+
 def _causal_dq_rows(n=32768, d=64):
     """Rows shaped like a long causal dQ: row i's scale falls as
     1/sqrt(i + 1), and row 0 is zero."""

@@ -40,6 +40,10 @@ CASES = [
     (37, 32, 4, 4, True, 3),
     (37, 64, 4, 2, True, 0),
     (13, 64, 4, 2, False, 0),
+    # head_dims no CUDA kernel instance covers: the plain versions take them,
+    # as JAX's flash does (test_cuda_launchers_refuse_uncovered_head_dims)
+    (13, 12, 4, 4, True, 0),
+    (13, 136, 4, 2, False, 0),
 ]
 IDS = [f"s{s}-d{d}-h{h}kv{hkv}-{'causal' if c else 'full'}-w{w}"
        for s, d, h, hkv, c, w in CASES]
@@ -99,11 +103,9 @@ def test_bf16_cpu_path_keeps_dtype():
 
 @pytest.mark.parametrize("bad, err", [
     (dict(window=3, causal=False), ValueError),   # window needs causal
-    (dict(d=12), ValueError),                      # head_dim % 8
-    (dict(d=136), ValueError),                     # head_dim > 128
     (dict(hkv=3), ValueError),                     # H % H_kv
     (dict(dtype=torch.float16), TypeError),
-], ids=["window-not-causal", "d12", "d136", "hkv3", "fp16"])
+], ids=["window-not-causal", "hkv3", "fp16"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
     d, hkv = bad.get("d", 32), bad.get("hkv", 4)
     q = torch.zeros(1, 8, 4, d, dtype=bad.get("dtype", torch.float32))
@@ -111,6 +113,25 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, err):
     with pytest.raises(err):
         fa.flash_attention_fwd(q, k, k.clone(), bad.get("causal", True),
                                bad.get("window", 0))
+
+
+@pytest.mark.parametrize("d", [12, 136])
+def test_cuda_launchers_refuse_uncovered_head_dims(d):
+    """A head_dim that is not a multiple of 8, or is above 128, has no CUDA
+    kernel instance: every launcher checks it first, by name, so the check
+    runs here without a GPU (the CPU path above takes these head_dims)."""
+    q = torch.zeros(1, 8, 4, d)
+    stats = torch.zeros(1, 8, 4)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.check_kernel_head_dim(d)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._launch(q, q, q, True, 0)
+    for launch in (lambda *a: fa._launch_fused(*a, fa.Route("fused", 1, 8)),
+                   fa._launch_dkv, fa._launch_dq):
+        with pytest.raises(ValueError, match="head_dim"):
+            launch(q, q, q, q, stats, stats, True, 0)
+    for ok in (8, 40, 64, 128):
+        fa.check_kernel_head_dim(ok)
 
 
 def test_wrapper_refuses_inputs_that_need_a_gradient():

@@ -35,6 +35,9 @@ CASES = {
     "s37-gqa": (37, 16, 4, 2, True, 0),
     "s37-window5": (37, 16, 4, 4, True, 5),
     "s37-gqa-full": (37, 16, 4, 2, False, 0),
+    # head_dims no CUDA kernel instance covers: the plain backward takes them
+    "s13-d12": (13, 12, 4, 4, True, 0),
+    "s13-d136-gqa-full": (13, 136, 4, 2, False, 0),
 }
 # the grouped and split routes, each at three cases
 FORCED = ["s37-gqa", "s37-window5", "s37-gqa-full"]

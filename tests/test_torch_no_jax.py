@@ -17,7 +17,12 @@ import sys
 import pytest
 import torch
 
-from distributed_tensorflow_ibm_mnist_tpu_torch.convert import load_causal_lm, load_lenet5
+from distributed_tensorflow_ibm_mnist_tpu_torch.convert import (
+    load_causal_lm,
+    load_lenet5,
+    load_resnet,
+    load_vit,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
@@ -55,6 +60,7 @@ def test_importing_every_module_loads_no_jax():
     loaded = res.stdout.split()
     assert PORT.name + ".serving.engine" in loaded  # the walk reached the leaves
     assert PORT.name + ".core.trainer" in loaded and PORT.name + ".launch.cli" in loaded
+    assert PORT.name + ".models.resnet" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -81,11 +87,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         get_model("causal_lm", num_classes=16, dim=32, depth=1, heads=2)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         load_causal_lm({}, num_classes=16, dim=32, depth=1, heads=2)
-    for name in ("lenet5", "mlp"):
+    for name in ("lenet5", "mlp", "resnet20", "resnet50", "vit"):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             get_model(name)
-    with pytest.raises(RuntimeError, match="no CUDA GPU"):
-        load_lenet5({})
+    for load in (load_lenet5, load_vit, lambda p: load_resnet(p, {}, "resnet20")):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            load({})
     model = get_model("causal_lm", num_classes=16, dim=32, depth=1, heads=2,
                       device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):

@@ -297,9 +297,11 @@ REFUSED = {
     "dcn_dp": dict(dcn_dp=2), "stream": dict(input_mode="stream"),
     "remat": dict(remat=True), "remat_blocks": dict(remat="blocks"),
     "checkpoint_dir": dict(checkpoint_dir="ckpt"), "resume": dict(resume=True),
-    "profile_dir": dict(profile_dir="prof"), "resnet20": dict(model="resnet20"),
-    "vit": dict(model="vit"),
-    # the causal LM trains now; what it still refuses, under the old ids
+    "profile_dir": dict(profile_dir="prof"),
+    # the image models and the causal LM train now; what they still refuse,
+    # under the old ids
+    "resnet20": dict(model="resnet20", model_kwargs={"axis_name": "data"}),
+    "vit": dict(model="vit", model_kwargs={"moe_every": 2}),
     "causal_lm": dict(model="causal_lm", dataset="retrieval",
                       model_kwargs={"dropout": 0.1}),
     "retrieval": dict(model="causal_lm", dataset="retrieval",
