@@ -31,8 +31,10 @@ never JAX or the JAX package.  Phases, one JSON line each:
    with the same weights under plain attention; then the same run once
    more under ``torch.profiler`` (device time by kernel, busy share);
 4. xent kernels — the softmax cross-entropy forward (K1) and backward (K2)
-   against their plain versions at the training path's shape and the edge
-   cases, then timed at (128, 10) and (2048, 10) beside their bound and a
+   against their plain versions at the shapes of every path that launches
+   them (LeNet's (128, 10), the ViT's (512, 10), the dp runs' per-rank
+   (1024, 10), (512, 10) and (128, 10): ``DP_XENT_SHAPES``) and the edge
+   cases, then timed at those and (2048, 10) beside their bound and a
    PyTorch library call;
 5. training — ``Trainer.fit()`` on the ``mnist_lenet_1chip`` preset with
    ``fused_xent=True`` (LeNet-5 at full width, batch 128, synthetic MNIST
@@ -101,11 +103,40 @@ never JAX or the JAX package.  Phases, one JSON line each:
    its throughput, one profiled step, and flash against vanilla attention
    on the trained weights at batch 8 (logits within 2e-2 of the largest,
    gradients within 3e-2);
-15. the ``kernels`` line: per kernel, its design, its launches on its
+15. dp — data-parallel training through ``torch.distributed``, one
+   ``dp`` line per sub-phase.  The card is one H100 and NCCL refuses two
+   ranks on one GPU, so: ``dp1_nccl`` runs ``mnist_cnn_dp8`` at dp=1
+   (``fused_xent``) as one rank of a world-size-1 NCCL group (the
+   Trainer with a mesh: the bucketed gradient all-reduce every step)
+   against the plain Trainer: the first epoch's losses must be bit-equal,
+   K1 == K2 == steps, both reach 0.99; the difference of their steady
+   step times is the wrapper's cost; ``dp2_gloo`` runs it at dp=2 as two
+   gloo ranks sharing the card over 20 fixed global batches (dropout
+   off), replicated, ZeRO-1 and a float32 twin, against dp=1 on the same
+   batches: per-step loss within 2e-3, the whole update within 0.1 of
+   dp=1's; the float32 twin also tensor by tensor, its first-step
+   gradient (``DP_GRAD_REL``) and final parameters (``PARAM_REL_F32``);
+   the twin again under each planted fault (``DP_FAULTS``: the smallest
+   bucket left un-reduced, a sum for the mean), which must fail both of
+   those; ZeRO-1 bit-equal to the replicated update, both ranks equal,
+   K1 == K2 == 20 a rank;
+   ``dp8_gloo_fit`` trains the preset as written (dp 8, global batch
+   1024) as 8 gloo ranks on the one card to 0.99; ``resnet20_dp2_gloo``
+   takes two global batches of 4096 of ``fashion_resnet20_dp32`` at dp=2
+   with cross-replica BatchNorm (bf16 and a float32 twin) against dp=1:
+   running statistics bit-equal on both ranks, loss and statistics
+   within 2e-2, the float32 parameters within 2e-2 of each tensor's
+   largest entry; before it, the BatchNorm backward's CUDA kernels
+   against their plain formulas at ResNet-20's per-rank activations
+   (``BN_BWD_TOL``), and after it the float64 gradient on 8 rows a rank
+   against dp=1's (``BN_GRAD_REL``), which must fail with the backward's
+   cross-rank sum planted away.  Each line also carries the host time of
+   one step's collectives on the model's buckets (``collectives``);
+16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
-   K1/K2; the ViT run's for K1-K4 beside them), largest error, times and
-   bound;
-16. the last line: ``{"ok": true, "device": {...}}``.
+   K1/K2; the ViT run's for K1-K4 and the ``dp`` runs' for K1/K2 beside
+   them), largest error, times and bound;
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; the launches made to compare or time a kernel are not counted.
@@ -444,7 +475,11 @@ def phase_serving(torch, fa, xent, port) -> dict:
 
 XENT_SHAPE = (128, 10)   # the training path's: batch 128, 10 classes
 VIT_XENT_SHAPE = (512, 10)  # the ViT step's: batch 512, float32 logits
-XENT_TIMED = (XENT_SHAPE, VIT_XENT_SHAPE, (2048, 10))  # LeNet's, the ViT's, and larger
+# mnist_cnn_dp8's per-rank logits: its global batch 1024 over dp=1, 2 and 8
+# (dp1_nccl, dp2_gloo, dp8_gloo_fit); dp 2 and 8 land on the shapes above
+DP_XENT_SHAPES = {1: (1024, 10), 2: VIT_XENT_SHAPE, 8: XENT_SHAPE}
+# LeNet's, the ViT's, dp1_nccl's, and larger
+XENT_TIMED = (XENT_SHAPE, VIT_XENT_SHAPE, DP_XENT_SHAPES[1], (2048, 10))
 
 
 def xent_cost(n: int, c: int, itemsize: int, backward: bool) -> tuple[float, float]:
@@ -458,8 +493,9 @@ def xent_cost(n: int, c: int, itemsize: int, backward: bool) -> tuple[float, flo
 
 
 def phase_xent_kernels(torch, xent) -> dict:
-    """K1 and K2 against their plain twins (at the LeNet's and the ViT's
-    shapes among others), then timed."""
+    """K1 and K2 against their plain twins (at the shapes of every path
+    that launches them: LeNet's, the ViT's and the data-parallel runs'
+    per-rank logits, among others), then timed."""
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -474,6 +510,7 @@ def phase_xent_kernels(torch, xent) -> dict:
 
     extreme = torch.tensor([[1e4, -1e4, 0.0, 5.0]] * 8, device="cuda")
     cases = [dict(shape=XENT_SHAPE), dict(shape=VIT_XENT_SHAPE, what="vit"),
+             dict(shape=DP_XENT_SHAPES[1], what="dp1"),
              dict(shape=(37, 10)), dict(shape=(100, 257)),
              dict(shape=(8, 128)), dict(shape=XENT_SHAPE, dtype=bf16),
              dict(shape=(8, 4), x=extreme,
@@ -481,7 +518,7 @@ def phase_xent_kernels(torch, xent) -> dict:
              dict(shape=(4, 10), what="label out of range",
                   y=torch.tensor([-1, 10, 300, 3], dtype=torch.int32, device="cuda"))]
     errs = {"xent_fwd": 0.0, "xent_bwd": 0.0}
-    vit_errs = {}
+    at_shape = {}  # a path's shape: its K1/K2 errors
     for case in cases:
         n, c = case["shape"]
         dtype = case.get("dtype", f32)
@@ -510,8 +547,9 @@ def phase_xent_kernels(torch, xent) -> dict:
               f"xent kernel disagrees: {rec}")
         errs["xent_fwd"] = max(errs["xent_fwd"], err_f)
         errs["xent_bwd"] = max(errs["xent_bwd"], err_b)
-        if case.get("what") == "vit":
-            vit_errs = {"xent_fwd": err_f, "xent_bwd": err_b}
+        if dtype == f32:
+            e = at_shape.setdefault((n, c), {"xent_fwd": 0.0, "xent_bwd": 0.0})
+            e["xent_fwd"], e["xent_bwd"] = max(e["xent_fwd"], err_f), max(e["xent_bwd"], err_b)
 
     timed = {"xent_fwd": [], "xent_bwd": []}
     for n, c in XENT_TIMED:
@@ -542,7 +580,7 @@ def phase_xent_kernels(torch, xent) -> dict:
                    **bound(flops, nbytes, H100_F32_FLOPS)}
             emit(rec)
             timed[name].append(rec)
-    return {"max_abs_err": errs, "vit_err": vit_errs, "timed": timed}
+    return {"max_abs_err": errs, "at_shape": at_shape, "timed": timed}
 
 
 def phase_training(torch, fa, xent, port) -> dict:
@@ -1453,6 +1491,690 @@ def profile_run(torch, run, of: str, focus: dict, top_n: int = 8) -> dict:
             "top_kernels": top(kernels), "top_ops": top(ops)}
 
 
+# ---------------------------------------------------------------- data parallel
+
+DP_PRESET = "mnist_cnn_dp8"  # the source paper's job: LeNet, global batch 1024, dp 8
+DP_STEPS = 20  # dp2_gloo: fixed global batches
+DP_LOSS_RTOL = 2e-3  # bf16 LeNet: per-step loss, dp=2 against dp=1
+BN_REL = 2e-2  # ResNet-20 steps: tests/test_torch_resnet.py's BF16_REL
+ZERO1_REL = 1e-7  # ZeRO-1 against the replicated update, where not bit-equal
+# The whole update (every parameter's move) of a dp=2 run against dp=1's,
+# as an L2 error relative to dp=1's update (rounding: ~2e-2 in bf16, ~5e-3
+# in float32; LeNet, 20 Adam steps).  A coarse gate only: LeNet's largest
+# tensor dominates the norm and Adam's step hardly moves when a gradient
+# is scaled, so both planted faults pass it (0.019-0.024) and the loss
+# gate; the float32 twin's per-tensor gates below are what catch them.
+UPDATE_REL = 0.1
+# The float32 twin, tensor by tensor, relative to each tensor's largest
+# |entry|.  DP_GRAD_REL: the gradient the optimizer is handed on the first
+# step (dp=2's all-reduced mean, dp=1's over the whole batch, from the same
+# weights).  PARAM_REL_F32: the parameters after DP_STEPS steps.  Each
+# limit sits between the clean twin's reading and the planted faults'
+# (DP_FAULTS), which must fail both gates (PERF.md §6, PR 7: clean 4.6e-3
+# and 0.053, the faults 0.72-1.0 and 0.36-0.78).
+DP_GRAD_REL = 5e-2
+PARAM_REL_F32 = 0.15
+
+
+def max_rel(got: dict, ref: dict) -> float:
+    """The largest error of any tensor over that tensor's largest |entry|."""
+    return max(float((got[k].double() - ref[k].double()).abs().max()
+                     / max(float(ref[k].double().abs().max()), 1e-30)) for k in ref)
+
+
+def time_collectives(torch, trainer, reps: int = 20) -> dict:
+    """Host wall ms of one step's gradient collectives on the trainer's own
+    parameter buckets, to a synchronize: the bucketed all-reduce of plain
+    data parallelism, and ZeRO-1's reduce-scatter then all-gather."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
+
+    params = list(trainer.model.parameters())
+    out = {}
+    for name, zero1 in (("all_reduce_ms", False), ("reduce_scatter_all_gather_ms", True)):
+        lay = C.make_bucket_layout(params, trainer.dp if zero1 else 1)
+        buckets = C.flatten_buckets(params, lay)
+
+        def once():
+            if not zero1:
+                C.grouped_all_reduce_mean(buckets)
+                return
+            for shard in C.grouped_reduce_scatter_mean(buckets):
+                C.all_gather(shard)
+
+        once()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            once()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t) / reps * 1e3
+        out["bucket_bytes"] = sum(b.numel() * b.element_size() for b in buckets)
+    return out
+
+
+def first_epoch_losses(trainer) -> list:
+    """Capture the per-step losses of the trainer's next epoch."""
+    caught, run = [], trainer._run_epoch
+
+    def capture(*args, **kw):
+        m = run(*args, **kw)
+        caught.append(m["loss"].detach().cpu())
+        return m
+
+    trainer._run_epoch = capture
+    return caught
+
+
+def dp_config(get_preset, **replace):
+    return get_preset(DP_PRESET).replace(fused_xent=True, synthetic=True, quiet=True,
+                                         **replace)
+
+
+def check_dp_xent_shape(shape: tuple, dp: int) -> None:
+    """K1/K2 on a dp run see (global batch / dp, classes) logits a rank:
+    that must be the shape phase_xent_kernels held them to."""
+    check(tuple(shape) == DP_XENT_SHAPES[dp],
+          f"dp={dp}: K1/K2 run at {tuple(shape)}, not the checked {DP_XENT_SHAPES[dp]}")
+
+
+def phase_dp1_nccl(torch, fa, xent, port, tmp: Path) -> dict:
+    """mnist_cnn_dp8 at dp=1 as one rank of a world-size-1 NCCL group
+    (Trainer with a mesh: the bucketed all-reduce on every step) against
+    the plain in-process Trainer: the first epoch's per-step losses must be
+    bit-equal and K1 == K2 == steps on the mesh run; the difference of
+    their steady step times is what the data-parallel wrapper costs."""
+    Trainer, get_preset, torchrun, make_mesh = port
+    cfg = dp_config(get_preset, dp=1)
+    torchrun.bootstrap("nccl", f"file://{tmp}/nccl", 1, 0, "cuda:0")
+    runs = {}
+    try:
+        mesh = make_mesh(dp=1)
+        for name, kw in (("plain", {}), ("nccl", {"mesh": mesh})):
+            trainer = Trainer(cfg, device="cuda:0", **kw)
+            check_dp_xent_shape((cfg.batch_size // trainer.dp, trainer.num_classes), 1)
+            caught = first_epoch_losses(trainer)
+            reset_counts(fa, xent)
+            summary = trainer.fit()
+            counts = read_counts(fa, xent)
+            tp = trainer.measure_throughput(epochs=2)
+            runs[name] = {"summary": summary, "steps": trainer.state.step,
+                          "launches": {k: counts[k] for k in ("xent_fwd", "xent_bwd")},
+                          "losses": caught[0], "s_per_step": cfg.batch_size / tp[
+                              "images_per_sec"], "images_per_sec_per_chip": tp[
+                              "images_per_sec_per_chip"]}
+            if name == "nccl":
+                runs[name]["collectives"] = time_collectives(torch, trainer)
+            trainer.close()
+    finally:
+        torchrun.shutdown()
+    plain, nccl = runs["plain"], runs["nccl"]
+    rec = {"phase": "dp", "sub": "dp1_nccl", "preset": DP_PRESET, "replace": {"dp": 1},
+           "backend": "nccl", "world_size": 1, "batch_size": cfg.batch_size,
+           "losses_bit_equal": bool(torch.equal(plain["losses"], nccl["losses"])),
+           "first_epoch_steps": int(nccl["losses"].numel()),
+           "launches": nccl["launches"], "steps": nccl["steps"],
+           "collectives": nccl["collectives"],
+           "wrapper_s_per_step": nccl["s_per_step"] - plain["s_per_step"]}
+    for name, run in runs.items():
+        rec[name] = {"time_to_target_s": run["summary"]["time_to_target_s"],
+                     "best_test_accuracy": run["summary"]["best_test_accuracy"],
+                     "epochs_run": run["summary"]["epochs_run"],
+                     "images_per_sec_per_chip_fit": run["summary"]["images_per_sec_per_chip"],
+                     "images_per_sec_per_chip": run["images_per_sec_per_chip"],
+                     "s_per_step": run["s_per_step"]}
+    emit(rec)
+    check(rec["losses_bit_equal"], "dp=1 over NCCL: first-epoch losses differ from the "
+          "plain Trainer's")
+    check(nccl["launches"]["xent_fwd"] == nccl["launches"]["xent_bwd"] == nccl["steps"],
+          f"dp1_nccl: xent launches {nccl['launches']} != steps {nccl['steps']}")
+    for name, run in runs.items():
+        check(run["summary"]["best_test_accuracy"] >= cfg.target_accuracy,
+              f"{name}: {run['summary']['best_test_accuracy']} < {cfg.target_accuracy}")
+    return rec
+
+
+def drive_steps(torch, state, step, images, labels, batch: int, n: int):
+    """``n`` steps of ``step(state, batch)`` on consecutive global batches
+    of ``images``/``labels`` (on the card): the per-step losses and the
+    host seconds a step, to a synchronize."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = [step(state, {"image": images[i * batch:(i + 1) * batch],
+                           "label": labels[i * batch:(i + 1) * batch]})["loss"]
+              for i in range(n)]
+    losses = torch.stack(losses).tolist()  # the fence
+    return losses, (time.perf_counter() - t) / n
+
+
+def float32_twin(torch, name: str, init: dict, cfg, total_steps: int, **model_kw):
+    """The control run of a data-parallel check: model ``name`` computing
+    in float32 from the state dict ``init``, with ``cfg``'s optimizer.
+    float32 rounds 2**16 times finer than bf16, so what still separates
+    dp=2 from dp=1 there is the path's arithmetic, not the dtype."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.optim import make_optimizer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.state import TrainState
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+
+    model = get_model(name, num_classes=10, device="cuda:0", dtype=torch.float32, **model_kw)
+    model.load_state_dict(init)
+    opt = make_optimizer(cfg, total_steps, list(model.parameters()))
+    return model, TrainState(step=0, model=model, optimizer=opt,
+                             data_generator=torch.Generator(device="cuda:0"))
+
+
+def cpu_params(model) -> dict:
+    return {k: v.detach().cpu() for k, v in model.named_parameters()}
+
+
+def no_tf32(torch) -> None:
+    """float32 products in float32 (phase_kernels sets the same for the
+    script's own process)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def capture_grads(model, optimizer) -> dict:
+    """Spy on ``optimizer.step``: the gradients it is handed (after the
+    step's all-reduce), on the host in float64 by parameter name: every
+    tensor's on the first step (``first``), the 1-D tensors' on every step
+    (``steps``)."""
+    names = [n for n, _ in model.named_parameters()]
+    out = {"first": {}, "steps": {n: [] for n, p in model.named_parameters() if p.ndim == 1}}
+    step = optimizer.step
+
+    def spy(grads):
+        keep = out["steps"] if out["first"] else names
+        host = {n: g.detach().double().cpu() for n, g in zip(names, grads, strict=True)
+                if n in keep}
+        if not out["first"]:
+            out["first"] = host
+        for n, seen in out["steps"].items():
+            seen.append(host[n])
+        return step(grads)
+
+    optimizer.step = spy
+    return out
+
+
+def fault_unreduced_bucket(buckets):
+    """Planted fault: the smallest gradient bucket skips its all-reduce, so
+    each rank keeps its own half-batch gradient for those tensors."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
+        grouped_all_reduce_mean,
+    )
+
+    skip = min(range(len(buckets)), key=lambda i: buckets[i].numel())
+    grouped_all_reduce_mean([b for i, b in enumerate(buckets) if i != skip])
+    return buckets
+
+
+def fault_sum_not_mean(buckets):
+    """Planted fault: the gradient buckets summed across ranks, not averaged."""
+    import torch.distributed as dist
+
+    for b in buckets:
+        dist.all_reduce(b)
+    return buckets
+
+
+DP_FAULTS = {"fault_unreduced_bucket": fault_unreduced_bucket,
+             "fault_sum_not_mean": fault_sum_not_mean}
+
+
+def float32_run(torch, make_step, init: dict, cfg, total_steps: int, images, labels,
+                batch: int, fault=None) -> dict:
+    """DP_STEPS steps of LeNet's float32 twin from ``init`` on consecutive
+    global batches, the step from ``make_step(model, optimizer)``, its
+    gradients captured; ``fault`` stands in for the gradient all-reduce
+    (``core.steps.grouped_all_reduce_mean``) for the run."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core import steps as steps_mod
+
+    model, state = float32_twin(torch, "lenet5", init, cfg, total_steps, dropout_rate=0.0)
+    step = make_step(model, state.optimizer)
+    grads = capture_grads(model, state.optimizer)
+    reduce = steps_mod.grouped_all_reduce_mean
+    steps_mod.grouped_all_reduce_mean = fault or reduce
+    try:
+        losses, _ = drive_steps(torch, state, step, images, labels, batch, DP_STEPS)
+    finally:
+        steps_mod.grouped_all_reduce_mean = reduce
+    return {"losses": losses, "params": cpu_params(model), "grads": grads}
+
+
+def dp2_rank(rank: int, images, labels) -> dict:
+    """One rank of dp2_gloo: the fixed global batches through
+    make_dp_train_step, replicated (then its float32 twin, clean and under
+    each planted fault) and ZeRO-1, from the same seed."""
+    import torch
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step,
+    )
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import get_preset
+
+    no_tf32(torch)
+    cfg = dp_config(get_preset, dp=2, n_train=len(labels), n_test=1024,
+                    model_kwargs={"dropout_rate": 0.0})
+    images, labels = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    out = {}
+    for name, sharded in (("replicated", False), ("sharded", True)):
+        trainer = Trainer(cfg.replace(sharded_update=sharded), device="cuda:0")
+        init = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        step = make_dp_train_step(trainer.model, trainer.state.optimizer, trainer.mesh,
+                                  fused_xent=True, sharded_update=trainer._sharded)
+        xent.softmax_xent.fwd_launches = xent.softmax_xent.bwd_launches = 0
+        losses, s_per_step = drive_steps(torch, trainer.state, step, images, labels,
+                                         cfg.batch_size, DP_STEPS)
+        out[name] = {"losses": losses, "s_per_step": s_per_step,
+                     "params": cpu_params(trainer.model),
+                     "launches": [xent.softmax_xent.fwd_launches,
+                                  xent.softmax_xent.bwd_launches]}
+        if sharded:
+            continue
+        out["collectives"] = time_collectives(torch, trainer)
+
+        def make_step(model, optimizer, mesh=trainer.mesh):
+            return make_dp_train_step(model, optimizer, mesh, fused_xent=True)
+
+        for run, fault in (("float32", None), *DP_FAULTS.items()):
+            out[run] = float32_run(torch, make_step, init, cfg,
+                                   trainer.steps_per_epoch * cfg.epochs, images, labels,
+                                   cfg.batch_size, fault)
+    return out
+
+
+def worst_entry(got: dict, ref: dict, init: dict, ref_grads: dict) -> dict:
+    """The parameter entry furthest off the reference's, relative to its
+    tensor's largest |entry|: its error, the reference's move there and,
+    for a 1-D tensor, its gradients over the run: the largest |gradient|
+    the entry saw relative to the largest any entry of the tensor saw, and
+    the run's largest gradient error there relative to the entry's own
+    largest |gradient|."""
+    import torch
+
+    def rel(k):
+        return ((got["params"][k].double() - ref[k].double()).abs().flatten()
+                / max(float(ref[k].double().abs().max()), 1e-30))
+
+    name = max(ref, key=lambda k: float(rel(k).max()))
+    err = rel(name)
+    i = int(err.argmax())
+    top = max(float(ref[name].double().abs().max()), 1e-30)
+    rec = {"tensor": name, "index": i, "rel_err": float(err[i]),
+           "ref_move_rel": abs(float(ref[name].flatten()[i]) - float(
+               init[name].flatten()[i])) / top}
+    if name in ref_grads["steps"]:
+        g_ref = torch.stack(ref_grads["steps"][name])  # (steps, entries)
+        g_got = torch.stack(got["grads"]["steps"][name])
+        peak = max(float(g_ref[:, i].abs().max()), 1e-300)
+        rec["grad_rel_to_tensor"] = peak / float(g_ref.abs().max())
+        rec["grad_err_rel"] = float((g_got[:, i] - g_ref[:, i]).abs().max()) / peak
+    return rec
+
+
+def rel_errs(got: dict, ref: dict, ref_losses: list, init: dict,
+             ref_grads: dict | None = None) -> dict:
+    """A run against its reference: the per-step loss error relative to
+    each step's loss; the parameter error relative to each tensor's largest
+    |entry|; and the error of the whole update (all parameters, minus
+    ``init``) relative to the reference update's L2 norm.  With
+    ``ref_grads`` (capture_grads): the first step's gradient error relative
+    to each tensor's largest |entry|, and the worst parameter entry."""
+    diff = sum(float((got["params"][k].double() - v.double()).square().sum())
+               for k, v in ref.items())
+    step = sum(float((v.double() - init[k].double().cpu()).square().sum())
+               for k, v in ref.items())
+    out = {"loss_max_rel_err": max(abs(a - b) / abs(b)
+                                   for a, b in zip(got["losses"], ref_losses)),
+           "param_max_rel_err": max_rel(got["params"], ref),
+           "update_rel_l2_err": math.sqrt(diff / step)}
+    if ref_grads is not None:
+        first = ref_grads["first"]
+        out["grad_rel_err_by_tensor"] = {k: max_rel({k: got["grads"]["first"][k]}, {k: v})
+                                         for k, v in first.items()}
+        out["grad_max_rel_err"] = max(out["grad_rel_err_by_tensor"].values())
+        out["worst_entry"] = worst_entry(got, ref, {k: v.cpu() for k, v in init.items()},
+                                         ref_grads)
+    return out
+
+
+def split_batch_grads(torch, steps_mod, init: dict, cfg, images, labels) -> dict:
+    """The gradient gate's control: LeNet's float32 twin's gradient on the
+    first global batch as the mean of its two halves' gradients, in this
+    process with no collective, by parameter name on the host."""
+    model, _ = float32_twin(torch, "lenet5", init, cfg, 1, dropout_rate=0.0)
+    loss_fn = steps_mod.make_loss_fn(model, fused_xent=True)
+    half = images.shape[0] // 2
+    grads = [torch.autograd.grad(loss_fn({"image": images[i:i + half],
+                                          "label": labels[i:i + half]})[0],
+                                 list(model.parameters()))
+             for i in (0, half)]
+    return {n: (a.double() + b.double()).cpu() / 2
+            for (n, _), a, b in zip(model.named_parameters(), *grads)}
+
+
+def phase_dp2_gloo(torch, fa, xent, port, steps_mod, tmp: Path) -> dict:
+    """mnist_cnn_dp8 at dp=2: two gloo ranks sharing cuda:0 take 20 fixed
+    global batches (dropout off) through make_dp_train_step, replicated
+    (bf16, and a float32 twin: clean and under each planted fault) and
+    ZeRO-1, against the dp=1 step on the same batches in this process."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
+        make_bucket_layout,
+    )
+
+    Trainer, get_preset, torchrun, _ = port
+    batch = get_preset(DP_PRESET).batch_size
+    n = DP_STEPS * batch
+    ref = Trainer(dp_config(get_preset, dp=1, n_train=n, n_test=1024,
+                            model_kwargs={"dropout_rate": 0.0}), device="cuda:0")
+    check_dp_xent_shape((batch // 2, ref.num_classes), 2)
+    init = {k: v.clone() for k, v in ref.model.state_dict().items()}
+    step = steps_mod.make_train_step(ref.model, ref.state.optimizer, fused_xent=True)
+    ref_bf16 = drive_steps(torch, ref.state, step, ref.train_images, ref.train_labels,
+                           batch, DP_STEPS)[0], cpu_params(ref.model)
+    ref32 = float32_run(torch, lambda m, o: steps_mod.make_train_step(m, o, fused_xent=True),
+                        init, ref.config, ref.steps_per_epoch * ref.config.epochs,
+                        ref.train_images, ref.train_labels, batch)
+    t0 = time.perf_counter()
+    ranks = torchrun.spawn(dp2_rank, 2, "gloo", "cuda:0", tmp / "gloo2",
+                           args=(ref.train_images.cpu().numpy(),
+                                 ref.train_labels.cpu().numpy()), timeout=600)
+    spawn_s = time.perf_counter() - t0
+    rep, sh = ranks[0]["replicated"], ranks[0]["sharded"]
+    bf16 = rel_errs(rep, ref_bf16[1], ref_bf16[0], init)
+
+    def against_ref32(run):
+        return rel_errs(ranks[0][run], ref32["params"], ref32["losses"], init, ref32["grads"])
+
+    f32 = against_ref32("float32")
+    faults = {run: against_ref32(run) for run in DP_FAULTS}
+    halves = split_batch_grads(torch, steps_mod, init, ref.config,
+                               ref.train_images[:batch], ref.train_labels[:batch])
+    f32["split_batch_control_by_tensor"] = {
+        k: max_rel({k: halves[k]}, {k: v}) for k, v in ref32["grads"]["first"].items()}
+    lay = make_bucket_layout(list(ref.model.parameters()), 1)
+    skipped = min(range(lay.n_buckets), key=lambda b: lay.bucket_sizes[b])
+    faults["fault_unreduced_bucket"]["tensors"] = [
+        name for (name, _), slot in zip(ref.model.named_parameters(), lay.slots)
+        if slot.bucket == skipped]
+    zero1_equal = all(torch.equal(sh["params"][k], v) for k, v in rep["params"].items())
+    ranks_equal = all(torch.equal(ranks[1][m]["params"][k], v)
+                      for m in ("replicated", "sharded", "float32")
+                      for k, v in ranks[0][m]["params"].items())
+    rec = {"phase": "dp", "sub": "dp2_gloo", "preset": DP_PRESET,
+           "replace": {"dp": 2, "dropout_rate": 0.0}, "backend": "gloo",
+           "ranks_on": "cuda:0", "world_size": 2, "steps": DP_STEPS,
+           "host_staging": False, "bf16": bf16, "float32": f32, "planted_faults": faults,
+           "limits": {"loss": DP_LOSS_RTOL, "update": UPDATE_REL, "grad_f32": DP_GRAD_REL,
+                      "param_f32": PARAM_REL_F32},
+           "zero1_bit_equal": zero1_equal,
+           "zero1_max_rel_err": max_rel(sh["params"], rep["params"]),
+           "ranks_bit_equal": ranks_equal,
+           "launches": {m: [r[m]["launches"] for r in ranks] for m in ("replicated", "sharded")},
+           "s_per_step": {m: ranks[0][m]["s_per_step"] for m in ("replicated", "sharded")},
+           "collectives": ranks[0]["collectives"], "spawn_s": spawn_s}
+    emit(rec)
+    for dt, e in (("bf16", bf16), ("float32", f32)):
+        check(e["loss_max_rel_err"] <= DP_LOSS_RTOL and e["update_rel_l2_err"] <= UPDATE_REL,
+              f"dp2_gloo {dt}: {e} off dp=1 (limits {DP_LOSS_RTOL}, {UPDATE_REL})")
+    check(f32["grad_max_rel_err"] <= DP_GRAD_REL and f32["param_max_rel_err"] <= PARAM_REL_F32,
+          f"dp2_gloo float32: {f32} off dp=1 (limits {DP_GRAD_REL}, {PARAM_REL_F32})")
+    for run, e in faults.items():  # the gates must see what they are there to catch
+        check(e["grad_max_rel_err"] > DP_GRAD_REL and e["param_max_rel_err"] > PARAM_REL_F32,
+              f"dp2_gloo: {run} passes a float32 gate: {e}")
+    check(zero1_equal or rec["zero1_max_rel_err"] <= ZERO1_REL,
+          f"dp2_gloo: ZeRO-1 {rec['zero1_max_rel_err']} off")
+    check(ranks_equal, "dp2_gloo: the ranks' parameters differ")
+    for m, per_rank in rec["launches"].items():
+        check(all(f == b == DP_STEPS for f, b in per_rank),
+              f"dp2_gloo {m}: xent launches {per_rank} != {DP_STEPS} a rank")
+    ref.close()
+    return rec
+
+
+def dp8_rank(rank: int) -> dict:
+    """One of 8 ranks training mnist_cnn_dp8 as the preset has it."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import get_preset
+
+    t0 = time.perf_counter()
+    trainer = Trainer(dp_config(get_preset), device="cuda:0")
+    setup_s = time.perf_counter() - t0
+    xent.softmax_xent.fwd_launches = xent.softmax_xent.bwd_launches = 0
+    summary = trainer.fit()
+    return {"summary": summary, "steps": trainer.state.step, "setup_s": setup_s,
+            "launches": [xent.softmax_xent.fwd_launches, xent.softmax_xent.bwd_launches],
+            "xent_shape": (trainer.config.batch_size // trainer.dp, trainer.num_classes)}
+
+
+def phase_dp8_gloo_fit(torch, port, tmp: Path) -> dict:
+    """mnist_cnn_dp8 as the preset has it (dp 8, global batch 1024): 8
+    gloo ranks time-sharing the one card train to 0.99.  The rate is the
+    card's under 8 processes, not a per-chip data-parallel rate."""
+    _, get_preset, torchrun, _ = port
+    t0 = time.perf_counter()
+    ranks = torchrun.spawn(dp8_rank, 8, "gloo", "cuda:0", tmp / "gloo8", timeout=900)
+    wall = time.perf_counter() - t0
+    s = ranks[0]["summary"]
+    rec = {"phase": "dp", "sub": "dp8_gloo_fit", "preset": DP_PRESET, "backend": "gloo",
+           "ranks_on": "cuda:0 (8 ranks share one H100)", "world_size": 8,
+           "summaries_equal": all(r["summary"] == s for r in ranks),
+           "best_test_accuracy": s["best_test_accuracy"], "epochs_run": s["epochs_run"],
+           "time_to_target_s": s["time_to_target_s"], "total_time_s": s["total_time_s"],
+           "images_per_sec": s["images_per_sec"], "steps": ranks[0]["steps"],
+           "launches": [r["launches"] for r in ranks],
+           "setup_s": max(r["setup_s"] for r in ranks), "spawn_wall_s": wall}
+    emit(rec)
+    check(rec["summaries_equal"], "dp8: the ranks returned different summaries")
+    for r in ranks:
+        check_dp_xent_shape(r["xent_shape"], 8)
+    check(s["best_test_accuracy"] >= 0.99, f"dp8: reached {s['best_test_accuracy']}, not 0.99")
+    check(all(f == b == r["steps"] for r, (f, b) in zip(ranks, rec["launches"])),
+          f"dp8: xent launches {rec['launches']} != steps")
+    return rec
+
+
+RESNET_DP_PRESET = "fashion_resnet20_dp32"
+RESNET_DP_STEPS = 2
+# The small-batch check of cross-replica BatchNorm's gradient: BN_SMALL
+# rows a rank, where a rank's own channel reductions differ most from the
+# global ones; float64 (float32 reads 7.8e-3 here, its rounding through
+# BatchNorm's cancelling sums), against dp=1 on the 2 * BN_SMALL rows,
+# tensor by tensor relative to the tensor's largest |gradient|, at the
+# float64 limit of tests/test_torch_data_parallel.py.  It must fail with
+# the backward's cross-rank sum planted away (0.51 in float32).
+BN_SMALL = 8
+BN_GRAD_REL = 1e-9
+# ResNet-20's activations a rank at dp=2 (2048 images): (N, C, H = W)
+BN_BWD_SHAPES = ((2048, 16, 28), (2048, 32, 14), (2048, 64, 7))
+# the backward's aten kernels against its plain formulas, relative to the
+# plain result's largest |entry|: the channel sums are float32 whatever
+# the input; the input gradient is in the input's dtype
+BN_BWD_TOL = {"sums": 1e-4, "torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+
+
+def check_bn_backward(torch) -> list:
+    """Cross-replica BatchNorm's backward on CUDA (``batch_norm_backward_
+    reduce`` and ``_elemt``) against its plain formulas, the CPU path, on
+    the same CUDA tensors: at ResNet-20's per-rank activations under dp=2,
+    channels-last, bf16 and float32, with the channel sums of two ranks."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import resnet
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def rand(shape, dtype, scale=1.0, shift=0.0):
+        t = torch.randn(shape, generator=gen, device="cuda") * scale + shift
+        return t.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / max(float(b.double().abs().max()), 1e-30))
+
+    out = []
+    for n, c, hw in BN_BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = rand((n, c, hw, hw), dtype, scale=2.0, shift=0.5)
+            g = rand((n, c, hw, hw), dtype, shift=0.1)
+            mean, var = resnet.batch_moments(x)
+            invstd = torch.rsqrt(var + 1e-5)
+            weight = torch.rand((c,), generator=gen, device="cuda") + 0.5
+            got = resnet._backward_reduce(g, x, mean, invstd, weight)
+            ref = resnet.backward_reduce_plain(g, x, mean, invstd, weight)
+            count, ranks = n * hw * hw, 2
+            sums = (2 * ref[0], 2 * ref[1])  # two ranks' sums
+            got_gx = resnet._backward_elemt(g, x, mean, invstd, weight, *sums, count, ranks)
+            ref_gx = resnet.backward_elemt_plain(g, x, mean, invstd, weight, *sums, count,
+                                                 ranks)
+            rec = {"shape": [n, c, hw, hw], "dtype": str(dtype),
+                   "sums_err": max(err(a, b) for a, b in zip(got, ref)),
+                   "grad_input_err": err(got_gx, ref_gx), "grad_input_dtype": str(got_gx.dtype)}
+            out.append(rec)
+            check(rec["sums_err"] <= BN_BWD_TOL["sums"] and got_gx.dtype == dtype
+                  and rec["grad_input_err"] <= BN_BWD_TOL[str(dtype)],
+                  f"cross-replica BatchNorm backward: CUDA off its plain formulas {rec}")
+    return out
+
+
+def bn_grads(torch, init: dict, images, labels, **model_kw) -> dict:
+    """ResNet-20 in float64 (parameters too) from the state dict ``init``:
+    the training loss's gradient (train-mode BatchNorm) on one batch, by
+    parameter name, on the host."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.steps import make_loss_fn
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+
+    model = get_model("resnet20", num_classes=10, device="cuda:0", dtype=torch.float64,
+                      in_channels=1, **model_kw).double()
+    model.load_state_dict(init)
+    loss, _ = make_loss_fn(model)({"image": images, "label": labels}, train=True)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return {n: g.double().cpu() for (n, _), g in zip(model.named_parameters(), grads)}
+
+
+def resnet_dp2_rank(rank: int, images, labels, n_train: int) -> dict:
+    """One rank of resnet20_dp2_gloo: cross-replica BatchNorm steps, bf16
+    and a float32 twin; then the float64 gradient on BN_SMALL rows a rank,
+    clean and with the backward's cross-rank sum planted away."""
+    import torch
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import resnet
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import all_reduce_mean
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step,
+    )
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import get_preset
+
+    no_tf32(torch)
+    cfg = get_preset(RESNET_DP_PRESET).replace(dp=2, synthetic=True, quiet=True,
+                                               n_train=n_train, n_test=1024)
+    images, labels = torch.from_numpy(images).cuda(), torch.from_numpy(labels).cuda()
+    trainer = Trainer(cfg, device="cuda:0")
+    init = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    step = make_dp_train_step(trainer.model, trainer.state.optimizer, trainer.mesh)
+    losses, _ = drive_steps(torch, trainer.state, step, images, labels, cfg.batch_size,
+                            RESNET_DP_STEPS)
+    out = {"bf16": {"losses": losses, "params": cpu_params(trainer.model),
+                    "stats": {k: v.detach().cpu() for k, v in bn_buffers(trainer.model).items()}}}
+    total = trainer.steps_per_epoch * cfg.epochs
+    model, state = float32_twin(torch, "resnet20", init, cfg, total, in_channels=1,
+                                axis_name="data")
+    step = make_dp_train_step(model, state.optimizer, trainer.mesh)
+    losses, _ = drive_steps(torch, state, step, images, labels, cfg.batch_size, RESNET_DP_STEPS)
+    out["float32"] = {"losses": losses, "params": cpu_params(model),
+                      "stats": {k: v.detach().cpu() for k, v in bn_buffers(model).items()}}
+    rows = slice(rank * BN_SMALL, (rank + 1) * BN_SMALL)
+    reduce = resnet.all_reduce_sum
+    out["small"] = {}
+    for run in ("clean", "fault_per_rank_backward"):
+        if run != "clean":  # each rank's own channel sums, as if every rank's were alike
+            resnet.all_reduce_sum = lambda t, n=trainer.dp: t * n
+        try:
+            grads = bn_grads(torch, init, images[rows], labels[rows], axis_name="data")
+        finally:
+            resnet.all_reduce_sum = reduce
+        out["small"][run] = dict(zip(grads, all_reduce_mean(list(grads.values()))))
+    return out
+
+
+def phase_resnet20_dp2_gloo(torch, port, steps_mod, tmp: Path) -> dict:
+    """fashion_resnet20_dp32 at dp=2 and full width (global batch 4096,
+    cross-replica BatchNorm): the backward's CUDA kernels against their
+    plain formulas; two gloo ranks on cuda:0 take two fixed global batches
+    (bf16, and a float32 twin) against dp=1 on the same batches here; and
+    the float64 gradient on a small batch, clean and with a planted fault,
+    against dp=1's."""
+    Trainer, get_preset, torchrun, _ = port
+    bn_backward = check_bn_backward(torch)
+    batch = get_preset(RESNET_DP_PRESET).batch_size
+    n = RESNET_DP_STEPS * batch
+    ref = Trainer(get_preset(RESNET_DP_PRESET).replace(dp=1, synthetic=True, quiet=True,
+                                                       n_train=n, n_test=1024),
+                  device="cuda:0")
+    init = {k: v.clone() for k, v in ref.model.state_dict().items()}
+    refs = {}
+    step = steps_mod.make_train_step(ref.model, ref.state.optimizer)
+    refs["bf16"] = (drive_steps(torch, ref.state, step, ref.train_images, ref.train_labels,
+                                batch, RESNET_DP_STEPS)[0], cpu_params(ref.model),
+                    {k: v.detach().cpu() for k, v in bn_buffers(ref.model).items()})
+    total = ref.steps_per_epoch * ref.config.epochs
+    model, state = float32_twin(torch, "resnet20", init, ref.config, total, in_channels=1)
+    step = steps_mod.make_train_step(model, state.optimizer)
+    refs["float32"] = (drive_steps(torch, state, step, ref.train_images, ref.train_labels,
+                                   batch, RESNET_DP_STEPS)[0], cpu_params(model),
+                       {k: v.detach().cpu() for k, v in bn_buffers(model).items()})
+    small_ref = bn_grads(torch, init, ref.train_images[:2 * BN_SMALL],
+                         ref.train_labels[:2 * BN_SMALL])
+    ranks = torchrun.spawn(resnet_dp2_rank, 2, "gloo", "cuda:0", tmp / "resnet2",
+                           args=(ref.train_images.cpu().numpy(),
+                                 ref.train_labels.cpu().numpy(), n), timeout=600)
+    errs = {}
+    for dt in ("bf16", "float32"):
+        got = ranks[0][dt]
+        errs[dt] = {**rel_errs(got, refs[dt][1], refs[dt][0], init),
+                    "stats_max_rel_err": max_rel(got["stats"], refs[dt][2]),
+                    "stats_bit_equal_across_ranks": all(
+                        torch.equal(got["stats"][k], ranks[1][dt]["stats"][k])
+                        for k in got["stats"]),
+                    "losses": got["losses"], "dp1_losses": refs[dt][0]}
+    small = {run: max_rel(g, small_ref) for run, g in ranks[0]["small"].items()}
+    rec = {"phase": "dp", "sub": "resnet20_dp2_gloo", "preset": RESNET_DP_PRESET,
+           "replace": {"dp": 2}, "backend": "gloo", "ranks_on": "cuda:0", "world_size": 2,
+           "batch_size": batch, "steps": RESNET_DP_STEPS, "bn_layers": len(refs["bf16"][2]) // 2,
+           **errs, "bn_backward_cuda_vs_plain": bn_backward,
+           "small_batch_grad_max_rel_err": {"rows_a_rank": BN_SMALL, **small,
+                                            "limit": BN_GRAD_REL}}
+    emit(rec)
+    for dt, e in errs.items():
+        check(e["stats_bit_equal_across_ranks"], f"resnet20 dp2 {dt}: running statistics "
+              "differ across ranks")
+        check(e["loss_max_rel_err"] <= BN_REL and e["stats_max_rel_err"] <= BN_REL
+              and e["update_rel_l2_err"] <= UPDATE_REL,
+              f"resnet20 dp2 {dt}: {e} past {BN_REL} / {UPDATE_REL}")
+    check(errs["float32"]["param_max_rel_err"] <= BN_REL,
+          f"resnet20 dp2: float32 parameters {errs['float32']['param_max_rel_err']} off dp=1")
+    check(small["clean"] <= BN_GRAD_REL < small["fault_per_rank_backward"],
+          f"resnet20 dp2: small-batch gradient {small} against the limit {BN_GRAD_REL}")
+    ref.close()
+    return rec
+
+
+def phase_dp(torch, fa, xent, port, steps_mod) -> dict:
+    """The data-parallel phases (Trainer over torch.distributed)."""
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    try:
+        return {"dp1_nccl": phase_dp1_nccl(torch, fa, xent, port, tmp),
+                "dp2_gloo": phase_dp2_gloo(torch, fa, xent, port, steps_mod, tmp),
+                "dp8_gloo_fit": phase_dp8_gloo_fit(torch, port, tmp),
+                "resnet20_dp2_gloo": phase_resnet20_dp2_gloo(torch, port, steps_mod, tmp)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # Each kernel's design as it stands: its bf16 instances on the tensor
 # cores (mma.sync on cp.async-fed tiles, or wgmma on TMA-fed tiles), or
 # "scalar" for CUDA-core float32 FMAs.  The flash kernels' float32
@@ -1478,10 +2200,12 @@ def main() -> int:
         )
         from distributed_tensorflow_ibm_mnist_tpu_torch.core import steps as steps_mod
         from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+        from distributed_tensorflow_ibm_mnist_tpu_torch.launch import torchrun
         from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
         from distributed_tensorflow_ibm_mnist_tpu_torch.ops import _build
         from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
         from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+        from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import make_mesh
         from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine
         from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import (
             RunConfig,
@@ -1508,6 +2232,7 @@ def main() -> int:
     phase_resnet(torch, fa, xent, (Trainer, get_preset), "fashion_resnet20_dp32")
     phase_resnet(torch, fa, xent, (Trainer, get_preset), "cifar_resnet50_dp32", grad_accum=4)
     vit = phase_vit(torch, fa, xent, (Trainer, RunConfig), get_model, steps_mod)
+    dp = phase_dp(torch, fa, xent, (Trainer, get_preset, torchrun, make_mesh), steps_mod)
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -1544,7 +2269,22 @@ def main() -> int:
         rec = next(r for r in xk["timed"][name] if tuple(r["shape"]) == VIT_XENT_SHAPE)
         return {**{k: rec[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
                                        "bound_by")},
-                "launches": vit["launches"][name], "max_abs_err": xk["vit_err"][name]}
+                "launches": vit["launches"][name],
+                "max_abs_err": xk["at_shape"][VIT_XENT_SHAPE][name]}
+
+    def dp_launches(i):
+        """K1 (i=0) or K2 (1) on the data-parallel runs: the launches of
+        the dp1_nccl mesh run, and per rank of the dp2 (replicated) and
+        dp8 runs, each beside the per-rank shape it runs at and the
+        kernel's error there (its check in phase_xent_kernels)."""
+        name = ("xent_fwd", "xent_bwd")[i]
+        launches = {1: dp["dp1_nccl"]["launches"][name],
+                    2: [r[i] for r in dp["dp2_gloo"]["launches"]["replicated"]],
+                    8: [r[i] for r in dp["dp8_gloo_fit"]["launches"]]}
+        return {key: {"shape": DP_XENT_SHAPES[n], "launches": launches[n],
+                      "max_abs_err": xk["at_shape"][DP_XENT_SHAPES[n]][name]}
+                for n, key in ((1, "dp1_nccl"), (2, "dp2_gloo_per_rank"),
+                               (8, "dp8_gloo_per_rank"))}
 
     k3_entry = entry("flash_fwd", "flash_fwd.cu", "ops/flash_attention.py:208",
                      serving["flash_launches"], k3["max_abs_err"], k3["timed"], "by_seq")
@@ -1580,10 +2320,10 @@ def main() -> int:
         # (and at (512, 10) on the ViT run)
         {**entry("xent_fwd", "xent.cu", "ops/xent.py:40", counts["xent_fwd"],
                  xk["max_abs_err"]["xent_fwd"], xk["timed"]["xent_fwd"], "by_shape"),
-         "vit_training": on_vit_xent("xent_fwd")},
+         "vit_training": on_vit_xent("xent_fwd"), "dp_launches": dp_launches(0)},
         {**entry("xent_bwd", "xent.cu", "ops/xent.py:53", counts["xent_bwd"],
                  xk["max_abs_err"]["xent_bwd"], xk["timed"]["xent_bwd"], "by_shape"),
-         "vit_training": on_vit_xent("xent_bwd")},
+         "vit_training": on_vit_xent("xent_bwd"), "dp_launches": dp_launches(1)},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": dev["count"]}}), flush=True)

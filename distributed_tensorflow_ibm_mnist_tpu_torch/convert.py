@@ -124,7 +124,7 @@ def _resnet_leaves(cfg: Mapping) -> tuple[Expected, Expected]:
     the port's own model built on the meta device (shapes only): its
     module names are the flax paths, so the architecture lives in
     models/resnet.py alone, and the flax trees stay the independent side."""
-    arch = {k: v for k, v in cfg.items() if k not in ("device", "generator")}
+    arch = {k: v for k, v in cfg.items() if k not in ("device", "generator", "axis_name")}
     model = ResNet(**arch, device="meta")
     params: Expected = {}
     stats: Expected = {}

@@ -25,6 +25,11 @@ so an update never waits for the device; the moments live on the device
 beside the parameters and are updated in place with PyTorch's multi-tensor
 (``_foreach``) ops, a handful of launches per step whatever the number of
 parameter tensors.
+
+The ZeRO-1 sharded update (``sharded_update=True``) runs the same
+:class:`Optimizer` on this rank's 1-D bucket shards
+(:func:`init_sharded_opt_state`), its clip lifted out of the chain
+(:func:`make_sharded_update_optimizer`).
 """
 
 from __future__ import annotations
@@ -35,6 +40,10 @@ from collections.abc import Callable, Sequence
 import numpy as np
 import torch
 
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
+    bucket_shard,
+    flatten_buckets,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
 
 Schedule = Callable[[int], float]
@@ -168,3 +177,32 @@ def make_optimizer(config: RunConfig, total_steps: int,
                    params: Sequence[torch.Tensor]) -> Optimizer:
     """The optimizer chain of ``config`` over ``params`` (see module doc)."""
     return Optimizer(config, total_steps, params)
+
+
+def make_sharded_update_optimizer(config: RunConfig, total_steps: int,
+                                  shards: Sequence[torch.Tensor]
+                                  ) -> tuple[Optimizer, float | None]:
+    """``(optimizer, grad_clip)`` for the ZeRO-1 sharded update.
+
+    The optimizer runs the config's chain on this rank's 1-D bucket
+    ``shards`` as its parameter list, which is exact for every link of the
+    zoo's chains (they are elementwise: Adam moments, momentum traces,
+    decayed weights, the schedules, which advance in lockstep) except the
+    global-norm clip, which on a shard would see only this rank's norm.  So
+    the clip is lifted out of the chain and returned as a value: the step
+    applies it against the true cross-rank norm before the update (the JAX
+    package's ``make_sharded_update_optimizer``)."""
+    clip = float(config.grad_clip) if config.grad_clip else None
+    return Optimizer(config.replace(grad_clip=None), total_steps, shards), clip
+
+
+def init_sharded_opt_state(config: RunConfig, total_steps: int,
+                           params: Sequence[torch.Tensor], layout
+                           ) -> tuple[Optimizer, float | None]:
+    """The ZeRO-1 optimizer of this rank: its parameter list is this rank's
+    block of each bucket of ``params`` flattened by ``layout`` (a
+    ``parallel.collectives.BucketLayout``), copied into storage of its own,
+    so its moments hold 1/N of the replicated optimizer's; returns
+    ``(optimizer, grad_clip)`` as :func:`make_sharded_update_optimizer`."""
+    shards = [s.clone() for s in bucket_shard(flatten_buckets(params, layout), layout)]
+    return make_sharded_update_optimizer(config, total_steps, shards)

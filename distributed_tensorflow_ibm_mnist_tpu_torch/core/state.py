@@ -8,7 +8,10 @@ statistics, JAX's ``batch_stats``), the optimizer (its count and moments)
 and the explicit random generators (the model's own generator, which its
 dropout draws from, and the generator of the epoch permutations).
 ``snapshot`` / ``restore`` copy all of it on the device, for a caller that
-must leave training undisturbed.
+must leave training undisturbed.  Under the ZeRO-1 sharded update the
+optimizer is this rank's sharded one: its count and its 1/N moments are
+what the snapshot carries (its parameter shards are copied from the
+model's parameters at every step, so they need no copy of their own).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ class TrainState:
 
     @property
     def params(self) -> list[torch.Tensor]:
-        return self.optimizer.params
+        return list(self.model.parameters())
 
     @property
     def generators(self) -> list[torch.Generator]:

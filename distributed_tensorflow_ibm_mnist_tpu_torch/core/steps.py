@@ -21,6 +21,17 @@ against (B, S, V) logits.  Loss and accuracy are then means over every
 scored position, as optax's mean is, and eval's denominator counts scored
 positions, not sequences (JAX ``steps.py:368-400``).
 
+Data parallelism (``mesh``, a ``parallel.mesh.Mesh``; JAX's ``axis_name``):
+each rank runs the same step on its own rows.  The gradients are flattened
+into a few buckets (``parallel/collectives.py``) and each bucket is
+all-reduced, summed and divided by the rank count: JAX's one fused
+``pmean`` over the tree (``steps.py:240`` there).  With ``sharded_update``
+the ZeRO-1 update replaces it (:func:`_apply_sharded_update`).  Loss and
+accuracy stay per rank on the device; the Trainer averages them across
+ranks once at its fence (a mean of means over equal shards, the same
+numbers as JAX's per-step ``pmean``).  Eval masks padded rows and sums
+``correct`` and the loss across ranks.
+
 PyTorch runs eagerly, so nothing here is compiled: each step is a sequence
 of kernel launches from the host, and nothing reads a value back to the
 host inside an epoch.
@@ -35,6 +46,19 @@ import torch.nn.functional as F
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.core.state import TrainState
 from distributed_tensorflow_ibm_mnist_tpu_torch.ops.xent import softmax_xent_mean
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
+    ShardedUpdate,
+    all_gather,
+    all_reduce_sum,
+    bucket_shard,
+    flatten_buckets,
+    grad_norm_global,
+    grouped_all_reduce_mean,
+    grouped_reduce_scatter_mean,
+    make_bucket_layout,
+    unflatten_buckets,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh
 
 Batch = dict[str, torch.Tensor]
 
@@ -96,15 +120,51 @@ def make_loss_fn(model, label_smoothing: float = 0.0, fused_xent: bool = False,
     return loss_fn
 
 
+@torch.no_grad()
+def _apply_sharded_update(optimizer, grads, params, su: ShardedUpdate,
+                          mesh: Mesh) -> None:
+    """The ZeRO-1 weight update (JAX's ``_apply_sharded_update``,
+    ``steps.py:120-160`` there), per bucket: mean-reduce-scatter the
+    gradients (each rank keeps its contiguous 1/N block), clip them against
+    the true global norm (this rank's sum of squares, all-reduced), update
+    this rank's block of the parameters against its sharded optimizer
+    state (``optimizer``, from ``core.optim.init_sharded_opt_state``),
+    all-gather the updated blocks and write them into ``params`` in place."""
+    lay = su.layout
+    g_shards = grouped_reduce_scatter_mean(flatten_buckets(grads, lay))
+    if su.clip is not None:
+        gnorm = grad_norm_global(g_shards, mesh)
+        scale = torch.where(gnorm < su.clip, 1.0, su.clip / gnorm.clamp_min(1e-38))
+        g_shards = torch._foreach_mul(g_shards, scale)
+    p_shards = bucket_shard(flatten_buckets(params, lay), lay)
+    for dst, src in zip(optimizer.params, p_shards):
+        dst.copy_(src)  # the sharded optimizer updates this rank's block
+    optimizer.step(g_shards)
+    full = [all_gather(shard) for shard in optimizer.params]
+    for p, new in zip(params, unflatten_buckets(full, lay)):
+        p.copy_(new)
+
+
 def make_train_step(model, optimizer, label_smoothing: float = 0.0,
                     fused_xent: bool = False, remat: bool = False,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, mesh: Mesh | None = None,
+                    sharded_update: ShardedUpdate | None = None):
     """Build ``train_step(state, batch) -> metrics``; it updates
     ``state`` (parameters, optimizer, step) in place.  Metrics are device
-    scalars: ``loss`` and ``accuracy``.  Dropout masks come from the model's
-    generator, which advances with every step."""
+    scalars: ``loss`` and ``accuracy`` (this rank's, under a ``mesh``).
+    Dropout masks come from the model's generator, which advances with
+    every step.
+
+    ``mesh``: average the gradients across its ranks before the update,
+    one all-reduce a bucket of ``make_bucket_layout``'s default count.
+    ``sharded_update`` (needs ``mesh``): the ZeRO-1 update instead,
+    ``optimizer`` being the sharded one."""
+    if sharded_update is not None and mesh is None:
+        raise ValueError("sharded_update needs a mesh (it is a cross-replica scheme)")
     loss_fn = make_loss_fn(model, label_smoothing, fused_xent=fused_xent, remat=remat)
-    params = optimizer.params
+    params = optimizer.params if sharded_update is None else list(model.parameters())
+    layout = (make_bucket_layout(params, 1)
+              if mesh is not None and sharded_update is None else None)
 
     def grads_of(batch: Batch):
         loss, logits = loss_fn(batch, train=True)
@@ -128,7 +188,13 @@ def make_train_step(model, optimizer, label_smoothing: float = 0.0,
                 grads = list(g_i) if grads is None else torch._foreach_add(grads, g_i)
             grads = torch._foreach_div(grads, float(grad_accum))
             loss, accuracy = loss / grad_accum, accuracy / grad_accum
-        optimizer.step(grads)
+        if sharded_update is not None:
+            _apply_sharded_update(optimizer, grads, params, sharded_update, mesh)
+        else:
+            if layout is not None:  # the gradient mean across ranks
+                grads = unflatten_buckets(
+                    grouped_all_reduce_mean(flatten_buckets(grads, layout)), layout)
+            optimizer.step(grads)
         state.step += 1
         return {"loss": loss, "accuracy": accuracy}
 
@@ -136,7 +202,8 @@ def make_train_step(model, optimizer, label_smoothing: float = 0.0,
 
 
 def make_epoch_runner(model, optimizer, batch_size: int, label_smoothing: float = 0.0,
-                      fused_xent: bool = False, remat: bool = False, grad_accum: int = 1):
+                      fused_xent: bool = False, remat: bool = False, grad_accum: int = 1,
+                      mesh: Mesh | None = None, sharded_update: ShardedUpdate | None = None):
     """One full epoch over a device-resident dataset.
 
     ``run_epoch(state, images, labels, perm=None)`` runs ``n // batch_size``
@@ -145,10 +212,16 @@ def make_epoch_runner(model, optimizer, batch_size: int, label_smoothing: float 
     ``torch.randperm(n)`` from ``state.data_generator`` on the data's
     device; a given ``perm`` (indices, at least ``steps * batch_size``) is
     used as it is.
+
+    Under a ``mesh`` the images are this rank's shard, ``batch_size`` the
+    per-rank batch and the permutation this rank's own (the caller seeds
+    ``state.data_generator`` per rank: JAX folds the axis index into the
+    epoch key, ``steps.py:302`` there); the metrics are this rank's.
     """
     train_step = make_train_step(model, optimizer, label_smoothing=label_smoothing,
                                  fused_xent=fused_xent, remat=remat,
-                                 grad_accum=grad_accum)
+                                 grad_accum=grad_accum, mesh=mesh,
+                                 sharded_update=sharded_update)
 
     def run_epoch(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                   perm: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
@@ -169,22 +242,42 @@ def make_epoch_runner(model, optimizer, batch_size: int, label_smoothing: float 
     return run_epoch
 
 
-def make_eval_fn(model, batch_size: int = 2000):
+def make_eval_fn(model, batch_size: int = 2000, mesh: Mesh | None = None,
+                 n_valid: int | None = None):
     """Full-dataset eval: ``eval_fn(images, labels)`` -> ``{"accuracy",
     "loss"}`` as device scalars (unsmoothed loss, plain cross-entropy),
-    averaged over every scored label: examples, or token positions."""
+    averaged over every scored label: examples, or token positions.
+
+    ``n_valid``: the true number of examples when the set was zero-padded
+    (``parallel.data_parallel.shard_eval_set``); rows at or past it are
+    masked out of both sums.  ``mesh``: ``images`` is this rank's block of
+    the padded set (rank ``r`` holds rows ``r * n_local`` on), and
+    ``correct`` and the loss sum are added across ranks."""
 
     @torch.no_grad()
     def eval_fn(images: torch.Tensor, labels: torch.Tensor) -> dict[str, torch.Tensor]:
         n = images.shape[0]
         correct = torch.zeros((), device=images.device)
         loss_sum = torch.zeros((), device=images.device)
+        first = 0 if mesh is None else mesh.rank * n  # this block's first global row
         for start in range(0, n, batch_size):
             imgs, labs = images[start:start + batch_size], labels[start:start + batch_size]
             logits = model(_as_input(imgs), train=False)
-            correct += (logits.argmax(-1) == labs).sum()
-            loss_sum += cross_entropy(logits, labs).sum()
-        denom = labels.numel()  # scored positions: n x (labels per example)
+            hits = (logits.argmax(-1) == labs).float()
+            losses = cross_entropy(logits, labs)
+            if n_valid is not None:
+                rows = first + start + torch.arange(labs.shape[0], device=labs.device)
+                keep = (rows < n_valid).float().view(-1, *([1] * (labs.ndim - 1)))
+                hits, losses = hits * keep, losses * keep
+            correct += hits.sum()
+            loss_sum += losses.sum()
+        if mesh is not None:
+            correct, loss_sum = all_reduce_sum(torch.stack([correct, loss_sum]))
+        per_example = labels[0].numel() if labels.ndim > 1 else 1
+        examples = n if n_valid is None else n_valid
+        if mesh is not None and n_valid is None:
+            examples = n * mesh.size
+        denom = examples * per_example  # scored positions
         return {"accuracy": correct / denom, "loss": loss_sum / denom}
 
     return eval_fn

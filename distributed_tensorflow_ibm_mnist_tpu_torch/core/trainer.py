@@ -1,8 +1,8 @@
 """The port's Trainer: one run's model, optimizer, data and loop.
 
 The counterpart of the JAX package's ``core/trainer.py`` for the paths
-ported so far: one device, the dataset resident on it (uint8 images, or
-int32 token sequences), LeNet-5, the MLP, ResNet-20, ResNet-50 and the
+ported so far: one device per rank, the dataset resident on it (uint8
+images, or int32 token sequences), LeNet-5, the MLP, ResNet-20, ResNet-50 and the
 ViT on images and the causal LM on ``dataset="retrieval"``, any
 optimizer/schedule of ``core/optim.py``, the loss routed as
 ``core/steps.py`` routes it (``fused_xent=True`` runs the K1/K2 CUDA
@@ -32,6 +32,22 @@ Trainer:
 * Token data adds ``tokens_per_sec_per_chip`` to the ``summary`` and
   throughput records.
 
+Data parallelism (``dp > 1``, or a ``mesh``): one process per rank over
+``torch.distributed`` (``launch/torchrun.py``); with no mesh given the
+Trainer builds one over the initialised process group, and without a group
+it raises ``ValueError``.  As the JAX Trainer: each rank holds its own rows
+of the training set (``parallel.data_parallel.shard_dataset``) and draws
+its own permutation of them from a seed that folds in its rank (at dp=1
+the seed is unchanged); the eval set is sharded, zero-padded and masked;
+the gradients are averaged across ranks each step (or the ZeRO-1 update
+runs, ``sharded_update=True``); models that take ``axis_name`` (the
+ResNets: cross-replica BatchNorm) get ``"data"``; rank 0's weights are
+broadcast at start and each rank's dropout generator folds in its rank.
+Metrics are averaged across ranks at each fence, so early stop and
+``TrainingDiverged`` take the same branch on every rank; only rank 0
+writes records, and ``fit()`` returns rank 0's summary on every rank.
+``n_chips`` is dp.
+
 Left out, because they describe XLA and there is nothing honest to put in
 them: ``n_compiled_programs``, ``compile_time_s`` and ``compile_by_site``.
 ``compile_overhead_s`` (summary) and ``compile_and_first_epoch_s``
@@ -41,13 +57,12 @@ launch, the library's algorithm choices and allocator growth, not XLA.
 FLOPs are counted analytically (``utils/flops.py``).
 
 Refused with ``NotImplementedError`` naming the ROADMAP.md item that will
-port them: dp/tp/sp/pp > 1, ``fsdp``, ``sharded_update``, ``dcn_dp`` > 1,
+port them: tp/sp/pp > 1, ``fsdp``, ``dcn_dp`` > 1,
 ``input_mode="stream"``, ``remat``, ``checkpoint_dir``/``resume``,
 ``profile_dir``, the chaos, tracer and telemetry hooks, and the causal
 LM's dropout, MoE blocks and ``pos="learned"``.  The models' constructors
 refuse the rest of what they cannot build yet the same way (the ViT's
-dropout, MoE blocks and pipeline stages, cross-replica BatchNorm's
-``axis_name``, ``block_remat``).
+dropout, MoE blocks and pipeline stages, ``block_remat``).
 """
 
 from __future__ import annotations
@@ -60,8 +75,12 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from distributed_tensorflow_ibm_mnist_tpu_torch.core.optim import make_optimizer
+from distributed_tensorflow_ibm_mnist_tpu_torch.core.optim import (
+    init_sharded_opt_state,
+    make_optimizer,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.core.state import TrainState
 from distributed_tensorflow_ibm_mnist_tpu_torch.core.steps import (
     make_epoch_runner,
@@ -75,18 +94,31 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models import (
     model_accepts,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import _resolve_attn
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
+    ShardedUpdate,
+    all_reduce_mean,
+    broadcast_object,
+    make_bucket_layout,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.data_parallel import (
+    make_dp_epoch_runner,
+    replicate,
+    shard_dataset,
+    shard_eval_set,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh, make_mesh
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.debug import (
     TrainingDiverged,
     find_nonfinite,
 )
-from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import rank_device, resolve_device
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import mfu as _mfu
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import model_flops_per_image
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.metrics import MetricWriter
 
 TRAINABLE = ("lenet5", "mlp", "resnet20", "resnet50", "vit", "causal_lm")
-_DP = "'Data-parallel training across GPUs with NCCL'"
+_DP = "'Data-parallel training with torch.distributed'"
 _PARALLEL = "'Remaining parallelism and utilities'"
 _FOLLOW_UPS = "'Training follow-ups'"
 _LM_FOLLOW_UPS = "'Causal-LM and ViT training follow-ups'"
@@ -105,11 +137,8 @@ def _refuse_unported(config: RunConfig, hooks: dict[str, Any]) -> None:
     for axis in ("tp", "sp", "pp"):
         if getattr(config, axis) > 1:
             raise _later(f"{axis}={getattr(config, axis)}", _PARALLEL)
-    if config.dp > 1:
-        raise _later(f"dp={config.dp}", _DP)
-    for flag in ("fsdp", "sharded_update"):
-        if getattr(config, flag):
-            raise _later(flag, _DP)
+    if config.fsdp:
+        raise _later("fsdp (ZeRO-3)", _DP)
     if config.dcn_dp != 1:
         raise _later(f"dcn_dp={config.dcn_dp}", _DP)
     if config.input_mode != "device":
@@ -146,18 +175,53 @@ def _seed_words(*key: int) -> int:
     return int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0] >> 1)
 
 
+def _data_mesh(config: RunConfig, mesh: Mesh | None) -> tuple[int, Mesh | None]:
+    """``(dp, mesh)`` of a run: ``config.dp`` (0: the process group's world
+    size, 1 without a group); dp > 1 builds a mesh over the initialised
+    group unless one is given (``ValueError`` naming launch.torchrun
+    without a group); a given mesh must have dp ranks."""
+    dp = config.dp
+    if dp == 0:
+        dp = mesh.size if mesh is not None else (
+            dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1)
+    if dp < 1:
+        raise ValueError(f"dp must be >= 0, got {config.dp}")
+    if mesh is None and dp > 1:
+        mesh = make_mesh(dp)
+    if mesh is not None and mesh.size != dp:
+        raise ValueError(f"dp={dp} but the mesh's data axis has {mesh.size} rank(s)")
+    return dp, mesh
+
+
 class Trainer:
     """Owns the model, optimizer, device-resident data and loop of one run.
 
-    ``device=None`` means the GPU (and raises without one); pass
-    ``device="cpu"`` to run the plain PyTorch versions on the CPU."""
+    ``device=None`` means the GPU (and raises without one): the rank's card
+    ``cuda:{LOCAL_RANK}`` under a mesh; pass ``device="cpu"`` to run the
+    plain PyTorch versions on the CPU.  ``mesh``: this rank's data mesh
+    (``parallel.mesh.make_mesh``); built from the process group when
+    ``config.dp > 1`` and none is given."""
 
-    def __init__(self, config: RunConfig, writer: MetricWriter | None = None,
-                 device=None, chaos=None, tracer=None, telemetry=None):
+    def __init__(self, config: RunConfig, mesh: Mesh | None = None,
+                 writer: MetricWriter | None = None, device=None, chaos=None,
+                 tracer=None, telemetry=None):
         _refuse_unported(config, {"chaos": chaos, "tracer": tracer,
                                   "telemetry": telemetry})
         self.config = config
-        self.device = resolve_device(device)
+        self.dp, self.mesh = _data_mesh(config, mesh)
+        if config.sharded_update:
+            if self.dp <= 1:
+                raise ValueError(
+                    "sharded_update shards the weight update over the 'data' "
+                    f"axis; needs dp>1, got dp={self.dp}")
+            if config.sharded_update_buckets < 1:
+                raise ValueError(
+                    f"sharded_update_buckets must be >= 1, got "
+                    f"{config.sharded_update_buckets}")
+        if config.batch_size % self.dp:
+            raise ValueError(f"batch_size {config.batch_size} not divisible by dp={self.dp}")
+        self.rank = 0 if self.mesh is None else self.mesh.rank
+        self.device = resolve_device(device) if self.mesh is None else rank_device(device)
         data = load_dataset(
             config.dataset, n_train=config.n_train, n_test=config.n_test,
             seed=config.seed, synthetic=config.synthetic, **config.dataset_kwargs,
@@ -172,7 +236,8 @@ class Trainer:
             raise ValueError(f"{config.model} takes (H, W, C) images, not {image_shape}")
 
         n_train = data["train_images"].shape[0]
-        self.steps_per_epoch = n_train // config.batch_size
+        # under a mesh each rank steps through its own n/dp rows, B/dp at a time
+        self.steps_per_epoch = (n_train // self.dp) // (config.batch_size // self.dp)
         if self.steps_per_epoch == 0:
             raise ValueError(
                 f"batch_size {config.batch_size} exceeds training-set size {n_train}")
@@ -200,20 +265,38 @@ class Trainer:
             # (the ViT): the masked kernel by the model's attn
             model_kwargs.setdefault("attn_fn", functools.partial(
                 _resolve_attn(None, model_kwargs.get("attn", "vanilla")), causal=True))
+        if self.dp > 1 and model_accepts(config.model, "axis_name"):
+            model_kwargs.setdefault("axis_name", "data")  # cross-replica BatchNorm
         self._data_seed = _seed_words(config.seed, 1)
         self.model = get_model(
             config.model, num_classes=self.num_classes, device=self.device,
             generator=torch.Generator(device=self.device).manual_seed(
                 _seed_words(config.seed, 0)),
             **model_kwargs)
-        optimizer = make_optimizer(config, total_steps, list(self.model.parameters()))
+        if self.mesh is not None:
+            replicate(self.mesh, self.model)
+            model_gen = getattr(self.model, "generator", None)
+            if self.dp > 1 and model_gen is not None:  # decorrelated dropout masks
+                model_gen.manual_seed(_seed_words(config.seed, 0, self.rank))
+        params = list(self.model.parameters())
+        self._sharded = None
+        if config.sharded_update:
+            layout = make_bucket_layout(params, self.dp, config.sharded_update_buckets)
+            optimizer, clip = init_sharded_opt_state(config, total_steps, params, layout)
+            self._sharded = ShardedUpdate(layout=layout, clip=clip)
+        else:
+            optimizer = make_optimizer(config, total_steps, params)
         self.state = TrainState(step=0, model=self.model, optimizer=optimizer,
                                 data_generator=torch.Generator(device=self.device))
-        self._run_epoch = make_epoch_runner(
-            self.model, optimizer, config.batch_size,
-            label_smoothing=config.label_smoothing, fused_xent=config.fused_xent,
-            grad_accum=config.grad_accum)
-        self._eval = make_eval_fn(self.model, config.eval_batch_size)
+        step_kw = dict(label_smoothing=config.label_smoothing, fused_xent=config.fused_xent,
+                       grad_accum=config.grad_accum)
+        if self.mesh is None:
+            self._run_epoch = make_epoch_runner(self.model, optimizer, config.batch_size,
+                                                **step_kw)
+        else:  # this rank's shard at the per-rank batch
+            self._run_epoch = make_dp_epoch_runner(self.model, optimizer, config.batch_size,
+                                                   self.mesh, sharded_update=self._sharded,
+                                                   **step_kw)
         flops_kw = model_kwargs
         family = {"causal_lm": CausalLM, "vit": VisionTransformer}.get(config.model)
         if family is not None:  # the architecture, defaults filled in
@@ -230,18 +313,44 @@ class Trainer:
                 self.device, dtype)
 
         inputs = torch.int32 if tokens else torch.uint8
-        self.train_images = put("train_images", inputs)
-        self.train_labels = put("train_labels", torch.int32)
-        self.test_images = put("test_images", inputs)
-        self.test_labels = put("test_labels", torch.int32)
+        if self.mesh is None:
+            self.train_images = put("train_images", inputs)
+            self.train_labels = put("train_labels", torch.int32)
+            self.test_images = put("test_images", inputs)
+            self.test_labels = put("test_labels", torch.int32)
+            self._eval = make_eval_fn(self.model, config.eval_batch_size)
+        else:  # this rank's rows only
+            train = shard_dataset(self.mesh, data["train_images"], data["train_labels"],
+                                  self.device)
+            *test, n_valid = shard_eval_set(self.mesh, data["test_images"],
+                                            data["test_labels"], self.device)
+            self.train_images, self.test_images = (x.to(inputs) for x in (train[0], test[0]))
+            self.train_labels, self.test_labels = (
+                x.to(torch.int32) for x in (train[1], test[1]))
+            self._eval = make_eval_fn(self.model, max(1, config.eval_batch_size // self.dp),
+                                      mesh=self.mesh, n_valid=n_valid)
         self.history: list[dict[str, Any]] = []
-        self._owns_writer = writer is None
-        self.writer = writer or MetricWriter(path=config.metrics_path, stdout=not config.quiet)
+        # records come from rank 0 alone; the other ranks write to no sink
+        self._owns_writer = writer is None or self.rank != 0
+        self.writer = (writer if writer is not None and self.rank == 0 else MetricWriter(
+            path=config.metrics_path if self.rank == 0 else None,
+            stdout=not config.quiet and self.rank == 0))
 
     @property
     def n_chips(self) -> int:
         """Devices the run occupies: the images/sec/chip denominator."""
-        return 1
+        return self.dp
+
+    def _epoch_seed(self, *key: int) -> int:
+        """An epoch's data-order seed; under dp > 1 it folds in the rank,
+        as JAX folds the axis index into the epoch key."""
+        if self.dp > 1:
+            key = (*key, self.rank)
+        return _seed_words(self._data_seed, *key)
+
+    def _rank_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` averaged across the ranks (itself without a mesh)."""
+        return x if self.mesh is None else all_reduce_mean(x)
 
     def _hot_seq_len(self, data: dict) -> int | None:
         """Sequence length the attention sees on the training path: the
@@ -291,6 +400,8 @@ class Trainer:
         return False
 
     def evaluate(self) -> dict[str, float]:
+        """Test accuracy and loss over the whole test set (under a mesh a
+        collective: every rank calls it, and every rank gets the same)."""
         out = self._eval(self.test_images, self.test_labels)
         acc, loss = torch.stack([out["accuracy"], out["loss"]]).tolist()
         return {"accuracy": acc, "loss": loss}
@@ -305,14 +416,14 @@ class Trainer:
         snap = self.state.snapshot()
         try:
             t0 = time.perf_counter()
-            m = self._epoch(_seed_words(self._data_seed, 123))
+            m = self._epoch(self._epoch_seed(123))
             m["loss"][-1].item()  # the fence
             first_epoch_s = time.perf_counter() - t0
 
             t1 = time.perf_counter()
             for i in range(epochs):
-                m = self._epoch(_seed_words(self._data_seed, 123, i))
-            last_loss = m["loss"].mean().item()
+                m = self._epoch(self._epoch_seed(123, i))
+            last_loss = self._rank_mean(m["loss"].mean()).item()
             wall = time.perf_counter() - t1
             if not math.isfinite(last_loss):
                 raise RuntimeError(
@@ -357,14 +468,15 @@ class Trainer:
         first_interval_len = 0
         images = self.steps_per_epoch * cfg.batch_size
         for epoch in range(cfg.epochs):
-            metrics = self._epoch(_seed_words(self._data_seed, abs_epoch0 + epoch))
+            metrics = self._epoch(self._epoch_seed(abs_epoch0 + epoch))
             pending.append((epoch, metrics))
             eval_now = (epoch + 1) % cfg.eval_every == 0 or epoch == cfg.epochs - 1
             if not eval_now:
                 continue  # keep the device queue full; no host sync this epoch
 
-            means = torch.stack([torch.stack([m["loss"].mean(), m["accuracy"].mean()])
-                                 for _, m in pending]).tolist()  # the fence
+            means = self._rank_mean(torch.stack(
+                [torch.stack([m["loss"].mean(), m["accuracy"].mean()])
+                 for _, m in pending])).tolist()  # the fence
             interval = time.perf_counter() - interval_t0
             epoch_time = interval / len(pending)  # amortized over the interval
             if first_interval_len == 0:
@@ -426,5 +538,7 @@ class Trainer:
         tokens = self._tokens_per_sec(ips_chip)
         if tokens is not None:
             summary["tokens_per_sec_per_chip"] = tokens
+        if self.dp > 1:  # every rank returns rank 0's summary
+            summary = broadcast_object(summary)
         self.writer.write("summary", **summary)
         return summary

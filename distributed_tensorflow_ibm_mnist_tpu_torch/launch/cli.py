@@ -7,10 +7,20 @@ The counterpart of the JAX package's ``launch/cli.py``::
 
 ``--set key=value`` overrides any RunConfig field (values parsed as Python
 literals when possible, else kept as strings); ``--throughput N`` measures
-instead of training.  The run is on the GPU unless ``--device cpu``.  The
-multi-host flags (``--coordinator``, ``--num-processes``, ``--process-id``)
-and ``--virtual-devices`` belong to the JAX package's TPU launcher and
-raise ``NotImplementedError`` here.
+instead of training.  The run is on the GPU unless ``--device cpu``.
+
+Data-parallel runs, one process per rank (``launch/torchrun.py``):
+
+* ``torchrun --nproc-per-node N -m ...launch.cli --preset mnist_cnn_dp8``:
+  each process joins from torchrun's environment (NCCL on the cards);
+* ``--coordinator HOST:PORT --num-processes N --process-id R``: the JAX
+  launcher's flags, one process started by hand per rank;
+* ``--virtual-devices N --device cpu``: N local gloo ranks on the CPU,
+  spawned by this command (the port's form of JAX's virtual CPU mesh).
+
+Under a world of N ranks a config at ``dp`` 0 or 1 trains at ``dp=N``;
+any other ``dp`` must equal N.  Only rank 0 prints records and the
+``final`` line.
 """
 
 from __future__ import annotations
@@ -18,8 +28,12 @@ from __future__ import annotations
 import argparse
 import ast
 import json
+import os
 import sys
+import tempfile
+from pathlib import Path
 
+from distributed_tensorflow_ibm_mnist_tpu_torch.launch.torchrun import bootstrap, spawn
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import (
     PRESETS,
     RunConfig,
@@ -63,19 +77,24 @@ def _build(argv: list[str] | None = None) -> tuple[RunConfig, argparse.Namespace
     parser.add_argument("--device", default=None,
                         help="torch device (default: the GPU; 'cpu' runs the plain versions)")
     parser.add_argument("--virtual-devices", type=int, default=None, metavar="N",
-                        help="JAX virtual CPU mesh (not ported: refused)")
-    parser.add_argument("--coordinator", default=None,
-                        help="multi-host coordinator (not ported: refused)")
-    parser.add_argument("--num-processes", type=int, default=None)
-    parser.add_argument("--process-id", type=int, default=None)
+                        help="spawn N local gloo ranks on the CPU and train data-parallel")
+    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="multi-process: the rendezvous address (tcp://HOST:PORT)")
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help="multi-process: the world size")
+    parser.add_argument("--process-id", type=int, default=None,
+                        help="multi-process: this process's rank")
     args = parser.parse_args(argv)
 
-    if (args.coordinator or (args.num_processes or 0) > 1
-            or args.process_id is not None or args.virtual_devices):
-        raise NotImplementedError(
-            "multi-host and virtual-device launch are not ported to the PyTorch "
-            "package yet: ROADMAP.md queue 1, 'Data-parallel training across "
-            "GPUs with NCCL'")
+    if args.virtual_devices is not None:
+        if args.virtual_devices < 1:
+            parser.error(f"--virtual-devices must be >= 1, got {args.virtual_devices}")
+        if args.coordinator or args.num_processes or args.process_id is not None:
+            parser.error("--virtual-devices spawns its own ranks: it takes no "
+                         "--coordinator, --num-processes or --process-id")
+        if args.device != "cpu":
+            parser.error("--virtual-devices runs gloo ranks on the CPU: it needs "
+                         f"--device cpu, got {args.device or 'the GPU (no --device)'}")
     config = get_preset(args.preset) if args.preset else RunConfig()
     overrides = dict(args.overrides)
     if args.resume:
@@ -88,18 +107,51 @@ def _build(argv: list[str] | None = None) -> tuple[RunConfig, argparse.Namespace
     return config.replace(**overrides), args
 
 
-def main(argv: list[str] | None = None) -> int:
+def _join(args: argparse.Namespace) -> dict | None:
+    """Join the process group the flags or torchrun's environment describe;
+    None when the run is a single process."""
+    if args.coordinator or (args.num_processes or 0) > 1:
+        init = f"tcp://{args.coordinator}" if args.coordinator else None
+        return bootstrap(init_method=init, world_size=args.num_processes,
+                         rank=args.process_id, device=args.device)
+    if "WORLD_SIZE" in os.environ:  # started by torchrun
+        return bootstrap(device=args.device)
+    return None
+
+
+def _run(config: RunConfig, device, throughput: int | None, world: int, rank: int) -> int:
+    """Train (or measure) as one rank of ``world``; rank 0 prints the result."""
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
 
-    config, args = _build(argv)
-    with Trainer(config, device=args.device) as trainer:
-        if args.throughput:
-            out = trainer.measure_throughput(epochs=args.throughput)
-            print(json.dumps({"kind": "throughput", **out}), flush=True)
-            return 0
-        summary = trainer.fit()
-    print(json.dumps({"kind": "final", **summary}), flush=True)
+    if world > 1 and config.dp in (0, 1):
+        config = config.replace(dp=world)
+    with Trainer(config, device=device) as trainer:
+        if throughput:
+            out = {"kind": "throughput", **trainer.measure_throughput(epochs=throughput)}
+        else:
+            out = {"kind": "final", **trainer.fit()}
+    if rank == 0:
+        print(json.dumps(out), flush=True)
     return 0
+
+
+def _virtual_rank(rank: int, config: RunConfig, throughput: int | None, world: int) -> int:
+    return _run(config, "cpu", throughput, world, rank)
+
+
+def main(argv: list[str] | None = None) -> int:
+    config, args = _build(argv)
+    if args.virtual_devices:
+        with tempfile.TemporaryDirectory() as tmp:
+            spawn(_virtual_rank, args.virtual_devices, "gloo", "cpu",
+                  Path(tmp) / "store", args=(config, args.throughput, args.virtual_devices),
+                  timeout=None)
+        return 0
+    info = _join(args)
+    if info is not None:
+        print(json.dumps({"kind": "bootstrap", **info}), flush=True)
+    world, rank = (1, 0) if info is None else (info["process_count"], info["process_index"])
+    return _run(config, args.device, args.throughput, world, rank)
 
 
 if __name__ == "__main__":

@@ -30,14 +30,26 @@ Two things follow XLA and flax rather than PyTorch's defaults:
 the running statistics in place; ``train=False`` uses the running
 statistics.  ``self.training`` plays no part.
 
+Cross-replica BatchNorm (``axis_name="data"``, as flax's ``axis_name``):
+the name is resolved when the model is built to the active data mesh
+(``parallel.mesh.axis_mesh``; ``ValueError`` with no process group).  A
+training forward then averages the float32 mean and ``E[x^2]`` across
+ranks before forming the variance, as flax ``pmean``s both, so every rank
+normalises with the global moments and holds the same running statistics.
+The gradient through the moments needs the two channel reductions summed
+across ranks: ``batch_norm_backward_reduce``, an all-reduce, then
+``batch_norm_backward_elemt``, as ``SyncBatchNorm`` does (on CUDA; their
+plain versions, :func:`backward_reduce_plain` and
+:func:`backward_elemt_plain`, on the CPU, which has no such kernels).  Without
+``axis_name`` nothing of this runs.
+
 Weights are created on ``device`` (the GPU unless ``device="cpu"``) from
 ``generator`` (a fresh one seeded 0 when None): convolution and dense
 kernels truncated-normal LeCun as flax's default, the dense bias 0,
 BatchNorm scale 1 and bias 0, running mean 0 and variance 1.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``axis_name`` (cross-replica BatchNorm, with
-data-parallel training) and ``block_remat``.
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
+item: ``block_remat``.
 """
 
 from __future__ import annotations
@@ -50,9 +62,13 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import (
     _resolve_generator,
     init_lecun_,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
+    all_reduce_mean,
+    all_reduce_sum,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh, axis_mesh
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
 
-_DP = "ROADMAP.md queue 1, 'Data-parallel training across GPUs with NCCL'"
 _FOLLOW_UPS = "ROADMAP.md queue 1, 'Training follow-ups'"
 
 
@@ -78,15 +94,21 @@ def same_pad(x: torch.Tensor, k: int, s: int, value: float = 0.0):
     return F.pad(x, (left, right, top, bottom), value=value), 0
 
 
-def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """flax's batch statistics of NCHW ``x`` over (N, H, W): the mean and
-    the biased variance ``E[x^2] - E[x]^2`` clipped at 0, both reduced from
+def _raw_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``E[x]`` and ``E[x^2]`` of NCHW ``x`` over (N, H, W), reduced from
     ``x`` read in at least float32 (float64 stays float64, as in flax)."""
     dims = (0, 2, 3)
     dt = torch.promote_types(x.dtype, torch.float32)
     mean = x.mean(dims, dtype=dt)
     mean_sq = torch.linalg.vector_norm(x, 2, dim=dims, dtype=dt).square()
-    mean_sq = mean_sq / (x.numel() // x.shape[1])
+    return mean, mean_sq / (x.numel() // x.shape[1])
+
+
+def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """flax's batch statistics of NCHW ``x`` over (N, H, W): the mean and
+    the biased variance ``E[x^2] - E[x]^2`` clipped at 0, in at least
+    float32."""
+    mean, mean_sq = _raw_moments(x)
     return mean, (mean_sq - mean.square()).clamp_min(0.0)
 
 
@@ -111,16 +133,80 @@ class _NormalizeBatch(torch.autograd.Function):
         return gx, gw, gb, None, None, None
 
 
+def _channel(v: torch.Tensor) -> torch.Tensor:
+    return v.view(1, -1, 1, 1)
+
+
+def _backward_reduce(g, x, mean, invstd, weight):
+    """Per channel: ``sum(g)``, ``sum(g (x - mean))`` and the local
+    gradients of the scale and the bias."""
+    if x.is_cuda:
+        return torch.batch_norm_backward_reduce(g, x, mean, invstd, weight, True, True, True)
+    return backward_reduce_plain(g, x, mean, invstd, weight)
+
+
+def backward_reduce_plain(g, x, mean, invstd, weight):
+    """:func:`_backward_reduce` written out, on any device."""
+    dt = mean.dtype
+    gd, xmu = g.to(dt), x.to(dt) - _channel(mean)
+    sum_dy, sum_dy_xmu = gd.sum((0, 2, 3)), (gd * xmu).sum((0, 2, 3))
+    return sum_dy, sum_dy_xmu, (sum_dy_xmu * invstd).to(weight.dtype), sum_dy.to(weight.dtype)
+
+
+def _backward_elemt(g, x, mean, invstd, weight, sum_dy, sum_dy_xmu, count: int, ranks: int):
+    """The input gradient of training-mode BatchNorm from the channel sums
+    over every rank's ``count`` elements a channel."""
+    if x.is_cuda:
+        counts = torch.full((ranks,), count, dtype=torch.int32, device=x.device)
+        return torch.batch_norm_backward_elemt(g, x, mean, invstd, weight, sum_dy,
+                                               sum_dy_xmu, counts)
+    return backward_elemt_plain(g, x, mean, invstd, weight, sum_dy, sum_dy_xmu, count, ranks)
+
+
+def backward_elemt_plain(g, x, mean, invstd, weight, sum_dy, sum_dy_xmu, count: int,
+                         ranks: int):
+    """:func:`_backward_elemt` written out, on any device."""
+    dt, total = mean.dtype, count * ranks
+    xmu = x.to(dt) - _channel(mean)
+    gx = (g.to(dt) - _channel(sum_dy / total)
+          - xmu * _channel(invstd.square() * sum_dy_xmu / total))
+    return (gx * _channel(invstd * weight.to(dt))).to(x.dtype)
+
+
+class _NormalizeCrossReplica(torch.autograd.Function):
+    """:class:`_NormalizeBatch` over moments averaged across the mesh's
+    ranks: the backward sums its two channel reductions across ranks too."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, mean, var, eps, mesh):
+        ctx.mesh = mesh
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps))
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, mean, invstd = ctx.saved_tensors
+        fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        g = g.contiguous(memory_format=fmt)
+        sum_dy, sum_dy_xmu, gw, gb = _backward_reduce(g, x, mean, invstd, weight)
+        sum_dy, sum_dy_xmu = all_reduce_sum(torch.stack([sum_dy, sum_dy_xmu]))
+        gx = _backward_elemt(g, x, mean, invstd, weight, sum_dy, sum_dy_xmu,
+                             x.numel() // x.shape[1], ctx.mesh.size)
+        return gx, gw, gb, None, None, None, None
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over the channels of NCHW activations (module
     docstring): float32 ``weight`` (flax's scale) and ``bias``, float32
     ``running_mean`` / ``running_var`` buffers (flax's ``batch_stats``
-    ``mean`` / ``var``); the output in the input's dtype."""
+    ``mean`` / ``var``); the output in the input's dtype.  With ``mesh``
+    a training forward uses the moments of the whole global batch."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
-                 device=None):
+                 device=None, mesh: Mesh | None = None):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
+        self.momentum, self.eps, self.mesh = momentum, eps, mesh
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean", torch.zeros(features, device=device))
@@ -131,10 +217,17 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         with torch.no_grad():
-            mean, var = batch_moments(x)
+            if self.mesh is None:
+                mean, var = batch_moments(x)
+            else:  # flax pmeans E[x] and E[x^2], then forms the variance
+                mean, mean_sq = all_reduce_mean(torch.stack(_raw_moments(x)))
+                var = (mean_sq - mean.square()).clamp_min(0.0)
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        if self.mesh is not None:
+            return _NormalizeCrossReplica.apply(x, self.weight, self.bias, mean, var,
+                                                self.eps, self.mesh)
         return _NormalizeBatch.apply(x, self.weight, self.bias, mean, var, self.eps)
 
 
@@ -162,17 +255,18 @@ class BasicBlock(_ConvNet):
     expansion = 1
 
     def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype,
-                 bn_momentum: float):
+                 bn_momentum: float, mesh: Mesh | None = None):
         super().__init__()
         self.dtype = dtype
+        norm = lambda n: BatchNorm(n, bn_momentum, device="meta", mesh=mesh)  # noqa: E731
         self.conv1 = _conv(cin, filters, 3, stride)
-        self.bn1 = BatchNorm(filters, bn_momentum, device="meta")
+        self.bn1 = norm(filters)
         self.conv2 = _conv(filters, filters, 3)
-        self.bn2 = BatchNorm(filters, bn_momentum, device="meta")
+        self.bn2 = norm(filters)
         self.has_proj = stride != 1 or cin != filters
         if self.has_proj:
             self.proj = _conv(cin, filters, 1, stride)
-            self.bn_proj = BatchNorm(filters, bn_momentum, device="meta")
+            self.bn_proj = norm(filters)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         y = F.relu(self.bn1(self._conv(self.conv1, x), train))
@@ -189,20 +283,21 @@ class BottleneckBlock(_ConvNet):
     expansion = 4
 
     def __init__(self, cin: int, filters: int, stride: int, dtype: torch.dtype,
-                 bn_momentum: float):
+                 bn_momentum: float, mesh: Mesh | None = None):
         super().__init__()
         self.dtype = dtype
+        norm = lambda n: BatchNorm(n, bn_momentum, device="meta", mesh=mesh)  # noqa: E731
         out = filters * 4
         self.conv1 = _conv(cin, filters, 1)
-        self.bn1 = BatchNorm(filters, bn_momentum, device="meta")
+        self.bn1 = norm(filters)
         self.conv2 = _conv(filters, filters, 3, stride)
-        self.bn2 = BatchNorm(filters, bn_momentum, device="meta")
+        self.bn2 = norm(filters)
         self.conv3 = _conv(filters, out, 1)
-        self.bn3 = BatchNorm(out, bn_momentum, device="meta")
+        self.bn3 = norm(out)
         self.has_proj = stride != 1 or cin != out
         if self.has_proj:
             self.proj = _conv(cin, out, 1, stride)
-            self.bn_proj = BatchNorm(out, bn_momentum, device="meta")
+            self.bn_proj = norm(out)
 
     def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         y = F.relu(self.bn1(self._conv(self.conv1, x), train))
@@ -218,7 +313,9 @@ class ResNet(_ConvNet):
     relu, no pool); else the 7x7/2 conv, BN, relu and the 3x3/2 max-pool.
     Stage ``i`` has ``stage_sizes[i]`` blocks of ``width * 2**i`` filters,
     its first block strided 2 from stage 1 on.  ``in_channels`` is the
-    images' channel count (flax reads it from the first input)."""
+    images' channel count (flax reads it from the first input).
+    ``axis_name``: cross-replica BatchNorm over that mesh axis (module
+    docstring)."""
 
     def __init__(self, stage_sizes=(3, 3, 3), block: type = BasicBlock,
                  num_classes: int = 10, width: int = 16, low_res: bool = True,
@@ -227,14 +324,13 @@ class ResNet(_ConvNet):
                  in_channels: int = 3, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if axis_name is not None:
-            raise _not_ported(f"cross-replica BatchNorm (axis_name={axis_name!r})", _DP)
+        mesh = axis_mesh(axis_name) if axis_name is not None else None
         if block_remat:
             raise _not_ported("block_remat", _FOLLOW_UPS)
         device = resolve_device(device)
         self.dtype, self.low_res, self.num_classes = dtype, low_res, num_classes
         self.stem = _conv(in_channels, width, 3 if low_res else 7, 1 if low_res else 2)
-        self.stem_bn = BatchNorm(width, bn_momentum, device="meta")
+        self.stem_bn = BatchNorm(width, bn_momentum, device="meta", mesh=mesh)
         self.block_names: list[str] = []
         cin = width
         for i, n_blocks in enumerate(stage_sizes):
@@ -242,7 +338,7 @@ class ResNet(_ConvNet):
             for j in range(n_blocks):
                 stride = 2 if (i > 0 and j == 0) else 1
                 name = f"stage{i}_block{j}"
-                self.add_module(name, block(cin, filters, stride, dtype, bn_momentum))
+                self.add_module(name, block(cin, filters, stride, dtype, bn_momentum, mesh))
                 self.block_names.append(name)
                 cin = filters * block.expansion
         self.logits = nn.Linear(cin, num_classes, device="meta")

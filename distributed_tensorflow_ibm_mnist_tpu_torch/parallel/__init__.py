@@ -1,1 +1,3 @@
-"""Attention reference paths of the port (the ring itself is a later slice)."""
+"""Parallelism of the port: the data mesh, collectives and data-parallel
+steps over torch.distributed, and the attention reference paths (the
+ring itself is a later slice)."""

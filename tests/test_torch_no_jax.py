@@ -61,6 +61,9 @@ def test_importing_every_module_loads_no_jax():
     assert PORT.name + ".serving.engine" in loaded  # the walk reached the leaves
     assert PORT.name + ".core.trainer" in loaded and PORT.name + ".launch.cli" in loaded
     assert PORT.name + ".models.resnet" in loaded
+    for name in ("launch.torchrun", "parallel.mesh", "parallel.collectives",
+                 "parallel.data_parallel"):  # the data-parallel slice
+        assert f"{PORT.name}.{name}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 

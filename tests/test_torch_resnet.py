@@ -284,10 +284,14 @@ def test_converter_is_strict_over_both_trees():
         resnet_state_dict(bad, stats, kw)
 
 
-@pytest.mark.parametrize("bad", [dict(axis_name="data"), dict(block_remat=True)],
-                         ids=["axis_name", "block_remat"])
-def test_model_refuses_what_the_port_lacks(bad):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+@pytest.mark.parametrize("bad, error, match", [
+    (dict(axis_name="data"), ValueError, "launch.torchrun"),
+    (dict(block_remat=True), NotImplementedError, "ROADMAP.md queue 1"),
+], ids=["axis_name", "block_remat"])
+def test_model_refuses_what_the_port_lacks(bad, error, match):
+    """``block_remat`` is not ported; cross-replica BatchNorm
+    (``axis_name``) is, and without a process group it asks for one."""
+    with pytest.raises(error, match=match):
         get_model("resnet20", device="cpu", **bad)
 
 

@@ -292,15 +292,13 @@ def test_measure_throughput_leaves_the_state_unchanged():
 
 
 REFUSED = {
-    "dp2": dict(dp=2), "tp2": dict(tp=2), "sp2": dict(sp=2), "pp2": dict(pp=2),
-    "fsdp": dict(fsdp=True), "sharded_update": dict(sharded_update=True),
-    "dcn_dp": dict(dcn_dp=2), "stream": dict(input_mode="stream"),
+    "tp2": dict(tp=2), "sp2": dict(sp=2), "pp2": dict(pp=2),
+    "fsdp": dict(fsdp=True), "dcn_dp": dict(dcn_dp=2), "stream": dict(input_mode="stream"),
     "remat": dict(remat=True), "remat_blocks": dict(remat="blocks"),
     "checkpoint_dir": dict(checkpoint_dir="ckpt"), "resume": dict(resume=True),
     "profile_dir": dict(profile_dir="prof"),
     # the image models and the causal LM train now; what they still refuse,
     # under the old ids
-    "resnet20": dict(model="resnet20", model_kwargs={"axis_name": "data"}),
     "vit": dict(model="vit", model_kwargs={"moe_every": 2}),
     "causal_lm": dict(model="causal_lm", dataset="retrieval",
                       model_kwargs={"dropout": 0.1}),
@@ -313,6 +311,21 @@ REFUSED = {
 def test_unported_knobs_raise_not_implemented(case):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         Trainer(_mlp_cfg(**REFUSED[case]), device="cpu")
+
+
+# data parallelism is ported: without a process group it asks for one (the
+# ids were refusal cases of the test above)
+NEEDS_A_GROUP = {
+    "dp2": dict(dp=2),
+    "sharded_update": dict(dp=2, sharded_update=True),
+    "resnet20": dict(model="resnet20", model_kwargs={"axis_name": "data"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NEEDS_A_GROUP))
+def test_data_parallel_without_a_process_group_names_the_launcher(case):
+    with pytest.raises(ValueError, match="launch.torchrun"):
+        Trainer(_mlp_cfg(**NEEDS_A_GROUP[case]), device="cpu")
 
 
 @pytest.mark.parametrize("hook", ["chaos", "tracer", "telemetry"])
@@ -340,7 +353,11 @@ def test_trainer_without_device_or_gpu_raises(monkeypatch):
         Trainer(_mlp_cfg())
 
 
-def test_cli_parses_presets_and_overrides_as_jax_does(capsys):
+def test_cli_parses_presets_and_overrides_as_jax_does(capfd, monkeypatch):
+    """Presets and overrides as JAX's CLI; the multi-process flags reach
+    ``launch.torchrun.bootstrap`` (a stub here); ``--virtual-devices 2``
+    trains ``mnist_mlp_smoke`` on two spawned gloo ranks, with one
+    ``final`` record, from rank 0."""
     argv = ["--preset", "mnist_lenet_1chip", "--set", "fused_xent=True",
             "--set", "lr=5e-4", "--set", "name=run-x", "--set", "epochs=2"]
     got, want = cli.build_config(argv), jax_cli.build_config(argv)
@@ -348,12 +365,29 @@ def test_cli_parses_presets_and_overrides_as_jax_does(capsys):
     assert got.fused_xent is True and got.lr == 5e-4 and got.name == "run-x"
     with pytest.raises(SystemExit):
         cli.build_config(["--set", "no_such_field=1"])
-    with pytest.raises(NotImplementedError):
-        cli.build_config(["--virtual-devices", "8"])
-    with pytest.raises(NotImplementedError):
-        cli.build_config(["--coordinator", "localhost:1234", "--num-processes", "2"])
-    rc = cli.main(["--preset", "mnist_mlp_smoke", "--device", "cpu", "--set", "n_train=256",
-                   "--set", "n_test=64", "--set", "epochs=1", "--set", "quiet=True",
-                   "--set", "synthetic=True"])
-    final = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rc == 0 and final["kind"] == "final" and final["epochs_run"] == 1
+    for device in (["--device", "cuda"], []):  # the CPU only when asked for
+        with pytest.raises(SystemExit):
+            cli.build_config(["--virtual-devices", "2", *device])
+    toy = ["--preset", "mnist_mlp_smoke", "--device", "cpu", "--set", "n_train=256",
+           "--set", "n_test=64", "--set", "epochs=1", "--set", "synthetic=True"]
+    joined = []
+
+    def stub(**kw):
+        joined.append(kw)
+        return {"process_index": 0, "process_count": 1, "local_devices": 1,
+                "global_devices": 1, "backend": "gloo", "device": "cpu"}
+
+    monkeypatch.setattr(cli, "bootstrap", stub)
+    rc = cli.main(["--coordinator", "localhost:1234", "--num-processes", "2",
+                   "--process-id", "1", *toy, "--set", "quiet=True"])
+    assert joined == [{"init_method": "tcp://localhost:1234", "world_size": 2, "rank": 1,
+                       "device": "cpu"}]
+    lines = capfd.readouterr().out.strip().splitlines()
+    assert [json.loads(line)["kind"] for line in lines] == ["bootstrap", "final"]
+    final = json.loads(lines[-1])
+    assert rc == 0 and final["epochs_run"] == 1
+
+    assert cli.main(["--virtual-devices", "2", *toy]) == 0
+    records = [json.loads(line) for line in capfd.readouterr().out.strip().splitlines()]
+    assert [r["kind"] for r in records] == ["epoch", "summary", "final"]  # rank 0's only
+    assert records[-1]["epochs_run"] == 1 and records[-1]["images_per_sec_per_chip"] > 0
