@@ -30,12 +30,31 @@ never JAX or the JAX package.  Phases, one JSON line each:
    (the path ran through the kernel), and the prefill logits must agree
    with the same weights under plain attention; then the same run once
    more under ``torch.profiler`` (device time by kernel, busy share);
+3b. serving_features — the engine's decode path as the JAX engine runs
+   it, on the same model, 8 slots, max_len 1024, 32 new tokens a request:
+   (a) phase 3's 16 requests greedy at decode_ahead 1, 4 and 8 (streams
+   identical to k=1, K3 == depth x admissions; the busy share of one
+   more profiled run each); (b) 8 greedy + 8 sampled requests
+   (temperature 0.8, top-k 40, top-p 0.9, min-p 0.05, seed = request
+   index) replayed identically at k=1, k=8 and paged, the Threefry key
+   bits on CUDA equal to the CPU's, and the pick on CUDA equal to the
+   CPU's on the same logits; (c) 16 prompts sharing a 384-token head on
+   the paged cache (page 16) with the radix trie: K3 == depth x
+   whole-prompt prefills, radix hit tokens > 0, peak pages x 16 < slots x
+   max_len, and greedy streams identical to the dense engine's on a
+   float32 twin of the weights (in bf16 the extend's attention rounds
+   otherwise than K3, so near-ties flip: the agreement and each first
+   divergence's top-2 logit gap are recorded); (d) 8 prompts then the
+   same 8 again through the 64 MiB prefix cache: streams identical to
+   the cache off, K3 == depth x misses.  Compared configurations are
+   served in the order A B .. B A and timed twice;
 4. xent kernels — the softmax cross-entropy forward (K1) and backward (K2)
    against their plain versions at the shapes of every path that launches
    them (LeNet's (128, 10), the ViT's (512, 10), the dp runs' per-rank
    (1024, 10), (512, 10) and (128, 10): ``DP_XENT_SHAPES``) and the edge
    cases, then timed at those and (2048, 10) beside their bound and a
-   PyTorch library call;
+   PyTorch library call, and an empty kernel (``csrc/launch_floor.cu``)
+   with the same timer: the card's launch floor;
 5. training — ``Trainer.fit()`` on the ``mnist_lenet_1chip`` preset with
    ``fused_xent=True`` (LeNet-5 at full width, batch 128, synthetic MNIST
    60k/10k, Adam 1e-3 with the cosine schedule, bf16, early stop at 0.99):
@@ -134,8 +153,9 @@ never JAX or the JAX package.  Phases, one JSON line each:
    one step's collectives on the model's buckets (``collectives``);
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
-   K1/K2; the ViT run's for K1-K4 and the ``dp`` runs' for K1/K2 beside
-   them), largest error, times and bound;
+   K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2 and each
+   ``serving_features`` run's for K3 beside them), largest error, times
+   and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before a path is driven and read
@@ -405,13 +425,19 @@ def phase_kernels(torch, fa) -> dict:
     return {"max_abs_err": max_err, "timed": timed}
 
 
+def serving_prompts(torch) -> list:
+    """The serving phases' 16 prompts: lengths 16-512, tokens 1-255, seeded."""
+    rng = torch.Generator().manual_seed(1)
+    lens = torch.randint(16, 513, (16,), generator=rng).tolist()
+    return [torch.randint(1, 256, (n,), generator=rng).tolist() for n in lens]
+
+
 def phase_serving(torch, fa, xent, port) -> dict:
     get_model, InferenceEngine, make_prefill, make_generator = port
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = get_model("causal_lm", dtype=torch.bfloat16, generator=gen, **MODEL_KW)
-    rng = torch.Generator().manual_seed(1)
-    lens = torch.randint(16, 513, (16,), generator=rng).tolist()
-    prompts = [torch.randint(1, 256, (n,), generator=rng).tolist() for n in lens]
+    prompts = serving_prompts(torch)
+    lens = [len(p) for p in prompts]
 
     def serve(reqs):
         eng = InferenceEngine(model, slots=8, max_len=1024,
@@ -473,6 +499,233 @@ def phase_serving(torch, fa, xent, port) -> dict:
     return rec
 
 
+# ------------------------------------------------------- serving features
+
+FEATURE_BUCKETS = (64, 128, 256, 512)
+FEATURE_SLOTS, FEATURE_MAX_LEN, FEATURE_NEW = 8, 1024, 32
+FEATURE_K = (1, 4, 8)  # decode_ahead of sub-run (a)
+PAGE = 16  # kv_page_size of sub-runs (b) and (c)
+SHARED_PREFIX = 384  # sub-run (c): the prompts' common head
+PREFIX_CACHE_BYTES = 64 << 20  # sub-run (d): 8 rows of 8 MiB would not all fit
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.9, min_p=0.05)
+KEY_SEEDS = (0, 1, (1 << 32) + 5, (1 << 64) - 1)
+KEY_INDICES = (0, 1, 7, 31, 12345, (1 << 31) + 3)
+
+
+def serve_features(torch, fa, xent, engine_cls, model, prompts, sampling=None,
+                   profile_of=None, **kw) -> dict:
+    """Serve ``prompts`` (32 new tokens each) through a fresh engine; the
+    launch counters are zeroed just before the run and read just after.
+    ``profile_of`` adds one more identical run under torch.profiler
+    (device activity only)."""
+    def run():
+        eng = engine_cls(model, slots=FEATURE_SLOTS, max_len=FEATURE_MAX_LEN,
+                         buckets=FEATURE_BUCKETS, **kw)
+        reqs = [eng.submit(p, max_new=FEATURE_NEW,
+                           sampling=None if sampling is None else sampling[i])
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        reset_counts(fa, xent)
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return eng, reqs, wall, read_counts(fa, xent)["flash_fwd"]
+
+    eng, reqs, wall, launches = run()
+    check(all(r.status == "done" and len(r.generated) == FEATURE_NEW for r in reqs),
+          f"not every request finished with {FEATURE_NEW} tokens: "
+          f"{[(r.status, len(r.generated)) for r in reqs]}")
+    s = eng.stats.summary()
+    admissions = sum(r.admit_t is not None for r in reqs)
+    rec = {"wall_s": round(wall, 4), "ttft_s_p50": s["ttft_s_p50"],
+           "ttft_s_p99": s["ttft_s_p99"], "tokens_per_sec": s["tokens_per_sec"],
+           "decode_tokens_per_s": round((s["tokens_generated"] - admissions)
+                                        / s["decode_s"], 3),
+           "prefill_s": s["prefill_s"], "decode_s": s["decode_s"],
+           "window_readback_s": s["window_readback_s"], "n_windows": s["n_windows"],
+           "window_waste_frac": s["window_waste_frac"], "admissions": admissions,
+           "flash_launches": launches}
+    for key in ("prefix_hits", "prefix_misses", "radix_hits", "radix_misses",
+                "radix_hit_tokens", "kv_pages_peak", "n_sampled_requests"):
+        if s[key]:
+            rec[key] = s[key]
+    if profile_of is not None:
+        prof = profile_run(torch, lambda: run()[2], profile_of,
+                           {"flash_fwd_device_s": "flash_fwd"}, host_ops=False)
+        emit(prof)
+        rec["device_busy_share"] = prof["device_busy_share"]
+    return {"rec": rec, "streams": [list(r.generated) for r in reqs],
+            "summary": s}
+
+
+# the host clock drifts within a call (~30% between calls, PERF.md §5), so
+# the configurations a sub-run compares are served in the order A B .. B A
+# and each timing is reported as [first, second]
+TIMING_KEYS = ("wall_s", "ttft_s_p50", "ttft_s_p99", "tokens_per_sec",
+               "decode_tokens_per_s", "prefill_s", "decode_s", "window_readback_s")
+
+
+def serve_abba(serve, configs: dict) -> dict:
+    """Serve each named configuration twice, in the order A B .. B A; a
+    rerun must give the same streams (the gates read the first run)."""
+    runs = {name: serve(**kw) for name, kw in configs.items()}
+    for name in reversed(configs):
+        again = serve(**configs[name])
+        check(again["streams"] == runs[name]["streams"],
+              f"{name}: serving the same requests again changed the streams")
+        rec = runs[name]["rec"]
+        for key in TIMING_KEYS:
+            rec[key] = [rec[key], again["rec"][key]]
+    return runs
+
+
+def bf16_ulps(gap: float, top: float) -> float:
+    """A logit gap in bf16 ulps at the top logit's magnitude."""
+    return gap / 2.0 ** (math.floor(math.log2(max(abs(top), 2.0 ** -126))) - 7)
+
+
+def divergences(torch, make_prefill, model, prompts, want, got) -> list:
+    """For each stream of ``got`` that leaves ``want``: where, and the top-2
+    gap of ``model``'s logits there (a B=1 prefill of the prompt and
+    ``want``'s tokens before it), in bf16 ulps."""
+    out = []
+    for i, (p, a, b) in enumerate(zip(prompts, want, got)):
+        if a == b:
+            continue
+        j = next(t for t, (x, y) in enumerate(zip(a, b)) if x != y)
+        _, last = make_prefill(model, FEATURE_MAX_LEN)(
+            torch.tensor([p + a[:j]], device="cuda"))
+        top = last[0].topk(2).values.tolist()
+        out.append({"request": i, "position": j, "want": a[j], "got": b[j],
+                    "gap": top[0] - top[1], "ulps": bf16_ulps(top[0] - top[1], top[0])})
+    return out
+
+
+def phase_serving_features(torch, fa, xent, port) -> dict:
+    """The engine's decode path as the JAX engine runs it, at phase_serving's
+    width: (a) greedy at decode_ahead 1, 4 and 8; (b) a greedy + sampled mix
+    replayed across k and layout, with the key schedule and the pick held
+    CUDA against CPU; (c) the paged cache with the radix trie on prompts
+    sharing a 384-token head; (d) the prefix cache on repeated prompts."""
+    get_model, engine_cls, make_prefill, SamplingParams, ts, pick_rows = port
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = get_model("causal_lm", dtype=torch.bfloat16, generator=gen, **MODEL_KW)
+    prompts = serving_prompts(torch)
+    serve = lambda *a, **kw: serve_features(torch, fa, xent, engine_cls, *a, **kw)  # noqa: E731
+    out = {}
+
+    # (a) greedy, dense, decode_ahead 1 / 4 / 8
+    runs = serve_abba(serve, {k: dict(model=model, prompts=prompts, decode_ahead=k)
+                              for k in FEATURE_K})
+    for k in FEATURE_K:  # one more run of each under the profiler: busy share
+        runs[k]["rec"]["device_busy_share"] = serve(
+            model, prompts, decode_ahead=k,
+            profile_of=f"serving_features[a,k={k}]")["rec"]["device_busy_share"]
+    for k, run in runs.items():
+        check(run["streams"] == runs[1]["streams"],
+              f"(a) decode_ahead={k} streams differ from decode_ahead=1")
+        check(run["rec"]["flash_launches"] == DEPTH * run["rec"]["admissions"],
+              f"(a) k={k}: K3 launched {run['rec']['flash_launches']} times, "
+              f"expected depth x admissions = {DEPTH * run['rec']['admissions']}")
+    out["a"] = {f"k{k}": run["rec"] for k, run in runs.items()}
+    emit({"phase": "serving_features", "sub": "a_greedy_decode_ahead",
+          "model": MODEL_KW, "dtype": "bf16", "slots": FEATURE_SLOTS,
+          "max_len": FEATURE_MAX_LEN, "requests": len(prompts),
+          "max_new": FEATURE_NEW, "streams_identical_across_k": True, **out["a"]})
+
+    # (b) 8 greedy + 8 sampled requests, seed = request index
+    mix = [None if i % 2 == 0 else SamplingParams(seed=i, **SAMPLED)
+           for i in range(len(prompts))]
+    b1 = serve(model, prompts, sampling=mix, decode_ahead=1)
+    b8 = serve(model, prompts, sampling=mix, decode_ahead=8)
+    bp = serve(model, prompts, sampling=mix, decode_ahead=8, kv_page_size=PAGE)
+    check(b1["streams"] == b8["streams"], "(b) sampled streams differ k=1 vs k=8")
+    check(b8["streams"] == bp["streams"], "(b) sampled streams differ dense vs paged")
+    check(all(b1["streams"][i] == runs[1]["streams"][i] for i in range(0, 16, 2)),
+          "(b) greedy rows riding with sampled rows left the all-greedy streams")
+    key_err = 0
+    for seed in KEY_SEEDS:
+        base = torch.from_numpy(ts.base_key(seed).astype("int64"))[None]
+        idx = torch.tensor(KEY_INDICES)
+        cpu = ts.fold_in(base.expand(len(KEY_INDICES), 2), idx)
+        cuda = ts.fold_in(base.expand(len(KEY_INDICES), 2).cuda(), idx.cuda()).cpu()
+        key_err += int((cpu != cuda).sum())
+        key_err += int((ts.random_bits(cpu, 256) != ts.random_bits(cuda.cuda(), 256).cpu()).sum())
+    check(key_err == 0, f"(b) key bits differ CUDA vs CPU in {key_err} words")
+    logits = torch.cat([make_prefill(model, FEATURE_MAX_LEN)(
+        torch.tensor([p], device="cuda"))[1] for p in prompts])
+    planes = [torch.tensor([0.0 if s is None else getattr(s, f) for s in mix],
+                           dtype=torch.int64 if f == "top_k" else torch.float32)
+              for f in ("temperature", "top_p", "top_k", "min_p")]
+    keys = ts.fold_in(torch.stack([torch.from_numpy(
+        ts.base_key(0 if s is None else s.seed).astype("int64")) for s in mix]),
+        torch.zeros(len(mix), dtype=torch.int64))
+    tok_cpu, _ = pick_rows(logits.cpu(), *planes, keys)
+    tok_cuda, _ = pick_rows(logits, *(x.cuda() for x in planes), keys.cuda())
+    check(torch.equal(tok_cpu, tok_cuda.cpu()),
+          f"(b) _pick_rows differs CUDA vs CPU: {tok_cpu.tolist()} vs {tok_cuda.tolist()}")
+    out["b"] = {"k1": b1["rec"], "k8": b8["rec"], "k8_paged": bp["rec"]}
+    emit({"phase": "serving_features", "sub": "b_sampled_mix", "sampling": SAMPLED,
+          "greedy_requests": 8, "sampled_requests": 8, "replay_k1_k8_paged": True,
+          "key_words_checked": len(KEY_SEEDS) * len(KEY_INDICES) * 258,
+          "key_words_differing": key_err, "pick_rows_cuda_eq_cpu": True, **out["b"]})
+
+    # (c) paged + radix: 16 prompts sharing a 384-token head, 16-128 new tail
+    rng = torch.Generator().manual_seed(2)
+    head = torch.randint(1, 256, (SHARED_PREFIX,), generator=rng).tolist()
+    tails = torch.randint(16, 129, (16,), generator=rng).tolist()
+    shared = [head + torch.randint(1, 256, (n,), generator=rng).tolist() for n in tails]
+    c = serve_abba(serve, {"dense": dict(model=model, prompts=shared),
+                           "paged": dict(model=model, prompts=shared, kv_page_size=PAGE)})
+    cd, cp = c["dense"], c["paged"]
+    s = cp["summary"]
+    check(cp["rec"]["flash_launches"] == DEPTH * s["radix_misses"],
+          f"(c) K3 launched {cp['rec']['flash_launches']} times, expected depth x "
+          f"whole-prompt prefills = {DEPTH * s['radix_misses']}")
+    check(s["radix_hit_tokens"] > 0, "(c) the radix trie shared nothing")
+    check(s["kv_pages_peak"] * PAGE < FEATURE_SLOTS * FEATURE_MAX_LEN,
+          f"(c) peak pages {s['kv_pages_peak']} x {PAGE} >= slots x max_len")
+    # token identity with the dense engine, on a float32 twin of the weights:
+    # in bf16 the extend's attention and K3 round differently, which flips
+    # near-ties of bf16-quantized logits (recorded below, not gated)
+    twin = get_model("causal_lm", dtype=torch.float32, generator=gen, **MODEL_KW)
+    twin.load_state_dict(model.state_dict())
+    fd = serve(twin, shared)
+    fp = serve(twin, shared, kv_page_size=PAGE)
+    check(fp["streams"] == fd["streams"],
+          "(c) float32 paged + radix streams differ from the dense engine's")
+    check(fp["rec"]["flash_launches"] == DEPTH * fp["summary"]["radix_misses"],
+          "(c) float32: K3 launches != depth x whole-prompt prefills")
+    diverged = divergences(torch, make_prefill, model, shared, cd["streams"], cp["streams"])
+    agree = sum(x == y for a, b in zip(cd["streams"], cp["streams"]) for x, y in zip(a, b))
+    out["c"] = {"dense": cd["rec"], "paged_radix": cp["rec"],
+                "f32_dense": fd["rec"], "f32_paged_radix": fp["rec"]}
+    emit({"phase": "serving_features", "sub": "c_paged_radix", "page_size": PAGE,
+          "shared_prefix": SHARED_PREFIX, "tail_lens": tails,
+          "f32_streams_identical": True,
+          "bf16_token_agreement": round(agree / (16 * FEATURE_NEW), 4),
+          "bf16_divergences": diverged, **out["c"]})
+
+    # (d) prefix cache: 8 prompts, then the same 8 again in reverse order
+    repeated = prompts[:8] + prompts[:8][::-1]
+    d = serve_abba(serve, {"off": dict(model=model, prompts=repeated),
+                           "on": dict(model=model, prompts=repeated,
+                                      prefix_cache_bytes=PREFIX_CACHE_BYTES)})
+    dd, dc = d["off"], d["on"]
+    s = dc["summary"]
+    check(dc["streams"] == dd["streams"], "(d) prefix-cache streams differ from cache-off")
+    check(s["prefix_hits"] > 0, "(d) the prefix cache never hit")
+    check(dc["rec"]["flash_launches"] == DEPTH * s["prefix_misses"],
+          f"(d) K3 launched {dc['rec']['flash_launches']} times, expected depth x "
+          f"misses = {DEPTH * s['prefix_misses']}")
+    out["d"] = {"cache_off": dd["rec"], "cache_on": dc["rec"]}
+    emit({"phase": "serving_features", "sub": "d_prefix_cache",
+          "prefix_cache_bytes": PREFIX_CACHE_BYTES, "requests": len(repeated),
+          "repeats": 8, "streams_identical": True, **out["d"]})
+    return out
+
+
 XENT_SHAPE = (128, 10)   # the training path's: batch 128, 10 classes
 VIT_XENT_SHAPE = (512, 10)  # the ViT step's: batch 512, float32 logits
 # mnist_cnn_dp8's per-rank logits: its global batch 1024 over dp=1, 2 and 8
@@ -495,7 +748,8 @@ def xent_cost(n: int, c: int, itemsize: int, backward: bool) -> tuple[float, flo
 def phase_xent_kernels(torch, xent) -> dict:
     """K1 and K2 against their plain twins (at the shapes of every path
     that launches them: LeNet's, the ViT's and the data-parallel runs'
-    per-rank logits, among others), then timed."""
+    per-rank logits, among others), then timed, and the card's launch
+    floor (an empty kernel) with the same timer."""
     import torch.nn.functional as F
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -580,7 +834,14 @@ def phase_xent_kernels(torch, xent) -> dict:
                    **bound(flops, nbytes, H100_F32_FLOPS)}
             emit(rec)
             timed[name].append(rec)
-    return {"max_abs_err": errs, "at_shape": at_shape, "timed": timed}
+    # the launch floor: an empty kernel (csrc/launch_floor.cu), same timer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops.launch_floor import launch_floor
+
+    floor_ms = gpu_ms(launch_floor, torch, sleep=20_000_000)
+    emit({"phase": "kernel_time", "kernel": "launch_floor", "ms": floor_ms,
+          "what": "one empty kernel, <<<1, 1>>>, no arguments read"})
+    return {"max_abs_err": errs, "at_shape": at_shape, "timed": timed,
+            "launch_floor_ms": floor_ms}
 
 
 def phase_training(torch, fa, xent, port) -> dict:
@@ -1455,15 +1716,18 @@ def phase_vit(torch, fa, xent, port, get_model, steps_mod) -> dict:
     return {**rec, "throughput": tp, "profile": prof, "grad_check": grad_rec}
 
 
-def profile_run(torch, run, of: str, focus: dict, top_n: int = 8) -> dict:
+def profile_run(torch, run, of: str, focus: dict, top_n: int = 8,
+                host_ops: bool = True) -> dict:
     """One more run under torch.profiler: device time by kernel and the
     device's busy share of the wall time (the profiler's own overhead
     inflates the wall, so the share is a lower bound).  ``run`` returns its
     wall seconds; ``focus`` maps an output key to a kernel-name substring
-    whose device time is summed."""
+    whose device time is summed.  ``host_ops=False`` traces the device
+    only (no ``top_ops``), which reads back in a fraction of the time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         wall = run()
     kernels, ops = [], []  # device events; host ops by the device time they caused
     for e in prof.key_averages():
@@ -2206,7 +2470,12 @@ def main() -> int:
         from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
         from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
         from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import make_mesh
-        from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine
+        from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import _pick_rows
+        from distributed_tensorflow_ibm_mnist_tpu_torch.serving import (
+            InferenceEngine,
+            SamplingParams,
+        )
+        from distributed_tensorflow_ibm_mnist_tpu_torch.serving import sampling
         from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import (
             RunConfig,
             get_preset,
@@ -2220,6 +2489,9 @@ def main() -> int:
     k3 = phase_kernels(torch, fa)
     serving = phase_serving(
         torch, fa, xent, (get_model, InferenceEngine, make_prefill, make_generator))
+    features = phase_serving_features(
+        torch, fa, xent,
+        (get_model, InferenceEngine, make_prefill, SamplingParams, sampling, _pick_rows))
     xk = phase_xent_kernels(torch, xent)
     training = phase_training(torch, fa, xent, (Trainer, get_preset))
     bwd_errs = phase_flash_bwd_kernels(torch, fa)
@@ -2292,6 +2564,10 @@ def main() -> int:
     k3_entry["lm_training"] = {**{k: flash_timed["flash_fwd"][k] for k in timing_keys},
                                "launches": lm["launches"]["flash_fwd"]}
     k3_entry["vit_training"] = on_vit("flash_fwd", vit_kernels["fwd_err"])
+    # K3's launches on each serving_features run (every whole-prompt prefill)
+    k3_entry["serving_features"] = {
+        f"{sub}_{run}": rec["flash_launches"]
+        for sub, runs in features.items() for run, rec in runs.items()}
     k4_entry = bwd_entry("flash_bwd_fused", "ops/flash_attention.py:340",
                          lm["launches"]["flash_bwd_fused"])
     k4_entry["vit_training"] = on_vit("flash_bwd_fused", dict(zip(
@@ -2320,11 +2596,13 @@ def main() -> int:
         # (and at (512, 10) on the ViT run)
         {**entry("xent_fwd", "xent.cu", "ops/xent.py:40", counts["xent_fwd"],
                  xk["max_abs_err"]["xent_fwd"], xk["timed"]["xent_fwd"], "by_shape"),
-         "vit_training": on_vit_xent("xent_fwd"), "dp_launches": dp_launches(0)},
+         "vit_training": on_vit_xent("xent_fwd"), "dp_launches": dp_launches(0),
+         "launch_floor_ms": xk["launch_floor_ms"]},
         {**entry("xent_bwd", "xent.cu", "ops/xent.py:53", counts["xent_bwd"],
                  xk["max_abs_err"]["xent_bwd"], xk["timed"]["xent_bwd"], "by_shape"),
-         "vit_training": on_vit_xent("xent_bwd"), "dp_launches": dp_launches(1)},
-    ]}), flush=True)
+         "vit_training": on_vit_xent("xent_bwd"), "dp_launches": dp_launches(1),
+         "launch_floor_ms": xk["launch_floor_ms"]},
+    ], "launch_floor_ms": xk["launch_floor_ms"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": dev["count"]}}), flush=True)
     return 0

@@ -1,8 +1,7 @@
-"""Autoregressive generation for the port's causal LM (dense KV cache).
+"""Autoregressive generation for the port's causal LM.
 
-The counterpart of the JAX package's ``core/generate.py`` for the serving
-slice, as plain functions on tensors (PyTorch runs eagerly; there is no
-``jit``):
+The counterpart of the JAX package's ``core/generate.py``, as plain
+functions on tensors (PyTorch runs eagerly; there is no ``jit``):
 
 * :func:`make_prefill` — ``prefill(prompt, prompt_lens=None) -> (cache,
   last_logits)``: the right-padded (B, P) prompt runs through the NORMAL
@@ -11,15 +10,26 @@ slice, as plain functions on tensors (PyTorch runs eagerly; there is no
   every row's cursor at its real length;
 * :func:`make_decode_step` — ``step(cache, tok) -> (cache, logits)``: one
   batched single-token step against a caller-owned cache;
+* :func:`make_decode_window` — ``window`` fused decode+pick steps per
+  call (decode-ahead), greedy or sampled on a given key schedule;
+* :func:`_sample_window_core` — the serving engine's window: per-row
+  sampling planes as data, the token at generated index ``n`` picked with
+  ``fold_in(base_key, n)``;
 * :func:`init_cache` — a zeroed (batch, max_len) cache;
-* :func:`make_generator` — the greedy offline episode on the same two
-  cores, so the stepwise path and the episode cannot drift apart.
+* :func:`make_generator` / :func:`generate` — the offline episode (greedy,
+  or sampled with top-k / top-p) on the same cores, so the stepwise path
+  and the episode cannot drift apart.
 
-Weights live in the model, so none of these take ``params``.  The cache
-is ``{"block_i": {"k", "v", "index"}}`` with k/v (B, max_len, H_kv, D) in
-the model's dtype and a (B,) int32 cursor; decode updates it IN PLACE and
-hands the same dict back.  Sampled decoding (temperature > 0) is a later
-slice.
+Weights live in the model, so none of these take ``params``.  The dense
+cache is ``{"block_i": {"k", "v", "index"}}`` with k/v (B, max_len, H_kv,
+D) in the model's dtype and a (B,) int32 cursor; the paged cache
+(serving/kv_pool.py) holds ``pages_k``/``pages_v``/``block_table``
+instead of k/v, and every decode function here runs on either.  Decode
+updates the cache IN PLACE and hands the same dict back.  Nothing in a
+window reads a value back to the host: on CUDA tensors the loop only
+enqueues work.  The per-row picks use the key schedule of
+serving/sampling.py (Threefry-2x32 in torch integer ops), equal to
+``jax.random``'s bits.
 """
 
 from __future__ import annotations
@@ -126,34 +136,246 @@ def init_cache(model, batch: int, max_len: int) -> dict:
     }
 
 
+def _prng():
+    """serving/sampling.py's key schedule, imported at first use: the
+    serving package imports this module, so a top-level import would be
+    circular."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import sampling
+
+    return sampling
+
+
+def _neg(logits: torch.Tensor) -> float:
+    return torch.finfo(logits.dtype).min
+
+
+def _filter_topp_rows(logits, top_ps):
+    """Per-row nucleus filter with ``top_p`` as DATA (the keep rule of
+    :func:`_filter_logits`: ranks whose PRECEDING mass is < p survive, so
+    the argmax always does).  ``top_ps`` is (B,) float32; rows with
+    ``top_p <= 0`` or ``>= 1`` pass through unfiltered."""
+    sorted_logits = logits.sort(dim=-1, descending=True).values
+    cum = torch.softmax(sorted_logits, dim=-1).cumsum(-1)
+    keep = torch.cat([torch.ones_like(cum[:, :1], dtype=torch.bool),
+                      cum[:, :-1] < top_ps[:, None]], dim=-1)
+    cutoff = torch.where(keep, sorted_logits, torch.inf).amin(-1, keepdim=True)
+    filtered = torch.where(logits < cutoff, _neg(logits), logits)
+    nucleus = (top_ps > 0.0) & (top_ps < 1.0)
+    return torch.where(nucleus[:, None], filtered, logits)
+
+
+def _filter_topk_rows(logits, top_ks):
+    """Per-row top-k filter with ``top_k`` as DATA: the k highest logits
+    survive, ties at the k-th value included.  ``top_ks`` is (B,) int;
+    rows with ``top_k <= 0`` or ``>= vocab`` pass through unfiltered."""
+    vocab = logits.shape[-1]
+    sorted_desc = logits.sort(dim=-1, descending=True).values
+    k = top_ks.long().clamp(1, vocab)
+    kth = sorted_desc.gather(1, (k - 1)[:, None])
+    filtered = torch.where(logits < kth, _neg(logits), logits)
+    on = (top_ks > 0) & (top_ks < vocab)
+    return torch.where(on[:, None], filtered, logits)
+
+
+def _filter_minp_rows(logits, min_ps):
+    """Per-row min-p filter with ``min_p`` as DATA: tokens whose
+    probability is below ``min_p * max_prob`` are cut (the argmax always
+    survives, so ``min_p = 1`` is greedy).  ``min_ps`` is (B,) float32;
+    rows with ``min_p <= 0`` pass through unfiltered."""
+    probs = torch.softmax(logits, dim=-1)
+    cutoff = min_ps[:, None] * probs.amax(-1, keepdim=True)
+    filtered = torch.where(probs < cutoff, _neg(logits), logits)
+    return torch.where((min_ps > 0.0)[:, None], filtered, logits)
+
+
+def _tempered_rows(logits, temps, topps, topks, minps):
+    """The per-row SAMPLING distribution as filtered logits: temperature
+    first, then top-k, nucleus and min-p (in that order).  Rows with
+    ``temps <= 0`` divide by 1 (their pick is the argmax anyway; the
+    placeholder keeps the math finite)."""
+    safe_t = torch.where(temps > 0.0, temps, 1.0)[:, None]
+    scaled = _filter_topk_rows(logits / safe_t, topks)
+    scaled = _filter_topp_rows(scaled, topps)
+    return _filter_minp_rows(scaled, minps)
+
+
+def _pick_rows(logits, temps, topps, topks, minps, keys, sampled: bool = True):
+    """Per-row pick: (B, V) float32 logits, the (B,) ``temps`` / ``topps``
+    / ``topks`` / ``minps`` planes and (B, 2) already-folded ``keys`` ->
+    ``((B,) int64 token, (B,) float32 logprob)``.  Rows with ``temps <= 0``
+    take the argmax; the rest draw ``categorical`` from their filtered
+    logits with their own key.  ``sampled=False`` is the caller's promise
+    that no row samples, which skips the filters and the key schedule
+    (the tokens are the same).  The logprob is ``log_softmax`` of the RAW
+    logits at the emitted token, whatever the row's sampling."""
+    tok = logits.argmax(-1)
+    if sampled:
+        drawn = _prng().categorical(keys, _tempered_rows(logits, temps, topps, topks, minps))
+        tok = torch.where(temps > 0.0, drawn, tok)
+    logp = torch.log_softmax(logits, dim=-1).gather(1, tok[:, None])[:, 0]
+    return tok, logp
+
+
+def _decode_window_core(model, cache, tok, active, rngs, max_len: int,
+                        ragged: bool, pick, pad_id: int):
+    """``window = len(rngs)`` fused decode+pick steps.  ``active`` (B,)
+    bool is FROZEN for the window: inactive rows still decode (the batch
+    shape is fixed) but emit ``pad_id``, which is also what they feed
+    back.  Returns ``(cache, (B, window) tokens, (B,) last)``."""
+    toks = []
+    for rng in rngs:
+        cache, logits = _decode_step_core(model, cache, tok, max_len, ragged)
+        tok = torch.where(active, pick(logits, rng), pad_id)
+        toks.append(tok)
+    return cache, torch.stack(toks, dim=1), tok
+
+
+def _single_key_categorical(key, logits):
+    """``jax.random.categorical(key, logits)`` with ONE key over a (B, V)
+    batch: the Gumbel noise is drawn over the flattened (B * V) shape."""
+    g = _prng().gumbel(key.reshape(1, 2), logits.numel()).reshape(logits.shape)
+    return (g.to(logits.dtype) + logits).argmax(-1)
+
+
+def _static_pick(temperature: float, top_k: int, top_p: float):
+    """The offline pick for fixed sampling settings: argmax at
+    temperature 0, else ``categorical(rng, filter(logits / T))``."""
+    def pick(logits, rng):
+        if temperature == 0.0:
+            return logits.argmax(-1)
+        return _single_key_categorical(
+            rng, _filter_logits(logits / temperature, top_k, top_p))
+
+    return pick
+
+
+def make_decode_window(model, max_len: int, window: int, ragged: bool = True,
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 0.0, pad_id: int = 0) -> Callable:
+    """``win(cache, tok, active=None, rngs=None) -> (cache, tokens, last)``:
+    ``window`` fused decode+pick steps per call (decode-ahead), the k-step
+    sibling of :func:`make_decode_step`.  ``active`` (B,) bool freezes
+    which rows are live (inactive rows emit ``pad_id``); ``rngs`` is
+    (window, 2) key data, one key per step (required when ``temperature >
+    0``, ignored for greedy).  Greedy windows are token-identical to
+    ``window`` sequential steps; the window runs on a dense or a paged
+    cache alike."""
+    if max_len < 1:
+        raise ValueError(f"max_len must be >= 1, got {max_len}")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if temperature == 0.0 and (top_k or top_p):
+        raise ValueError(
+            "top_k/top_p filter a SAMPLING distribution; set temperature > 0")
+    pick = _static_pick(temperature, top_k, top_p)
+
+    @torch.no_grad()
+    def win(cache, tok, active=None, rngs=None):
+        b = tok.shape[0]
+        if active is None:
+            active = torch.ones((b,), dtype=torch.bool, device=tok.device)
+        if rngs is None:
+            if temperature != 0.0:
+                raise ValueError(
+                    "temperature > 0 samples from the model — pass rngs= "
+                    "((window, 2) keys, one per step)")
+            rngs = torch.zeros((window, 2), dtype=torch.int64, device=tok.device)
+        return _decode_window_core(model, cache, tok.long(), active,
+                                   _prng().key_words(torch.as_tensor(rngs, device=tok.device)),
+                                   max_len, ragged, pick, pad_id)
+
+    return win
+
+
+def _sample_window_core(model, cache, tok, active, temps, topps, topks, minps,
+                        keys, pos, window: int, max_len: int, ragged: bool,
+                        pad_id: int, sampled: bool = True):
+    """The serving engine's decode-ahead window: ``window`` fused
+    decode+pick steps with the per-row sampling planes as data.
+
+    ``temps``/``topps``/``minps`` are (B,) float32, ``topks`` (B,) int,
+    ``keys`` (B, 2) BASE keys (int64 words), ``pos`` (B,) the per-row
+    count of already-generated tokens.  The token at generated index ``n``
+    is picked with ``fold_in(base_key, n)`` and ``pos`` advances for
+    active rows only, so a stream is a pure function of (seed, prefix)
+    however the host cuts it into windows.  Inactive rows emit ``pad_id``
+    and logprob 0.  ``sampled=False`` promises no row samples (see
+    :func:`_pick_rows`).  Returns ``(cache, (B, window) tokens, (B, window)
+    logprobs, (B,) last, (B,) new pos)``; nothing is read back."""
+    fold_in = _prng().fold_in
+    step = active.long()
+    pos = pos.long()
+    toks, logps = [], []
+    for _ in range(window):
+        cache, logits = _decode_step_core(model, cache, tok, max_len, ragged)
+        step_keys = fold_in(keys, pos) if sampled else None
+        nxt, logp = _pick_rows(logits, temps, topps, topks, minps, step_keys, sampled)
+        tok = torch.where(active, nxt, pad_id)
+        toks.append(tok)
+        logps.append(torch.where(active, logp, 0.0))
+        pos = pos + step
+    return cache, torch.stack(toks, dim=1), torch.stack(logps, dim=1), tok, pos
+
+
+def _filter_logits(logits, top_k: int, top_p: float):
+    """The offline generator's filters on (B, V) logits: ``top_k > 0``
+    keeps the k highest logits; ``0 < top_p < 1`` keeps the smallest set
+    of tokens whose softmax mass reaches p (nucleus), always including the
+    argmax.  Both compose (k first, then p); cut tokens get the dtype's
+    lowest value."""
+    if top_k > 0:
+        kth = logits.topk(top_k, dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, _neg(logits), logits)
+    if 0.0 < top_p < 1.0:
+        b = logits.shape[0]
+        logits = _filter_topp_rows(
+            logits, torch.full((b,), top_p, dtype=torch.float32, device=logits.device))
+    return logits
+
+
 def make_generator(model, max_len: int, max_new: int, temperature: float = 0.0,
+                   top_k: int = 0, top_p: float = 0.0,
                    eos_id: int | None = None, pad_id: int = 0,
                    with_lengths: bool = False) -> Callable:
-    """Greedy ``gen(prompt, prompt_lens=None) -> (B, P + max_new)``.
+    """``gen(prompt, prompt_lens=None, rng=None) -> (B, P + max_new)``.
 
     Row b of the result is ``prompt[b, :len_b]``, then up to ``max_new``
     generated tokens, then ``pad_id``.  ``eos_id`` stops a row at its EOS
     (kept in the output; later slots are ``pad_id``) and the loop ends once
     every row has stopped.  ``with_lengths=True`` also returns the (B,)
     count of real generated tokens per row.  ``prompt_lens=None`` decodes
-    with the shared cursor, a ragged batch with per-row cursors."""
+    with the shared cursor, a ragged batch with per-row cursors.
+
+    ``temperature == 0`` decodes greedily; otherwise ``logits /
+    temperature`` are filtered by ``top_k`` and/or ``top_p`` and sampled
+    with ``rng`` (an int seed or (2,) uint32 key data) on JAX's schedule:
+    ``split(rng, max_new)``, one key per generated position, each drawing
+    Gumbel noise over the whole (B, V) batch."""
     if max_new < 1:
         raise ValueError(f"max_new must be >= 1, got {max_new}")
-    if temperature != 0.0:
-        raise NotImplementedError(
-            "sampled generation (temperature > 0) is not in the PyTorch port "
-            "yet (the sampling serving slice ports it)")
+    if temperature == 0.0 and (top_k or top_p):
+        raise ValueError(
+            "top_k/top_p filter a SAMPLING distribution; set temperature > 0")
+    if top_k < 0:
+        raise ValueError(f"top_k must be >= 0, got {top_k}")
+    if not 0.0 <= top_p <= 1.0:
+        raise ValueError(f"top_p must be in [0, 1], got {top_p}")
     if eos_id is not None and eos_id == pad_id:
         raise ValueError(
             f"eos_id and pad_id must differ (both {eos_id}): a pad fed back "
             "after a stop would immediately re-trigger the stop logic")
+    pick = _static_pick(temperature, top_k, top_p)
 
     @torch.no_grad()
-    def gen(prompt, prompt_lens=None):
+    def gen(prompt, prompt_lens=None, rng=None):
         b, p = prompt.shape
         if p + max_new > max_len:
             raise ValueError(
                 f"prompt ({p}) + max_new ({max_new}) exceeds max_len ({max_len})")
+        if rng is None and temperature != 0.0:
+            raise ValueError(
+                "temperature > 0 samples from the model — pass rng= (an int "
+                "seed or (2,) uint32 key data)")
         lens = _lens(prompt, prompt_lens)
         if prompt_lens is not None and (lens.shape != (b,) or int(lens.min()) < 1
                                         or int(lens.max()) > p):
@@ -161,8 +383,10 @@ def make_generator(model, max_len: int, max_new: int, temperature: float = 0.0,
                 f"prompt_lens must be ({b},) lengths in [1, P={p}], got "
                 f"{lens.tolist()}")
         dev = prompt.device
+        ks = _prng()
+        rngs = ks.split(ks.key_words(ks.rng_key(0 if rng is None else rng)).to(dev), max_new)
         cache, last = _prefill_core(model, prompt, lens, max_len)
-        tok = last.argmax(-1)
+        tok = pick(last, rngs[0])
         finished = (torch.zeros(b, dtype=torch.bool, device=dev) if eos_id is None
                     else tok == eos_id)
         toks = torch.full((b, max_new), pad_id, dtype=torch.long, device=dev)
@@ -173,7 +397,7 @@ def make_generator(model, max_len: int, max_new: int, temperature: float = 0.0,
             if eos_id is not None and bool(finished.all()):
                 break
             cache, logits = _decode_step_core(model, cache, tok, max_len, ragged)
-            nxt = logits.argmax(-1)
+            nxt = pick(logits, rngs[t])
             if eos_id is not None:
                 nxt = torch.where(finished, pad_id, nxt)
                 stopped = finished | (nxt == eos_id)
@@ -189,3 +413,19 @@ def make_generator(model, max_len: int, max_new: int, temperature: float = 0.0,
         return (out, flen.to(torch.int32)) if with_lengths else out
 
     return gen
+
+
+def generate(model, prompt, max_new: int, max_len: int | None = None,
+             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+             rng=None, eos_id: int | None = None, pad_id: int = 0,
+             prompt_lens=None, with_lengths: bool = False):
+    """One-shot convenience over :func:`make_generator`; a 1-D ``prompt``
+    is one row."""
+    prompt = torch.as_tensor(prompt, device=model.device)
+    if prompt.ndim == 1:
+        prompt = prompt[None, :]
+    if max_len is None:
+        max_len = int(prompt.shape[1]) + max_new
+    return make_generator(model, max_len, max_new, temperature, top_k, top_p,
+                          eos_id=eos_id, pad_id=pad_id, with_lengths=with_lengths)(
+        prompt, rng=rng, prompt_lens=prompt_lens)

@@ -16,7 +16,8 @@ Calls:
   each block's post-RoPE K/V from the normal forward (the port's form of
   flax's ``sow_kv``: the flash prefill builds the decode cache from it);
 * ``model(tokens, cache=cache, max_len=L, ragged=...)`` — decode against
-  the dense cache (core/generate.py ``init_cache``), updated in place.
+  the dense cache (core/generate.py ``init_cache``) or the paged one
+  (serving/kv_pool.py ``init_paged_cache``), updated in place.
 
 Weights are created on ``device`` (the GPU unless ``device="cpu"``) and
 initialised from ``generator`` (a ``torch.Generator``; a fresh one seeded
@@ -67,6 +68,7 @@ class CausalLM(nn.Module):
         self.head_dim = dim // heads
         self.window, self.causal, self.attn = window, causal, attn
         self.tie_embeddings, self.dtype = tie_embeddings, dtype
+        self.page_size = page_size  # > 0: the blocks decode the paged cache only
         attn_fn = partial(_resolve_attn(None, attn), causal=causal, window=window)
         meta = torch.device("meta")  # shapes first; values from `generator`
         self.embed = nn.Embedding(num_classes, dim, dtype=dtype, device=meta)

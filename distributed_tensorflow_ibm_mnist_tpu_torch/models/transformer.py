@@ -177,8 +177,13 @@ class TransformerBlock(nn.Module):
         if kv_cache_dtype != "native":
             raise _not_in_slice(f"kv_cache_dtype={kv_cache_dtype!r}",
                                 "the int8 serving slice")
-        if page_size:
-            raise _not_in_slice("the paged KV cache", "the paged-KV serving slice")
+        if page_size < 0:
+            raise ValueError(f"page_size must be >= 0, got {page_size}")
+        if page_size and window:
+            raise ValueError(
+                "the paged cache does not compose with sliding-window "
+                "attention (window > 0) — the windowed span gather assumes a "
+                "dense contiguous cache row")
         if dropout > 0.0:
             raise _not_in_slice("dropout in a transformer block", LM_FOLLOW_UPS)
         hkv = heads_kv or heads
@@ -187,6 +192,7 @@ class TransformerBlock(nn.Module):
         self.dim, self.heads, self.heads_kv = dim, heads, hkv
         self.head_dim = dim // heads
         self.rope, self.window, self.dtype = rope, window, dtype
+        self.page_size = page_size
         self.attn_fn = _resolve_attn(attn_fn, attn)
         kw = dict(dtype=param_dtype or dtype, device=device)
         self.norm_attn = LayerNorm(dim, dtype, device=device)
@@ -218,7 +224,13 @@ class TransformerBlock(nn.Module):
             kv = self._dense(self.kv_proj, h).view(b, s, 2, self.heads_kv, hd)
             k, v = kv[:, :, 0], kv[:, :, 1]
         kv_out = None
-        if cache is not None:
+        if cache is not None and "block_table" in cache:
+            o = self._paged_decode_attention(q, k, v, cache, max_len)
+        elif cache is not None:
+            if self.page_size:
+                raise ValueError(
+                    f"this block decodes paged (page_size={self.page_size}) "
+                    "but was given a dense cache")
             o = self._decode_attention(q, k, v, cache, max_len, ragged)
         else:
             if self.rope:
@@ -287,6 +299,53 @@ class TransformerBlock(nn.Module):
         mask = k_pos[:, None, :] <= q_pos[:, :, None]  # (B|1, S, L)
         if self.window:
             mask &= k_pos[:, None, :] > q_pos[:, :, None] - self.window
+        return _attend_cached(q, kc, vc, mask, self.dtype)
+
+    def _paged_decode_attention(self, q, k, v, cache: dict, max_len: int):
+        """Decode attention over the PAGED cache (serving/kv_pool.py): K/V
+        live in a pooled ``(n_pages, page_size, H_kv, D)`` slab per layer
+        and each row's ``(max_len / page_size,)`` block-table row maps its
+        virtual positions to pool pages, so read-only pages can be shared
+        between rows (the radix prefix cache).
+
+        Writes scatter each new position to ``(block_table[pos // ps],
+        pos % ps)``, clamped at max_len - 1 like the dense path; reads
+        gather ``pool[block_table]`` back to (B, max_len, H_kv, D) and run
+        the dense tail (same mask, same reduction shapes), which keeps
+        paged output token-identical to dense.  Per-row cursors always
+        (the ``ragged`` case).  Unallocated table entries point at the
+        trash page 0, whose garbage no live row's mask exposes."""
+        if max_len <= 0:
+            raise ValueError("decode needs max_len > 0 (the KV-cache size)")
+        pk, pv, bt, idx = (cache["pages_k"], cache["pages_v"],
+                           cache["block_table"], cache["index"])
+        ps = pk.shape[1]
+        if max_len % ps:
+            raise ValueError(
+                f"paged decode needs max_len ({max_len}) to be a multiple of "
+                f"page_size ({ps})")
+        if self.window:
+            raise ValueError(
+                "paged decode does not compose with sliding-window attention "
+                "(window > 0) — the windowed span gather assumes a dense "
+                "contiguous cache row")
+        b, s, _, d = q.shape
+        steps = torch.arange(s, device=q.device)
+        if self.rope:
+            q = apply_rope(q, offset=idx)
+            k = apply_rope(k, offset=idx)
+        pos = (idx[:, None] + steps).clamp(max=max_len - 1)  # (B, S) writes
+        page = bt.gather(1, (pos // ps).long()).long()
+        off = (pos % ps).long()
+        pk[page, off] = k.to(pk.dtype)
+        pv[page, off] = v.to(pv.dtype)
+        q_pos = idx[:, None] + steps  # unclamped, as the dense path's
+        idx.copy_((idx + s).clamp(max=max_len))
+        rows = bt.long()
+        kc = pk[rows].reshape(b, max_len, pk.shape[2], d)
+        vc = pv[rows].reshape(b, max_len, pv.shape[2], d)
+        k_pos = torch.arange(max_len, device=q.device)[None]
+        mask = k_pos[:, None, :] <= q_pos[:, :, None]  # (B, S, max_len)
         return _attend_cached(q, kc, vc, mask, self.dtype)
 
 

@@ -77,6 +77,8 @@ class Request:
     sampling: SamplingParams | None = None  # None = the engine default
     logprobs: list[float] = field(default_factory=list)  # engine: one
     #   log_softmax(raw logits)[token] per generated token
+    radix_tokens: int = 0               # engine: prompt tokens served from
+    #   shared radix pages (prefill skipped for them)
 
     @property
     def overdue_at(self) -> float:

@@ -4,9 +4,9 @@
   header ``csrc/*.cuh``: editing a header renames every library (so no
   stale build is reused), editing one source renames only its own.
 * Every ``extern "C"`` entry in ``csrc/*.cu`` has a ctypes argument list
-  in the port (``ARGTYPES`` of ``ops/flash_attention.py`` and
-  ``ops/xent.py``) that matches its declaration parameter by parameter, so
-  a C signature cannot change without its caller.
+  in the port (``ARGTYPES`` of ``ops/flash_attention.py``, ``ops/xent.py``
+  and ``ops/launch_floor.py``) that matches its declaration parameter by
+  parameter, so a C signature cannot change without its caller.
 * The bf16 wrappers refuse a view whose base or strides are not 16-byte
   aligned (the kernels copy 16-byte chunks with cp.async or TMA).
 * ``chip_smoke.py``'s helpers: the ptxas-log reader, the tensor-core
@@ -24,9 +24,9 @@ import torch
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.ops import _build
 from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
-from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+from distributed_tensorflow_ibm_mnist_tpu_torch.ops import launch_floor, xent
 
-ARGTYPES = {**fa.ARGTYPES, **xent.ARGTYPES}
+ARGTYPES = {**fa.ARGTYPES, **xent.ARGTYPES, **launch_floor.ARGTYPES}
 KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_longlong: "long long",
         ctypes.c_float: "float", ctypes.POINTER(ctypes.c_longlong): "long long*"}
 
@@ -50,7 +50,7 @@ def _c_entries() -> dict[str, list[str]]:
 
 def test_every_c_entry_has_an_argument_table():
     assert set(_c_entries()) == set(ARGTYPES)
-    assert len(ARGTYPES) == 6
+    assert len(ARGTYPES) == 7  # the six kernels' entries and the empty launch_floor
 
 
 @pytest.mark.parametrize("name", sorted(ARGTYPES))
@@ -79,7 +79,7 @@ def test_editing_a_shared_header_renames_every_library(csrc_copy):
     with headers[0].open("a") as f:
         f.write("\n// edited\n")
     after = _paths()
-    assert set(before) == set(after) == {"flash_bwd", "flash_fwd", "xent"}
+    assert set(before) == set(after) == {"flash_bwd", "flash_fwd", "launch_floor", "xent"}
     assert all(before[n] != after[n] for n in before)
 
 

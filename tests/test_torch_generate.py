@@ -120,7 +120,10 @@ def test_generator_lengths_and_refusals():
     out, flen = tgen.make_generator(tm, MAX_LEN, 6, with_lengths=True)(
         torch.from_numpy(prompt), torch.from_numpy(lens))
     assert out.shape == (3, 18) and flen.tolist() == [6, 6, 6]
-    with pytest.raises(NotImplementedError, match="sampl"):
-        tgen.make_generator(tm, MAX_LEN, 6, temperature=0.7)
+    sampled = tgen.make_generator(tm, MAX_LEN, 6, temperature=0.7)
+    with pytest.raises(ValueError, match="rng"):
+        sampled(torch.from_numpy(prompt))  # sampling needs a key
+    with pytest.raises(ValueError, match="temperature"):
+        tgen.make_generator(tm, MAX_LEN, 6, top_k=3)  # a filter needs sampling
     with pytest.raises(ValueError, match="exceeds max_len"):
         tgen.make_generator(tm, 14, 6)(torch.from_numpy(prompt))

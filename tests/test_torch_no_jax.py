@@ -62,7 +62,9 @@ def test_importing_every_module_loads_no_jax():
     assert PORT.name + ".core.trainer" in loaded and PORT.name + ".launch.cli" in loaded
     assert PORT.name + ".models.resnet" in loaded
     for name in ("launch.torchrun", "parallel.mesh", "parallel.collectives",
-                 "parallel.data_parallel"):  # the data-parallel slice
+                 "parallel.data_parallel",  # the data-parallel slice
+                 "serving.sampling", "serving.prefix_cache", "serving.kv_pool",
+                 "serving.radix_cache", "ops.launch_floor"):  # the serving features
         assert f"{PORT.name}.{name}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -8,7 +8,7 @@ plain version, JAX's in Pallas interpret mode).
 
 Lifecycle (port only): bounded-queue backpressure, deadline cancels of
 queued and running requests, callback-failure isolation, and refusal of
-the knobs later slices port.
+the knobs later slices port (and of bad values of the ported ones).
 """
 
 import jax
@@ -139,26 +139,42 @@ def test_callback_failure_is_isolated():
     assert good.status == "done" and len(good.generated) == 6
 
 
-@pytest.mark.parametrize("knob", [
-    dict(decode_ahead=4), dict(speculative="ngram"), dict(prefix_cache_bytes=1 << 20),
-    dict(kv_page_size=8), dict(prefill_chunk=8), dict(tp=2), dict(cp=2),
-    dict(quant="int8"), dict(role="prefill"), dict(chaos=object()),
-    dict(tracer=object()), dict(telemetry=object()),
-], ids=lambda k: next(iter(k)))
-def test_later_slice_knobs_refuse(knob):
+# decode_ahead, prefix_cache_bytes and kv_page_size are ported: their
+# cases now hold the refusals of bad values that the JAX engine makes too
+@pytest.mark.parametrize("knob, error, match", [
+    pytest.param(dict(decode_ahead=0), ValueError, "decode_ahead", id="decode_ahead"),
+    pytest.param(dict(speculative="ngram"), NotImplementedError, "later|slice", id="speculative"),
+    pytest.param(dict(prefix_cache_bytes=-1), ValueError, "prefix_cache_bytes", id="prefix_cache_bytes"),
+    pytest.param(dict(kv_page_size=7), ValueError, "multiple of kv_page_size", id="kv_page_size"),
+    pytest.param(dict(prefill_chunk=8), NotImplementedError, "later|slice", id="prefill_chunk"),
+    pytest.param(dict(tp=2), NotImplementedError, "later|slice", id="tp"),
+    pytest.param(dict(cp=2), NotImplementedError, "later|slice", id="cp"),
+    pytest.param(dict(quant="int8"), NotImplementedError, "later|slice", id="quant"),
+    pytest.param(dict(role="prefill"), NotImplementedError, "later|slice", id="role"),
+    pytest.param(dict(chaos=object()), NotImplementedError, "later|slice", id="chaos"),
+    pytest.param(dict(tracer=object()), NotImplementedError, "later|slice", id="tracer"),
+    pytest.param(dict(telemetry=object()), NotImplementedError, "later|slice", id="telemetry"),
+])
+def test_later_slice_knobs_refuse(knob, error, match):
     _, _, tm = _pair()
-    with pytest.raises(NotImplementedError, match="later|slice"):
+    with pytest.raises(error, match=match):
         InferenceEngine(tm, slots=1, max_len=32, device="cpu", **knob)
 
 
 def test_sampled_requests_refuse_and_lifecycle_guards():
     _, _, tm = _pair()
+    # sampling is ported: what still refuses is engine-level sampling
+    # without a key, and a filter without sampling
+    with pytest.raises(ValueError, match="rng"):
+        InferenceEngine(tm, slots=1, max_len=32, device="cpu", temperature=0.8)
+    with pytest.raises(ValueError, match="temperature > 0"):
+        InferenceEngine(tm, slots=1, max_len=32, device="cpu", top_k=4)
     eng = InferenceEngine(tm, slots=1, max_len=32, buckets=(8, 16), device="cpu")
-    with pytest.raises(NotImplementedError, match="sampl"):
-        eng.submit([1, 2], 4, sampling=SamplingParams(temperature=0.8, seed=1))
+    eng.submit([1, 2], 4, sampling=SamplingParams(temperature=0.8, seed=1))
     eng.submit([1, 2], 4, sampling=SamplingParams())  # greedy is fine
     eng.close()
-    assert eng.completed[0].status == "cancelled" and eng.completed[0].engine_fault
+    assert [r.status for r in eng.completed] == ["cancelled"] * 2
+    assert all(r.engine_fault for r in eng.completed)
     with pytest.raises(RuntimeError, match="closed"):
         eng.submit([1, 2], 4)
     with pytest.raises(RuntimeError, match="closed"):
