@@ -48,6 +48,29 @@ never JAX or the JAX package.  Phases, one JSON line each:
    same 8 again through the 64 MiB prefix cache: streams identical to
    the cache off, K3 == depth x misses.  Compared configurations are
    served in the order A B .. B A and timed twice;
+3c. serving_spec_quant_chunk — the rest of the single-card engine on the
+   same model, slots and max_len: (e) phase 3's requests under
+   ``quant="int8"`` and with the int8 KV cache, dense and paged (K3 ==
+   depth x whole-prompt prefills; the teacher-forced logit drift on JAX's
+   protocol within ``QUANT_DRIFT``; the teacher-forced greedy pick agrees
+   with bf16's >= 0.9 and every stream that leaves bf16's does so at a
+   top-2 gap inside the weights' drift bound; the float32 twin's int8
+   paged streams identical to int8 dense; the int8-cache attention, held
+   at every call against a float64 reference on the same cache, differs
+   in at most ``INT8_ATTN_MISMATCH`` of its outputs, dense and paged; two
+   planted faults, ``fault_p_bf16`` (the cache's known trap) and
+   ``fault_paged_v_scale``, must each fail its gate, their other readings
+   recorded; weight and KV bytes, busy share); (f) ``speculative="ngram"`` at draft_len 3 and 7 on
+   ``scripts/bench_speculative.py``'s motif and control prompt sets, 16 x
+   64 tokens, against decode_ahead = draft_len + 1 (K3 == depth x
+   admissions; the float32 twin's spec streams identical to its plain
+   k=1 streams, dense at 3 and paged at 7; bf16 agreement and first
+   divergences recorded), a sampled mix replayed dense and paged, and the
+   accept uniforms CUDA == CPU; (g) ``prefill_chunk`` 64 and 128 on 8
+   prompts of 600-896 tokens among the 16 short ones (K3 == 0, the chunk
+   count exact, the pool drained, the float32 twin's streams identical to
+   a whole-prompt engine with a 1024 bucket; long-prompt TTFT, the short
+   requests' decode tokens/s, chunk_stall_s);
 4. xent kernels — the softmax cross-entropy forward (K1) and backward (K2)
    against their plain versions at the shapes of every path that launches
    them (LeNet's (128, 10), the ViT's (512, 10), the dp runs' per-rank
@@ -154,7 +177,8 @@ never JAX or the JAX package.  Phases, one JSON line each:
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2 and each
-   ``serving_features`` run's for K3 beside them), largest error, times
+   ``serving_features`` and ``serving_spec_quant_chunk`` run's for K3
+   beside them), largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
 
@@ -168,6 +192,7 @@ script, it exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import re
@@ -513,15 +538,16 @@ KEY_INDICES = (0, 1, 7, 31, 12345, (1 << 31) + 3)
 
 
 def serve_features(torch, fa, xent, engine_cls, model, prompts, sampling=None,
-                   profile_of=None, **kw) -> dict:
-    """Serve ``prompts`` (32 new tokens each) through a fresh engine; the
-    launch counters are zeroed just before the run and read just after.
-    ``profile_of`` adds one more identical run under torch.profiler
-    (device activity only)."""
+                   profile_of=None, max_new=FEATURE_NEW, buckets=FEATURE_BUCKETS,
+                   **kw) -> dict:
+    """Serve ``prompts`` (``max_new`` new tokens each, 32 by default)
+    through a fresh engine; the launch counters are zeroed just before the
+    run and read just after.  ``profile_of`` adds one more identical run
+    under torch.profiler (device activity only)."""
     def run():
         eng = engine_cls(model, slots=FEATURE_SLOTS, max_len=FEATURE_MAX_LEN,
-                         buckets=FEATURE_BUCKETS, **kw)
-        reqs = [eng.submit(p, max_new=FEATURE_NEW,
+                         buckets=buckets, **kw)
+        reqs = [eng.submit(p, max_new=max_new,
                            sampling=None if sampling is None else sampling[i])
                 for i, p in enumerate(prompts)]
         torch.cuda.synchronize()
@@ -533,8 +559,8 @@ def serve_features(torch, fa, xent, engine_cls, model, prompts, sampling=None,
         return eng, reqs, wall, read_counts(fa, xent)["flash_fwd"]
 
     eng, reqs, wall, launches = run()
-    check(all(r.status == "done" and len(r.generated) == FEATURE_NEW for r in reqs),
-          f"not every request finished with {FEATURE_NEW} tokens: "
+    check(all(r.status == "done" and len(r.generated) == max_new for r in reqs),
+          f"not every request finished with {max_new} tokens: "
           f"{[(r.status, len(r.generated)) for r in reqs]}")
     s = eng.stats.summary()
     admissions = sum(r.admit_t is not None for r in reqs)
@@ -547,16 +573,20 @@ def serve_features(torch, fa, xent, engine_cls, model, prompts, sampling=None,
            "window_waste_frac": s["window_waste_frac"], "admissions": admissions,
            "flash_launches": launches}
     for key in ("prefix_hits", "prefix_misses", "radix_hits", "radix_misses",
-                "radix_hit_tokens", "kv_pages_peak", "n_sampled_requests"):
+                "radix_hit_tokens", "kv_pages_peak", "n_sampled_requests",
+                "drafted_tokens", "accepted_tokens", "accept_rate",
+                "n_prefill_chunks", "chunk_stall_s", "chunk_stall_frac"):
         if s[key]:
             rec[key] = s[key]
+    if eng.speculative is not None:
+        rec["useful_tokens_per_window"] = s["useful_tokens_per_window"]
     if profile_of is not None:
         prof = profile_run(torch, lambda: run()[2], profile_of,
                            {"flash_fwd_device_s": "flash_fwd"}, host_ops=False)
         emit(prof)
         rec["device_busy_share"] = prof["device_busy_share"]
     return {"rec": rec, "streams": [list(r.generated) for r in reqs],
-            "summary": s}
+            "summary": s, "reqs": reqs, "engine": eng}
 
 
 # the host clock drifts within a call (~30% between calls, PERF.md §5), so
@@ -723,6 +753,396 @@ def phase_serving_features(torch, fa, xent, port) -> dict:
     emit({"phase": "serving_features", "sub": "d_prefix_cache",
           "prefix_cache_bytes": PREFIX_CACHE_BYTES, "requests": len(repeated),
           "repeats": 8, "streams_identical": True, **out["d"]})
+    return out
+
+
+# ------------------------------------- speculation, int8 and chunked prefill
+
+# Teacher-forced logit drift on JAX's protocol (2 x 16 tokens).  The
+# weights' bound is tests/test_quant.py:150's.  Its cache bound, 0.05
+# (:270), sat 1.56x over the 0.032 JAX read on its toy model; at this
+# width JAX's own cache drift reads 0.045-0.057 (and the port's, on the
+# same weights, 0.039-0.047: tests/test_torch_quant.py::
+# test_int8_kv_drift_at_chip_width_matches_jax), so the bound here keeps
+# that headroom over the reference's highest reading: 1.56 x 0.057
+QUANT_DRIFT = {"weights": 0.15, "kv": 0.09}
+# tests/test_quant.py:164's floor, on the teacher-forced pick: on these
+# random bf16 weights a tenth of the top-2 gaps sit under the drift, and
+# one flip changes the rest of its stream (so the streams' own agreement is
+# recorded beside a float32-twin control, not gated)
+QUANT_AGREEMENT = 0.9
+# The int8 KV attention against a float64 reference on the same int8
+# cache: the share of output elements that differ once rounded to bf16.
+# The cache's known trap, probabilities rounded to bf16 before the PV
+# product, moves the logit drift less than the seeds spread it, so this
+# share gates it, and the trap is planted each run (INT8_FAULTS) to show
+# that it fails the gate (PERF.md §6).
+INT8_ATTN_MISMATCH = 0.01
+SPEC_DRAFT_LENS = (3, 7)
+SPEC_NEW = 64  # bench_speculative.py's MAX_NEW
+CHUNKS = (64, 128)
+LONG_LENS = (600, 897)  # (g): prompts past the 512 bucket, 600-896 tokens
+LONG_REQUESTS = 8
+WHOLE_BUCKETS = FEATURE_BUCKETS + (1024,)  # (g): the whole-prompt reference
+
+
+def spec_prompts(torch, seed: int, repetitive: bool) -> list:
+    """``scripts/bench_speculative.py``'s two prompt sets at vocab 256, 16
+    requests: a 4-8-token motif tiled to 28 tokens (retrieved context
+    quoted back), or i.i.d. prompts of 16-28 tokens (the control)."""
+    rng = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(16):
+        if repetitive:
+            motif = torch.randint(1, 255, (int(torch.randint(4, 9, (1,), generator=rng)),),
+                                  generator=rng).tolist()
+            out.append((motif * 7)[:28])
+        else:
+            n = int(torch.randint(16, 29, (1,), generator=rng))
+            out.append(torch.randint(1, 255, (n,), generator=rng).tolist())
+    return out
+
+
+def agreement(want: list, got: list) -> float:
+    return round(sum(x == y for a, b in zip(want, got) for x, y in zip(a, b))
+                 / sum(len(a) for a in want), 4)
+
+
+def teacher_forced_drift(torch, model, other, init_cache, tokens, prefix: int) -> float:
+    """Largest logit gap between ``model`` and ``other`` decoding ``tokens``
+    teacher-forced: a ``prefix``-token decode-mode prefill, then one token a
+    step, each against its own dense cache (JAX's drift tests, at width)."""
+    b, n = tokens.shape
+    worst = 0.0
+    caches = [init_cache(m, b, n) for m in (model, other)]
+    with torch.no_grad():
+        for lo, hi in [(0, prefix)] + [(t, t + 1) for t in range(prefix, n)]:
+            a, c = (m(tokens[:, lo:hi], cache=cache, max_len=n)
+                    for m, cache in zip((model, other), caches))
+            worst = max(worst, (a - c).abs().max().item())
+    return worst
+
+
+def int8_attention(torch, q, kc, vc, mask, dtype, ksc, vsc, work, p_dtype=None):
+    """Plain int8-KV attention with the port's semantics: scores in ``work``
+    with ``k_scale`` per (q, k) pair, a softmax masked at -1e30, ``v_scale``
+    folded into the probabilities, which enter the PV product in
+    ``p_dtype`` (``work`` by default); the output in ``dtype``."""
+    rep = q.shape[2] // kc.shape[2]
+    k, v, ks, vs = (x.to(work).repeat_interleave(rep, dim=2) for x in (kc, vc, ksc, vsc))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(work), k) * q.shape[-1] ** -0.5
+    scores = scores * ks.permute(0, 2, 1)[:, :, None, :]
+    p = torch.softmax(torch.where(mask[:, None], scores, -1e30), dim=-1)
+    p = (p * vs.permute(0, 2, 1)[:, :, None, :]).to(p_dtype or work)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(p.dtype)).to(dtype)
+
+
+def int8_attention_mismatch(torch, tr, run, fault=None) -> float:
+    """Run ``run()`` with every int8-cache call of ``tr._attend_cached``
+    (or of ``fault`` in its place) held against the float64 reference:
+    the share of output elements that differ from it."""
+    real, counts = tr._attend_cached, [0, 0]
+
+    def held(q, kc, vc, mask, dtype, ksc=None, vsc=None):
+        out = (fault or real)(q, kc, vc, mask, dtype, ksc, vsc)
+        if ksc is not None:
+            ref = int8_attention(torch, q, kc, vc, mask, dtype, ksc, vsc, torch.float64)
+            counts[0] += int((out != ref).sum())
+            counts[1] += out.numel()
+        return out
+
+    tr._attend_cached = held
+    try:
+        run()
+    finally:
+        tr._attend_cached = real
+    check(counts[1] > 0, "(e) no int8-cache attention ran")
+    return counts[0] / counts[1]
+
+
+def fault_p_bf16(torch, real):
+    """Planted fault, the int8 cache's known trap: the probabilities are
+    rounded to the compute dtype before the PV product."""
+    def attend(q, kc, vc, mask, dtype, ksc=None, vsc=None):
+        if ksc is None:
+            return real(q, kc, vc, mask, dtype)
+        return int8_attention(torch, q, kc, vc, mask, dtype, ksc, vsc,
+                              torch.float32, dtype)
+    return attend
+
+
+def fault_paged_v_scale(make_insert):
+    """Planted fault: the paged insert leaves ``pages_v_scale`` as it
+    found it, so a prefilled prompt's V is read with stale scales."""
+    def make(page_size, max_len):
+        insert = make_insert(page_size, max_len)
+
+        def faulty(cache, row_cache, bt_row, slot):
+            kept = {n: e["pages_v_scale"].clone() for n, e in cache.items()}
+            insert(cache, row_cache, bt_row, slot)
+            for n, v in kept.items():
+                cache[n]["pages_v_scale"].copy_(v)
+            return cache
+        return faulty
+    return make
+
+
+def phase_serving_spec_quant_chunk(torch, fa, xent, port) -> dict:
+    """(e) int8 weights and the int8 KV cache, (f) speculative decoding on
+    the motif and control prompt sets, (g) chunked prefill of prompts past
+    the 512 bucket among short decoding requests, on serving_features'
+    model, slots and max_len."""
+    get_model, engine_cls, make_prefill, SamplingParams, ts, init_cache = port
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = get_model("causal_lm", dtype=torch.bfloat16, generator=gen, **MODEL_KW)
+    kv8 = model.clone(kv_cache_dtype="int8")
+    twin = get_model("causal_lm", dtype=torch.float32, generator=gen, **MODEL_KW)
+    twin.load_state_dict(model.state_dict())
+    prompts = serving_prompts(torch)
+    serve = lambda *a, **kw: serve_features(torch, fa, xent, engine_cls, *a, **kw)  # noqa: E731
+    out = {}
+
+    def k3_gate(sub, name, run, prefills=None):
+        """K3 == depth x whole-prompt prefills (admissions less radix hits)."""
+        rec = run["rec"]
+        if prefills is None:
+            prefills = rec["admissions"] - rec.get("radix_hits", 0)
+        want = DEPTH * prefills
+        check(rec["flash_launches"] == want,
+              f"({sub}) {name}: K3 launched {rec['flash_launches']} times, expected {want}")
+
+    # (e) int8: weights, then weights + KV, dense and paged
+    e = serve_abba(serve, {
+        "bf16": dict(model=model, prompts=prompts),
+        "w8": dict(model=model, prompts=prompts, quant="int8"),
+        "w8_kv8": dict(model=kv8, prompts=prompts, quant="int8")})
+    e["w8_paged"] = serve(model, prompts, quant="int8", kv_page_size=PAGE)
+    e["w8_kv8_paged"] = serve(kv8, prompts, quant="int8", kv_page_size=PAGE)
+    for name in ("w8", "w8_kv8"):
+        e[name]["rec"]["device_busy_share"] = serve(
+            kv8 if "kv8" in name else model, prompts, quant="int8",
+            profile_of=f"serving_spec_quant_chunk[e,{name}]")["rec"]["device_busy_share"]
+    # the drift gates on JAX's own protocol (tests/test_quant.py:150, 270):
+    # 2 rows x 16 tokens, the weights' full forward and the cache's 8-token
+    # decode-mode prefill + 8 steps; the same at 4 x 128 (64 + 64) recorded
+    q8 = e["w8"]["engine"].model  # the engine's own int8 copy
+    drift = {}
+    for rows, n, prefix in (("2x16", 2, 16), ("4x128", 4, 128)):
+        x = torch.tensor([p[:prefix] for p in prompts if len(p) >= prefix][:n], device="cuda")
+        check(x.shape == (n, prefix), f"(e) drift rows: {tuple(x.shape)}")
+        with torch.no_grad():
+            w = (model(x) - q8(x)).abs().max().item()
+        drift[rows] = {"weights": w, "kv": teacher_forced_drift(
+            torch, model, kv8, init_cache, x, prefix // 2)}
+    for what, limit in QUANT_DRIFT.items():
+        check(drift["2x16"][what] <= limit,
+              f"(e) int8 {what} teacher-forced logit drift {drift['2x16'][what]} > {limit}")
+    # greedy agreement: the quantized pick against bf16's, teacher-forced
+    # over the bf16 streams (gated), and the engines' streams (recorded;
+    # one flip at a near-tie changes the rest of a stream)
+    agree = total = 0
+    with torch.no_grad():
+        for p, st in zip(prompts, e["bf16"]["streams"]):
+            x = torch.tensor([p + st[:-1]], device="cuda")
+            a, b = model(x)[0, len(p) - 1:], q8(x)[0, len(p) - 1:]
+            agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+            total += a.shape[0]
+    tf_agreement = round(agree / total, 4)
+    check(tf_agreement >= QUANT_AGREEMENT,
+          f"(e) int8 teacher-forced greedy agreement {tf_agreement} < {QUANT_AGREEMENT}")
+    control = serve(twin, prompts)  # bf16 against its float32 twin: no int8
+    rec_e = {"f32_twin_control": {"agreement_vs_bf16": agreement(
+        e["bf16"]["streams"], control["streams"])}}
+    for name, run in e.items():
+        k3_gate("e", name, run)
+        eng = run["engine"]
+        rec_e[name] = {**run["rec"], "agreement_vs_bf16": agreement(
+            e["bf16"]["streams"], run["streams"]),
+            "weight_bytes": eng.weight_bytes_per_chip(), "kv_bytes": eng.kv_bytes_per_chip()}
+        if name == "bf16":
+            continue
+        # every stream that leaves bf16's does so at a near-tie: a top-2
+        # gap of bf16's logits within the weights' drift bound
+        div = divergences(torch, make_prefill, model, prompts, e["bf16"]["streams"],
+                          run["streams"])
+        rec_e[name]["divergences"] = div
+        check(all(d["gap"] <= QUANT_DRIFT["weights"] for d in div),
+              f"(e) {name}: a stream left bf16's at a gap above the drift bound: "
+              f"{[d for d in div if d['gap'] > QUANT_DRIFT['weights']]}")
+    # int8 paged == int8 dense, token for token, on the float32 twin
+    twin8 = twin.clone(kv_cache_dtype="int8")
+    fd = serve(twin8, prompts, quant="int8")
+    fp = serve(twin8, prompts, quant="int8", kv_page_size=PAGE)
+    check(fp["streams"] == fd["streams"],
+          "(e) float32 twin: int8 paged streams differ from int8 dense")
+    # the int8-cache attention against its float64 reference, on JAX's
+    # drift protocol (dense) and in a short paged engine run
+    tr = importlib.import_module(type(model.blocks[0]).__module__)
+    x = torch.tensor([p[:16] for p in prompts[:2]], device="cuda")
+    mismatch = {
+        "dense_2x16": int8_attention_mismatch(
+            torch, tr, lambda: teacher_forced_drift(torch, model, kv8, init_cache, x, 8)),
+        "paged_engine": int8_attention_mismatch(
+            torch, tr, lambda: serve(kv8, prompts[:4], quant="int8", kv_page_size=PAGE,
+                                     max_new=8))}
+    for where, share in mismatch.items():
+        check(share <= INT8_ATTN_MISMATCH,
+              f"(e) int8-cache attention ({where}) differs from its float64 reference "
+              f"in {share} of its outputs > {INT8_ATTN_MISMATCH}")
+    # the planted faults: each must fail a gate; the others' readings are
+    # recorded beside it
+    faults = {}
+    drift_p = {}
+    faults["fault_p_bf16"] = {"attention_mismatch_dense_2x16": int8_attention_mismatch(
+        torch, tr, lambda: drift_p.update(kv=teacher_forced_drift(
+            torch, model, kv8, init_cache, x, 8)), fault_p_bf16(torch, tr._attend_cached))}
+    faults["fault_p_bf16"]["kv_drift_2x16"] = drift_p["kv"]
+    check(faults["fault_p_bf16"]["attention_mismatch_dense_2x16"] > INT8_ATTN_MISMATCH,
+          f"(e) the planted p-to-bf16 fault passed the attention gate: {faults}")
+    eng_mod = sys.modules[engine_cls.__module__]
+    real_insert = eng_mod.make_paged_insert
+    eng_mod.make_paged_insert = fault_paged_v_scale(real_insert)
+    try:
+        ff = serve(twin8, prompts, quant="int8", kv_page_size=PAGE)
+        fb = serve(kv8, prompts, quant="int8", kv_page_size=PAGE)
+    finally:
+        eng_mod.make_paged_insert = real_insert
+    div = divergences(torch, make_prefill, model, prompts, e["bf16"]["streams"], fb["streams"])
+    faults["fault_paged_v_scale"] = {
+        "f32_twin_agreement_paged_vs_dense": agreement(fd["streams"], ff["streams"]),
+        "bf16_agreement_vs_bf16": agreement(e["bf16"]["streams"], fb["streams"]),
+        "max_divergence_gap": max((d["gap"] for d in div), default=None)}
+    check(ff["streams"] != fd["streams"],
+          f"(e) the planted paged v_scale fault passed the paged == dense gate: {faults}")
+    check((faults["fault_paged_v_scale"]["max_divergence_gap"] or 0) > QUANT_DRIFT["weights"],
+          f"(e) the planted paged v_scale fault passed the divergence-gap gate: {faults}")
+    out["e"] = rec_e
+    emit({"phase": "serving_spec_quant_chunk", "sub": "e_int8", "model": MODEL_KW,
+          "requests": len(prompts), "max_new": FEATURE_NEW, "logit_drift": drift,
+          "drift_limits": QUANT_DRIFT, "teacher_forced_agreement": tf_agreement,
+          "agreement_limit": QUANT_AGREEMENT, "f32_twin_int8_paged_eq_dense": True,
+          "attention_mismatch": mismatch, "attention_mismatch_limit": INT8_ATTN_MISMATCH,
+          "planted_faults": faults, **rec_e})
+
+    # (f) speculative decoding, greedy: the motif set and the control.
+    # Identity with plain k=1 decode is gated on the float32 twin: in bf16
+    # the verify chunk's k-token products round otherwise than k one-token
+    # steps, so near-ties may flip (agreement and each first divergence's
+    # top-2 gap recorded, as serving_features (c) does for the extend)
+    rec_f = {}
+    for set_name, seed, repetitive in (("motif", 2, True), ("control", 3, False)):
+        ps = spec_prompts(torch, seed, repetitive)
+        ref = serve(model, ps, max_new=SPEC_NEW)
+        twin_ref = serve(twin, ps, max_new=SPEC_NEW)
+        k3_gate("f", f"{set_name} k=1", ref)
+        runs = {"k1": ref["rec"]}
+        for dl, twin_layout in zip(SPEC_DRAFT_LENS, ({}, {"kv_page_size": PAGE})):
+            pair = serve_abba(serve, {
+                "plain": dict(model=model, prompts=ps, max_new=SPEC_NEW, decode_ahead=dl + 1),
+                "spec": dict(model=model, prompts=ps, max_new=SPEC_NEW,
+                             speculative="ngram", draft_len=dl)})
+            pair["spec_f32"] = serve(twin, ps, max_new=SPEC_NEW, speculative="ngram",
+                                     draft_len=dl, **twin_layout)
+            for name, run in pair.items():
+                k3_gate("f", f"{set_name} {name} dl={dl}", run)
+                runs[f"{name}_dl{dl}"] = run["rec"]
+            check(pair["plain"]["streams"] == ref["streams"],
+                  f"(f) {set_name} decode_ahead={dl + 1}: streams differ from k=1")
+            check(pair["spec_f32"]["streams"] == twin_ref["streams"],
+                  f"(f) {set_name} float32 spec dl={dl} "
+                  f"{'paged' if twin_layout else 'dense'}: streams differ from plain k=1")
+            runs[f"spec_dl{dl}"].update(
+                bf16_agreement_vs_k1=agreement(ref["streams"], pair["spec"]["streams"]),
+                bf16_divergences=divergences(torch, make_prefill, model, ps, ref["streams"],
+                                             pair["spec"]["streams"]))
+        rec_f[set_name] = runs
+    # a sampled mix (serving_features (b)'s) replays; its accept uniforms
+    # on CUDA equal the CPU's bit for bit
+    mix = [None if i % 2 == 0 else SamplingParams(seed=i, **SAMPLED)
+           for i in range(len(prompts))]
+    sd = serve(model, prompts, sampling=mix, speculative="ngram", draft_len=3)
+    sp = serve(model, prompts, sampling=mix, speculative="ngram", draft_len=3,
+               kv_page_size=PAGE)
+    check(sd["streams"] == sp["streams"], "(f) sampled spec streams differ dense vs paged")
+    check(sd["streams"] == serve(model, prompts, sampling=mix, speculative="ngram",
+                                 draft_len=3)["streams"],
+          "(f) sampled spec streams differ on a replay")
+    u_err = 0
+    for seed in KEY_SEEDS:
+        base = torch.from_numpy(ts.base_key(seed).astype("int64"))[None]
+        keys = ts.fold_in(ts.fold_in(base.expand(len(KEY_INDICES), 2),
+                                     torch.tensor(KEY_INDICES)),
+                          torch.ones(len(KEY_INDICES), dtype=torch.int64))
+        u_err += int((ts.uniform(keys).view(torch.int32)
+                      != ts.uniform(keys.cuda()).cpu().view(torch.int32)).sum())
+    check(u_err == 0, f"(f) accept uniforms differ CUDA vs CPU in {u_err} draws")
+    rec_f["sampled_mix"] = {"dense": sd["rec"], "paged": sp["rec"]}
+    out["f"] = rec_f
+    emit({"phase": "serving_spec_quant_chunk", "sub": "f_speculative",
+          "draft_lens": SPEC_DRAFT_LENS, "requests": 16, "max_new": SPEC_NEW,
+          "f32_spec_streams_identical_to_k1": {"dense": SPEC_DRAFT_LENS[0],
+                                               "paged": SPEC_DRAFT_LENS[1]},
+          "sampled_replays": True,
+          "uniform_draws_checked": len(KEY_SEEDS) * len(KEY_INDICES),
+          "uniform_draws_differing": u_err, **rec_f})
+
+    # (g) chunked prefill: 8 prompts of 600-896 tokens among the 16 short
+    # ones (cut from 16 long prompts to hold the phase's time)
+    rng = torch.Generator().manual_seed(4)
+    long_lens = torch.randint(*LONG_LENS, (LONG_REQUESTS,), generator=rng).tolist()
+    longs = [torch.randint(1, 256, (n,), generator=rng).tolist() for n in long_lens]
+    mixed, is_long = [], []
+    for i, p in enumerate(prompts):  # a long prompt before every other short one
+        if i % 2 == 0:
+            mixed.append(longs[i // 2])
+            is_long.append(True)
+        mixed.append(p)
+        is_long.append(False)
+    chunked = {f"c{c}": dict(model=model, prompts=mixed, kv_page_size=PAGE, prefill_chunk=c)
+               for c in CHUNKS}
+    g = serve_abba(serve, {"whole": dict(model=model, prompts=mixed, buckets=WHOLE_BUCKETS,
+                                         kv_page_size=PAGE), **chunked})
+    rec_g = {}
+    for name, run in g.items():
+        eng, reqs = run["engine"], run["reqs"]
+        ttft = sorted(r.first_token_t - r.submit_t for r, lg in zip(reqs, is_long) if lg)
+        short = [r for r, lg in zip(reqs, is_long) if not lg]
+        # the short requests' decode as a group: tokens after each one's
+        # first, over the span from the first of those to the last finish
+        span = max(r.finish_t for r in short) - min(r.first_token_t for r in short)
+        rec_g[name] = {**run["rec"], "long_ttft_s_p50": round(ttft[len(ttft) // 2], 6),
+                       "long_ttft_s_max": round(ttft[-1], 6),
+                       "short_decode_tokens_per_s": round(
+                           sum(len(r.generated) - 1 for r in short) / span, 3)}
+        if name == "whole":
+            k3_gate("g", name, run)
+            continue
+        c = eng._prefill_chunk
+        k3_gate("g", name, run, prefills=0)
+        want = sum(-(-(len(r.tokens) - r.radix_tokens) // c) for r in reqs)
+        check(run["summary"]["n_prefill_chunks"] == want,
+              f"(g) {name}: {run['summary']['n_prefill_chunks']} chunks, expected {want}")
+        stack, refs = [eng._radix.root], 0
+        while stack:
+            node = stack.pop()
+            refs += node.ref
+            stack.extend(node.children.values())
+        check(refs == 0 and eng._pool.allocated == eng._radix.n_blocks,
+              f"(g) {name}: pool not drained (refs {refs}, pages {eng._pool.allocated}, "
+              f"trie {eng._radix.n_blocks})")
+        rec_g[name]["bf16_agreement_vs_whole"] = agreement(g["whole"]["streams"], run["streams"])
+    # token identity with the whole-prompt engine on the float32 twin
+    fw = serve(twin, mixed, buckets=WHOLE_BUCKETS, kv_page_size=PAGE)
+    for c in CHUNKS:
+        fc = serve(twin, mixed, kv_page_size=PAGE, prefill_chunk=c)
+        check(fc["streams"] == fw["streams"],
+              f"(g) float32 twin: chunk {c} streams differ from the whole-prompt engine")
+        check(fc["rec"]["flash_launches"] == 0, f"(g) float32 chunk {c}: K3 launched")
+    out["g"] = rec_g
+    emit({"phase": "serving_spec_quant_chunk", "sub": "g_chunked_prefill",
+          "chunks": CHUNKS, "long_prompt_lens": long_lens, "short_requests": len(prompts),
+          "max_new": FEATURE_NEW, "whole_buckets": WHOLE_BUCKETS,
+          "f32_streams_identical": True, **rec_g})
     return out
 
 
@@ -2459,6 +2879,7 @@ def main() -> int:
         return 2
     try:
         from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import (
+            init_cache,
             make_generator,
             make_prefill,
         )
@@ -2492,6 +2913,9 @@ def main() -> int:
     features = phase_serving_features(
         torch, fa, xent,
         (get_model, InferenceEngine, make_prefill, SamplingParams, sampling, _pick_rows))
+    spec_quant_chunk = phase_serving_spec_quant_chunk(
+        torch, fa, xent,
+        (get_model, InferenceEngine, make_prefill, SamplingParams, sampling, init_cache))
     xk = phase_xent_kernels(torch, xent)
     training = phase_training(torch, fa, xent, (Trainer, get_preset))
     bwd_errs = phase_flash_bwd_kernels(torch, fa)
@@ -2568,6 +2992,14 @@ def main() -> int:
     k3_entry["serving_features"] = {
         f"{sub}_{run}": rec["flash_launches"]
         for sub, runs in features.items() for run, rec in runs.items()}
+    # ... and on each serving_spec_quant_chunk run: (e) int8, (f) spec, (g)
+    # chunked prefill (0: every prompt goes through the extend program)
+    k3_entry["serving_spec_quant_chunk"] = {
+        **{f"e_{name}": rec["flash_launches"] for name, rec in spec_quant_chunk["e"].items()
+           if "flash_launches" in rec},
+        **{f"f_{group}_{name}": rec["flash_launches"]
+           for group, runs in spec_quant_chunk["f"].items() for name, rec in runs.items()},
+        **{f"g_{name}": rec["flash_launches"] for name, rec in spec_quant_chunk["g"].items()}}
     k4_entry = bwd_entry("flash_bwd_fused", "ops/flash_attention.py:340",
                          lm["launches"]["flash_bwd_fused"])
     k4_entry["vit_training"] = on_vit("flash_bwd_fused", dict(zip(

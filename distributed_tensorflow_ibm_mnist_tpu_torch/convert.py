@@ -28,7 +28,13 @@ The mapping, per leaf:
 * The ViT's ``pos_embed`` is kept as it is; its ``block_{i}`` map as the
   causal LM's blocks do.
 
-Leaves come out float32 (float64 leaves stay float64).  The conversion
+A causal LM tree that ``quantize_params_int8`` has quantized (int8
+``kernel`` and a ``scale`` sibling under each projection) converts to the
+int8 model's ``state_dict``: the int8 weight transposed, ``<module>.scale``
+as it is.  ``load_causal_lm`` loads such a tree, or quantizes a full one,
+into a ``quant="int8"`` model.
+
+Leaves come out float32 (float64 leaves stay float64, int8 stay int8).  The conversion
 is strict: every leaf of the tree is consumed, no expected
 leaf may be missing, and every shape must match the configuration; any
 breach raises ``ValueError`` naming the leaf's path.
@@ -46,6 +52,10 @@ from torch import nn
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.causal_lm import CausalLM
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import LeNet5
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.mlp import MLP
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
+    is_quantized,
+    quantize_state_dict_int8,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.resnet import ARCHS, BatchNorm, ResNet
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import VisionTransformer
 
@@ -62,9 +72,12 @@ def _full_cfg(cls, cfg: Mapping) -> dict:
 Expected = dict[tuple[str, ...], tuple[str, tuple, str]]
 
 
-def _dense(out: Expected, path: tuple[str, ...], key: str, fan_in: int, fan_out: int):
+def _dense(out: Expected, path: tuple[str, ...], key: str, fan_in: int, fan_out: int,
+           scale: bool = False):
     out[path + ("kernel",)] = (f"{key}.weight", (fan_in, fan_out), _TRANSPOSE)
     out[path + ("bias",)] = (f"{key}.bias", (fan_out,), _KEEP)
+    if scale:  # an int8 kernel's per-output-channel scale
+        out[path + ("scale",)] = (f"{key}.scale", (fan_out,), _KEEP)
 
 
 def _norm(out: Expected, path: tuple[str, ...], key: str, n: int):
@@ -72,8 +85,9 @@ def _norm(out: Expected, path: tuple[str, ...], key: str, n: int):
     out[path + ("bias",)] = (f"{key}.bias", (n,), _KEEP)
 
 
-def _blocks(out: Expected, c: Mapping) -> None:
-    """The pre-norm blocks ``block_{i}`` -> ``blocks.{i}`` (CausalLM, ViT)."""
+def _blocks(out: Expected, c: Mapping, scale: bool = False) -> None:
+    """The pre-norm blocks ``block_{i}`` -> ``blocks.{i}`` (CausalLM, ViT);
+    ``scale``: the projections are int8 with scales."""
     dim, heads = c["dim"], c["heads"]
     hkv = c["heads_kv"] or heads
     hd = dim // heads
@@ -81,25 +95,26 @@ def _blocks(out: Expected, c: Mapping) -> None:
         p, k = (f"block_{i}",), f"blocks.{i}"
         _norm(out, p + ("norm_attn",), f"{k}.norm_attn", dim)
         if hkv == heads:
-            _dense(out, p + ("qkv",), f"{k}.qkv", dim, 3 * dim)
+            _dense(out, p + ("qkv",), f"{k}.qkv", dim, 3 * dim, scale)
         else:
-            _dense(out, p + ("q_proj",), f"{k}.q_proj", dim, dim)
-            _dense(out, p + ("kv_proj",), f"{k}.kv_proj", dim, 2 * hkv * hd)
-        _dense(out, p + ("proj",), f"{k}.proj", dim, dim)
+            _dense(out, p + ("q_proj",), f"{k}.q_proj", dim, dim, scale)
+            _dense(out, p + ("kv_proj",), f"{k}.kv_proj", dim, 2 * hkv * hd, scale)
+        _dense(out, p + ("proj",), f"{k}.proj", dim, dim, scale)
         _norm(out, p + ("norm_mlp",), f"{k}.norm_mlp", dim)
-        _dense(out, p + ("dense_0",), f"{k}.dense_0", dim, c["mlp_ratio"] * dim)
-        _dense(out, p + ("dense_1",), f"{k}.dense_1", c["mlp_ratio"] * dim, dim)
+        _dense(out, p + ("dense_0",), f"{k}.dense_0", dim, c["mlp_ratio"] * dim, scale)
+        _dense(out, p + ("dense_1",), f"{k}.dense_1", c["mlp_ratio"] * dim, dim, scale)
 
 
-def _expected_leaves(cfg: Mapping) -> Expected:
-    """CausalLM: flax leaf path -> (state_dict key, flax shape, layout change)."""
+def _expected_leaves(cfg: Mapping, quantized: bool = False) -> Expected:
+    """CausalLM: flax leaf path -> (state_dict key, flax shape, layout
+    change); ``quantized``: the tree of ``quantize_params_int8``."""
     c = _full_cfg(CausalLM, cfg)
     vocab, dim = c["num_classes"], c["dim"]
     out: Expected = {("embed", "embedding"): ("embed.weight", (vocab, dim), _KEEP)}
-    _blocks(out, c)
+    _blocks(out, c, quantized)
     _norm(out, ("norm_out",), "norm_out", dim)
     if not c["tie_embeddings"]:
-        _dense(out, ("logits",), "logits", dim, vocab)
+        _dense(out, ("logits",), "logits", dim, vocab, quantized)
     return out
 
 
@@ -183,7 +198,8 @@ def _convert(params: Mapping, expected: Expected) -> dict[str, torch.Tensor]:
             raise ValueError(f"unexpected leaf {name!r} for this configuration")
         key, shape, layout = expected[path]
         arr = np.asarray(leaf)
-        arr = arr.astype(np.float64 if arr.dtype == np.float64 else np.float32)
+        if arr.dtype != np.int8:
+            arr = arr.astype(np.float64 if arr.dtype == np.float64 else np.float32)
         if arr.shape != shape:
             raise ValueError(
                 f"leaf {name!r} has shape {arr.shape}, expected {shape}")
@@ -205,8 +221,8 @@ def causal_lm_state_dict(params: Mapping, cfg: Mapping) -> dict[str, torch.Tenso
     (float32 tensors on the CPU).  ``cfg`` holds the model's constructor
     keywords (``num_classes``, ``dim``, ``depth``, ``heads``,
     ``heads_kv``, ``mlp_ratio``, ``tie_embeddings``; defaults as
-    CausalLM's)."""
-    return _convert(params, _expected_leaves(cfg))
+    CausalLM's).  A quantized tree gives the int8 model's ``state_dict``."""
+    return _convert(params, _expected_leaves(cfg, is_quantized(params)))
 
 
 def lenet5_state_dict(params: Mapping, cfg: Mapping) -> dict[str, torch.Tensor]:
@@ -266,9 +282,14 @@ def load_vit(params_np: Mapping, device=None, **model_kw) -> VisionTransformer:
 def load_causal_lm(params_np: Mapping, device=None, **model_kw) -> CausalLM:
     """The port's CausalLM on ``device`` (the GPU unless ``device="cpu"``)
     holding the JAX parameters ``params_np`` (numpy leaves); ``model_kw``
-    are the constructor keywords the JAX model was built with."""
+    are the constructor keywords the JAX model was built with.  A
+    ``quant="int8"`` model takes a quantized tree, or a full one that is
+    quantized here."""
     model = CausalLM(device=device, **model_kw)
-    model.load_state_dict(causal_lm_state_dict(params_np, model_kw), strict=True)
+    state = causal_lm_state_dict(params_np, model_kw)
+    if model.quant == "int8":
+        state = quantize_state_dict_int8(state)
+    model.load_state_dict(state, strict=True)
     return model.eval()
 
 

@@ -15,7 +15,12 @@ functions on tensors (PyTorch runs eagerly; there is no ``jit``):
 * :func:`_sample_window_core` — the serving engine's window: per-row
   sampling planes as data, the token at generated index ``n`` picked with
   ``fold_in(base_key, n)``;
-* :func:`init_cache` — a zeroed (batch, max_len) cache;
+* :func:`make_verify_window` / :func:`_verify_sample_core` — the
+  speculative verify: ONE forward over a (B, draft_len + 1) chunk of
+  host-drafted tokens, accepted by argmax match (greedy) or rejection
+  sampling, the cursor rewound in place to the acceptance point;
+* :func:`init_cache` — a zeroed (batch, max_len) cache (int8 with scales
+  for ``kv_cache_dtype="int8"``);
 * :func:`make_generator` / :func:`generate` — the offline episode (greedy,
   or sampled with top-k / top-p) on the same cores, so the stepwise path
   and the episode cannot drift apart.
@@ -38,17 +43,28 @@ from typing import Callable
 
 import torch
 
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import quantize_kv_int8
 
-def _cache_from_sown(kvs: dict, lens: torch.Tensor, max_len: int) -> dict:
+
+def _cache_from_sown(kvs: dict, lens: torch.Tensor, max_len: int,
+                     kv_cache_dtype: str = "native") -> dict:
     """Decode cache from the K/V each block returned in the forward: pad
     (B, P, H_kv, D) to max_len with zeros and set each row's cursor to its
     prompt length (pad K/V past a row's length sit above its cursor, where
-    the causal mask hides them until decode overwrites them)."""
+    the causal mask hides them until decode overwrites them).
+    ``kv_cache_dtype="int8"`` quantizes them into the int8 layout (k/v
+    int8 plus ``k_scale``/``v_scale``); the prefill itself ran at full
+    precision."""
     cache = {}
     for name, (k, v) in kvs.items():
         b, p = k.shape[:2]
         entry = {"index": lens.to(torch.int32).expand(b).clone()}
-        for leaf, x in (("k", k), ("v", v)):
+        if kv_cache_dtype == "int8":
+            (kq, ks), (vq, vs) = quantize_kv_int8(k), quantize_kv_int8(v)
+            leaves = (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs))
+        else:
+            leaves = (("k", k), ("v", v))
+        for leaf, x in leaves:
             full = x.new_zeros((b, max_len) + tuple(x.shape[2:]))
             full[:, :p] = x
             entry[leaf] = full
@@ -63,7 +79,8 @@ def _prefill_core(model, prompt, lens, max_len: int):
     :func:`make_generator`: cache plus the logits at each row's last real
     position."""
     logits, kvs = model(prompt, sow_kv=True)
-    cache = _cache_from_sown(kvs, lens, max_len)
+    cache = _cache_from_sown(kvs, lens, max_len,
+                             getattr(model, "kv_cache_dtype", "native"))
     rows = torch.arange(prompt.shape[0], device=logits.device)
     return cache, logits[rows, lens.long() - 1]  # (B, V)
 
@@ -123,17 +140,24 @@ def make_decode_step(model, max_len: int, ragged: bool = True) -> Callable:
 
 def init_cache(model, batch: int, max_len: int) -> dict:
     """A zeroed (batch, max_len) decode cache on the model's device, in its
-    dtype — the serving engine's slot cache before any admission."""
+    dtype (int8 with float32 ``k_scale``/``v_scale`` for
+    ``kv_cache_dtype="int8"``) — the serving engine's slot cache before
+    any admission."""
     shape = (batch, max_len, model.heads_kv, model.head_dim)
     dev = model.device
-    return {
-        f"block_{i}": {
-            "k": torch.zeros(shape, dtype=model.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=model.dtype, device=dev),
-            "index": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        }
-        for i in range(model.depth)
-    }
+    int8 = getattr(model, "kv_cache_dtype", "native") == "int8"
+    store = torch.int8 if int8 else model.dtype
+
+    def entry():
+        e = {"k": torch.zeros(shape, dtype=store, device=dev),
+             "v": torch.zeros(shape, dtype=store, device=dev)}
+        if int8:
+            e["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=dev)
+            e["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=dev)
+        e["index"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        return e
+
+    return {f"block_{i}": entry() for i in range(model.depth)}
 
 
 def _prng():
@@ -315,6 +339,154 @@ def _sample_window_core(model, cache, tok, active, temps, topps, topks, minps,
         logps.append(torch.where(active, logp, 0.0))
         pos = pos + step
     return cache, torch.stack(toks, dim=1), torch.stack(logps, dim=1), tok, pos
+
+
+def _set_cursor(cache: dict, index: torch.Tensor) -> None:
+    """Write ``index`` into every block's ``"index"`` leaf, in place (dense,
+    int8 and paged caches keep the cursor under that key alike)."""
+    for entry in cache.values():
+        entry["index"].copy_(index)
+
+
+def _verify_prologue(model, cache, chunk, max_len: int):
+    """The verify window's forward: all k chunk positions appended at each
+    row's cursor.  Returns ``(cursor before, (B, k, V) logits, (B, k)
+    argmax)``."""
+    idx0 = next(iter(cache.values()))["index"].clone()
+    logits = model(chunk, cache=cache, max_len=max_len, ragged=True)
+    return idx0, logits, logits.argmax(-1)
+
+
+def _verify_epilogue(cache, idx0, out, acc, active, max_len: int, pad_id: int):
+    """Emit ``acc + 1`` tokens of ``out`` on active rows (``pad_id``
+    elsewhere), rewind every cursor in place to ``min(idx0 + acc + 1,
+    max_len)`` (``idx0`` for inactive rows) and return ``(tokens, emit
+    mask, last)``."""
+    k = out.shape[1]
+    n_emit = torch.where(active, acc + 1, 0)
+    emit = active[:, None] & (torch.arange(k, device=out.device)[None, :] < n_emit[:, None])
+    toks = torch.where(emit, out, pad_id)
+    last = toks.gather(1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
+    last = torch.where(active, last, pad_id)
+    _set_cursor(cache, (idx0 + n_emit).clamp(max=max_len).to(torch.int32))
+    return toks, emit, last
+
+
+def _verify_window_core(model, cache, chunk, draft_lens, active, max_len: int,
+                        pad_id: int):
+    """ONE forward over a (B, k) proposed chunk: the greedy speculative
+    verify, sibling of :func:`_decode_window_core`.
+
+    ``chunk[:, 0]`` is each row's pending last token (not yet in the
+    cache), ``chunk[:, 1:]`` up to k-1 drafts, ``draft_lens`` (B,) the
+    real drafts a row holds.  Draft j is accepted iff every earlier one was
+    and the model's argmax after ``chunk[:, :j+1]`` equals it, so the
+    emitted tokens, the argmax chain ``preds[:, :acc+1]``, are exactly what
+    sequential greedy decode emits.  The cursor, advanced to ``idx0 + k``
+    by the forward, rewinds in place to ``idx0 + acc + 1``; the positions
+    past it hold garbage the next chunk overwrites before anything attends
+    them.  Returns ``(cache, (B, k) tokens, (B,) accepted, (B,) last)``."""
+    chunk = chunk.long()
+    k = chunk.shape[1]
+    idx0, _, preds = _verify_prologue(model, cache, chunk, max_len)
+    lanes = torch.arange(k - 1, device=chunk.device)[None, :]
+    match = (preds[:, :-1] == chunk[:, 1:]) & (lanes < draft_lens[:, None])
+    acc = torch.where(active, match.long().cumprod(1).sum(1), 0)
+    toks, _, last = _verify_epilogue(cache, idx0, preds, acc, active, max_len, pad_id)
+    return cache, toks, acc, last
+
+
+def make_verify_window(model, max_len: int, draft_len: int,
+                       pad_id: int = 0) -> Callable:
+    """``verify(cache, chunk, draft_lens, active=None) -> (cache, tokens,
+    accepted, last)``: the greedy speculative verify, ``k = draft_len + 1``
+    positions a call (see :func:`_verify_window_core`).  Token-identical to
+    plain greedy decode whatever the drafts; the cache may be dense, int8
+    or paged."""
+    if max_len < 1:
+        raise ValueError(f"max_len must be >= 1, got {max_len}")
+    if draft_len < 1:
+        raise ValueError(f"draft_len must be >= 1, got {draft_len}")
+    k = draft_len + 1
+
+    @torch.no_grad()
+    def verify(cache, chunk, draft_lens, active=None):
+        b, kk = chunk.shape
+        if kk != k:
+            raise ValueError(f"chunk must be (B, draft_len+1={k}), got (B, {kk})")
+        if active is None:
+            active = torch.ones((b,), dtype=torch.bool, device=chunk.device)
+        return _verify_window_core(model, cache, chunk, draft_lens.long(), active,
+                                   max_len, pad_id)
+
+    return verify
+
+
+def _verify_sample_core(model, cache, chunk, draft_lens, active, temps, topps,
+                        topks, minps, keys, pos, max_len: int, pad_id: int,
+                        sampled: bool = True):
+    """The serving engine's speculative verify with REJECTION SAMPLING,
+    the sampling sibling of :func:`_verify_window_core` (one forward, the
+    same chunk contract and cursor rewind).
+
+    Draft ``d_j`` of a sampled row is accepted with probability
+    ``p_j(d_j)`` (the drafter is a point mass, so ``min(1, p/q) = p``)
+    against a uniform draw; the first rejected lane emits a sample of the
+    residual (``p_j`` with ``d_j`` cut), a fully accepted chunk its bonus
+    token sampled plainly, so the emitted stream is distributed as plain
+    sampling.  The token at generated index ``n`` owns ``K_n =
+    fold_in(base, n)``: plain and bonus draws use ``K_n``, the accept
+    uniform ``fold_in(K_n, 1)``, the residual ``fold_in(K_n, 2)``.  Rows
+    with ``temps <= 0`` take the greedy core's argmax match exactly;
+    ``sampled=False`` promises no row samples and skips the key schedule
+    (the tokens are the same).  Returns ``(cache, (B, k) tokens, (B, k)
+    logprobs, (B,) accepted, (B,) last)``; logprobs are ``log_softmax`` of
+    the raw logits at the emitted tokens, 0 elsewhere."""
+    chunk = chunk.long()
+    b, k = chunk.shape
+    dl = k - 1
+    dev = chunk.device
+    draft_lens = draft_lens.long()
+    idx0, logits, preds = _verify_prologue(model, cache, chunk, max_len)
+    d = chunk[:, 1:]
+    valid = torch.arange(dl, device=dev)[None, :] < draft_lens[:, None]
+    accept = preds[:, :-1] == d
+    cand = preds
+    if sampled:
+        ks = _prng()
+        vocab = logits.shape[-1]
+        rep = lambda x: x.repeat_interleave(k)  # noqa: E731 - per position
+        filt = _tempered_rows(logits.reshape(b * k, vocab), rep(temps), rep(topps),
+                              rep(topks), rep(minps)).reshape(b, k, vocab)
+        probs = torch.softmax(filt, dim=-1)
+        posj = pos.long()[:, None] + torch.arange(k, device=dev)[None, :]
+        pick_key = ks.fold_in(keys.repeat_interleave(k, dim=0), posj.reshape(-1))
+        u_key = ks.fold_in(pick_key, torch.ones_like(posj.reshape(-1)))
+        res_key = ks.fold_in(pick_key, torch.full_like(posj.reshape(-1), 2))
+        u = ks.uniform(u_key).reshape(b, k)
+        p_draft = probs[:, :-1].gather(-1, d[..., None])[..., 0]
+        hot = temps[:, None] > 0.0
+        accept = torch.where(hot, u[:, :dl] < p_draft, accept)
+        # a candidate at every position: the residual resample where a draft
+        # could have been rejected, a plain sample past the drafts; only
+        # position acc is ever emitted
+        res_logits = torch.where(
+            torch.nn.functional.one_hot(d, vocab).bool(), _neg(filt), filt[:, :dl])
+        cand_res = ks.categorical(res_key.reshape(b, k, 2)[:, :dl].reshape(b * dl, 2),
+                                  res_logits.reshape(b * dl, vocab)).reshape(b, dl)
+        cand_plain = ks.categorical(pick_key, filt.reshape(b * k, vocab)).reshape(b, k)
+        cand_res = torch.cat([cand_res, torch.full((b, 1), pad_id, device=dev)], 1)
+        jidx = torch.arange(k, device=dev)[None, :]
+        cand = torch.where(jidx < draft_lens[:, None], cand_res, cand_plain)
+        cand = torch.where(hot, cand, preds)
+    acc = torch.where(active, (accept & valid).long().cumprod(1).sum(1), 0)
+    jidx = torch.arange(k, device=dev)[None, :]
+    drafts_pad = torch.cat([d, torch.full((b, 1), pad_id, device=dev)], 1)
+    out = torch.where(jidx < acc[:, None], drafts_pad,
+                      torch.where(jidx == acc[:, None], cand, pad_id))
+    toks, emit, last = _verify_epilogue(cache, idx0, out, acc, active, max_len, pad_id)
+    logps = torch.log_softmax(logits, dim=-1).gather(-1, toks[..., None])[..., 0]
+    return cache, toks, torch.where(emit, logps, 0.0), acc, last
 
 
 def _filter_logits(logits, top_k: int, top_p: float):

@@ -19,6 +19,13 @@ Calls:
   the dense cache (core/generate.py ``init_cache``) or the paged one
   (serving/kv_pool.py ``init_paged_cache``), updated in place.
 
+``quant="int8"`` stores every block projection and the untied head as
+``Int8Linear`` (models/quant.py); ``kv_cache_dtype="int8"`` decodes
+against an int8 cache with per-(position, head) scales.  ``clone(**kw)``
+is the same model with some constructor keywords changed and the weights
+carried over (quantized on the way to ``quant="int8"``), as flax's
+``Module.clone``.
+
 Weights are created on ``device`` (the GPU unless ``device="cpu"``) and
 initialised from ``generator`` (a ``torch.Generator``; a fresh one seeded
 0 when None), never from the global random state.  Load the JAX package's
@@ -32,12 +39,18 @@ from functools import partial
 import torch
 from torch import nn
 
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
+    Int8Linear,
+    quantize_kernel_int8,
+    quantize_state_dict_int8,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
     LM_FOLLOW_UPS,
     LayerNorm,
     TransformerBlock,
     _not_in_slice,
     _resolve_attn,
+    check_quant_knobs,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
 
@@ -62,7 +75,15 @@ class CausalLM(nn.Module):
             raise ValueError(f"unknown pos {pos!r}; use 'rope' or 'none'")
         if moe_every:
             raise _not_in_slice("a MoE model", LM_FOLLOW_UPS)
+        check_quant_knobs(quant, kv_cache_dtype)
         device = resolve_device(device)
+        self._config = dict(
+            num_classes=num_classes, dim=dim, depth=depth, heads=heads,
+            heads_kv=heads_kv, window=window, mlp_ratio=mlp_ratio, dropout=dropout,
+            attn=attn, causal=causal, pos=pos, tie_embeddings=tie_embeddings,
+            moe_every=moe_every, kv_cache_dtype=kv_cache_dtype, page_size=page_size,
+            quant=quant, dtype=dtype)
+        self.quant, self.kv_cache_dtype = quant, kv_cache_dtype
         self.num_classes, self.dim, self.depth = num_classes, dim, depth
         self.heads, self.heads_kv = heads, heads_kv or heads
         self.head_dim = dim // heads
@@ -80,8 +101,12 @@ class CausalLM(nn.Module):
                              quant=quant, dtype=dtype, device=meta)
             for _ in range(depth))
         self.norm_out = LayerNorm(dim, dtype, device=meta)
-        self.logits = (None if tie_embeddings
-                       else nn.Linear(dim, num_classes, dtype=dtype, device=meta))
+        if tie_embeddings:
+            self.logits = None
+        elif quant == "int8":
+            self.logits = Int8Linear(dim, num_classes, dtype=dtype, device=meta)
+        else:
+            self.logits = nn.Linear(dim, num_classes, dtype=dtype, device=meta)
         self.to_empty(device=device)
         self.reset_parameters(generator)
 
@@ -92,7 +117,10 @@ class CausalLM(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         """Initialise every weight from ``generator``: projections and the
-        embedding normal with std fan_in^-1/2, biases 0, norms (1, 0)."""
+        embedding normal with std fan_in^-1/2, biases 0, norms (1, 0).  An
+        ``Int8Linear`` takes the draw its full-precision twin would (in
+        ``dtype``), quantized, so a quant model equals its seed's twin
+        quantized."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         for name, p in self.named_parameters():
@@ -102,8 +130,27 @@ class CausalLM(nn.Module):
                 p.fill_(1.0)
             else:
                 std = p.shape[-1] ** -0.5
-                p.copy_(torch.randn(p.shape, generator=generator,
-                                    device=generator.device) * std)
+                w = torch.randn(p.shape, generator=generator,
+                                device=generator.device) * std
+                if p.dtype == torch.int8:
+                    layer = self.get_submodule(name.rsplit(".", 1)[0])
+                    q, layer.scale[:] = quantize_kernel_int8(w.to(self.dtype))
+                    p.copy_(q)
+                else:
+                    p.copy_(w)
+
+    def clone(self, **over) -> "CausalLM":
+        """This model with the constructor keywords ``over`` changed, on the
+        same device, holding these weights: quantized
+        (``quantize_state_dict_int8``) when ``over`` asks for
+        ``quant="int8"``.  The weights must fit the new configuration."""
+        cfg = {**self._config, **over}
+        model = CausalLM(**cfg, device=self.device)
+        state = self.state_dict()
+        if cfg["quant"] == "int8":
+            state = quantize_state_dict_int8(state)
+        model.load_state_dict(state, strict=True)
+        return model.train(self.training)
 
     def forward(self, tokens: torch.Tensor, train: bool = False,
                 cache: dict | None = None, max_len: int = 0, ragged: bool = False,

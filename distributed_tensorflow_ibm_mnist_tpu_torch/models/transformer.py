@@ -2,7 +2,8 @@
 
 The counterpart of the JAX package's ``models/transformer.py`` for the
 causal-LM serving path: ``apply_rope``, ``reset_cache_slots``,
-``_attend_cached`` (native-dtype caches), ``_resolve_attn`` and
+``quantize_kv_int8``, ``_attend_cached`` (native or int8 caches),
+``_resolve_attn`` and
 ``TransformerBlock`` (MHA through one ``qkv`` projection, GQA through
 ``q_proj``/``kv_proj``), with the normal forward and the dense decode
 attention, ragged or uniform, with or without a sliding window; and the
@@ -18,12 +19,16 @@ transpose (convert.py).
 The decode cache is a dict ``{"k", "v", "index"}`` per block, shaped like
 the flax ``cache`` collection: k/v (B, max_len, H_kv, D) in ``dtype`` and a
 (B,) int32 cursor.  Unlike flax, decode updates it IN PLACE (one cache per
-engine, no copy per step) and returns nothing for it.
+engine, no copy per step) and returns nothing for it.  With
+``kv_cache_dtype="int8"`` k/v are int8 with per-(position, head) float32
+``k_scale``/``v_scale`` (B, max_len, H_kv) leaves (``quantize_kv_int8``);
+the paged cache (serving/kv_pool.py) carries ``pages_k_scale`` /
+``pages_v_scale`` beside its pools.  ``quant="int8"`` makes every
+projection an ``Int8Linear`` (models/quant.py).
 
 Not ported yet, each raising ``NotImplementedError`` that names what ports
 it: MoE blocks and dropout (ROADMAP.md queue 1, 'Causal-LM and ViT
-training follow-ups'), int8 weights, the int8 KV cache and the paged cache (serving
-slices), and the ViT's pipeline stages and ``block_remat``.
+training follow-ups'), and the ViT's pipeline stages and ``block_remat``.
 ``StackedBlocks`` (pipeline training) is not ported.  Training
 runs this forward under autograd: ``attn="flash"`` differentiates through
 the flash kernels' ``torch.autograd.Function``, ``"vanilla"`` through plain
@@ -42,6 +47,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import (
     _resolve_generator,
     init_lecun_,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import Int8Linear
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.ring_attention import (
     vanilla_attention,
 )
@@ -76,35 +82,62 @@ def apply_rope(x: torch.Tensor, theta: float = 10000.0, offset=0) -> torch.Tenso
     return out.to(x.dtype)
 
 
+def quantize_kv_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-(token, head) int8 quantization of (..., D) K or V:
+    ``scale = max(max|x|, 1e-8) / 127`` over D in float32, ``round(x /
+    scale)`` (half to even) as int8.  Returns ``(int8 x, float32 scale)``
+    with the scale one rank lower."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-8) / 127.0
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
 def reset_cache_slots(cache: dict, slot_mask: torch.Tensor) -> dict:
-    """Zero, in place, the K/V and cursor of every batch row where the (B,)
-    bool ``slot_mask`` is True — the serving engine's per-slot reset."""
+    """Zero, in place, the K/V (and int8 scales) and cursor of every batch
+    row where the (B,) bool ``slot_mask`` is True — the serving engine's
+    per-slot reset."""
     for entry in cache.values():
         for leaf in entry.values():
             leaf[slot_mask] = 0
     return cache
 
 
-def _attend_cached(q, kc, vc, mask, dtype):
+def _attend_cached(q, kc, vc, mask, dtype, ksc=None, vsc=None):
     """Score (B, S, H, D) queries against a (B, L, H_kv, D) cache span with
     a (B|1, S, L) bool mask: float32 scores and softmax, masked at -1e30,
     probabilities in ``dtype`` into the PV product.  GQA queries score a
-    grouped einsum against the H_kv-sized cache with no repeat."""
+    grouped einsum against the H_kv-sized cache with no repeat.
+
+    An int8 cache passes its (B, L, H_kv) ``ksc``/``vsc`` scales: the
+    scores take ``k_scale`` per (q, k) pair, the probabilities fold in
+    ``v_scale`` and stay float32 into the PV product, as JAX's do (its
+    einsum promotes them; torch's would not, so the cache is cast)."""
     b, s, h, d = q.shape
     hkv = kc.shape[2]
+    quant = ksc is not None
     scale = d**-0.5
     qf, kf = q.float(), kc.float()
+    vop = vc.float() if quant else vc
     if hkv != h:
         qg = qf.reshape(b, s, hkv, h // hkv, d)
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+        if quant:
+            scores = scores * ksc.permute(0, 2, 1)[:, :, None, None, :]
         scores = torch.where(mask[:, None, None], scores, -1e30)
         p = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(dtype), vc).reshape(b, s, h, d)
+        if quant:
+            p = p * vsc.permute(0, 2, 1)[:, :, None, None, :]
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p if quant else p.to(dtype),
+                           vop).reshape(b, s, h, d)
     else:
         scores = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+        if quant:
+            scores = scores * ksc.permute(0, 2, 1)[:, :, None, :]
         scores = torch.where(mask[:, None], scores, -1e30)
         p = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", p.to(dtype), vc)
+        if quant:
+            p = p * vsc.permute(0, 2, 1)[:, :, None, :]
+        out = torch.einsum("bhqk,bkhd->bqhd", p if quant else p.to(dtype), vop)
     return out.to(dtype)
 
 
@@ -152,6 +185,15 @@ def _not_in_slice(what: str, where: str) -> NotImplementedError:
         f"{what} is not in the PyTorch port yet ({where} ports it)")
 
 
+def check_quant_knobs(quant: str, kv_cache_dtype: str) -> None:
+    """The values JAX's model takes for ``quant`` and ``kv_cache_dtype``."""
+    if quant not in ("none", "int8"):
+        raise ValueError(f"quant must be 'none' or 'int8', got {quant!r}")
+    if kv_cache_dtype not in ("native", "int8"):
+        raise ValueError(
+            f"kv_cache_dtype must be 'native' or 'int8', got {kv_cache_dtype!r}")
+
+
 class TransformerBlock(nn.Module):
     """Pre-norm block: LayerNorm -> attention -> proj (+res) -> LayerNorm ->
     MLP (+res).  ``forward(x)`` runs the normal (prefill) forward and
@@ -172,11 +214,7 @@ class TransformerBlock(nn.Module):
         super().__init__()
         if use_moe:
             raise _not_in_slice("a MoE block", LM_FOLLOW_UPS)
-        if quant != "none":
-            raise _not_in_slice(f"quant={quant!r}", "the int8 serving slice")
-        if kv_cache_dtype != "native":
-            raise _not_in_slice(f"kv_cache_dtype={kv_cache_dtype!r}",
-                                "the int8 serving slice")
+        check_quant_knobs(quant, kv_cache_dtype)
         if page_size < 0:
             raise ValueError(f"page_size must be >= 0, got {page_size}")
         if page_size and window:
@@ -193,22 +231,30 @@ class TransformerBlock(nn.Module):
         self.head_dim = dim // heads
         self.rope, self.window, self.dtype = rope, window, dtype
         self.page_size = page_size
+        self.kv_cache_dtype = kv_cache_dtype
         self.attn_fn = _resolve_attn(attn_fn, attn)
-        kw = dict(dtype=param_dtype or dtype, device=device)
+
+        def linear(fan_in, fan_out):
+            if quant == "int8":
+                return Int8Linear(fan_in, fan_out, dtype=dtype, device=device)
+            return nn.Linear(fan_in, fan_out, dtype=param_dtype or dtype, device=device)
+
         self.norm_attn = LayerNorm(dim, dtype, device=device)
         if hkv == heads:
-            self.qkv = nn.Linear(dim, 3 * dim, **kw)
+            self.qkv = linear(dim, 3 * dim)
         else:
-            self.q_proj = nn.Linear(dim, dim, **kw)
-            self.kv_proj = nn.Linear(dim, 2 * hkv * self.head_dim, **kw)
-        self.proj = nn.Linear(dim, dim, **kw)
+            self.q_proj = linear(dim, dim)
+            self.kv_proj = linear(dim, 2 * hkv * self.head_dim)
+        self.proj = linear(dim, dim)
         self.norm_mlp = LayerNorm(dim, dtype, device=device)
-        self.dense_0 = nn.Linear(dim, mlp_ratio * dim, **kw)
-        self.dense_1 = nn.Linear(mlp_ratio * dim, dim, **kw)
+        self.dense_0 = linear(dim, mlp_ratio * dim)
+        self.dense_1 = linear(mlp_ratio * dim, dim)
 
-    def _dense(self, layer: nn.Linear, x):
+    def _dense(self, layer: nn.Module, x):
         """``layer`` in the compute dtype (a no-op cast when the parameters
-        are already in it)."""
+        are already in it); an ``Int8Linear`` computes its own way."""
+        if isinstance(layer, Int8Linear):
+            return layer(x)
         return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
 
     def forward(self, x, cache: dict | None = None, max_len: int = 0,
@@ -255,9 +301,13 @@ class TransformerBlock(nn.Module):
         cache writes garbage into its own last slot only."""
         if max_len <= 0:
             raise ValueError("decode needs max_len > 0 (the KV-cache size)")
+        self._check_cache_layout("k_scale" in cache)
         b, s = q.shape[:2]
         dev = q.device
-        ck, cv, idx = cache["k"], cache["v"], cache["index"]
+        idx = cache["index"]
+        # the cache leaves in the order K/V are written and read: k, v and,
+        # for an int8 cache, their scales
+        names = ("k", "v", "k_scale", "v_scale") if "k_scale" in cache else ("k", "v")
         steps = torch.arange(s, device=dev)
         if ragged:
             if self.rope:
@@ -265,8 +315,8 @@ class TransformerBlock(nn.Module):
                 k = apply_rope(k, offset=idx)
             rows = torch.arange(b, device=dev)[:, None]
             pos = (idx[:, None] + steps).clamp(max=max_len - 1)  # (B, S)
-            ck[rows, pos] = k.to(ck.dtype)
-            cv[rows, pos] = v.to(cv.dtype)
+            for name, x in zip(names, self._cache_values(k, v)):
+                cache[name][rows, pos] = x.to(cache[name].dtype)
             q_pos = idx[:, None] + steps  # (B, S) absolute positions
         else:
             idx0 = idx[0]  # one cursor for every row
@@ -274,15 +324,15 @@ class TransformerBlock(nn.Module):
                 q = apply_rope(q, offset=idx0)
                 k = apply_rope(k, offset=idx0)
             pos = idx0.clamp(max=max_len - s) + steps  # the clamped slice write
-            ck[:, pos] = k.to(ck.dtype)
-            cv[:, pos] = v.to(cv.dtype)
+            for name, x in zip(names, self._cache_values(k, v)):
+                cache[name][:, pos] = x.to(cache[name].dtype)
             q_pos = (idx0 + steps)[None]  # (1, S)
         if self.window:
             start = (idx - self.window + 1).clamp(min=0)  # span start, pre-write cursor
         idx.copy_((idx + s).clamp(max=max_len))
 
         k_pos = torch.arange(max_len, device=dev)[None]  # (1, max_len)
-        kc, vc = ck, cv
+        span_of = [cache[name] for name in names]
         if self.window and (self.window + s - 1) < max_len:
             # gather only the live span: queries [cursor, cursor+s) attend
             # at most positions (cursor+s-1-W, cursor+s)
@@ -291,15 +341,23 @@ class TransformerBlock(nn.Module):
                 k_pos = start[:, None] + span  # (B, span)
                 g = k_pos.clamp(max=max_len - 1)
                 rows = torch.arange(b, device=dev)[:, None]
-                kc, vc = ck[rows, g], cv[rows, g]
+                span_of = [x[rows, g] for x in span_of]
             else:
                 k_pos = (start[0] + span)[None]  # (1, span)
                 g = k_pos[0].clamp(max=max_len - 1)
-                kc, vc = ck[:, g], cv[:, g]
+                span_of = [x[:, g] for x in span_of]
         mask = k_pos[:, None, :] <= q_pos[:, :, None]  # (B|1, S, L)
         if self.window:
             mask &= k_pos[:, None, :] > q_pos[:, :, None] - self.window
-        return _attend_cached(q, kc, vc, mask, self.dtype)
+        return _attend_cached(q, *span_of[:2], mask, self.dtype, *span_of[2:])
+
+    def _cache_values(self, k, v) -> tuple:
+        """What the cache stores for this call's K/V: ``(k, v)``, or for an
+        int8 cache ``(k_q, v_q, k_scale, v_scale)``."""
+        if self.kv_cache_dtype != "int8":
+            return k, v
+        (kq, ks), (vq, vs) = quantize_kv_int8(k), quantize_kv_int8(v)
+        return kq, vq, ks, vs
 
     def _paged_decode_attention(self, q, k, v, cache: dict, max_len: int):
         """Decode attention over the PAGED cache (serving/kv_pool.py): K/V
@@ -314,12 +372,13 @@ class TransformerBlock(nn.Module):
         the dense tail (same mask, same reduction shapes), which keeps
         paged output token-identical to dense.  Per-row cursors always
         (the ``ragged`` case).  Unallocated table entries point at the
-        trash page 0, whose garbage no live row's mask exposes."""
+        trash page 0, whose garbage no live row's mask exposes.  An int8
+        pool's ``pages_k_scale``/``pages_v_scale`` are written and gathered
+        beside it."""
         if max_len <= 0:
             raise ValueError("decode needs max_len > 0 (the KV-cache size)")
-        pk, pv, bt, idx = (cache["pages_k"], cache["pages_v"],
-                           cache["block_table"], cache["index"])
-        ps = pk.shape[1]
+        bt, idx = cache["block_table"], cache["index"]
+        ps = cache["pages_k"].shape[1]
         if max_len % ps:
             raise ValueError(
                 f"paged decode needs max_len ({max_len}) to be a multiple of "
@@ -329,7 +388,10 @@ class TransformerBlock(nn.Module):
                 "paged decode does not compose with sliding-window attention "
                 "(window > 0) — the windowed span gather assumes a dense "
                 "contiguous cache row")
-        b, s, _, d = q.shape
+        self._check_cache_layout("pages_k_scale" in cache)
+        names = (("pages_k", "pages_v", "pages_k_scale", "pages_v_scale")
+                 if "pages_k_scale" in cache else ("pages_k", "pages_v"))
+        b, s = q.shape[:2]
         steps = torch.arange(s, device=q.device)
         if self.rope:
             q = apply_rope(q, offset=idx)
@@ -337,16 +399,23 @@ class TransformerBlock(nn.Module):
         pos = (idx[:, None] + steps).clamp(max=max_len - 1)  # (B, S) writes
         page = bt.gather(1, (pos // ps).long()).long()
         off = (pos % ps).long()
-        pk[page, off] = k.to(pk.dtype)
-        pv[page, off] = v.to(pv.dtype)
+        for name, x in zip(names, self._cache_values(k, v)):
+            cache[name][page, off] = x.to(cache[name].dtype)
         q_pos = idx[:, None] + steps  # unclamped, as the dense path's
         idx.copy_((idx + s).clamp(max=max_len))
         rows = bt.long()
-        kc = pk[rows].reshape(b, max_len, pk.shape[2], d)
-        vc = pv[rows].reshape(b, max_len, pv.shape[2], d)
+        # gather each row's virtual span: (n_pages, ps, ...)[bt] -> (B, max_len, ...)
+        span_of = [cache[name][rows].reshape(b, max_len, *cache[name].shape[2:])
+                   for name in names]
         k_pos = torch.arange(max_len, device=q.device)[None]
         mask = k_pos[:, None, :] <= q_pos[:, :, None]  # (B, S, max_len)
-        return _attend_cached(q, kc, vc, mask, self.dtype)
+        return _attend_cached(q, *span_of[:2], mask, self.dtype, *span_of[2:])
+
+    def _check_cache_layout(self, int8_cache: bool) -> None:
+        if int8_cache != (self.kv_cache_dtype == "int8"):
+            raise ValueError(
+                f"this block caches K/V as {self.kv_cache_dtype!r} but was given "
+                f"{'an int8' if int8_cache else 'a native'} cache")
 
 
 _TRAIN_FOLLOW_UPS = "ROADMAP.md queue 1, 'Training follow-ups',"

@@ -2,7 +2,14 @@
 
 * :class:`~.engine.InferenceEngine` — the slot-multiplexed engine:
   decode-ahead windows with the prefill overlap, per-request sampling,
-  the prefix cache and the paged KV cache with the radix trie
+  the prefix cache and the paged KV cache with the radix trie,
+  speculative decoding, int8 weights and KV, chunked prefill, and the
+  stall watchdog (:class:`~.engine.EngineStalled`)
+* :class:`~.drafter.NgramDrafter` — model-free prompt-lookup drafting for
+  speculative decoding
+* the int8 helpers of models/quant.py (``quantize_kernel_int8``,
+  ``quantize_state_dict_int8``, ``is_quantized``, ``weight_stream_bytes``,
+  ``Int8Linear``)
 * :class:`~.scheduler.FIFOScheduler` / :class:`~.scheduler.Request` —
   bounded FIFO admission with prompt-length bucketing and deadlines
 * :class:`~.sampling.SamplingParams` — the per-request sampling config
@@ -14,7 +21,18 @@
   occupancy, windows, sampling, prefix-cache and page accounting
 """
 
-from distributed_tensorflow_ibm_mnist_tpu_torch.serving.engine import InferenceEngine
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
+    Int8Linear,
+    is_quantized,
+    quantize_kernel_int8,
+    quantize_state_dict_int8,
+    weight_stream_bytes,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.serving.drafter import NgramDrafter
+from distributed_tensorflow_ibm_mnist_tpu_torch.serving.engine import (
+    EngineStalled,
+    InferenceEngine,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.kv_pool import (
     KVPagePool,
     pages_needed,
@@ -38,16 +56,23 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.serving.stats import ServingStat
 
 __all__ = [
     "GREEDY",
+    "EngineStalled",
     "FIFOScheduler",
     "InferenceEngine",
+    "Int8Linear",
     "KVPagePool",
+    "NgramDrafter",
     "PrefixCache",
     "QueueFull",
     "RadixCache",
     "Request",
     "SamplingParams",
     "ServingStats",
+    "is_quantized",
     "pages_needed",
     "prefix_key",
+    "quantize_kernel_int8",
+    "quantize_state_dict_int8",
     "request_fingerprint",
+    "weight_stream_bytes",
 ]

@@ -1,5 +1,6 @@
 """Continuous-batching inference engine of the port: decode-ahead windows,
-per-request sampling, the prefix cache and the paged KV cache.
+per-request sampling, the prefix cache and the paged KV cache, speculative
+decoding, int8 weights and KV, chunked prefill and the stall watchdog.
 
 The counterpart of the JAX package's ``serving/engine.py``.  The device
 side is a fixed set of shapes: a B=1 prefill per prompt bucket (core/
@@ -39,19 +40,45 @@ default, the radix trie
 runs only its suffix (the extend program, plain PyTorch attention over
 the pool, no flash kernel) and holds zero extra pages for the prefix.
 
-Greedy output is token-identical to the JAX engine on the same weights,
-for every ``decode_ahead`` and both layouts; sampled streams too, up to
-near-ties of the perturbed scores (tests/test_torch_decode_ahead.py,
-tests/test_torch_kv_paging.py, tests/test_torch_sampling.py).  Failure
-isolation follows the JAX engine: a request whose own prefill or
-``callback`` raises fails alone; a fault in the window fails every
-in-flight request and re-raises.  The JAX compile census has no
-counterpart until CUDA graphs arrive: nothing is compiled here.
+``speculative="ngram"`` replaces the decode window with the verify
+window (core/generate.py ``_verify_sample_core``): between windows the
+host drafts up to ``draft_len`` tokens per slot from the request's own
+prompt and output (serving/drafter.py), and ONE (slots, draft_len + 1)
+forward accepts greedy rows by argmax match and sampled rows by rejection
+sampling, emitting ``accepted + 1`` tokens a row; the cursor rewinds to
+the acceptance point.  Greedy output is the plain greedy stream whatever
+the drafts.  ``quant="int8"`` serves a copy of the model with int8
+projections (models/quant.py), quantized once here and again at
+:meth:`swap_params`; the model's ``kv_cache_dtype="int8"`` makes every
+cache int8 with scales.  ``prefill_chunk=C`` (paged only) admits a
+prompt without a prefill: its pages are allocated and the slot waits
+PREFILLING (occupied, inactive in every window) while C-token chunks run
+through the extend program, one chunk an iteration at the overlap seam,
+oldest first; the last chunk's logits give the first token.  Prompts up
+to ``max_len - max_new`` need no bucket, K3 never runs, and a radix hit
+starts chunking at the matched pages.  ``stall_timeout_s`` arms the
+watchdog: a window whose dispatch raises is retried until no token has
+come for that long, then in-flight requests fail and
+:class:`EngineStalled` raises.  The forward writes the cache in place, so
+every cursor is put back before a retry; a fault at the readback, after
+the whole window ran, is never retried.
 
-Knobs of the JAX engine that later slices port (speculative decoding,
-chunked prefill, tp/cp, int8, disaggregated roles, chaos, tracing,
-telemetry) raise ``NotImplementedError`` when set away from their
-defaults.  The engine is single-threaded: submit and run from one thread.
+Greedy output is token-identical to the JAX engine on the same weights,
+for every ``decode_ahead``, both layouts, speculation, int8 and chunking;
+sampled streams too, up to near-ties of the perturbed scores
+(tests/test_torch_decode_ahead.py, tests/test_torch_kv_paging.py,
+tests/test_torch_sampling.py, tests/test_torch_quant.py,
+tests/test_torch_speculative.py, tests/test_torch_chunked_prefill.py).
+Failure isolation follows the JAX engine: a request whose own prefill,
+chunk or ``callback`` raises fails alone; a fault in the window fails
+every in-flight request and re-raises (at once, or at the watchdog's
+deadline).  The JAX compile census has no counterpart until CUDA graphs
+arrive: nothing is compiled here.
+
+Knobs of the JAX engine that later slices port (tp/cp, disaggregated
+roles, chaos, tracing, telemetry) raise ``NotImplementedError`` when set
+away from their defaults.  The engine is single-threaded: submit and run
+from one thread.
 """
 
 from __future__ import annotations
@@ -65,12 +92,20 @@ import torch
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import (
     _sample_window_core,
+    _set_cursor,
+    _verify_sample_core,
     init_cache,
     make_prefill,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
+    quantize_state_dict_int8,
+    weight_stream_bytes,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
+    check_quant_knobs,
     reset_cache_slots,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.serving.drafter import NgramDrafter
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.kv_pool import (
     KVPagePool,
     init_paged_cache,
@@ -97,11 +132,8 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.utils.metrics import MetricWrite
 
 # knob -> (default, the later slice that ports it)
 _REFUSED = {
-    "speculative": (None, "the speculative-decoding slice"),
-    "prefill_chunk": (0, "the chunked-prefill slice"),
     "tp": (1, "the tensor-parallel serving slice"),
     "cp": (1, "the context-parallel serving slice"),
-    "quant": (None, "the int8 serving slice"),
     "role": ("both", "the disaggregated serving slice"),
     "chaos": (None, "the host serving tier slice"),
     "tracer": (None, "the host serving tier slice"),
@@ -111,6 +143,16 @@ _REFUSED = {
 # a parked request whose radix match skipped the prefill: the suffix
 # extend runs at landing, against the trie and pool of that moment
 _RADIX_PREFILL = object()
+
+# the "prefilled" payload of a chunked admission parked on a dry pool:
+# nothing ran; the retry starts again from the allocation
+_CHUNK_STALL = object()
+
+
+class EngineStalled(RuntimeError):
+    """The watchdog's verdict: no token progress across all slots within
+    ``stall_timeout_s``.  In-flight requests were failed and their slots
+    reset before this raised; the engine stays usable (or closeable)."""
 
 
 class InferenceEngine:
@@ -124,9 +166,11 @@ class InferenceEngine:
     model's own weights.  ``device`` (the GPU unless ``device="cpu"``)
     must be where the model lives.  ``decode_ahead=k`` runs k fused decode
     steps per dispatch and readback; ``prefix_cache_bytes``,
-    ``kv_page_size`` / ``kv_pages`` / ``radix_cache`` and the sampling
-    defaults are as in the module docstring (``rng`` is an int seed or
-    (2,) uint32 key data, required when ``temperature > 0``).
+    ``kv_page_size`` / ``kv_pages`` / ``radix_cache``, ``speculative`` /
+    ``draft_len``, ``quant``, ``prefill_chunk``, ``stall_timeout_s`` and
+    the sampling defaults are as in the module docstring (``rng`` is an
+    int seed or (2,) uint32 key data, required when ``temperature > 0``).
+    With ``quant="int8"``, ``self.model`` is the int8 copy.
 
     Usage::
 
@@ -141,7 +185,8 @@ class InferenceEngine:
     def __init__(self, model, params: dict | None = None, *, slots: int,
                  max_len: int, scheduler: FIFOScheduler | None = None,
                  buckets: tuple[int, ...] | None = None, decode_ahead: int = 1,
-                 speculative: str | None = None, prefix_cache_bytes: int = 0,
+                 speculative: str | None = None, draft_len: int = 3,
+                 prefix_cache_bytes: int = 0,
                  kv_page_size: int = 0, kv_pages: int = 0,
                  radix_cache: bool | None = None, prefill_chunk: int = 0,
                  tp: int = 1, cp: int = 1, quant: str | None = None,
@@ -150,16 +195,20 @@ class InferenceEngine:
                  min_p: float = 0.0, rng=None, role: str = "both",
                  writer: MetricWriter | None = None,
                  clock: Callable[[], float] = time.monotonic,
+                 stall_timeout_s: float | None = None,
                  chaos=None, tracer=None, telemetry=None, device=None):
-        knobs = dict(speculative=speculative, prefill_chunk=prefill_chunk,
-                     tp=tp, cp=cp, quant=None if quant == "none" else quant,
-                     role=role, chaos=chaos, tracer=tracer, telemetry=telemetry)
+        knobs = dict(tp=tp, cp=cp, role=role, chaos=chaos, tracer=tracer,
+                     telemetry=telemetry)
         for name, value in knobs.items():
             default, where = _REFUSED[name]
             if value != default:
                 raise NotImplementedError(
                     f"InferenceEngine({name}={value!r}) is not in the PyTorch "
                     f"port yet ({where} ports it); leave it at {default!r}")
+        if stall_timeout_s is not None and stall_timeout_s <= 0:
+            raise ValueError(
+                f"stall_timeout_s must be > 0 (None disables the watchdog), "
+                f"got {stall_timeout_s}")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_len < 2:
@@ -170,6 +219,22 @@ class InferenceEngine:
             raise ValueError(
                 f"decode_ahead must be >= 1 (1 = one decode step per host "
                 f"sync), got {decode_ahead}")
+        if speculative not in (None, "ngram"):
+            raise ValueError(
+                f"speculative must be None or 'ngram' (model-free prompt-"
+                f"lookup drafting), got {speculative!r}")
+        if speculative is not None:
+            if draft_len < 1:
+                raise ValueError(
+                    f"draft_len must be >= 1 (tokens drafted per verify "
+                    f"window), got {draft_len}")
+            if getattr(model, "window", 0):
+                raise ValueError(
+                    "speculative decoding does not compose with sliding-"
+                    "window attention (model.window > 0): an overrunning "
+                    "verify chunk would mislabel the windowed span gather")
+        quant = "none" if quant is None else quant
+        check_quant_knobs(quant, "native")
         if eos_id is not None and eos_id == pad_id:
             raise ValueError(
                 f"eos_id and pad_id must differ (both {eos_id}): idle slots "
@@ -195,6 +260,26 @@ class InferenceEngine:
             raise ValueError(
                 "radix_cache shares whole KV PAGES between requests — it "
                 "needs the paged cache (kv_page_size > 0)")
+        if prefill_chunk < 0:
+            raise ValueError(
+                f"prefill_chunk must be >= 0 (0 = whole-prompt bucketed "
+                f"prefill), got {prefill_chunk}")
+        if prefill_chunk:
+            if not kv_page_size:
+                raise ValueError(
+                    "prefill_chunk runs prompts through the paged suffix-"
+                    "extend program — it needs the paged cache "
+                    "(kv_page_size > 0)")
+            if prefill_chunk > max_len:
+                raise ValueError(
+                    f"prefill_chunk ({prefill_chunk}) cannot exceed max_len "
+                    f"({max_len}) — a chunk is at most one slot's span")
+            if prefix_cache_bytes > 0:
+                raise ValueError(
+                    "prefill_chunk does not compose with the dense prefix "
+                    "cache (prefix_cache_bytes > 0): chunked admission never "
+                    "produces the bucketed row the cache stores — the radix "
+                    "trie is the prefix-sharing mechanism under chunking")
         model_ps = getattr(model, "page_size", 0)
         if model_ps and model_ps != kv_page_size:
             raise ValueError(
@@ -218,6 +303,18 @@ class InferenceEngine:
             raise ValueError(
                 f"the model lives on {mdev} but the engine serves on "
                 f"{self.device}: build the model on the engine's device")
+        # weight-only int8: serve an int8 copy of the model and quantize
+        # the given weights once, here (swap_params does it again)
+        self.quant = quant
+        if self.quant == "int8":
+            if not hasattr(model, "clone"):
+                raise ValueError(
+                    f"quant='int8' needs a model with a quant= field (the "
+                    f"causal-LM family); {type(model).__name__} has none")
+            if model.quant != "int8":
+                model = model.clone(quant="int8")
+            if params is not None:
+                params = quantize_state_dict_int8(params)
         if params is not None:
             model.load_state_dict(params, strict=True)
         if scheduler is None:
@@ -225,7 +322,7 @@ class InferenceEngine:
                 max_len=max_len,
                 buckets=buckets if buckets is not None else
                 tuple(b for b in (16, 32, 64, 128) if b <= max_len) or (max_len,),
-                clock=clock)
+                clock=clock, chunked_prefill=bool(prefill_chunk))
         elif buckets is not None:
             want = tuple(sorted(set(int(b) for b in buckets)))
             if want != scheduler.buckets:
@@ -233,6 +330,12 @@ class InferenceEngine:
                     f"engine buckets= {want} != scheduler buckets "
                     f"{scheduler.buckets} — the prefill runs at the "
                     "scheduler's shapes")
+        if scheduler.chunked_prefill and not prefill_chunk:
+            raise ValueError(
+                "scheduler.chunked_prefill is set but the engine has no "
+                "prefill_chunk= — the scheduler would admit prompts past "
+                "the largest bucket that the engine cannot prefill")
+        scheduler.chunked_prefill = bool(prefill_chunk)
         if scheduler.max_len != max_len:
             raise ValueError(
                 f"scheduler.max_len ({scheduler.max_len}) != engine max_len "
@@ -242,6 +345,11 @@ class InferenceEngine:
         self.slots = slots
         self.max_len = max_len
         self.decode_ahead = int(decode_ahead)
+        self.speculative = speculative
+        self.draft_len = int(draft_len) if speculative is not None else 0
+        self._drafter = NgramDrafter(self.draft_len) if speculative else None
+        self._prefill_chunk = int(prefill_chunk)
+        self.stall_timeout_s = stall_timeout_s
         self.scheduler = scheduler
         self.buckets = scheduler.buckets
         self.eos_id = eos_id
@@ -287,6 +395,10 @@ class InferenceEngine:
                         else None)
 
         self._slot_req: list[Request | None] = [None] * slots
+        # chunked prefill: per slot, None while decoding, else the chunk
+        # record {"done", "m_blocks", "path", "bt", "bt_dev", "last"} of a
+        # PREFILLING slot (occupied, inactive in every window)
+        self._slot_prefill: list[dict | None] = [None] * slots
         self._slot_tok = np.full((slots,), self.pad_id, np.int64)
         # per-slot sampling planes (host mirrors), uploaded once per
         # occupancy change; a retired slot's stale rows are masked by
@@ -309,6 +421,25 @@ class InferenceEngine:
         self.completed: list[Request] = []
         self._draining = False
         self._closed = False
+        # the watchdog's anchor (reset by a fatal fault) and the heartbeat
+        # (the last progress ever, never reset)
+        self._last_progress_t: float | None = None
+        self._last_progress_ever: float | None = None
+        # fixed once built: swap_params keeps every shape and dtype
+        self.stats.memory(kv_bytes_per_chip=self.kv_bytes_per_chip(),
+                          weight_bytes_per_chip=self.weight_bytes_per_chip(),
+                          quant=self.quant)
+
+    def kv_bytes_per_chip(self) -> int:
+        """Bytes of the decode cache on the card (the whole cache: one
+        card, no tp or cp), block tables and cursors included."""
+        return sum(leaf.nbytes for entry in self.cache.values()
+                   for leaf in entry.values())
+
+    def weight_bytes_per_chip(self) -> int:
+        """Bytes of the served weights on the card (int8 weights 1 byte an
+        element, their scales 4)."""
+        return weight_stream_bytes(self.model.state_dict())
 
     # ------------------------------------------------------------------
     # request lifecycle
@@ -333,9 +464,23 @@ class InferenceEngine:
         return sum(r is not None for r in self._slot_req)
 
     @property
+    def _decoding(self) -> int:
+        """Occupied slots past their prefill (PREFILLING slots are
+        occupied but sit out every window)."""
+        return sum(r is not None and p is None
+                   for r, p in zip(self._slot_req, self._slot_prefill))
+
+    @property
     def has_work(self) -> bool:
         return (self.occupied > 0 or len(self.scheduler) > 0
                 or len(self._pending) > 0)
+
+    @property
+    def heartbeat_t(self) -> float | None:
+        """Clock time of the engine's last progress (a token, an admission,
+        a chunk), or None before any: the liveness signal a supervisor
+        reads from outside :meth:`step`."""
+        return self._last_progress_ever
 
     def _req_sampling(self, req: Request):
         """``(temperature, top_p, top_k, min_p, base_key)`` for ``req``: its
@@ -367,6 +512,7 @@ class InferenceEngine:
         req.status = status
         req.finish_t = now
         self._slot_req[slot] = None
+        self._slot_prefill[slot] = None  # a PREFILLING slot can be swept too
         self._release_slot_alloc(slot)
         self._active_dev = None  # occupancy changed; the next window re-freezes
         self.completed.append(req)
@@ -534,14 +680,7 @@ class InferenceEngine:
                 if self._prefix is not None and not cache_hit:
                     self._prefix.put(req.prefix_key, row_cache, logits)
         if self._radix is not None:
-            # donate the freshly computed FULL prompt blocks below the match
-            donate = {j: int(bt_row[j]) for j in range(m_blocks, n_tok // ps)}
-            if donate:
-                priv, nodes = self._slot_alloc[slot]
-                held, _kept = self._radix.insert(req.tokens, m_blocks, donate, path)
-                for node in held:
-                    priv.remove(node.page)
-                    nodes.append(node)
+            self._donate(slot, req, bt_row, m_blocks, path)
         return first, first_logp, cache_hit
 
     def _admit(self, req: Request, slot: int, now: float,
@@ -552,6 +691,10 @@ class InferenceEngine:
         needs a reset (a failure after the insert, or a request that retired
         at admission), or ``("stall", prefilled)`` when the paged pool is
         momentarily dry."""
+        if self._prefill_chunk:
+            # chunked: allocate and park the slot PREFILLING; the chunks
+            # run one an iteration from _chunk_tick
+            return self._chunk_admit(req, slot, now)
         inserted = False
         t_p = self.clock()
         try:
@@ -577,6 +720,7 @@ class InferenceEngine:
             req.generated.append(first)
             req.logprobs.append(first_logp)
             req.first_token_t = self.clock()  # TTFT: first token ON THE HOST
+            self._last_progress_ever = req.first_token_t
             self.stats.prefill(req.first_token_t - t_p)
             req.status = "running"
             self._notify(req, first)
@@ -586,6 +730,15 @@ class InferenceEngine:
             return inserted
         self._slot_req[slot] = req
         self._slot_tok[slot] = first
+        self._set_planes(slot, req)
+        if self._done_reason(req) is not None:
+            self._retire(slot, self._done_reason(req), self.clock())
+            return True  # the landed row belongs to no live request now
+        return False
+
+    def _set_planes(self, slot: int, req: Request) -> None:
+        """Install a landed request's sampling planes at ``slot`` and mark
+        every device mirror stale."""
         temp, topp, topk, minp, key = self._req_sampling(req)
         self._slot_temp[slot] = temp
         self._slot_topp[slot] = topp
@@ -596,10 +749,144 @@ class InferenceEngine:
         self._active_dev = None
         self._planes_dev = None
         self._pos_dev = None
-        if self._done_reason(req) is not None:
-            self._retire(slot, self._done_reason(req), self.clock())
-            return True  # the landed row belongs to no live request now
+
+    # ------------------------------------------------------------------
+    # chunked prefill: the slot holds its pages PREFILLING while C-token
+    # chunks of its prompt run through the extend program, one chunk an
+    # engine iteration, so any admission costs the others one chunk
+
+    def _chunk_admit(self, req: Request, slot: int, now: float):
+        """Admit ``req`` into ``slot`` PREFILLING: take the radix match (a
+        partial hit starts chunking at the matched pages), allocate the
+        whole page span and build the chunk record; no chunk runs here.
+        Returns what :meth:`_admit` does: ``("stall", _CHUNK_STALL)`` on a
+        dry pool, else False with the slot occupied.  The block table is
+        installed by the first chunk's extend, not here: a reset pending
+        from the previous tenant stays pending."""
+        ps = self._page_size
+        n_tok = int(req.tokens.size)
+        path: list = []
+        if self._radix is not None:
+            path, matched = self._radix.match(req.tokens)
+            path = path[: self._usable_radix_tokens(req, matched) // ps]
+        m_blocks = len(path)
+        m_tok = m_blocks * ps
+        if m_blocks:
+            self._radix.acquire(path)  # pin before any allocation can evict
+        total = pages_needed(n_tok + req.max_new, ps)
+        private = self._alloc_pages(total - m_blocks)
+        if private is None:
+            if m_blocks:
+                self._radix.release(path)
+            return ("stall", _CHUNK_STALL)
+        self._slot_alloc[slot] = [list(private), list(path)]
+        bt_row = np.zeros((self.max_len // ps,), np.int32)  # the rest: TRASH
+        for j, node in enumerate(path):
+            bt_row[j] = node.page
+        bt_row[m_blocks:m_blocks + len(private)] = private
+        req.admit_t = now
+        req.status = "prefilling"
+        self._slot_req[slot] = req
+        self._slot_prefill[slot] = {
+            "done": m_tok, "m_blocks": m_blocks, "path": path, "bt": bt_row,
+            "bt_dev": torch.as_tensor(bt_row, device=self.device), "last": None}
+        self._active_dev = None  # the slot sits out windows until it lands
+        if m_blocks:
+            self.stats.radix(True, tokens=m_tok)
+            self._radix.record(True, tokens=m_tok)
+            req.radix_tokens = m_tok
+        elif self._radix is not None:
+            self.stats.radix(False)
+            self._radix.record(False)
+        self.stats.prompt_admitted(n_tok)
         return False
+
+    def _chunk_tick(self, reset_mask: np.ndarray) -> bool:
+        """Dispatch ONE chunk of the oldest PREFILLING slot (lowest request
+        id) through the extend program.  True when a chunk ran; a chunk's
+        failure is its request's own."""
+        prefilling = [slot for slot, rec in enumerate(self._slot_prefill)
+                      if rec is not None]
+        if not prefilling:
+            return False
+        slot = min(prefilling, key=lambda i: self._slot_req[i].id)
+        rec, req = self._slot_prefill[slot], self._slot_req[slot]
+        c = self._prefill_chunk
+        done = rec["done"]
+        part = req.tokens[done:done + c]
+        t0 = self.clock()
+        try:
+            padded = np.full((1, c), self.pad_id, np.int64)
+            padded[0, : part.size] = part
+            with torch.no_grad():
+                self.cache, rec["last"] = self._extend(
+                    self.cache, slot, rec["bt_dev"],
+                    torch.as_tensor(padded, device=self.device), done, int(part.size))
+            rec["done"] = done + int(part.size)
+            # the extend installed the slot's block table: a reset pending
+            # from its previous tenant must not undo it
+            reset_mask[slot] = False
+            self.stats.chunk(self.clock() - t0)
+            return True
+        except Exception as e:
+            self._drop_prefilling(slot, req, e, reset_mask)
+            return False
+
+    def _drop_prefilling(self, slot: int, req: Request, exc: BaseException,
+                         reset_mask: np.ndarray) -> None:
+        """Fail a PREFILLING (or just landed) request alone: free its slot
+        and queue its pages and row for release."""
+        self._slot_req[slot] = None
+        self._slot_prefill[slot] = None
+        self._release_slot_alloc(slot)
+        self._active_dev = None
+        self._fail(req, exc, self.clock())
+        reset_mask[slot] = True
+
+    def _chunk_land(self, reset_mask: np.ndarray) -> None:
+        """Land every slot whose last chunk ran: pick its first token from
+        the chunk's logits (the shared ``first_pick``), donate its fresh
+        whole prompt pages to the trie, and join the windows.  Runs after
+        the window's readback, so the wholesale token-mirror copy there
+        cannot overwrite the first token."""
+        for slot, rec in enumerate(self._slot_prefill):
+            if rec is None or rec["last"] is None:
+                continue
+            req = self._slot_req[slot]
+            if rec["done"] < int(req.tokens.size):
+                continue
+            try:
+                first, first_logp = self._first_pick(req, rec["last"])
+                if self._radix is not None:
+                    self._donate(slot, req, rec["bt"], rec["m_blocks"], rec["path"])
+                req.generated.append(first)
+                req.logprobs.append(first_logp)
+                req.first_token_t = self.clock()
+                self._last_progress_ever = req.first_token_t
+                req.status = "running"
+                self._notify(req, first)
+            except Exception as e:
+                self._drop_prefilling(slot, req, e, reset_mask)
+                continue
+            self._slot_prefill[slot] = None
+            self._slot_tok[slot] = first
+            self._set_planes(slot, req)
+            if self._done_reason(req) is not None:
+                self._retire(slot, self._done_reason(req), self.clock())
+                reset_mask[slot] = True
+
+    def _donate(self, slot: int, req: Request, bt_row, m_blocks: int, path) -> None:
+        """Donate the prompt's freshly computed whole blocks past the match
+        to the radix trie: they move from the slot's private pages to its
+        held nodes (ref kept until retirement)."""
+        donate = {j: int(bt_row[j])
+                  for j in range(m_blocks, int(req.tokens.size) // self._page_size)}
+        if donate:
+            priv, nodes = self._slot_alloc[slot]
+            held, _kept = self._radix.insert(req.tokens, m_blocks, donate, path)
+            for node in held:
+                priv.remove(node.page)
+                nodes.append(node)
 
     def _admit_free_slots(self, reset_mask: np.ndarray) -> bool:
         """Fill free slots: overlap-prefilled pendings first (FIFO order),
@@ -634,7 +921,10 @@ class InferenceEngine:
                     return admitted
                 if self._slot_req[slot] is not None:
                     admitted = True
-                    reset_mask[slot] = False  # the insert overwrote the row
+                    if self._slot_prefill[slot] is None:
+                        reset_mask[slot] = False  # the insert overwrote the row
+                    # PREFILLING: keep a pending reset; the first chunk
+                    # installs the block table
                 elif needs_reset:
                     reset_mask[slot] = True
         return admitted
@@ -659,9 +949,27 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # the host loop
 
+    def _active_planes(self):
+        """The frozen active mask and the sampling planes of the next
+        window, re-uploaded only where the host mirrors changed."""
+        dev = self.device
+        if self._active_dev is None:
+            # PREFILLING slots sit out: their garbage writes land above the
+            # chunk cursor, where the next chunk overwrites them
+            active = np.array([r is not None and p is None
+                               for r, p in zip(self._slot_req, self._slot_prefill)])
+            self._active_dev = torch.as_tensor(active, device=dev)
+            self._window_sampled = bool((self._slot_temp[active] > 0).any())
+        if self._planes_dev is None:
+            self._planes_dev = tuple(
+                torch.as_tensor(x, device=dev) for x in (
+                    self._slot_temp, self._slot_topp, self._slot_topk,
+                    self._slot_minp, self._slot_key))
+        return self._active_dev, self._planes_dev
+
     def _window_inputs(self):
-        """The device planes of the next window, re-uploaded only where the
-        host mirrors changed since the last one."""
+        """The decode window's device inputs: the pending tokens, the
+        active mask, the sampling planes and the PRNG positions."""
         dev = self.device
         if self._tok_dev is None:
             self._tok_dev = torch.as_tensor(self._slot_tok, device=dev)
@@ -670,21 +978,49 @@ class InferenceEngine:
             self._pos_dev = torch.as_tensor(np.array(
                 [0 if r is None else len(r.generated) for r in self._slot_req],
                 np.int64), device=dev)
-        if self._active_dev is None:
-            active = np.array([r is not None for r in self._slot_req])
-            self._active_dev = torch.as_tensor(active, device=dev)
-            self._window_sampled = bool((self._slot_temp[active] > 0).any())
-        if self._planes_dev is None:
-            self._planes_dev = tuple(
-                torch.as_tensor(x, device=dev) for x in (
-                    self._slot_temp, self._slot_topp, self._slot_topk,
-                    self._slot_minp, self._slot_key))
-        return self._tok_dev, self._active_dev, self._planes_dev, self._pos_dev
+        return (self._tok_dev, *self._active_planes(), self._pos_dev)
+
+    def _window(self, tok, active, planes, pos):
+        """The decode-ahead window: ``(cache, tokens, logprobs, last, pos)``."""
+        with torch.no_grad():
+            return _sample_window_core(
+                self.model, self.cache, tok, active, *planes, pos,
+                self.decode_ahead, self.max_len, True, self.pad_id,
+                self._window_sampled)
+
+    def _verify(self, chunk, draft_lens, active, planes, pos):
+        """The speculative verify window: ``(cache, tokens, logprobs,
+        accepted, last)``."""
+        with torch.no_grad():
+            return _verify_sample_core(
+                self.model, self.cache, chunk, draft_lens, active, *planes, pos,
+                self.max_len, self.pad_id, self._window_sampled)
+
+    def _draft_chunk(self):
+        """Draft every decoding slot: the (slots, draft_len + 1) chunk
+        (column 0 the pending token), the draft lengths and the PRNG
+        positions, uploaded in one copy.  Returns ``(chunk, draft_lens,
+        pos)`` on the device and the host draft lengths."""
+        k = self.draft_len + 1
+        host = np.full((self.slots, k + 2), self.pad_id, np.int64)
+        host[:, 0] = self._slot_tok
+        host[:, k:] = 0
+        for slot, req in enumerate(self._slot_req):
+            if req is None or self._slot_prefill[slot] is not None:
+                continue
+            d = self._drafter.draft(np.concatenate(
+                [req.tokens, np.asarray(req.generated, np.int32)]))
+            host[slot, 1:1 + d.size] = d
+            host[slot, k] = d.size
+            host[slot, k + 1] = len(req.generated)  # the PRNG position
+        dev = torch.as_tensor(host, device=self.device)
+        return (dev[:, :k], dev[:, k], dev[:, k + 1]), host[:, k].copy()
 
     def step(self) -> int:
-        """One host-loop iteration: cancel -> admit -> decode window ->
-        retire.  Returns the number of REAL tokens produced by the window
-        (tokens past a row's EOS or budget are discarded, never counted)."""
+        """One host-loop iteration: cancel -> admit -> decode (or verify)
+        window, with one prefill or chunk behind it -> retire.  Returns the
+        number of REAL tokens produced (tokens past a row's EOS or budget
+        are discarded, never counted)."""
         if self._closed:
             raise RuntimeError("engine is closed")
         t0 = self.clock()
@@ -698,71 +1034,116 @@ class InferenceEngine:
                 reset_mask[slot] = True
 
         # 2) admit into free slots
-        self._admit_free_slots(reset_mask)
+        admitted = self._admit_free_slots(reset_mask)
 
         # 3) ONE window dispatch across ALL slots; a fault here belongs to
-        #    every in-flight request: they fail and the error re-raises
+        #    every in-flight request: they fail and the error re-raises, at
+        #    once or, with the watchdog, once no progress came for
+        #    stall_timeout_s (until then the window is retried from the
+        #    cursors it found: the forward writes K/V and advances every
+        #    block's cursor in place, and K/V above a cursor is overwritten)
         produced = 0
-        decoded = self.occupied > 0
-        if decoded:
-            k = self.decode_ahead
-            n_decoding = self.occupied
-            t_d = self.clock()
+        decoded = chunked = ticked = False
+        n_decoding = self._decoding
+        if n_decoding > 0:
+            spec = self._drafter is not None
+            k = self.draft_len + 1 if spec else self.decode_ahead
+            idx0 = (next(iter(self.cache.values()))["index"].clone()
+                    if self.stall_timeout_s is not None else None)
             try:
-                tok, active, planes, pos = self._window_inputs()
-                with torch.no_grad():
-                    self.cache, blk_dev, logp_dev, last_dev, pos_out = (
-                        _sample_window_core(
-                            self.model, self.cache, tok, active, *planes, pos, k,
-                            self.max_len, True, self.pad_id, self._window_sampled))
+                if spec:
+                    (chunk, dls_dev, pos), dls = self._draft_chunk()
+                    active, planes = self._active_planes()
+                    t_d = self.clock()
+                    self.cache, blk_dev, logp_dev, acc_dev, _ = self._verify(
+                        chunk, dls_dev, active, planes, pos)
+                    tail = [acc_dev[:, None]]
+                else:
+                    tok, active, planes, pos = self._window_inputs()
+                    t_d = self.clock()
+                    self.cache, blk_dev, logp_dev, last_dev, pos_out = self._window(
+                        tok, active, planes, pos)
+                    tail = []
                 dispatch_s = self.clock() - t_d
-                # the window runs on the card: spend the wait prefilling the
-                # next queued request
-                self._overlap_prefill()
-                # ONE device->host copy (and sync) per window
-                t_rb = self.clock()
-                blk = torch.stack((blk_dev.double(), logp_dev.double())).cpu().numpy()
-                readback_s = self.clock() - t_rb
             except Exception as e:
-                self._fail_in_flight(e, self.clock())
-                raise
-            self._tok_dev = last_dev
-            self._pos_dev = pos_out
-            self._slot_tok = blk[0, :, -1].astype(np.int64)
-            now = self.clock()
-            self.stats.decode(dispatch_s + readback_s)
-            waste = 0
-            for slot, req in enumerate(self._slot_req):
-                if req is None:
-                    continue
-                appended = 0
-                for j in range(k):
-                    tok_j = int(blk[0, slot, j])
-                    req.generated.append(tok_j)
-                    req.logprobs.append(float(blk[1, slot, j]))
-                    produced += 1
-                    appended += 1
-                    try:
-                        self._notify(req, tok_j)
-                    except Exception as e:
-                        # the callback's failure is THIS request's; its
-                        # remaining window tokens die with it
-                        self._slot_req[slot] = None
-                        self._release_slot_alloc(slot)
-                        self._active_dev = None
-                        self._fail(req, e, now)
-                        reset_mask[slot] = True
-                        break
-                    reason = self._done_reason(req)
-                    if reason is not None:
-                        # EOS/budget mid-window: keep up to the stop, drop
-                        # the overrun
-                        self._retire(slot, reason, now)
-                        reset_mask[slot] = True
-                        break
-                waste += k - appended
-            self.stats.window(dispatch_s, readback_s, steps=n_decoding * k,
-                              waste=waste)
+                self._window_fault(e, t0, idx0)
+                # transient: no tokens this iteration; the watchdog counts on
+            else:
+                # the window runs on the card: spend the wait on one chunk
+                # of the oldest PREFILLING slot, or the next queued prefill
+                # (each fails only its own request)
+                if self._prefill_chunk:
+                    chunked, ticked = self._chunk_tick(reset_mask), True
+                else:
+                    self._overlap_prefill()
+                # ONE device->host copy (and sync) per window; the window has
+                # written the cache by now, so a fault here is never retried
+                t_rb = self.clock()
+                try:
+                    host = self._readback([blk_dev, logp_dev] + tail)
+                except Exception as e:
+                    self._fail_in_flight(e, self.clock())
+                    raise
+                readback_s = self.clock() - t_rb
+                decoded = True
+                blk, logps = host[:, :k].astype(np.int64), host[:, k:2 * k]
+                if spec:
+                    acc = host[:, 2 * k].astype(np.int64)
+                    self._tok_dev = None  # the next chunk is built on the host
+                else:
+                    self._tok_dev = last_dev
+                    self._pos_dev = pos_out
+                    self._slot_tok = blk[:, -1].copy()
+                now = self.clock()
+                self.stats.decode(dispatch_s + readback_s)
+                waste = 0
+                for slot, req in enumerate(self._slot_req):
+                    if req is None or self._slot_prefill[slot] is not None:
+                        continue  # PREFILLING rows sat the window out
+                    n_emit = k
+                    if spec:
+                        # the accepted drafts and the model's own next token
+                        n_emit = int(acc[slot]) + 1
+                        self._slot_tok[slot] = blk[slot, n_emit - 1]
+                        self.stats.spec(int(dls[slot]), int(acc[slot]))
+                    appended = 0
+                    for j in range(n_emit):
+                        tok_j = int(blk[slot, j])
+                        req.generated.append(tok_j)
+                        req.logprobs.append(float(logps[slot, j]))
+                        produced += 1
+                        appended += 1
+                        try:
+                            self._notify(req, tok_j)
+                        except Exception as e:
+                            # the callback's failure is THIS request's; its
+                            # remaining window tokens die with it
+                            self._slot_req[slot] = None
+                            self._release_slot_alloc(slot)
+                            self._active_dev = None
+                            self._fail(req, e, now)
+                            reset_mask[slot] = True
+                            break
+                        reason = self._done_reason(req)
+                        if reason is not None:
+                            # EOS/budget mid-window: keep up to the stop, drop
+                            # the overrun
+                            self._retire(slot, reason, now)
+                            reset_mask[slot] = True
+                            break
+                    # k device steps (or verify lanes) for `appended` tokens
+                    waste += k - appended
+                self.stats.window(dispatch_s, readback_s, steps=n_decoding * k,
+                                  waste=waste)
+
+        if self._prefill_chunk:
+            if not ticked:
+                # nothing decoding (or the window faulted before its tick):
+                # the chunks still advance, one an iteration
+                chunked = self._chunk_tick(reset_mask)
+            # land AFTER the readback, so the wholesale token-mirror copy
+            # above cannot overwrite a landed request's first token
+            self._chunk_land(reset_mask)
 
         # 4) reset retired rows so idle cursors restart from 0 and the next
         #    admission starts from a clean row; deferred page frees apply
@@ -771,6 +1152,9 @@ class InferenceEngine:
         if reset_mask.any():
             self._reset(reset_mask)
         self._flush_freed_pages()
+        if produced > 0 or admitted or chunked or self.occupied == 0:
+            self._last_progress_t = self.clock()
+            self._last_progress_ever = self._last_progress_t
         if self._pool is not None:
             self.stats.pool_sample(self._pool.allocated, self._pool.capacity,
                                    self._page_size, self._page_bytes)
@@ -778,13 +1162,43 @@ class InferenceEngine:
                         decoded=decoded)
         return produced
 
+    @staticmethod
+    def _readback(parts) -> np.ndarray:
+        """The window's outputs as one (slots, n) float64 host array."""
+        return torch.cat([x.double() for x in parts], dim=1).cpu().numpy()
+
+    def _window_fault(self, exc: Exception, t0: float, idx0) -> None:
+        """A window dispatch raised.  Without the watchdog, or once no
+        progress came for ``stall_timeout_s``, the in-flight requests fail
+        and the error re-raises; before that every cursor goes back to
+        ``idx0`` so the next iteration retries the same window."""
+        now = self.clock()
+        if self._last_progress_t is None:
+            self._last_progress_t = t0
+        if self.stall_timeout_s is None:
+            self._fail_in_flight(exc, now)
+            raise exc
+        try:
+            _set_cursor(self.cache, idx0)
+        except Exception:
+            self._fail_in_flight(exc, now)
+            raise exc
+        if now - self._last_progress_t > self.stall_timeout_s:
+            self._fail_in_flight(exc, now)
+            raise EngineStalled(
+                f"no token progress across {self.slots} slots within "
+                f"{self.stall_timeout_s}s (last decode error: "
+                f"{type(exc).__name__}: {exc})") from exc
+
     def _fail_in_flight(self, exc: BaseException, now: float) -> None:
-        """Fail every running request and reset their rows."""
+        """Fail every running request and reset their rows (the engine
+        stays consistent for a caller that catches the error)."""
         mask = np.zeros((self.slots,), bool)
         for slot, req in enumerate(self._slot_req):
             if req is None:
                 continue
             self._slot_req[slot] = None
+            self._slot_prefill[slot] = None
             self._release_slot_alloc(slot)
             req.engine_fault = True  # collateral, not the request's own fault
             self._fail(req, exc, now)
@@ -793,6 +1207,7 @@ class InferenceEngine:
             self._reset(mask)
         self._flush_freed_pages()
         self._active_dev = self._planes_dev = self._pos_dev = self._tok_dev = None
+        self._last_progress_t = None
 
     def _book_scheduler_cancels(self) -> None:
         """Queued requests the scheduler cancelled as overdue join the book."""
@@ -884,3 +1299,30 @@ class InferenceEngine:
     def __exit__(self, *exc) -> bool:
         self.close()
         return False
+
+    # ------------------------------------------------------------------
+    # live weight replacement
+
+    def swap_params(self, params: dict) -> None:
+        """Load a new ``state_dict`` into the served model of an IDLE
+        engine (no occupied slot, parked request or queued request).  An
+        int8 engine quantizes it first (a quantized one passes as it is).
+        Every cached K/V was computed under the old weights, so the prefix
+        cache is cleared and the radix trie evicted whole, its pages back
+        to the pool."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        if self.has_work:
+            raise RuntimeError(
+                f"swap_params on a busy engine (occupied={self.occupied}, "
+                f"pending={len(self._pending)}, queued={len(self.scheduler)})"
+                " — drain it first (stop submitting, pump step() until "
+                "has_work is False)")
+        if self.quant == "int8":
+            params = quantize_state_dict_int8(params)
+        self.model.load_state_dict(params, strict=True)
+        if self._prefix is not None:
+            self._prefix.clear()
+        if self._radix is not None:
+            # every node is unreferenced on an idle engine
+            self._radix.evict(self._radix.n_blocks, lambda p: self._pool.free([p]))

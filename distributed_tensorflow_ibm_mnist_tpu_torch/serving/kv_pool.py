@@ -11,9 +11,16 @@ engine may run more slots than its pool could hold at worst case
 
 Layout, per block (mirrors the dense cache's):
 
-    dense   {"k": (B, max_len, hkv, d), "v": ..., "index": (B,)}
+    dense   {"k": (B, max_len, hkv, d), "v": ..., ["k_scale"/"v_scale":
+             (B, max_len, hkv)], "index": (B,)}
     paged   {"pages_k": (n_pages, ps, hkv, d), "pages_v": ...,
+             ["pages_k_scale"/"pages_v_scale": (n_pages, ps, hkv)],
              "block_table": (B, max_len // ps) int32, "index": (B,)}
+
+The bracketed leaves are the int8 cache's float32 scales
+(``kv_cache_dtype="int8"``): every ``pages_*`` leaf is payload, so the
+scales travel with K/V through insert, extend, ``gather_page`` /
+``page_write`` and ``pool_page_bytes``.
 
 Page 0 is a reserved TRASH page: every unallocated block-table entry
 points at it, so idle rows' decode writes land in garbage nobody reads.
@@ -106,11 +113,15 @@ def paged_cache_shapes(model, slots: int, max_len: int, page_size: int,
             f"({page_size}) so each slot's virtual span is exactly max_len")
     if n_pages < 2:
         raise ValueError(f"n_pages must be >= 2, got {n_pages}")
-    page = ((n_pages, page_size, model.heads_kv, model.head_dim), model.dtype)
-    return {f"block_{i}": {"pages_k": page, "pages_v": page,
-                           "block_table": ((slots, max_len // page_size), torch.int32),
-                           "index": ((slots,), torch.int32)}
-            for i in range(model.depth)}
+    int8 = getattr(model, "kv_cache_dtype", "native") == "int8"
+    pool = (n_pages, page_size, model.heads_kv, model.head_dim)
+    page = (pool, torch.int8 if int8 else model.dtype)
+    entry = {"pages_k": page, "pages_v": page}
+    if int8:
+        entry["pages_k_scale"] = entry["pages_v_scale"] = (pool[:3], torch.float32)
+    entry["block_table"] = ((slots, max_len // page_size), torch.int32)
+    entry["index"] = ((slots,), torch.int32)
+    return {f"block_{i}": dict(entry) for i in range(model.depth)}
 
 
 def init_paged_cache(model, slots: int, max_len: int, page_size: int,
@@ -147,8 +158,9 @@ def make_paged_insert(page_size: int, max_len: int) -> Callable:
         off = pos % page_size
         for name, entry in cache.items():
             row = row_cache[name]
-            entry["pages_k"][page, off] = row["k"][0].to(entry["pages_k"].dtype)
-            entry["pages_v"][page, off] = row["v"][0].to(entry["pages_v"].dtype)
+            for key, pool in entry.items():
+                if key.startswith("pages_"):  # pages_k <- k, pages_k_scale <- k_scale
+                    pool[page, off] = row[key[len("pages_"):]][0].to(pool.dtype)
             entry["block_table"][slot] = bt_row
             entry["index"][slot] = row["index"][0]
         return cache
@@ -221,13 +233,12 @@ def make_paged_extend(model, max_len: int, page_size: int) -> Callable:
 
     @torch.no_grad()
     def extend(cache, slot: int, bt_row, suffix, start: int, suffix_len: int):
-        sub = {}
+        sub = pool_page_leaves(cache)  # the pools are shared storage
         for name, entry in cache.items():
             entry["block_table"][slot] = bt_row  # the chunk decodes through it
-            sub[name] = {"pages_k": entry["pages_k"], "pages_v": entry["pages_v"],
-                         "block_table": entry["block_table"][slot:slot + 1],
-                         "index": torch.full((1,), start, dtype=torch.int32,
-                                             device=bt_row.device)}
+            sub[name].update(
+                block_table=entry["block_table"][slot:slot + 1],
+                index=torch.full((1,), start, dtype=torch.int32, device=bt_row.device))
         logits = model(suffix, cache=sub, max_len=max_len, ragged=True)
         for entry in cache.values():
             entry["index"][slot] = start + suffix_len  # the real cursor

@@ -186,17 +186,36 @@ def random_bits(keys, n: int) -> torch.Tensor:
     return y0 ^ y1
 
 
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 values (int64) -> float32 in [0, 1): the top 23 bits as the
+    mantissa of a float in [1, 2), minus 1 (JAX's construction)."""
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)  # < 2**31: fits int32
+    return mant.view(torch.float32) - 1.0
+
+
+def uniform(keys, shape: tuple = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` per row:
+    (B, 2) keys -> (B, *shape) float32, bit-equal to JAX's: the floats in
+    [0, 1) times the float32 span plus ``minval``, rounded once (XLA fuses
+    the two into one multiply-add; the product is exact in float64, so
+    float64 then float32 rounds as it does), floored at ``minval``."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    u = _unit_floats(random_bits(keys, n))
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))  # in float32, as JAX
+    u = (u.double() * span + lo).float().clamp_min(lo)
+    return u.reshape(u.shape[0], *shape)
+
+
 def gumbel(keys, n: int) -> torch.Tensor:
     """``jax.random.gumbel(key, (n,), float32)`` per row (the default "low"
-    mode): the bits' top 23 become a uniform in [1, 2) minus 1, lifted to
-    [tiny, 1), then ``-log(-log(u))``."""
-    bits = random_bits(keys, n)
-    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)  # < 2**31: fits int32
-    u = mant.view(torch.float32) - 1.0
+    mode): a uniform on [tiny, 1), then ``-log(-log(u))``."""
     # uniform(minval=tiny, maxval=1): u * (1 - tiny) + tiny in float32,
     # where 1 - tiny rounds to 1; then max(tiny, .)
-    u = (u * (1.0 - _F32_TINY) + _F32_TINY).clamp_min(_F32_TINY)
-    return -torch.log(-torch.log(u))
+    return -torch.log(-torch.log(uniform(keys, (n,), minval=_F32_TINY)))
 
 
 def categorical(keys, logits: torch.Tensor) -> torch.Tensor:

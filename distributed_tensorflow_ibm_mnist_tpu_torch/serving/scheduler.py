@@ -1,7 +1,7 @@
 """Admission control for the port's continuous-batching engine: FIFO + buckets.
 
-The port's copy of the JAX package's ``serving/scheduler.py``, without the
-tracing and chunked-prefill hooks (later slices).  Three jobs:
+The port's copy of the JAX package's ``serving/scheduler.py``, without
+the tracing hooks (a later slice).  Three jobs:
 
 * **Bucketing** — a prompt rides in the smallest of ``buckets`` that fits,
   right-padded with ``pad_id``, so the prefill sees a closed set of shapes
@@ -11,6 +11,11 @@ tracing and chunked-prefill hooks (later slices).  Three jobs:
 * **Deadlines** — a request may carry ``deadline_s`` (seconds from submit).
   Overdue QUEUED requests are cancelled at pop time, never admitted;
   overdue RUNNING rows are cancelled by the engine's per-iteration sweep.
+
+With ``chunked_prefill`` (the engine's ``prefill_chunk``) a prompt needs
+no bucket: any length with ``len + max_new <= max_len`` is admitted, its
+``bucket`` capped at the largest (a label for ``prefix_key``, never a
+prefill shape).
 
 The queue is a ``collections.deque``; ``submit``'s bounded check-then-append
 is not atomic, so concurrent submitters must serialize it themselves.
@@ -93,7 +98,8 @@ class FIFOScheduler:
     is injectable for tests."""
 
     def __init__(self, max_len: int, buckets: tuple[int, ...] = (16, 32, 64, 128),
-                 max_queue: int = 64, clock: Callable[[], float] = time.monotonic):
+                 max_queue: int = 64, clock: Callable[[], float] = time.monotonic,
+                 chunked_prefill: bool = False):
         if not buckets:
             raise ValueError("need at least one prefill bucket")
         if max_queue < 1:
@@ -108,6 +114,7 @@ class FIFOScheduler:
                 f"({max_len}) — a prompt that long could never prefill")
         self.max_queue = max_queue
         self.clock = clock
+        self.chunked_prefill = bool(chunked_prefill)
         self._queue: deque[Request] = deque()
         self._ids = itertools.count()
         self.cancelled: list[Request] = []  # overdue-before-admission
@@ -122,7 +129,9 @@ class FIFOScheduler:
                 return b
         raise ValueError(
             f"prompt length {n} exceeds the largest prefill bucket "
-            f"({self.buckets[-1]}) — raise buckets= or shorten the prompt")
+            f"({self.buckets[-1]}) — raise buckets=, shorten the prompt, "
+            f"or serve with InferenceEngine(prefill_chunk=...) (chunked "
+            f"prefill admits any prompt that fits the cache)")
 
     def submit(self, prompt, max_new: int, deadline_s: float | None = None,
                callback: Callable | None = None,
@@ -145,7 +154,10 @@ class FIFOScheduler:
             raise ValueError(
                 f"prompt ({tokens.size}) + max_new ({max_new}) exceeds the "
                 f"engine cache length ({self.max_len})")
-        bucket = self.bucket_for(tokens.size)
+        if self.chunked_prefill and tokens.size > self.buckets[-1]:
+            bucket = self.buckets[-1]  # a label: chunks never run at a bucket
+        else:
+            bucket = self.bucket_for(tokens.size)
         if len(self._queue) >= self.max_queue:
             raise QueueFull(
                 f"request queue full ({self.max_queue}) — retry later or "

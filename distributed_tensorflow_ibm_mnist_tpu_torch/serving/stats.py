@@ -23,7 +23,16 @@ under JAX's names:
   token, greedy rows included) from a fixed-memory log-bucketed sketch;
 * **prefix cache** — hits, misses, hit rate and oversized refusals;
 * **paged KV** — page size, pool pages total / live / peak and their
-  bytes, radix hits, misses and hit tokens (prefill skipped for them).
+  bytes, radix hits, misses and hit tokens (prefill skipped for them);
+* **speculative acceptance** — per verify window and slot: drafted
+  tokens, accepted drafts, one corrected token; ``accept_rate`` and
+  ``useful_tokens_per_window`` (what speculation raises);
+* **chunked prefill** — ``n_prefill_chunks``, ``chunk_stall_s`` (host
+  seconds inside chunk dispatches) and its share of the busy time, the
+  longest prompt admitted;
+* **memory** — ``quant``, ``weight_bytes_per_chip``,
+  ``kv_bytes_per_chip`` (the whole model and cache on one card), stamped
+  by the engine once it is built.
 
 Ratios are None, never NaN, when their denominators are zero, so
 ``summary()`` is strict JSON.  Percentiles are p50/p95/p99 over every
@@ -145,6 +154,17 @@ class ServingStats:
         self._radix_hits = 0
         self._radix_misses = 0
         self._radix_hit_tokens = 0
+        # speculative acceptance and chunked prefill (zero elsewhere)
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._spec_corrected = 0
+        self._prefill_chunks = 0
+        self._chunk_stall_s = 0.0
+        self._longest_prompt = 0
+        # memory, stamped by the engine (memory())
+        self._kv_bytes_per_chip: int | None = None
+        self._weight_bytes_per_chip: int | None = None
+        self._quant = "none"
 
     def tick(self, occupied: int, dt: float, decoded: bool = False) -> None:
         self._occ_time += occupied * dt
@@ -198,6 +218,30 @@ class ServingStats:
             self._radix_hit_tokens += int(tokens)
         else:
             self._radix_misses += 1
+
+    def spec(self, drafted: int, accepted: int, corrected: int = 1) -> None:
+        """One slot's outcome in one speculative verify window: ``drafted``
+        tokens proposed, ``accepted`` of them kept, and the ``corrected``
+        token the model adds after them."""
+        self._spec_drafted += int(drafted)
+        self._spec_accepted += int(accepted)
+        self._spec_corrected += int(corrected)
+
+    def chunk(self, stall_s: float) -> None:
+        """One chunked-prefill dispatch and its host seconds."""
+        self._prefill_chunks += 1
+        self._chunk_stall_s += float(stall_s)
+
+    def prompt_admitted(self, n_tokens: int) -> None:
+        """One chunked admission's prompt length."""
+        self._longest_prompt = max(self._longest_prompt, int(n_tokens))
+
+    def memory(self, kv_bytes_per_chip: int, weight_bytes_per_chip: int,
+               quant: str = "none") -> None:
+        """The engine's footprint on its card and its weight storage."""
+        self._kv_bytes_per_chip = int(kv_bytes_per_chip)
+        self._weight_bytes_per_chip = int(weight_bytes_per_chip)
+        self._quant = str(quant)
 
     def add(self, req: Request) -> None:
         self.requests.append(req)
@@ -271,6 +315,18 @@ class ServingStats:
             "radix_hit_tokens": self._radix_hit_tokens,
             "radix_hit_rate": _ratio(self._radix_hits,
                                      self._radix_hits + self._radix_misses),
+            "drafted_tokens": self._spec_drafted,
+            "accepted_tokens": self._spec_accepted,
+            "corrected_tokens": self._spec_corrected,
+            "accept_rate": _ratio(self._spec_accepted, self._spec_drafted),
+            "n_prefill_chunks": self._prefill_chunks,
+            "chunk_stall_s": round(self._chunk_stall_s, 6),
+            "chunk_stall_frac": (_ratio(self._chunk_stall_s, self._busy_time)
+                                 if self._prefill_chunks else None),
+            "longest_prompt_admitted": self._longest_prompt or None,
+            "kv_bytes_per_chip": self._kv_bytes_per_chip,
+            "weight_bytes_per_chip": self._weight_bytes_per_chip,
+            "quant": self._quant,
         }
         for name, xs in (("ttft_s", ttft), ("latency_s", latency)):
             for k, v in percentiles(xs).items():

@@ -11,8 +11,9 @@
   aligned (the kernels copy 16-byte chunks with cp.async or TMA).
 * ``chip_smoke.py``'s helpers: the ptxas-log reader, the tensor-core
   instruction check, the SDPA gradient that is the backward kernels'
-  single-call yardstick (it computes the kernels' function), and the
-  row-by-row error that holds K6b's dQ.
+  single-call yardstick (it computes the kernels' function), the
+  row-by-row error that holds K6b's dQ, and the int8 gates of the
+  serving phase, which must pass the port and fail each planted fault.
 """
 
 import ctypes
@@ -214,3 +215,69 @@ def test_row_error_passes_bf16_rounding_and_a_zero_row(chip_smoke):
     err = chip_smoke.row_rel_err(got, ref)
     assert err < 4e-3
     assert err < chip_smoke.ROW_TOL["torch.bfloat16"]
+
+
+def _int8_lm(dtype, heads_kv=2):
+    """A seeded 2-block causal LM with an int8 KV cache and GQA (4 query
+    heads on ``heads_kv``), on the CPU."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+
+    gen = torch.Generator().manual_seed(0)
+    return get_model("causal_lm", num_classes=64, dim=64, depth=2, heads=4,
+                     heads_kv=heads_kv, kv_cache_dtype="int8", dtype=dtype,
+                     generator=gen, device="cpu")
+
+
+def test_int8_attention_gate_holds_the_port_and_fails_the_planted_trap(chip_smoke):
+    """(e)'s attention gate: the port's int8-cache attention matches the
+    float64 reference in all but a sliver of its bf16 outputs, and the
+    planted trap (probabilities rounded to bf16 before the PV product)
+    fails the limit; the logit drift against the native cache cannot tell
+    the two apart."""
+    import importlib
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import init_cache
+
+    kv8 = _int8_lm(torch.bfloat16)
+    native = kv8.clone(kv_cache_dtype="native")
+    tr = importlib.import_module(type(kv8.blocks[0]).__module__)
+    x = torch.randint(1, 63, (2, 16), generator=torch.Generator().manual_seed(1))
+
+    def drift():
+        return chip_smoke.teacher_forced_drift(torch, native, kv8, init_cache, x, 8)
+
+    clean = chip_smoke.int8_attention_mismatch(torch, tr, drift)
+    trap = chip_smoke.int8_attention_mismatch(
+        torch, tr, drift, chip_smoke.fault_p_bf16(torch, tr._attend_cached))
+    assert clean <= chip_smoke.INT8_ATTN_MISMATCH / 10
+    assert trap > 10 * chip_smoke.INT8_ATTN_MISMATCH
+    assert tr._attend_cached.__name__ == "_attend_cached"  # restored
+
+
+def test_planted_paged_v_scale_fault_breaks_paged_equals_dense(chip_smoke):
+    """(e)'s paged == dense gate on a float32 model: it holds for the port
+    and fails when the paged insert keeps stale ``pages_v_scale``."""
+    import numpy as np
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import engine as eng_mod
+
+    model = _int8_lm(torch.float32)
+    prompts = [np.random.default_rng(i).integers(1, 63, 12).tolist() for i in range(4)]
+
+    def serve(**kw):
+        eng = InferenceEngine(model, slots=2, max_len=32, buckets=(16,), device="cpu",
+                              quant="int8", **kw)
+        reqs = [eng.submit(p, max_new=6) for p in prompts]
+        eng.run()
+        return [r.generated for r in reqs]
+
+    dense = serve()
+    assert serve(kv_page_size=4) == dense
+    real = eng_mod.make_paged_insert
+    eng_mod.make_paged_insert = chip_smoke.fault_paged_v_scale(real)
+    try:
+        faulty = serve(kv_page_size=4)
+    finally:
+        eng_mod.make_paged_insert = real
+    assert faulty != dense

@@ -78,8 +78,9 @@ def test_weights_come_from_the_generator_not_global_state():
 
 @pytest.mark.parametrize("kw, error, slice_", [
     ({"moe_every": 2}, NotImplementedError, "MoE"),
-    ({"quant": "int8"}, NotImplementedError, "int8"),
-    ({"kv_cache_dtype": "int8"}, NotImplementedError, "int8"),
+    # int8 weights and the int8 cache are ported: bad values refused as in JAX
+    ({"quant": "int4"}, ValueError, "quant must be 'none' or 'int8'"),
+    ({"kv_cache_dtype": "fp8"}, ValueError, "kv_cache_dtype must be"),
     # the paged cache is ported; what JAX refuses with it, the port refuses
     ({"page_size": 8, "window": 4}, ValueError, "paged cache does not compose"),
     ({"pos": "learned"}, NotImplementedError, "training"),

@@ -64,7 +64,8 @@ def test_importing_every_module_loads_no_jax():
     for name in ("launch.torchrun", "parallel.mesh", "parallel.collectives",
                  "parallel.data_parallel",  # the data-parallel slice
                  "serving.sampling", "serving.prefix_cache", "serving.kv_pool",
-                 "serving.radix_cache", "ops.launch_floor"):  # the serving features
+                 "serving.radix_cache", "ops.launch_floor",  # the serving features
+                 "models.quant", "serving.drafter"):  # int8, speculation
         assert f"{PORT.name}.{name}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

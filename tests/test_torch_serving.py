@@ -139,17 +139,18 @@ def test_callback_failure_is_isolated():
     assert good.status == "done" and len(good.generated) == 6
 
 
-# decode_ahead, prefix_cache_bytes and kv_page_size are ported: their
-# cases now hold the refusals of bad values that the JAX engine makes too
+# decode_ahead, prefix_cache_bytes, kv_page_size, speculative,
+# prefill_chunk and quant are ported: their cases now hold the refusals of
+# bad values that the JAX engine makes too
 @pytest.mark.parametrize("knob, error, match", [
     pytest.param(dict(decode_ahead=0), ValueError, "decode_ahead", id="decode_ahead"),
-    pytest.param(dict(speculative="ngram"), NotImplementedError, "later|slice", id="speculative"),
+    pytest.param(dict(speculative="beam"), ValueError, "speculative", id="speculative"),
     pytest.param(dict(prefix_cache_bytes=-1), ValueError, "prefix_cache_bytes", id="prefix_cache_bytes"),
     pytest.param(dict(kv_page_size=7), ValueError, "multiple of kv_page_size", id="kv_page_size"),
-    pytest.param(dict(prefill_chunk=8), NotImplementedError, "later|slice", id="prefill_chunk"),
+    pytest.param(dict(prefill_chunk=8), ValueError, "kv_page_size", id="prefill_chunk"),
     pytest.param(dict(tp=2), NotImplementedError, "later|slice", id="tp"),
     pytest.param(dict(cp=2), NotImplementedError, "later|slice", id="cp"),
-    pytest.param(dict(quant="int8"), NotImplementedError, "later|slice", id="quant"),
+    pytest.param(dict(quant="int4"), ValueError, "quant", id="quant"),
     pytest.param(dict(role="prefill"), NotImplementedError, "later|slice", id="role"),
     pytest.param(dict(chaos=object()), NotImplementedError, "later|slice", id="chaos"),
     pytest.param(dict(tracer=object()), NotImplementedError, "later|slice", id="tracer"),
