@@ -174,16 +174,55 @@ never JAX or the JAX package.  Phases, one JSON line each:
    against dp=1's (``BN_GRAD_REL``), which must fail with the backward's
    cross-rank sum planted away.  Each line also carries the host time of
    one step's collectives on the model's buckets (``collectives``);
+15b. fault_tolerant_training — the checkpoint, resume, preemption,
+   chaos, stream-input, remat and profiling layer, one line per
+   sub-phase, on the card's name and power limit, with cuDNN held to
+   deterministic algorithms (so two runs give the run-to-run floor) and
+   the data rendered once for the phase: (a) ``mnist_lenet_1chip`` +
+   ``fused_xent`` (60k/10k, batch 128, no early stop) for 3 epochs with
+   a checkpoint each, twice (the floor: the largest difference of
+   parameters and Adam moments, and of the per-epoch losses), then 1
+   epoch plus a resume for 2 in a fresh Trainer: within the floor; a
+   resume without Adam's moments and one with the data order restarted
+   at epoch 0 (``FT_FAULTS``) must each fail that gate; K1 == K2 ==
+   the steps of every fit; (c) the newest step's largest file truncated:
+   ``restore_checkpoint()`` lands on the step before and lists the reason;
+   a ``train-step`` NaN plan under ``run_with_recovery`` ends within the
+   floor of the fault-free run; (d) ``input_mode="stream"`` through the
+   native Prefetcher at ``stream_chunk`` 8 and 1: the first epoch's
+   per-step losses equal device mode's on the same permutation (to the
+   floor), 0.99 reached, K1 == K2 == steps; images/s/chip of stream and
+   device mode (``measure_throughput``), the busy share and the H2D
+   device time per chunk (a profiled stream epoch), and the native and
+   numpy renders of 60k images; (e) ``cifar_resnet50_dp32`` (dp=1, batch
+   4096) for 3 steps plain at grad_accum 4 and 1, ``remat=True`` and
+   ``remat="blocks"`` at 1: peak memory, s/step, and each remat run's
+   first-step loss and BatchNorm statistics equal to the plain grad_accum
+   1 step's (to the floor of two plain forwards); ``bench_lm8k`` 4 steps
+   plain and with ``block_remat``: tokens/s/chip, peak memory, K3 ==
+   depth x (steps + eval batches) plain and depth x (2 steps + eval
+   batches) under remat (the recompute runs K3 again), K4 == depth x
+   steps; (f) ``profile_dir`` on a 2-epoch LeNet fit (8192 training
+   images): a Chrome trace with ``xent_fwd`` events; (b) a child process
+   (``chip_smoke.py --preempt-child DIR``) trains the preset under a
+   ``PreemptionHandler`` and gets a real SIGTERM after its first epoch
+   record: exit 0, ``preempted``, one checkpoint; the CLI's ``--resume``
+   in a fresh process reaches 0.99 from it; the save's wall time and the
+   time it blocked the loop;
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
-   K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2 and each
+   K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2, each
    ``serving_features`` and ``serving_spec_quant_chunk`` run's for K3
-   beside them), largest error, times
+   and the ``fault_tolerant_training`` runs' for K1-K4 beside them),
+   largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; the launches made to compare or time a kernel are not counted.
+Every synthetic split (of the script, its ranks and child processes) is
+rendered by the native C++ renderer (``native/dtm.cpp``) unless
+``DTM_DATA_BACKEND`` is set (``DTM_DATA_BACKEND=numpy``: the numpy renderer).
 
 Any failed check raises, so the exit code is nonzero and the last line is
 never printed.  Without a CUDA card, or without the port beside this
@@ -192,14 +231,17 @@ script, it exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import gc
 import importlib
 import json
 import math
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -340,11 +382,16 @@ def check_tensor_cores(sass: dict, designs: dict) -> None:
                   f"{sass[name]}")
 
 
-def phase_device(torch, build) -> dict:
+def nvidia_smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
-    smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+
+
+def phase_device(torch, build) -> dict:
+    smi_line = nvidia_smi_line()
     print(smi_line, flush=True)  # the card's name and power limit, raw
     t0 = time.perf_counter()
     libs = build.build_all()
@@ -355,6 +402,7 @@ def phase_device(torch, build) -> dict:
              for name, lib in sorted(libs.items())}
     rec = {"phase": "device", "name": torch.cuda.get_device_name(0),
            "count": torch.cuda.device_count(), "nvidia_smi": smi_line,
+           "data_backend": os.environ.get("DTM_DATA_BACKEND", "numpy"),
            "torch": torch.__version__, "cuda": torch.version.cuda,
            "build_s": round(build_s, 3), "built": sorted(libs),
            "tensor_core_instructions": sass, "ptxas": ptxas}
@@ -2847,8 +2895,6 @@ def phase_resnet20_dp2_gloo(torch, port, steps_mod, tmp: Path) -> dict:
 
 def phase_dp(torch, fa, xent, port, steps_mod) -> dict:
     """The data-parallel phases (Trainer over torch.distributed)."""
-    import tempfile
-
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
     try:
         return {"dp1_nccl": phase_dp1_nccl(torch, fa, xent, port, tmp),
@@ -2857,6 +2903,546 @@ def phase_dp(torch, fa, xent, port, steps_mod) -> dict:
                 "resnet20_dp2_gloo": phase_resnet20_dp2_gloo(torch, port, steps_mod, tmp)}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------- fault tolerance
+
+FT_PRESET = "mnist_lenet_1chip"  # the source paper's job, with fused_xent
+FT_EPOCHS = 3
+FT_PROFILE_TRAIN = 8192  # (f): the profiled fit's training set (a trace of 60k is ~1 GB)
+FT_RESNET_BATCHES = 3  # (e): steps of cifar_resnet50_dp32 per configuration
+FT_REMAT = {"plain_ga4": (False, 4), "plain_ga1": (False, 1), "remat_ga1": (True, 1),
+            "blocks_ga1": ("blocks", 1)}
+FT_LM_STEPS = 4
+FT_MNIST_RENDER = dict(out_hw=(28, 28), scale_range=(2.2, 3.4), rot_range=0.30,
+                       shift_frac=0.12, noise_std=0.18)  # synthetic_mnist's
+
+
+class SharedData:
+    """Render each synthetic split once for the phase: the Trainers of one
+    configuration share it (``load_dataset`` is a pure function of its
+    arguments), and ``render_s`` keeps the first render's seconds."""
+
+    def __init__(self, trainer_mod):
+        self.mod, self.orig = trainer_mod, trainer_mod.load_dataset
+        self.cache: dict = {}
+        self.render_s: dict = {}
+
+    def load(self, name, **kw):
+        key = (name, tuple(sorted((k, repr(v)) for k, v in kw.items())))
+        if key not in self.cache:
+            t0 = time.perf_counter()
+            self.cache[key] = self.orig(name, **kw)
+            self.render_s[f"{name}:{kw.get('n_train')}"] = round(time.perf_counter() - t0, 3)
+        return self.cache[key]
+
+    def __enter__(self):
+        self.mod.load_dataset = self.load
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.load_dataset = self.orig
+
+
+def ft_snapshot(trainer) -> dict:
+    """Parameters, Adam moments (by name) and the per-epoch losses, on the host."""
+    names = [n for n, _ in trainer.model.named_parameters()]
+    opt = trainer.state.optimizer.state_dict(names)
+    out = {f"param/{n}": p.detach().float().cpu() for n, p in trainer.model.named_parameters()}
+    for key in ("mu", "nu", "trace"):
+        out.update({f"{key}/{n}": t.float().cpu() for n, t in opt[key].items()})
+    return {"tensors": out, "step": trainer.state.step,
+            "losses": [r["train_loss"] for r in trainer.history]}
+
+
+def ft_diff(a: dict, b: dict) -> float:
+    """Largest absolute difference of two snapshots (inf if they do not
+    even hold the same steps)."""
+    if a["step"] != b["step"] or a["tensors"].keys() != b["tensors"].keys():
+        return math.inf
+    return max(float((a["tensors"][k] - b["tensors"][k]).abs().max()) for k in a["tensors"])
+
+
+def ft_loss_diff(want: list, got: list) -> float:
+    if len(want) != len(got):
+        return math.inf
+    return max((abs(x - y) for x, y in zip(want, got)), default=0.0)
+
+
+def ft_fit(Trainer, cfg, device, epochs=None, resume_step=None, fault=None, **kw):
+    """One fit of ``cfg`` (its schedule sized for ``cfg.epochs``), running
+    ``epochs`` of them; ``resume_step``: restore that step first (without
+    ``resume``); ``fault(trainer)``: a planted fault, applied after the
+    restore.  Returns the trainer, closed."""
+    t = Trainer(cfg, device=device, **kw)
+    if resume_step is not None:
+        t.restore_checkpoint(step=resume_step)
+    if fault is not None:
+        fault(t)
+    if epochs is not None:
+        t.config = t.config.replace(epochs=epochs)
+    t.fit()
+    t.close()
+    return t
+
+
+def fault_fresh_moments(trainer) -> None:
+    """Planted: the resume restores the parameters but not Adam's moments."""
+    for t in trainer.state.optimizer.mu + trainer.state.optimizer.nu:
+        t.zero_()
+
+
+def fault_data_order_from_zero(trainer) -> None:
+    """Planted: the resume restarts the data order at epoch 0."""
+    seed = trainer._epoch_seed
+    trainer._epoch_seed = lambda epoch, *rest: seed(epoch - 1, *rest)
+
+
+FT_FAULTS = {"fault_fresh_moments": fault_fresh_moments,
+             "fault_data_order_from_zero": fault_data_order_from_zero}
+
+
+def ft_resume_check(Trainer, cfg, tmp: Path, device) -> dict:
+    """(a): two uninterrupted runs of ``cfg`` (``FT_EPOCHS`` epochs, a
+    checkpoint each) give the run-to-run floor; one epoch then a resume
+    for the rest in a fresh Trainer must end within it (final parameters,
+    moments, per-epoch losses); each planted fault, resumed from the same
+    first-epoch step, must not."""
+    full = [ft_fit(Trainer, cfg.replace(checkpoint_dir=str(tmp / f"full{i}")), device)
+            for i in (0, 1)]
+    want = ft_snapshot(full[0])
+    floor = ft_diff(want, ft_snapshot(full[1]))
+    loss_floor = ft_loss_diff(want["losses"], ft_snapshot(full[1])["losses"])
+    part = ft_fit(Trainer, cfg.replace(checkpoint_dir=str(tmp / "resumed")), device, epochs=1)
+    first = part.state.step
+    resumed = ft_fit(Trainer, cfg.replace(checkpoint_dir=str(tmp / "resumed"), resume=True),
+                     device, epochs=FT_EPOCHS - 1)
+    got = ft_snapshot(resumed)
+    rec = {"floor": floor, "loss_floor": loss_floor, "first_step": first,
+           "final_step": got["step"], "diff": ft_diff(want, got),
+           "loss_diff": ft_loss_diff(want["losses"][1:], got["losses"]),
+           "passed": None, "faults": {}, "save_timings": full[0]._ckpt.timings,
+           "trainers": {"full": full[0], "resumed": resumed}}
+    rec["passed"] = rec["diff"] <= floor and rec["loss_diff"] <= loss_floor
+    for name, fault in FT_FAULTS.items():
+        bad = ft_snapshot(ft_fit(Trainer, cfg.replace(checkpoint_dir=str(tmp / "resumed")),
+                                 device, epochs=FT_EPOCHS - 1, resume_step=first,
+                                 fault=fault))
+        diff = ft_diff(want, bad)
+        loss_diff = ft_loss_diff(want["losses"][1:], bad["losses"])
+        rec["faults"][name] = {"diff": diff, "loss_diff": loss_diff,
+                               "fails_gate": not (diff <= floor and loss_diff <= loss_floor)}
+    return rec
+
+
+def ft_cfg(get_preset, **kw):
+    """The phase's LeNet run: the preset with the fused kernels, every epoch
+    (no early stop), a checkpoint each epoch."""
+    return get_preset(FT_PRESET).replace(fused_xent=True, synthetic=True, quiet=True,
+                                         target_accuracy=None, epochs=FT_EPOCHS,
+                                         checkpoint_every=1, **kw)
+
+
+def preempt_child(directory: str) -> int:
+    """``chip_smoke.py --preempt-child DIR``: the preset under a
+    ``PreemptionHandler`` with no periodic checkpoint; prints its epoch
+    records as they land, then one ``ft_child`` line (summary, the
+    checkpoint's timings, the steps on disk)."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import get_preset
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.elastic import PreemptionHandler
+
+    cfg = get_preset(FT_PRESET).replace(
+        fused_xent=True, synthetic=True, target_accuracy=None, epochs=6,
+        checkpoint_dir=directory, checkpoint_every=0)
+    with PreemptionHandler() as handler, Trainer(cfg, device="cuda") as trainer:
+        summary = trainer.fit(preemption=handler)
+        print(json.dumps({"kind": "ft_child", "summary": summary, "installed": handler.installed,
+                          "timings": trainer._ckpt.timings, "steps": trainer._ckpt.all_steps(),
+                          "step": trainer.state.step}), flush=True)
+    return 0
+
+
+def ft_preemption(tmp: Path) -> dict:
+    """(b): a child process trains the preset under a PreemptionHandler
+    and gets a real SIGTERM after its first epoch record: it must exit 0,
+    preempted, with one checkpoint; then the CLI's ``--resume`` in a fresh
+    process must reach 0.99 from it."""
+    import signal
+
+    ckpt = tmp / "preempt"
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--preempt-child",
+                              str(ckpt)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    sent_at, lines = None, []
+    try:
+        for line in child.stdout:
+            lines.append(line)
+            if sent_at is None and '"kind": "epoch"' in line:
+                child.send_signal(signal.SIGTERM)
+                sent_at = time.perf_counter() - t0
+        rc = child.wait(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    err = child.stderr.read()
+    child.stderr.close()
+    out = [json.loads(x) for x in lines if x.startswith("{")]
+    final = next((r for r in out if r.get("kind") == "ft_child"), {})
+    check(rc == 0 and final, f"the preempted child exited {rc}: {err[-2000:]}")
+    metrics = tmp / "resume.jsonl"
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "distributed_tensorflow_ibm_mnist_tpu_torch.launch.cli",
+         "--preset", FT_PRESET, "--resume", "--set", f"checkpoint_dir={ckpt}",
+         "--set", "fused_xent=True", "--set", "synthetic=True", "--set", "epochs=2",
+         "--set", "quiet=True", "--set", f"metrics_path={metrics}"],
+        capture_output=True, text=True, timeout=300)
+    resume_s = time.perf_counter() - t1
+    check(res.returncode == 0, f"the CLI resume exited {res.returncode}: {res.stderr[-2000:]}")
+    summary = json.loads(res.stdout.strip().splitlines()[-1])
+    records = [json.loads(x) for x in metrics.read_text().splitlines()]
+    resumed_at = [r["step"] for r in records if r["kind"] == "resume"]
+    save = final["timings"][-1] if final.get("timings") else {}
+    return {"child_rc": rc, "sigterm_after_s": round(sent_at, 3) if sent_at else None,
+            "handler_installed": final.get("installed"),
+            "preempted": final.get("summary", {}).get("preempted"),
+            "preempted_step": final.get("step"), "checkpoints": final.get("steps"),
+            "epochs_before_preemption": final.get("summary", {}).get("epochs_run"),
+            "save_wall_s": save.get("landed_s"), "save_blocked_s": save.get("blocked_s"),
+            "resume_cli_rc": res.returncode, "resumed_at_step": resumed_at,
+            "resume_best_test_accuracy": summary.get("best_test_accuracy"),
+            "resume_cli_s": round(resume_s, 3)}
+
+
+def ft_stream(torch, Trainer, cfg, fa, xent) -> dict:
+    """(d): ``cfg`` in stream mode through the native Prefetcher, chunk 8
+    and 1, its first epoch held to device mode's per-step losses on the
+    same permutation (a device-mode Trainer of ``cfg``: ``out["device"]``),
+    and to 0.99."""
+    device_trainer = Trainer(cfg, device="cuda")
+    want = device_trainer._epoch(device_trainer._epoch_seed(0))["loss"].float().cpu()
+    out = {"device": device_trainer}
+    for chunk in (8, 1):
+        t = Trainer(cfg.replace(input_mode="stream", stream_chunk=chunk), device="cuda")
+        seen = []
+        epoch = t._epoch
+        t._epoch = lambda seed, pre=None: seen.append(epoch(seed, pre)) or seen[-1]
+        reset_counts(fa, xent)
+        summary = t.fit()
+        counts = read_counts(fa, xent)
+        got = seen[0]["loss"].float().cpu()
+        out[chunk] = {"trainer": t, "summary": summary, "launches": counts,
+                      "loss_diff": float((got - want).abs().max()),
+                      "steps": t.state.step}
+        t._epoch = epoch
+    return out
+
+
+def ft_remat_resnet(torch, Trainer, get_preset, steps_mod) -> dict:
+    """(e), ResNet-50: ``FT_RESNET_BATCHES`` steps of cifar_resnet50_dp32
+    (dp=1, batch 4096) per configuration of ``FT_REMAT``: peak memory,
+    s/step, the first step's loss and running statistics.  A configuration
+    that does not fit is recorded as such."""
+    base = get_preset("cifar_resnet50_dp32").replace(
+        dp=1, synthetic=True, quiet=True, epochs=1, n_test=512,
+        n_train=FT_RESNET_BATCHES * 4096)
+    out = {}
+    for name, (remat, accum) in FT_REMAT.items():
+        torch.cuda.empty_cache()
+        t = Trainer(base.replace(remat=remat, grad_accum=accum), device="cuda")
+        step = steps_mod.make_train_step(t.model, t.state.optimizer, grad_accum=accum,
+                                         remat=remat is True)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        perm = torch.randperm(t.train_images.shape[0], generator=gen, device="cuda")
+        batches = perm[: FT_RESNET_BATCHES * 4096].view(FT_RESNET_BATCHES, 4096)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"remat": remat, "grad_accum": accum, "oom": False}
+        try:
+            times = []
+            for i, idx in enumerate(batches):
+                t0 = time.perf_counter()
+                m = step(t.state, {"image": t.train_images.index_select(0, idx),
+                                   "label": t.train_labels.index_select(0, idx)})
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if i == 0:
+                    rec["first_loss"] = float(m["loss"])
+                    rec["stats"] = {k: b.detach().cpu().clone()
+                                    for k, b in t.model.named_buffers()}
+            rec["s_per_step"] = round(statistics.mean(times[1:]), 4)
+            rec["first_step_s"] = round(times[0], 4)
+            rec["peak_mem_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+        except torch.OutOfMemoryError as e:
+            rec.update(oom=True, error=str(e).splitlines()[0][:200],
+                       peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+        del t, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = rec
+    return out
+
+
+def ft_resnet_reference(torch, Trainer, get_preset) -> list:
+    """Two plain forwards of the first batch at grad_accum=1 (no backward,
+    so it fits whatever the step does): the first-step loss and running
+    statistics a remat step must equal, and the floor between two runs."""
+    base = get_preset("cifar_resnet50_dp32").replace(
+        dp=1, synthetic=True, quiet=True, epochs=1, n_test=512,
+        n_train=FT_RESNET_BATCHES * 4096)
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.steps import make_loss_fn
+
+    refs = []
+    for _ in range(2):
+        t = Trainer(base, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        idx = torch.randperm(t.train_images.shape[0], generator=gen, device="cuda")[:4096]
+        with torch.no_grad():
+            loss, _ = make_loss_fn(t.model)({"image": t.train_images.index_select(0, idx),
+                                             "label": t.train_labels.index_select(0, idx)})
+        refs.append({"first_loss": float(loss),
+                     "stats": {k: b.detach().cpu().clone() for k, b in t.model.named_buffers()}})
+        del t
+        torch.cuda.empty_cache()
+    return refs
+
+
+def stats_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def ft_remat_lm(torch, Trainer, RunConfig, fa, xent) -> dict:
+    """(e), the LM: bench_lm8k for ``FT_LM_STEPS`` steps, plain and with
+    block_remat: tokens/s/chip, peak memory, K3/K4 launches."""
+    out = {}
+    for name, remat in (("plain", False), ("block_remat", "blocks")):
+        cfg = RunConfig(**{**LM_CFG, "n_train": FT_LM_STEPS * LM_CFG["batch_size"],
+                           "remat": remat})
+        t = Trainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fa, xent)
+        summary = t.fit()
+        counts = read_counts(fa, xent)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tp = t.measure_throughput(epochs=1)
+        out[name] = {"steps": t.state.step, "launches": counts, "peak_mem_gb": round(peak, 3),
+                     "train_loss": summary["epochs_run"] and t.history[0]["train_loss"],
+                     "eval_batches": -(-cfg.n_test // cfg.eval_batch_size),
+                     "tokens_per_sec_per_chip": tp["tokens_per_sec_per_chip"],
+                     "s_per_step": round(cfg.batch_size / tp["images_per_sec"], 4)}
+        del t
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fault_tolerant_training(torch, fa, xent, port, steps_mod, tmp: Path) -> dict:
+    """The fault-tolerance and input layer (sub-phases (a)-(f), one line each)."""
+    import distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer as trainer_mod
+    from distributed_tensorflow_ibm_mnist_tpu_torch.data import native, synthetic
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.chaos import (
+        FaultInjector,
+        FaultPlan,
+        FaultSpec,
+    )
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.elastic import run_with_recovery
+
+    Trainer, get_preset, RunConfig = port
+    card = {"card": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi_line()}
+    torch.backends.cudnn.deterministic = True  # one algorithm per shape: run-to-run floor
+    torch.backends.cudnn.benchmark = False
+    result: dict = {}
+    with SharedData(trainer_mod) as shared:
+        cfg = ft_cfg(get_preset)
+        # (a) resume equals the uninterrupted run
+        t0 = time.perf_counter()
+        reset_counts(fa, xent)
+        a = ft_resume_check(Trainer, cfg, tmp / "a", "cuda")
+        launches = read_counts(fa, xent)
+        trainers = a.pop("trainers")
+        rec = {"phase": "fault_tolerant_training", "sub": "a_resume", **card,
+               "config": {"preset": FT_PRESET, "fused_xent": True, "epochs": FT_EPOCHS,
+                          "checkpoint_every": 1, "cudnn_deterministic": True,
+                          "data_backend": os.environ.get("DTM_DATA_BACKEND")},
+               **a, "launches_all_runs": launches, "wall_s": round(time.perf_counter() - t0, 3),
+               "data_render_s": dict(shared.render_s)}
+        emit(rec)
+        check(a["passed"], f"the resumed run is {a['diff']} / {a['loss_diff']} off the "
+              f"uninterrupted one, past the floor {a['floor']} / {a['loss_floor']}")
+        for name, f in a["faults"].items():
+            check(f["fails_gate"], f"the planted {name} passed the resume gate: {f}")
+        fits = (2 * a["final_step"] + a["first_step"]  # two full runs, the first epoch,
+                + (1 + len(FT_FAULTS)) * (a["final_step"] - a["first_step"]))  # the resumes
+        check(launches["xent_fwd"] == launches["xent_bwd"] == fits,
+              f"K1/K2 launched {launches} times over (a)'s fits, not once a step ({fits})")
+        result["a"] = rec
+
+        # (c) torn newest step, and a train-step NaN under run_with_recovery
+        t0 = time.perf_counter()
+        full = trainers["full"]
+        ck = tmp / "a" / "full0"
+        steps = sorted(int(p.name) for p in ck.iterdir() if p.name.isdigit())
+        newest = ck / str(steps[-1])
+        victim = max(newest.iterdir(), key=lambda p: p.stat().st_size)
+        with open(victim, "r+b") as f:
+            f.truncate(victim.stat().st_size // 2)
+        walker = Trainer(cfg.replace(checkpoint_dir=str(ck)), device="cuda")
+        landed = walker.restore_checkpoint()
+        skipped = walker._ckpt.skipped
+        walker.close()
+        inj = FaultInjector(FaultPlan(seed=11, faults=(
+            FaultSpec(site="train-step", kind="nan", at=(1,)),)))
+        made = []
+
+        def make():
+            made.append(Trainer(cfg.replace(checkpoint_dir=str(tmp / "c_chaos")),
+                                device="cuda", chaos=inj))
+            return made[-1]
+
+        summary = run_with_recovery(make, max_restarts=2, backoff_base_s=0.0)
+        made[-1].close()
+        chaos_diff = ft_diff(ft_snapshot(full), ft_snapshot(made[-1]))
+        rec = {"phase": "fault_tolerant_training", "sub": "c_torn_and_chaos", **card,
+               "steps_on_disk": steps, "torn_file": victim.name, "landed_on": landed,
+               "skipped": skipped, "chaos_restarts": summary["restarts"],
+               "chaos_fired": inj.summary(), "chaos_final_step": made[-1].state.step,
+               "chaos_diff": chaos_diff, "floor": a["floor"],
+               "wall_s": round(time.perf_counter() - t0, 3)}
+        emit(rec)
+        check(landed == steps[-2], f"the walk landed on {landed}, not {steps[-2]}")
+        check(len(skipped) == 1 and skipped[0][0] == steps[-1], f"walk reasons {skipped}")
+        check(summary["restarts"] == 1 and chaos_diff <= a["floor"],
+              f"the NaN-chaos run ends {chaos_diff} off the fault-free one (floor {a['floor']})")
+        result["c"] = rec
+
+        # (d) stream input through the native prefetcher
+        t0 = time.perf_counter()
+        streams = ft_stream(torch, Trainer, get_preset(FT_PRESET).replace(
+            fused_xent=True, synthetic=True, quiet=True, epochs=2), fa, xent)
+        device_trainer = streams.pop("device")
+        s8 = streams[8]["trainer"]
+        tp_stream = s8.measure_throughput(epochs=1)
+        tp_device = device_trainer.measure_throughput(epochs=1)
+
+        def stream_epoch():
+            t = time.perf_counter()
+            s8._epoch(s8._epoch_seed(7))["loss"][-1].item()
+            return time.perf_counter() - t
+
+        prof = profile_run(torch, stream_epoch, "stream epoch (chunk 8)",
+                           {"h2d_device_s": "Memcpy HtoD", "xent_fwd_device_s": "xent_fwd"},
+                           host_ops=False)
+        chunks = -(-s8.steps_per_epoch // 8)
+        templates = synthetic._glyphs_to_array(synthetic._DIGIT_GLYPHS)
+        render = {}
+        for backend in ("numpy", "native"):
+            t1 = time.perf_counter()
+            synthetic._make_split(templates, 60_000, 1, backend=backend,
+                                  **FT_MNIST_RENDER)
+            render[backend] = round(time.perf_counter() - t1, 3)
+        rec = {"phase": "fault_tolerant_training", "sub": "d_stream", **card,
+               "native_available": native.available(),
+               **{f"chunk{c}": {"loss_diff_vs_device": s["loss_diff"], "steps": s["steps"],
+                                "best_test_accuracy": s["summary"]["best_test_accuracy"],
+                                "epochs_run": s["summary"]["epochs_run"],
+                                "time_to_target_s": s["summary"]["time_to_target_s"],
+                                "launches": s["launches"]} for c, s in streams.items()},
+               "images_per_sec_per_chip": {"stream8": tp_stream["images_per_sec_per_chip"],
+                                           "device": tp_device["images_per_sec_per_chip"]},
+               "busy_share_stream8": prof["device_busy_share"],
+               "h2d_ms_per_chunk": (round(prof["h2d_device_s"] * 1e3 / chunks, 4)
+                                    if prof["h2d_device_s"] is not None else None),
+               "profile": prof, "render_60k_s": render, "floor": a["floor"],
+               "wall_s": round(time.perf_counter() - t0, 3)}
+        emit(rec)
+        for c, s in streams.items():
+            check(s["loss_diff"] <= a["loss_floor"],
+                  f"stream chunk {c} losses {s['loss_diff']} off device mode's")
+            check(s["summary"]["best_test_accuracy"] >= 0.99,
+                  f"stream chunk {c} reached {s['summary']['best_test_accuracy']}")
+            check(s["launches"]["xent_fwd"] == s["launches"]["xent_bwd"] == s["steps"],
+                  f"stream chunk {c}: launches {s['launches']} != steps {s['steps']}")
+        result["d"] = rec
+        for s in streams.values():
+            s["trainer"].close()
+        device_trainer.close()
+
+        # (e) remat: ResNet-50 at batch 4096, then the LM with block_remat
+        t0 = time.perf_counter()
+        runs = ft_remat_resnet(torch, Trainer, get_preset, steps_mod)
+        refs = ft_resnet_reference(torch, Trainer, get_preset)
+        ref_floor = max(abs(refs[0]["first_loss"] - refs[1]["first_loss"]),
+                        stats_diff(refs[0]["stats"], refs[1]["stats"]))
+        plain1 = runs["plain_ga1"]
+        ref = plain1 if not plain1["oom"] else refs[0]
+        gates = {}
+        for name in ("remat_ga1", "blocks_ga1"):
+            r = runs[name]
+            gates[name] = None if r["oom"] else {
+                "loss_diff": abs(r["first_loss"] - ref["first_loss"]),
+                "stats_diff": stats_diff(r["stats"], ref["stats"])}
+        lm = ft_remat_lm(torch, Trainer, RunConfig, fa, xent)
+        rec = {"phase": "fault_tolerant_training", "sub": "e_remat", **card,
+               "resnet50": {k: {kk: vv for kk, vv in v.items() if kk != "stats"}
+                            for k, v in runs.items()},
+               "reference": "plain_ga1 step" if not plain1["oom"] else
+               "plain grad_accum=1 forward (the plain step did not fit)",
+               "reference_floor": ref_floor, "gates": gates, "lm": lm,
+               "wall_s": round(time.perf_counter() - t0, 3)}
+        emit(rec)
+        for name, g in gates.items():
+            check(g is not None, f"{name} did not fit: {runs[name]}")
+            check(g["loss_diff"] <= ref_floor and g["stats_diff"] <= ref_floor,
+                  f"{name}'s first step is {g} off the plain step (floor {ref_floor}): "
+                  "BatchNorm moved twice?")
+        for name, r in lm.items():
+            per_step = 2 if name == "block_remat" else 1  # the recompute runs K3 again
+            want_k3 = DEPTH * (per_step * r["steps"] + r["eval_batches"])
+            check(r["launches"]["flash_fwd"] == want_k3,
+                  f"LM {name}: K3 {r['launches']['flash_fwd']} != {want_k3}")
+            check(r["launches"]["flash_bwd_fused"] == DEPTH * r["steps"],
+                  f"LM {name}: K4 {r['launches']['flash_bwd_fused']} != {DEPTH * r['steps']}")
+        result["e"] = rec
+
+        # (f) profile_dir on a 2-epoch LeNet fit
+        t0 = time.perf_counter()
+        prof_dir = tmp / "profile"
+        pcfg = cfg.replace(checkpoint_dir=None, epochs=2, n_train=FT_PROFILE_TRAIN,
+                           profile_dir=str(prof_dir))
+        with Trainer(pcfg, device="cuda") as t:
+            t.fit()
+        trace = prof_dir / "trace.json"
+        names = [e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]]
+        rec = {"phase": "fault_tolerant_training", "sub": "f_profile", **card,
+               "trace_bytes": trace.stat().st_size, "events": len(names),
+               "xent_fwd_events": sum("xent_fwd" in n for n in names),
+               "n_train": FT_PROFILE_TRAIN, "wall_s": round(time.perf_counter() - t0, 3)}
+        emit(rec)
+        check(rec["events"] > 0 and rec["xent_fwd_events"] > 0,
+              f"the fit's trace holds no xent_fwd event: {rec}")
+        result["f"] = rec
+    torch.backends.cudnn.deterministic = False
+
+    # (b) preemption with a real signal, in child processes
+    t0 = time.perf_counter()
+    b = ft_preemption(tmp)
+    rec = {"phase": "fault_tolerant_training", "sub": "b_preemption", **card, **b,
+           "async_save_blocked_s": [round(x["blocked_s"], 4) for x in a["save_timings"]],
+           "async_save_landed_s": [round(x["landed_s"], 4) for x in a["save_timings"]
+                                   if x["landed_s"] is not None],
+           "wall_s": round(time.perf_counter() - t0, 3)}
+    emit(rec)
+    check(b["preempted"] is True and b["handler_installed"],
+          f"the child was not preempted by its SIGTERM: {b}")
+    check(b["checkpoints"] == [b["preempted_step"]], f"checkpoints {b['checkpoints']}")
+    check(b["resumed_at_step"] == [b["preempted_step"]], f"the CLI resumed at {b}")
+    check((b["resume_best_test_accuracy"] or 0) >= 0.99,
+          f"the resumed CLI run reached {b['resume_best_test_accuracy']}")
+    result["b"] = rec
+    return result
 
 
 # Each kernel's design as it stands: its bf16 instances on the tensor
@@ -2872,11 +3458,17 @@ DESIGN = {"flash_fwd": MMA_SYNC, "flash_bwd_fused": MMA_SYNC, "flash_bwd_grouped
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--preempt-child"]:  # (b)'s child process
+        return preempt_child(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # every synthetic split of the run (and of its child processes and
+    # ranks) renders with the native C++ renderer unless the caller says
+    # otherwise: ~20x the numpy renderer, which took ~70 s of set-up
+    os.environ.setdefault("DTM_DATA_BACKEND", "native")
     try:
         from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import (
             init_cache,
@@ -2929,6 +3521,9 @@ def main() -> int:
     phase_resnet(torch, fa, xent, (Trainer, get_preset), "cifar_resnet50_dp32", grad_accum=4)
     vit = phase_vit(torch, fa, xent, (Trainer, RunConfig), get_model, steps_mod)
     dp = phase_dp(torch, fa, xent, (Trainer, get_preset, torchrun, make_mesh), steps_mod)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_") as tmp:
+        ft = phase_fault_tolerant_training(torch, fa, xent, (Trainer, get_preset, RunConfig),
+                                           steps_mod, Path(tmp))
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -2982,6 +3577,13 @@ def main() -> int:
                 for n, key in ((1, "dp1_nccl"), (2, "dp2_gloo_per_rank"),
                                (8, "dp8_gloo_per_rank"))}
 
+    def ft_xent_launches(name):
+        """K1/K2 on the fault_tolerant_training runs: every fit of (a), and
+        each stream fit of (d), at LeNet's (128, 10)."""
+        d = ft["d"]
+        return {"a_all_fits": ft["a"]["launches_all_runs"][name],
+                **{f"d_stream_{c}": d[c]["launches"][name] for c in ("chunk8", "chunk1")}}
+
     k3_entry = entry("flash_fwd", "flash_fwd.cu", "ops/flash_attention.py:208",
                      serving["flash_launches"], k3["max_abs_err"], k3["timed"], "by_seq")
     # K3 at the LM training shape, launches on the LM training run
@@ -3000,8 +3602,14 @@ def main() -> int:
         **{f"f_{group}_{name}": rec["flash_launches"]
            for group, runs in spec_quant_chunk["f"].items() for name, rec in runs.items()},
         **{f"g_{name}": rec["flash_launches"] for name, rec in spec_quant_chunk["g"].items()}}
+    # K3/K4 on the fault_tolerant_training (e) LM runs, plain and block_remat
+    # (K3 again in each block's recompute)
+    ft_lm = {name: {k: r["launches"][k] for k in ("flash_fwd", "flash_bwd_fused")}
+             for name, r in ft["e"]["lm"].items()}
+    k3_entry["fault_tolerant_training_lm"] = {n: c["flash_fwd"] for n, c in ft_lm.items()}
     k4_entry = bwd_entry("flash_bwd_fused", "ops/flash_attention.py:340",
                          lm["launches"]["flash_bwd_fused"])
+    k4_entry["fault_tolerant_training_lm"] = {n: c["flash_bwd_fused"] for n, c in ft_lm.items()}
     k4_entry["vit_training"] = on_vit("flash_bwd_fused", dict(zip(
         ("max_abs_err", "max_rel_err", "max_row_rel_err"), vit_kernels["bwd_err"])))
     print(json.dumps({"kernels": [
@@ -3029,10 +3637,12 @@ def main() -> int:
         {**entry("xent_fwd", "xent.cu", "ops/xent.py:40", counts["xent_fwd"],
                  xk["max_abs_err"]["xent_fwd"], xk["timed"]["xent_fwd"], "by_shape"),
          "vit_training": on_vit_xent("xent_fwd"), "dp_launches": dp_launches(0),
+         "fault_tolerant_training": ft_xent_launches("xent_fwd"),
          "launch_floor_ms": xk["launch_floor_ms"]},
         {**entry("xent_bwd", "xent.cu", "ops/xent.py:53", counts["xent_bwd"],
                  xk["max_abs_err"]["xent_bwd"], xk["timed"]["xent_bwd"], "by_shape"),
          "vit_training": on_vit_xent("xent_bwd"), "dp_launches": dp_launches(1),
+         "fault_tolerant_training": ft_xent_launches("xent_bwd"),
          "launch_floor_ms": xk["launch_floor_ms"]},
     ], "launch_floor_ms": xk["launch_floor_ms"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -34,6 +34,11 @@ int8 model's ``state_dict``: the int8 weight transposed, ``<module>.scale``
 as it is.  ``load_causal_lm`` loads such a tree, or quantizes a full one,
 into a ``quant="int8"`` model.
 
+:func:`train_state_dict` / :func:`load_train_state` carry a whole JAX
+``TrainState`` (parameters, ``batch_stats``, the optax state's moments and
+counts, the step) into the port's ``TrainState``: how a run checkpointed by
+the JAX package continues in the port.
+
 Leaves come out float32 (float64 leaves stay float64, int8 stay int8).  The conversion
 is strict: every leaf of the tree is consumed, no expected
 leaf may be missing, and every shape must match the configuration; any
@@ -44,6 +49,7 @@ from __future__ import annotations
 
 import inspect
 from collections.abc import Mapping
+from typing import Any
 
 import numpy as np
 import torch
@@ -306,3 +312,137 @@ def load_mlp(params_np: Mapping, device=None, **model_kw) -> MLP:
     model = MLP(device=device, **model_kw)
     model.load_state_dict(mlp_state_dict(params_np, model_kw), strict=True)
     return model.eval()
+
+
+# ---------------------------------------------------------------- train state
+
+def _field(tree: Any, name: str):
+    """``tree.name`` or ``tree[name]``: a flax TrainState or a mapping."""
+    return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
+
+
+def _params_table(config, model_kw: Mapping):
+    """``convert(params_tree, batch_stats_tree) -> state_dict`` for the
+    run's model family."""
+    name = config.model
+    if name in ARCHS:
+        arch = {**ARCHS[name], **model_kw}
+        return lambda p, s: resnet_state_dict(p, s, arch)
+    convert = {"lenet5": lenet5_state_dict, "mlp": mlp_state_dict,
+               "vit": vit_state_dict, "causal_lm": causal_lm_state_dict}.get(name)
+    if convert is None:
+        raise ValueError(f"no train-state conversion for model {name!r}")
+    return lambda p, s: convert(p, model_kw)
+
+
+def _opt_nodes(tree: Any, path: str):
+    """The optax state's nodes: ``(path, namedtuple)`` for each state
+    record, walking the chain's tuples."""
+    if hasattr(tree, "_fields"):
+        yield path, tree
+    elif isinstance(tree, (tuple, list)):
+        for i, sub in enumerate(tree):
+            yield from _opt_nodes(sub, f"{path}/{i}")
+    elif isinstance(tree, Mapping):
+        for k, sub in tree.items():
+            yield from _opt_nodes(sub, f"{path}/{k}")
+    else:
+        raise ValueError(f"{path}: unexpected optimizer-state leaf {type(tree).__name__}")
+
+
+def train_state_dict(jax_state_np: Any, config, **model_kw) -> dict:
+    """A JAX ``TrainState`` with numpy leaves (the tree the JAX package's
+    ``restore_state`` returns, ``jax.tree.map(np.asarray, state)``) -> the
+    port's save form (``core.state.TrainState.state_dict``'s keys:
+    ``step``, ``params``, ``buffers``, ``optimizer``; no generator states,
+    JAX's key has no counterpart), for ``TrainState.load_state_dict``.
+
+    ``config`` is the run's ``RunConfig``; ``model_kw`` the model keywords
+    the run's model was built with beyond ``config.model_kwargs`` (the
+    Trainer derives ``num_classes``, ``in_features``, ``in_channels`` and
+    ``image_size`` from the data).  The optax state is read record by
+    record: ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) for adam and
+    adamw, ``TraceState`` (``trace``) for momentum, the schedule's
+    ``ScaleByScheduleState`` (``count``), and empty records (the clip, the
+    decayed weights).  Strict: every leaf is consumed, the moments map
+    like the parameters (transposed, HWIO -> OIHW), the counts must agree,
+    the records must be the config's chain's, and every error names its
+    path."""
+    kw = {**config.model_kwargs, **model_kw}
+    convert = _params_table(config, kw)
+    params = _field(jax_state_np, "params")
+    stats = _field(jax_state_np, "batch_stats") or {}
+    if config.model not in ARCHS and stats:
+        raise ValueError(f"batch_stats: {config.model} has no BatchNorm statistics")
+    state = convert(params, stats)
+    buffers = {k: v for k, v in state.items() if k.endswith(("running_mean", "running_var"))}
+    names = [k for k in state if k not in buffers]
+    moments: dict[str, dict] = {"mu": {}, "nu": {}, "trace": {}}
+    counts: list[tuple[str, int]] = []
+    for path, node in _opt_nodes(_field(jax_state_np, "opt_state"), "opt_state"):
+        fields = set(node._fields)
+        if fields == {"count", "mu", "nu"}:
+            keys = ("mu", "nu")
+        elif fields == {"trace"}:
+            keys = ("trace",)
+        elif fields == {"count"}:
+            keys = ()
+        elif not fields:
+            continue
+        else:
+            raise ValueError(f"{path}: unknown optimizer state {type(node).__name__}"
+                             f" with fields {sorted(fields)}")
+        if "count" in fields:
+            counts.append((path, int(np.asarray(node.count))))
+        for key in keys:
+            if moments[key]:
+                raise ValueError(f"{path}: a second {key} in one chain")
+            try:
+                m = convert(getattr(node, key), stats)
+            except ValueError as e:
+                raise ValueError(f"{path}/{key}: {e}") from None
+            moments[key] = {n: m[n] for n in names}
+    want = {"adam": ("mu", "nu"), "adamw": ("mu", "nu"), "momentum": ("trace",),
+            "sgd": ()}[config.optimizer]
+    have = tuple(k for k in ("mu", "nu", "trace") if moments[k])
+    if have != want:
+        raise ValueError(f"opt_state holds {list(have) or 'no moments'}; a "
+                         f"{config.optimizer} chain keeps {list(want) or 'none'}")
+    if len({c for _, c in counts}) > 1:
+        raise ValueError(f"opt_state counts disagree: {counts}")
+    return {"step": int(np.asarray(_field(jax_state_np, "step"))),
+            "params": {n: state[n] for n in names}, "buffers": buffers,
+            "optimizer": {"count": counts[0][1] if counts else 0, **moments}}
+
+
+def load_train_state(jax_state_np: Any, config, device=None, total_steps: int | None = None,
+                     **model_kw):
+    """A JAX ``TrainState`` (numpy leaves) as the port's ``TrainState``:
+    the run's model on ``device`` (the GPU unless ``device="cpu"``) holding
+    the JAX parameters and batch statistics, ``config``'s optimizer over
+    them holding the JAX optimizer's count and moments, and the step
+    (:func:`train_state_dict` has the mapping and its checks).
+    ``total_steps``: the schedule's length, as the Trainer computes it
+    (``steps_per_epoch * epochs``); by default ``n_train // batch_size *
+    epochs`` of ``config``.  This is how a run checkpointed by the JAX
+    package continues in the port: the JAX package restores its orbax
+    checkpoint (``utils.checkpoint.restore_state``), the port converts it."""
+    import torch as _torch
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.optim import make_optimizer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.state import TrainState
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device)  # raises without a GPU unless asked for the CPU
+    form = train_state_dict(jax_state_np, config, **model_kw)
+    if total_steps is None:
+        if not config.n_train:
+            raise ValueError("total_steps is needed when config.n_train is not set")
+        total_steps = config.n_train // config.batch_size * config.epochs
+    model = get_model(config.model, device=device, **{**config.model_kwargs, **model_kw})
+    optimizer = make_optimizer(config, total_steps, list(model.parameters()))
+    state = TrainState(step=0, model=model, optimizer=optimizer,
+                       data_generator=_torch.Generator(device=device))
+    state.load_state_dict(form)
+    return state

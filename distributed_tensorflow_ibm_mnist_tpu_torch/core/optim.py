@@ -172,6 +172,43 @@ class Optimizer:
             for d, t in zip(dst, src):
                 d.copy_(t)
 
+    @torch.no_grad()
+    def state_dict(self, names: Sequence[str]) -> dict:
+        """The save form: ``count`` and ``mu`` / ``nu`` / ``trace`` as
+        ``{name: tensor}`` (``names[i]`` names ``params[i]``; a moment the
+        chain does not keep is an empty mapping).  The tensors are the live
+        ones: a caller that keeps them past the next step copies them."""
+        if len(names) != len(self.params):
+            raise ValueError(f"{len(names)} names for {len(self.params)} parameters")
+        return {"count": self.count,
+                **{key: dict(zip(names, ts)) if ts else {}
+                   for key, ts in (("mu", self.mu), ("nu", self.nu), ("trace", self.trace))}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict, names: Sequence[str]) -> None:
+        """Load :meth:`state_dict`'s form, strictly: each moment this chain
+        keeps must hold exactly ``names``, each of its parameter's shape
+        (checked for every moment before anything is copied)."""
+        pairs = []
+        for key, ts in (("mu", self.mu), ("nu", self.nu), ("trace", self.trace)):
+            saved = state[key]
+            want = list(names) if ts else []
+            if sorted(saved) != sorted(want):
+                missing = sorted(set(want) - set(saved))
+                extra = sorted(set(saved) - set(want))
+                raise ValueError(
+                    f"optimizer {key}: the saved state does not match this "
+                    f"{self.kind} chain (missing {missing[:4]}, unexpected {extra[:4]})")
+            for name, dst in zip(want, ts):
+                src = saved[name]
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"optimizer {key}/{name}: saved shape "
+                                     f"{tuple(src.shape)}, expected {tuple(dst.shape)}")
+                pairs.append((dst, src))
+        for dst, src in pairs:
+            dst.copy_(src)
+        self.count = int(state["count"])
+
 
 def make_optimizer(config: RunConfig, total_steps: int,
                    params: Sequence[torch.Tensor]) -> Optimizer:

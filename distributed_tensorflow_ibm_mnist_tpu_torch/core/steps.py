@@ -13,8 +13,15 @@ The counterparts of the JAX package's ``core/steps.py``:
   images or int32 tokens): a permutation drawn on the device, each
   minibatch gathered there with ``index_select``; per-step metrics stay on
   the device as tensors;
+* ``make_chunk_runner`` — ``k`` consecutive steps over one transferred
+  chunk of stacked batches (stream mode's unit, ``steps.py:315`` there);
 * ``make_eval_fn`` — batched full-test-set accuracy and unsmoothed loss,
   summed on the device, off the fused kernels as in JAX (``:355``, ``:393``).
+
+``remat=True`` recomputes the whole forward's activations in the backward
+(``models/remat.py``; JAX's ``jax.checkpoint`` over the forward,
+``steps.py:94-95``); the loss, and so the K1/K2 kernels, sit outside the
+recomputed region.  BatchNorm's running statistics move once a step.
 
 Labels may carry extra dims: the causal LM's (B, S) per-position labels
 against (B, S, V) logits.  Loss and accuracy are then means over every
@@ -45,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.core.state import TrainState
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.remat import remat as remat_fn
 from distributed_tensorflow_ibm_mnist_tpu_torch.ops.xent import softmax_xent_mean
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
     ShardedUpdate,
@@ -100,13 +108,16 @@ def make_loss_fn(model, label_smoothing: float = 0.0, fused_xent: bool = False,
             "fused kernel computes the unsmoothed loss, so smoothing would "
             "silently bypass it"
         )
-    if remat:
-        raise NotImplementedError(
-            "remat (activation recomputation) is not ported to the PyTorch "
-            "package yet: ROADMAP.md queue 1, 'Training follow-ups'")
+    def forward(x: torch.Tensor, train: bool) -> torch.Tensor:
+        return model(x, train=train)
 
     def loss_fn(batch: Batch, train: bool = True):
-        logits = model(_as_input(batch["image"]), train=train)
+        x = _as_input(batch["image"])
+        if remat:
+            logits = remat_fn(forward, x, train,
+                              generators=[getattr(model, "generator", None)])
+        else:
+            logits = forward(x, train)
         labels = batch["label"]
         if train and label_smoothing > 0.0:
             loss = _smoothed_cross_entropy(logits, labels, label_smoothing).mean()
@@ -240,6 +251,31 @@ def make_epoch_runner(model, optimizer, batch_size: int, label_smoothing: float 
         return {"loss": torch.stack(losses), "accuracy": torch.stack(accs)}
 
     return run_epoch
+
+
+def make_chunk_runner(model, optimizer, label_smoothing: float = 0.0,
+                      fused_xent: bool = False, remat: bool = False, grad_accum: int = 1,
+                      mesh: Mesh | None = None, sharded_update: ShardedUpdate | None = None):
+    """``run_chunk(state, batches)``: ``k`` consecutive train steps over
+    ``batches["image"]`` (k, B, ...) and ``batches["label"]`` (k, B, ...),
+    one chunk already on the device (stream mode ships a chunk in one
+    transfer); returns the per-step ``loss`` and ``accuracy`` stacked, (k,).
+    Under a ``mesh`` the chunk holds this rank's rows of each batch and the
+    step is the data-parallel one (``parallel.data_parallel``)."""
+    train_step = make_train_step(model, optimizer, label_smoothing=label_smoothing,
+                                 fused_xent=fused_xent, remat=remat,
+                                 grad_accum=grad_accum, mesh=mesh,
+                                 sharded_update=sharded_update)
+
+    def run_chunk(state: TrainState, batches: Batch) -> dict[str, torch.Tensor]:
+        losses, accs = [], []
+        for image, label in zip(batches["image"], batches["label"]):
+            m = train_step(state, {"image": image, "label": label})
+            losses.append(m["loss"])
+            accs.append(m["accuracy"])
+        return {"loss": torch.stack(losses), "accuracy": torch.stack(accs)}
+
+    return run_chunk
 
 
 def make_eval_fn(model, batch_size: int = 2000, mesh: Mesh | None = None,

@@ -21,7 +21,45 @@ Trainer:
   state (parameters, BatchNorm statistics, optimizer, step, generators)
   is snapshotted first and restored after.
 * The epoch's data order is a pure function of ``(seed, epoch)``, as JAX's
-  ``fold_in(data_rng, epoch)`` makes it.
+  ``fold_in(data_rng, epoch)`` makes it, with ``epoch`` the ABSOLUTE epoch
+  index (the restored step // steps_per_epoch after a resume), so a resumed
+  run replays the schedule the uninterrupted run has.  A resume from a
+  mid-epoch step replays that epoch from its start, as JAX's does.
+* Checkpoints (``checkpoint_dir``; utils/checkpoint.py, ``trainer.py:867-957``
+  there): ``checkpoint_every`` epochs (independent of ``eval_every``; an
+  async save that copies the state before it returns) and a final save;
+  ``resume`` restores the newest INTACT step first (the hardened walk:
+  ``restore_checkpoint()``; an explicit step restores exactly that one) and
+  writes a ``resume`` record.  ``fit(preemption=h)`` polls ``h.triggered``
+  (``utils.elastic.PreemptionHandler``) after every epoch, and in stream
+  mode every ``preempt_poll_every`` steps: when set it saves, writes a
+  ``preempted`` record and returns with ``"preempted": True``.  The save
+  form is keyed by parameter and buffer name (``TrainState.state_dict``);
+  under ZeRO-1 the optimizer's buckets are gathered whole on save, as
+  JAX's are (``:904-921``), so such a checkpoint resumes only at its dp
+  (``ValueError`` naming both); a replicated one resumes at any dp.
+  Under dp rank 0 writes (behind a barrier when the save waits) and every
+  rank restores.
+* ``chaos`` (a ``utils.chaos.FaultInjector``): the ``train-step`` site
+  fires once per epoch dispatch (``kind="nan"`` poisons one parameter
+  element, other kinds raise ``ChaosFault``), ``data-batch`` once per
+  stream batch (``OSError``), and the checkpoint sites in the manager.
+* ``input_mode="stream"`` (``:959-1100``): the dataset stays in host
+  memory; the native ``Prefetcher`` (data/native.py) assembles the
+  epoch's batches ``prefetch_depth`` ahead, in the order of the same
+  permutation device mode draws; each chunk of ``stream_chunk`` batches
+  goes to the card in one transfer from pinned memory (``non_blocking``
+  on a side stream, double-buffered one chunk ahead, a pinned buffer
+  refilled only after its copy's event), runs as ``stream_chunk`` steps
+  (``core.steps.make_chunk_runner``), and the epoch's remainder drains a
+  step at a time.  Under dp every rank reads its rows of each global
+  batch (``parallel.data_parallel.stream_rows``).
+* ``remat=True`` recomputes the whole forward in the backward,
+  ``remat="blocks"`` each residual or transformer block (the models'
+  ``block_remat``); BatchNorm's running statistics move once a step.
+* ``profile_dir``: a ``torch.profiler`` capture of the epochs after the
+  first one's fence (all of them when ``epochs == 1``), written as a
+  Chrome trace (utils/profiling.py).
 * The attention's causal flag is derived as JAX derives it
   (``trainer.py:305-381``): ``model_kwargs["causal"]``, else
   ``config.causal``, else the family's default (True for causal_lm).  A
@@ -57,12 +95,11 @@ launch, the library's algorithm choices and allocator growth, not XLA.
 FLOPs are counted analytically (``utils/flops.py``).
 
 Refused with ``NotImplementedError`` naming the ROADMAP.md item that will
-port them: tp/sp/pp > 1, ``fsdp``, ``dcn_dp`` > 1,
-``input_mode="stream"``, ``remat``, ``checkpoint_dir``/``resume``,
-``profile_dir``, the chaos, tracer and telemetry hooks, and the causal
-LM's dropout, MoE blocks and ``pos="learned"``.  The models' constructors
-refuse the rest of what they cannot build yet the same way (the ViT's
-dropout, MoE blocks and pipeline stages, ``block_remat``).
+port them: tp/sp/pp > 1, ``fsdp``, ``dcn_dp`` > 1, the tracer and
+telemetry hooks, and the causal LM's dropout, MoE blocks and
+``pos="learned"``.  The models' constructors refuse the rest of what they
+cannot build yet the same way (the ViT's dropout, MoE blocks and pipeline
+stages).
 """
 
 from __future__ import annotations
@@ -83,6 +120,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.core.optim import (
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.core.state import TrainState
 from distributed_tensorflow_ibm_mnist_tpu_torch.core.steps import (
+    make_chunk_runner,
     make_epoch_runner,
     make_eval_fn,
 )
@@ -96,31 +134,40 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models import (
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import _resolve_attn
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
     ShardedUpdate,
+    all_gather,
+    all_gather_object,
+    all_reduce_max,
     all_reduce_mean,
     broadcast_object,
     make_bucket_layout,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.data_parallel import (
+    make_dp_chunk_runner,
     make_dp_epoch_runner,
     replicate,
     shard_dataset,
     shard_eval_set,
+    stream_rows,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh, make_mesh
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.chaos import ChaosFault
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.checkpoint import CheckpointManager
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.debug import (
     TrainingDiverged,
     find_nonfinite,
+    inject_nan,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import rank_device, resolve_device
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import mfu as _mfu
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import model_flops_per_image
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.metrics import MetricWriter
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.profiling import TraceSession
 
 TRAINABLE = ("lenet5", "mlp", "resnet20", "resnet50", "vit", "causal_lm")
 _DP = "'Data-parallel training with torch.distributed'"
 _PARALLEL = "'Remaining parallelism and utilities'"
-_FOLLOW_UPS = "'Training follow-ups'"
+_UTILITIES = "'Remaining parallelism and utilities'"
 _LM_FOLLOW_UPS = "'Causal-LM and ViT training follow-ups'"
 
 
@@ -133,7 +180,7 @@ def _refuse_unported(config: RunConfig, hooks: dict[str, Any]) -> None:
     """Raise for every knob this slice does not port."""
     for name, hook in hooks.items():
         if hook is not None:
-            raise _later(f"the {name} hook", _FOLLOW_UPS)
+            raise _later(f"the {name} hook", _UTILITIES)
     for axis in ("tp", "sp", "pp"):
         if getattr(config, axis) > 1:
             raise _later(f"{axis}={getattr(config, axis)}", _PARALLEL)
@@ -141,17 +188,11 @@ def _refuse_unported(config: RunConfig, hooks: dict[str, Any]) -> None:
         raise _later("fsdp (ZeRO-3)", _DP)
     if config.dcn_dp != 1:
         raise _later(f"dcn_dp={config.dcn_dp}", _DP)
-    if config.input_mode != "device":
-        if config.input_mode != "stream":
-            raise ValueError(
-                f"input_mode must be 'device' or 'stream', got {config.input_mode!r}")
-        raise _later("input_mode='stream'", _FOLLOW_UPS)
-    if config.remat:
-        raise _later(f"remat={config.remat!r}", _FOLLOW_UPS)
-    if config.checkpoint_dir or config.resume:
-        raise _later("checkpointing (checkpoint_dir / resume)", _FOLLOW_UPS)
-    if config.profile_dir:
-        raise _later("profile_dir", _FOLLOW_UPS)
+    if config.input_mode not in ("device", "stream"):
+        raise ValueError(
+            f"input_mode must be 'device' or 'stream', got {config.input_mode!r}")
+    if config.remat not in (False, True, "blocks"):
+        raise ValueError(f"remat must be False, True or 'blocks', got {config.remat!r}")
     if config.model not in TRAINABLE:
         raise ValueError(
             f"unknown model {config.model!r}; the port trains: {list(TRAINABLE)}")
@@ -205,9 +246,12 @@ class Trainer:
     def __init__(self, config: RunConfig, mesh: Mesh | None = None,
                  writer: MetricWriter | None = None, device=None, chaos=None,
                  tracer=None, telemetry=None):
-        _refuse_unported(config, {"chaos": chaos, "tracer": tracer,
-                                  "telemetry": telemetry})
+        _refuse_unported(config, {"tracer": tracer, "telemetry": telemetry})
         self.config = config
+        # utils/chaos.FaultInjector | None: every site below guards with
+        # `is not None`, so an unwired trainer runs no chaos instruction
+        self._chaos = chaos
+        self._stream = config.input_mode == "stream"
         self.dp, self.mesh = _data_mesh(config, mesh)
         if config.sharded_update:
             if self.dp <= 1:
@@ -267,6 +311,12 @@ class Trainer:
                 _resolve_attn(None, model_kwargs.get("attn", "vanilla")), causal=True))
         if self.dp > 1 and model_accepts(config.model, "axis_name"):
             model_kwargs.setdefault("axis_name", "data")  # cross-replica BatchNorm
+        if config.remat == "blocks":
+            if not model_accepts(config.model, "block_remat"):
+                raise ValueError(
+                    "remat='blocks' needs a block-structured model "
+                    f"(resnet*/vit/causal_lm); got {config.model!r}")
+            model_kwargs.setdefault("block_remat", True)
         self._data_seed = _seed_words(config.seed, 1)
         self.model = get_model(
             config.model, num_classes=self.num_classes, device=self.device,
@@ -289,8 +339,13 @@ class Trainer:
         self.state = TrainState(step=0, model=self.model, optimizer=optimizer,
                                 data_generator=torch.Generator(device=self.device))
         step_kw = dict(label_smoothing=config.label_smoothing, fused_xent=config.fused_xent,
-                       grad_accum=config.grad_accum)
-        if self.mesh is None:
+                       grad_accum=config.grad_accum, remat=config.remat is True)
+        if self._stream:  # k steps a transferred chunk; under dp this rank's rows
+            self._train_chunk = (
+                make_chunk_runner(self.model, optimizer, **step_kw) if self.mesh is None
+                else make_dp_chunk_runner(self.model, optimizer, self.mesh,
+                                          sharded_update=self._sharded, **step_kw))
+        elif self.mesh is None:
             self._run_epoch = make_epoch_runner(self.model, optimizer, config.batch_size,
                                                 **step_kw)
         else:  # this rank's shard at the per-rank batch
@@ -313,20 +368,27 @@ class Trainer:
                 self.device, dtype)
 
         inputs = torch.int32 if tokens else torch.uint8
+        if self._stream:  # host-resident, the whole set on every rank
+            self.train_images = np.ascontiguousarray(
+                data["train_images"], np.int32 if tokens else np.uint8)
+            self.train_labels = np.ascontiguousarray(data["train_labels"], np.int32)
         if self.mesh is None:
-            self.train_images = put("train_images", inputs)
-            self.train_labels = put("train_labels", torch.int32)
+            if not self._stream:
+                self.train_images = put("train_images", inputs)
+                self.train_labels = put("train_labels", torch.int32)
             self.test_images = put("test_images", inputs)
             self.test_labels = put("test_labels", torch.int32)
             self._eval = make_eval_fn(self.model, config.eval_batch_size)
         else:  # this rank's rows only
-            train = shard_dataset(self.mesh, data["train_images"], data["train_labels"],
-                                  self.device)
+            if not self._stream:
+                train = shard_dataset(self.mesh, data["train_images"], data["train_labels"],
+                                      self.device)
+                self.train_images = train[0].to(inputs)
+                self.train_labels = train[1].to(torch.int32)
             *test, n_valid = shard_eval_set(self.mesh, data["test_images"],
                                             data["test_labels"], self.device)
-            self.train_images, self.test_images = (x.to(inputs) for x in (train[0], test[0]))
-            self.train_labels, self.test_labels = (
-                x.to(torch.int32) for x in (train[1], test[1]))
+            self.test_images = test[0].to(inputs)
+            self.test_labels = test[1].to(torch.int32)
             self._eval = make_eval_fn(self.model, max(1, config.eval_batch_size // self.dp),
                                       mesh=self.mesh, n_valid=n_valid)
         self.history: list[dict[str, Any]] = []
@@ -335,6 +397,9 @@ class Trainer:
         self.writer = (writer if writer is not None and self.rank == 0 else MetricWriter(
             path=config.metrics_path if self.rank == 0 else None,
             stdout=not config.quiet and self.rank == 0))
+        # every rank reads checkpoints; rank 0 alone writes them
+        self._ckpt = (CheckpointManager(config.checkpoint_dir, chaos=chaos)
+                      if config.checkpoint_dir else None)
 
     @property
     def n_chips(self) -> int:
@@ -342,9 +407,11 @@ class Trainer:
         return self.dp
 
     def _epoch_seed(self, *key: int) -> int:
-        """An epoch's data-order seed; under dp > 1 it folds in the rank,
-        as JAX folds the axis index into the epoch key."""
-        if self.dp > 1:
+        """An epoch's data-order seed.  Under dp > 1 in device mode it folds
+        in the rank, as JAX folds the axis index into the epoch key (each
+        rank permutes its own shard); in stream mode every rank draws the
+        same global permutation and reads its rows of each global batch."""
+        if self.dp > 1 and not self._stream:
             key = (*key, self.rank)
         return _seed_words(self._data_seed, *key)
 
@@ -383,12 +450,209 @@ class Trainer:
         return {"model_tflops_per_sec_per_chip": round(fps_chip / 1e12, 6),
                 "mfu": round(m, 6) if m is not None else None}
 
-    def _epoch(self, epoch_seed: int) -> dict[str, torch.Tensor]:
+    def _epoch(self, epoch_seed: int, preemption=None) -> dict[str, torch.Tensor]:
         self.state.data_generator.manual_seed(epoch_seed)
+        if self._stream:
+            return self._run_epoch_stream(preemption)
         return self._run_epoch(self.state, self.train_images, self.train_labels)
 
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` OR-ed across the ranks (itself without a mesh): every
+        rank takes the branch any rank's signal asks for."""
+        if self.mesh is None:
+            return flag
+        return bool(all_reduce_max(torch.tensor(float(flag), device=self.device)).item())
+
+    def _run_epoch_stream(self, preemption=None) -> dict[str, torch.Tensor]:
+        """One epoch in stream mode (module docstring): the permutation
+        device mode would draw, this rank's rows of it through the native
+        ``Prefetcher``, chunks of ``stream_chunk`` batches shipped in one
+        transfer and double-buffered one chunk ahead, the remainder a step
+        at a time.  With ``preemption`` and ``preempt_poll_every > 0`` the
+        flag is polled whenever the count of computed steps crosses a poll
+        boundary: when set, the epoch stops there (the prefetched and the
+        staged-but-unrun batches are dropped; the resumed run replays them,
+        ``state.step`` records exactly what ran)."""
+        from distributed_tensorflow_ibm_mnist_tpu_torch.data.native import Prefetcher
+
+        cfg = self.config
+        n = self.train_images.shape[0]
+        perm = torch.randperm(n, generator=self.state.data_generator,
+                              device=self.device).cpu().numpy()
+        rows = stream_rows(perm[: self.steps_per_epoch * cfg.batch_size],
+                           cfg.batch_size, self.mesh)
+        batch = cfg.batch_size // self.dp
+        chunk = max(1, cfg.stream_chunk)
+        poll = max(0, cfg.preempt_poll_every)
+        cuda = self.device.type == "cuda"
+        side = torch.cuda.Stream(self.device) if cuda else None
+        img_dtype = torch.from_numpy(self.train_images[:0]).dtype
+
+        def host_buffer():
+            return (torch.empty((chunk, batch, *self.train_images.shape[1:]), dtype=img_dtype,
+                                pin_memory=cuda),
+                    torch.empty((chunk, batch, *self.train_labels.shape[1:]),
+                                dtype=torch.int32, pin_memory=cuda))
+
+        buffers = [host_buffer(), host_buffer()]
+        copied: list = [None, None]  # each buffer's last H2D event
+
+        def stage(slot: int, lo: int, hi: int):
+            """Ship batches [lo, hi) of a buffer to the card in one transfer."""
+            img, lab = buffers[slot]
+            if not cuda:
+                return img[lo:hi].clone(), lab[lo:hi].clone(), None
+            with torch.cuda.stream(side):
+                d_img = img[lo:hi].to(self.device, non_blocking=True)
+                d_lab = lab[lo:hi].to(self.device, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(side)
+            copied[slot] = event
+            return d_img, d_lab, event
+
+        ms: list[dict[str, torch.Tensor]] = []
+        steps_done = 0
+
+        def run(staged) -> None:
+            nonlocal steps_done
+            d_img, d_lab, event = staged
+            if event is not None:  # made on the side stream, used on this one
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(event)
+                d_img.record_stream(compute)
+                d_lab.record_stream(compute)
+            ms.append(self._train_chunk(self.state, {"image": d_img, "label": d_lab}))
+            steps_done += d_img.shape[0]
+
+        staged = None  # on the card, its compute not yet dispatched
+        slot, filled, next_poll, stopped = 0, 0, poll, False
+        with Prefetcher(self.train_images, self.train_labels, batch, rows,
+                        depth=cfg.prefetch_depth) as pf:
+            while True:
+                img, lab = buffers[slot]
+                if filled == 0 and copied[slot] is not None:
+                    copied[slot].synchronize()  # its last transfer has left it
+                if not pf.next_into(img[filled].numpy(), lab[filled].numpy()):
+                    break
+                if self._chaos is not None:
+                    self._chaos.raise_if_fired("data-batch", OSError)
+                filled += 1
+                if filled == chunk:
+                    # double buffer: ship chunk i+1, THEN dispatch chunk i's
+                    # steps, so the transfer overlaps them
+                    nxt = stage(slot, 0, chunk)
+                    if staged is not None:
+                        run(staged)
+                    staged, slot, filled = nxt, slot ^ 1, 0
+                if poll and preemption is not None and steps_done >= next_poll:
+                    next_poll = steps_done + poll
+                    if self._any_rank(preemption.triggered):
+                        stopped = True
+                        break
+        if not stopped:
+            if staged is not None:
+                run(staged)
+            for i in range(filled):  # the remainder (< chunk), a step at a time
+                run(stage(slot, i, i + 1))
+        return {k: torch.cat([m[k] for m in ms]) for k in ("loss", "accuracy")}
+
+    # ------------------------------------------------------------------
+    # checkpoints
+
+    def _save_form(self) -> dict:
+        """The on-disk state (``TrainState.state_dict``) plus ``dp``; under
+        a mesh every rank's generator states; under ZeRO-1 the optimizer's
+        buckets gathered whole (collectives: every rank calls this)."""
+        opt = None
+        if self._sharded is not None:
+            o = self.state.optimizer
+            names = [f"bucket_{i}" for i in range(len(o.params))]
+            opt = {"count": o.count, "zero1_dp": self.dp,
+                   **{key: {n: all_gather(t) for n, t in zip(names, ts)}
+                      for key, ts in (("mu", o.mu), ("nu", o.nu), ("trace", o.trace))}}
+        form = self.state.state_dict(optimizer=opt)
+        form["dp"] = self.dp
+        if self.mesh is not None:
+            form["rank_generators"] = all_gather_object(form["generators"])
+        return form
+
+    @torch.no_grad()
+    def _load_form(self, form: dict) -> None:
+        """Load a save form into this run (strict; ``ValueError`` when the
+        optimizer's layout cannot continue here)."""
+        saved_dp = int(form.get("dp", 1))
+        opt = form["optimizer"]
+        zero1 = "zero1_dp" in opt
+        if zero1 != (self._sharded is not None):
+            raise ValueError(
+                f"the checkpoint holds {'a ZeRO-1 (sharded_update)' if zero1 else 'a replicated'}"
+                f" optimizer state saved at dp={saved_dp}; this run has "
+                f"{'sharded_update at ' if self._sharded is not None else ''}dp={self.dp}:"
+                " resume with the saving run's sharded_update setting")
+        if zero1 and int(opt["zero1_dp"]) != self.dp:
+            raise ValueError(
+                f"a ZeRO-1 checkpoint's optimizer buckets are laid out for dp="
+                f"{int(opt['zero1_dp'])}; this run has dp={self.dp}: resume it at "
+                f"dp={int(opt['zero1_dp'])} (a replicated checkpoint resumes at any dp)")
+        form = dict(form)
+        if "rank_generators" in form and saved_dp == self.dp:
+            form["generators"] = form["rank_generators"][self.rank]
+        elif saved_dp != self.dp:  # another layout: this run's own streams
+            form["generators"] = self.state.generator_states()
+        if not zero1:
+            self.state.load_state_dict(form)
+            return
+        o = self.state.optimizer
+        pairs = []
+        for key, ts in (("mu", o.mu), ("nu", o.nu), ("trace", o.trace)):
+            if len(opt[key]) != len(ts):
+                raise ValueError(f"optimizer {key}: {len(opt[key])} saved buckets, "
+                                 f"this run has {len(ts)}")
+            for i, t in enumerate(ts):
+                whole = opt[key][f"bucket_{i}"]
+                if whole.numel() != t.numel() * self.dp:
+                    raise ValueError(f"optimizer {key}/bucket_{i}: {whole.numel()} saved "
+                                     f"elements, this run's bucket has {t.numel() * self.dp}")
+                pairs.append((t, whole[self.rank * t.numel():(self.rank + 1) * t.numel()]))
+        self.state.load_state_dict(form, optimizer=False)
+        for t, src in pairs:
+            t.copy_(src)
+        o.count = int(opt["count"])
+
+    def save_checkpoint(self, wait: bool = True) -> int | None:
+        """Save the state at its step (None without ``checkpoint_dir``).
+        ``wait=False`` returns once the state is copied; under a mesh it is
+        a collective, rank 0 writes, and a waiting save ends at a barrier,
+        so every rank knows the step is durable."""
+        if self._ckpt is None:
+            return None
+        form = self._save_form()
+        if self.rank == 0:
+            self._ckpt.save(form, wait=wait)
+        if self.mesh is not None and wait:
+            dist.barrier()
+        return self.state.step
+
+    def restore_checkpoint(self, step: int | None = None) -> int:
+        """Resume from the checkpoint dir; returns the restored step.
+
+        ``step=None``: the hardened walk (``restore_latest_intact``): torn,
+        corrupt, non-finite or mislabelled steps are walked past, newest ->
+        oldest (``self._ckpt.skipped`` lists them with their reasons).  An
+        explicit ``step`` restores exactly that step, and raises on a
+        corrupt one."""
+        if self._ckpt is None:
+            raise ValueError("no checkpoint_dir configured")
+        form = (self._ckpt.restore_latest_intact() if step is None
+                else self._ckpt.restore(step=step))
+        self._load_form(form)
+        return self.state.step
+
     def close(self) -> None:
-        """Release a metric writer the trainer built itself.  Idempotent."""
+        """Let an async save land, and release a metric writer the trainer
+        built itself.  Idempotent."""
+        if self._ckpt is not None:
+            self._ckpt.close()
         if self._owns_writer:
             self.writer.close()
 
@@ -409,7 +673,8 @@ class Trainer:
     def measure_throughput(self, epochs: int = 10) -> dict[str, Any]:
         """Steady-state training throughput + MFU: ``epochs`` epochs back
         to back with one readback at the end, after one warm-up epoch off
-        the clock; training state is restored afterwards."""
+        the clock (in stream mode too, host pipeline included); training
+        state is restored afterwards."""
         if epochs < 1:
             raise ValueError(f"epochs must be >= 1, got {epochs}")
         cfg = self.config
@@ -449,71 +714,117 @@ class Trainer:
         finally:
             self.state.restore(snap)
 
-    def fit(self) -> dict[str, Any]:
-        """Run the configured number of epochs (early-stop on target acc)."""
+    def fit(self, preemption=None) -> dict[str, Any]:
+        """Run the configured number of epochs (early-stop on target acc).
+
+        ``preemption``: an object with a ``triggered`` property
+        (``utils.elastic.PreemptionHandler``) polled after every epoch (and
+        every ``preempt_poll_every`` steps in stream mode): when set, the
+        loop checkpoints and returns with ``"preempted": True``."""
         cfg = self.config
         if cfg.epochs < 1:
             raise ValueError(f"epochs must be >= 1, got {cfg.epochs}")
+        if cfg.resume and self._ckpt is not None and self._ckpt.latest_step() is not None:
+            step = self.restore_checkpoint()
+            self.writer.write("resume", step=step)
         chips = self.n_chips
+        # the step base of the records: nonzero after a resume
         step0 = self.state.step
+        # the data order is keyed by the ABSOLUTE epoch: a resumed run
+        # replays the schedule the uninterrupted run has (a mid-epoch step
+        # replays its epoch from the start, as JAX's does)
         abs_epoch0 = step0 // self.steps_per_epoch
         t0 = time.perf_counter()
         epoch_times: list[float] = []
         time_to_target = None
         best_acc = 0.0
-        # epoch metrics stay on the device until an eval boundary, then
-        # come back in one transfer for the whole interval
+        preempted = False
+        # epoch metrics stay on the device until a fence (eval, checkpoint
+        # or preemption), then come back in one transfer for the interval
         pending: list[tuple[int, dict[str, torch.Tensor]]] = []
         interval_t0 = t0
         first_interval_len = 0
         images = self.steps_per_epoch * cfg.batch_size
-        for epoch in range(cfg.epochs):
-            metrics = self._epoch(self._epoch_seed(abs_epoch0 + epoch))
-            pending.append((epoch, metrics))
-            eval_now = (epoch + 1) % cfg.eval_every == 0 or epoch == cfg.epochs - 1
-            if not eval_now:
-                continue  # keep the device queue full; no host sync this epoch
+        # profile_dir: the epochs after the first one's fence (the kernel
+        # builds and allocator growth stay out), all of them at epochs == 1
+        prof = TraceSession(cfg.profile_dir) if cfg.profile_dir and self.rank == 0 else None
+        if prof is not None and cfg.epochs == 1:
+            prof.start()
+        try:
+            for epoch in range(cfg.epochs):
+                if self._chaos is not None:
+                    spec = self._chaos.fire("train-step")
+                    if spec is not None:
+                        if spec.kind != "nan":
+                            raise ChaosFault("train-step", spec.kind,
+                                             self._chaos.events("train-step") - 1)
+                        # poison ONE parameter element: the epoch's loss goes
+                        # non-finite and the real detector below must fire
+                        inject_nan(self.model, next(iter(self.model.named_parameters()))[0])
+                metrics = self._epoch(self._epoch_seed(abs_epoch0 + epoch), preemption)
+                pending.append((epoch, metrics))
+                if prof is not None and not prof.active:
+                    metrics["loss"][-1].item()  # fence epoch 0 out of the trace
+                    prof.start()
+                eval_now = (epoch + 1) % cfg.eval_every == 0 or epoch == cfg.epochs - 1
+                preempt_now = preemption is not None and self._any_rank(preemption.triggered)
+                ckpt_now = bool(self._ckpt is not None and cfg.checkpoint_every
+                                and (epoch + 1) % cfg.checkpoint_every == 0)
+                if not (eval_now or preempt_now or ckpt_now):
+                    continue  # keep the device queue full; no host sync this epoch
 
-            means = self._rank_mean(torch.stack(
-                [torch.stack([m["loss"].mean(), m["accuracy"].mean()])
-                 for _, m in pending])).tolist()  # the fence
-            interval = time.perf_counter() - interval_t0
-            epoch_time = interval / len(pending)  # amortized over the interval
-            if first_interval_len == 0:
-                first_interval_len = len(pending)
-            for (ep, _), (loss, acc) in zip(pending, means):
-                if not math.isfinite(loss):
-                    raise TrainingDiverged(
-                        f"non-finite train loss in epoch {ep} (leaves localized "
-                        f"from end-of-interval state, epoch {epoch})",
-                        step=step0 + self.steps_per_epoch * (ep + 1),
-                        bad_leaves=find_nonfinite(self.model),
-                    )
-                epoch_times.append(epoch_time)
-                record = {
-                    "epoch": ep,
-                    "train_loss": loss,
-                    "train_accuracy": acc,
-                    "epoch_time_s": round(epoch_time, 4),
-                    "interval_epochs": len(pending),
-                    "images_per_sec": round(images / epoch_time, 1),
-                    "images_per_sec_per_chip": round(images / epoch_time / chips, 1),
-                }
-                if ep == epoch:
-                    ev = self.evaluate()
-                    record["test_accuracy"] = ev["accuracy"]
-                    record["test_loss"] = ev["loss"]
-                    best_acc = max(best_acc, ev["accuracy"])
-                    if (time_to_target is None and cfg.target_accuracy
-                            and ev["accuracy"] >= cfg.target_accuracy):
-                        time_to_target = time.perf_counter() - t0
-                self.history.append(record)
-                self.writer.write("epoch", step=step0 + self.steps_per_epoch * (ep + 1),
-                                  **record)
-            pending.clear()
-            if time_to_target is not None and cfg.target_accuracy:
-                break
-            interval_t0 = time.perf_counter()
+                means = self._rank_mean(torch.stack(
+                    [torch.stack([m["loss"].mean(), m["accuracy"].mean()])
+                     for _, m in pending])).tolist()  # the fence
+                interval = time.perf_counter() - interval_t0
+                epoch_time = interval / len(pending)  # amortized over the interval
+                if first_interval_len == 0:
+                    first_interval_len = len(pending)
+                for (ep, _), (loss, acc) in zip(pending, means):
+                    if not math.isfinite(loss):
+                        if self._ckpt is not None:
+                            self._ckpt.wait()  # a recovery reopens the directory
+                        raise TrainingDiverged(
+                            f"non-finite train loss in epoch {ep} (leaves localized "
+                            f"from end-of-interval state, epoch {epoch})",
+                            step=step0 + self.steps_per_epoch * (ep + 1),
+                            bad_leaves=find_nonfinite(self.model),
+                        )
+                    epoch_times.append(epoch_time)
+                    record = {
+                        "epoch": ep,
+                        "train_loss": loss,
+                        "train_accuracy": acc,
+                        "epoch_time_s": round(epoch_time, 4),
+                        "interval_epochs": len(pending),
+                        "images_per_sec": round(images / epoch_time, 1),
+                        "images_per_sec_per_chip": round(images / epoch_time / chips, 1),
+                    }
+                    if ep == epoch and eval_now:
+                        ev = self.evaluate()
+                        record["test_accuracy"] = ev["accuracy"]
+                        record["test_loss"] = ev["loss"]
+                        best_acc = max(best_acc, ev["accuracy"])
+                        if (time_to_target is None and cfg.target_accuracy
+                                and ev["accuracy"] >= cfg.target_accuracy):
+                            time_to_target = time.perf_counter() - t0
+                    self.history.append(record)
+                    self.writer.write("epoch", step=step0 + self.steps_per_epoch * (ep + 1),
+                                      **record)
+                pending.clear()
+                if ckpt_now:
+                    self.save_checkpoint(wait=False)
+                if time_to_target is not None and cfg.target_accuracy:
+                    break
+                if preempt_now:
+                    preempted = True
+                    self.save_checkpoint(wait=True)
+                    self.writer.write("preempted", step=self.state.step)
+                    break
+                interval_t0 = time.perf_counter()
+        finally:
+            if prof is not None:
+                prof.stop()
 
         total_time = time.perf_counter() - t0
         # the first interval carries the one-time start-up cost; the steady
@@ -538,6 +849,11 @@ class Trainer:
         tokens = self._tokens_per_sec(ips_chip)
         if tokens is not None:
             summary["tokens_per_sec_per_chip"] = tokens
+        if preempted:
+            # the preemption path saved already: no second save of the step
+            summary["preempted"] = True
+        elif self._ckpt is not None:
+            self.save_checkpoint(wait=True)
         if self.dp > 1:  # every rank returns rank 0's summary
             summary = broadcast_object(summary)
         self.writer.write("summary", **summary)

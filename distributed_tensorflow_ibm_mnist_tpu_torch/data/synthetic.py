@@ -8,10 +8,11 @@ split is a pure function of ``(seed, n)``, bit-identical to the JAX
 package's for the same arguments (the tests check it).  Individual samples
 are NOT independent of ``n``: the RNG stream is shared across the split.
 
-All generation is vectorised numpy on the host; the Trainer copies the uint8
-arrays to the GPU once, where they stay for the whole run.  The JAX
-package's multithreaded C++ renderer (``backend="native"``) is not ported:
-asking for it raises ``NotImplementedError``.
+All generation is on the host: vectorised numpy by default, or the repo's
+multithreaded C++ renderer (``backend="native"``, ``data/native.py``;
+bit-identical to the JAX package's native backend for the same
+``(seed, n)``, and of the same difficulty class as numpy's, not its bits).
+A failed native build raises; it never falls back to numpy.
 """
 
 from __future__ import annotations
@@ -166,21 +167,24 @@ def _make_split(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Balanced labels + rendered images, chunked to bound peak host memory.
 
-    ``backend``: ``"numpy"`` (default; the ``DTM_DATA_BACKEND`` env var sets
-    it).  ``"native"``, the JAX package's C++ renderer, is not ported and
-    raises ``NotImplementedError``.
+    ``backend``: ``"numpy"`` (default) or ``"native"``, the multithreaded
+    C++ renderer (``data/native.py``): the same algorithm on its own
+    per-sample RNG streams.  The ``DTM_DATA_BACKEND`` env var sets the
+    default.
     """
     if backend is None:
         backend = os.environ.get("DTM_DATA_BACKEND", "numpy")
-    if backend == "native":
-        raise NotImplementedError(
-            "the native C++ data renderer is not ported to the PyTorch package; "
-            "use backend='numpy' (unset DTM_DATA_BACKEND)")
-    if backend != "numpy":
-        raise ValueError(f"unknown data backend {backend!r}; use 'numpy'")
+    if backend not in ("numpy", "native"):
+        raise ValueError(f"unknown data backend {backend!r}; use 'numpy' or 'native'")
     rng = np.random.default_rng(seed)
     n_classes = templates.shape[0]
     labels = rng.integers(0, n_classes, size=n).astype(np.int32)
+    if backend == "native":
+        from distributed_tensorflow_ibm_mnist_tpu_torch.data import native
+
+        images = native.render_affine(templates, labels, out_hw, scale_range, rot_range,
+                                      shift_frac, noise_std, seed=seed)
+        return images, labels
     imgs = []
     for start in range(0, n, chunk):
         imgs.append(

@@ -6,8 +6,11 @@ The counterpart of the JAX package's ``launch/cli.py``::
         --preset mnist_lenet_1chip --set fused_xent=True
 
 ``--set key=value`` overrides any RunConfig field (values parsed as Python
-literals when possible, else kept as strings); ``--throughput N`` measures
-instead of training.  The run is on the GPU unless ``--device cpu``.
+literals when possible, else kept as strings); ``--resume`` restores the
+newest intact checkpoint of ``checkpoint_dir`` first; ``--profile DIR``
+writes a Chrome trace of the steady-state epochs (of the measurement,
+with ``--throughput``); ``--throughput N`` measures instead of training.
+The run is on the GPU unless ``--device cpu``.
 
 Data-parallel runs, one process per rank (``launch/torchrun.py``):
 
@@ -39,6 +42,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import (
     RunConfig,
     get_preset,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.profiling import trace
 
 
 def _parse_override(kv: str) -> tuple[str, object]:
@@ -67,9 +71,12 @@ def _build(argv: list[str] | None = None) -> tuple[RunConfig, argparse.Namespace
         "--set", dest="overrides", action="append", default=[], type=_parse_override,
         metavar="KEY=VALUE", help="override any RunConfig field (repeatable)")
     parser.add_argument("--resume", action="store_true",
-                        help="restore the latest checkpoint (not ported: refused)")
+                        help="restore the latest intact checkpoint from checkpoint_dir "
+                        "before training")
     parser.add_argument("--profile", default=None, metavar="DIR",
-                        help="profile capture (not ported: refused)")
+                        help="capture a torch.profiler trace of the steady-state epochs "
+                        "into DIR/trace.json (a Chrome trace); shorthand for "
+                        "--set profile_dir=DIR")
     parser.add_argument(
         "--throughput", type=int, default=None, metavar="EPOCHS",
         help="measure steady-state throughput/MFU over EPOCHS chained epochs "
@@ -126,7 +133,12 @@ def _run(config: RunConfig, device, throughput: int | None, world: int, rank: in
     if world > 1 and config.dp in (0, 1):
         config = config.replace(dp=world)
     with Trainer(config, device=device) as trainer:
-        if throughput:
+        if throughput and config.profile_dir and rank == 0:
+            # the measurement region, its warm-up epoch included (fit()
+            # stages the first epoch out instead)
+            with trace(config.profile_dir):
+                out = {"kind": "throughput", **trainer.measure_throughput(epochs=throughput)}
+        elif throughput:
             out = {"kind": "throughput", **trainer.measure_throughput(epochs=throughput)}
         else:
             out = {"kind": "final", **trainer.fit()}

@@ -19,6 +19,10 @@ Calls:
   the dense cache (core/generate.py ``init_cache``) or the paged one
   (serving/kv_pool.py ``init_paged_cache``), updated in place.
 
+``block_remat=True`` recomputes each block's activations in the backward
+(``models/remat.py``), as the JAX model's ``nn.remat`` blocks do; decode,
+the ``sow_kv`` prefill and ``torch.no_grad`` run the blocks plainly.
+
 ``quant="int8"`` stores every block projection and the untied head as
 ``Int8Linear`` (models/quant.py); ``kv_cache_dtype="int8"`` decodes
 against an int8 cache with per-(position, head) scales.  ``clone(**kw)``
@@ -44,10 +48,12 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
     quantize_kernel_int8,
     quantize_state_dict_int8,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.remat import remat
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
     LM_FOLLOW_UPS,
     LayerNorm,
     TransformerBlock,
+    _block_out,
     _not_in_slice,
     _resolve_attn,
     check_quant_knobs,
@@ -64,7 +70,8 @@ class CausalLM(nn.Module):
                  causal: bool = True, pos: str = "rope",
                  tie_embeddings: bool = False, moe_every: int = 0,
                  kv_cache_dtype: str = "native", page_size: int = 0,
-                 quant: str = "none", dtype: torch.dtype = torch.bfloat16,
+                 quant: str = "none", block_remat: bool = False,
+                 dtype: torch.dtype = torch.bfloat16,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
         if window < 0:
@@ -82,7 +89,8 @@ class CausalLM(nn.Module):
             heads_kv=heads_kv, window=window, mlp_ratio=mlp_ratio, dropout=dropout,
             attn=attn, causal=causal, pos=pos, tie_embeddings=tie_embeddings,
             moe_every=moe_every, kv_cache_dtype=kv_cache_dtype, page_size=page_size,
-            quant=quant, dtype=dtype)
+            quant=quant, block_remat=block_remat, dtype=dtype)
+        self.block_remat = block_remat
         self.quant, self.kv_cache_dtype = quant, kv_cache_dtype
         self.num_classes, self.dim, self.depth = num_classes, dim, depth
         self.heads, self.heads_kv = heads, heads_kv or heads
@@ -157,15 +165,23 @@ class CausalLM(nn.Module):
                 sow_kv: bool = False):
         x = self.embed(tokens.long())
         kvs = {}
+        if self.block_remat and cache is None and not sow_kv:
+            for block in self.blocks:
+                x = remat(_block_out, block, x)
+            return self._head(x)
         for i, block in enumerate(self.blocks):
             entry = None if cache is None else cache[f"block_{i}"]
             x, kv = block(x, cache=entry, max_len=max_len, ragged=ragged)
             if sow_kv:
                 kvs[f"block_{i}"] = kv
+        logits = self._head(x)
+        return (logits, kvs) if sow_kv else logits
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and vocab head: (B, S, dim) -> float32 logits."""
         x = self.norm_out(x)
         if self.tie_embeddings:
             x = x @ self.embed.weight.T  # logits = x @ embed^T, weights shared
         else:
             x = self.logits(x)
-        logits = x.float()
-        return (logits, kvs) if sow_kv else logits
+        return x.float()

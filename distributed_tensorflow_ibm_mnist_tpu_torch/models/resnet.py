@@ -48,8 +48,11 @@ Weights are created on ``device`` (the GPU unless ``device="cpu"``) from
 kernels truncated-normal LeCun as flax's default, the dense bias 0,
 BatchNorm scale 1 and bias 0, running mean 0 and variance 1.
 
-Not ported yet, raising ``NotImplementedError`` that names its ROADMAP.md
-item: ``block_remat``.
+``block_remat=True`` recomputes each residual block's activations in the
+backward (``models/remat.py``; flax's ``nn.remat`` of the block class):
+the running statistics still move once a step, because ``BatchNorm``
+skips its running update during the recompute.  Eval and ``torch.no_grad``
+run the blocks plainly.
 """
 
 from __future__ import annotations
@@ -62,19 +65,13 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import (
     _resolve_generator,
     init_lecun_,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.remat import recomputing, remat
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
     all_reduce_mean,
     all_reduce_sum,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh, axis_mesh
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
-
-_FOLLOW_UPS = "ROADMAP.md queue 1, 'Training follow-ups'"
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not in the PyTorch port yet ({where} ports it)")
-
 
 def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     """XLA's SAME padding of one spatial dim of size ``n`` for a window
@@ -222,9 +219,10 @@ class BatchNorm(nn.Module):
             else:  # flax pmeans E[x] and E[x^2], then forms the variance
                 mean, mean_sq = all_reduce_mean(torch.stack(_raw_moments(x)))
                 var = (mean_sq - mean.square()).clamp_min(0.0)
-            m = self.momentum
-            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
-            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+            if not recomputing():  # a remat region's recompute: moved once already
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         if self.mesh is not None:
             return _NormalizeCrossReplica.apply(x, self.weight, self.bias, mean, var,
                                                 self.eps, self.mesh)
@@ -325,8 +323,7 @@ class ResNet(_ConvNet):
                  generator: torch.Generator | None = None):
         super().__init__()
         mesh = axis_mesh(axis_name) if axis_name is not None else None
-        if block_remat:
-            raise _not_ported("block_remat", _FOLLOW_UPS)
+        self.block_remat = block_remat
         device = resolve_device(device)
         self.dtype, self.low_res, self.num_classes = dtype, low_res, num_classes
         self.stem = _conv(in_channels, width, 3 if low_res else 7, 1 if low_res else 2)
@@ -367,7 +364,8 @@ class ResNet(_ConvNet):
             x, pad = same_pad(x, 3, 2, value=float("-inf"))
             x = F.max_pool2d(x, 3, 2, pad)
         for name in self.block_names:
-            x = getattr(self, name)(x, train)
+            block = getattr(self, name)
+            x = remat(block, x, train) if self.block_remat else block(x, train)
         x = x.mean((2, 3), dtype=torch.promote_types(self.dtype, torch.float32))
         x = x.to(self.dtype)  # a float32 mean, as jnp.mean of bf16 takes it
         w, b = self.logits.weight.to(self.dtype), self.logits.bias.to(self.dtype)

@@ -28,7 +28,9 @@ projection an ``Int8Linear`` (models/quant.py).
 
 Not ported yet, each raising ``NotImplementedError`` that names what ports
 it: MoE blocks and dropout (ROADMAP.md queue 1, 'Causal-LM and ViT
-training follow-ups'), and the ViT's pipeline stages and ``block_remat``.
+training follow-ups'), and the ViT's pipeline stages.  ``block_remat``
+(the ViT, the causal LM) recomputes each block in the backward
+(``models/remat.py``).
 ``StackedBlocks`` (pipeline training) is not ported.  Training
 runs this forward under autograd: ``attn="flash"`` differentiates through
 the flash kernels' ``torch.autograd.Function``, ``"vanilla"`` through plain
@@ -48,6 +50,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import (
     init_lecun_,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import Int8Linear
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.remat import remat
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.ring_attention import (
     vanilla_attention,
 )
@@ -418,7 +421,11 @@ class TransformerBlock(nn.Module):
                 f"{'an int8' if int8_cache else 'a native'} cache")
 
 
-_TRAIN_FOLLOW_UPS = "ROADMAP.md queue 1, 'Training follow-ups',"
+def _block_out(block: TransformerBlock, x: torch.Tensor) -> torch.Tensor:
+    """A block's output without its K/V: the remat region of a block."""
+    return block(x)[0]
+
+
 _PARALLEL = "ROADMAP.md queue 1, 'Remaining parallelism and utilities',"
 
 
@@ -435,9 +442,11 @@ class VisionTransformer(nn.Module):
     another size is refused.  Parameters are float32 (compute in ``dtype``);
     initialisation from ``generator`` as flax's: LeCun truncated-normal
     kernels, zero biases, LayerNorm (1, 0), ``pos_embed`` normal(0.02).
+    ``block_remat=True`` recomputes each block's activations in the
+    backward (``models/remat.py``; flax's ``nn.remat`` of the block).
     Not ported yet, each raising ``NotImplementedError`` that names its
-    ROADMAP.md item: MoE blocks (``moe_every``), dropout, pipeline stages
-    (``pp_stages``, ``pipeline_fn``) and ``block_remat``.  The MoE sizing
+    ROADMAP.md item: MoE blocks (``moe_every``), dropout and pipeline stages
+    (``pp_stages``, ``pipeline_fn``).  The MoE sizing
     knobs are accepted for the JAX signature and unused without
     ``moe_every``."""
 
@@ -459,8 +468,7 @@ class VisionTransformer(nn.Module):
             raise _not_in_slice("dropout in the ViT's blocks", LM_FOLLOW_UPS)
         if pp_stages > 0 or pipeline_fn is not None:
             raise _not_in_slice("pipeline stages (pp_stages, pipeline_fn)", _PARALLEL)
-        if block_remat:
-            raise _not_in_slice("block_remat", _TRAIN_FOLLOW_UPS)
+        self.block_remat = block_remat
         p = patch_size
         h, w = image_size
         self._check_image(h, w, p)
@@ -509,7 +517,7 @@ class VisionTransformer(nn.Module):
         x = x.permute(0, 2, 3, 1).reshape(b, self.seq_len, self.dim)  # (row, col) order
         x = x + self.pos_embed.to(dt)
         for block in self.blocks:
-            x, _ = block(x)
+            x = remat(_block_out, block, x) if self.block_remat else block(x)[0]
         x = self.norm_out(x).mean(1, dtype=torch.promote_types(dt, torch.float32))
         x = x.to(dt)  # a float32 mean, as jnp.mean of bf16 takes it
         w_out, b_out = self.logits.weight.to(dt), self.logits.bias.to(dt)

@@ -9,7 +9,8 @@ cross-rank exchange of the port goes through one of them:
 
 * :func:`all_reduce_sum` / :func:`all_reduce_mean` / :func:`all_reduce_max`,
   :func:`all_gather` (tiled), :func:`reduce_scatter`,
-  :func:`broadcast` (and :func:`broadcast_object`, for a host value) and
+  :func:`broadcast` (and :func:`broadcast_object` and
+  :func:`all_gather_object`, for host values) and
   :func:`grad_norm_global`, on a tensor or a sequence
   of tensors (JAX's pytrees), returning new tensors;
 * the gradient buckets of the data-parallel step and of the ZeRO-1 sharded
@@ -114,6 +115,13 @@ def broadcast_object(obj, root: int = 0):
     box = [obj]
     dist.broadcast_object_list(box, src=root)
     return box[0]
+
+
+def all_gather_object(obj) -> list:
+    """Every rank's picklable ``obj``, in rank order, on every rank."""
+    out = [None] * axis_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def grad_norm_global(grads: Sequence[torch.Tensor], mesh: Mesh | None = None) -> torch.Tensor:

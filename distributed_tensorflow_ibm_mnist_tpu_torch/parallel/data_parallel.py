@@ -17,7 +17,12 @@ all-gather instead with ``sharded_update``):
 * :func:`make_dp_train_step` runs one step on a global batch (each rank
   takes its own contiguous block, as ``P("data")`` lays it out), with the
   loss and accuracy averaged across ranks; :func:`make_dp_epoch_runner`
-  runs an epoch over each rank's shard at the per-rank batch.
+  runs an epoch over each rank's shard at the per-rank batch;
+  :func:`make_dp_chunk_runner` runs stream mode's ``k``-step chunks, each
+  rank on its own rows of the ``k`` global batches;
+* :func:`stream_rows` is the index order of a rank's rows in stream mode:
+  the epoch's global permutation, each global batch split over the ranks
+  as ``P("data")`` splits it.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch
 from torch import nn
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.core.steps import (
+    make_chunk_runner,
     make_epoch_runner,
     make_train_step,
 )
@@ -111,3 +117,29 @@ def make_dp_epoch_runner(model, optimizer, global_batch: int, mesh: Mesh,
                              label_smoothing=label_smoothing, fused_xent=fused_xent,
                              remat=remat, grad_accum=grad_accum, mesh=mesh,
                              sharded_update=sharded_update)
+
+
+def make_dp_chunk_runner(model, optimizer, mesh: Mesh, label_smoothing: float = 0.0,
+                         fused_xent: bool = False, remat: bool = False,
+                         grad_accum: int = 1, sharded_update=None):
+    """The data-parallel companion of ``core.steps.make_chunk_runner`` (JAX:
+    ``data_parallel.py:182``): ``run_chunk(state, batches)`` with
+    ``batches`` this rank's rows of ``k`` global batches, ``(k, B/dp,
+    ...)``, as :func:`stream_rows` orders them; the gradients are averaged
+    across ranks each step (or the ZeRO-1 update runs) and the metrics are
+    this rank's (the Trainer averages them at its fence)."""
+    return make_chunk_runner(model, optimizer, label_smoothing=label_smoothing,
+                             fused_xent=fused_xent, remat=remat, grad_accum=grad_accum,
+                             mesh=mesh, sharded_update=sharded_update)
+
+
+def stream_rows(perm: np.ndarray, global_batch: int, mesh: Mesh | None) -> np.ndarray:
+    """This rank's index order for a stream epoch: ``perm`` cut into global
+    batches (a remainder dropped), rank ``r`` taking rows ``[r B/dp,
+    (r+1) B/dp)`` of each, flattened.  Without a mesh: the whole batches."""
+    steps = len(perm) // global_batch
+    perm = np.asarray(perm)[: steps * global_batch].reshape(steps, global_batch)
+    if mesh is None:
+        return perm.reshape(-1)
+    per = global_batch // mesh.size
+    return np.ascontiguousarray(perm[:, mesh.rank * per:(mesh.rank + 1) * per]).reshape(-1)

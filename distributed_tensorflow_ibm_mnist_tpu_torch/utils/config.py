@@ -2,9 +2,8 @@
 
 The JAX package's ``utils/config.py``, copied so the port imports nothing
 of that package: the same ``RunConfig`` fields with the same defaults, and
-the same five ``PRESETS``.  The port's Trainer runs the single-device,
-device-resident subset of these knobs and refuses the rest by name
-(``core/trainer.py``).  Two fields keep their JAX meaning only for
+the same five ``PRESETS``.  The port's Trainer runs these knobs but the
+ones it refuses by name (``core/trainer.py``: tp/sp/pp, fsdp).  Two fields keep their JAX meaning only for
 configuration compatibility: ``compile_cache_dir`` (eager PyTorch compiles
 no programs at run time, so there is nothing to cache; the field is
 accepted and has no effect) and ``dcn_dp`` (multislice; the Trainer refuses
@@ -46,12 +45,13 @@ class RunConfig:
     label_smoothing: float = 0.0
     fused_xent: bool = False  # fused softmax-xent kernels (ops/xent.py) for the train loss
     grad_accum: int = 1  # microbatches per step (gradient accumulation)
-    remat: bool | str = False  # activation recomputation: not ported (refused)
+    remat: bool | str = False  # False | True (the whole forward) | "blocks" (each block)
     # input pipeline
-    input_mode: str = "device"  # device: dataset resident on the GPU; stream: not ported
-    prefetch_depth: int = 3  # stream mode only
-    stream_chunk: int = 8  # stream mode only
-    # parallelism (the port trains on one device: every degree must be 1)
+    input_mode: str = "device"  # device: dataset resident on the GPU; stream: host-
+    #                             resident, batches from the native prefetcher
+    prefetch_depth: int = 3  # stream mode: batches assembled ahead of the consumer
+    stream_chunk: int = 8  # stream mode: batches per host->device transfer
+    # parallelism (the port runs dp; tp, sp and pp must be 1)
     dp: int = 1  # data-parallel degree; 0 => all visible devices
     tp: int = 1  # tensor-parallel degree
     sp: int = 1  # sequence-parallel degree
@@ -68,13 +68,13 @@ class RunConfig:
     target_accuracy: float | None = None  # stop early when test acc reaches this
     eval_every: int = 1  # epochs between evals
     eval_batch_size: int = 2000
-    checkpoint_dir: str | None = None  # checkpoints: not ported (refused)
+    checkpoint_dir: str | None = None  # step checkpoints with integrity manifests
     checkpoint_every: int = 0  # epochs between saves; 0 = final save only
-    resume: bool = False  # restore the latest checkpoint: not ported (refused)
-    preempt_poll_every: int = 0  # stream mode only
+    resume: bool = False  # restore the newest intact checkpoint before training
+    preempt_poll_every: int = 0  # stream mode: steps between preemption polls
     metrics_path: str | None = None  # JSONL file (always also stdout unless quiet)
     quiet: bool = False  # suppress stdout metric lines (tests/benchmarks)
-    profile_dir: str | None = None  # profile capture: not ported (refused)
+    profile_dir: str | None = None  # torch.profiler Chrome trace of the steady epochs
     compile_cache_dir: str | None = "default"  # no effect in the port (see above)
 
     def replace(self, **kw) -> "RunConfig":

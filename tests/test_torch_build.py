@@ -7,6 +7,10 @@
   in the port (``ARGTYPES`` of ``ops/flash_attention.py``, ``ops/xent.py``
   and ``ops/launch_floor.py``) that matches its declaration parameter by
   parameter, so a C signature cannot change without its caller.
+* The host library's ctypes table (``data/native.py`` ``ARGTYPES`` and
+  ``RESTYPES``) matches ``native/dtm.cpp``'s ``extern "C"`` declarations
+  parameter by parameter, and its name carries the hash of the source and
+  the g++ flags.
 * The bf16 wrappers refuse a view whose base or strides are not 16-byte
   aligned (the kernels copy 16-byte chunks with cp.async or TMA).
 * ``chip_smoke.py``'s helpers: the ptxas-log reader, the tensor-core
@@ -23,6 +27,7 @@ import shutil
 import pytest
 import torch
 
+from distributed_tensorflow_ibm_mnist_tpu_torch.data import native
 from distributed_tensorflow_ibm_mnist_tpu_torch.ops import _build
 from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
 from distributed_tensorflow_ibm_mnist_tpu_torch.ops import launch_floor, xent
@@ -59,6 +64,55 @@ def test_ctypes_arguments_match_the_c_declaration(name):
     c_kinds = _c_entries()[name]
     py_kinds = [KIND[t] for t in ARGTYPES[name]]
     assert py_kinds == c_kinds, f"{name}: ctypes {py_kinds} != C {c_kinds}"
+
+
+NATIVE_KIND = {ctypes.POINTER(ctypes.c_uint8): "uint8_t*",
+               ctypes.POINTER(ctypes.c_int32): "int32_t*",
+               ctypes.POINTER(ctypes.c_float): "float*", ctypes.c_void_p: "void*",
+               ctypes.c_int32: "int32_t", ctypes.c_int64: "int64_t",
+               ctypes.c_float: "float", ctypes.c_uint64: "uint64_t", None: "void"}
+
+
+def _native_entries() -> dict[str, tuple[str, list[str]]]:
+    """{entry: (return kind, [parameter kind, ...])} from the definitions
+    inside ``native/dtm.cpp``'s ``extern "C"`` block."""
+    text = native.SOURCE.read_text()
+    block = text[text.index('extern "C" {'):]
+    found = {}
+    for ret, name, params in re.findall(r"^(void\*?|int32_t)\s+(dtm_\w+)\(([^)]*)\)",
+                                        block, re.M):
+        kinds = []
+        for param in params.split(","):
+            decl = " ".join(param.split()[:-1]).replace("const ", "")
+            kinds.append(decl.replace(" *", "*") + ("*" if param.split()[-1].startswith("*")
+                                                     else ""))
+        found[name] = (ret, kinds)
+    return found
+
+
+def test_every_native_entry_has_an_argument_table():
+    assert set(_native_entries()) == set(native.ARGTYPES)
+    assert len(native.ARGTYPES) == 5  # gather, render, the prefetcher's three
+
+
+@pytest.mark.parametrize("name", sorted(native.ARGTYPES))
+def test_native_ctypes_arguments_match_dtm_cpp(name):
+    ret, c_kinds = _native_entries()[name]
+    assert [NATIVE_KIND[t] for t in native.ARGTYPES[name]] == c_kinds, name
+    assert NATIVE_KIND[native.RESTYPES.get(name)] == ret, name
+
+
+def test_native_library_name_hashes_the_source_and_flags(tmp_path, monkeypatch):
+    src = tmp_path / "dtm.cpp"
+    src.write_bytes(native.SOURCE.read_bytes())
+    monkeypatch.setattr(native, "SOURCE", src)
+    first = native.library_path()
+    assert first.parent == native.BUILD_DIR and first.name.startswith("libdtm-")
+    assert native.BUILD_DIR.name == "host" and "native" not in native.BUILD_DIR.parts[-2:]
+    src.write_text(src.read_text() + "\n// edited\n")
+    second = native.library_path()
+    monkeypatch.setattr(native, "FLAGS", native.FLAGS + ("-g",))
+    assert len({first, second, native.library_path()}) == 3
 
 
 @pytest.fixture
@@ -281,3 +335,22 @@ def test_planted_paged_v_scale_fault_breaks_paged_equals_dense(chip_smoke):
     finally:
         eng_mod.make_paged_insert = real
     assert faulty != dense
+
+
+def test_resume_gate_holds_the_port_and_fails_both_planted_faults(chip_smoke, tmp_path):
+    """fault_tolerant_training (a) on the CPU at toy size: the resumed run
+    lands on the uninterrupted one within the run-to-run floor (0 here),
+    and a resume without Adam's moments or with the data order restarted
+    at epoch 0 does not."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
+
+    cfg = RunConfig(model="mlp", model_kwargs={"hidden": (32,), "dtype": torch.float32},
+                    synthetic=True, n_train=256, n_test=64, batch_size=64, quiet=True,
+                    schedule="cosine", epochs=chip_smoke.FT_EPOCHS, checkpoint_every=1)
+    rec = chip_smoke.ft_resume_check(Trainer, cfg, tmp_path, "cpu")
+    assert rec["floor"] == 0.0 and rec["passed"] and rec["diff"] == 0.0
+    assert rec["final_step"] == chip_smoke.FT_EPOCHS * 4 and rec["first_step"] == 4
+    assert set(rec["faults"]) == set(chip_smoke.FT_FAULTS)
+    assert all(f["fails_gate"] and f["diff"] > 0 for f in rec["faults"].values())
+    assert [t["step"] for t in rec["save_timings"]] == [4, 8, 12, 12]

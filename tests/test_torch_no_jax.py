@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, no JAX package, no silent CPU.
 
-* Importing the port and every submodule in a fresh interpreter loads no
-  ``jax``, no ``flax`` and no module of the JAX package
+* Importing the port and every submodule in a fresh interpreter (the
+  fault-tolerance modules, the native data library's bindings and remat
+  among them) loads no ``jax``, no ``flax``, no ``optax``, no ``orbax``
+  and no module of the JAX package
   (``distributed_tensorflow_ibm_mnist_tpu`` or below it — mind the prefix:
   the port's own name starts with the JAX package's).
 * No source of the port, nor chip_smoke.py, imports them.
@@ -21,8 +23,11 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.convert import (
     load_causal_lm,
     load_lenet5,
     load_resnet,
+    load_train_state,
     load_vit,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
 from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
@@ -65,7 +70,9 @@ def test_importing_every_module_loads_no_jax():
                  "parallel.data_parallel",  # the data-parallel slice
                  "serving.sampling", "serving.prefix_cache", "serving.kv_pool",
                  "serving.radix_cache", "ops.launch_floor",  # the serving features
-                 "models.quant", "serving.drafter"):  # int8, speculation
+                 "models.quant", "serving.drafter",  # int8, speculation
+                 "utils.checkpoint", "utils.chaos", "utils.elastic", "utils.debug",
+                 "utils.profiling", "data.native", "models.remat"):  # fault tolerance
         assert f"{PORT.name}.{name}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -96,9 +103,14 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     for name in ("lenet5", "mlp", "resnet20", "resnet50", "vit"):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             get_model(name)
-    for load in (load_lenet5, load_vit, lambda p: load_resnet(p, {}, "resnet20")):
+    for load in (load_lenet5, load_vit, lambda p: load_resnet(p, {}, "resnet20"),
+                 lambda p: load_train_state(p, RunConfig())):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             load({})
+    for mode in ("device", "stream"):  # the Trainer, stream input included
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            Trainer(RunConfig(model="mlp", synthetic=True, n_train=64, n_test=32,
+                              input_mode=mode, quiet=True))
     model = get_model("causal_lm", num_classes=16, dim=32, depth=1, heads=2,
                       device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):

@@ -286,11 +286,11 @@ def test_converter_is_strict_over_both_trees():
 
 @pytest.mark.parametrize("bad, error, match", [
     (dict(axis_name="data"), ValueError, "launch.torchrun"),
-    (dict(block_remat=True), NotImplementedError, "ROADMAP.md queue 1"),
-], ids=["axis_name", "block_remat"])
+], ids=["axis_name"])
 def test_model_refuses_what_the_port_lacks(bad, error, match):
-    """``block_remat`` is not ported; cross-replica BatchNorm
-    (``axis_name``) is, and without a process group it asks for one."""
+    """Cross-replica BatchNorm (``axis_name``) is ported, and without a
+    process group it asks for one (``block_remat``, the other id here
+    once, is ported too: tests/test_torch_remat.py)."""
     with pytest.raises(error, match=match):
         get_model("resnet20", device="cpu", **bad)
 

@@ -59,10 +59,17 @@ def test_synthetic_data_is_bit_identical_to_jax(name, seed):
 
 
 def test_loader_marks_synthetic_and_refuses_the_native_renderer(monkeypatch):
+    """The native renderer is ported (it renders the JAX package's native
+    split bit for bit); an unknown backend is refused by name."""
     data = load_dataset("mnist", n_train=32, n_test=16, synthetic=True)
     assert data["synthetic"] is True and data["train_images"].shape == (32, 28, 28, 1)
     monkeypatch.setenv("DTM_DATA_BACKEND", "native")
-    with pytest.raises(NotImplementedError, match="native"):
+    got = synthetic.synthetic_mnist(n_train=8, n_test=8)
+    want = jax_synthetic.synthetic_mnist(n_train=8, n_test=8)
+    for key in ("train_images", "train_labels", "test_images", "test_labels"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    monkeypatch.setenv("DTM_DATA_BACKEND", "bogus")
+    with pytest.raises(ValueError, match="bogus"):
         synthetic.synthetic_mnist(n_train=8, n_test=8)
 
 
@@ -293,10 +300,7 @@ def test_measure_throughput_leaves_the_state_unchanged():
 
 REFUSED = {
     "tp2": dict(tp=2), "sp2": dict(sp=2), "pp2": dict(pp=2),
-    "fsdp": dict(fsdp=True), "dcn_dp": dict(dcn_dp=2), "stream": dict(input_mode="stream"),
-    "remat": dict(remat=True), "remat_blocks": dict(remat="blocks"),
-    "checkpoint_dir": dict(checkpoint_dir="ckpt"), "resume": dict(resume=True),
-    "profile_dir": dict(profile_dir="prof"),
+    "fsdp": dict(fsdp=True), "dcn_dp": dict(dcn_dp=2),
     # the image models and the causal LM train now; what they still refuse,
     # under the old ids
     "vit": dict(model="vit", model_kwargs={"moe_every": 2}),
@@ -328,8 +332,50 @@ def test_data_parallel_without_a_process_group_names_the_launcher(case):
         Trainer(_mlp_cfg(**NEEDS_A_GROUP[case]), device="cpu")
 
 
+# fault tolerance, stream input, remat and profiling are ported: each knob
+# (the ids were refusal cases of the test above) builds a Trainer that takes
+# one step of its kind
+PORTED = {
+    "stream": dict(input_mode="stream", stream_chunk=2),
+    "remat": dict(remat=True),
+    "remat_blocks": dict(model="resnet20", model_kwargs={"dtype": torch.float32},
+                         dataset="fashion_mnist", remat="blocks"),
+    "checkpoint_dir": dict(checkpoint_dir="ckpt"),
+    "resume": dict(checkpoint_dir="ckpt", resume=True),
+    "profile_dir": dict(profile_dir="prof"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_fault_tolerance_stream_remat_knobs_are_ported(case, tmp_path):
+    kw = {k: str(tmp_path / v) if k.endswith("_dir") else v
+          for k, v in PORTED[case].items()}
+    cfg = _mlp_cfg(n_train=128, n_test=64, batch_size=64, epochs=1, **kw)
+    summary = Trainer(cfg, device="cpu").fit()
+    assert summary["epochs_run"] == 1 and np.isfinite(summary["best_test_accuracy"])
+    if "checkpoint_dir" in kw:
+        assert sorted(p.name for p in (tmp_path / "ckpt").iterdir()) == [
+            "2", "manifest_2.json"]
+    if "profile_dir" in kw:
+        assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+
+
 @pytest.mark.parametrize("hook", ["chaos", "tracer", "telemetry"])
 def test_unported_hooks_raise_not_implemented(hook):
+    """tracer and telemetry wait for utils/tracing.py and utils/telemetry.py;
+    chaos (utils/chaos.py) is ported and takes a FaultInjector."""
+    if hook == "chaos":
+        from distributed_tensorflow_ibm_mnist_tpu_torch.utils.chaos import (
+            ChaosFault,
+            FaultInjector,
+            FaultPlan,
+            FaultSpec,
+        )
+
+        inj = FaultInjector(FaultPlan(faults=(FaultSpec(site="train-step", at=(0,)),)))
+        with pytest.raises(ChaosFault, match="train-step"):
+            Trainer(_mlp_cfg(), device="cpu", chaos=inj).fit()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         Trainer(_mlp_cfg(), device="cpu", **{hook: object()})
 

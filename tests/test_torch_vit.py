@@ -153,9 +153,8 @@ def test_converter_is_strict():
         vit_state_dict({**params, "block_2": params["block_1"]}, kw)
 
 
-@pytest.mark.parametrize("bad", [dict(moe_every=2), dict(dropout=0.1), dict(pp_stages=2),
-                                 dict(block_remat=True)],
-                         ids=["moe_every", "dropout", "pp_stages", "block_remat"])
+@pytest.mark.parametrize("bad", [dict(moe_every=2), dict(dropout=0.1), dict(pp_stages=2)],
+                         ids=["moe_every", "dropout", "pp_stages"])
 def test_model_refuses_what_the_port_lacks(bad):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         get_model("vit", device="cpu", **bad)

@@ -213,3 +213,55 @@ def sharded_update(rank: int, params: dict, cases: dict, batches: list) -> dict:
                                                          sharded_update_buckets=0),
                                              device="cpu"))
     return out
+
+
+# ---------------------------------------------------------------- checkpoints
+
+
+def _params_of(trainer) -> dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy().copy() for k, v in trainer.model.named_parameters()}
+
+
+def checkpoint_dp(rank: int, tmp: str) -> dict:
+    """Checkpoints at dp=2: a replicated run saves (rank 0 writes); a dp=1
+    checkpoint (``tmp/dp1``, made by the test) resumes here at dp=2; a
+    ZeRO-1 run saves and a fresh ZeRO-1 trainer restores it bit-equal."""
+    torch.set_num_threads(1)
+    out: dict = {"forbidden": forbidden_modules()}
+    with Trainer(_mini_cfg(dp=2, epochs=1, checkpoint_dir=f"{tmp}/dp2"), device="cpu") as t:
+        t.fit()
+        out["dp2"] = {"step": t.state.step, "params": _params_of(t)}
+    with Trainer(_mini_cfg(dp=2, epochs=1, checkpoint_dir=f"{tmp}/dp1"), device="cpu") as t:
+        out["dp1_restored_step"] = t.restore_checkpoint()
+        out["dp1_restored"] = _params_of(t)
+        t.fit()  # continues, at dp=2
+        out["dp1_resumed_step"] = t.state.step
+    zero = _mini_cfg(dp=2, epochs=1, sharded_update=True, optimizer="adam",
+                     checkpoint_dir=f"{tmp}/zero1")
+    with Trainer(zero, device="cpu") as t:
+        t.fit()
+        live = [[s.detach().clone() for s in ts] for ts in (t.state.optimizer.mu,
+                                                            t.state.optimizer.nu)]
+        out["zero1_step"] = t.state.step
+    with Trainer(zero, device="cpu") as t:
+        t.restore_checkpoint()
+        got = [t.state.optimizer.mu, t.state.optimizer.nu]
+        out["zero1_shards_equal"] = all(torch.equal(a, b) for ls, gs in zip(live, got)
+                                        for a, b in zip(ls, gs))
+        out["zero1_count"] = t.state.optimizer.count
+    return out
+
+
+def stream_dp(rank: int, tmp: str) -> dict:
+    """One stream-mode epoch at dp=2 (the data-parallel chunk runner over
+    this rank's rows of each global batch): per-step losses averaged
+    across ranks, and the final parameters."""
+    torch.set_num_threads(1)
+    out: dict = {"forbidden": forbidden_modules()}
+    for chunk in (3, 1):
+        cfg = _mini_cfg(dp=2, epochs=1, input_mode="stream", stream_chunk=chunk)
+        with Trainer(cfg, device="cpu") as t:
+            m = t._epoch(t._epoch_seed(0))
+            out[chunk] = {"loss": C.all_reduce_mean(m["loss"]).numpy(),
+                          "params": _params_of(t), "step": t.state.step}
+    return out
