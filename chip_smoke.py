@@ -209,11 +209,39 @@ never JAX or the JAX package.  Phases, one JSON line each:
    record: exit 0, ``preempted``, one checkpoint; the CLI's ``--resume``
    in a fresh process reaches 0.99 from it; the save's wall time and the
    time it blocked the loop;
+15b. serving_tier — the host serving tier at the serving LM's full width
+   (vocab 256, dim 512, depth 4, 8 heads), 3 replicas on the card, each
+   with 8 slots, max_len 1024, paged KV (page 16) with the radix trie and
+   decode_ahead 2 (``scripts/router_soak.py``'s story and
+   ``scripts/bench_slo.py``'s open loop): (a) ``Trainer`` fits the LM in
+   float32 on the retrieval set (vocab 256, S=512) for one epoch with a
+   checkpoint (W1), K4 == depth x steps and no other backward kernel; (b)
+   a seeded plan (a ``router-dispatch`` fault, a ``serving-step`` kill
+   calibrated onto replica 1's second cluster step) over a wave of 10:
+   every output token-identical to one fault-free engine, streams
+   exactly-once, one failover, ``restart`` respawns it (spawn seconds
+   recorded), K3 == depth x whole-prompt prefills (radix hits take the
+   extend); (c) the trainer resumes for W2; with bridge requests in
+   flight ``WeightWatcher.poll()`` returns None while a ``weight-swap``
+   fault aborts one swap, then W2's step: zero drops, every bridge output
+   W1's or W2's reference, wave 2 W2's on every replica; (d) the shared
+   tracer's export validates clean with per-replica tracks, the failover
+   and swap instants and no open span; (e) ``ServingDaemon`` with
+   ``DeadlineAwarePolicy`` over a fresh bf16 tier: closed-loop service
+   rate R, then Poisson open loops at 0.5 R and 1.5 R with TTFT SLOs of
+   20 and 4 x the calibrated p50 (goodput, TTFT p50/p99, tokens/s, shed
+   count), a ``daemon-pump`` raise and a wedge each failed over with zero
+   drops; every leg conserved exactly, exactly-once, drained with no open
+   span and every pool at refcount zero, no build or load after the
+   prewarm; bf16 agreement with one engine recorded; (f) the bf16 wave
+   with the tracer and telemetry off and on in 3 interleaved pairs: each
+   ratio and the spread (recorded, not gated: host noise);
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2, each
-   ``serving_features`` and ``serving_spec_quant_chunk`` run's for K3
-   and the ``fault_tolerant_training`` runs' for K1-K4 beside them),
+   ``serving_features`` and ``serving_spec_quant_chunk`` run's for K3,
+   the ``fault_tolerant_training`` runs' for K1-K4 and the
+   ``serving_tier`` runs' for K3 and K4 beside them),
    largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
@@ -3450,6 +3478,463 @@ def phase_fault_tolerant_training(torch, fa, xent, port, steps_mod, tmp: Path) -
 # "scalar" for CUDA-core float32 FMAs.  The flash kernels' float32
 # instances stay scalar (the tensor cores have no float32 product that
 # keeps the 1e-4 checks).
+# ---------------------------------------------------------------- serving tier
+
+# the serving LM at full width (bench.py:254-262), served by 3 replicas on
+# the one card, each with router_soak.py's engine shape
+TIER_MODEL = dict(num_classes=256, dim=512, depth=DEPTH, heads=8, attn="flash")
+TIER_ENGINE = dict(slots=8, max_len=1024, decode_ahead=2, kv_page_size=16)
+TIER_BUCKETS = SLICE_SEQS
+TIER_REPLICAS = 3
+# (a): the LM fitted in float32 on the retrieval set, one short epoch (W1),
+# then one more after a resume (W2); S=512 takes the fused backward route
+TIER_FIT = dict(name="serving_tier_lm", model="causal_lm", dataset="retrieval",
+                dataset_kwargs={"vocab": 256, "seq_len": 512}, n_train=64, n_test=16,
+                batch_size=8, epochs=1, quiet=True, eval_batch_size=8, lr=3e-4)
+TIER_WARM = ([1, 2, 3], 4)  # the request each replica serves inside its factory
+TIER_WAVE, TIER_BRIDGE = 10, 3  # router_soak.py's wave and bridge sizes
+TIER_SHARED = 64  # even prompts share a 64-token head (4 pages): radix hits
+TIER_CALIB, TIER_OPEN, TIER_PUMP = 24, 48, 12  # daemon requests per leg
+TIER_PAIRS = 3  # (f): interleaved off/on pairs
+TIER_WAIT_S = 300.0  # any single wait, drain or join: generous, never load-bearing
+
+
+def tier_prompts(torch, seed: int, n: int) -> list:
+    """``n`` (prompt, budget) pairs: 16-512 tokens of 1-255, even ones
+    sharing a seeded head, budgets 16-32."""
+    rng = torch.Generator().manual_seed(seed)
+    head = torch.randint(1, 256, (TIER_SHARED,), generator=torch.Generator().manual_seed(7))
+    out = []
+    for i in range(n):
+        body = torch.randint(1, 256, (int(torch.randint(16, 449, (1,), generator=rng)),),
+                             generator=rng)
+        toks = torch.cat([head, body]) if i % 2 == 0 else body
+        out.append((toks.tolist(), 16 + 8 * (i % 3)))
+    return out
+
+
+def tier_engine(get_model, InferenceEngine, torch, params, dtype, **kw):
+    """One replica's engine: a fresh full-width model in ``dtype`` holding
+    ``params`` (a state_dict; load_state_dict casts it)."""
+    model = get_model("causal_lm", dtype=dtype, device="cuda", **TIER_MODEL)
+    return InferenceEngine(model, params, buckets=TIER_BUCKETS, device="cuda",
+                           **TIER_ENGINE, **kw)
+
+
+def tier_reference(torch, make, wave) -> list:
+    """Fault-free single-engine greedy outputs of ``wave``."""
+    eng = make()
+    reqs = [eng.submit(p, max_new=b) for p, b in wave]
+    eng.run()
+    eng.close()
+    check(all(r.status == "done" for r in reqs), "a reference request did not finish")
+    return [list(r.generated) for r in reqs]
+
+
+def prefill_spans(tracer) -> int:
+    """Closed ``prefill`` spans so far: one per whole-prompt (K3) prefill."""
+    return int(tracer.summary()["phases"].get("serving/prefill", {}).get("n", 0))
+
+
+def pools_refcount_zero(router) -> bool:
+    """Every live engine's pool holds only radix-owned pages and every trie
+    node is unreferenced (no request holds a page)."""
+    for rep in router.replicas:
+        if not rep.alive or rep.engine._pool is None:
+            continue
+        eng, stack = rep.engine, [rep.engine._radix.root]
+        while stack:
+            node = stack.pop()
+            if node.ref != 0:
+                return False
+            stack.extend(node.children.values())
+        if eng._pool.allocated != eng._radix.n_blocks:
+            return False
+    return True
+
+
+def open_loop(daemon, wave, rate_rps: float, seed: int, ttft_slo_s, QueueFull) -> tuple:
+    """bench_slo.py's Poisson open loop: submit on the arrival clock, never
+    waiting on the tier; returns ([(request, stream)], rejected)."""
+    import random
+
+    rng = random.Random(seed)
+    accepted, rejected = [], 0
+    t_next = time.monotonic()
+    for p, b in wave:
+        t_next += rng.expovariate(rate_rps)
+        lag = t_next - time.monotonic()
+        if lag > 0:
+            time.sleep(lag)
+        stream: list = []
+        try:
+            dr = daemon.submit(p, b, ttft_slo_s=ttft_slo_s,
+                               callback=lambda dr, tok, s=stream: s.append(int(tok)))
+        except QueueFull:  # SLOUnmeetable included: shed at submit
+            rejected += 1
+            continue
+        accepted.append((dr, stream))
+    return accepted, rejected
+
+
+def daemon_leg(torch, fa, xent, build, tier, name: str, wave, *, rate_rps=None,
+               ttft_slo_s=None, policy=None, chaos=None, liveness_s=60.0) -> dict:
+    """One daemon run over a fresh prewarmed bf16 router: closed loop (all
+    submitted at once) or a Poisson open loop at ``rate_rps``.  Gates
+    exact conservation, exactly-once streams, a clean drain with no open
+    span and every pool at refcount zero, K3 == depth x whole-prompt
+    prefills, and zero builds or loads after the prewarm."""
+    ServingDaemon, Tracer, CompileTracker, QueueFull = tier
+    tracer = Tracer()
+    router = build(tracer=tracer, chaos=chaos)
+    router.prewarm()
+    tracker = CompileTracker.install()
+    built0 = tracker.snapshot()
+    daemon = ServingDaemon(router, policy=policy, max_queue=256,
+                           liveness_timeout_s=liveness_s, watchdog_interval_s=0.05)
+    try:
+        spans0 = prefill_spans(tracer)
+        reset_counts(fa, xent)
+        daemon.start()
+        t0 = time.monotonic()
+        if rate_rps is None:
+            accepted, rejected = [], 0
+            for p, b in wave:
+                stream: list = []
+                accepted.append((daemon.submit(
+                    p, b, callback=lambda dr, tok, s=stream: s.append(int(tok))), stream))
+        else:
+            accepted, rejected = open_loop(daemon, wave, rate_rps, len(name), ttft_slo_s,
+                                           QueueFull)
+        for dr, _ in accepted:
+            check(dr.wait(TIER_WAIT_S), f"(e) {name}: a request never ended")
+        wall = time.monotonic() - t0
+        drained = daemon.drain(timeout=TIER_WAIT_S)
+        torch.cuda.synchronize()
+        launches = read_counts(fa, xent)["flash_fwd"]
+        spans = prefill_spans(tracer) - spans0
+        cons = daemon.conservation()
+        pools = pools_refcount_zero(router)
+    finally:
+        daemon.close()
+    built = CompileTracker.delta(tracker.snapshot(), built0)
+    done = [(dr, s) for dr, s in accepted if dr.status == "done"]
+    ttfts = sorted(dr.first_token_t - dr.submit_t for dr, _ in done)
+    met = sum(1 for dr, _ in done
+              if ttft_slo_s is None or dr.first_token_t - dr.submit_t <= ttft_slo_s)
+    tokens = sum(len(dr.tokens) for dr, _ in done)
+    rec = {"leg": name, "offered": len(wave), "accepted": len(accepted),
+           "shed": rejected, "done": len(done), "wall_s": round(wall, 4),
+           "rate_rps": None if rate_rps is None else round(rate_rps, 4),
+           "ttft_slo_s": None if ttft_slo_s is None else round(ttft_slo_s, 5),
+           "throughput_rps": round(len(done) / wall, 4),
+           "goodput_rps": round(met / wall, 4), "slo_met": met,
+           "tokens_per_sec": round(tokens / wall, 3),
+           "ttft_p50_s": round(statistics.median(ttfts), 5) if ttfts else None,
+           "ttft_p99_s": (round(ttfts[min(len(ttfts) - 1, int(0.99 * len(ttfts)))], 5)
+                          if ttfts else None),
+           "conservation": cons, "drained_clean": drained, "pools_zero": pools,
+           "open_spans": tracer.open_spans, "failovers": router.failovers,
+           "flash_launches": launches, "whole_prompt_prefills": spans,
+           "builds_after_prewarm": built["n_compiled_programs"],
+           "loads_after_prewarm": built["n_loads"],
+           "counters": {k: daemon.counters[k] for k in ("pump_faults", "pump_wedges")}}
+    check(cons["conserved"] and cons["outstanding"] == 0
+          and cons["submitted"] + cons["rejected"] == len(wave),
+          f"(e) {name}: conservation broken {cons}")
+    check(all(s == dr.tokens == list(dr.rr.generated) for dr, s in done),
+          f"(e) {name}: a stream differs from its output (not exactly-once)")
+    check(drained and tracer.open_spans == 0 and pools,
+          f"(e) {name}: unclean drain (drained {drained}, open spans "
+          f"{tracer.open_spans}, pools zero {pools})")
+    check(launches == DEPTH * spans, f"(e) {name}: K3 launched {launches} times, "
+          f"expected depth x whole-prompt prefills = {DEPTH * spans}")
+    check(built["n_compiled_programs"] == 0 and built["n_loads"] == 0,
+          f"(e) {name}: a build or load after the prewarm: {built}")
+    return {**rec, "accepted_requests": accepted}
+
+
+def phase_serving_tier(torch, fa, xent, port, tmp: Path) -> dict:
+    """The host serving tier (router, replicas, weight watcher, daemon,
+    tracer, telemetry) at the serving LM's full width, 3 replicas sharing
+    the card: router_soak.py's story (a)-(d), bench_slo.py's open loop (e)
+    and the tracer/telemetry cost (f).  One line per part."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import (
+        DeadlineAwarePolicy,
+        QueueFull,
+        Router,
+        ServingDaemon,
+        WeightWatcher,
+    )
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.chaos import (
+        FaultInjector,
+        FaultPlan,
+        FaultSpec,
+    )
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.telemetry import Telemetry
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import (
+        CompileTracker,
+        Tracer,
+        validate_trace,
+    )
+
+    Trainer, RunConfig, get_model, InferenceEngine = port
+    f32, bf16 = torch.float32, torch.bfloat16
+    out: dict = {}
+
+    # ---- (a) W1: the LM fitted in float32 and checkpointed; references
+    cfg = RunConfig(**TIER_FIT, checkpoint_dir=str(tmp / "tier_ck"),
+                    model_kwargs={**{k: TIER_MODEL[k] for k in ("dim", "depth", "heads",
+                                                                 "attn")}, "dtype": f32})
+    fits = {}
+    trainer = Trainer(cfg, device="cuda")
+    reset_counts(fa, xent)
+    s1 = trainer.fit()
+    torch.cuda.synchronize()
+    fits["w1"] = {"steps": trainer.state.step, "launches": read_counts(fa, xent),
+                  "train_loss": trainer.history[-1]["train_loss"],
+                  "total_time_s": s1["total_time_s"]}
+    step1, w1 = trainer.state.step, trainer._decode_params()
+    trainer.close()
+    wave1, bridge, wave2 = (tier_prompts(torch, s, n) for s, n in
+                            ((11, TIER_WAVE), (12, TIER_BRIDGE), (13, TIER_WAVE)))
+
+    def f32_engine(params, **kw):
+        return tier_engine(get_model, InferenceEngine, torch, params, f32, **kw)
+
+    want1 = tier_reference(torch, lambda: f32_engine(w1), wave1)
+
+    # ---- (b) failover under chaos, calibrated like router_soak.py
+    def warm(eng):
+        eng.submit(*TIER_WARM[:1], max_new=TIER_WARM[1])
+        while eng.has_work:
+            eng.step()
+        return eng
+
+    calib = FaultInjector(FaultPlan())
+    warm(f32_engine(w1, chaos=calib, stall_timeout_s=None)).close()
+    n_warm = calib.events("serving-step")
+    inj = FaultInjector(FaultPlan(seed=0, faults=(
+        FaultSpec(site="serving-step", kind="transient", at=(3 * n_warm + 4,)),
+        FaultSpec(site="router-dispatch", kind="io", at=(2,)),
+        FaultSpec(site="weight-swap", kind="io", at=(0,)))))
+    tracer = Tracer()
+
+    def make_engine(tid):
+        return warm(f32_engine(w1, stall_timeout_s=None, chaos=inj, tracer=tracer,
+                               trace_tid=tid))
+
+    router = Router(make_engine, TIER_REPLICAS, chaos=inj, tracer=tracer)
+    streams: dict = {}
+    spans0 = prefill_spans(tracer)
+    reset_counts(fa, xent)
+    t0 = time.perf_counter()
+    rrs = [router.submit(p, max_new=b, callback=lambda rr, tok: streams.setdefault(
+        rr.id, []).append(int(tok))) for p, b in wave1]
+    router.run_until_done(max_steps=100_000)
+    torch.cuda.synchronize()
+    wave1_s = time.perf_counter() - t0
+    k3_wave1 = read_counts(fa, xent)["flash_fwd"]
+    dense1 = prefill_spans(tracer) - spans0
+    failed = [rep.index for rep in router.replicas if rep.state == "failed"]
+    check(all(rr.status == "done" for rr in rrs), "(b) a wave-1 request did not finish")
+    check([list(rr.generated) for rr in rrs] == want1,
+          "(b) wave 1 under chaos differs from the fault-free engine")
+    check(all(streams.get(rr.id, []) == list(rr.generated) for rr in rrs),
+          "(b) a stream differs from its output (not exactly-once)")
+    check(router.failovers == 1 and failed == [1],
+          f"(b) failovers {router.failovers}, failed replicas {failed} (want one: 1)")
+    check(k3_wave1 == DEPTH * dense1, f"(b) K3 launched {k3_wave1} times, expected "
+          f"depth x whole-prompt prefills = {DEPTH * dense1}")
+    first_spawn = router.replicas[1].spawn_s
+    respawn_s = router.restart(1)
+    check(router.replicas[1].state == "healthy" and router.replicas[1].spawns == 2,
+          "(b) restart did not respawn replica 1")
+    radix = router.summary()
+    out["b"] = {"phase": "serving_tier", "part": "b_failover", "replicas": TIER_REPLICAS,
+                "engine": TIER_ENGINE, "buckets": list(TIER_BUCKETS), "dtype": "float32",
+                "requests": len(rrs), "warm_steps": n_warm, "wall_s": round(wave1_s, 4),
+                "failovers": router.failovers, "failed_replica": failed[0],
+                "redispatches": sum(rr.redispatches for rr in rrs),
+                "dispatch_excluded": sum(1 for rr in rrs if rr.excluded),
+                "tokens_identical": True, "exactly_once": True,
+                "flash_launches": k3_wave1, "whole_prompt_prefills": dense1,
+                "radix_hits": radix["radix_hits"], "radix_misses": radix["radix_misses"],
+                "spawn_s_first": round(first_spawn, 4), "spawn_s_restart": round(respawn_s, 4),
+                "spawn_s_by_replica": [[round(s, 4) for s in r.spawn_history]
+                                       for r in router.replicas]}
+    emit(out["b"])
+
+    # ---- (c) W2: the trainer resumes; hot swap with bridge traffic in flight
+    trainer = Trainer(cfg.replace(resume=True), device="cuda")
+    reset_counts(fa, xent)
+    s2 = trainer.fit()
+    torch.cuda.synchronize()
+    fits["w2"] = {"steps": trainer.state.step - step1, "launches": read_counts(fa, xent),
+                  "train_loss": trainer.history[-1]["train_loss"],
+                  "total_time_s": s2["total_time_s"]}
+    step2, w2 = trainer.state.step, trainer._decode_params()
+    trainer.close()
+    for name, fit in fits.items():
+        steps, counts = fit["steps"], fit["launches"]
+        check(counts["flash_bwd_fused"] == DEPTH * steps and counts["flash_bwd_grouped"]
+              == counts["flash_bwd_dkv"] == counts["flash_bwd_dq"] == 0,
+              f"(a) {name} fit: backward launches {counts}, expected K4 == depth x "
+              f"{steps} steps and no other")
+        check(math.isfinite(fit["train_loss"]), f"(a) {name}: non-finite loss")
+    want2 = tier_reference(torch, lambda: f32_engine(w2), wave2)
+    bridge_w1 = tier_reference(torch, lambda: f32_engine(w1), bridge)
+    bridge_w2 = tier_reference(torch, lambda: f32_engine(w2), bridge)
+    brs = [router.submit(p, max_new=b) for p, b in bridge]
+    for _ in range(2):  # the bridge's decode genuinely starts
+        router.step()
+    watcher = WeightWatcher(cfg.checkpoint_dir, None, router)
+    poll1 = watcher.poll()  # W2 found intact; the first swap aborted by chaos
+    poll2 = watcher.poll()  # the straggler retried: rollout complete
+    router.run_until_done(max_steps=100_000)
+    check(poll1 is None and poll2 == step2 and router.swapped_steps == [step2]
+          and all(r.weight_step == step2 for r in router.replicas),
+          f"(c) rollout: polls {poll1}, {poll2}, swapped {router.swapped_steps}")
+    check(all(rr.status == "done" for rr in brs), "(c) a bridge request dropped")
+    check(all(list(rr.generated) in (bridge_w1[i], bridge_w2[i]) for i, rr in enumerate(brs)),
+          "(c) a bridge output is neither the W1 nor the W2 reference")
+    rrs2 = [router.submit(p, max_new=b) for p, b in wave2]
+    router.run_until_done(max_steps=100_000)
+    check([list(rr.generated) for rr in rrs2] == want2,
+          "(c) wave 2 differs from W2's single-engine reference")
+    check({rr.replica for rr in rrs2} == set(range(TIER_REPLICAS)),
+          "(c) wave 2 did not reach every replica")
+    dropped = sum(rr.status != "done" for rr in router.requests)
+    check(dropped == 0, f"(c) {dropped} requests dropped")
+    out["c"] = {"phase": "serving_tier", "part": "c_hot_swap", "step_w1": step1,
+                "step_w2": step2, "polls": [poll1, poll2],
+                "swapped_steps": list(router.swapped_steps), "bridge": len(brs),
+                "bridge_on_w2": sum(list(rr.generated) == bridge_w2[i]
+                                    for i, rr in enumerate(brs)),
+                "wave2_replicas": sorted({rr.replica for rr in rrs2}),
+                "dropped": dropped, "fits": fits, "chaos": inj.summary()}
+    emit(out["c"])
+
+    # ---- (d) the timeline
+    router.close()
+    path = tmp / "tier_trace.json"
+    tracer.export_trace(str(path))
+    problems = validate_trace(str(path))
+    doc = json.loads(path.read_text())["traceEvents"]
+    tracks = {e["args"]["name"] for e in doc if e.get("ph") == "M"
+              and e.get("name") == "thread_name"}
+    instants = {e["name"] for e in doc if e.get("ph") == "i"}
+    want_instants = {"replica_spawn", "replica_failed", "failover_redispatch",
+                     "dispatch_fault", "swap_aborted", "weight_swap"}
+    check(problems == [], f"(d) the exported trace is invalid: {problems[:5]}")
+    check({"router", *(f"replica {i}" for i in range(TIER_REPLICAS))} <= tracks,
+          f"(d) missing tracks: {tracks}")
+    check(want_instants <= instants, f"(d) missing instants: {want_instants - instants}")
+    check(tracer.open_spans == 0, f"(d) {tracer.open_spans} spans open after the drain")
+    out["d"] = {"phase": "serving_tier", "part": "d_trace", "events": len(doc),
+                "dropped": tracer.dropped, "open_spans": tracer.open_spans,
+                "tracks": len(tracks), "instants": sorted(instants & want_instants)}
+    emit(out["d"])
+
+    # ---- (e) the daemon over a fresh bf16 tier: calibrate R, then the
+    # open loop at 0.5 R and 1.5 R, then a pump raise and a pump wedge
+    def build(tracer=None, chaos=None):
+        def make(tid):
+            return tier_engine(get_model, InferenceEngine, torch, w2, bf16,
+                               tracer=tracer, trace_tid=tid, chaos=chaos)
+        return Router(make, TIER_REPLICAS, tracer=tracer, chaos=chaos)
+
+    tier = (ServingDaemon, Tracer, CompileTracker, QueueFull)
+    calib_leg = daemon_leg(torch, fa, xent, build, tier, "calibrate",
+                           tier_prompts(torch, 21, TIER_CALIB))
+    rate = calib_leg["done"] / calib_leg["wall_s"]
+    p50 = calib_leg["ttft_p50_s"]
+    legs = [calib_leg]
+    for name, mult, slo_mult, seed in (("open_0.5R", 0.5, 20.0, 22), ("open_1.5R", 1.5, 4.0, 23)):
+        legs.append(daemon_leg(
+            torch, fa, xent, build, tier, name, tier_prompts(torch, seed, TIER_OPEN),
+            rate_rps=mult * rate, ttft_slo_s=slo_mult * p50,
+            policy=DeadlineAwarePolicy(concurrency=TIER_REPLICAS * TIER_ENGINE["slots"])))
+    for kind in ("raise", "wedge"):
+        pump = FaultInjector(FaultPlan(seed=5, faults=(
+            FaultSpec(site="daemon-pump", kind=kind, at=(0,)),)))
+        leg = daemon_leg(torch, fa, xent, build, tier, f"pump_{kind}",
+                         tier_prompts(torch, 24, TIER_PUMP), chaos=pump,
+                         liveness_s=60.0 if kind == "raise" else 2.0)
+        check(leg["failovers"] == 1 and leg["done"] == TIER_PUMP,
+              f"(e) pump_{kind}: failovers {leg['failovers']}, done {leg['done']}")
+        legs.append(leg)
+    # bf16 records agreement only: near-ties may flip between the paged
+    # extend and K3 (ROADMAP.md queue 3, divergences 3 and 5)
+    calib_ref = tier_reference(torch, lambda: tier_engine(
+        get_model, InferenceEngine, torch, w2, bf16), tier_prompts(torch, 21, TIER_CALIB))
+    got = [list(dr.tokens) for dr, _ in calib_leg["accepted_requests"]]
+    agree = sum(a == b for g, w in zip(got, calib_ref) for a, b in zip(g, w))
+    out["e"] = {"phase": "serving_tier", "part": "e_daemon", "dtype": "bf16",
+                "service_rps": round(rate, 4), "ttft_p50_calibrated_s": p50,
+                "bf16_token_agreement_vs_single_engine": round(
+                    agree / sum(len(w) for w in calib_ref), 4),
+                "legs": [{k: v for k, v in leg.items() if k != "accepted_requests"}
+                         for leg in legs]}
+    emit(out["e"])
+
+    # ---- (f) the tracer's and telemetry's cost: the bf16 router's wave with
+    # both off and both on, in interleaved pairs (ABBA order)
+    tel = Telemetry(interval_s=0.05, jsonl_path=str(tmp / "tier_telemetry.jsonl"))
+    on_tracer = Tracer()
+
+    def build_f(on: bool):
+        def make(tid):
+            return tier_engine(get_model, InferenceEngine, torch, w2, bf16, trace_tid=tid,
+                               **({"tracer": on_tracer, "telemetry": tel} if on else {}))
+        return Router(make, TIER_REPLICAS, **({"tracer": on_tracer, "telemetry": tel}
+                                              if on else {}))
+
+    routers = {False: build_f(False), True: build_f(True)}
+    for r in routers.values():
+        r.prewarm()
+    tracker = CompileTracker.install()
+    built0 = tracker.snapshot()
+
+    def wave_s(on: bool, wave) -> float:
+        r = routers[on]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rs = [r.submit(p, max_new=b) for p, b in wave]
+        r.run_until_done(max_steps=100_000)
+        torch.cuda.synchronize()
+        check(all(x.status == "done" for x in rs), "(f) a request did not finish")
+        return time.perf_counter() - t
+
+    pairs = []
+    for i in range(TIER_PAIRS):
+        wave = tier_prompts(torch, 31 + i, 24)
+        order = (False, True) if i % 2 == 0 else (True, False)
+        t = {on: wave_s(on, wave) for on in order}
+        pairs.append({"off_s": round(t[False], 4), "on_s": round(t[True], 4),
+                      "ratio": round(t[True] / t[False], 4), "order": ["on" if o else "off"
+                                                                        for o in order]})
+    built = CompileTracker.delta(tracker.snapshot(), built0)
+    for r in routers.values():
+        r.close()
+    tel.close()
+    ratios = [p["ratio"] for p in pairs]
+    check(built["n_compiled_programs"] == 0 and built["n_loads"] == 0,
+          f"(f) a build or load after the prewarm: {built}")
+    check(on_tracer.open_spans == 0 and tel.samples > 0,
+          f"(f) open spans {on_tracer.open_spans}, telemetry samples {tel.samples}")
+    out["f"] = {"phase": "serving_tier", "part": "f_overhead", "pairs": pairs,
+                "ratio_median": statistics.median(ratios),
+                "ratio_spread": round(max(ratios) - min(ratios), 4),
+                "telemetry_samples": tel.samples, "trace_events": len(on_tracer.events()),
+                "builds_after_prewarm": built["n_compiled_programs"],
+                "loads_after_prewarm": built["n_loads"]}
+    emit(out["f"])
+    return {"fits": fits, "k3_wave1": k3_wave1, "dense_wave1": dense1,
+            "daemon_launches": {leg["leg"]: leg["flash_launches"] for leg in legs}}
+
+
+
 MMA_SYNC = "tensor-core bf16: mma.sync on cp.async-fed tiles"
 DESIGN = {"flash_fwd": MMA_SYNC, "flash_bwd_fused": MMA_SYNC, "flash_bwd_grouped": MMA_SYNC,
           "flash_bwd_dkv": MMA_SYNC,
@@ -3524,6 +4009,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_") as tmp:
         ft = phase_fault_tolerant_training(torch, fa, xent, (Trainer, get_preset, RunConfig),
                                            steps_mod, Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tier_") as tmp:
+        tier = phase_serving_tier(torch, fa, xent,
+                                  (Trainer, RunConfig, get_model, InferenceEngine), Path(tmp))
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -3610,6 +4098,15 @@ def main() -> int:
     k4_entry = bwd_entry("flash_bwd_fused", "ops/flash_attention.py:340",
                          lm["launches"]["flash_bwd_fused"])
     k4_entry["fault_tolerant_training_lm"] = {n: c["flash_bwd_fused"] for n, c in ft_lm.items()}
+    # K3 on the serving tier: (b)'s wave under chaos and each (e) daemon
+    # leg, depth x whole-prompt prefills each; the float32 fits' forward too.
+    # K4 on the tier's W1 and W2 fits (float32, S=512, the fused route)
+    k3_entry["serving_tier"] = {
+        "b_wave1": tier["k3_wave1"], "b_whole_prompt_prefills": tier["dense_wave1"],
+        **{f"e_{name}": n for name, n in tier["daemon_launches"].items()},
+        **{f"a_fit_{name}": f["launches"]["flash_fwd"] for name, f in tier["fits"].items()}}
+    k4_entry["serving_tier_fits"] = {name: f["launches"]["flash_bwd_fused"]
+                                     for name, f in tier["fits"].items()}
     k4_entry["vit_training"] = on_vit("flash_bwd_fused", dict(zip(
         ("max_abs_err", "max_rel_err", "max_row_rel_err"), vit_kernels["bwd_err"])))
     print(json.dumps({"kernels": [

@@ -86,8 +86,19 @@ Metrics are averaged across ranks at each fence, so early stop and
 writes records, and ``fit()`` returns rank 0's summary on every rank.
 ``n_chips`` is dp.
 
+``tracer`` (utils/tracing.Tracer) records the JAX Trainer's spans:
+``epoch_dispatch`` per epoch, ``fetch`` per readback interval, ``eval``,
+``checkpoint_save`` / ``checkpoint_restore``, and in stream mode ``h2d``
+and ``dispatch`` per shipped chunk.  ``telemetry``
+(utils/telemetry.Telemetry) gets a ``trainer`` vitals source, and at each
+fenced epoch a ``trainer_heartbeat_t`` heartbeat, a ``trainer_step`` gauge
+and one ``maybe_sample``.  Both are nil-guarded like ``chaos``.
+``generate`` and ``_decode_params`` serve the run's weights
+(``InferenceEngine.from_trainer`` builds an engine on them).
+
 Left out, because they describe XLA and there is nothing honest to put in
-them: ``n_compiled_programs``, ``compile_time_s`` and ``compile_by_site``.
+them: ``n_compiled_programs``, ``compile_time_s`` and ``compile_by_site``
+(the kernel builds are counted by ``utils.tracing.CompileTracker``).
 ``compile_overhead_s`` (summary) and ``compile_and_first_epoch_s``
 (throughput) keep their JAX names and meaning, the first interval's excess
 over the steady pace: in the port that is the kernel build at first
@@ -95,9 +106,8 @@ launch, the library's algorithm choices and allocator growth, not XLA.
 FLOPs are counted analytically (``utils/flops.py``).
 
 Refused with ``NotImplementedError`` naming the ROADMAP.md item that will
-port them: tp/sp/pp > 1, ``fsdp``, ``dcn_dp`` > 1, the tracer and
-telemetry hooks, and the causal LM's dropout, MoE blocks and
-``pos="learned"``.  The models' constructors refuse the rest of what they
+port them: tp/sp/pp > 1, ``fsdp``, ``dcn_dp`` > 1, and the causal LM's
+dropout, MoE blocks and ``pos="learned"``.  The models' constructors refuse the rest of what they
 cannot build yet the same way (the ViT's dropout, MoE blocks and pipeline
 stages).
 """
@@ -163,11 +173,11 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import mfu as _mfu
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import model_flops_per_image
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.metrics import MetricWriter
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.profiling import TraceSession
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTracker
 
 TRAINABLE = ("lenet5", "mlp", "resnet20", "resnet50", "vit", "causal_lm")
 _DP = "'Data-parallel training with torch.distributed'"
 _PARALLEL = "'Remaining parallelism and utilities'"
-_UTILITIES = "'Remaining parallelism and utilities'"
 _LM_FOLLOW_UPS = "'Causal-LM and ViT training follow-ups'"
 
 
@@ -176,11 +186,8 @@ def _later(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to the PyTorch package yet: ROADMAP.md queue 1, {item}")
 
 
-def _refuse_unported(config: RunConfig, hooks: dict[str, Any]) -> None:
-    """Raise for every knob this slice does not port."""
-    for name, hook in hooks.items():
-        if hook is not None:
-            raise _later(f"the {name} hook", _UTILITIES)
+def _refuse_unported(config: RunConfig) -> None:
+    """Raise for every knob the port does not have yet."""
     for axis in ("tp", "sp", "pp"):
         if getattr(config, axis) > 1:
             raise _later(f"{axis}={getattr(config, axis)}", _PARALLEL)
@@ -246,11 +253,22 @@ class Trainer:
     def __init__(self, config: RunConfig, mesh: Mesh | None = None,
                  writer: MetricWriter | None = None, device=None, chaos=None,
                  tracer=None, telemetry=None):
-        _refuse_unported(config, {"tracer": tracer, "telemetry": telemetry})
+        _refuse_unported(config)
         self.config = config
         # utils/chaos.FaultInjector | None: every site below guards with
         # `is not None`, so an unwired trainer runs no chaos instruction
         self._chaos = chaos
+        # utils/tracing.Tracer and utils/telemetry.Telemetry | None, under
+        # the same nil-guard contract (module docstring)
+        self._tracer = tracer
+        self._telemetry = telemetry
+        self._tel_epochs = 0
+        self._tel_step: int | None = None
+        self._gen_params = None  # (state step, decode state_dict) cache
+        self._gen_cache: dict = {}
+        self._compile = CompileTracker.install()
+        if tracer is not None:
+            self._compile.bind(tracer)
         self._stream = config.input_mode == "stream"
         self.dp, self.mesh = _data_mesh(config, mesh)
         if config.sharded_update:
@@ -317,6 +335,7 @@ class Trainer:
                     "remat='blocks' needs a block-structured model "
                     f"(resnet*/vit/causal_lm); got {config.model!r}")
             model_kwargs.setdefault("block_remat", True)
+        self._model_kwargs = model_kwargs
         self._data_seed = _seed_words(config.seed, 1)
         self.model = get_model(
             config.model, num_classes=self.num_classes, device=self.device,
@@ -400,6 +419,13 @@ class Trainer:
         # every rank reads checkpoints; rank 0 alone writes them
         self._ckpt = (CheckpointManager(config.checkpoint_dir, chaos=chaos)
                       if config.checkpoint_dir else None)
+        if telemetry is not None:
+            telemetry.register_source("trainer", self._telemetry_vitals)
+
+    def _telemetry_vitals(self) -> dict:
+        """Health-sampler vitals: training progress as O(1) host reads."""
+        return {"epochs_done": self._tel_epochs, "weight_step": self._tel_step,
+                "history_len": len(self.history)}
 
     @property
     def n_chips(self) -> int:
@@ -497,18 +523,26 @@ class Trainer:
         buffers = [host_buffer(), host_buffer()]
         copied: list = [None, None]  # each buffer's last H2D event
 
+        tracer = self._tracer  # nil-guarded below
+
         def stage(slot: int, lo: int, hi: int):
             """Ship batches [lo, hi) of a buffer to the card in one transfer."""
             img, lab = buffers[slot]
-            if not cuda:
-                return img[lo:hi].clone(), lab[lo:hi].clone(), None
-            with torch.cuda.stream(side):
-                d_img = img[lo:hi].to(self.device, non_blocking=True)
-                d_lab = lab[lo:hi].to(self.device, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record(side)
-            copied[slot] = event
-            return d_img, d_lab, event
+            span = (tracer.begin("h2d", cat="train", steps=hi - lo)
+                    if tracer is not None else None)
+            try:
+                if not cuda:
+                    return img[lo:hi].clone(), lab[lo:hi].clone(), None
+                with torch.cuda.stream(side):
+                    d_img = img[lo:hi].to(self.device, non_blocking=True)
+                    d_lab = lab[lo:hi].to(self.device, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(side)
+                copied[slot] = event
+                return d_img, d_lab, event
+            finally:
+                if span is not None:
+                    tracer.end(span)  # enqueue time; the copy itself is async
 
         ms: list[dict[str, torch.Tensor]] = []
         steps_done = 0
@@ -521,7 +555,13 @@ class Trainer:
                 compute.wait_event(event)
                 d_img.record_stream(compute)
                 d_lab.record_stream(compute)
-            ms.append(self._train_chunk(self.state, {"image": d_img, "label": d_lab}))
+            span = (tracer.begin("dispatch", cat="train", steps=d_img.shape[0])
+                    if tracer is not None else None)
+            try:
+                ms.append(self._train_chunk(self.state, {"image": d_img, "label": d_lab}))
+            finally:
+                if span is not None:
+                    tracer.end(span)
             steps_done += d_img.shape[0]
 
         staged = None  # on the card, its compute not yet dispatched
@@ -626,11 +666,18 @@ class Trainer:
         so every rank knows the step is durable."""
         if self._ckpt is None:
             return None
-        form = self._save_form()
-        if self.rank == 0:
-            self._ckpt.save(form, wait=wait)
-        if self.mesh is not None and wait:
-            dist.barrier()
+        span = (self._tracer.begin("checkpoint_save", cat="train", wait=wait)
+                if self._tracer is not None else None)
+        try:
+            form = self._save_form()
+            if self.rank == 0:
+                self._ckpt.save(form, wait=wait)
+            if self.mesh is not None and wait:
+                dist.barrier()
+        finally:
+            if span is not None:
+                # wait=False: the span covers the copy, not the landing
+                self._tracer.end(span)
         return self.state.step
 
     def restore_checkpoint(self, step: int | None = None) -> int:
@@ -643,10 +690,99 @@ class Trainer:
         corrupt one."""
         if self._ckpt is None:
             raise ValueError("no checkpoint_dir configured")
-        form = (self._ckpt.restore_latest_intact() if step is None
-                else self._ckpt.restore(step=step))
-        self._load_form(form)
+        span = (self._tracer.begin("checkpoint_restore", cat="train",
+                                   hardened=step is None)
+                if self._tracer is not None else None)
+        try:
+            form = (self._ckpt.restore_latest_intact() if step is None
+                    else self._ckpt.restore(step=step))
+            self._load_form(form)
+        except Exception as e:
+            if span is not None:
+                # the hardened walk found nothing, or the step was corrupt
+                self._tracer.end(span, error=f"{type(e).__name__}: {e}")
+            raise
+        self._gen_params = None  # the decode weights changed
+        if span is not None:
+            self._tracer.end(span, restored_step=self.state.step)
         return self.state.step
+
+    # ------------------------------------------------------------------
+    # decode from the run's weights
+
+    def _decode_model(self):
+        """A fresh model of the run's configuration for decode, on the
+        trainer's device: the training-only knobs (``attn_fn``,
+        ``block_remat``, ``axis_name``) dropped, as JAX drops its training
+        islands; its weights are whatever :meth:`_decode_params` loads."""
+        clean = {k: v for k, v in self._model_kwargs.items()
+                 if k not in ("attn_fn", "block_remat", "axis_name")}
+        return get_model(self.config.model, num_classes=self.num_classes,
+                         device=self.device, **clean)
+
+    def _decode_params(self) -> dict:
+        """The run's weights as the decode model's ``state_dict``: a copy
+        on the trainer's device, cached per trained state (invalidated by
+        every step and by a restore).  The port's model holds its weights
+        in its compute dtype (float32 norms), the layout JAX's decode cast
+        produces, so the copy is the cast."""
+        if self._gen_params is not None and self._gen_params[0] == self.state.step:
+            return self._gen_params[1]
+        params = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        self._gen_params = (self.state.step, params)
+        return params
+
+    def generate(self, prompt, max_new: int, max_len: int | None = None,
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+                 rng=None, eos_id: int | None = None, pad_id: int = 0,
+                 prompt_lens=None, on_mesh: bool = False,
+                 with_lengths: bool = False):
+        """Autoregressive decode from this run's trained weights
+        (core/generate.py ``make_generator``; causal-LM family only): a
+        decode model of the run's configuration holding
+        :meth:`_decode_params`, and one generator per (max_len, max_new,
+        sampling, eos_id, pad_id, with_lengths) configuration, cached.
+        ``prompt`` is a (P,) or (B, P) int array or tensor; the result is
+        on the trainer's device.  ``on_mesh=True`` is refused as JAX
+        refuses it for a run without tp/fsdp/expert parallelism, which
+        every port run is."""
+        from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import make_generator
+
+        if not model_accepts(self.config.model, "pos"):
+            raise ValueError(
+                f"generate() needs a causal-LM-family model; got {self.config.model!r}")
+        if not self.causal:
+            raise ValueError(
+                "generate() is autoregressive (KV-cache causal decode); this "
+                "run trained a BIDIRECTIONAL model (causal=False), whose "
+                "logits condition on future positions the decode path cannot "
+                "provide — train causally to decode")
+        if on_mesh:
+            raise ValueError(
+                "on_mesh=True decodes in the run's GSPMD layout; this run "
+                "has none (tp/fsdp/EP shard params — dp/sp and single-chip "
+                "runs decode via the default path)")
+        prompt = torch.as_tensor(np.asarray(prompt), device=self.device)
+        if prompt.ndim == 1:
+            prompt = prompt[None, :]
+        if max_len is None:
+            max_len = int(prompt.shape[1]) + max_new
+        key = (max_len, max_new, temperature, top_k, top_p, eos_id, pad_id, with_lengths)
+        model = self._gen_cache.get("model")
+        if model is None:
+            model = self._gen_cache["model"] = self._decode_model().eval()
+        params = self._decode_params()
+        if self._gen_cache.get("loaded") is not params:
+            model.load_state_dict(params, strict=True)
+            self._gen_cache["loaded"] = params
+        gen = self._gen_cache.get(key)
+        if gen is None:
+            gen = self._gen_cache[key] = make_generator(
+                model, max_len, max_new, temperature, top_k, top_p,
+                eos_id=eos_id, pad_id=pad_id, with_lengths=with_lengths)
+        lens = None if prompt_lens is None else torch.as_tensor(
+            np.asarray(prompt_lens), device=self.device)
+        return gen(prompt, prompt_lens=lens, rng=rng)
 
     def close(self) -> None:
         """Let an async save land, and release a metric writer the trainer
@@ -761,7 +897,18 @@ class Trainer:
                         # poison ONE parameter element: the epoch's loss goes
                         # non-finite and the real detector below must fire
                         inject_nan(self.model, next(iter(self.model.named_parameters()))[0])
-                metrics = self._epoch(self._epoch_seed(abs_epoch0 + epoch), preemption)
+                espan = (self._tracer.begin("epoch_dispatch", cat="train", epoch=epoch)
+                         if self._tracer is not None else None)
+                try:
+                    metrics = self._epoch(self._epoch_seed(abs_epoch0 + epoch), preemption)
+                except BaseException as e:
+                    # a faulted epoch still closes its span: the timeline
+                    # shows where the run died
+                    if espan is not None:
+                        self._tracer.end(espan, error=type(e).__name__)
+                    raise
+                if espan is not None:
+                    self._tracer.end(espan)
                 pending.append((epoch, metrics))
                 if prof is not None and not prof.active:
                     metrics["loss"][-1].item()  # fence epoch 0 out of the trace
@@ -773,9 +920,14 @@ class Trainer:
                 if not (eval_now or preempt_now or ckpt_now):
                     continue  # keep the device queue full; no host sync this epoch
 
+                fspan = (self._tracer.begin("fetch", cat="train",
+                                            interval_epochs=len(pending))
+                         if self._tracer is not None else None)
                 means = self._rank_mean(torch.stack(
                     [torch.stack([m["loss"].mean(), m["accuracy"].mean()])
                      for _, m in pending])).tolist()  # the fence
+                if fspan is not None:
+                    self._tracer.end(fspan)
                 interval = time.perf_counter() - interval_t0
                 epoch_time = interval / len(pending)  # amortized over the interval
                 if first_interval_len == 0:
@@ -801,7 +953,11 @@ class Trainer:
                         "images_per_sec_per_chip": round(images / epoch_time / chips, 1),
                     }
                     if ep == epoch and eval_now:
+                        vspan = (self._tracer.begin("eval", cat="train", epoch=ep)
+                                 if self._tracer is not None else None)
                         ev = self.evaluate()
+                        if vspan is not None:
+                            self._tracer.end(vspan)
                         record["test_accuracy"] = ev["accuracy"]
                         record["test_loss"] = ev["loss"]
                         best_acc = max(best_acc, ev["accuracy"])
@@ -811,6 +967,12 @@ class Trainer:
                     self.history.append(record)
                     self.writer.write("epoch", step=step0 + self.steps_per_epoch * (ep + 1),
                                       **record)
+                    if self._telemetry is not None:
+                        self._tel_epochs += 1
+                        self._tel_step = step0 + self.steps_per_epoch * (ep + 1)
+                        self._telemetry.heartbeat("trainer")
+                        self._telemetry.set_gauge("trainer_step", self._tel_step)
+                        self._telemetry.maybe_sample()
                 pending.clear()
                 if ckpt_now:
                     self.save_checkpoint(wait=False)

@@ -18,6 +18,8 @@ builds (test workers) never load half a file.  Unlike the JAX module
 there is no numpy fallback: a failed build or load raises with the
 compiler's output, so a run that asked for the native path never runs
 another one.  :func:`available` says whether the library builds and loads.
+The g++ run and the load are recorded in the process's
+``utils.tracing.CompileTracker`` (library ``"dtm"``).
 
 Each C entry's ctypes argument list is :data:`ARGTYPES` (held against the
 C declarations by ``tests/test_torch_build.py``).
@@ -30,9 +32,12 @@ import functools
 import hashlib
 import os
 import subprocess
+import time
 from pathlib import Path
 
 import numpy as np
+
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import record_build
 
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _ROOT / "native" / "dtm.cpp"
@@ -72,6 +77,7 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
     cmd = ["g++", *FLAGS, str(SOURCE), "-o", str(tmp)]
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.SubprocessError) as e:
@@ -80,6 +86,7 @@ def build() -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed on native/dtm.cpp:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    record_build("build", "dtm", time.perf_counter() - t0)
     return out
 
 
@@ -87,7 +94,10 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The loaded library, built at first use, its entries' argument and
     result types set."""
-    lib = ctypes.CDLL(str(build()))
+    path = build()
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(path))
+    record_build("load", "dtm", time.perf_counter() - t0)
     for name, argtypes in ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -11,6 +11,8 @@ kernel launch needs the library.
 
 No PyTorch header is included: a source with a C interface builds in
 seconds, where one that includes ``torch/extension.h`` takes minutes.
+Every nvcc run and every library load is recorded in the process's
+``utils.tracing.CompileTracker`` under the site active at the time.
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import record_build
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -66,19 +71,19 @@ def library_path(name: str) -> Path:
 
 def _start(name: str):
     """Start one nvcc for ``name`` unless its library is already built;
-    returns ``(output path, temp path, process or None)``."""
+    returns ``(output path, temp path, process or None, start time)``."""
     out = library_path(name)
     if out.exists():
-        return out, None, None
+        return out, None, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
-    return out, tmp, proc
+    return out, tmp, proc, time.perf_counter()
 
 
-def _finish(name: str, out: Path, tmp: Path | None, proc) -> Path:
+def _finish(name: str, out: Path, tmp: Path | None, proc, t0: float | None) -> Path:
     if proc is None:
         return out
     log, _ = proc.communicate()
@@ -87,6 +92,7 @@ def _finish(name: str, out: Path, tmp: Path | None, proc) -> Path:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
     out.with_suffix(".log").write_text(log)  # ptxas registers/spills, for reading
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    record_build("build", name, time.perf_counter() - t0)
     return out
 
 
@@ -104,7 +110,11 @@ def build_all() -> dict[str, Path]:
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built at first use."""
-    return ctypes.CDLL(str(build(name)))
+    path = build(name)
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(path))
+    record_build("load", name, time.perf_counter() - t0)
+    return lib
 
 
 def entry(name: str, fn: str, argtypes: dict):

@@ -72,13 +72,39 @@ tests/test_torch_speculative.py, tests/test_torch_chunked_prefill.py).
 Failure isolation follows the JAX engine: a request whose own prefill,
 chunk or ``callback`` raises fails alone; a fault in the window fails
 every in-flight request and re-raises (at once, or at the watchdog's
-deadline).  The JAX compile census has no counterpart until CUDA graphs
-arrive: nothing is compiled here.
+deadline).
 
-Knobs of the JAX engine that later slices port (tp/cp, disaggregated
-roles, chaos, tracing, telemetry) raise ``NotImplementedError`` when set
-away from their defaults.  The engine is single-threaded: submit and run
-from one thread.
+The hooks, each nil-guarded (``if self._x is not None``: an unwired engine
+runs none of their instructions):
+
+* ``chaos`` (utils/chaos.FaultInjector): ``serving-admit`` fires once per
+  admission attempt (a hit fails that request alone), ``serving-step``
+  once per window dispatch (a hit is an engine-wide decode fault) and
+  ``serving-callback`` once per delivered token (a hit fails that
+  request), on the JAX engine's event indices;
+* ``tracer`` (utils/tracing.Tracer, shared with the scheduler): a span
+  tree per request on its own track (``request`` -> ``queue`` / ``admit``
+  (``prefill``, ``prefill_chunk``) / ``decode``, the ``first_token`` and
+  ``chaos_fault`` instants) and, on the engine's ``trace_tid`` track, a
+  ``window`` span per decode window with its ``dispatch`` and ``readback``
+  children, the ``decode_fault`` instant and the ``queue_depth`` /
+  ``occupied_slots`` counters;
+* ``telemetry`` (utils/telemetry.Telemetry): a vitals source named
+  ``engine<trace_tid>``, the ``ttft_s`` / ``latency_s`` / ``tpot_s``
+  histograms, the ``tokens_generated`` counter and one ``maybe_sample``
+  per step.
+
+Builds are counted by ``utils.tracing.CompileTracker`` (the kernel and
+native library builds and loads; there are no XLA programs) and land in
+``stats`` as ``n_compiled_programs`` / ``n_loads``.  :meth:`prewarm` runs
+every path of the engine once before traffic, so the first request pays
+no build or load.  ``compile_cache_dir`` is accepted and has no effect:
+the kernels' build directory already persists across processes.
+
+``tp``, ``cp`` and ``role`` raise ``NotImplementedError`` away from their
+defaults, naming the ROADMAP.md item that ports them.  The engine is
+single-threaded: submit and run from one thread (the daemonized tier
+gives each engine one pump thread).
 """
 
 from __future__ import annotations
@@ -127,17 +153,16 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.serving.scheduler import (
     Request,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.stats import ServingStats
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.chaos import ChaosFault
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.metrics import MetricWriter
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTracker
 
-# knob -> (default, the later slice that ports it)
+# knob -> (default, the ROADMAP.md queue 1 item that ports it)
 _REFUSED = {
-    "tp": (1, "the tensor-parallel serving slice"),
-    "cp": (1, "the context-parallel serving slice"),
-    "role": ("both", "the disaggregated serving slice"),
-    "chaos": (None, "the host serving tier slice"),
-    "tracer": (None, "the host serving tier slice"),
-    "telemetry": (None, "the host serving tier slice"),
+    "tp": (1, "item 7 ('Remaining parallelism and utilities')"),
+    "cp": (1, "item 7 ('Remaining parallelism and utilities')"),
+    "role": ("both", "item 6, sub-slice 5 (disaggregation)"),
 }
 
 # a parked request whose radix match skipped the prefill: the suffix
@@ -170,7 +195,10 @@ class InferenceEngine:
     ``draft_len``, ``quant``, ``prefill_chunk``, ``stall_timeout_s`` and
     the sampling defaults are as in the module docstring (``rng`` is an
     int seed or (2,) uint32 key data, required when ``temperature > 0``).
-    With ``quant="int8"``, ``self.model`` is the int8 copy.
+    With ``quant="int8"``, ``self.model`` is the int8 copy.  ``chaos``,
+    ``tracer`` (construct it with the engine's ``clock``), ``trace_tid``
+    (the engine's host-loop track; a router gives each replica its own)
+    and ``telemetry`` are the hooks of the module docstring.
 
     Usage::
 
@@ -196,15 +224,17 @@ class InferenceEngine:
                  writer: MetricWriter | None = None,
                  clock: Callable[[], float] = time.monotonic,
                  stall_timeout_s: float | None = None,
-                 chaos=None, tracer=None, telemetry=None, device=None):
-        knobs = dict(tp=tp, cp=cp, role=role, chaos=chaos, tracer=tracer,
-                     telemetry=telemetry)
+                 compile_cache_dir: str | None = None,
+                 chaos=None, tracer=None, trace_tid: int = 0, telemetry=None,
+                 device=None):
+        knobs = dict(tp=tp, cp=cp, role=role)
         for name, value in knobs.items():
             default, where = _REFUSED[name]
             if value != default:
                 raise NotImplementedError(
                     f"InferenceEngine({name}={value!r}) is not in the PyTorch "
-                    f"port yet ({where} ports it); leave it at {default!r}")
+                    f"port yet: ROADMAP.md queue 1, {where}; leave it at "
+                    f"{default!r}")
         if stall_timeout_s is not None and stall_timeout_s <= 0:
             raise ValueError(
                 f"stall_timeout_s must be > 0 (None disables the watchdog), "
@@ -322,7 +352,7 @@ class InferenceEngine:
                 max_len=max_len,
                 buckets=buckets if buckets is not None else
                 tuple(b for b in (16, 32, 64, 128) if b <= max_len) or (max_len,),
-                clock=clock, chunked_prefill=bool(prefill_chunk))
+                clock=clock, tracer=tracer, chunked_prefill=bool(prefill_chunk))
         elif buckets is not None:
             want = tuple(sorted(set(int(b) for b in buckets)))
             if want != scheduler.buckets:
@@ -341,6 +371,28 @@ class InferenceEngine:
                 f"scheduler.max_len ({scheduler.max_len}) != engine max_len "
                 f"({max_len}) — admission would pass requests the cache "
                 "cannot hold")
+        # ONE tracer serves a request's whole span tree: the scheduler opens
+        # it (submit/queue), the engine continues it; adopt whichever side
+        # has one and refuse two different ones
+        sched_tracer = getattr(scheduler, "tracer", None)
+        if tracer is None:
+            tracer = sched_tracer
+        elif sched_tracer is None:
+            scheduler.tracer = tracer
+        elif sched_tracer is not tracer:
+            raise ValueError(
+                "engine tracer= and scheduler.tracer are different Tracer "
+                "objects — a request's span tree would be split across two "
+                "buffers; wire ONE tracer (either side) and both will use it")
+        self._tracer = tracer
+        self._trace_tid = int(trace_tid)
+        self._chaos = chaos
+        # builds and loads from here to each emission are this engine's
+        self._compile = CompileTracker.install()
+        self._compile0 = self._compile.snapshot()
+        if tracer is not None:
+            self._compile.bind(tracer)
+        self.role = "both"  # disaggregated roles: ROADMAP.md item 6, sub-slice 5
         self.model = model
         self.slots = slots
         self.max_len = max_len
@@ -425,10 +477,56 @@ class InferenceEngine:
         # (the last progress ever, never reset)
         self._last_progress_t: float | None = None
         self._last_progress_ever: float | None = None
-        # fixed once built: swap_params keeps every shape and dtype
+        # utils/telemetry.Telemetry | None: a vitals source under the trace
+        # track (a respawned replica replaces its predecessor's) and one
+        # maybe_sample per step
+        self._telemetry = telemetry
+        if telemetry is not None:
+            telemetry.register_source(f"engine{self._trace_tid}",
+                                      self._telemetry_vitals)
+        self._stamp_memory()
+
+    def _stamp_memory(self) -> None:
+        """Stamp the footprint into ``self.stats`` (at construction and at
+        every emission, so a swapped-in stats object still reports it)."""
         self.stats.memory(kv_bytes_per_chip=self.kv_bytes_per_chip(),
                           weight_bytes_per_chip=self.weight_bytes_per_chip(),
                           quant=self.quant)
+
+    def _telemetry_vitals(self) -> dict:
+        """Health-sampler vitals: queue, slot and pool state plus the stats
+        counters, all O(1) host reads."""
+        v = self.stats.vitals()
+        v.update(
+            queue_depth=len(self.scheduler),
+            parked=len(self._pending),
+            overcommit_stalled=len(self._stalled_ids),
+            occupied_slots=self.occupied,
+            slots=self.slots,
+            draining=self._draining,
+            closed=self._closed,
+            last_progress_t=self._last_progress_t,
+        )
+        return v
+
+    @classmethod
+    def from_trainer(cls, trainer, *, slots: int, max_len: int, **kw
+                     ) -> "InferenceEngine":
+        """An engine over a trained :class:`~..core.trainer.Trainer` run:
+        a fresh causal LM of the run's configuration on the trainer's
+        device, holding :meth:`Trainer._decode_params`, with the trainer's
+        writer and ``compile_cache_dir`` unless ``kw`` sets them."""
+        from distributed_tensorflow_ibm_mnist_tpu_torch.models import model_accepts
+
+        if not model_accepts(trainer.config.model, "pos") or not trainer.causal:
+            raise ValueError(
+                "InferenceEngine needs a causally-trained causal-LM-family "
+                f"run; got {trainer.config.model!r}")
+        kw.setdefault("writer", trainer.writer)
+        kw.setdefault("compile_cache_dir", trainer.config.compile_cache_dir)
+        kw.setdefault("device", trainer.device)
+        return cls(trainer._decode_model(), trainer._decode_params(),
+                   slots=slots, max_len=max_len, **kw)
 
     def kv_bytes_per_chip(self) -> int:
         """Bytes of the decode cache on the card (the whole cache: one
@@ -446,10 +544,13 @@ class InferenceEngine:
 
     def submit(self, prompt, max_new: int, deadline_s: float | None = None,
                callback: Callable | None = None,
+               ttft_slo_s: float | None = None,
+               tpot_slo_s: float | None = None,
                sampling: SamplingParams | None = None) -> Request:
         """Enqueue a request (see :meth:`FIFOScheduler.submit`; raises
         ``QueueFull`` under backpressure).  ``callback(request, token)``
         streams every generated token; if it raises, THIS request fails.
+        ``ttft_slo_s`` / ``tpot_slo_s`` are judged, never enforced.
         ``sampling`` is the request's :class:`SamplingParams` (None = the
         engine's defaults).  Refused after :meth:`drain` / :meth:`close`."""
         if self._closed or self._draining:
@@ -457,7 +558,8 @@ class InferenceEngine:
                 "engine is " + ("closed" if self._closed else "draining")
                 + " — no new requests")
         return self.scheduler.submit(prompt, max_new, deadline_s=deadline_s,
-                                     callback=callback, sampling=sampling)
+                                     callback=callback, ttft_slo_s=ttft_slo_s,
+                                     tpot_slo_s=tpot_slo_s, sampling=sampling)
 
     @property
     def occupied(self) -> int:
@@ -507,14 +609,62 @@ class InferenceEngine:
         out = torch.stack((tok.double(), logp.double())).cpu()
         return int(out[0, 0]), float(out[1, 0])
 
-    def _retire(self, slot: int, status: str, now: float) -> None:
+    # ------------------------------------------------------------------
+    # tracing bookkeeping (each helper is a no-op without a tracer)
+
+    def _tr_phase(self, req: Request, name: str, **args) -> None:
+        """Close ``req``'s open phase span and open ``name`` in its place,
+        under the request's root span."""
+        if self._tracer is None or req.trace is None:
+            return
+        t = req.trace
+        if t.get("phase") is not None:
+            self._tracer.end(t["phase"])
+        t["phase"] = self._tracer.begin(name, cat="serving", parent=t["id"],
+                                        tid=t["tid"], **args)
+
+    def _tr_instant(self, req: Request, name: str, **args) -> None:
+        """A correlated event on ``req``'s tree."""
+        if self._tracer is None or req.trace is None:
+            return
+        self._tracer.instant(name, cat="serving", parent=req.trace["id"],
+                             tid=req.trace["tid"], **args)
+
+    def _tr_close(self, req: Request, **args) -> None:
+        """Terminal: close the open phase (if any) and the request root."""
+        if self._tracer is None or req.trace is None:
+            return
+        t = req.trace
+        if t.get("phase") is not None:
+            self._tracer.end(t["phase"])
+        self._tracer.end(t["id"], **args)
+        req.trace = None
+
+    def _exemplar(self, req: Request) -> str | None:
+        return req.trace_ctx.trace_id if req.trace_ctx is not None else None
+
+    def _retire(self, slot: int, status: str, now: float, waste: int = 0) -> None:
         req = self._slot_req[slot]
         req.status = status
         req.finish_t = now
+        # TPOT verdict: mean seconds per output token after the first (a
+        # single-token request has no interval: trivially met)
+        n = len(req.generated)
+        if req.tpot_slo_s is not None and status == "done":
+            req.slo_tpot_ok = (True if req.first_token_t is None or n <= 1 else
+                               (now - req.first_token_t) / (n - 1) <= req.tpot_slo_s)
+        if self._telemetry is not None and status == "done":
+            ex = self._exemplar(req)
+            self._telemetry.observe("latency_s", now - req.submit_t, exemplar=ex)
+            if req.first_token_t is not None and n > 1:
+                self._telemetry.observe(
+                    "tpot_s", (now - req.first_token_t) / (n - 1), exemplar=ex)
         self._slot_req[slot] = None
         self._slot_prefill[slot] = None  # a PREFILLING slot can be swept too
         self._release_slot_alloc(slot)
         self._active_dev = None  # occupancy changed; the next window re-freezes
+        self._tr_close(req, status=status, slot=slot, waste_steps=waste,
+                       n_generated=n)
         self.completed.append(req)
         self.stats.add(req)
 
@@ -523,13 +673,49 @@ class InferenceEngine:
         req.status = "failed"
         req.error = f"{type(exc).__name__}: {exc}"
         req.finish_t = now
+        if self._tracer is not None and req.trace is not None:
+            if isinstance(exc, ChaosFault):
+                # the injected fault lands ON the request it hit
+                self._tr_instant(req, "chaos_fault", site=exc.site,
+                                 fault_kind=exc.kind, event=exc.event)
+            self._tr_close(req, status="failed", error=req.error)
         self.completed.append(req)
         self.stats.add(req)
 
-    @staticmethod
-    def _notify(req: Request, tok: int) -> None:
+    def _cancel_unlanded(self, req: Request, now: float) -> None:
+        """Book a request that never held a slot as cancelled."""
+        req.status = "cancelled"
+        req.finish_t = now
+        self._tr_close(req, status="cancelled")
+        self.completed.append(req)
+        self.stats.add(req)
+
+    def _notify(self, req: Request, tok: int) -> None:
+        """Deliver one token to the request's callback; a raise (the
+        callback's, or a ``serving-callback`` chaos hit) fails THIS request."""
+        if self._chaos is not None:
+            self._chaos.raise_if_fired("serving-callback", ChaosFault)
         if req.callback is not None:
             req.callback(req, tok)
+
+    def _first_token(self, req: Request, slot: int, first: int, first_logp: float,
+                     cache_hit: bool) -> None:
+        """Record ``req``'s first token: TTFT (on the host) and its SLO
+        verdict, the heartbeat, telemetry, the trace instant, the callback."""
+        req.generated.append(first)
+        req.logprobs.append(first_logp)
+        req.first_token_t = self.clock()
+        self._last_progress_ever = req.first_token_t
+        if req.ttft_slo_s is not None:
+            req.slo_ttft_ok = req.first_token_t - req.submit_t <= req.ttft_slo_s
+        if self._telemetry is not None:
+            self._telemetry.observe("ttft_s", req.first_token_t - req.submit_t,
+                                    exemplar=self._exemplar(req))
+            # step()'s count holds window tokens only; this one lands here
+            self._telemetry.inc("tokens_generated")
+        req.status = "running"
+        self._tr_instant(req, "first_token", slot=slot, cache_hit=cache_hit)
+        self._notify(req, first)
 
     @staticmethod
     def _insert_impl(cache: dict, row_cache: dict, slot: int) -> None:
@@ -561,12 +747,17 @@ class InferenceEngine:
 
     def _prefill_request(self, req: Request):
         """The per-request half of admission: a prefix-cache lookup, a
-        radix check, or the bucketed B=1 prefill.  Returns ``(row_cache,
-        logits, cache_hit)``; an exception is the REQUEST's failure."""
+        radix check, or the bucketed B=1 prefill, after one
+        ``serving-admit`` chaos event (hit or miss, inline or overlapped).
+        Returns ``(row_cache, logits, cache_hit)``; an exception is the
+        REQUEST's failure."""
+        if self._chaos is not None:
+            self._chaos.raise_if_fired("serving-admit", ChaosFault)
         if self._prefix is not None:
             hit = self._prefix.get(req.prefix_key)
             self.stats.prefix(hit is not None)
             if hit is not None:
+                self._tr_instant(req, "prefix_cache_hit", bucket=req.bucket)
                 return hit[0], hit[1], True
         if self._radix is not None and self._usable_radix_tokens(req) > 0:
             # partial-prefix hit: the suffix extend runs at landing, against
@@ -579,9 +770,18 @@ class InferenceEngine:
         first token is picked at landing, never here."""
         padded = np.full((1, req.bucket), self.pad_id, np.int64)
         padded[0, : req.tokens.size] = req.tokens
-        return self._prefill(torch.as_tensor(padded, device=self.device),
-                             torch.tensor([req.tokens.size], dtype=torch.int32,
-                                          device=self.device))
+        span = (self._tracer.begin("prefill", cat="serving",
+                                   parent=req.trace["phase"] or req.trace["id"],
+                                   tid=req.trace["tid"], bucket=req.bucket)
+                if self._tracer is not None and req.trace is not None else None)
+        try:
+            with self._compile.site(f"prefill[b{req.bucket}]"):
+                return self._prefill(torch.as_tensor(padded, device=self.device),
+                                     torch.tensor([req.tokens.size], dtype=torch.int32,
+                                                  device=self.device))
+        finally:
+            if span is not None:
+                self._tracer.end(span)  # a poisoned prefill still closes it
 
     def _usable_radix_tokens(self, req: Request, matched: int | None = None) -> int:
         """Whole-page radix match usable for ``req``, capped so at least one
@@ -657,6 +857,7 @@ class InferenceEngine:
         for j, node in enumerate(path):
             bt_row[j] = node.page
         bt_row[m_blocks:m_blocks + len(private)] = private
+        req.pages = total
         bt_dev = torch.as_tensor(bt_row, device=self.device)
         with torch.no_grad():
             if m_blocks:
@@ -694,8 +895,12 @@ class InferenceEngine:
         if self._prefill_chunk:
             # chunked: allocate and park the slot PREFILLING; the chunks
             # run one an iteration from _chunk_tick
-            return self._chunk_admit(req, slot, now)
+            return self._chunk_admit(req, slot, now, retry=prefilled is not None)
         inserted = False
+        # an inline admission opens its "admit" phase here; an overlapped
+        # one opened it at pop, so its phase also covers the parked wait
+        if req.trace is not None and req.trace.get("phase") is None:
+            self._tr_phase(req, "admit", slot=slot)
         t_p = self.clock()
         try:
             if prefilled is None:
@@ -717,13 +922,8 @@ class InferenceEngine:
                 if self._prefix is not None and not cache_hit:
                     self._prefix.put(req.prefix_key, row_cache, logits)
             req.admit_t = now
-            req.generated.append(first)
-            req.logprobs.append(first_logp)
-            req.first_token_t = self.clock()  # TTFT: first token ON THE HOST
-            self._last_progress_ever = req.first_token_t
-            self.stats.prefill(req.first_token_t - t_p)
-            req.status = "running"
-            self._notify(req, first)
+            self.stats.prefill(self.clock() - t_p)
+            self._first_token(req, slot, first, first_logp, cache_hit)
         except Exception as e:
             self._release_slot_alloc(slot)
             self._fail(req, e, self.clock())
@@ -731,6 +931,7 @@ class InferenceEngine:
         self._slot_req[slot] = req
         self._slot_tok[slot] = first
         self._set_planes(slot, req)
+        self._tr_phase(req, "decode", slot=slot)
         if self._done_reason(req) is not None:
             self._retire(slot, self._done_reason(req), self.clock())
             return True  # the landed row belongs to no live request now
@@ -755,14 +956,24 @@ class InferenceEngine:
     # chunks of its prompt run through the extend program, one chunk an
     # engine iteration, so any admission costs the others one chunk
 
-    def _chunk_admit(self, req: Request, slot: int, now: float):
-        """Admit ``req`` into ``slot`` PREFILLING: take the radix match (a
-        partial hit starts chunking at the matched pages), allocate the
-        whole page span and build the chunk record; no chunk runs here.
-        Returns what :meth:`_admit` does: ``("stall", _CHUNK_STALL)`` on a
-        dry pool, else False with the slot occupied.  The block table is
-        installed by the first chunk's extend, not here: a reset pending
-        from the previous tenant stays pending."""
+    def _chunk_admit(self, req: Request, slot: int, now: float, retry: bool = False):
+        """Admit ``req`` into ``slot`` PREFILLING: fire the one
+        ``serving-admit`` chaos event (not again on a stall ``retry``), take
+        the radix match (a partial hit starts chunking at the matched
+        pages), allocate the whole page span and build the chunk record; no
+        chunk runs here.  Returns what :meth:`_admit` does: ``("stall",
+        _CHUNK_STALL)`` on a dry pool, else False (the slot occupied unless
+        the chaos event failed the request).  The block table is installed
+        by the first chunk's extend, not here: a reset pending from the
+        previous tenant stays pending."""
+        if req.trace is not None and req.trace.get("phase") is None:
+            self._tr_phase(req, "admit", slot=slot, chunked=True)
+        if not retry and self._chaos is not None:
+            try:
+                self._chaos.raise_if_fired("serving-admit", ChaosFault)
+            except ChaosFault as e:
+                self._fail(req, e, self.clock())
+                return False
         ps = self._page_size
         n_tok = int(req.tokens.size)
         path: list = []
@@ -784,6 +995,7 @@ class InferenceEngine:
         for j, node in enumerate(path):
             bt_row[j] = node.page
         bt_row[m_blocks:m_blocks + len(private)] = private
+        req.pages = total
         req.admit_t = now
         req.status = "prefilling"
         self._slot_req[slot] = req
@@ -826,7 +1038,16 @@ class InferenceEngine:
             # the extend installed the slot's block table: a reset pending
             # from its previous tenant must not undo it
             reset_mask[slot] = False
-            self.stats.chunk(self.clock() - t0)
+            t1 = self.clock()
+            self.stats.chunk(t1 - t0)
+            if self._tracer is not None and req.trace is not None:
+                # the chunk's first prompt position is ``chunk_start``: a
+                # ``start`` keyword would collide with complete()'s own
+                self._tracer.complete(
+                    "prefill_chunk", t0, t1, cat="serving",
+                    parent=req.trace.get("phase") or req.trace["id"],
+                    tid=req.trace["tid"], chunk_start=done,
+                    tokens=int(part.size))
             return True
         except Exception as e:
             self._drop_prefilling(slot, req, e, reset_mask)
@@ -859,18 +1080,14 @@ class InferenceEngine:
                 first, first_logp = self._first_pick(req, rec["last"])
                 if self._radix is not None:
                     self._donate(slot, req, rec["bt"], rec["m_blocks"], rec["path"])
-                req.generated.append(first)
-                req.logprobs.append(first_logp)
-                req.first_token_t = self.clock()
-                self._last_progress_ever = req.first_token_t
-                req.status = "running"
-                self._notify(req, first)
+                self._first_token(req, slot, first, first_logp, False)
             except Exception as e:
                 self._drop_prefilling(slot, req, e, reset_mask)
                 continue
             self._slot_prefill[slot] = None
             self._slot_tok[slot] = first
             self._set_planes(slot, req)
+            self._tr_phase(req, "decode", slot=slot)
             if self._done_reason(req) is not None:
                 self._retire(slot, self._done_reason(req), self.clock())
                 reset_mask[slot] = True
@@ -904,10 +1121,7 @@ class InferenceEngine:
                     if now > req.overdue_at:
                         # prefilled, then the deadline lapsed before a slot
                         # freed: cancel without landing
-                        req.status = "cancelled"
-                        req.finish_t = now
-                        self.completed.append(req)
-                        self.stats.add(req)
+                        self._cancel_unlanded(req, now)
                         continue
                     needs_reset = self._admit(req, slot, now, prefilled=prefilled)
                 else:
@@ -939,6 +1153,9 @@ class InferenceEngine:
         req = self.scheduler.pop(self.clock())
         if req is None:
             return
+        # the "admit" phase opens here: it spans the prefill and the parked
+        # wait for a slot
+        self._tr_phase(req, "admit", overlapped=True)
         t0 = self.clock()
         try:
             self._pending.append((req, self._prefill_request(req)))
@@ -1045,14 +1262,24 @@ class InferenceEngine:
         produced = 0
         decoded = chunked = ticked = False
         n_decoding = self._decoding
+        occupied_at_dispatch = self.occupied
         if n_decoding > 0:
             spec = self._drafter is not None
             k = self.draft_len + 1 if spec else self.decode_ahead
             idx0 = (next(iter(self.cache.values()))["index"].clone()
                     if self.stall_timeout_s is not None else None)
+            # the engine track's view of the window: closed spans built from
+            # the timestamps the loop takes anyway
+            t_w0 = self.clock() if self._tracer is not None else 0.0
+            t_d = None
             try:
+                if self._chaos is not None:
+                    # one event per WINDOW dispatch, whatever decode_ahead
+                    self._chaos.raise_if_fired("serving-step", ChaosFault)
                 if spec:
+                    t_d0 = self.clock()
                     (chunk, dls_dev, pos), dls = self._draft_chunk()
+                    t_d1 = self.clock()
                     active, planes = self._active_planes()
                     t_d = self.clock()
                     self.cache, blk_dev, logp_dev, acc_dev, _ = self._verify(
@@ -1066,6 +1293,22 @@ class InferenceEngine:
                     tail = []
                 dispatch_s = self.clock() - t_d
             except Exception as e:
+                if self._tracer is not None:
+                    # a dispatch fault belongs to every slot: one engine-track
+                    # instant; the requests it kills close through _fail
+                    now = self.clock()
+                    self._tracer.instant(
+                        "decode_fault", cat="serving", tid=self._trace_tid,
+                        error=f"{type(e).__name__}: {e}")
+                    wid = self._tracer.complete(
+                        "window", t_w0, now, cat="serving", k=k,
+                        tid=self._trace_tid, occupied=occupied_at_dispatch,
+                        error=type(e).__name__)
+                    if t_d is not None:
+                        self._tracer.complete(
+                            "dispatch", t_d, now, cat="serving",
+                            tid=self._trace_tid, parent=wid,
+                            error=type(e).__name__)
                 self._window_fault(e, t0, idx0)
                 # transient: no tokens this iteration; the watchdog counts on
             else:
@@ -1095,6 +1338,7 @@ class InferenceEngine:
                     self._pos_dev = pos_out
                     self._slot_tok = blk[:, -1].copy()
                 now = self.clock()
+                t_acc0 = t_rb + readback_s
                 self.stats.decode(dispatch_s + readback_s)
                 waste = 0
                 for slot, req in enumerate(self._slot_req):
@@ -1106,6 +1350,21 @@ class InferenceEngine:
                         n_emit = int(acc[slot]) + 1
                         self._slot_tok[slot] = blk[slot, n_emit - 1]
                         self.stats.spec(int(dls[slot]), int(acc[slot]))
+                        if self._tracer is not None and req.trace is not None:
+                            # on the request's track BEFORE the token loop:
+                            # a retirement inside it closes the tree
+                            par = req.trace.get("phase") or req.trace["id"]
+                            rtid = req.trace["tid"]
+                            self._tracer.complete(
+                                "draft", t_d0, t_d1, cat="speculative",
+                                parent=par, tid=rtid, drafted=int(dls[slot]))
+                            self._tracer.complete(
+                                "verify", t_d, t_acc0, cat="speculative",
+                                parent=par, tid=rtid)
+                            self._tracer.complete(
+                                "accept", t_acc0, now, cat="speculative",
+                                parent=par, tid=rtid, accepted=int(acc[slot]),
+                                drafted=int(dls[slot]))
                     appended = 0
                     for j in range(n_emit):
                         tok_j = int(blk[slot, j])
@@ -1128,13 +1387,24 @@ class InferenceEngine:
                         if reason is not None:
                             # EOS/budget mid-window: keep up to the stop, drop
                             # the overrun
-                            self._retire(slot, reason, now)
+                            self._retire(slot, reason, now, waste=k - appended)
                             reset_mask[slot] = True
                             break
                     # k device steps (or verify lanes) for `appended` tokens
                     waste += k - appended
                 self.stats.window(dispatch_s, readback_s, steps=n_decoding * k,
                                   waste=waste)
+                if self._tracer is not None:
+                    wid = self._tracer.complete(
+                        "window", t_w0, self.clock(), cat="serving", k=k,
+                        tid=self._trace_tid, occupied=occupied_at_dispatch,
+                        produced=produced, waste=waste)
+                    self._tracer.complete("dispatch", t_d, t_d + dispatch_s,
+                                          cat="serving", tid=self._trace_tid,
+                                          parent=wid)
+                    self._tracer.complete("readback", t_rb, t_rb + readback_s,
+                                          cat="serving", tid=self._trace_tid,
+                                          parent=wid)
 
         if self._prefill_chunk:
             if not ticked:
@@ -1160,6 +1430,16 @@ class InferenceEngine:
                                    self._page_size, self._page_bytes)
         self.stats.tick(self.occupied, max(self.clock() - t0, 0.0),
                         decoded=decoded)
+        # counters only where they change (admission, retirement)
+        if self._tracer is not None and (admitted or reset_mask.any()):
+            self._tracer.counter("queue_depth", len(self.scheduler),
+                                 tid=self._trace_tid)
+            self._tracer.counter("occupied_slots", self.occupied,
+                                 tid=self._trace_tid)
+        if self._telemetry is not None:
+            if produced:
+                self._telemetry.inc("tokens_generated", int(produced))
+            self._telemetry.maybe_sample()  # a clock read between samples
         return produced
 
     @staticmethod
@@ -1219,6 +1499,9 @@ class InferenceEngine:
     def _emit(self) -> None:
         if self._prefix is not None:
             self.stats.prefix_oversized(self._prefix.oversized)
+        self.stats.set_compile(CompileTracker.delta(self._compile.snapshot(),
+                                                    self._compile0))
+        self._stamp_memory()
         if self.writer is not None:
             self.stats.emit(self.writer)
 
@@ -1274,18 +1557,12 @@ class InferenceEngine:
                     "engine closed while the request was overcommit-stalled "
                     "(accepted, prefilled, starved of KV pages)"), now)
             else:
-                req.status = "cancelled"
-                req.finish_t = now
-                self.completed.append(req)
-                self.stats.add(req)
+                self._cancel_unlanded(req, now)
         self._pending.clear()
         self._stalled_ids.clear()
         while (req := self.scheduler.pop(now)) is not None:
             req.engine_fault = True
-            req.status = "cancelled"
-            req.finish_t = now
-            self.completed.append(req)
-            self.stats.add(req)
+            self._cancel_unlanded(req, now)
         self._book_scheduler_cancels()
         if self._pool is not None:  # final occupancy, after the flush
             self.stats.pool_sample(self._pool.allocated, self._pool.capacity,
@@ -1326,3 +1603,89 @@ class InferenceEngine:
         if self._radix is not None:
             # every node is unreferenced on an idle engine
             self._radix.evict(self._radix.n_blocks, lambda p: self._pool.free([p]))
+
+    # ------------------------------------------------------------------
+    # launch-path prewarm
+
+    def prewarm(self) -> dict:
+        """Run every path this engine dispatches once, on the IDLE engine,
+        before the first request: each bucket's prefill (the flash kernel's
+        build and library load happen here, under ``prefill[b<bucket>]``),
+        or the chunk extend; the shared first-token pick; the slot insert
+        and, paged, each bucket's suffix extend; the decode or verify window
+        over all-inactive rows; and the slot reset.  Dummy work lands in
+        idle rows and the trash page, and every slot is reset at the end,
+        so prewarmed output is token-identical to cold output.
+
+        Returns ``{"programs", "loads", "compile_s", "wall_s", "by_site"}``:
+        the builds and loads this call caused (a second engine in the same
+        process, or a respawn, reads 0 and 0)."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        if self.has_work:
+            raise RuntimeError(
+                f"prewarm on a busy engine (occupied={self.occupied}, "
+                f"pending={len(self._pending)}, queued={len(self.scheduler)}) "
+                "— prewarm belongs in the launch path, before the first submit")
+        t0 = self.clock()
+        before = self._compile.snapshot()
+        dev = self.device
+        slots = self.slots
+        with torch.no_grad():
+            bt_dev = (torch.zeros((self.max_len // self._page_size,), dtype=torch.int32,
+                                  device=dev) if self._pool is not None else None)
+            one = torch.tensor([1], dtype=torch.int32, device=dev)
+            if self._prefill_chunk:
+                c = self._prefill_chunk
+                with self._compile.site(f"extend[b{c}]"):
+                    self.cache, last_logits = self._extend(
+                        self.cache, 0, bt_dev,
+                        torch.zeros((1, c), dtype=torch.int64, device=dev), 0, 1)
+            else:
+                for b in self.buckets:
+                    with self._compile.site(f"prefill[b{b}]"):
+                        row_cache, last_logits = self._prefill(
+                            torch.zeros((1, b), dtype=torch.int64, device=dev), one)
+            zeros_f = torch.zeros((1,), dtype=torch.float32, device=dev)
+            zeros_i = torch.zeros((1,), dtype=torch.int64, device=dev)
+            with self._compile.site("first_pick"):
+                tok, logp = first_pick(
+                    last_logits, zeros_f, zeros_f, zeros_i, zeros_f,
+                    torch.zeros((1, 2), dtype=torch.int64, device=dev), zeros_i)
+                torch.stack((tok.double(), logp.double())).cpu()
+            if not self._prefill_chunk:
+                with self._compile.site("slot_insert"):
+                    if self._pool is not None:
+                        self._insert(self.cache, row_cache, bt_dev, 0)
+                    else:
+                        self._insert_impl(self.cache, row_cache, 0)
+                if self._pool is not None:
+                    for b in self.buckets:
+                        with self._compile.site(f"extend[b{b}]"):
+                            self.cache, _ = self._extend(
+                                self.cache, 0, bt_dev,
+                                torch.zeros((1, b), dtype=torch.int64, device=dev), 0, 1)
+            inactive = torch.zeros((slots,), dtype=torch.bool, device=dev)
+            planes = tuple(torch.zeros(shape, dtype=dtype, device=dev) for shape, dtype in (
+                ((slots,), torch.float32), ((slots,), torch.float32),
+                ((slots,), torch.int64), ((slots,), torch.float32),
+                ((slots, 2), torch.int64)))
+            pos0 = torch.zeros((slots,), dtype=torch.int64, device=dev)
+            if self._drafter is not None:
+                k = self.draft_len + 1
+                with self._compile.site(f"verify_window[k{k}]"):
+                    self.cache = self._verify(
+                        torch.full((slots, k), self.pad_id, dtype=torch.int64, device=dev),
+                        torch.zeros((slots,), dtype=torch.int64, device=dev),
+                        inactive, planes, pos0)[0]
+            else:
+                with self._compile.site(f"decode_window[k{self.decode_ahead}]"):
+                    self.cache = self._window(
+                        torch.zeros((slots,), dtype=torch.int64, device=dev),
+                        inactive, planes, pos0)[0]
+        with self._compile.site("slot_reset"):
+            self._reset(np.ones((slots,), bool))
+        delta = CompileTracker.delta(self._compile.snapshot(), before)
+        return {"programs": delta["n_compiled_programs"], "loads": delta["n_loads"],
+                "compile_s": delta["compile_time_s"],
+                "wall_s": round(self.clock() - t0, 6), "by_site": delta["by_site"]}

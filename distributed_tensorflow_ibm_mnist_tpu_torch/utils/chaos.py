@@ -9,7 +9,7 @@ faults at the same events, every run.  The classes are the JAX module's,
 line for line, so a plan written for the JAX package loads unchanged and
 fires on the same event indices.
 
-Sites with a consumer in the port (the training sites):
+Sites and their consumers in the port:
 
 ========================  ====================================================
 ``checkpoint-write``      one event per ``CheckpointManager.save``
@@ -28,13 +28,26 @@ Sites with a consumer in the port (the training sites):
                           (``utils.debug.inject_nan``) so the epoch's loss is
                           non-finite: the divergence -> detect -> restore
                           path; other kinds raise :class:`ChaosFault`.
+``serving-admit``         one event per admission attempt
+                          (serving/engine.py); a hit fails that request.
+``serving-step``          one event per decode-window dispatch
+                          (serving/engine.py); a hit is an engine-wide
+                          fault (the router fails the replica over).
+``serving-callback``      one event per delivered token (serving/engine.py);
+                          a hit fails that request.
+``router-dispatch``       one event per router -> replica dispatch attempt
+                          (serving/router.py); a hit bars that replica for
+                          that request.
+``weight-swap``           one event per hot-swap attempt, after the drain
+                          (serving/router.py); a hit keeps the old weights.
+``daemon-pump``           one event per pump-thread activation
+                          (serving/daemon.py); ``kind="wedge"`` parks the
+                          pump, other kinds raise in it.
 ========================  ====================================================
 
-``SITES`` keeps the JAX package's serving, router, journal and daemon sites
-too (``serving-admit``, ``serving-step``, ``serving-callback``,
-``router-dispatch``, ``weight-swap``, ``daemon-pump``, ``kv-handoff``,
-``journal-write``): the port's serving engine refuses a ``chaos`` hook
-until the host serving tier is ported (ROADMAP.md queue 1, item 6).
+``SITES`` keeps the JAX package's ``kv-handoff`` and ``journal-write``
+sites too; their consumers (disaggregation and the request journal) are
+ROADMAP.md queue 1 item 6's sub-slices 5 and 4.
 
 Every hook is guarded by ``if <owner>._chaos is not None`` at the call
 site: a run built without an injector executes no chaos instruction.

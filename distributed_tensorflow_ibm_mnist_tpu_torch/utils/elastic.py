@@ -147,18 +147,19 @@ def run_with_recovery(
     through the new trainer's MetricWriter.  Returns the final summary
     with a ``restarts`` count added.
 
-    ``tracer`` is refused (``NotImplementedError``) until utils/tracing.py
-    is ported (ROADMAP.md queue 1, item 7).
+    ``tracer`` (utils/tracing.Tracer | None, nil-guarded): each restart
+    lands as a ``restart`` instant (attempt, exception, resume step,
+    backoff), and a trainer built without a tracer inherits this one, so
+    its ``checkpoint_restore`` and epoch spans share the timeline.
     """
-    if tracer is not None:
-        raise NotImplementedError(
-            "the tracer hook is not ported to the PyTorch package yet: "
-            "ROADMAP.md queue 1, item 7 ('Remaining parallelism and utilities')")
     attempt = 0
     pending_restart: dict[str, Any] | None = None
     window: deque[float] = deque()
     while True:
         trainer = make_trainer()
+        if tracer is not None and getattr(trainer, "_tracer", None) is None:
+            trainer._tracer = tracer
+            trainer._compile.bind(tracer)
         if attempt > 0:
             cfg = trainer.config
             if not cfg.checkpoint_dir:
@@ -188,6 +189,12 @@ def run_with_recovery(
                     resume_step=resume_step,
                     backoff_s=pending_restart["backoff_s"],
                 )
+                if tracer is not None:
+                    tracer.instant(
+                        "restart", cat="elastic", attempt=attempt,
+                        exception=pending_restart["exception"],
+                        resume_step=resume_step,
+                        backoff_s=pending_restart["backoff_s"])
                 pending_restart = None
         try:
             summary = trainer.fit(preemption=preemption)

@@ -7,8 +7,7 @@ preemption (``utils/elastic.py``), the numeric-health checks
   capped, several sites), with the same ``SITES`` and the same refusals.
 * RECOVERY SCHEDULE: ``run_with_recovery``'s backoff sequence, restart
   count and window accounting equal JAX's under the same fake clock and
-  sleep (the jitter is the same function of (seed, attempt)); the tracer
-  hook is refused by name.
+  sleep (the jitter is the same function of (seed, attempt)).
 * THE TRAINER UNDER FAULTS: a ``train-step`` NaN under ``run_with_recovery``
   restores the previous durable step and finishes BIT-equal to the
   fault-free run; a ``data-batch`` I/O fault in stream mode restarts, with
@@ -165,8 +164,6 @@ def test_jitter_and_retryable_set_are_jaxs():
         jax_elastic._jitter(s, a) for s in (0, 7) for a in range(1, 6)]
     assert [c.__name__ for c in elastic.DEFAULT_RETRYABLE] == [
         c.__name__ for c in jax_elastic.DEFAULT_RETRYABLE]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-        elastic.run_with_recovery(lambda: None, tracer=object())
 
 
 # ---------------------------------------------------------------- the Trainer under faults

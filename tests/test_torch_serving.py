@@ -141,20 +141,19 @@ def test_callback_failure_is_isolated():
 
 # decode_ahead, prefix_cache_bytes, kv_page_size, speculative,
 # prefill_chunk and quant are ported: their cases now hold the refusals of
-# bad values that the JAX engine makes too
+# bad values that the JAX engine makes too.  chaos, tracer and telemetry are
+# ported too (tests/test_torch_router.py holds them against JAX's)
 @pytest.mark.parametrize("knob, error, match", [
     pytest.param(dict(decode_ahead=0), ValueError, "decode_ahead", id="decode_ahead"),
     pytest.param(dict(speculative="beam"), ValueError, "speculative", id="speculative"),
     pytest.param(dict(prefix_cache_bytes=-1), ValueError, "prefix_cache_bytes", id="prefix_cache_bytes"),
     pytest.param(dict(kv_page_size=7), ValueError, "multiple of kv_page_size", id="kv_page_size"),
     pytest.param(dict(prefill_chunk=8), ValueError, "kv_page_size", id="prefill_chunk"),
-    pytest.param(dict(tp=2), NotImplementedError, "later|slice", id="tp"),
-    pytest.param(dict(cp=2), NotImplementedError, "later|slice", id="cp"),
+    pytest.param(dict(tp=2), NotImplementedError, "ROADMAP.md queue 1, item 7", id="tp"),
+    pytest.param(dict(cp=2), NotImplementedError, "ROADMAP.md queue 1, item 7", id="cp"),
     pytest.param(dict(quant="int4"), ValueError, "quant", id="quant"),
-    pytest.param(dict(role="prefill"), NotImplementedError, "later|slice", id="role"),
-    pytest.param(dict(chaos=object()), NotImplementedError, "later|slice", id="chaos"),
-    pytest.param(dict(tracer=object()), NotImplementedError, "later|slice", id="tracer"),
-    pytest.param(dict(telemetry=object()), NotImplementedError, "later|slice", id="telemetry"),
+    pytest.param(dict(role="prefill"), NotImplementedError, "item 6, sub-slice 5",
+                 id="role"),
 ])
 def test_later_slice_knobs_refuse(knob, error, match):
     _, _, tm = _pair()

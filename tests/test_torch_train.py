@@ -360,24 +360,21 @@ def test_fault_tolerance_stream_remat_knobs_are_ported(case, tmp_path):
         assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("hook", ["chaos", "tracer", "telemetry"])
+@pytest.mark.parametrize("hook", ["chaos"])
 def test_unported_hooks_raise_not_implemented(hook):
-    """tracer and telemetry wait for utils/tracing.py and utils/telemetry.py;
-    chaos (utils/chaos.py) is ported and takes a FaultInjector."""
-    if hook == "chaos":
-        from distributed_tensorflow_ibm_mnist_tpu_torch.utils.chaos import (
-            ChaosFault,
-            FaultInjector,
-            FaultPlan,
-            FaultSpec,
-        )
+    """Every hook is ported now: chaos (utils/chaos.py) takes a
+    FaultInjector here; tracer and telemetry are held against JAX's in
+    tests/test_torch_router.py."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.chaos import (
+        ChaosFault,
+        FaultInjector,
+        FaultPlan,
+        FaultSpec,
+    )
 
-        inj = FaultInjector(FaultPlan(faults=(FaultSpec(site="train-step", at=(0,)),)))
-        with pytest.raises(ChaosFault, match="train-step"):
-            Trainer(_mlp_cfg(), device="cpu", chaos=inj).fit()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Trainer(_mlp_cfg(), device="cpu", **{hook: object()})
+    inj = FaultInjector(FaultPlan(faults=(FaultSpec(site="train-step", at=(0,)),)))
+    with pytest.raises(ChaosFault, match="train-step"):
+        Trainer(_mlp_cfg(), device="cpu", **{hook: inj}).fit()
 
 
 def test_unknown_model_names_the_available_ones():
