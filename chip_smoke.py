@@ -236,12 +236,44 @@ never JAX or the JAX package.  Phases, one JSON line each:
    prewarm; bf16 agreement with one engine recorded; (f) the bf16 wave
    with the tracer and telemetry off and on in 3 interleaved pairs: each
    ratio and the spread (recorded, not gated: host noise);
+15c. serving_edge — the tier's edge at the same full width (paged KV,
+   page 16, the radix trie, 8 slots a replica, max_len 1024): (a) three
+   bf16 replicas behind the daemon and a ``FrontDoor`` on 127.0.0.1:
+   unary, SSE and ``daemon.stream`` token-identical, greedy and
+   seeded-sampled; the wire's TTFT and tokens/s against ``daemon.stream``
+   on one wave (ABBA); a ``daemon-pump`` raise while SSE clients stream
+   (every stream ends done, exactly once); a 4-deep admission bound under
+   a flood (429/503 with an integer ``Retry-After``, conservation exact);
+   one ``/metrics`` scrape with the front door's and the tier's counters;
+   every leg drained with no open span and every pool at refcount zero,
+   K3 == depth x whole-prompt prefills, no build or load after the
+   prewarm; (b) a child (``chip_smoke.py --serve-child DIR``) serves a
+   float32 tier with a journal (fsync ``always``), the front door and
+   fsync'd telemetry, and is SIGKILLed while keyed SSE clients stream;
+   ``recover`` rebuilds the tier here, each client retries with its
+   ``Idempotency-Key`` and ``Last-Event-ID``: nothing lost, no gap, no
+   divergent duplicate, every stitched transcript's digest the uncrashed
+   reference's; a torn ``retired`` record drops exactly one record and the
+   request replays to done; the journal's append share, per-append cost
+   and one fsync at each fsync policy (the interval policy's share gated at
+   2%); (c) an ``Autoscaler`` over a one-replica bf16 daemon: a backlog
+   scales it up, a lull retires a replica (drain first), a second backlog
+   brings it back warm: nothing dropped, spawn seconds recorded, no build
+   or load; (d) ``prefill(1) + decode(2)`` against ``3 x both`` on
+   ``scripts/bench_disagg.py``'s drip (12 long 448-token prompts one a
+   router step, 6 short ones every third): float32 streams identical,
+   ``handoffs == requests``, K3 on the prefill replica only (each
+   replica's launches counted around its own step), short TTFT p99 in
+   router steps loaded <= 1.15 x control, a ``kv-handoff`` fault on the
+   first delivery (exactly-once, pools at refcount zero), each packet's
+   pages, bytes, read and install milliseconds, bf16 agreement recorded;
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2, each
    ``serving_features`` and ``serving_spec_quant_chunk`` run's for K3,
-   the ``fault_tolerant_training`` runs' for K1-K4 and the
-   ``serving_tier`` runs' for K3 and K4 beside them),
+   the ``fault_tolerant_training`` runs' for K1-K4, the
+   ``serving_tier`` runs' for K3 and K4 and the ``serving_edge`` runs' for
+   K3, by replica role on the disaggregated tier, beside them),
    largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
@@ -3935,6 +3967,781 @@ def phase_serving_tier(torch, fa, xent, port, tmp: Path) -> dict:
 
 
 
+# ---------------------------------------------------------------- serving edge
+
+# the serving LM at full width (TIER_MODEL) behind the tier's outer edge:
+# the front door, the request journal, the autoscaler and the
+# disaggregated prefill/decode tier.  EDGE_DEVICE and the widths below are
+# module constants so the phase rehearses on the CPU at a toy width
+EDGE_DEVICE = "cuda"
+EDGE_MODEL = TIER_MODEL
+EDGE_ENGINE = dict(slots=8, max_len=1024, kv_page_size=16)  # the radix trie on
+EDGE_BUCKETS = SLICE_SEQS
+EDGE_REPLICAS = 3
+EDGE_VOCAB = 256
+EDGE_WAIT_S = 300.0  # any single wait, join or drain: generous, never load-bearing
+EDGE_NEW = 16  # (a) budget per request
+EDGE_PARITY = 6  # (a) prompts of 3-16 tokens (under one page: never a radix hit)
+EDGE_WIRE = 16  # (a) requests of the wire-cost wave, each way
+EDGE_SSE_CLIENTS = 6  # (a) SSE clients connected through the pump fault
+EDGE_FLOOD = 24  # (a) concurrent unary clients against a 4-deep admission bound
+EDGE_CRASH_CLIENTS = 6  # (b) keyed SSE clients at the SIGKILL
+EDGE_CRASH_NEW = 64
+EDGE_JOURNAL_WAVE = 24  # (b) requests per fsync policy
+EDGE_SCALE_WAVE = 48  # (c) the backlog
+EDGE_LULL_S = 60.0  # (c) the longest wait for a scale-down in the lull
+EDGE_DRIP = dict(long_len=448, long_new=16, short_len=24, short_new=8, n_longs=12,
+                 n_shorts=6, short_every=3)  # (d): bench_disagg.py's drip, full width
+EDGE_ROLES = ["prefill", "decode", "decode"]
+EDGE_STEPS = 5000  # (d) router steps, at most
+
+
+def edge_prompts(torch, seed: int, n: int, lo: int, hi: int) -> list:
+    """``n`` prompts of ``lo``-``hi`` tokens of 1..vocab-1, from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, EDGE_VOCAB, (int(torch.randint(lo, hi + 1, (1,), generator=g)),),
+                          generator=g).tolist() for _ in range(n)]
+
+
+def edge_sampling(i: int):
+    """Even requests greedy, odd ones seeded-sampled."""
+    return None if i % 2 == 0 else {"temperature": 0.8, "top_k": 20, "seed": 100 + i}
+
+
+def edge_engine(get_model, InferenceEngine, torch, dtype, role="both", **kw):
+    """One replica's engine: the serving LM from its seed (every replica,
+    and a child process, builds the same weights) in ``dtype``."""
+    model = get_model("causal_lm", dtype=dtype, device=EDGE_DEVICE, **EDGE_MODEL)
+    return InferenceEngine(model, buckets=EDGE_BUCKETS, device=EDGE_DEVICE, role=role,
+                           **EDGE_ENGINE, **kw)
+
+
+def edge_router(mods, torch, dtype, n=EDGE_REPLICAS, roles=None, **kw):
+    """A prewarmed router of ``n`` replicas; ``kw`` reach every engine and
+    (tracer, telemetry, chaos) the router too."""
+    get_model, InferenceEngine, Router = mods["get_model"], mods["InferenceEngine"], mods["Router"]
+
+    def make(tid, index):  # a scale-up's replica (index >= n) serves both roles
+        role = roles[index] if roles is not None and index < n else "both"
+        return edge_engine(get_model, InferenceEngine, torch, dtype, role=role,
+                           trace_tid=tid, **kw)
+
+    router = Router(make, n, roles=roles,
+                    **{k: kw[k] for k in ("tracer", "telemetry", "chaos") if k in kw})
+    router.prewarm()
+    return router
+
+
+def edge_drain(daemon, tracer, router, what: str) -> dict:
+    """Drain a daemon, then gate: exact conservation, no open span, every
+    pool at refcount zero."""
+    check(daemon.drain(timeout=EDGE_WAIT_S), f"{what}: the drain timed out")
+    cons = daemon.conservation()
+    check(cons["conserved"] and cons["outstanding"] == 0, f"{what}: conservation {cons}")
+    check(pools_refcount_zero(router), f"{what}: a pool is not at refcount zero")
+    daemon.close()
+    if tracer is not None:
+        check(tracer.open_spans == 0, f"{what}: {tracer.open_spans} spans open")
+    return cons
+
+
+def sse_events(cli, prompt, max_new, **kw) -> dict:
+    """One SSE request: its (event id, token) pairs, terminal, TTFT and wall."""
+    t0 = time.perf_counter()
+    pairs, ttft = [], None
+    for tok in cli.stream(prompt, max_new, **kw):
+        if ttft is None:
+            ttft = time.perf_counter() - t0
+        pairs.append((cli.last_event_id, tok))
+    return {"pairs": pairs, "terminal": cli.last_terminal, "ttft_s": ttft,
+            "wall_s": time.perf_counter() - t0}
+
+
+def exactly_once(pairs, n_tokens) -> bool:
+    """Event ids 0..n-1, each once, and as many as the terminal counts."""
+    return [eid for eid, _ in pairs] == list(range(len(pairs))) and len(pairs) == n_tokens
+
+
+def wire_wave(torch, daemon, port, prompts, over_http: bool, FrontDoorClient) -> dict:
+    """``prompts`` all at once, one thread each, over SSE or
+    ``daemon.stream``: TTFT p50/p99 and tokens/s."""
+    import threading
+
+    res: dict = {}
+
+    def one(i, p):
+        if over_http:
+            r = sse_events(FrontDoorClient("127.0.0.1", port, timeout=EDGE_WAIT_S), p, 32)
+            res[i] = (r["ttft_s"], len(r["pairs"]))
+        else:
+            t0 = time.perf_counter()
+            dr = daemon.submit(p, 32)
+            toks, ttft = [], None
+            for tok in daemon.stream(dr, timeout=EDGE_WAIT_S):
+                ttft = ttft if ttft is not None else time.perf_counter() - t0
+                toks.append(tok)
+            res[i] = (ttft, len(toks))
+
+    threads = [threading.Thread(target=one, args=(i, p)) for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=EDGE_WAIT_S)
+    wall = time.perf_counter() - t0
+    check(len(res) == len(prompts), "(a) a wire-wave request did not finish")
+    ttfts = sorted(r[0] for r in res.values())
+    return {"ttft_p50_s": round(statistics.median(ttfts), 6),
+            "ttft_p99_s": round(ttfts[min(len(ttfts) - 1, int(0.99 * len(ttfts)))], 6),
+            "tokens": sum(r[1] for r in res.values()), "wall_s": round(wall, 6),
+            "tokens_per_s": round(sum(r[1] for r in res.values()) / wall, 3)}
+
+
+def edge_frontdoor(torch, fa, xent, mods) -> dict:
+    """(a): the front door over three bf16 replicas."""
+    import threading
+
+    FrontDoor, FrontDoorClient = mods["FrontDoor"], mods["FrontDoorClient"]
+    ServingDaemon, SamplingParams = mods["ServingDaemon"], mods["SamplingParams"]
+    bf16 = torch.bfloat16
+    tracer, tel = mods["Tracer"](), mods["Telemetry"](interval_s=0.05)
+    router = edge_router(mods, torch, bf16, tracer=tracer, telemetry=tel)
+    tracker = mods["CompileTracker"].install()
+    built0 = tracker.snapshot()
+    daemon = ServingDaemon(router, max_queue=256, watchdog_interval_s=0.05).start()
+    fd = FrontDoor(daemon).start_in_thread()
+    cli = FrontDoorClient("127.0.0.1", fd.port, timeout=EDGE_WAIT_S)
+    spans0 = prefill_spans(tracer)
+    reset_counts(fa, xent)
+    try:
+        # unary == SSE == daemon.stream, greedy and seeded-sampled
+        parity = 0
+        for i, p in enumerate(edge_prompts(torch, 41, EDGE_PARITY, 3, 16)):
+            for sampling in (None, {"temperature": 0.8, "top_k": 20, "seed": 300 + i}):
+                kw = {} if sampling is None else {"sampling": sampling}
+                unary = cli.generate(p, EDGE_NEW, **kw)
+                check(cli.last_status == 200, f"(a) unary status {cli.last_status}: {unary}")
+                sse = sse_events(cli, p, EDGE_NEW, **kw)
+                check(sse["terminal"]["status"] == "done"
+                      and exactly_once(sse["pairs"], sse["terminal"]["n_tokens"]),
+                      f"(a) SSE stream {sse['terminal']}")
+                dr = daemon.submit(p, EDGE_NEW, sampling=None if sampling is None
+                                   else SamplingParams(**sampling))
+                ref = list(daemon.stream(dr, timeout=EDGE_WAIT_S))
+                check(unary["tokens"] == [t for _, t in sse["pairs"]] == ref,
+                      f"(a) unary / SSE / daemon.stream differ for prompt {i} {sampling}")
+                parity += 1
+        # the wire's host cost: one wave over SSE and over daemon.stream, ABBA
+        wave = edge_prompts(torch, 42, EDGE_WIRE, 64, 256)
+        wire = {"sse": [], "daemon_stream": []}
+        for over_http in (True, False, False, True):
+            wire["sse" if over_http else "daemon_stream"].append(
+                wire_wave(torch, daemon, fd.port, wave, over_http, FrontDoorClient))
+        text = cli.metrics()
+        check(cli.last_status == 200 and "dtm_frontdoor_requests" in text
+              and "dtm_tokens_generated" in text,
+              "(a) one /metrics scrape lacks the front door's or the tier's counters")
+        health = cli.healthz()
+        check(health["status"] == "ok" and health["healthy"] == EDGE_REPLICAS,
+              f"(a) healthz {health.get('status')}")
+    finally:
+        fd.stop()
+    k3 = read_counts(fa, xent)["flash_fwd"]
+    dense = prefill_spans(tracer) - spans0
+    cons = edge_drain(daemon, tracer, router, "(a) parity")
+    check(k3 == DEPTH * dense and dense > 0,
+          f"(a) K3 launched {k3} times, expected depth x whole-prompt prefills {DEPTH * dense}")
+    built = mods["CompileTracker"].delta(tracker.snapshot(), built0)
+    tel.close()
+
+    # a daemon-pump raise while SSE clients are connected
+    tracer2 = mods["Tracer"]()
+    pump = mods["FaultInjector"](mods["FaultPlan"](seed=5, faults=(
+        mods["FaultSpec"](site="daemon-pump", kind="raise", at=(0,)),)))
+    router2 = edge_router(mods, torch, bf16, tracer=tracer2)
+    daemon2 = ServingDaemon(router2, max_queue=256, chaos=pump,
+                            watchdog_interval_s=0.05).start()
+    fd2 = FrontDoor(daemon2).start_in_thread()
+    streams: dict = {}
+
+    def client(i, p):
+        c = FrontDoorClient("127.0.0.1", fd2.port, timeout=EDGE_WAIT_S)
+        kw = {} if edge_sampling(i) is None else {"sampling": edge_sampling(i)}
+        streams[i] = sse_events(c, p, 32, **kw)
+
+    try:
+        threads = [threading.Thread(target=client, args=(i, p)) for i, p in
+                   enumerate(edge_prompts(torch, 43, EDGE_SSE_CLIENTS, 32, 256))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=EDGE_WAIT_S)
+    finally:
+        fd2.stop()
+    check(len(streams) == EDGE_SSE_CLIENTS and all(
+        s["terminal"] is not None and s["terminal"]["status"] == "done"
+        and exactly_once(s["pairs"], s["terminal"]["n_tokens"]) for s in streams.values()),
+        "(a) an SSE stream through the pump fault did not end done exactly once")
+    pump_faults = daemon2.counters["pump_faults"]
+    check(pump_faults == 1 and router2.failovers == 1,
+          f"(a) pump faults {pump_faults}, failovers {router2.failovers}")
+    edge_drain(daemon2, tracer2, router2, "(a) pump fault")
+
+    # backpressure: a 4-deep admission bound under a flood of unary clients
+    tracer3 = mods["Tracer"]()
+    router3 = edge_router(mods, torch, bf16, n=1, tracer=tracer3)
+    daemon3 = ServingDaemon(router3, max_queue=4, watchdog_interval_s=0.05,
+                            policy=mods["DeadlineAwarePolicy"](concurrency=4)).start()
+    fd3 = FrontDoor(daemon3).start_in_thread()
+    results: list = []
+
+    def flood(p):
+        c = FrontDoorClient("127.0.0.1", fd3.port, timeout=EDGE_WAIT_S)
+        body = c.generate(p, EDGE_NEW, deadline_s=EDGE_WAIT_S)
+        results.append((c.last_status, c.last_headers, body))
+
+    try:
+        warm = FrontDoorClient("127.0.0.1", fd3.port, timeout=EDGE_WAIT_S)
+        check(warm.generate([1, 2, 3], EDGE_NEW).get("status") == "done",
+              "(a) the backpressure tier's warm request failed")  # the wait predictor warms
+        threads = [threading.Thread(target=flood, args=(p,)) for p in
+                   edge_prompts(torch, 44, EDGE_FLOOD, 32, 256)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=EDGE_WAIT_S)
+    finally:
+        fd3.stop()
+    codes = sorted(r[0] for r in results)
+    rejected = [r for r in results if r[0] in (429, 503)]
+    hinted = [r for r in rejected if "retry-after" in r[1]]
+    check(len(results) == EDGE_FLOOD and set(codes) <= {200, 429, 503} and rejected,
+          f"(a) flood status codes {codes}")
+    check(all(r[1]["retry-after"].isdigit() and int(r[1]["retry-after"]) >= 1 for r in hinted)
+          and hinted, "(a) a rejection without an integer Retry-After")
+    cons3 = daemon3.conservation()
+    check(cons3["submitted"] == 1 + codes.count(200),
+          f"(a) submitted {cons3['submitted']} != accepted {1 + codes.count(200)}")
+    cons3 = edge_drain(daemon3, tracer3, router3, "(a) backpressure")
+    check(cons3["done"] == cons3["submitted"], f"(a) backpressure: {cons3}")
+    check(built["n_compiled_programs"] == 0 and built["n_loads"] == 0,
+          f"(a) a build or load after the prewarm: {built}")
+    return {"phase": "serving_edge", "part": "a_frontdoor", "dtype": "bf16",
+            "replicas": EDGE_REPLICAS, "engine": EDGE_ENGINE, "parity_requests": parity,
+            "transports_identical": True, "wire": wire,
+            "wire_ttft_p50_ratio": round(
+                statistics.median(w["ttft_p50_s"] for w in wire["sse"])
+                / statistics.median(w["ttft_p50_s"] for w in wire["daemon_stream"]), 4),
+            "wire_tokens_per_s_ratio": round(
+                statistics.median(w["tokens_per_s"] for w in wire["sse"])
+                / statistics.median(w["tokens_per_s"] for w in wire["daemon_stream"]), 4),
+            "flash_launches": k3, "whole_prompt_prefills": dense,
+            "conservation": {k: cons[k] for k in ("submitted", "done", "cancelled", "failed")},
+            "pump_fault": {"clients": EDGE_SSE_CLIENTS, "pump_faults": pump_faults,
+                           "failovers": 1, "exactly_once": True},
+            "backpressure": {"offered": EDGE_FLOOD, "codes": {c: codes.count(c) for c in set(codes)},
+                             "retry_after": sorted({r[1]["retry-after"] for r in hinted}),
+                             "rejected_with_hint": daemon3.counters["rejected_with_hint"],
+                             "conserved": True},
+            "metrics_bytes": len(text), "builds_after_prewarm": built["n_compiled_programs"],
+            "loads_after_prewarm": built["n_loads"]}
+
+
+def edge_crash_config(dtype_name: str) -> dict:
+    return {"device": EDGE_DEVICE, "dtype": dtype_name, "model": EDGE_MODEL,
+            "engine": EDGE_ENGINE, "buckets": list(EDGE_BUCKETS), "replicas": EDGE_REPLICAS}
+
+
+def edge_daemon_from(cfg: dict, journal):
+    """The (b) tier from its config: a journaled daemon over prewarmed
+    replicas (the child's, and the parent's recovered one)."""
+    import torch
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import (
+        InferenceEngine,
+        Router,
+        ServingDaemon,
+    )
+
+    dtype = getattr(torch, cfg["dtype"])
+
+    def make(tid):
+        model = get_model("causal_lm", dtype=dtype, device=cfg["device"], **cfg["model"])
+        return InferenceEngine(model, buckets=tuple(cfg["buckets"]), device=cfg["device"],
+                               trace_tid=tid, **cfg["engine"])
+
+    router = Router(make, cfg["replicas"])
+    router.prewarm()
+    return ServingDaemon(router, max_queue=256, journal=journal, watchdog_interval_s=0.05)
+
+
+def serve_child(directory: str) -> int:
+    """``chip_smoke.py --serve-child DIR``: the (b) tier of ``DIR/config.json``
+    with a journal (fsync ``always``), the front door and fsync'd telemetry;
+    publishes its port in ``DIR/port`` and serves until it is killed."""
+    import threading
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import FrontDoor, RequestJournal
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.telemetry import Telemetry
+
+    work = Path(directory)
+    cfg = json.loads((work / "config.json").read_text())
+    daemon = edge_daemon_from(cfg, RequestJournal(str(work / "journal"),
+                                                  fsync_policy="always")).start()
+    fd = FrontDoor(daemon, keepalive_s=5.0).start_in_thread()
+    tele = Telemetry(interval_s=0.1, jsonl_path=str(work / "telemetry.jsonl"), fsync=True)
+    tele.register_source("daemon", daemon.summary)
+    tele.sample()  # the black box holds a line before the first client connects
+
+    def black_box():
+        while True:
+            time.sleep(0.1)
+            tele.sample()
+
+    threading.Thread(target=black_box, daemon=True).start()
+    (work / "port.tmp").write_text(str(fd.port))
+    os.replace(work / "port.tmp", work / "port")
+    while True:  # the parent's SIGKILL is the only way out
+        time.sleep(1.0)
+
+
+def edge_crash(torch, mods, tmp: Path) -> dict:
+    """(b): a child serves with a journal and is SIGKILLed while keyed SSE
+    clients are mid-stream; the parent recovers from the journal alone and
+    the clients resume; then a torn tail, then the journal's cost per fsync
+    policy."""
+    import signal
+    import threading
+
+    FrontDoor, FrontDoorClient = mods["FrontDoor"], mods["FrontDoorClient"]
+    RequestJournal, recover, scan_journal = (mods["RequestJournal"], mods["recover"],
+                                             mods["scan_journal"])
+    digest, SamplingParams = mods["transcript_digest"], mods["SamplingParams"]
+    cfg = edge_crash_config("float32")
+    work = tmp / "crash"
+    work.mkdir()
+    (work / "config.json").write_text(json.dumps(cfg))
+    jdir = str(work / "journal")
+    err = open(work / "child.err", "w")
+    t_spawn = time.perf_counter()
+    child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--serve-child",
+                              str(work)], stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        deadline = time.monotonic() + EDGE_WAIT_S
+        while not (work / "port").exists():
+            check(child.poll() is None, f"(b) the serving child died at start: "
+                  f"{(work / 'child.err').read_text()[-2000:]}")
+            check(time.monotonic() < deadline, "(b) the serving child did not start")
+            time.sleep(0.05)
+        spawn_s = time.perf_counter() - t_spawn
+        port = int((work / "port").read_text())
+        prompts = edge_prompts(torch, 51, EDGE_CRASH_CLIENTS, 16, 200)
+        results: dict = {}
+        lock = threading.Lock()
+
+        def client(i):
+            c = FrontDoorClient("127.0.0.1", port, timeout=EDGE_WAIT_S)
+            kw = {} if edge_sampling(i) is None else {"sampling": edge_sampling(i)}
+            rec = {"pairs": [], "terminal": None, "error": None, "last_event_id": None}
+            with lock:
+                results[i] = rec
+            try:
+                for tok in c.stream(prompts[i], EDGE_CRASH_NEW, idempotency_key=f"crash-{i}",
+                                    deadline_s=EDGE_WAIT_S, **kw):
+                    with lock:
+                        rec["pairs"].append((c.last_event_id, tok))
+                        rec["last_event_id"] = c.last_event_id
+            except Exception as e:  # the SIGKILL severs the socket mid-read
+                rec["error"] = type(e).__name__
+            rec["terminal"] = c.last_terminal
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(EDGE_CRASH_CLIENTS)]
+        for t in threads:
+            t.start()
+        # kill once streaming has begun and the journal (the generation
+        # side's truth) still holds unretired work
+        kill_deadline = time.monotonic() + EDGE_WAIT_S
+        while time.monotonic() < kill_deadline:
+            with lock:
+                seen = sum(len(r["pairs"]) for r in results.values())
+            if seen >= 2:
+                scan = scan_journal(jdir)
+                if any(v["retired"] is None for v in scan.requests.values()):
+                    break
+            time.sleep(0.005)
+        child.send_signal(signal.SIGKILL)
+        child.wait(timeout=60)
+        t_kill = time.perf_counter()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        err.close()
+    for t in threads:
+        t.join(timeout=EDGE_WAIT_S)
+    with lock:
+        tokens_at_kill = sum(len(r["pairs"]) for r in results.values())
+
+    # recovery, in this process, from nothing but the journal directory
+    t_rec = time.perf_counter()
+    rec = recover(jdir, lambda: edge_daemon_from(cfg, RequestJournal(
+        jdir, fsync_policy="always")), resubmit_timeout_s=EDGE_WAIT_S)
+    recover_s = time.perf_counter() - t_rec
+    incomplete = len(rec.requests)
+    check(rec.wait(timeout=EDGE_WAIT_S), "(b) a replayed request did not finish")
+    replay_s = time.perf_counter() - t_rec
+    check(incomplete >= 1, "(b) no request was incomplete at the kill")
+    daemon2 = rec.daemon
+    fd2 = FrontDoor(daemon2, idempotency_bindings=rec.bindings).start_in_thread()
+    try:
+        resumed = 0
+        for i in range(EDGE_CRASH_CLIENTS):
+            got = results[i]
+            if got["terminal"] is not None and got["terminal"].get("status") == "done":
+                continue
+            resumed += 1
+            c = FrontDoorClient("127.0.0.1", fd2.port, timeout=EDGE_WAIT_S)
+            kw = {} if edge_sampling(i) is None else {"sampling": edge_sampling(i)}
+            for tok in c.stream(prompts[i], EDGE_CRASH_NEW, idempotency_key=f"crash-{i}",
+                                last_event_id=got["last_event_id"], deadline_s=EDGE_WAIT_S,
+                                **kw):
+                got["pairs"].append((c.last_event_id, tok))
+            got["terminal"] = c.last_terminal
+    finally:
+        fd2.stop()
+    # the uncrashed reference: the same requests, fresh, on the recovered tier
+    refs = [daemon2.submit(p, EDGE_CRASH_NEW, sampling=None if edge_sampling(i) is None
+                           else SamplingParams(**edge_sampling(i)))
+            for i, p in enumerate(prompts)]
+    check(all(dr.wait(timeout=EDGE_WAIT_S) and dr.status == "done" for dr in refs),
+          "(b) a reference request did not finish")
+    lost = gaps = divergent = mismatched = 0
+    for i, dr in enumerate(refs):
+        got = results[i]
+        lost += not (got["terminal"] is not None and got["terminal"].get("status") == "done")
+        stitched: dict = {}
+        for eid, tok in got["pairs"]:
+            divergent += eid in stitched and stitched[eid] != tok
+            stitched[eid] = tok
+        ids = sorted(stitched)
+        gaps += ids != list(range(len(dr.tokens)))
+        mismatched += digest([stitched[k] for k in ids]) != digest(list(dr.tokens))
+    check(lost == 0 and gaps == 0 and divergent == 0 and mismatched == 0,
+          f"(b) lost {lost}, gapped {gaps}, divergent duplicates {divergent}, digests "
+          f"differing {mismatched}")
+    check(daemon2.drain(timeout=EDGE_WAIT_S) and daemon2.conservation()["conserved"],
+          "(b) the recovered tier did not drain conserved")
+    daemon2.close()
+    tele_lines = sum(1 for ln in (work / "telemetry.jsonl").read_text().splitlines()
+                     if ln.strip()) if (work / "telemetry.jsonl").exists() else 0
+    check(tele_lines >= 1, "(b) the killed child's fsync'd telemetry is empty")
+
+    # a torn tail: the retired record of one request is torn; the scan drops
+    # exactly it and the reopened request replays to done
+    tdir = str(work / "torn")
+    torn = mods["FaultInjector"](mods["FaultPlan"](seed=0, faults=(
+        mods["FaultSpec"](site="journal-write", kind="torn", at=(2,)),)))
+    one = {**cfg, "replicas": 1}
+    d = edge_daemon_from(one, RequestJournal(tdir, fsync_policy="always", chaos=torn))
+    d.journal_hw_interval_s = 1e9  # admitted, the final mark, retired: 3 appends
+    d.start()
+    dr = d.submit(prompts[0], EDGE_NEW)
+    check(dr.wait(timeout=EDGE_WAIT_S) and dr.status == "done", "(b) the torn leg's request")
+    d.drain(timeout=EDGE_WAIT_S)
+    d.close()
+    scan = scan_journal(tdir)
+    check(scan.records_dropped == 1 and scan.torn_tail and len(scan.incomplete()) == 1,
+          f"(b) torn tail: {scan.report()}")
+    rec2 = recover(tdir, lambda: edge_daemon_from(one, RequestJournal(tdir)))
+    check(rec2.wait(timeout=EDGE_WAIT_S) and [r.dr.status for r in rec2.requests] == ["done"]
+          and rec2.requests[0].dr.total_tokens == len(dr.tokens),
+          "(b) the torn request did not replay to done")
+    rec2.daemon.close()
+
+    # the journal's cost per fsync policy: a daemon-native wave, the share of
+    # its wall the appends took (self-measured: append_s is the appending
+    # thread's CPU time plus the I/O it awaited) and one timed fsync
+    policies = {}
+    wave = edge_prompts(torch, 52, EDGE_JOURNAL_WAVE, 16, 256)
+    for policy in ("never", "interval", "always"):
+        j = RequestJournal(str(work / f"j_{policy}"), fsync_policy=policy)
+        d = edge_daemon_from(cfg, j).start()
+        t0 = time.perf_counter()
+        drs = [d.submit(p, 32) for p in wave]
+        check(all(x.wait(timeout=EDGE_WAIT_S) and x.status == "done" for x in drs),
+              f"(b) the {policy} wave did not finish")
+        wall = time.perf_counter() - t0
+        st = j.stats()
+        t_sync = time.perf_counter()
+        j.sync()
+        sync_ms = (time.perf_counter() - t_sync) * 1e3
+        d.drain(timeout=EDGE_WAIT_S)
+        d.close()
+        policies[policy] = {"records": st["records"], "bytes": st["bytes"],
+                            "fsyncs": st["fsyncs"], "append_s": round(st["append_s"], 6),
+                            "wall_s": round(wall, 6),
+                            "append_share": round(st["append_s"] / wall, 6),
+                            "us_per_append": round(st["append_s"] / st["records"] * 1e6, 3),
+                            "one_fsync_ms": round(sync_ms, 4)}
+    check(policies["interval"]["append_share"] <= 0.02,
+          f"(b) the interval policy's append share {policies['interval']['append_share']} > 2%")
+    return {"phase": "serving_edge", "part": "b_crash", "dtype": "float32",
+            "clients": EDGE_CRASH_CLIENTS, "max_new": EDGE_CRASH_NEW,
+            "child_spawn_s": round(spawn_s, 3), "tokens_seen_at_kill": tokens_at_kill,
+            "incomplete_at_kill": incomplete, "recover_s": round(recover_s, 4),
+            "replay_done_s": round(replay_s, 4),
+            "kill_to_replayed_s": round(time.perf_counter() - t_kill, 4),
+            "clients_resumed": resumed, "lost": lost, "gaps": gaps,
+            "divergent_duplicates": divergent, "digest_parity": True,
+            "scan": rec.scan.report(), "telemetry_lines_post_mortem": tele_lines,
+            "torn_tail": {"records_dropped": scan.records_dropped, "torn_tail": scan.torn_tail,
+                          "replayed_to_done": True},
+            "journal": policies}
+
+
+def edge_autoscale(torch, fa, xent, mods) -> dict:
+    """(c): a backlog scales a one-replica bf16 tier up, a lull retires a
+    replica (drain first), a second backlog brings it back warm."""
+    ServingDaemon, Autoscaler = mods["ServingDaemon"], mods["Autoscaler"]
+    tracer = mods["Tracer"]()
+    router = edge_router(mods, torch, torch.bfloat16, n=1, tracer=tracer)
+    tracker = mods["CompileTracker"].install()
+    built0 = tracker.snapshot()
+    daemon = ServingDaemon(router, max_queue=256, watchdog_interval_s=0.02).start()
+    asc = Autoscaler(daemon, min_replicas=1, max_replicas=EDGE_REPLICAS,
+                     up_backlog_per_slot=1.0, down_occupancy=0.25, hysteresis_up=2,
+                     hysteresis_down=4, interval_s=0.05)
+    spans0 = prefill_spans(tracer)
+    reset_counts(fa, xent)
+    asc.start()
+    waves = []
+    try:
+        for seed in (61, 62):
+            downs0 = sum(e["action"] == "down" for e in asc.events)
+            drs = [daemon.submit(p, 32) for p in
+                   edge_prompts(torch, seed, EDGE_SCALE_WAVE, 16, 256)]
+            check(all(dr.wait(timeout=EDGE_WAIT_S) for dr in drs), "(c) a request timed out")
+            check(all(dr.status == "done" for dr in drs), "(c) a request was dropped")
+            waves.append(len(drs))
+            # the lull: wait for a retire to drain and close
+            deadline = time.monotonic() + EDGE_LULL_S
+            while time.monotonic() < deadline and not (
+                    sum(e["action"] == "down" for e in asc.events) > downs0
+                    and not router._retiring):
+                time.sleep(0.02)
+    finally:
+        asc.stop()
+    summ = asc.summary()
+    downs = [e for e in asc.events if e["action"] == "down"]
+    ups = [e for e in asc.events if e["action"] == "up"]
+    check(summ["scale_ups"] >= 2 and summ["scale_downs"] >= 1 and not router._retiring,
+          f"(c) the autoscaler's actions: {summ}")
+    check(summ["warm_ups"] >= 1, "(c) no scale-up reused a retired replica")
+    k3 = read_counts(fa, xent)["flash_fwd"]
+    dense = prefill_spans(tracer) - spans0
+    cons = edge_drain(daemon, tracer, router, "(c)")
+    built = mods["CompileTracker"].delta(tracker.snapshot(), built0)
+    check(cons["done"] == cons["submitted"] == sum(waves) and cons["failed"] == 0,
+          f"(c) conservation {cons}")
+    check(built["n_compiled_programs"] == 0 and built["n_loads"] == 0,
+          f"(c) a build or load after the prewarm: {built}")
+    check(k3 == DEPTH * dense, f"(c) K3 {k3} != depth x whole-prompt prefills {DEPTH * dense}")
+    return {"phase": "serving_edge", "part": "c_autoscale", "dtype": "bf16",
+            "waves": waves, "actions": [(e["action"], e["replica"], e["warm"]) for e in asc.events],
+            "scale_ups": summ["scale_ups"], "scale_downs": summ["scale_downs"],
+            "warm_ups": summ["warm_ups"], "spawn_s": summ["spawn_s"],
+            "spawn_s_cold": [round(e["spawn_s"], 6) for e in ups if not e["warm"]],
+            "spawn_s_warm": [round(e["spawn_s"], 6) for e in ups if e["warm"]],
+            "retired": [e["replica"] for e in downs], "retires": router.retires,
+            "chip_seconds": summ["chip_seconds"], "dropped": 0,
+            "conservation": {k: cons[k] for k in ("submitted", "done", "cancelled", "failed")},
+            "flash_launches": k3, "whole_prompt_prefills": dense,
+            "builds_after_prewarm": built["n_compiled_programs"],
+            "loads_after_prewarm": built["n_loads"]}
+
+
+def drip_arrivals(torch, with_longs: bool) -> list:
+    """bench_disagg.py's schedule at full width: long k arrives at step k,
+    short j at step 1 + 3j, longs first within a step."""
+    d = EDGE_DRIP
+    longs = edge_prompts(torch, 71, d["n_longs"], d["long_len"], d["long_len"])
+    shorts = edge_prompts(torch, 72, d["n_shorts"], d["short_len"], d["short_len"])
+    arr = [{"step": k, "kind": "long", "prompt": p, "max_new": d["long_new"]}
+           for k, p in enumerate(longs) if with_longs]
+    arr += [{"step": 1 + d["short_every"] * j, "kind": "short", "prompt": p,
+             "max_new": d["short_new"]} for j, p in enumerate(shorts)]
+    return sorted(arr, key=lambda a: (a["step"], a["kind"] != "long"))
+
+
+def drip_drive(router, arrivals) -> list:
+    """The step-pumped loop: each arrival just before its step; the step
+    of every request's first delivered token."""
+    cur, recs, i = [0], [], 0
+    while i < len(arrivals) or router.outstanding:
+        while i < len(arrivals) and arrivals[i]["step"] <= cur[0]:
+            a = arrivals[i]
+            i += 1
+            rec = {"kind": a["kind"], "submit_step": cur[0], "first_step": None, "stream": []}
+
+            def cb(rr, tok, rec=rec):
+                rec["stream"].append(int(tok))
+                if rec["first_step"] is None:
+                    rec["first_step"] = cur[0]
+
+            rec["rr"] = router.submit(a["prompt"], a["max_new"], callback=cb)
+            recs.append(rec)
+        router.step()
+        cur[0] += 1
+        check(cur[0] <= EDGE_STEPS, f"(d) the drip ran past {EDGE_STEPS} steps")
+    check(all(r["rr"].status == "done" for r in recs), "(d) a drip request did not finish")
+    return recs
+
+
+def short_ttft_p99(recs) -> float:
+    steps = sorted(r["first_step"] - r["submit_step"] + 1 for r in recs if r["kind"] == "short")
+    return float(steps[min(len(steps) - 1, int(0.99 * len(steps)))])
+
+
+def k3_by_replica(fa, router, packets: list) -> dict:
+    """Count K3 launches per replica (each engine's step and landing, on
+    the one thread that pumps the router) and record each landed packet."""
+    counts = {rep.index: 0 for rep in router.replicas}
+    for rep in router.replicas:
+        eng = rep.engine
+
+        def step(orig=eng.step, i=rep.index):
+            n0 = fa.flash_attention_fwd.launches
+            try:
+                return orig()
+            finally:
+                counts[i] += fa.flash_attention_fwd.launches - n0
+
+        def admit(packet, orig=eng.admit_prefilled, i=rep.index):
+            n0 = fa.flash_attention_fwd.launches
+            try:
+                ok = orig(packet)
+            finally:
+                counts[i] += fa.flash_attention_fwd.launches - n0
+            if ok:
+                packets.append({"pages": packet.n_pages, "bytes": packet.payload_bytes,
+                                "gather_ms": packet.gather_s * 1e3,
+                                "install_ms": (packet.install_s or 0.0) * 1e3})
+            return ok
+
+        eng.step, eng.admit_prefilled = step, admit
+    return counts
+
+
+def edge_disagg(torch, fa, xent, mods) -> dict:
+    """(d): prefill(1) + decode(2) against 3 x both on the mixed drip."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    out: dict = {"phase": "serving_edge", "part": "d_disagg", "roles": EDGE_ROLES,
+                 "drip": EDGE_DRIP}
+    tracer = mods["Tracer"]()
+    disagg = edge_router(mods, torch, f32, roles=EDGE_ROLES, tracer=tracer)
+    packets: list = []
+    counts = k3_by_replica(fa, disagg, packets)
+    control = drip_drive(disagg, drip_arrivals(torch, with_longs=False))
+    h0 = disagg.handoffs
+    spans0 = prefill_spans(tracer)
+    reset_counts(fa, xent)
+    counts.update({i: 0 for i in counts})
+    loaded = drip_drive(disagg, drip_arrivals(torch, with_longs=True))
+    k3_total = read_counts(fa, xent)["flash_fwd"]
+    dense = prefill_spans(tracer) - spans0
+    handoffs = disagg.handoffs - h0
+    check(handoffs == len(loaded), f"(d) handoffs {handoffs} != requests {len(loaded)}")
+    check(all(r["stream"] == list(r["rr"].generated) for r in loaded),
+          "(d) a disaggregated stream is not exactly-once")
+    by_role = {"prefill": counts[0], "decode": [counts[1], counts[2]]}
+    check(counts[1] == counts[2] == 0, f"(d) K3 ran on a decode replica: {by_role}")
+    check(counts[0] == k3_total == DEPTH * dense and dense >= EDGE_DRIP["n_longs"],
+          f"(d) K3 {by_role}, total {k3_total}, whole-prompt prefills {dense}")
+    check(pools_refcount_zero(disagg) and all(not rep.engine._outbox
+                                              for rep in disagg.replicas),
+          "(d) a disaggregated pool is not at refcount zero")
+    disagg.close()
+    check(tracer.open_spans == 0, f"(d) {tracer.open_spans} spans open")
+    mono = edge_router(mods, torch, f32)
+    mcounts = k3_by_replica(fa, mono, [])
+    mono_recs = drip_drive(mono, drip_arrivals(torch, with_longs=True))
+    mono.close()
+    want = [list(r["rr"].generated) for r in mono_recs]
+    check([list(r["rr"].generated) for r in loaded] == want,
+          "(d) the float32 disaggregated streams differ from the monolithic tier's")
+    p99 = {"control": short_ttft_p99(control), "loaded": short_ttft_p99(loaded),
+           "monolithic": short_ttft_p99(mono_recs)}
+    check(p99["loaded"] <= 1.15 * p99["control"],
+          f"(d) short TTFT p99 in router steps: loaded {p99['loaded']} > 1.15 x control "
+          f"{p99['control']}")
+    # a kv-handoff fault on the first delivery
+    inj = mods["FaultInjector"](mods["FaultPlan"](seed=5, faults=(
+        mods["FaultSpec"](site="kv-handoff", kind="io", at=(0,)),)))
+    chaos = edge_router(mods, torch, f32, roles=EDGE_ROLES, chaos=inj)
+    recs_x = drip_drive(chaos, drip_arrivals(torch, with_longs=True))
+    check(chaos.handoff_faults == 1 and all(
+        r["stream"] == list(r["rr"].generated) for r in recs_x)
+        and [list(r["rr"].generated) for r in recs_x] == want,
+        f"(d) kv-handoff fault: faults {chaos.handoff_faults}, streams not exactly-once "
+        "or not the monolithic tier's")
+    check(pools_refcount_zero(chaos), "(d) a pool held pages after the handoff fault")
+    redispatches = sum(r["rr"].redispatches for r in recs_x)
+    chaos.close()
+    # bf16: agreement between the tiers, recorded (queue 3, items 3 and 5)
+    bf = []
+    for roles in (EDGE_ROLES, None):
+        r = edge_router(mods, torch, bf16, roles=roles)
+        bf.append([list(x["rr"].generated) for x in
+                   drip_drive(r, drip_arrivals(torch, with_longs=True))])
+        r.close()
+    agree = sum(a == b for g, w in zip(*bf) for a, b in zip(g, w))
+    out.update({
+        "requests": len(loaded), "handoffs": handoffs, "tokens_identical_f32": True,
+        "flash_launches_by_role": by_role, "flash_launches_monolithic": sum(mcounts.values()),
+        "whole_prompt_prefills": dense,
+        "short_ttft_p99_steps": p99,
+        "ttft_ratio": round(p99["loaded"] / p99["control"], 4),
+        "kv_handoff_fault": {"faults": 1, "redispatches": redispatches, "exactly_once": True,
+                             "pools_zero": True},
+        "handoff_packets": {
+            "n": len(packets), "pages_per_packet": statistics.median(p["pages"] for p in packets),
+            "bytes_per_packet_p50": statistics.median(p["bytes"] for p in packets),
+            "gather_ms_p50": round(statistics.median(p["gather_ms"] for p in packets), 4),
+            "gather_ms_max": round(max(p["gather_ms"] for p in packets), 4),
+            "install_ms_p50": round(statistics.median(p["install_ms"] for p in packets), 4),
+            "install_ms_max": round(max(p["install_ms"] for p in packets), 4)},
+        "bf16_token_agreement": round(agree / sum(len(w) for w in bf[1]), 4)})
+    return out
+
+
+def phase_serving_edge(torch, fa, xent, tmp: Path) -> dict:
+    """The serving tier's edge at the serving LM's full width: (a) the
+    front door, (b) a SIGKILL and the journal's recovery, (c) the
+    autoscaler, (d) the disaggregated tier.  One line per part."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch import serving
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils import chaos
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.telemetry import Telemetry
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTracker, Tracer
+
+    mods = {name: getattr(serving, name) for name in serving.__all__}
+    mods.update(get_model=get_model, Telemetry=Telemetry, Tracer=Tracer,
+                CompileTracker=CompileTracker, FaultInjector=chaos.FaultInjector,
+                FaultPlan=chaos.FaultPlan, FaultSpec=chaos.FaultSpec)
+    out = {}
+    for part, run in (("a", lambda: edge_frontdoor(torch, fa, xent, mods)),
+                      ("b", lambda: edge_crash(torch, mods, tmp)),
+                      ("c", lambda: edge_autoscale(torch, fa, xent, mods)),
+                      ("d", lambda: edge_disagg(torch, fa, xent, mods))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        out[part]["part_s"] = round(time.perf_counter() - t0, 3)
+        emit(out[part])
+    return out
+
+
 MMA_SYNC = "tensor-core bf16: mma.sync on cp.async-fed tiles"
 DESIGN = {"flash_fwd": MMA_SYNC, "flash_bwd_fused": MMA_SYNC, "flash_bwd_grouped": MMA_SYNC,
           "flash_bwd_dkv": MMA_SYNC,
@@ -3945,6 +4752,8 @@ DESIGN = {"flash_fwd": MMA_SYNC, "flash_bwd_fused": MMA_SYNC, "flash_bwd_grouped
 def main() -> int:
     if sys.argv[1:2] == ["--preempt-child"]:  # (b)'s child process
         return preempt_child(sys.argv[2])
+    if sys.argv[1:2] == ["--serve-child"]:  # serving_edge (b)'s child process
+        return serve_child(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -4012,6 +4821,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tier_") as tmp:
         tier = phase_serving_tier(torch, fa, xent,
                                   (Trainer, RunConfig, get_model, InferenceEngine), Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_edge_") as tmp:
+        edge = phase_serving_edge(torch, fa, xent, Path(tmp))
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -4107,6 +4918,14 @@ def main() -> int:
         **{f"a_fit_{name}": f["launches"]["flash_fwd"] for name, f in tier["fits"].items()}}
     k4_entry["serving_tier_fits"] = {name: f["launches"]["flash_bwd_fused"]
                                      for name, f in tier["fits"].items()}
+    # K3 on the serving edge: (a) the front door's tier and (c) the
+    # autoscaled tier (depth x whole-prompt prefills each), and (d) the
+    # disaggregated tier by replica role (decode replicas: 0) beside the
+    # monolithic tier's
+    k3_entry["serving_edge"] = {
+        "a_frontdoor": edge["a"]["flash_launches"], "c_autoscale": edge["c"]["flash_launches"],
+        "d_disagg_by_role": edge["d"]["flash_launches_by_role"],
+        "d_monolithic": edge["d"]["flash_launches_monolithic"]}
     k4_entry["vit_training"] = on_vit("flash_bwd_fused", dict(zip(
         ("max_abs_err", "max_rel_err", "max_row_rel_err"), vit_kernels["bwd_err"])))
     print(json.dumps({"kernels": [

@@ -100,6 +100,23 @@ def _out_path(init_file: str, rank: int) -> Path:
     return Path(f"{init_file}.rank{rank}.out")
 
 
+def _read_result(init_file: str, rank: int) -> tuple | None:
+    """Rank ``rank``'s ``(status, value)``, or None when it left no result
+    or one that does not unpickle (a file torn by a kill); the file is
+    removed either way."""
+    path = _out_path(init_file, rank)
+    try:
+        data = path.read_bytes()
+    except FileNotFoundError:
+        return None
+    path.unlink()
+    try:
+        out = pickle.loads(data)
+    except Exception:  # EOFError, UnpicklingError...: a torn file
+        return None
+    return out if isinstance(out, tuple) and len(out) == 2 else None
+
+
 def _rank_main(fn: Callable, rank: int, world: int, backend: str,
                device: str | None, init_file: str, args: tuple) -> None:
     """Body of one spawned rank: join, run ``fn``, write ``("ok", result)``
@@ -107,10 +124,21 @@ def _rank_main(fn: Callable, rank: int, world: int, backend: str,
     os.environ["LOCAL_RANK"] = str(rank)
     try:
         bootstrap(backend, f"file://{init_file}", world, rank, device)
+        # gloo's init returns on a rank once ITS side of the mesh is up: a
+        # rank whose fn returns at once would exit and close the socket a
+        # slower peer is still connecting through, failing that peer's
+        # init before it could run fn.  No rank leaves before all joined.
+        dist.barrier()
         out = ("ok", fn(rank, *args))
     except BaseException:  # reported to the parent, then the rank exits 1
         out = ("error", traceback.format_exc())
-    _out_path(init_file, rank).write_bytes(pickle.dumps(out))
+    # written under a temporary name and renamed into place: the parent
+    # kills the surviving ranks as soon as one fails, and a rank killed
+    # mid-write must leave no result, never a torn one
+    path = _out_path(init_file, rank)
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp.write_bytes(pickle.dumps(out))
+    os.replace(tmp, path)
     if out[0] == "ok":
         shutdown()
     else:
@@ -157,15 +185,16 @@ def spawn(fn: Callable, world: int, backend: str, device: str | None,
         Path(init_file).unlink(missing_ok=True)  # a killed run leaves its store
     results, errors = [], []
     for r in range(world):
-        path = _out_path(init_file, r)
-        if path.exists():
-            status, value = pickle.loads(path.read_bytes())
-            path.unlink()
-            if status == "error":
-                errors.append(f"rank {r}:\n{value}")
-            results.append(value)
-        else:
+        out = _read_result(init_file, r)
+        if out is None:
             errors.append(f"rank {r}: exit code {procs[r].exitcode}, no result")
+            continue
+        status, value = out
+        if status == "error":
+            errors.append(f"rank {r}:\n{value}")
+        results.append(value)
+    for path in Path(init_file).parent.glob(Path(init_file).name + ".rank*.tmp"):
+        path.unlink(missing_ok=True)  # a rank killed before its rename
     if errors:
         if timed_out:
             raise TimeoutError(f"spawned ranks ran past {timeout} s:\n" + "\n".join(errors))

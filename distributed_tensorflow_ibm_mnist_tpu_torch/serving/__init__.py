@@ -30,7 +30,24 @@
   threaded service front over a router, with the admission policies of
   serving/policies.py (:class:`~.policies.FIFOPolicy`,
   :class:`~.policies.PriorityPolicy`, :class:`~.policies.DeadlineAwarePolicy`,
-  :class:`~.policies.SLOUnmeetable`)
+  :class:`~.policies.SLOUnmeetable`), cancel, and elastic capacity
+  (``add_replica``, ``restart_replica``, ``retire_replica``) steered by
+  :class:`~.autoscaler.Autoscaler`
+* the front door: :class:`~.frontend.FrontDoor` — an asyncio HTTP/1.1 +
+  SSE server over the daemon (``POST /v1/generate`` streaming or unary,
+  ``GET /healthz``, ``GET /metrics``; 429/503 with ``Retry-After``;
+  ``Idempotency-Key`` and ``Last-Event-ID`` resume) with
+  :class:`~.frontend.FrontDoorClient` as the stdlib wire client;
+  :class:`~.traces.ArrivalTrace` / :class:`~.traces.TraceEvent` and the
+  trace generators, :func:`~.traces.replay_trace`
+* crash durability: :class:`~.journal.RequestJournal` — the checksummed,
+  segment-rotated write-ahead request journal wired through
+  ``ServingDaemon(journal=)``; :func:`~.journal.scan_journal` reads it
+  torn-tail tolerant and :func:`~.journal.recover` rebuilds a tier after
+  a SIGKILL, replaying every incomplete request exactly-once
+* disaggregation: ``InferenceEngine(role="prefill" | "decode")`` and
+  ``Router(roles=)``, the paged-KV handoff of serving/kv_handoff.py
+  (:class:`~.kv_handoff.HandoffPacket`)
 """
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
@@ -40,6 +57,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
     quantize_state_dict_int8,
     weight_stream_bytes,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.serving.autoscaler import Autoscaler
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.daemon import (
     DaemonRequest,
     ServingDaemon,
@@ -49,8 +67,23 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.serving.engine import (
     EngineStalled,
     InferenceEngine,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.serving.frontend import (
+    FrontDoor,
+    FrontDoorClient,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.serving.journal import (
+    JournalScan,
+    JournalWriteError,
+    RecoveredRequest,
+    Recovery,
+    RequestJournal,
+    recover,
+    scan_journal,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.serving.kv_handoff import HandoffPacket
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.kv_pool import (
     KVPagePool,
+    init_paged_cache,
     pages_needed,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.policies import (
@@ -87,17 +120,35 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.serving.stats import (
     slo_verdict,
     transcript_digest,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.serving.traces import (
+    ArrivalTrace,
+    TraceEvent,
+    bursty_trace,
+    diurnal_trace,
+    heavy_tail_trace,
+    per_class_report,
+    poisson_trace,
+    replay_trace,
+    with_slos,
+)
 
 __all__ = [
     "GREEDY",
     "AdmissionPolicy",
+    "ArrivalTrace",
+    "Autoscaler",
     "DaemonRequest",
     "DeadlineAwarePolicy",
     "EngineStalled",
     "FIFOPolicy",
     "FIFOScheduler",
+    "FrontDoor",
+    "FrontDoorClient",
+    "HandoffPacket",
     "InferenceEngine",
     "Int8Linear",
+    "JournalScan",
+    "JournalWriteError",
     "KVPagePool",
     "NgramDrafter",
     "NoHealthyReplica",
@@ -105,22 +156,36 @@ __all__ = [
     "PriorityPolicy",
     "QueueFull",
     "RadixCache",
+    "RecoveredRequest",
+    "Recovery",
     "Replica",
     "Request",
+    "RequestJournal",
     "Router",
     "RouterRequest",
     "SLOUnmeetable",
     "SamplingParams",
     "ServingDaemon",
     "ServingStats",
+    "TraceEvent",
     "WeightWatcher",
+    "bursty_trace",
+    "diurnal_trace",
+    "heavy_tail_trace",
+    "init_paged_cache",
     "is_quantized",
     "pages_needed",
+    "per_class_report",
+    "poisson_trace",
     "prefix_key",
     "quantize_kernel_int8",
     "quantize_state_dict_int8",
+    "recover",
+    "replay_trace",
     "request_fingerprint",
+    "scan_journal",
     "slo_verdict",
     "transcript_digest",
     "weight_stream_bytes",
+    "with_slos",
 ]

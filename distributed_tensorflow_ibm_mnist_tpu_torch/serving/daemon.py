@@ -44,8 +44,18 @@ Thread topology (N replicas → N+3 threads)::
   The watchdog reads :attr:`InferenceEngine.heartbeat_t` from outside:
   a HEALTHY replica with work whose heartbeat stays frozen past
   ``liveness_timeout_s`` is declared wedged and failed over.  It also
-  retries router orphans, scans for completions when no pump is alive
-  to, and ticks ``telemetry.maybe_sample()``.
+  pumps prefill→decode handoffs on disaggregated tiers (below), retries
+  router orphans, scans for completions when no pump is alive to, and
+  ticks ``telemetry.maybe_sample()``.
+
+Disaggregation: on a role-typed tier the watchdog drains the
+prefill replicas' outboxes each tick (``Router._pump_handoffs`` under the
+tier lock).  Landing a packet mutates the DESTINATION engine, whose pump
+thread may be mid-``step()`` — so each replica's engine carries a daemon
+lock: pumps hold their replica's lock around ``step()``, and the handoff
+pump holds the destination's around ``admit_prefilled`` (installed via
+``Router._admit_guard``).  Outbox appends/pops themselves are CPython
+atomic deque ops, so the SOURCE side needs no lock beyond the tier's.
 
 Locking: ONE tier lock serializes every router-level mutation (dispatch,
 failover harvest, orphan retry, close) — the router itself stays
@@ -53,10 +63,7 @@ lock-free single-threaded code (router.py §docstring).  ``engine.step()``
 runs OUTSIDE the tier lock (pumping is the hot path; CPython's atomic
 ``deque.append``/``popleft`` make the scheduler's queue safe to pop
 while the dispatcher appends — scheduler.py §Thread model).  Stats and
-telemetry objects carry their own locks (stats.py, telemetry.py).  Each
-replica's engine also carries a daemon lock, which its pump holds around
-``step()``: the seam where a retire's close and a handoff's landing
-(ROADMAP.md queue 1, item 6, sub-slices 4 and 5) serialize with the pump.
+telemetry objects carry their own locks (stats.py, telemetry.py).
 
 Chaos: the ``daemon-pump`` site (utils/chaos.py) fires one event per
 pump-thread activation — a pump consults it the FIRST time it finds work
@@ -66,9 +73,15 @@ pump loop (an engine-wide fault, failed over like a real one).  Chaos
 stays deterministic under threads because every site's event counter is
 its own lock-ordered sequence (chaos.py §Concurrency).
 
-The write-ahead request journal (``journal=``) is ROADMAP.md queue 1 item
-6, sub-slice 4, and a role-typed (disaggregated) tier sub-slice 5: the port
-refuses both.
+Durability: ``journal=`` wires a write-ahead request journal
+(serving/journal.py).  Submit WALs the full request identity before the
+caller is acknowledged, the delivery thread appends the delivered
+high-water after each token crosses, and the terminal event appends the
+verdict — ``journal.recover()`` rebuilds a fresh tier from those three
+record streams after a SIGKILL, replaying every incomplete request with
+its prefix suppressed (streams are pure functions of their seed, so the
+replay is token-identical).  All journal touches are nil-guarded like
+chaos/telemetry: an unjournaled daemon pays nothing.
 
 Lifecycle: ``start()`` spawns the threads; ``drain(timeout)`` stops
 admission, waits for in-flight work to finish, then joins everything;
@@ -94,12 +107,19 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.serving.policies import (
     AdmissionPolicy,
     FIFOPolicy,
 )
-from distributed_tensorflow_ibm_mnist_tpu_torch.serving.replica import FAILED, HEALTHY
+from distributed_tensorflow_ibm_mnist_tpu_torch.serving.replica import (
+    DRAINING,
+    FAILED,
+    HEALTHY,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.router import (
     NoHealthyReplica,
     Router,
 )
-from distributed_tensorflow_ibm_mnist_tpu_torch.serving.scheduler import QueueFull
+from distributed_tensorflow_ibm_mnist_tpu_torch.serving.scheduler import (
+    QueueFull,
+    request_fingerprint,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.chaos import ChaosFault
 
 _END = "end"
@@ -120,6 +140,7 @@ class DaemonRequest:
                  callback: Callable | None, priority: int = 0,
                  ttft_slo_s: float | None = None,
                  tpot_slo_s: float | None = None, sampling=None,
+                 idempotency_key: str | None = None, resume_from: int = 0,
                  trace_ctx=None):
         self.id = did
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -131,15 +152,35 @@ class DaemonRequest:
         self.ttft_slo_s = ttft_slo_s
         self.tpot_slo_s = tpot_slo_s
         self.sampling = sampling
-        # distributed tracing (utils/tracing.TraceContext): the SAME trace
-        # id follows the request across dispatch and failover
+        # durability identity (serving/journal.py): the client's retry
+        # key, the replay fingerprint the front door checks key reuse
+        # against, and the delivered high-water this request resumed
+        # past (0 for anything but a crash-recovered replay)
+        self.idempotency_key = idempotency_key
+        self.fingerprint: str | None = None
+        self.resume_from = int(resume_from)
+        # True when receipt is confirmed OUTSIDE the delivery callback
+        # (the front door: tokens count as received only after the
+        # drained socket write, which journals the high-water itself —
+        # the delivery loop must not, or the mark would overstate)
+        self.external_receipt = False
+        # delivered-mark pacing (daemon-native requests): when the last
+        # mark was journaled and at what logical length — submit() sets
+        # the anchor so the first mark waits out a full interval
+        self._hw_mark_t = 0.0
+        self._hw_mark_n = 0
+        # distributed tracing (utils/tracing.TraceContext): minted or
+        # parsed at the front door, persisted in the journal's admitted
+        # record, restored by recover() — the SAME trace id follows the
+        # request across dispatch, failover, handoff, and crash replay
         self.trace_ctx = trace_ctx
         self._tspan: dict | None = None  # daemon-side span bookkeeping:
         #   {"root": daemon_request span, "admit": open admission-wait
         #   span or None, "tid": the request's daemon track}; None when
         #   untraced — every touch nil-guarded like the chaos hooks
         self.rr = None                  # RouterRequest once dispatched
-        self.tokens: list[int] = []     # delivered tokens, in order
+        self.tokens: list[int] = []     # delivered tokens SINCE resume_from,
+        #   in order (logical index of tokens[i] is resume_from + i)
         self.first_token_t: float | None = None
         # terminal state set by the daemon (delivery thread / close)
         self.final_status: str | None = None
@@ -169,6 +210,13 @@ class DaemonRequest:
         return (np.inf if self.deadline_s is None
                 else self.submit_t + self.deadline_s)
 
+    @property
+    def total_tokens(self) -> int:
+        """LOGICAL stream length: the suppressed resumed prefix plus the
+        tokens this process delivered — what the journal's delivered
+        high-water and the SSE ``id:`` counter speak in."""
+        return self.resume_from + len(self.tokens)
+
     def wait(self, timeout: float | None = None) -> bool:
         """Block until terminal (done/cancelled/failed); False on timeout."""
         return self._done.wait(timeout)
@@ -194,21 +242,17 @@ class ServingDaemon:
                  liveness_timeout_s: float = 10.0,
                  watchdog_interval_s: float = 0.02,
                  idle_sleep_s: float = 0.0005,
-                 telemetry=None, chaos=None, journal=None):
-        if journal is not None:
-            raise NotImplementedError(
-                "ServingDaemon(journal=...) (the write-ahead request journal) "
-                "is not in the PyTorch port yet: ROADMAP.md queue 1, item 6, "
-                "sub-slice 4 (traces.py, frontend.py, journal.py, autoscaler.py)")
-        if any(rep.role != "both" for rep in router.replicas):
-            raise NotImplementedError(
-                "a role-typed (disaggregated) tier is not in the PyTorch port "
-                "yet: ROADMAP.md queue 1, item 6, sub-slice 5 (disaggregation)")
+                 telemetry=None, chaos=None, journal=None,
+                 journal_hw_interval_s: float = 0.05):
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         if liveness_timeout_s <= 0:
             raise ValueError(
                 f"liveness_timeout_s must be > 0, got {liveness_timeout_s}")
+        if journal_hw_interval_s < 0:
+            raise ValueError(
+                f"journal_hw_interval_s must be >= 0, "
+                f"got {journal_hw_interval_s}")
         self.router = router
         self.policy = policy if policy is not None else FIFOPolicy()
         self.max_queue = int(max_queue)
@@ -222,12 +266,36 @@ class ServingDaemon:
                            else router._telemetry)
         if self._telemetry is not None:
             self._telemetry.register_source("daemon", self._telemetry_vitals)
+        # serving/journal.RequestJournal | None — the write-ahead request
+        # journal (crash durability).  Nil-guarded like _chaos/_telemetry:
+        # an unjournaled daemon pays zero instructions per submit/token.
+        # Three journaling points: `admitted` WAL in submit() (before the
+        # ack — a raising append fails the submit), `delivered` high-water
+        # on the delivery thread AFTER each token crosses (the mark never
+        # overstates what the client got), `retired` at the terminal
+        # event.  The daemon owns the journal's lifecycle: close() syncs
+        # and closes it, like it closes the router.
+        self._journal = journal
+        # delivered-mark pacing: a mark finer than the journal's flush
+        # cadence adds ZERO durability — an unflushed mark does not
+        # survive the crash either — so per-token marks just tax the
+        # delivery thread.  Marks land at most every
+        # journal_hw_interval_s per request (matched to the journal's
+        # fsync_interval_s default), understating by at most one
+        # interval of tokens: replay re-emits that suffix and SSE ids
+        # dedup it.  The exact mark lands once, with the terminal.
+        # 0 restores per-token marks.
+        self.journal_hw_interval_s = float(journal_hw_interval_s)
+
         # the ONE lock for router-level mutations (module docstring)
         self._tier_lock = threading.RLock()
-        # per-replica ENGINE locks (module docstring §Locking), keyed by
-        # index — stable across respawns
+        # per-replica ENGINE locks (module docstring §Disaggregation):
+        # a replica's pump holds its own around step(); the watchdog's
+        # handoff pump holds the destination's around admit_prefilled.
+        # Keyed by index — stable across respawns.
         self._engine_locks = {rep.index: threading.Lock()
                               for rep in router.replicas}
+        router._admit_guard = lambda rep: self._engine_locks[rep.index]
         # admission: policy-ordered heap + its own condition variable
         self._adm_cv = threading.Condition()
         self._admission: list[tuple[tuple, DaemonRequest]] = []
@@ -239,7 +307,8 @@ class ServingDaemon:
                          "rejected_with_hint": 0, "done": 0,
                          "cancelled": 0, "failed": 0,
                          "delivered_tokens": 0, "callback_errors": 0,
-                         "pump_faults": 0, "pump_wedges": 0}
+                         "pump_faults": 0, "pump_wedges": 0,
+                         "journal_errors": 0}
         self._work_since: dict[int, float] = {}    # watchdog anchors
         self._threads: list[threading.Thread] = []
         self._started = False
@@ -274,7 +343,8 @@ class ServingDaemon:
                callback: Callable | None = None, priority: int = 0,
                ttft_slo_s: float | None = None,
                tpot_slo_s: float | None = None,
-               sampling=None, trace_ctx=None,
+               sampling=None, idempotency_key: str | None = None,
+               resume_from: int = 0, trace_ctx=None,
                trace_parent: int | None = None) -> DaemonRequest:
         """Thread-safe admission.  Raises :class:`QueueFull` at the
         admission bound, :class:`~.policies.SLOUnmeetable` when the
@@ -284,18 +354,30 @@ class ServingDaemon:
         half of a 429/503 ``Retry-After`` header.  ``callback``
         (``cb(dr, tok)``) runs on the delivery thread, in stream order.
 
+        ``idempotency_key`` rides into the journal so a recovered tier
+        can rebind a client's retry; ``resume_from`` (crash recovery —
+        serving/journal.py) suppresses the first ``resume_from`` tokens
+        of the regenerated stream.  When a journal is wired, the
+        ``admitted`` record lands BEFORE this method returns: a raising
+        journal (:class:`~.journal.JournalWriteError`) means the request
+        was never admitted — no ack without the WAL behind it.
+
         ``trace_ctx`` (utils/tracing.TraceContext) makes the request a
         member of a distributed trace: the daemon opens its own span
-        lane and threads the context through the router to every engine
-        attempt.  ``trace_parent`` is the caller's span id in the shared
-        tier tracer — the daemon span parents under it; when absent the
-        daemon span records the context's ``parent_ctx`` hex edge
-        instead, which is how spans join across processes in a merged
-        export."""
+        lane, threads the context through the router to every engine
+        attempt, and persists the traceparent in the journal's admitted
+        record so a post-crash replay CONTINUES the same trace.
+        ``trace_parent`` is the caller's span id in the shared tier
+        tracer (the front door's http span) — the daemon span parents
+        under it; when absent the daemon span records the context's
+        ``parent_ctx`` hex edge instead, which is how a recovered
+        process's spans join the original trace in a merged export."""
         if self._closed or self._draining:
             raise RuntimeError(
                 "daemon is " + ("closed" if self._closed else "draining")
                 + " — no new requests")
+        if resume_from < 0:
+            raise ValueError(f"resume_from must be >= 0, got {resume_from}")
         with self._adm_cv:
             # bound + policy verdict decided atomically with the insert,
             # so concurrent submitters cannot oversubscribe the bound
@@ -314,11 +396,25 @@ class ServingDaemon:
                                    callback=callback, priority=priority,
                                    ttft_slo_s=ttft_slo_s,
                                    tpot_slo_s=tpot_slo_s, sampling=sampling,
+                                   idempotency_key=idempotency_key,
+                                   resume_from=resume_from,
                                    trace_ctx=trace_ctx)
                 self.policy.admit(dr, queued)
             except QueueFull as exc:
                 self._reject(exc, queued)
                 raise
+            if self._journal is not None:
+                # write-ahead: on disk before the caller hears "yes".  A
+                # raising append propagates — the request was never
+                # admitted, so nothing is lost and nothing is counted.
+                dr.fingerprint = request_fingerprint(
+                    dr.prompt, dr.max_new, dr.sampling)
+                try:
+                    self._journal.admitted(dr)
+                except Exception:
+                    self._count("journal_errors")
+                    raise
+                dr._hw_mark_t = self.clock()
             self._ids += 1
             if self._tracer is not None and trace_ctx is not None:
                 # the request's daemon lane: root span for the whole
@@ -328,7 +424,8 @@ class ServingDaemon:
                 # joins this lane to the upstream span in a merged export
                 ttid = self._tracer.track(f"dreq {dr.id}")
                 kw = dict(trace=trace_ctx.trace_id,
-                          sampled=trace_ctx.sampled, request=dr.id)
+                          sampled=trace_ctx.sampled, request=dr.id,
+                          resume_from=resume_from)
                 if trace_parent is None:
                     kw["parent_ctx"] = trace_ctx.span_id
                 root = self._tracer.begin("daemon_request", cat="daemon",
@@ -354,6 +451,43 @@ class ServingDaemon:
             else:
                 return
 
+    def cancel(self, dr: DaemonRequest,
+               reason: str = "cancelled by caller") -> bool:
+        """Cancel one request wherever it currently is (the front
+        door's client-disconnect path).  Returns False when ``dr``
+        is already terminal, True when cancellation was initiated.
+
+        Still waiting in admission: removed from the heap and ended
+        ``cancelled`` immediately (it holds nothing).  Already in the
+        tier: :meth:`Router.cancel` forces its deadline clocks into the
+        past under the tier lock, so the next pump sweep retires it down
+        the lapsed-deadline path — slot freed, KV pages freed, tracer
+        span closed — and :meth:`_scan_completions` delivers the
+        terminal event.  Conservation stays exact: the request counts
+        ``cancelled``, never dropped."""
+        if dr.done:
+            return False
+        # force the daemon-level clock first: whatever in-between state
+        # the dispatcher has the request in (popped but not dispatched,
+        # requeued after transient backpressure), its next overdue check
+        # cancels it — there is no unguarded window
+        dr.deadline_s = -1e18
+        removed = False
+        with self._adm_cv:
+            for i, (_key, queued_dr) in enumerate(self._admission):
+                if queued_dr is dr:
+                    del self._admission[i]
+                    heapq.heapify(self._admission)
+                    removed = True
+                    break
+        if removed:
+            self._end_request(dr, "cancelled", reason)
+            return True
+        with self._tier_lock:
+            if dr.rr is not None and not dr.rr.done:
+                self.router.cancel(dr.rr, reason=reason)
+        return True
+
     @property
     def outstanding(self) -> int:
         with self._adm_cv:
@@ -377,7 +511,64 @@ class ServingDaemon:
         never entered the tier), so this is where they surface."""
         out = self.router.summary()
         out["daemon"] = self.conservation()
+        if self._journal is not None:
+            out["journal"] = self._journal.stats()
         return out
+
+    # ------------------------------------------------------------------
+    # elastic capacity: the autoscaler's seam.  All three are
+    # thread-safe; scale-ups become dispatchable the moment they return.
+
+    def add_replica(self, role: str = "both"):
+        """Scale-up: append one fresh replica (warm: the kernels are
+        already built and loaded in the process), give it an engine lock, and
+        start its pump thread.  Returns the new
+        :class:`~.replica.Replica`."""
+        if self._closed:
+            raise RuntimeError("daemon is closed")
+        with self._tier_lock:
+            rep = self.router.add_replica(role=role)
+            self._engine_locks.setdefault(rep.index, threading.Lock())
+        self._ensure_pump(rep)
+        return rep
+
+    def restart_replica(self, index: int) -> float:
+        """Scale-up, warm path: respawn a retired (or failed) replica in
+        place through :meth:`Router.restart` — no kernel build or library
+        load runs again (``CompileTracker`` reads 0 and 0), which bounds the scale-up TTFT
+        penalty — and start a fresh pump for it.  Returns the measured
+        bring-up seconds (the autoscaler's TTFT-penalty bound)."""
+        if self._closed:
+            raise RuntimeError("daemon is closed")
+        with self._tier_lock:
+            spawn_s = self.router.restart(index)
+            rep = self.router.replicas[index]
+            self._engine_locks.setdefault(rep.index, threading.Lock())
+        self._ensure_pump(rep)
+        return spawn_s
+
+    def retire_replica(self, index: int) -> bool:
+        """Scale-down, zero-drop: begin the drain (no new dispatches; the
+        pump keeps serving what is in flight).  The watchdog closes the
+        replica once idle (:meth:`Router.finish_retires`) and its pump
+        exits.  False when the router refuses (replica not HEALTHY, or
+        it is the last prefill/decode-capable capacity)."""
+        with self._tier_lock:
+            return self.router.begin_retire(index)
+
+    def _ensure_pump(self, rep) -> None:
+        """Start a pump thread for ``rep`` unless a live one exists.
+        Before :meth:`start` this is a no-op — start() pumps every
+        replica then in ``router.replicas``, scale-ups included."""
+        if not self._started or self._stop.is_set():
+            return
+        name = f"dtm-pump-{rep.index}"
+        if any(t.name == name and t.is_alive() for t in self._threads):
+            return
+        t = threading.Thread(target=self._pump, args=(rep,),
+                             name=name, daemon=True)
+        self._threads.append(t)
+        t.start()
 
     # ------------------------------------------------------------------
     # lifecycle
@@ -438,11 +629,25 @@ class ServingDaemon:
                 dr.final_status = "cancelled"
                 dr.final_error = "daemon closed with request outstanding"
                 self._count("cancelled")
+                if self._journal is not None:
+                    # leftovers bypass the delivery queue (it is already
+                    # joined) — journal their terminal verdict here so a
+                    # clean close leaves zero incomplete entries
+                    try:
+                        self._journal.retired(dr.id, "cancelled",
+                                              dr.final_error)
+                    except Exception:
+                        self._count("journal_errors")
                 self._tr_close_dr(dr, "cancelled")
                 dr._events.put((_END, "cancelled"))
                 dr._done.set()
         with self._tier_lock:
             self.router.close()
+        if self._journal is not None:
+            try:
+                self._journal.close()   # final flush + fsync
+            except Exception:
+                self._count("journal_errors")
         if self._telemetry is not None:
             self._telemetry.unregister_source("daemon")
 
@@ -497,8 +702,10 @@ class ServingDaemon:
                     return
             try:
                 with self._engine_locks[rep.index]:
-                    # re-check under the engine lock: a failover may have
-                    # closed the engine since the loop's first check
+                    # re-check under the engine lock: finish_retires()
+                    # closes a drained replica's engine under this same
+                    # lock, so a pump that raced the idle check must see
+                    # the terminal state here, never step a closed engine
                     if rep.state == FAILED or not rep.alive:
                         return
                     rep.engine.step()
@@ -558,7 +765,7 @@ class ServingDaemon:
                         dr.prompt, dr.max_new, deadline_s=remaining,
                         callback=self._delivery_cb(dr),
                         ttft_slo_s=dr.ttft_slo_s, tpot_slo_s=dr.tpot_slo_s,
-                        sampling=dr.sampling,
+                        sampling=dr.sampling, resume_from=dr.resume_from,
                         trace_ctx=dr.trace_ctx,
                         trace_parent=(dr._tspan["root"]
                                       if dr._tspan is not None else None))
@@ -621,9 +828,43 @@ class ServingDaemon:
                     except Exception:
                         # a sick user callback must not kill delivery
                         self._count("callback_errors")
+                if (self._journal is not None and not dr.external_receipt
+                        and self.clock() - dr._hw_mark_t
+                        >= self.journal_hw_interval_s):
+                    # high-water AFTER the token crossed: the mark may
+                    # UNDERstate what the client holds (crash in the
+                    # seam, or the up-to-one-interval of tokens since
+                    # the last paced mark → a few replayed tokens,
+                    # deduped client-side by their SSE ids) but never
+                    # overstates — replay can re-emit, it can never
+                    # leave a gap.  A sick journal is counted, never a
+                    # delivery casualty.  For front-door requests
+                    # (external_receipt) the callback only ENQUEUES to
+                    # the event loop — marking here would overstate, so
+                    # the front door journals after each drained socket
+                    # write instead (frontend.py).
+                    dr._hw_mark_t = self.clock()
+                    dr._hw_mark_n = dr.total_tokens
+                    try:
+                        self._journal.delivered(dr.id, dr.total_tokens)
+                    except Exception:
+                        self._count("journal_errors")
             else:
                 if not dr._ended:
                     dr._ended = True
+                    if self._journal is not None:
+                        try:
+                            if (not dr.external_receipt
+                                    and dr.total_tokens > 0
+                                    and dr.total_tokens != dr._hw_mark_n):
+                                # the exact mark the pacing skipped — a
+                                # cleanly-retired request always
+                                # journals delivered == total
+                                self._journal.delivered(
+                                    dr.id, dr.total_tokens)
+                            self._journal.retired(dr.id, payload, dr.error)
+                        except Exception:
+                            self._count("journal_errors")
                     self._tr_close_dr(dr, payload)
                     dr._events.put((_END, payload))
                     dr._done.set()
@@ -690,6 +931,15 @@ class ServingDaemon:
         while not self._stop.is_set():
             self._scan_completions()
             with self._tier_lock:
+                try:
+                    self.router._pump_handoffs()
+                except Exception:
+                    pass   # a sick handoff pump must not kill the watchdog
+                if self.router._retiring:
+                    try:
+                        self.router.finish_retires()
+                    except Exception:
+                        pass
                 if self.router._orphans:
                     try:
                         self.router._retry_orphans()
@@ -710,7 +960,13 @@ class ServingDaemon:
         failed over even though its pump never returns."""
         now = self.clock()
         for rep in self.router.replicas:
-            if rep.state != HEALTHY or not rep.alive:
+            # retiring drains are watched too: a replica that wedges with
+            # work mid-retire would stall the scale-down forever — failing
+            # it over instead harvests its in-flight work (still zero-drop)
+            watched = (rep.state == HEALTHY
+                       or (rep.state == DRAINING
+                           and rep.index in self.router._retiring))
+            if not watched or not rep.alive:
                 self._work_since.pop(rep.index, None)
                 continue
             if not rep.engine.has_work:
@@ -728,7 +984,7 @@ class ServingDaemon:
                     frozen_s=round(now - last, 6))
             self._work_since.pop(rep.index, None)
             with self._tier_lock:
-                if rep.state == HEALTHY:
+                if rep.state in (HEALTHY, DRAINING):
                     try:
                         self.router._fail_replica(rep, RuntimeError(
                             f"pump wedged: no progress for "

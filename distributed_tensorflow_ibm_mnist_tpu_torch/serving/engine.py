@@ -101,8 +101,15 @@ every path of the engine once before traffic, so the first request pays
 no build or load.  ``compile_cache_dir`` is accepted and has no effect:
 the kernels' build directory already persists across processes.
 
-``tp``, ``cp`` and ``role`` raise ``NotImplementedError`` away from their
-defaults, naming the ROADMAP.md item that ports them.  The engine is
+Disaggregation: ``role="prefill"`` engines stop each landing where the
+first token would be picked and park it, pages and the last logits row, in
+a handoff outbox (serving/kv_handoff.py); ``role="decode"`` engines take no
+submissions and land those packets through :meth:`admit_prefilled`, so they
+never prefill.  A role needs the paged cache and refuses speculation, as in
+JAX.
+
+``tp`` and ``cp`` raise ``NotImplementedError`` away from their defaults,
+naming the ROADMAP.md item that ports them.  The engine is
 single-threaded: submit and run from one thread (the daemonized tier
 gives each engine one pump thread).
 """
@@ -131,6 +138,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
     check_quant_knobs,
     reset_cache_slots,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.serving import kv_handoff
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.drafter import NgramDrafter
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.kv_pool import (
     KVPagePool,
@@ -140,6 +148,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.serving.kv_pool import (
     paged_reset,
     pages_needed,
     pool_page_bytes,
+    pool_page_leaves,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.prefix_cache import PrefixCache
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.radix_cache import RadixCache
@@ -162,7 +171,6 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTrac
 _REFUSED = {
     "tp": (1, "item 7 ('Remaining parallelism and utilities')"),
     "cp": (1, "item 7 ('Remaining parallelism and utilities')"),
-    "role": ("both", "item 6, sub-slice 5 (disaggregation)"),
 }
 
 # a parked request whose radix match skipped the prefill: the suffix
@@ -172,6 +180,11 @@ _RADIX_PREFILL = object()
 # the "prefilled" payload of a chunked admission parked on a dry pool:
 # nothing ran; the retry starts again from the allocation
 _CHUNK_STALL = object()
+
+# the "first token" _paged_land returns on a prefill-role engine: no token
+# was picked — the landing went to the handoff outbox and the slot is free
+# again (its pages moved to the packet's hold; the caller resets its row)
+_HANDOFF = object()
 
 
 class EngineStalled(RuntimeError):
@@ -227,7 +240,7 @@ class InferenceEngine:
                  compile_cache_dir: str | None = None,
                  chaos=None, tracer=None, trace_tid: int = 0, telemetry=None,
                  device=None):
-        knobs = dict(tp=tp, cp=cp, role=role)
+        knobs = dict(tp=tp, cp=cp)
         for name, value in knobs.items():
             default, where = _REFUSED[name]
             if value != default:
@@ -235,6 +248,18 @@ class InferenceEngine:
                     f"InferenceEngine({name}={value!r}) is not in the PyTorch "
                     f"port yet: ROADMAP.md queue 1, {where}; leave it at "
                     f"{default!r}")
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(
+                f"role must be 'both', 'prefill', or 'decode', got {role!r}")
+        if role != "both" and not kv_page_size:
+            raise ValueError(
+                "disaggregated roles hand KV off as PAGES — role="
+                f"{role!r} needs the paged cache (kv_page_size > 0)")
+        if role != "both" and speculative is not None:
+            raise ValueError(
+                "speculative decoding does not compose with disaggregated "
+                "roles yet — the verify path would have to run on both "
+                "sides, voiding the per-role split")
         if stall_timeout_s is not None and stall_timeout_s <= 0:
             raise ValueError(
                 f"stall_timeout_s must be > 0 (None disables the watchdog), "
@@ -392,7 +417,12 @@ class InferenceEngine:
         self._compile0 = self._compile.snapshot()
         if tracer is not None:
             self._compile.bind(tracer)
-        self.role = "both"  # disaggregated roles: ROADMAP.md item 6, sub-slice 5
+        # disaggregated serving: "both" is the monolithic engine.
+        # "prefill" runs the prefill and the paged extend only and diverts
+        # finished landings to a handoff outbox (serving/kv_handoff.py)
+        # instead of decoding; "decode" accepts handed-off pages through
+        # admit_prefilled() and never prefills
+        self.role = role
         self.model = model
         self.slots = slots
         self.max_len = max_len
@@ -408,7 +438,12 @@ class InferenceEngine:
         self.pad_id = int(pad_id)
         self.writer = writer
         self.clock = clock
-        self.stats = ServingStats(slots, decode_ahead=self.decode_ahead)
+        self.stats = ServingStats(slots, decode_ahead=self.decode_ahead, role=role)
+        # prefill-role outbox: a HandoffPacket per finished prefill, drained
+        # by the router's handoff pump (or the owner directly in tests)
+        self._outbox: deque = deque()
+        self.handoffs_out = 0   # packets packaged (prefill side)
+        self.handoffs_in = 0    # packets landed (decode side)
         self._prefill = make_prefill(model, max_len)
 
         # per-request sampling defaults (requests without SamplingParams)
@@ -557,6 +592,11 @@ class InferenceEngine:
             raise RuntimeError(
                 "engine is " + ("closed" if self._closed else "draining")
                 + " — no new requests")
+        if self.role == "decode":
+            raise RuntimeError(
+                "decode-role engine takes no direct submissions — its work "
+                "arrives prefilled via admit_prefilled (route admissions "
+                "to a prefill/both replica; serving/router.py does)")
         return self.scheduler.submit(prompt, max_new, deadline_s=deadline_s,
                                      callback=callback, ttft_slo_s=ttft_slo_s,
                                      tpot_slo_s=tpot_slo_s, sampling=sampling)
@@ -828,7 +868,9 @@ class InferenceEngine:
         prefix-cache hit) or run the suffix extend over the radix-shared
         prefix, pick the first token, and donate the prompt's fresh full
         blocks to the trie.  Returns ``(first, first_logprob, cache_hit)``
-        or None when the pool cannot cover the request now (a stall)."""
+        or None when the pool cannot cover the request now (a stall).  On a
+        prefill-role engine nothing is picked: the landing is packaged into
+        the handoff outbox and ``first`` is ``_HANDOFF``."""
         row_cache, logits, cache_hit = prefilled
         ps = self._page_size
         n_tok = int(req.tokens.size)
@@ -865,21 +907,30 @@ class InferenceEngine:
                 padded = np.full((1, self.scheduler.bucket_for(suffix.size)),
                                  self.pad_id, np.int64)
                 padded[0, : suffix.size] = suffix
-                self.cache, ext_logits = self._extend(
+                self.cache, logits = self._extend(
                     self.cache, slot, bt_dev, torch.as_tensor(padded, device=self.device),
                     m_tok, int(suffix.size))
-                first, first_logp = self._first_pick(req, ext_logits)
                 self.stats.radix(True, tokens=m_tok)
                 self._radix.record(True, tokens=m_tok)
                 req.radix_tokens = m_tok
             else:
                 self._insert(self.cache, row_cache, bt_dev, slot)
-                first, first_logp = self._first_pick(req, logits)
                 if self._radix is not None:
                     self.stats.radix(False)
                     self._radix.record(False)
                 if self._prefix is not None and not cache_hit:
                     self._prefix.put(req.prefix_key, row_cache, logits)
+        if self.role == "prefill":
+            # disaggregated: stop where the pick would run — the logits row
+            # travels in the packet and the DECODE side picks through the
+            # same shared pick.  Packaged AFTER the donation, so the source
+            # trie shares this prompt's blocks with later prefills (and with
+            # the re-prefill a dead transfer falls back to)
+            if self._radix is not None:
+                self._donate(slot, req, bt_row, m_blocks, path)
+            self._handoff_package(req, slot, logits, bt_row)
+            return _HANDOFF, None, cache_hit
+        first, first_logp = self._first_pick(req, logits)
         if self._radix is not None:
             self._donate(slot, req, bt_row, m_blocks, path)
         return first, first_logp, cache_hit
@@ -911,6 +962,12 @@ class InferenceEngine:
                     return ("stall", prefilled)
                 first, first_logp, cache_hit = landed
                 inserted = True
+                if first is _HANDOFF:
+                    # prefill role: the landing went to the outbox and the
+                    # slot is free again — True asks the caller to reset the
+                    # row's block table unless a later admit overwrites it
+                    self.stats.prefill(self.clock() - t_p)
+                    return True
             else:
                 row_cache, logits, cache_hit = prefilled
                 with torch.no_grad():
@@ -1076,6 +1133,21 @@ class InferenceEngine:
             req = self._slot_req[slot]
             if rec["done"] < int(req.tokens.size):
                 continue
+            if self.role == "prefill":
+                # disaggregated: donate the chunked prompt's blocks to the
+                # source trie, then package instead of picking
+                try:
+                    if self._radix is not None:
+                        self._donate(slot, req, rec["bt"], rec["m_blocks"], rec["path"])
+                    self._handoff_package(req, slot, rec["last"], rec["bt"])
+                except Exception as e:
+                    self._drop_prefilling(slot, req, e, reset_mask)
+                    continue
+                self._slot_req[slot] = None
+                self._slot_prefill[slot] = None
+                self._active_dev = None
+                reset_mask[slot] = True
+                continue
             try:
                 first, first_logp = self._first_pick(req, rec["last"])
                 if self._radix is not None:
@@ -1162,6 +1234,44 @@ class InferenceEngine:
         except Exception as e:
             self._fail(req, e, self.clock())
         self.stats.prefill(self.clock() - t0)
+
+    # ------------------------------------------------------------------
+    # disaggregated prefill/decode handoff (serving/kv_handoff.py)
+
+    def _handoff_package(self, req: Request, slot: int, logits, bt_row) -> None:
+        """Prefill role: read the landed prompt's pages to the host and park
+        the request in the outbox (kv_handoff.package) — the slot's page
+        hold transfers to the packet, nothing frees until the router
+        confirms delivery."""
+        packet = kv_handoff.package(self, req, slot, logits, bt_row)
+        self._outbox.append(packet)
+        self.handoffs_out += 1
+
+    def admit_prefilled(self, packet) -> bool:
+        """Decode side: land a handed-off prefill (kv_handoff.deliver).
+        True = packet consumed (decoding, or terminally failed on its own
+        admission tail); False = re-park and retry later (no free slot, or
+        the all-or-nothing destination allocation found the pool dry —
+        zero writes were issued).  Refused on prefill-role and dense
+        engines, and after close."""
+        if self._closed:
+            raise RuntimeError("engine is closed")
+        if self.role == "prefill":
+            raise RuntimeError(
+                "prefill-role engine cannot accept a handoff — deliver to "
+                "a decode/both replica")
+        if self._pool is None:
+            raise RuntimeError(
+                "handoff needs the paged KV layout (kv_page_size > 0)")
+        return kv_handoff.deliver(self, packet)
+
+    def _reset_slot_now(self, slot: int) -> None:
+        """Immediate one-slot block-table reset + deferred-free flush, for
+        landing paths that run OUTSIDE step() (admit_prefilled)."""
+        mask = np.zeros((self.slots,), bool)
+        mask[slot] = True
+        self._reset(mask)
+        self._flush_freed_pages()
 
     # ------------------------------------------------------------------
     # the host loop
@@ -1560,6 +1670,19 @@ class InferenceEngine:
                 self._cancel_unlanded(req, now)
         self._pending.clear()
         self._stalled_ids.clear()
+        while self._outbox:
+            # packaged-but-undelivered handoffs: accepted work the engine
+            # quit on — cancelled with engine_fault, so the router's
+            # failover harvest re-dispatches exactly these
+            packet = self._outbox.popleft()
+            packet.release()
+            req = packet.req
+            req.engine_fault = True
+            req.status = "cancelled"
+            req.finish_t = now
+            self._tr_close(req, status="cancelled")
+            self.completed.append(req)
+            self.stats.add(req)
         while (req := self.scheduler.pop(now)) is not None:
             req.engine_fault = True
             self._cancel_unlanded(req, now)
@@ -1589,10 +1712,14 @@ class InferenceEngine:
         to the pool."""
         if self._closed:
             raise RuntimeError("engine is closed")
-        if self.has_work:
+        if self.has_work or self._outbox:
+            # a parked handoff packet HOLDS pool pages and radix nodes: the
+            # wholesale trie eviction below assumes no outstanding
+            # references, so an undelivered outbox counts as busy too
             raise RuntimeError(
                 f"swap_params on a busy engine (occupied={self.occupied}, "
-                f"pending={len(self._pending)}, queued={len(self.scheduler)})"
+                f"pending={len(self._pending)}, queued={len(self.scheduler)}, "
+                f"outbox={len(self._outbox)})"
                 " — drain it first (stop submitting, pump step() until "
                 "has_work is False)")
         if self.quant == "int8":
@@ -1613,9 +1740,13 @@ class InferenceEngine:
         build and library load happen here, under ``prefill[b<bucket>]``),
         or the chunk extend; the shared first-token pick; the slot insert
         and, paged, each bucket's suffix extend; the decode or verify window
-        over all-inactive rows; and the slot reset.  Dummy work lands in
-        idle rows and the trash page, and every slot is reset at the end,
-        so prewarmed output is token-identical to cold output.
+        over all-inactive rows; and the slot reset.  A role-typed engine
+        runs its own half: a prefill engine the prefill side and the
+        handoff's page read (no pick, no window), a decode engine the pick,
+        the handoff's page write and the window (no prefill, so no flash
+        launch).  Dummy work lands in idle rows and the trash page, and
+        every slot is reset at the end, so prewarmed output is
+        token-identical to cold output.
 
         Returns ``{"programs", "loads", "compile_s", "wall_s", "by_site"}``:
         the builds and loads this call caused (a second engine in the same
@@ -1635,7 +1766,20 @@ class InferenceEngine:
             bt_dev = (torch.zeros((self.max_len // self._page_size,), dtype=torch.int32,
                                   device=dev) if self._pool is not None else None)
             one = torch.tensor([1], dtype=torch.int32, device=dev)
-            if self._prefill_chunk:
+            if self.role == "decode":
+                # pages arrive through admit_prefilled: the handoff's
+                # one-page write and block-table install, into the trash page
+                last_logits = torch.zeros((1, self.model.num_classes),
+                                          dtype=torch.float32, device=dev)
+                with self._compile.site("handoff_install"):
+                    for entry in pool_page_leaves(self.cache).values():
+                        for pool in entry.values():
+                            pool.index_copy_(0, torch.zeros((1,), dtype=torch.int64, device=dev),
+                                             torch.zeros_like(pool[:1]))
+                    for entry in self.cache.values():
+                        entry["block_table"][0] = bt_dev
+                        entry["index"][0] = 0
+            elif self._prefill_chunk:
                 c = self._prefill_chunk
                 with self._compile.site(f"extend[b{c}]"):
                     self.cache, last_logits = self._extend(
@@ -1646,14 +1790,23 @@ class InferenceEngine:
                     with self._compile.site(f"prefill[b{b}]"):
                         row_cache, last_logits = self._prefill(
                             torch.zeros((1, b), dtype=torch.int64, device=dev), one)
-            zeros_f = torch.zeros((1,), dtype=torch.float32, device=dev)
-            zeros_i = torch.zeros((1,), dtype=torch.int64, device=dev)
-            with self._compile.site("first_pick"):
-                tok, logp = first_pick(
-                    last_logits, zeros_f, zeros_f, zeros_i, zeros_f,
-                    torch.zeros((1, 2), dtype=torch.int64, device=dev), zeros_i)
-                torch.stack((tok.double(), logp.double())).cpu()
-            if not self._prefill_chunk:
+            if self.role == "prefill":
+                # the source half of the handoff: the page read every packet
+                # takes (read-only on the cache)
+                with self._compile.site("handoff_gather"):
+                    for entry in pool_page_leaves(self.cache).values():
+                        for pool in entry.values():
+                            pool.index_select(0, torch.zeros((1,), dtype=torch.int64,
+                                                             device=dev)).cpu()
+            else:
+                zeros_f = torch.zeros((1,), dtype=torch.float32, device=dev)
+                zeros_i = torch.zeros((1,), dtype=torch.int64, device=dev)
+                with self._compile.site("first_pick"):
+                    tok, logp = first_pick(
+                        last_logits, zeros_f, zeros_f, zeros_i, zeros_f,
+                        torch.zeros((1, 2), dtype=torch.int64, device=dev), zeros_i)
+                    torch.stack((tok.double(), logp.double())).cpu()
+            if not self._prefill_chunk and self.role != "decode":
                 with self._compile.site("slot_insert"):
                     if self._pool is not None:
                         self._insert(self.cache, row_cache, bt_dev, 0)
@@ -1665,24 +1818,28 @@ class InferenceEngine:
                             self.cache, _ = self._extend(
                                 self.cache, 0, bt_dev,
                                 torch.zeros((1, b), dtype=torch.int64, device=dev), 0, 1)
-            inactive = torch.zeros((slots,), dtype=torch.bool, device=dev)
-            planes = tuple(torch.zeros(shape, dtype=dtype, device=dev) for shape, dtype in (
-                ((slots,), torch.float32), ((slots,), torch.float32),
-                ((slots,), torch.int64), ((slots,), torch.float32),
-                ((slots, 2), torch.int64)))
-            pos0 = torch.zeros((slots,), dtype=torch.int64, device=dev)
-            if self._drafter is not None:
-                k = self.draft_len + 1
-                with self._compile.site(f"verify_window[k{k}]"):
-                    self.cache = self._verify(
-                        torch.full((slots, k), self.pad_id, dtype=torch.int64, device=dev),
-                        torch.zeros((slots,), dtype=torch.int64, device=dev),
-                        inactive, planes, pos0)[0]
-            else:
-                with self._compile.site(f"decode_window[k{self.decode_ahead}]"):
-                    self.cache = self._window(
-                        torch.zeros((slots,), dtype=torch.int64, device=dev),
-                        inactive, planes, pos0)[0]
+            if self.role != "prefill":
+                # a prefill-role engine never dispatches a window
+                inactive = torch.zeros((slots,), dtype=torch.bool, device=dev)
+                planes = tuple(torch.zeros(shape, dtype=dtype, device=dev)
+                               for shape, dtype in (
+                                   ((slots,), torch.float32), ((slots,), torch.float32),
+                                   ((slots,), torch.int64), ((slots,), torch.float32),
+                                   ((slots, 2), torch.int64)))
+                pos0 = torch.zeros((slots,), dtype=torch.int64, device=dev)
+                if self._drafter is not None:
+                    k = self.draft_len + 1
+                    with self._compile.site(f"verify_window[k{k}]"):
+                        self.cache = self._verify(
+                            torch.full((slots, k), self.pad_id, dtype=torch.int64,
+                                       device=dev),
+                            torch.zeros((slots,), dtype=torch.int64, device=dev),
+                            inactive, planes, pos0)[0]
+                else:
+                    with self._compile.site(f"decode_window[k{self.decode_ahead}]"):
+                        self.cache = self._window(
+                            torch.zeros((slots,), dtype=torch.int64, device=dev),
+                            inactive, planes, pos0)[0]
         with self._compile.site("slot_reset"):
             self._reset(np.ones((slots,), bool))
         delta = CompileTracker.delta(self._compile.snapshot(), before)

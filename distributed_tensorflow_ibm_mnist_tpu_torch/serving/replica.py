@@ -79,9 +79,12 @@ class Replica:
         self.tid = tracer.track(f"replica {self.index}") if tracer is not None else 0
         self.engine = None
         self.state = FAILED  # nothing to serve until spawn()
-        # a replica a scale-down drained CLEAN (not a crash) is ``retired``:
-        # kept for the record's and the vitals' keys; scale-down arrives
-        # with the autoscaler (ROADMAP.md queue 1, item 6, sub-slice 4)
+        # elastic capacity: a retired replica is terminal-FAILED for every
+        # dispatch/liveness purpose (nothing routes to it, its pump exits)
+        # but ``retired`` records that it drained CLEAN — the autoscaler
+        # scaled it down, it did not crash — so vitals and the failover
+        # counters keep the two exits distinguishable.  restart() (warm:
+        # no kernel build or load) clears it on the way back up.
         self.retired = False
         self.spawns = 0
         self.swaps = 0

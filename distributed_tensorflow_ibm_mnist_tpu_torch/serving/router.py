@@ -45,17 +45,29 @@ absorb traffic) → ``engine.swap_params`` (stale prefix/radix caches
 dropped) → re-admit.  Zero requests drop by construction: draining never
 cancels, and N−1 replicas keep serving throughout.
 
-Disaggregation (``roles=``: prefill/decode-typed replicas and the KV
-handoff between them) is ROADMAP.md queue 1 item 6, sub-slice 5; the port
-refuses it.
+Disaggregation — ``roles=`` types each replica: admissions
+dispatch only to ``prefill``/``both`` capacity (least-loaded among them),
+and each router step drains the prefill replicas' outboxes of finished
+prefills (:mod:`~.kv_handoff` packets), delivering each to the
+least-loaded ``decode``/``both`` replica via ``admit_prefilled``.  A
+destination that cannot take a packet RIGHT NOW (no free slot, dry pool)
+re-parks it on its source — admission-stall semantics, retried every
+pump — and the source-side page hold is released only on confirmed
+delivery (deferred source-free), so a transfer that dies anywhere leaves
+the request re-dispatchable down the normal prefill path.  A tier with no
+role-typed replica (all ``"both"``, the default) takes ZERO handoff
+paths — the monolithic behavior is unchanged.
 
 Chaos sites (utils/chaos.py): ``router-dispatch`` fires once per
 router→replica dispatch attempt — a hit excludes that replica for THAT
 request and retries the next-best survivor; ``weight-swap`` fires once per
 swap attempt after the drain and before the params replacement — a hit
 re-admits the replica on its OLD weights (the swap is all-or-nothing) and
-the watcher retries at the next poll.  Both follow the engine's nil-guard
-pattern: zero chaos instructions when unwired.
+the watcher retries at the next poll; ``kv-handoff`` fires once per
+handoff delivery attempt — a hit releases the source hold and re-dispatches
+the request (the delivered high-water mark keeps the replay exactly-once).
+All follow the engine's nil-guard pattern: zero chaos instructions when
+unwired.
 
 Tracing: all replicas share ONE tracer; each gets its own track
 (``replica <i>``), so N host loops render as N lanes, with
@@ -71,6 +83,7 @@ never needs internal locks of its own.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 from typing import Callable
@@ -110,7 +123,8 @@ class RouterRequest:
                  callback: Callable | None,
                  ttft_slo_s: float | None = None,
                  tpot_slo_s: float | None = None,
-                 sampling=None, trace_ctx=None, trace_parent: int | None = None):
+                 sampling=None, resume_from: int = 0,
+                 trace_ctx=None, trace_parent: int | None = None):
         self.id = rid
         self.tokens = np.asarray(tokens, np.int32).reshape(-1)
         self.max_new = int(max_new)
@@ -134,10 +148,14 @@ class RouterRequest:
         self.attempts: list[tuple[int, Request]] = []
         self.excluded: set[int] = set()   # replicas barred for THIS request
         self.redispatches = 0
-        # cross-attempt delivery high-water: a failover retry regenerates
-        # the stream from scratch (a pure function of the seed), and the
-        # wrapper below suppresses everything at or below the mark
-        self.delivered = 0
+        # cross-attempt delivery high-water.  Seeding it above 0
+        # (``resume_from`` — crash recovery, serving/journal.py) makes
+        # the FIRST attempt replay like a failover retry: the engine
+        # regenerates the stream from scratch (pure function of the
+        # seed), and the wrapper below suppresses everything at or below
+        # the mark — the tokens a pre-crash client already received.
+        self.resume_from = int(resume_from)
+        self.delivered = self.resume_from
         self._attempt_delivered = 0       # tokens seen in the CURRENT attempt
         # router-level terminal override: set when the ROUTER ends the
         # request (deadline lapsed between attempts, no replica left)
@@ -198,7 +216,9 @@ class Router:
     — pass ``trace_tid`` and this router's ``tracer``/``telemetry`` to the
     engine, share this router's ``clock`` for deadline coherence, leave
     ``writer=`` unset).  A two-parameter factory ``make_engine(trace_tid,
-    replica_index)`` lets replica ``i`` pick its own device.
+    replica_index)`` lets replica ``i`` pick its own device.  ``roles``
+    types each replica ``"both"``, ``"prefill"`` or ``"decode"``
+    (disaggregation; module docstring).
     ``probe=`` optionally layers a policy health check (``probe(replica)
     -> bool``) over the structural one; a False verdict fails the replica
     exactly like an engine-wide fault.  ``max_drain_steps`` bounds how
@@ -214,11 +234,9 @@ class Router:
                  telemetry=None, roles: list | None = None):
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-        if roles is not None:
-            raise NotImplementedError(
-                "Router(roles=...) (disaggregated prefill/decode replicas) is "
-                "not in the PyTorch port yet: ROADMAP.md queue 1, item 6, "
-                "sub-slice 5 (disaggregation)")
+        if roles is not None and len(roles) != n_replicas:
+            raise ValueError(
+                f"roles has {len(roles)} entries for {n_replicas} replicas")
         self.clock = clock
         self._chaos = chaos
         self._tracer = tracer
@@ -234,13 +252,35 @@ class Router:
         self._probe = probe
         self.max_drain_steps = int(max_drain_steps)
         self.tid = tracer.track("router") if tracer is not None else 0
-        self.replicas = [Replica(i, make_engine, tracer=tracer)
-                         for i in range(n_replicas)]
+        # kept for elastic capacity: add_replica() builds new replicas
+        # through the SAME factory construction built with; the kernels
+        # are built and loaded once a process, so every scale-up is warm
+        self._make_engine = make_engine
+        self.replicas = [
+            Replica(i, make_engine, tracer=tracer,
+                    role=(roles[i] if roles is not None else "both"))
+            for i in range(n_replicas)]
         for rep in self.replicas:
             rep.spawn()
-        # the record keeps JAX's handoff counters; no replica hands off
-        self.handoffs = 0
-        self.handoff_faults = 0
+        if roles is not None and not any(
+                r.role in ("prefill", "both") for r in self.replicas):
+            raise ValueError(
+                "roles leaves no prefill-capable replica — nothing could "
+                "ever admit a prompt")
+        if roles is not None and not any(
+                r.role in ("decode", "both") for r in self.replicas):
+            raise ValueError(
+                "roles leaves no decode-capable replica — nothing could "
+                "ever produce a token")
+        self.handoffs = 0        # packets delivered prefill → decode
+        self.handoff_faults = 0  # kv-handoff chaos hits (re-dispatched)
+        # daemon seam: ``admit_prefilled`` mutates the DESTINATION engine,
+        # which in the daemonized tier is concurrently stepped by its own
+        # pump thread — the daemon installs a per-replica lock factory
+        # here (``_admit_guard(replica) -> context manager``) so the
+        # landing serializes with that pump.  The step-pumped tier is
+        # single-threaded and leaves it None (zero overhead).
+        self._admit_guard: Callable | None = None
         self._ids = itertools.count()
         self.requests: list[RouterRequest] = []   # submit order, forever
         # engine Request (by object identity) -> owning RouterRequest: the
@@ -252,10 +292,11 @@ class Router:
         # the zero-drop guarantee under transient backpressure
         self._orphans: list[RouterRequest] = []
         self.failovers = 0   # replicas failed over
-        # scale-down arrives with the autoscaler (ROADMAP.md queue 1, item
-        # 6, sub-slice 4); the record keeps JAX's key
-        self.retires = 0
-        self.scale_ups = 0   # replicas restarted
+        self.retires = 0     # replicas drained and retired (scale-down)
+        self.scale_ups = 0   # replicas added/restarted for capacity
+        # replica indices mid-retire: DRAINING (undispatchable, still
+        # pumped) until idle, then closed clean by finish_retires()
+        self._retiring: set[int] = set()
         self.swapped_steps: list[int] = []  # checkpoint steps hot-swapped in
         # the newest (params, step) any hot_swap delivered: a restarted
         # replica re-applies these — the factory rebuilds on its ORIGINAL
@@ -273,7 +314,8 @@ class Router:
                callback: Callable | None = None,
                ttft_slo_s: float | None = None,
                tpot_slo_s: float | None = None,
-               sampling=None, trace_ctx=None, trace_parent: int | None = None
+               sampling=None, resume_from: int = 0,
+               trace_ctx=None, trace_parent: int | None = None
                ) -> RouterRequest:
         """Place one request on the least-loaded healthy replica.  Raises
         :class:`NoHealthyReplica` when no replica can be tried and
@@ -282,21 +324,59 @@ class Router:
         ``ttft_slo_s``/``tpot_slo_s`` ride to every attempt (see
         :class:`RouterRequest` for the per-attempt clock semantics);
         ``sampling`` (serving/sampling.SamplingParams) rides identically,
-        so a failover replay consumes the same seed.  ``trace_ctx``
+        so a failover replay consumes the same seed.  ``resume_from``
+        (crash recovery — serving/journal.py) seeds the delivered
+        high-water mark: the first attempt regenerates the whole stream
+        but only tokens past the mark reach ``callback``.  ``trace_ctx``
         (utils/tracing.TraceContext) joins every attempt's engine spans
         into the request's distributed trace; ``trace_parent`` is the
         caller's span id in the SHARED tier tracer (the attempt spans
         re-parent under it)."""
         if self._closed:
             raise RuntimeError("router is closed")
+        if resume_from < 0:
+            raise ValueError(f"resume_from must be >= 0, got {resume_from}")
         rr = RouterRequest(next(self._ids), prompt, max_new, deadline_s,
                            self.clock(), callback,
                            ttft_slo_s=ttft_slo_s, tpot_slo_s=tpot_slo_s,
-                           sampling=sampling, trace_ctx=trace_ctx,
-                           trace_parent=trace_parent)
+                           sampling=sampling, resume_from=resume_from,
+                           trace_ctx=trace_ctx, trace_parent=trace_parent)
         self._dispatch(rr)   # propagates QueueFull / NoHealthyReplica
         self.requests.append(rr)
         return rr
+
+    def cancel(self, rr: RouterRequest,
+               reason: str = "cancelled by caller") -> bool:
+        """Cancel one logical request wherever it currently is (the
+        client-disconnect path).  Returns False when ``rr`` is
+        already terminal, True when cancellation was initiated.
+
+        No new teardown machinery: the deadline clocks the request rides
+        are forced into the past, so the SAME sweeps that retire a lapsed
+        deadline collect it — the engine's per-iteration sweep for
+        running/prefilling rows (slot freed, pages freed, tracer span
+        closed), ``scheduler.pop`` for engine-queued ones, the handoff
+        pump for parked prefill packets, orphan retry for unplaced
+        requests.  A deadline-cancel is the request's OWN terminal state
+        (``engine_fault`` stays False), so failover never resurrects it.
+        Call under the tier lock in the daemonized tier (the daemon's
+        :meth:`~.daemon.ServingDaemon.cancel` does)."""
+        if rr.done:
+            return False
+        rr.deadline_s = -1e18   # overdue everywhere, immediately
+        req = rr.req
+        if req is not None and req.status not in ("done", "cancelled",
+                                                  "failed"):
+            req.deadline_s = -1e18
+        elif req is None and rr.final_status is None:
+            # never dispatched (or orphaned pre-attempt): terminal now —
+            # nothing downstream holds resources for it
+            rr.final_status = "cancelled"
+            rr.final_error = reason
+        if self._tracer is not None:
+            self._tracer.instant("request_cancelled", cat="router",
+                                 tid=self.tid, request=rr.id, reason=reason)
+        return True
 
     def _wrap_callback(self, rr: RouterRequest) -> Callable:
         def _cb(_req, tok):
@@ -317,9 +397,13 @@ class Router:
         """
         full: list[Replica] = []
         while True:
+            # admissions go to PREFILL capacity: decode-role replicas take
+            # no prompts (their engines refuse submit() outright) — their
+            # work arrives as handoff packets through _pump_handoffs
             cands = sorted(
                 (r for r in self.healthy()
-                 if r.index not in rr.excluded and r not in full),
+                 if r.role in ("prefill", "both")
+                 and r.index not in rr.excluded and r not in full),
                 key=lambda r: r.load)
             if not cands:
                 if full:
@@ -367,7 +451,7 @@ class Router:
             self._owner[id(req)] = rr
             if rr.trace_ctx is not None:
                 # distributed trace join: stamp the context on the engine
-                # attempt (the telemetry exemplars read it) and claim
+                # attempt (exemplars + handoff packets read it) and claim
                 # the engine's request span for the trace — re-parented
                 # under the daemon's span, replays LINKED to the attempt
                 # they replace (not silent restarts)
@@ -427,11 +511,146 @@ class Router:
                                 "failover_error", cat="router", tid=rep.tid,
                                 replica=rep.index,
                                 error=f"{type(fe).__name__}: {fe}")
+        self._pump_handoffs()
+        if self._retiring:
+            self.finish_retires()
         if self._orphans:
             self._retry_orphans()
         if self._telemetry is not None:
             self._telemetry.maybe_sample()
         return produced
+
+    # ------------------------------------------------------------------
+    # prefill → decode handoff (disaggregated tiers; module docstring)
+
+    def _handoff_target(self, rr: RouterRequest | None):
+        """Least-loaded healthy DECODE-capable replica eligible for this
+        request, or None (re-park and retry next pump)."""
+        excluded = rr.excluded if rr is not None else set()
+        cands = sorted(
+            (r for r in self.healthy()
+             if r.role in ("decode", "both") and r.index not in excluded),
+            key=lambda r: r.load)
+        return cands[0] if cands else None
+
+    def _pump_handoffs(self) -> int:
+        """Drain every live prefill-capable replica's outbox, delivering
+        each packet to decode capacity.  Undeliverable packets re-park on
+        their SOURCE outbox (pages still held — deferred source-free), so
+        a source that later dies converts them to engine_fault casualties
+        via its close() and the ordinary failover harvest.  Returns
+        packets delivered this pump."""
+        delivered = 0
+        for rep in self.replicas:
+            if rep.state == FAILED or not rep.alive:
+                continue
+            outbox = getattr(rep.engine, "_outbox", None)
+            if not outbox:
+                continue
+            for _ in range(len(outbox)):
+                packet = outbox.popleft()
+                rr = self._owner.get(id(packet.req))
+                if rr is not None and rr.req is not packet.req:
+                    # a stale attempt's packet (the request already failed
+                    # over while parked): the hold is all that's left
+                    self._release_packet(rep, packet)
+                    continue
+                if rr is not None and self.clock() > rr.overdue_at:
+                    self._release_packet(rep, packet)
+                    rr.final_status = "cancelled"
+                    rep.engine._tr_close(packet.req, status="cancelled")
+                    continue
+                if self._chaos is not None:
+                    # one kv-handoff event per delivery ATTEMPT: a hit is
+                    # the transfer dying in flight
+                    spec = self._chaos.fire("kv-handoff")
+                    if spec is not None:
+                        self.handoff_faults += 1
+                        self._handoff_fault(rep, packet, rr, spec)
+                        continue
+                dest = self._handoff_target(rr)
+                if dest is None:
+                    outbox.append(packet)
+                    continue
+                guard = (self._admit_guard(dest)
+                         if self._admit_guard is not None
+                         else contextlib.nullcontext())
+                try:
+                    with guard:
+                        ok = dest.engine.admit_prefilled(packet)
+                except Exception as e:
+                    # engine-wide destination fault (the landing tail's
+                    # own failures return True): re-park, fail the dest —
+                    # its harvest runs now, the packet retries next pump
+                    outbox.append(packet)
+                    if dest.state != FAILED:
+                        self._fail_replica(dest, e)
+                    continue
+                if not ok:
+                    outbox.append(packet)   # no slot / dry pool: stall
+                    continue
+                self._release_packet(rep, packet)
+                delivered += 1
+                self.handoffs += 1
+                if rr is not None:
+                    rr.replica = dest.index
+                if self._tracer is not None:
+                    kw = {}
+                    t = getattr(packet.req, "trace", None)
+                    if t is not None:
+                        kw["parent"] = t["id"]
+                    if packet.trace_ctx is not None:
+                        kw["trace"] = packet.trace_ctx.trace_id
+                    self._tracer.instant(
+                        "handoff_delivered", cat="router", tid=dest.tid,
+                        request=getattr(packet.req, "id", None),
+                        source=rep.index, replica=dest.index,
+                        pages=packet.n_pages,
+                        bytes=packet.payload_bytes, **kw)
+        return delivered
+
+    def _release_packet(self, rep: Replica, packet) -> None:
+        """Free a packet's source-side hold under the SOURCE replica's
+        engine guard: the port's pool and trie are plain host objects that
+        the source's pump thread mutates inside ``step()``, so the release
+        serializes with it (the step-pumped tier has no guard)."""
+        guard = (self._admit_guard(rep) if self._admit_guard is not None
+                 else contextlib.nullcontext())
+        with guard:
+            packet.release()
+
+    def _handoff_fault(self, rep: Replica, packet, rr: RouterRequest | None,
+                       spec) -> None:
+        """A kv-handoff chaos hit: the in-flight transfer died.  Release
+        the source hold, close out the dead attempt, and re-dispatch the
+        request down the normal prefill path — the source is NOT excluded
+        (its trie still holds the prompt's blocks, making it the cheapest
+        retry), and the delivered high-water mark keeps the replayed
+        prefix exactly-once."""
+        self._release_packet(rep, packet)
+        req = packet.req
+        req.engine_fault = True
+        req.status = "cancelled"
+        req.finish_t = self.clock()
+        rep.engine._tr_close(req, status="cancelled")
+        rep.engine.completed.append(req)
+        rep.engine.stats.add(req)
+        if self._tracer is not None:
+            self._tracer.instant(
+                "handoff_fault", cat="router", tid=rep.tid,
+                request=getattr(req, "id", None), source=rep.index,
+                fault_kind=spec.kind)
+        if rr is None or rr.req is not req:
+            return
+        rr.redispatches += 1
+        try:
+            self._dispatch(rr)
+        except (QueueFull, NoHealthyReplica) as e:
+            if isinstance(e, NoHealthyReplica) and not self.healthy():
+                rr.final_status = "failed"
+                rr.final_error = f"{type(e).__name__}: {e}"
+                return
+            self._orphans.append(rr)
 
     def _telemetry_vitals(self) -> dict:
         """Health-sampler source: cluster counters + per-replica vitals
@@ -443,7 +662,7 @@ class Router:
             "failovers": self.failovers,
             "retires": self.retires,
             "scale_ups": self.scale_ups,
-            "retiring": 0,
+            "retiring": len(self._retiring),
             "orphans": len(self._orphans),
             "router_requests": len(self.requests),
             "outstanding": sum(1 for rr in self.requests if not rr.done),
@@ -589,6 +808,94 @@ class Router:
             rep.weight_step = step
         return spawn_s
 
+    # ------------------------------------------------------------------
+    # elastic capacity: scale-up appends/restarts replicas
+    # through the construction factory; scale-down drains before closing
+
+    def add_replica(self, role: str = "both") -> Replica:
+        """Scale-up: append one fresh replica built through the SAME
+        factory this router was constructed with (warm: the spawn builds
+        and loads no kernel).  When the tier has hot-swapped
+        weights since construction, the new replica immediately re-applies
+        the CURRENT weights and is stamped with their step, so a
+        late-spawned replica never serves the factory's stale originals
+        (the :class:`WeightWatcher` completeness check reads the stamp).
+        Returns the new replica, HEALTHY and dispatchable."""
+        if self._closed:
+            raise RuntimeError("router is closed")
+        rep = Replica(len(self.replicas), self._make_engine,
+                      tracer=self._tracer, role=role)
+        rep.spawn()
+        self.replicas.append(rep)
+        self.scale_ups += 1
+        if self._current_weights is not None:
+            params, step = self._current_weights
+            rep.engine.swap_params(params)  # fresh engine: trivially idle
+            rep.weight_step = step
+        if self._tracer is not None:
+            self._tracer.instant(
+                "replica_added", cat="router", tid=rep.tid,
+                replica=rep.index, role=rep.role,
+                spawn_s=round(rep.spawn_s, 6))
+        return rep
+
+    def begin_retire(self, index: int) -> bool:
+        """Scale-down, phase 1: mark replica ``index`` DRAINING — no new
+        dispatches or handoff landings, but its pump keeps stepping it
+        until the in-flight work retires (zero-drop by construction, the
+        same drain discipline as a weight swap).  Refused (False) when the
+        replica is not HEALTHY or when retiring it would leave the tier
+        without prefill- or decode-capable capacity — the autoscaler's
+        floor, enforced where it cannot be forgotten."""
+        rep = self.replicas[index]
+        if rep.state != HEALTHY or not rep.alive:
+            return False
+        survivors = [r for r in self.healthy() if r.index != index]
+        if not any(r.role in ("prefill", "both") for r in survivors) or \
+                not any(r.role in ("decode", "both") for r in survivors):
+            return False
+        rep.state = DRAINING
+        self._retiring.add(index)
+        if self._tracer is not None:
+            self._tracer.instant("retire_drain_begin", cat="router",
+                                 tid=rep.tid, replica=rep.index)
+        return True
+
+    def finish_retires(self) -> list[int]:
+        """Scale-down, phase 2: close every retiring replica that has
+        drained idle (no slot work, no queued work, no parked handoff
+        packets).  The idle check and the close are atomic under the
+        replica's engine guard (``_admit_guard``) so a daemon pump is
+        never mid-``step()`` when the engine closes under it.  A replica
+        that FAILED mid-drain is dropped from the retiring set — the
+        failover harvest already owns its exit.  Returns the indices
+        retired by THIS call; runs every router step / daemon watchdog
+        tick while any retire is pending."""
+        done: list[int] = []
+        for index in sorted(self._retiring):
+            rep = self.replicas[index]
+            if rep.state == FAILED or not rep.alive:
+                self._retiring.discard(index)
+                continue
+            guard = (self._admit_guard(rep)
+                     if self._admit_guard is not None
+                     else contextlib.nullcontext())
+            with guard:
+                if (rep.engine.has_work
+                        or len(getattr(rep.engine, "_outbox", ()))):
+                    continue
+                rep.close()
+            rep.state = FAILED
+            rep.retired = True
+            self._retiring.discard(index)
+            self.retires += 1
+            done.append(index)
+            if self._tracer is not None:
+                self._tracer.instant(
+                    "replica_retired", cat="router", tid=rep.tid,
+                    replica=rep.index, spawns=rep.spawns)
+        return done
+
     def swap_replica(self, rep: Replica, params) -> bool:
         """Drain → swap → re-admit ONE replica; the others keep serving.
         Returns False without harm when the swap cannot proceed (replica
@@ -602,7 +909,11 @@ class Router:
             self._tracer.instant("swap_drain_begin", cat="router",
                                  tid=rep.tid, replica=rep.index)
         steps = 0
-        while rep.engine is not None and rep.alive and rep.engine.has_work:
+        # a parked handoff packet holds pool pages and radix nodes, so a
+        # non-empty outbox is in-flight work for the drain: swap_params
+        # evicts the trie wholesale and must not free pages a packet holds
+        while rep.engine is not None and rep.alive and (
+                rep.engine.has_work or len(getattr(rep.engine, "_outbox", ()))):
             self.step()  # the whole tier keeps moving while rep drains
             steps += 1
             if steps >= self.max_drain_steps:

@@ -43,11 +43,14 @@ Sites and their consumers in the port:
 ``daemon-pump``           one event per pump-thread activation
                           (serving/daemon.py); ``kind="wedge"`` parks the
                           pump, other kinds raise in it.
+``kv-handoff``            one event per handoff delivery attempt
+                          (serving/router.py); a hit releases the source
+                          hold and re-dispatches the request.
+``journal-write``         one event per journal append (serving/journal.py);
+                          ``kind="torn"`` writes half a record,
+                          ``kind="corrupt"`` flips a byte, other kinds raise
+                          ``JournalWriteError``.
 ========================  ====================================================
-
-``SITES`` keeps the JAX package's ``kv-handoff`` and ``journal-write``
-sites too; their consumers (disaggregation and the request journal) are
-ROADMAP.md queue 1 item 6's sub-slices 5 and 4.
 
 Every hook is guarded by ``if <owner>._chaos is not None`` at the call
 site: a run built without an injector executes no chaos instruction.

@@ -10,7 +10,8 @@
   order, ``make_bucket_layout`` gives JAX's slots and ``bucket_sizes``
   exactly; JAX's roundtrip, balance, mixed-dtype and error cases;
 * the launcher: a rank that raises fails ``spawn`` with its traceback, a
-  rank that outlives the limit is killed, a single process joins nothing,
+  torn result file reads as no result, a rank that outlives the limit is
+  killed, a single process joins nothing,
   the mesh refuses what it cannot build, and no spawned rank imports JAX.
 
 The ranks run in one module-scoped spawn (``tests/torch_dp_ranks.py``,
@@ -169,6 +170,15 @@ def test_spawn_fails_with_the_rank_traceback(tmp_path):
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
         torchrun.spawn(ranks.raise_on_rank_1, 2, "gloo", "cpu", tmp_path / "store",
                        timeout=120)
+
+
+def test_spawn_reports_a_torn_result_as_no_result(tmp_path):
+    # a rank killed mid-write used to surface as the parent's EOFError
+    store = tmp_path / "store"
+    with pytest.raises(RuntimeError, match="rank 0: exit code 9, no result"):
+        torchrun.spawn(ranks.torn_result_on_rank_0, 2, "gloo", "cpu", store,
+                       args=(str(store),), timeout=120)
+    assert not list(tmp_path.iterdir())
 
 
 def test_spawn_kills_ranks_past_the_limit(tmp_path):

@@ -171,13 +171,15 @@ def test_daemon_streams_equal_the_reference_and_jax(weights, daemons):
 def test_refusals_name_their_sub_slice(weights, daemons):
     _, _, sd = weights
     router = Router(_factory(sd), 1)
-    with pytest.raises(NotImplementedError, match="sub-slice 4"):
-        ServingDaemon(router, journal=object())
-    router.replicas[0]._role = "prefill"
-    router.replicas[0].engine.role = "prefill"
-    with pytest.raises(NotImplementedError, match="sub-slice 5"):
-        ServingDaemon(router)
-    router.replicas[0].engine.role = "both"
+    # the journal and a role-typed tier are ported: what stays refused is
+    # a negative delivered-mark interval, a role without the paged cache,
+    # and the tp=2 reshard of a role-typed tier (ROADMAP.md item 7's title)
+    with pytest.raises(ValueError, match="journal_hw_interval_s"):
+        ServingDaemon(router, journal_hw_interval_s=-1)
+    with pytest.raises(ValueError, match="needs the paged cache"):
+        Router(_factory(sd, role="prefill"), 1, roles=["prefill"])
+    with pytest.raises(NotImplementedError, match="Remaining parallelism and utilities"):
+        Router(_factory(sd, role="decode", kv_page_size=8, tp=2), 1, roles=["decode"])
     d = _daemon(daemons, router, max_queue=2)   # never started: the queue fills
     d.submit([1, 2], 2)
     d.submit([3, 4], 2)

@@ -167,8 +167,11 @@ def test_backpressure_no_healthy_and_refused_knobs():
     r.close()
     with pytest.raises(RuntimeError, match="closed"):
         r.submit([1, 2], max_new=4)
-    with pytest.raises(NotImplementedError, match="item 6, sub-slice 5"):
-        Router(tiny, 2, roles=["prefill", "decode"])
+    # roles= is ported (tests/test_torch_disagg.py): JAX's refusals stay
+    with pytest.raises(ValueError, match="roles has 1 entries"):
+        Router(tiny, 2, roles=["prefill"])
+    with pytest.raises(RuntimeError, match="role"):
+        Router(tiny, 2, roles=["prefill", "decode"])   # a "both" engine
     with pytest.raises(ValueError):
         Router(tiny, 0)
 

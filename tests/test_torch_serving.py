@@ -142,7 +142,8 @@ def test_callback_failure_is_isolated():
 # decode_ahead, prefix_cache_bytes, kv_page_size, speculative,
 # prefill_chunk and quant are ported: their cases now hold the refusals of
 # bad values that the JAX engine makes too.  chaos, tracer and telemetry are
-# ported too (tests/test_torch_router.py holds them against JAX's)
+# ported too (tests/test_torch_router.py holds them against JAX's), and so
+# is role (tests/test_torch_disagg.py): its cases hold JAX's refusals
 @pytest.mark.parametrize("knob, error, match", [
     pytest.param(dict(decode_ahead=0), ValueError, "decode_ahead", id="decode_ahead"),
     pytest.param(dict(speculative="beam"), ValueError, "speculative", id="speculative"),
@@ -152,8 +153,9 @@ def test_callback_failure_is_isolated():
     pytest.param(dict(tp=2), NotImplementedError, "ROADMAP.md queue 1, item 7", id="tp"),
     pytest.param(dict(cp=2), NotImplementedError, "ROADMAP.md queue 1, item 7", id="cp"),
     pytest.param(dict(quant="int4"), ValueError, "quant", id="quant"),
-    pytest.param(dict(role="prefill"), NotImplementedError, "item 6, sub-slice 5",
-                 id="role"),
+    pytest.param(dict(role="prefill"), ValueError, "needs the paged cache", id="role"),
+    pytest.param(dict(role="decode", kv_page_size=8, speculative="ngram"), ValueError,
+                 "speculative decoding does not compose with disaggregated", id="role_spec"),
 ])
 def test_later_slice_knobs_refuse(knob, error, match):
     _, _, tm = _pair()

@@ -87,6 +87,18 @@ def raise_on_rank_1(rank: int) -> int:
     return rank
 
 
+def torn_result_on_rank_0(rank: int, store: str) -> int:
+    """Rank 0 leaves the torn result file of a rank killed while writing
+    it (the first bytes of a pickle) and dies without a result of its own."""
+    if rank == 0:
+        import os
+
+        with open(f"{store}.rank0.out", "wb") as fh:
+            fh.write(b"\x80\x05\x95")
+        os._exit(9)
+    return rank
+
+
 def sleep_past_the_limit(rank: int, seconds: float) -> int:
     import time
 
