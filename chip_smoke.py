@@ -267,13 +267,36 @@ never JAX or the JAX package.  Phases, one JSON line each:
    router steps loaded <= 1.15 x control, a ``kv-handoff`` fault on the
    first delivery (exactly-once, pools at refcount zero), each packet's
    pages, bytes, read and install milliseconds, bf16 agreement recorded;
+15e. lm_vit_follow_ups — MoE blocks, dropout and learned positions at
+   full width, one line per part: (a) ``bench_lm8k`` with 2 of 4 blocks
+   MoE (8 experts, top-2, capacity factor 2.0, z-loss 1e-3) and dropout
+   0.1 through ``fit()`` (8 steps): finite losses, ``moe_dropped_frac`` in
+   [0, 1], float32 parameters and Adam state, K3 == depth x (steps + eval
+   batches), K4 == depth x steps; its tokens/s beside the dense model's
+   under float32 masters and under bf16 masters (the store before the
+   repair) in the order A B C C B A, a profiled step, and each MoE stage's
+   device time (router, dispatch, expert FFN, combine) and one block's
+   attention at the step's shape; (b) a float32 twin at S=1024: the loss
+   and gradients under block remat equal the plain step's (``FU_REMAT_REL``)
+   while a recompute drawing fresh masks, planted, fails that gate; the
+   keep fraction inside 5 sigma; eval with dropout 0.1 bit-equal to
+   dropout 0; (c) the serving LM with MoE blocks (capacity 8.0) serves
+   phase 3's 16 requests, dense and paged, beside the dense model (K3 ==
+   depth x whole-prompt prefills), and on a float32 twin the engine's
+   streams equal ``make_generator``'s and teacher-forced decode equals
+   the full forward within 2e-4; (d) ``pos="learned"`` for 4 steps:
+   ``pos_embed`` (1, 8192, 512) moves, K3/K4 as (a), ``Trainer.generate``
+   refuses; (e) the ViT with 4 of 8 blocks MoE, dropout 0.1 and
+   ``fused_xent`` for one epoch: K1 == K2 == steps, K3/K4 as phase 14,
+   ``moe_dropped_frac`` recorded, images/s beside phase 14's;
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2, each
    ``serving_features`` and ``serving_spec_quant_chunk`` run's for K3,
    the ``fault_tolerant_training`` runs' for K1-K4, the
-   ``serving_tier`` runs' for K3 and K4 and the ``serving_edge`` runs' for
-   K3, by replica role on the disaggregated tier, beside them),
+   ``serving_tier`` runs' for K3 and K4, the ``serving_edge`` runs' for
+   K3, by replica role on the disaggregated tier, and the
+   ``lm_vit_follow_ups`` runs' for K1-K4, beside them),
    largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
@@ -4742,6 +4765,417 @@ def phase_serving_edge(torch, fa, xent, tmp: Path) -> dict:
     return out
 
 
+# --------------------------------------- the causal-LM and ViT follow-ups
+
+FU_MOE = {"moe_every": 2, "n_experts": 8, "moe_top_k": 2, "moe_capacity_factor": 2.0,
+          "moe_z_weight": 1e-3}
+# (a): bench_lm8k with 2 of its 4 blocks MoE and dropout 0.1, one epoch
+FU_LM_CFG = dict(LM_CFG, name="bench_lm8k_moe_dropout",
+                 model_kwargs={**LM_CFG["model_kwargs"], **FU_MOE, "dropout": 0.1})
+# (a): the dense bench_lm8k with bf16 masters, the store before the repair
+FU_BF16_MASTERS_CFG = dict(LM_CFG, name="bench_lm8k_bf16_masters",
+                           model_kwargs={**LM_CFG["model_kwargs"], "param_dtype": "bf16"})
+FU_STAGE_REPS = (3, 2)  # gpu_ms (reps, inner) of each MoE stage at the step's shape
+# (b): a float32 twin of (a)'s model at S=1024, batch 2; the gradients with
+# remat="blocks" against without, each tensor relative to its largest: the
+# same masks make them equal up to K4's dQ atomics and the MoE backward's
+# accumulation order
+FU_REMAT_SEQ, FU_REMAT_BATCH = 1024, 2
+FU_REMAT_REL = 1e-4
+# (c): the serving LM with MoE blocks, capacity ample for every call
+FU_SERVE_MOE = {"moe_every": 2, "n_experts": 8, "moe_top_k": 2, "moe_capacity_factor": 8.0}
+FU_DECODE_TOL = 2e-4  # teacher-forced decode vs the full forward: JAX's test_generate.py:635
+# (d): learned positions, 4 steps
+FU_LEARNED_STEPS = 4
+FU_LEARNED_CFG = dict(LM_CFG, name="bench_lm8k_learned_pos",
+                      n_train=FU_LEARNED_STEPS * LM_CFG["batch_size"],
+                      model_kwargs={**LM_CFG["model_kwargs"], "pos": "learned"})
+# (e): the ViT with 4 of its 8 blocks MoE (top-1) and dropout 0.1
+FU_VIT_CFG = dict(VIT_CFG, name="vit_d512_p2_moe_dropout",
+                  model_kwargs={**VIT_KW, "moe_every": 2, "dropout": 0.1})
+
+
+def fu_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict):
+    """A Trainer on ``cfg_dict`` through ``fit()``: the trainer and a
+    record (losses, launches, peak memory, the summary's rates)."""
+    kw = dict(cfg_dict)
+    mk = dict(kw.pop("model_kwargs"))
+    if mk.get("param_dtype") == "bf16":
+        mk["param_dtype"] = torch.bfloat16
+    cfg = RunConfig(**kw, model_kwargs=mk)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, device="cuda")
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, xent)
+    summary = trainer.fit()
+    counts = read_counts(fa, xent)
+    h = trainer.history[-1]
+    rec = {"config": cfg_dict["name"], "setup_s": round(setup_s, 3),
+           "steps": trainer.state.step,
+           "eval_batches": -(-cfg.n_test // cfg.eval_batch_size),
+           "train_loss": h["train_loss"], "test_loss": h.get("test_loss"),
+           "moe_dropped_frac": h.get("moe_dropped_frac"),
+           "total_time_s": summary["total_time_s"],
+           "fit_per_sec_per_chip": summary["images_per_sec_per_chip"],
+           "mfu_fit": summary["mfu"], "flops_per_example": trainer._flops_per_image,
+           "param_count": summary["param_count"],
+           "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+           "launches": counts}
+    check(all(math.isfinite(x) for x in (rec["train_loss"], rec["test_loss"])),
+          f"{rec['config']}: non-finite loss {rec}")
+    return trainer, rec
+
+
+def fu_check_flash(rec: dict, depth: int) -> None:
+    """K3 == depth x (steps + eval batches), K4 == depth x steps, no other
+    backward kernel."""
+    c, steps = rec["launches"], rec["steps"]
+    check(c["flash_fwd"] == depth * (steps + rec["eval_batches"]),
+          f"{rec['config']}: K3 launched {c['flash_fwd']} times, expected depth x "
+          f"(steps + eval batches) = {depth * (steps + rec['eval_batches'])}")
+    check(c["flash_bwd_fused"] == depth * steps,
+          f"{rec['config']}: K4 launched {c['flash_bwd_fused']} times, expected "
+          f"depth x steps = {depth * steps}")
+    check(c["flash_bwd_grouped"] == c["flash_bwd_dkv"] == c["flash_bwd_dq"] == 0,
+          f"{rec['config']}: another backward kernel ran: {c}")
+
+
+def fu_stage_times(torch, fa, ep, trainer) -> dict:
+    """Device milliseconds of each MoE stage (forward + backward) at the
+    step's shape, on the activations the first MoE block sees, and of one
+    block's attention (K3 + K4): the step's time split by what it does."""
+    model = trainer.model
+    block = next(b for b in model.blocks if b.moe is not None)
+    seen = []
+    hook = block.moe.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    with torch.no_grad():
+        model(trainer.train_images[:LM_CFG["batch_size"]])
+    hook.remove()
+    moe = block.moe
+    e, k = moe.n_experts, moe.top_k
+    h = seen[0].reshape(-1, seen[0].shape[-1])
+    t = h.shape[0]
+    cap = moe.capacity(t)
+    p = moe.params()
+    x = h.detach().requires_grad_()
+    r, _, _ = ep._route(x.detach(), p["router"], e, cap, k)
+    ein, flat = ep._dispatch(x.detach(), r, e, cap)
+    ein = ein.detach().requires_grad_()
+    y = ep._expert_ffn(p, ein).detach().requires_grad_()
+    gates = r.gates.detach().requires_grad_()
+
+    def router():
+        rr, fr, st = ep._route(x, p["router"], e, cap, k)
+        loss = rr.gates.sum() + ep._aux_loss(*fr, e) + st["z"]
+        torch.autograd.grad(loss, [x, p["router"]])
+
+    def dispatch():
+        out, _ = ep._dispatch(x, r, e, cap)
+        torch.autograd.grad(out, x, grad_outputs=torch.ones_like(out))
+
+    def ffn():
+        out = ep._expert_ffn(p, ein)
+        torch.autograd.grad(out, [ein, p["w1"], p["b1"], p["w2"], p["b2"]],
+                            grad_outputs=torch.ones_like(out))
+
+    def combine():
+        out = ep._combine(y, flat, gates)
+        torch.autograd.grad(out, [y, gates], grad_outputs=torch.ones_like(out))
+
+    b, s = LM_CFG["batch_size"], LM_SEQ
+    heads = LM_CFG["model_kwargs"]["heads"]
+    d = LM_CFG["model_kwargs"]["dim"] // heads
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, kk, v = (torch.randn((b, s, heads, d), generator=gen, device="cuda")
+                .to(torch.bfloat16).requires_grad_() for _ in range(3))
+
+    def attention():
+        o = fa.flash_attention(q, kk, v, causal=True)
+        torch.autograd.grad(o, [q, kk, v], grad_outputs=torch.ones_like(o))
+
+    reps, inner = FU_STAGE_REPS
+    ms = {name: gpu_ms(fn, torch, reps=reps, inner=inner)
+          for name, fn in (("router", router), ("dispatch", dispatch),
+                           ("expert_ffn", ffn), ("combine", combine),
+                           ("attention", attention))}
+    n_moe = sum(blk.moe is not None for blk in model.blocks)
+    per_step = {f"{name}_ms_a_step": ms[name] * (DEPTH if name == "attention" else n_moe)
+                for name in ms}
+    return {"tokens": t, "capacity": cap, "expert_rows": e * cap, "routed_rows": t * k,
+            "stage_ms_one_block": ms, **per_step}
+
+
+def fu_moe_lm(torch, fa, xent, Trainer, RunConfig, ep) -> dict:
+    """(a) MoE + dropout bench_lm8k through fit(), its gates, then its
+    throughput beside the dense model's (float32 masters, and bf16 masters
+    as before the repair) in the order A B C C B A, a profiled step and
+    the MoE stages' device time."""
+    trainer, rec = fu_fit(torch, fa, xent, Trainer, RunConfig, FU_LM_CFG)
+    fu_check_flash(rec, DEPTH)
+    drop = rec["moe_dropped_frac"]
+    check(drop is not None and 0.0 <= drop <= 1.0, f"(a) moe_dropped_frac {drop}")
+    dtypes = ({str(p.dtype) for p in trainer.model.parameters()}
+              | {str(m.dtype) for m in trainer.state.optimizer.mu + trainer.state.optimizer.nu})
+    check(dtypes == {"torch.float32"}, f"(a) parameters or Adam state not float32: {dtypes}")
+    rec["param_and_adam_dtypes"] = sorted(dtypes)
+
+    dense, _ = fu_fit(torch, fa, xent, Trainer, RunConfig, LM_CFG)
+    bf16m, _ = fu_fit(torch, fa, xent, Trainer, RunConfig, FU_BF16_MASTERS_CFG)
+    check({p.dtype for n, p in bf16m.model.named_parameters() if "norm" not in n}
+          == {torch.bfloat16}, "(a) the bf16-master control is not bf16")
+    order = (("dense_f32_masters", dense), ("moe_dropout", trainer),
+             ("dense_bf16_masters", bf16m))
+    runs = {name: [] for name, _ in order}
+    for name, t in order + order[::-1]:
+        tp = t.measure_throughput(epochs=1)
+        runs[name].append({"tokens_per_sec_per_chip": tp["tokens_per_sec_per_chip"],
+                           "s_per_step": round(LM_CFG["batch_size"] / tp["images_per_sec"], 5),
+                           "mfu": tp["mfu"]})
+        check(math.isfinite(tp["last_loss"]), f"(a) {name}: non-finite throughput loss")
+    rec["abba"] = runs
+    rec["order"] = [n for n, _ in order + order[::-1]]
+    del dense, bf16m
+    torch.cuda.empty_cache()
+
+    def one_step():
+        t0 = time.perf_counter()
+        trainer._run_epoch(trainer.state, trainer.train_images[:LM_CFG["batch_size"]],
+                           trainer.train_labels[:LM_CFG["batch_size"]])["loss"][-1].item()
+        return time.perf_counter() - t0
+
+    prof = profile_run(torch, one_step, "moe lm training step",
+                       {"flash_fwd_device_s": "flash_fwd", "flash_bwd_device_s": "flash_bwd"},
+                       top_n=12)
+    emit(prof)
+    rec["profile"] = {k: prof[k] for k in ("wall_s", "device_busy_s", "device_busy_share",
+                                           "flash_fwd_device_s", "flash_bwd_device_s")}
+    rec["stages"] = fu_stage_times(torch, fa, ep, trainer)
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fu_remat_dropout(torch, get_model, steps_mod, tr) -> dict:
+    """(b) A float32 twin of (a)'s model at S=1024: the loss and every
+    gradient with block remat against without, from one generator state
+    (the recompute must replay the forward's masks; a recompute that draws
+    fresh masks, planted, must fail that gate); one block's dropout keep
+    fraction inside its binomial 5 sigma band; eval logits of dropout 0.1
+    bit-equal to dropout 0's."""
+    kw = dict(num_classes=LM_CFG["dataset_kwargs"]["vocab"], **LM_CFG["model_kwargs"],
+              **FU_MOE, dropout=0.1, dtype=torch.float32, device="cuda")
+    plain = get_model("causal_lm", generator=torch.Generator(device="cuda").manual_seed(13),
+                      **kw)
+    remat = get_model("causal_lm", block_remat=True,
+                      generator=torch.Generator(device="cuda").manual_seed(13), **kw)
+    remat.load_state_dict(plain.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    shape = (FU_REMAT_BATCH, FU_REMAT_SEQ)
+    vocab = kw["num_classes"]
+    batch = {"image": torch.randint(0, vocab, shape, generator=gen, device="cuda"),
+             "label": torch.randint(0, vocab, shape, generator=gen, device="cuda")}
+
+    def loss_and_grads(model):
+        model.generator.manual_seed(17)
+        loss, _ = steps_mod.make_loss_fn(model)(batch)
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return loss.item(), dict(zip(names, grads))
+
+    def worst(a, b):
+        rel = {n: ((a[1][n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+               for n, g in b[1].items()}
+        name = max(rel, key=rel.get)
+        return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]), "grad_rel_max": rel[name],
+                "grad_rel_worst_param": name}
+
+    want = loss_and_grads(plain)
+    got = worst(loss_and_grads(remat), want)
+    real = tr.remat
+
+    def fault_remat_fresh_masks(fn, *args, generators=()):
+        return real(fn, *args)  # the recompute draws new masks
+
+    tr.remat = fault_remat_fresh_masks
+    try:
+        planted = worst(loss_and_grads(remat), want)
+    finally:
+        tr.remat = real
+    rec = {"shape": list(shape), "dtype": "float32", "tol": FU_REMAT_REL,
+           "remat_vs_plain": got, "fault_remat_fresh_masks": planted}
+    check(got["loss_rel"] <= FU_REMAT_REL and got["grad_rel_max"] <= FU_REMAT_REL,
+          f"(b) remat gradients differ from the plain step's: {got}")
+    check(planted["grad_rel_max"] > FU_REMAT_REL,
+          f"(b) the planted fresh-mask recompute passed the gate: {planted}")
+
+    ones = torch.ones((FU_REMAT_BATCH, FU_REMAT_SEQ, kw["dim"]), device="cuda")
+    n = ones.numel()
+    keep = (plain.blocks[0]._dropout(ones, True) != 0).float().mean().item()
+    sigma = (0.1 * 0.9 / n) ** 0.5
+    rec.update(keep_fraction=keep, keep_expected=0.9, keep_sigma=sigma)
+    check(abs(keep - 0.9) <= 5 * sigma, f"(b) keep fraction {keep} outside 0.9 +- 5 sigma")
+    off = get_model("causal_lm", generator=torch.Generator(device="cuda").manual_seed(13),
+                    **{**kw, "dropout": 0.0})
+    off.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        same = torch.equal(plain(batch["image"]), off(batch["image"]))
+    rec["eval_bit_equal_to_dropout_0"] = same
+    check(same, "(b) eval logits with dropout 0.1 differ from dropout 0's")
+    del plain, remat, off
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fu_moe_serving(torch, fa, xent, get_model, engine_cls, gen_mod) -> dict:
+    """(c) The serving LM with MoE blocks (bf16) serves phase 3's requests
+    greedily, dense and paged, beside the dense model (A B C C B A); on a
+    float32 twin the engine's streams equal make_generator's and the
+    teacher-forced decode logits equal the full forward within 2e-4."""
+    model = get_model("causal_lm", dtype=torch.bfloat16, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0),
+                      **MODEL_KW, **FU_SERVE_MOE)
+    dense = get_model("causal_lm", dtype=torch.bfloat16, device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(0), **MODEL_KW)
+    prompts = serving_prompts(torch)
+
+    def serve(model, **kw):
+        return serve_features(torch, fa, xent, engine_cls, model, prompts,
+                              max_new=FEATURE_NEW, device=model.device, **kw)
+
+    runs = serve_abba(serve, {"dense": dict(model=dense), "moe": dict(model=model),
+                              "moe_paged": dict(model=model, kv_page_size=PAGE,
+                                                radix_cache=False)})
+    for name, run in runs.items():
+        rec = run["rec"]
+        check(rec["flash_launches"] == DEPTH * rec["admissions"],
+              f"(c) {name}: K3 launched {rec['flash_launches']} times, expected depth x "
+              f"whole-prompt prefills = {DEPTH * rec['admissions']}")
+    check(runs["moe_paged"]["streams"] == runs["moe"]["streams"],
+          "(c) the MoE model's paged streams differ from its dense-cache streams")
+
+    twin = get_model("causal_lm", dtype=torch.float32, device="cuda", **MODEL_KW,
+                     **FU_SERVE_MOE)
+    twin.load_state_dict(model.state_dict())
+    t_dense = serve(twin)
+    t_paged = serve(twin, kv_page_size=PAGE, radix_cache=False)
+    lens = [len(p) for p in prompts]
+    padded = torch.zeros((len(prompts), max(lens)), dtype=torch.long, device="cuda")
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = torch.tensor(p, device="cuda")
+    out = gen_mod.make_generator(twin, FEATURE_MAX_LEN, FEATURE_NEW)(
+        padded, prompt_lens=torch.tensor(lens, device="cuda"))
+    want = [out[i, lens[i]:lens[i] + FEATURE_NEW].tolist() for i in range(len(prompts))]
+    check(t_dense["streams"] == want, "(c) float32: engine streams differ from make_generator's")
+    check(t_paged["streams"] == want, "(c) float32: paged streams differ from make_generator's")
+    tokens = torch.tensor([prompts[0] + want[0]], device="cuda")
+    n_prompt = len(prompts[0])
+    with torch.no_grad():
+        full = twin(tokens)[0]
+        cache = gen_mod.init_cache(twin, 1, FEATURE_MAX_LEN)
+        pre = twin(tokens[:, :n_prompt], cache=cache, max_len=FEATURE_MAX_LEN)[0]
+        err = (pre - full[:n_prompt]).abs().max().item()
+        step = gen_mod.make_decode_step(twin, FEATURE_MAX_LEN)
+        for i in range(n_prompt, tokens.shape[1]):
+            _, logits = step(cache, tokens[:, i])
+            err = max(err, (logits[0] - full[i]).abs().max().item())
+    check(err <= FU_DECODE_TOL, f"(c) teacher-forced decode vs full forward: {err}")
+    rec = {name: run["rec"] for name, run in runs.items()}
+    rec.update(f32_streams_equal_make_generator=True, teacher_forced_max_err=err,
+               teacher_forced_tol=FU_DECODE_TOL, moe_config=FU_SERVE_MOE,
+               bf16_moe_vs_dense_decode_tokens_per_s=[
+                   runs["moe"]["rec"]["decode_tokens_per_s"],
+                   runs["dense"]["rec"]["decode_tokens_per_s"]])
+    del model, dense, twin, runs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fu_learned(torch, fa, xent, Trainer, RunConfig) -> dict:
+    """(d) bench_lm8k with pos="learned" for 4 steps: pos_embed (1, 8192,
+    512) moves, K3/K4 as in (a), and Trainer.generate refuses decode."""
+    cfg = RunConfig(**FU_LEARNED_CFG)
+    trainer = Trainer(cfg, device="cuda")
+    before = trainer.model.pos_embed.detach().clone()
+    torch.cuda.synchronize()
+    reset_counts(fa, xent)
+    trainer.fit()
+    counts = read_counts(fa, xent)
+    rec = {"config": cfg.name, "steps": trainer.state.step,
+           "eval_batches": -(-cfg.n_test // cfg.eval_batch_size), "launches": counts,
+           "train_loss": trainer.history[-1]["train_loss"],
+           "pos_embed_shape": list(trainer.model.pos_embed.shape),
+           "pos_embed_moved": (trainer.model.pos_embed.detach() - before).abs().max().item()}
+    fu_check_flash(rec, DEPTH)
+    check(rec["pos_embed_shape"] == [1, LM_SEQ, LM_CFG["model_kwargs"]["dim"]],
+          f"(d) pos_embed {rec}")
+    check(rec["pos_embed_moved"] > 0.0, "(d) pos_embed did not move")
+    check(math.isfinite(rec["train_loss"]), f"(d) non-finite loss {rec}")
+    try:
+        trainer.generate([1, 2, 3], max_new=2)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "pos='learned'" in refused,
+          f"(d) Trainer.generate did not refuse learned positions: {refused}")
+    rec["generate_refusal"] = refused
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fu_moe_vit(torch, fa, xent, Trainer, RunConfig, dense_vit: dict) -> dict:
+    """(e) The ViT with MoE blocks and dropout, fused_xent, one epoch: K1 ==
+    K2 == steps, K3/K4 as phase_vit gates them, moe_dropped_frac recorded;
+    images/s/chip beside phase_vit's."""
+    trainer, rec = fu_fit(torch, fa, xent, Trainer, RunConfig, FU_VIT_CFG)
+    fu_check_flash(rec, VIT_DEPTH)
+    c = rec["launches"]
+    check(c["xent_fwd"] == c["xent_bwd"] == rec["steps"],
+          f"(e) xent launches {c} != steps taken {rec['steps']}")
+    drop = rec["moe_dropped_frac"]
+    check(drop is not None and 0.0 <= drop <= 1.0, f"(e) moe_dropped_frac {drop}")
+    tp = trainer.measure_throughput(epochs=1)
+    rec["images_per_sec_per_chip"] = tp["images_per_sec_per_chip"]
+    rec["mfu"] = tp["mfu"]
+    rec["dense_vit_images_per_sec_per_chip"] = dense_vit["images_per_sec_per_chip"]
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_lm_vit_follow_ups(torch, fa, xent, dense_vit: dict) -> dict:
+    """MoE blocks, dropout and learned positions on the card, at full
+    width: (a) the MoE + dropout LM, (b) dropout under block remat, (c)
+    MoE serving, (d) learned positions, (e) the MoE ViT.  One line each."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core import generate as gen_mod
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core import steps as steps_mod
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import transformer as tr
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import expert_parallel as ep
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
+
+    out = {}
+    for part, run in (
+            ("a", lambda: fu_moe_lm(torch, fa, xent, Trainer, RunConfig, ep)),
+            ("b", lambda: fu_remat_dropout(torch, get_model, steps_mod, tr)),
+            ("c", lambda: fu_moe_serving(torch, fa, xent, get_model, InferenceEngine,
+                                         gen_mod)),
+            ("d", lambda: fu_learned(torch, fa, xent, Trainer, RunConfig)),
+            ("e", lambda: fu_moe_vit(torch, fa, xent, Trainer, RunConfig, dense_vit))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        out[part]["part_s"] = round(time.perf_counter() - t0, 3)
+        emit({"phase": "lm_vit_follow_ups", "sub": part, **out[part]})
+    return out
+
+
 MMA_SYNC = "tensor-core bf16: mma.sync on cp.async-fed tiles"
 DESIGN = {"flash_fwd": MMA_SYNC, "flash_bwd_fused": MMA_SYNC, "flash_bwd_grouped": MMA_SYNC,
           "flash_bwd_dkv": MMA_SYNC,
@@ -4823,6 +5257,7 @@ def main() -> int:
                                   (Trainer, RunConfig, get_model, InferenceEngine), Path(tmp))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_edge_") as tmp:
         edge = phase_serving_edge(torch, fa, xent, Path(tmp))
+    fu = phase_lm_vit_follow_ups(torch, fa, xent, vit["throughput"])
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -4926,6 +5361,19 @@ def main() -> int:
         "a_frontdoor": edge["a"]["flash_launches"], "c_autoscale": edge["c"]["flash_launches"],
         "d_disagg_by_role": edge["d"]["flash_launches_by_role"],
         "d_monolithic": edge["d"]["flash_launches_monolithic"]}
+    # K1-K4 on the lm_vit_follow_ups runs: (a) the MoE + dropout LM, (c) the
+    # MoE serving LM (whole-prompt prefills; bf16 runs of A B C C B A's first
+    # pass), (d) learned positions, (e) the MoE + dropout ViT
+    k3_entry["lm_vit_follow_ups"] = {
+        "a_moe_dropout_lm": fu["a"]["launches"]["flash_fwd"],
+        **{f"c_serving_{name}": fu["c"][name]["flash_launches"]
+           for name in ("dense", "moe", "moe_paged")},
+        "d_learned_pos": fu["d"]["launches"]["flash_fwd"],
+        "e_moe_vit": fu["e"]["launches"]["flash_fwd"]}
+    k4_entry["lm_vit_follow_ups"] = {
+        "a_moe_dropout_lm": fu["a"]["launches"]["flash_bwd_fused"],
+        "d_learned_pos": fu["d"]["launches"]["flash_bwd_fused"],
+        "e_moe_vit": fu["e"]["launches"]["flash_bwd_fused"]}
     k4_entry["vit_training"] = on_vit("flash_bwd_fused", dict(zip(
         ("max_abs_err", "max_rel_err", "max_row_rel_err"), vit_kernels["bwd_err"])))
     print(json.dumps({"kernels": [
@@ -4954,11 +5402,13 @@ def main() -> int:
                  xk["max_abs_err"]["xent_fwd"], xk["timed"]["xent_fwd"], "by_shape"),
          "vit_training": on_vit_xent("xent_fwd"), "dp_launches": dp_launches(0),
          "fault_tolerant_training": ft_xent_launches("xent_fwd"),
+         "lm_vit_follow_ups": {"e_moe_vit": fu["e"]["launches"]["xent_fwd"]},
          "launch_floor_ms": xk["launch_floor_ms"]},
         {**entry("xent_bwd", "xent.cu", "ops/xent.py:53", counts["xent_bwd"],
                  xk["max_abs_err"]["xent_bwd"], xk["timed"]["xent_bwd"], "by_shape"),
          "vit_training": on_vit_xent("xent_bwd"), "dp_launches": dp_launches(1),
          "fault_tolerant_training": ft_xent_launches("xent_bwd"),
+         "lm_vit_follow_ups": {"e_moe_vit": fu["e"]["launches"]["xent_bwd"]},
          "launch_floor_ms": xk["launch_floor_ms"]},
     ], "launch_floor_ms": xk["launch_floor_ms"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

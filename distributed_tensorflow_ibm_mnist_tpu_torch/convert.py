@@ -25,8 +25,11 @@ The mapping, per leaf:
 * ``BatchNorm`` ``scale``/``bias`` -> ``weight``/``bias``, and its
   ``batch_stats`` ``mean``/``var`` -> the ``running_mean``/``running_var``
   buffers.
-* The ViT's ``pos_embed`` is kept as it is; its ``block_{i}`` map as the
-  causal LM's blocks do.
+* The ViT's ``pos_embed`` (and a causal LM's with ``pos="learned"``) is
+  kept as it is; the ViT's ``block_{i}`` map as the causal LM's blocks do.
+* A MoE block's ``moe/{router,w1,b1,w2,b2}`` are stored in the same layout
+  on both sides (parallel/expert_parallel.py): kept as they are, float32,
+  and never quantized.
 
 A causal LM tree that ``quantize_params_int8`` has quantized (int8
 ``kernel`` and a ``scale`` sibling under each projection) converts to the
@@ -63,7 +66,10 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
     quantize_state_dict_int8,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.resnet import ARCHS, BatchNorm, ResNet
-from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import VisionTransformer
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
+    VisionTransformer,
+    is_moe_block,
+)
 
 _KEEP, _TRANSPOSE, _HWIO = "keep", "transpose", "hwio"  # leaf layout changes
 
@@ -107,8 +113,16 @@ def _blocks(out: Expected, c: Mapping, scale: bool = False) -> None:
             _dense(out, p + ("kv_proj",), f"{k}.kv_proj", dim, 2 * hkv * hd, scale)
         _dense(out, p + ("proj",), f"{k}.proj", dim, dim, scale)
         _norm(out, p + ("norm_mlp",), f"{k}.norm_mlp", dim)
-        _dense(out, p + ("dense_0",), f"{k}.dense_0", dim, c["mlp_ratio"] * dim, scale)
-        _dense(out, p + ("dense_1",), f"{k}.dense_1", c["mlp_ratio"] * dim, dim, scale)
+        hidden = c["mlp_ratio"] * dim
+        if is_moe_block(i, c["moe_every"]):  # float32, never quantized
+            e = c["n_experts"]
+            for leaf, shape in (("router", (dim, e)), ("w1", (e, dim, hidden)),
+                                ("b1", (e, hidden)), ("w2", (e, hidden, dim)),
+                                ("b2", (e, dim))):
+                out[p + ("moe", leaf)] = (f"{k}.moe.{leaf}", shape, _KEEP)
+        else:
+            _dense(out, p + ("dense_0",), f"{k}.dense_0", dim, hidden, scale)
+            _dense(out, p + ("dense_1",), f"{k}.dense_1", hidden, dim, scale)
 
 
 def _expected_leaves(cfg: Mapping, quantized: bool = False) -> Expected:
@@ -117,6 +131,8 @@ def _expected_leaves(cfg: Mapping, quantized: bool = False) -> Expected:
     c = _full_cfg(CausalLM, cfg)
     vocab, dim = c["num_classes"], c["dim"]
     out: Expected = {("embed", "embedding"): ("embed.weight", (vocab, dim), _KEEP)}
+    if c["pos"] == "learned":
+        out[("pos_embed",)] = ("pos_embed", (1, c["seq_len"], dim), _KEEP)
     _blocks(out, c, quantized)
     _norm(out, ("norm_out",), "norm_out", dim)
     if not c["tie_embeddings"]:
@@ -426,7 +442,11 @@ def load_train_state(jax_state_np: Any, config, device=None, total_steps: int | 
     (``steps_per_epoch * epochs``); by default ``n_train // batch_size *
     epochs`` of ``config``.  This is how a run checkpointed by the JAX
     package continues in the port: the JAX package restores its orbax
-    checkpoint (``utils.checkpoint.restore_state``), the port converts it."""
+    checkpoint (``utils.checkpoint.restore_state``), the port converts it.
+    A causal LM is built with float32 masters (``param_dtype``, as the
+    Trainer builds it), so JAX's float32 parameters and moments arrive
+    unrounded; a learned position table needs ``seq_len`` among the
+    model keywords."""
     import torch as _torch
 
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.optim import make_optimizer
@@ -440,7 +460,10 @@ def load_train_state(jax_state_np: Any, config, device=None, total_steps: int | 
         if not config.n_train:
             raise ValueError("total_steps is needed when config.n_train is not set")
         total_steps = config.n_train // config.batch_size * config.epochs
-    model = get_model(config.model, device=device, **{**config.model_kwargs, **model_kw})
+    kw = {**config.model_kwargs, **model_kw}
+    if config.model == "causal_lm":  # float32 masters, as the Trainer builds it
+        kw.setdefault("param_dtype", _torch.float32)
+    model = get_model(config.model, device=device, **kw)
     optimizer = make_optimizer(config, total_steps, list(model.parameters()))
     state = TrainState(step=0, model=model, optimizer=optimizer,
                        data_generator=_torch.Generator(device=device))

@@ -43,6 +43,7 @@ from typing import Callable
 
 import torch
 
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.causal_lm import check_decodable
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import quantize_kv_int8
 
 
@@ -107,6 +108,7 @@ def make_prefill(model, max_len: int) -> Callable:
     batch (None = full rows).  Returns the cache (K/V padded to max_len,
     cursors at the row lengths) and the (B, V) float32 logits at each
     row's last real position."""
+    check_decodable(model)
     if max_len < 1:
         raise ValueError(f"max_len must be >= 1, got {max_len}")
 
@@ -128,6 +130,7 @@ def make_decode_step(model, max_len: int, ragged: bool = True) -> Callable:
     ``ragged=False`` is the shared-cursor path for lockstep batches.  Rows
     the caller does not care about decode garbage into their OWN rows
     only."""
+    check_decodable(model)
     if max_len < 1:
         raise ValueError(f"max_len must be >= 1, got {max_len}")
 
@@ -523,6 +526,7 @@ def make_generator(model, max_len: int, max_new: int, temperature: float = 0.0,
     with ``rng`` (an int seed or (2,) uint32 key data) on JAX's schedule:
     ``split(rng, max_new)``, one key per generated position, each drawing
     Gumbel noise over the whole (B, V) batch."""
+    check_decodable(model)
     if max_new < 1:
         raise ValueError(f"max_new must be >= 1, got {max_new}")
     if temperature == 0.0 and (top_k or top_p):

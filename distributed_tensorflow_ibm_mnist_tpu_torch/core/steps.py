@@ -8,7 +8,9 @@ The counterparts of the JAX package's ``core/steps.py``:
   integer-label cross-entropy; eval always reports the unsmoothed loss;
 * ``make_train_step`` — forward, backward (autograd) and the optimizer
   update, in place; ``grad_accum > 1`` averages the gradients of that many
-  microbatches before the one update;
+  microbatches before the one update; a model with MoE blocks adds the
+  ``moe_dropped_frac`` metric (the mean over its MoE blocks, averaged over
+  the microbatches, ``steps.py:77-115`` there);
 * ``make_epoch_runner`` — one epoch over the device-resident dataset (uint8
   images or int32 tokens): a permutation drawn on the device, each
   minibatch gathered there with ``index_select``; per-step metrics stay on
@@ -94,13 +96,23 @@ def _smoothed_cross_entropy(logits, labels, smoothing: float) -> torch.Tensor:
 
 
 def make_loss_fn(model, label_smoothing: float = 0.0, fused_xent: bool = False,
-                 remat: bool = False) -> Callable:
+                 remat: bool = False, moe_aux_weight: float = 0.01,
+                 with_drop: bool = False) -> Callable:
     """Cross-entropy loss closure over the port's model.
 
     Returns ``loss_fn(batch, train) -> (loss, logits)``; the batch's
     ``image`` is uint8 or float NHWC (or (B, S) int tokens for the causal
     LM), its ``label`` int, (B,) or (B, S).  ``label_smoothing`` applies to
     the training loss only.
+
+    A model with MoE blocks (``model.has_moe``) adds, to the training
+    loss only, ``moe_aux_weight`` x the sum of its blocks' load-balancing
+    losses and the sum of their z-losses (pre-weighted by the blocks'
+    ``moe_z_weight``), as JAX's ``steps.py:77-115`` does.  Those terms are
+    outputs of the (recomputed) forward, so under ``remat`` they come from
+    the first forward and carry their gradient once.  ``with_drop=True``
+    returns ``(loss, logits, dropped)``: the mean capacity-dropped
+    fraction over the MoE blocks, None for a model without them.
     """
     if fused_xent and label_smoothing > 0.0:
         raise ValueError(
@@ -108,16 +120,20 @@ def make_loss_fn(model, label_smoothing: float = 0.0, fused_xent: bool = False,
             "fused kernel computes the unsmoothed loss, so smoothing would "
             "silently bypass it"
         )
-    def forward(x: torch.Tensor, train: bool) -> torch.Tensor:
-        return model(x, train=train)
+    moe = bool(getattr(model, "has_moe", False))
+
+    def forward(x: torch.Tensor, train: bool):
+        if moe:
+            return model(x, train=train, with_moe=True)
+        return model(x, train=train), None
 
     def loss_fn(batch: Batch, train: bool = True):
         x = _as_input(batch["image"])
         if remat:
-            logits = remat_fn(forward, x, train,
-                              generators=[getattr(model, "generator", None)])
+            logits, terms = remat_fn(forward, x, train,
+                                     generators=[getattr(model, "generator", None)])
         else:
-            logits = forward(x, train)
+            logits, terms = forward(x, train)
         labels = batch["label"]
         if train and label_smoothing > 0.0:
             loss = _smoothed_cross_entropy(logits, labels, label_smoothing).mean()
@@ -126,6 +142,11 @@ def make_loss_fn(model, label_smoothing: float = 0.0, fused_xent: bool = False,
                                      labels.reshape(-1))
         else:
             loss = cross_entropy(logits, labels).mean()
+        if train and terms is not None:
+            # z-losses are pre-weighted by the blocks, so they add at 1.0
+            loss = loss + moe_aux_weight * terms["aux"] + terms["z"]
+        if with_drop:
+            return loss, logits, None if terms is None else terms["dropped"].detach()
         return loss, logits
 
     return loss_fn
@@ -172,33 +193,37 @@ def make_train_step(model, optimizer, label_smoothing: float = 0.0,
     ``optimizer`` being the sharded one."""
     if sharded_update is not None and mesh is None:
         raise ValueError("sharded_update needs a mesh (it is a cross-replica scheme)")
-    loss_fn = make_loss_fn(model, label_smoothing, fused_xent=fused_xent, remat=remat)
+    loss_fn = make_loss_fn(model, label_smoothing, fused_xent=fused_xent, remat=remat,
+                           with_drop=True)
     params = optimizer.params if sharded_update is None else list(model.parameters())
     layout = (make_bucket_layout(params, 1)
               if mesh is not None and sharded_update is None else None)
 
     def grads_of(batch: Batch):
-        loss, logits = loss_fn(batch, train=True)
+        loss, logits, drop = loss_fn(batch, train=True)
         grads = torch.autograd.grad(loss, params)
         accuracy = (logits.argmax(-1) == batch["label"]).float().mean()
-        return loss.detach(), accuracy, grads
+        return loss.detach(), accuracy, drop, grads
 
     def train_step(state: TrainState, batch: Batch) -> dict[str, torch.Tensor]:
         if grad_accum == 1:
-            loss, accuracy, grads = grads_of(batch)
+            loss, accuracy, drop, grads = grads_of(batch)
         else:
             n = batch["label"].shape[0]
             if n % grad_accum:
                 raise ValueError(f"batch size {n} not divisible by grad_accum={grad_accum}")
             micro = {k: v.chunk(grad_accum) for k, v in batch.items()}
             loss = accuracy = 0.0
-            grads = None
+            grads, drops = None, []
             for i in range(grad_accum):
-                l_i, a_i, g_i = grads_of({k: v[i] for k, v in micro.items()})
+                l_i, a_i, d_i, g_i = grads_of({k: v[i] for k, v in micro.items()})
                 loss, accuracy = loss + l_i, accuracy + a_i
+                drops.append(d_i)
                 grads = list(g_i) if grads is None else torch._foreach_add(grads, g_i)
             grads = torch._foreach_div(grads, float(grad_accum))
             loss, accuracy = loss / grad_accum, accuracy / grad_accum
+            # the micro-batches' mean (None for a model without MoE blocks)
+            drop = None if drops[0] is None else torch.stack(drops).mean()
         if sharded_update is not None:
             _apply_sharded_update(optimizer, grads, params, sharded_update, mesh)
         else:
@@ -207,9 +232,17 @@ def make_train_step(model, optimizer, label_smoothing: float = 0.0,
                     grouped_all_reduce_mean(flatten_buckets(grads, layout)), layout)
             optimizer.step(grads)
         state.step += 1
-        return {"loss": loss, "accuracy": accuracy}
+        metrics = {"loss": loss, "accuracy": accuracy}
+        if drop is not None:  # routing observability: MoE models only
+            metrics["moe_dropped_frac"] = drop
+        return metrics
 
     return train_step
+
+
+def _stack(metrics: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """Per-step metric dicts -> each metric stacked over the steps."""
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
 
 def make_epoch_runner(model, optimizer, batch_size: int, label_smoothing: float = 0.0,
@@ -242,13 +275,9 @@ def make_epoch_runner(model, optimizer, batch_size: int, label_smoothing: float 
             perm = torch.randperm(n, generator=state.data_generator,
                                   device=images.device)
         perm = perm.to(images.device)[: steps * batch_size].view(steps, batch_size)
-        losses, accs = [], []
-        for idx in perm:
-            m = train_step(state, {"image": images.index_select(0, idx),
-                                   "label": labels.index_select(0, idx)})
-            losses.append(m["loss"])
-            accs.append(m["accuracy"])
-        return {"loss": torch.stack(losses), "accuracy": torch.stack(accs)}
+        return _stack([train_step(state, {"image": images.index_select(0, idx),
+                                          "label": labels.index_select(0, idx)})
+                       for idx in perm])
 
     return run_epoch
 
@@ -268,12 +297,8 @@ def make_chunk_runner(model, optimizer, label_smoothing: float = 0.0,
                                  sharded_update=sharded_update)
 
     def run_chunk(state: TrainState, batches: Batch) -> dict[str, torch.Tensor]:
-        losses, accs = [], []
-        for image, label in zip(batches["image"], batches["label"]):
-            m = train_step(state, {"image": image, "label": label})
-            losses.append(m["loss"])
-            accs.append(m["accuracy"])
-        return {"loss": torch.stack(losses), "accuracy": torch.stack(accs)}
+        return _stack([train_step(state, {"image": image, "label": label})
+                       for image, label in zip(batches["image"], batches["label"])])
 
     return run_chunk
 

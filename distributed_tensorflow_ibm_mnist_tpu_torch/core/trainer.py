@@ -105,11 +105,20 @@ over the steady pace: in the port that is the kernel build at first
 launch, the library's algorithm choices and allocator growth, not XLA.
 FLOPs are counted analytically (``utils/flops.py``).
 
+The causal LM trains on float32 master weights (``param_dtype``; flax's
+``param_dtype`` default) cast to its compute dtype per use, so Adam's
+moments are float32 too; ``generate``, ``InferenceEngine.from_trainer``
+and the serving tier take JAX's decode cast of them (``_decode_params``).
+MoE runs (``moe_every``) add ``moe_aux_weight`` x the aux losses and the
+pre-weighted z-losses to the training loss and ``moe_dropped_frac`` (6
+places) to the epoch records; dropout draws from the model's generator;
+a learned position table is sized by the data's ``seq_len``.
+
 Refused with ``NotImplementedError`` naming the ROADMAP.md item that will
-port them: tp/sp/pp > 1, ``fsdp``, ``dcn_dp`` > 1, and the causal LM's
-dropout, MoE blocks and ``pos="learned"``.  The models' constructors refuse the rest of what they
-cannot build yet the same way (the ViT's dropout, MoE blocks and pipeline
-stages).
+port them: tp/sp/pp > 1, ``fsdp``, ``dcn_dp`` > 1, MoE blocks at dp > 1
+(item 3b, automatic expert parallelism) and a user's ``moe_fn`` (item
+7.5).  The models' constructors refuse the rest of what they cannot
+build yet the same way (the ViT's pipeline stages).
 """
 
 from __future__ import annotations
@@ -141,6 +150,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models import (
     get_model,
     model_accepts,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.causal_lm import check_decodable
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import _resolve_attn
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
     ShardedUpdate,
@@ -178,7 +188,8 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTrac
 TRAINABLE = ("lenet5", "mlp", "resnet20", "resnet50", "vit", "causal_lm")
 _DP = "'Data-parallel training with torch.distributed'"
 _PARALLEL = "'Remaining parallelism and utilities'"
-_LM_FOLLOW_UPS = "'Causal-LM and ViT training follow-ups'"
+_EP_UNDER_DP = "item 3b, 'Automatic expert parallelism under dp'"
+_EXPERT_DISPATCH = "item 7.5, the dispatch of expert_parallel.py"
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -203,19 +214,22 @@ def _refuse_unported(config: RunConfig) -> None:
     if config.model not in TRAINABLE:
         raise ValueError(
             f"unknown model {config.model!r}; the port trains: {list(TRAINABLE)}")
-    if config.model == "causal_lm":
-        kw = config.model_kwargs
-        if kw.get("dropout", 0.0) > 0.0:
-            raise _later("dropout in the causal LM's blocks", _LM_FOLLOW_UPS)
-        if kw.get("moe_every", 0):
-            raise _later("MoE blocks (moe_every)", _LM_FOLLOW_UPS)
-        if kw.get("pos", "rope") == "learned":
-            raise _later("pos='learned'", _LM_FOLLOW_UPS)
+    if config.model_kwargs.get("moe_fn") is not None:
+        raise _later("a user moe_fn (the expert-parallel dispatch)", _EXPERT_DISPATCH)
+    _refuse_moe_under_dp(config, config.dp)
     if (config.model == "causal_lm") != (config.dataset == "retrieval"):
         raise ValueError(
             "causal_lm trains on token sequences (dataset='retrieval') and the "
             f"image models on images; got model={config.model!r}, "
             f"dataset={config.dataset!r}")
+
+
+def _refuse_moe_under_dp(config: RunConfig, dp: int) -> None:
+    """MoE blocks train at dp=1 only: JAX averages the routing fractions
+    across shards before the aux loss's product (its automatic expert
+    parallelism), which replicated local experts would not."""
+    if dp > 1 and config.model_kwargs.get("moe_every", 0):
+        raise _later(f"MoE blocks at dp={dp}", _EP_UNDER_DP)
 
 
 def _seed_words(*key: int) -> int:
@@ -280,6 +294,7 @@ class Trainer:
                 raise ValueError(
                     f"sharded_update_buckets must be >= 1, got "
                     f"{config.sharded_update_buckets}")
+        _refuse_moe_under_dp(config, self.dp)  # dp=0: the group's size
         if config.batch_size % self.dp:
             raise ValueError(f"batch_size {config.batch_size} not divisible by dp={self.dp}")
         self.rank = 0 if self.mesh is None else self.mesh.rank
@@ -313,6 +328,13 @@ class Trainer:
             model_kwargs.setdefault("in_channels", image_shape[2])
         if config.model == "vit":
             model_kwargs.setdefault("image_size", image_shape[:2])
+        if config.model == "causal_lm":
+            # float32 masters cast to the compute dtype per use, as flax's
+            # param_dtype keeps them; a learned position table is sized by
+            # the data's sequence length, as flax sizes it from the input
+            model_kwargs.setdefault("param_dtype", torch.float32)
+            if model_kwargs.get("pos") == "learned":
+                model_kwargs.setdefault("seq_len", int(image_shape[0]))
         # the attention's causal flag: model_kwargs, then config, then the
         # family's default; a family with its own causal knob receives it
         family_causal = config.model == "causal_lm"
@@ -594,7 +616,7 @@ class Trainer:
                 run(staged)
             for i in range(filled):  # the remainder (< chunk), a step at a time
                 run(stage(slot, i, i + 1))
-        return {k: torch.cat([m[k] for m in ms]) for k in ("loss", "accuracy")}
+        return {k: torch.cat([m[k] for m in ms]) for k in ms[0]}
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -716,19 +738,29 @@ class Trainer:
         ``block_remat``, ``axis_name``) dropped, as JAX drops its training
         islands; its weights are whatever :meth:`_decode_params` loads."""
         clean = {k: v for k, v in self._model_kwargs.items()
-                 if k not in ("attn_fn", "block_remat", "axis_name")}
+                 if k not in ("attn_fn", "block_remat", "axis_name", "param_dtype")}
         return get_model(self.config.model, num_classes=self.num_classes,
                          device=self.device, **clean)
 
     def _decode_params(self) -> dict:
         """The run's weights as the decode model's ``state_dict``: a copy
         on the trainer's device, cached per trained state (invalidated by
-        every step and by a restore).  The port's model holds its weights
-        in its compute dtype (float32 norms), the layout JAX's decode cast
-        produces, so the copy is the cast."""
+        every step and by a restore), in JAX's decode cast
+        (``trainer.py:1291-1330`` there): floating leaves in the model's
+        compute dtype, except the norms' and the MoE leaves (``norm_*``,
+        ``moe``), which the model consumes at float32 and keep."""
         if self._gen_params is not None and self._gen_params[0] == self.state.step:
             return self._gen_params[1]
-        params = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        dtype = self._model_kwargs.get("dtype", torch.bfloat16)
+
+        def cast(name: str, t: torch.Tensor) -> torch.Tensor:
+            parts = name.split(".")
+            if not t.is_floating_point() or any(
+                    p == "moe" or p.startswith("norm") for p in parts):
+                return t.detach().clone()
+            return t.detach().to(dtype, copy=True)
+
+        params = {k: cast(k, v) for k, v in self.model.state_dict().items()}
         self._gen_params = (self.state.step, params)
         return params
 
@@ -751,6 +783,7 @@ class Trainer:
         if not model_accepts(self.config.model, "pos"):
             raise ValueError(
                 f"generate() needs a causal-LM-family model; got {self.config.model!r}")
+        check_decodable(self.model)
         if not self.causal:
             raise ValueError(
                 "generate() is autoregressive (KV-cache causal decode); this "
@@ -923,8 +956,9 @@ class Trainer:
                 fspan = (self._tracer.begin("fetch", cat="train",
                                             interval_epochs=len(pending))
                          if self._tracer is not None else None)
+                keys = ("loss", "accuracy", "moe_dropped_frac")
                 means = self._rank_mean(torch.stack(
-                    [torch.stack([m["loss"].mean(), m["accuracy"].mean()])
+                    [torch.stack([m[k].mean() for k in keys if k in m])
                      for _, m in pending])).tolist()  # the fence
                 if fspan is not None:
                     self._tracer.end(fspan)
@@ -932,7 +966,7 @@ class Trainer:
                 epoch_time = interval / len(pending)  # amortized over the interval
                 if first_interval_len == 0:
                     first_interval_len = len(pending)
-                for (ep, _), (loss, acc) in zip(pending, means):
+                for (ep, _), (loss, acc, *drop) in zip(pending, means):
                     if not math.isfinite(loss):
                         if self._ckpt is not None:
                             self._ckpt.wait()  # a recovery reopens the directory
@@ -952,6 +986,10 @@ class Trainer:
                         "images_per_sec": round(images / epoch_time, 1),
                         "images_per_sec_per_chip": round(images / epoch_time / chips, 1),
                     }
+                    if drop:
+                        # the epoch-mean fraction of (token, choice)
+                        # assignments dropped at expert capacity: MoE runs only
+                        record["moe_dropped_frac"] = round(drop[0], 6)
                     if ep == epoch and eval_now:
                         vspan = (self._tracer.begin("eval", cat="train", epoch=ep)
                                  if self._tracer is not None else None)

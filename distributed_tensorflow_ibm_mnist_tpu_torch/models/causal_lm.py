@@ -3,15 +3,21 @@
 The counterpart of the JAX package's ``models/causal_lm.py``: token
 embedding -> pre-norm causal blocks (models/transformer.py) -> LayerNorm ->
 per-position vocab head, logits in float32.  Positions are rotary
-(``pos="rope"``, the default) or absent (``pos="none"``); the head is its
-own ``logits`` projection or, with ``tie_embeddings``, ``x @ embed^T``.
+(``pos="rope"``, the default), absent (``pos="none"``) or a learned
+``(1, seq_len, dim)`` table (``pos="learned"``: normal(0.02), added in
+``dtype``; flax sizes it from the first input, the port from ``seq_len``
+at construction, and another length is refused); the head is its own
+``logits`` projection or, with ``tie_embeddings``, ``x @ embed^T``.
+``moe_every=k`` makes every k-th block a MoE block (parallel/
+expert_parallel.py), ``dropout`` drops in every block when ``train``.
 
 Calls:
 
 * ``model(tokens)`` — (B, S) int tokens -> (B, S, V) float32 logits;
-  ``model(tokens, train=True)`` is the same forward (the training step
-  passes ``train``; with dropout 0 it changes nothing), differentiable
-  through either attention;
+  ``model(tokens, train=True)`` turns dropout on; ``with_moe=True`` also
+  returns the MoE terms (``transformer.run_blocks``: aux, z, dropped; None
+  for a dense model), which the loss adds; differentiable through either
+  attention;
 * ``model(tokens, sow_kv=True)`` — also returns ``{"block_i": (k, v)}``,
   each block's post-RoPE K/V from the normal forward (the port's form of
   flax's ``sow_kv``: the flash prefill builds the decode cache from it);
@@ -32,8 +38,16 @@ carried over (quantized on the way to ``quant="int8"``), as flax's
 
 Weights are created on ``device`` (the GPU unless ``device="cpu"``) and
 initialised from ``generator`` (a ``torch.Generator``; a fresh one seeded
-0 when None), never from the global random state.  Load the JAX package's
+0 when None), never from the global random state; the same generator, kept
+as ``model.generator``, draws the dropout masks.  They are stored in
+``param_dtype`` (``dtype`` when None, the serving layout) and cast to
+``dtype`` per use: the Trainer builds float32 masters, as flax keeps
+them.  The MoE leaves are float32 in every model.  Load the JAX package's
 trained parameters with convert.py ``load_causal_lm``.
+
+Decode with ``pos="learned"`` (the cache paths, the ``sow_kv`` prefill,
+core/generate.py's ``make_*`` functions, the engine, ``Trainer.generate``) raises
+JAX's ``ValueError`` (:data:`LEARNED_POS_DECODE`).
 """
 
 from __future__ import annotations
@@ -48,17 +62,32 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
     quantize_kernel_int8,
     quantize_state_dict_int8,
 )
-from distributed_tensorflow_ibm_mnist_tpu_torch.models.remat import remat
+import torch.nn.functional as F
+
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import _resolve_generator
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
-    LM_FOLLOW_UPS,
     LayerNorm,
     TransformerBlock,
-    _block_out,
-    _not_in_slice,
     _resolve_attn,
+    check_moe_knobs,
     check_quant_knobs,
+    is_moe_block,
+    run_blocks,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
+
+# JAX's refusal of decode for a learned position table, word for word
+LEARNED_POS_DECODE = (
+    "decode mode needs position-free params: pos='learned' bakes "
+    "the trained length into a (1, S, dim) table that cannot "
+    "address incremental positions — use pos='rope' (the default)")
+
+
+def check_decodable(model) -> None:
+    """Raise JAX's ``ValueError`` for a model whose positions cannot
+    decode incrementally (``pos="learned"``)."""
+    if getattr(model, "pos", "rope") == "learned":
+        raise ValueError(LEARNED_POS_DECODE)
 
 
 class CausalLM(nn.Module):
@@ -67,72 +96,104 @@ class CausalLM(nn.Module):
     def __init__(self, num_classes: int = 64, dim: int = 128, depth: int = 2,
                  heads: int = 4, heads_kv: int = 0, window: int = 0,
                  mlp_ratio: int = 4, dropout: float = 0.0, attn: str = "vanilla",
-                 causal: bool = True, pos: str = "rope",
-                 tie_embeddings: bool = False, moe_every: int = 0,
+                 causal: bool = True, pos: str = "rope", seq_len: int = 0,
+                 tie_embeddings: bool = False, moe_every: int = 0, n_experts: int = 8,
+                 moe_capacity_factor: float = 2.0, moe_top_k: int = 1,
+                 moe_z_weight: float = 0.0, moe_fn=None,
                  kv_cache_dtype: str = "native", page_size: int = 0,
                  quant: str = "none", block_remat: bool = False,
                  dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
         if window < 0:
             raise ValueError(f"window must be >= 0, got {window}")
-        if pos == "learned":
-            raise _not_in_slice("pos='learned'", LM_FOLLOW_UPS)
-        if pos not in ("rope", "none"):
-            raise ValueError(f"unknown pos {pos!r}; use 'rope' or 'none'")
-        if moe_every:
-            raise _not_in_slice("a MoE model", LM_FOLLOW_UPS)
+        if pos not in ("rope", "learned", "none"):
+            raise ValueError(
+                f"unknown pos {pos!r}; use 'rope', 'learned' or 'none'")
+        if pos == "learned" and seq_len < 1:
+            raise ValueError(
+                "pos='learned' needs seq_len: the (1, S, dim) table is sized at "
+                "construction (flax sizes it from the first input)")
+        check_moe_knobs(0, depth, dropout, moe_every, moe_fn)
         check_quant_knobs(quant, kv_cache_dtype)
         device = resolve_device(device)
         self._config = dict(
             num_classes=num_classes, dim=dim, depth=depth, heads=heads,
             heads_kv=heads_kv, window=window, mlp_ratio=mlp_ratio, dropout=dropout,
-            attn=attn, causal=causal, pos=pos, tie_embeddings=tie_embeddings,
-            moe_every=moe_every, kv_cache_dtype=kv_cache_dtype, page_size=page_size,
-            quant=quant, block_remat=block_remat, dtype=dtype)
+            attn=attn, causal=causal, pos=pos, seq_len=seq_len,
+            tie_embeddings=tie_embeddings, moe_every=moe_every, n_experts=n_experts,
+            moe_capacity_factor=moe_capacity_factor, moe_top_k=moe_top_k,
+            moe_z_weight=moe_z_weight, kv_cache_dtype=kv_cache_dtype,
+            page_size=page_size, quant=quant, block_remat=block_remat, dtype=dtype,
+            param_dtype=param_dtype)
         self.block_remat = block_remat
         self.quant, self.kv_cache_dtype = quant, kv_cache_dtype
         self.num_classes, self.dim, self.depth = num_classes, dim, depth
         self.heads, self.heads_kv = heads, heads_kv or heads
         self.head_dim = dim // heads
         self.window, self.causal, self.attn = window, causal, attn
+        self.pos, self.seq_len = pos, seq_len
         self.tie_embeddings, self.dtype = tie_embeddings, dtype
         self.page_size = page_size  # > 0: the blocks decode the paged cache only
+        self.generator = _resolve_generator(generator, device)  # init, then dropout
+        store = param_dtype or dtype  # the projections' and embedding's storage
         attn_fn = partial(_resolve_attn(None, attn), causal=causal, window=window)
         meta = torch.device("meta")  # shapes first; values from `generator`
-        self.embed = nn.Embedding(num_classes, dim, dtype=dtype, device=meta)
+        self.embed = nn.Embedding(num_classes, dim, dtype=store, device=meta)
+        self.pos_embed = (nn.Parameter(torch.empty(1, seq_len, dim, dtype=store, device=meta))
+                          if pos == "learned" else None)
         self.blocks = nn.ModuleList(
             TransformerBlock(dim=dim, heads=heads, heads_kv=heads_kv,
                              mlp_ratio=mlp_ratio, dropout=dropout,
-                             attn_fn=attn_fn, rope=pos == "rope", window=window,
+                             attn_fn=attn_fn, use_moe=is_moe_block(i, moe_every),
+                             n_experts=n_experts, moe_capacity_factor=moe_capacity_factor,
+                             moe_top_k=moe_top_k, moe_z_weight=moe_z_weight,
+                             rope=pos == "rope", window=window,
                              kv_cache_dtype=kv_cache_dtype, page_size=page_size,
-                             quant=quant, dtype=dtype, device=meta)
-            for _ in range(depth))
+                             quant=quant, dtype=dtype, param_dtype=param_dtype,
+                             device=meta, generator=self.generator)
+            for i in range(depth))
         self.norm_out = LayerNorm(dim, dtype, device=meta)
         if tie_embeddings:
             self.logits = None
         elif quant == "int8":
             self.logits = Int8Linear(dim, num_classes, dtype=dtype, device=meta)
         else:
-            self.logits = nn.Linear(dim, num_classes, dtype=dtype, device=meta)
+            self.logits = nn.Linear(dim, num_classes, dtype=store, device=meta)
         self.to_empty(device=device)
-        self.reset_parameters(generator)
+        self.reset_parameters(self.generator)
 
     @property
     def device(self) -> torch.device:
         return self.embed.weight.device
 
+    @property
+    def has_moe(self) -> bool:
+        return any(block.moe is not None for block in self.blocks)
+
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         """Initialise every weight from ``generator``: projections and the
-        embedding normal with std fan_in^-1/2, biases 0, norms (1, 0).  An
-        ``Int8Linear`` takes the draw its full-precision twin would (in
-        ``dtype``), quantized, so a quant model equals its seed's twin
-        quantized."""
+        embedding normal with std fan_in^-1/2, biases 0, norms (1, 0); the
+        MoE leaves as flax's ``MoEBlock`` (``MoEBlock.reset_parameters``)
+        and ``pos_embed`` normal(0.02), each where it stands in the
+        parameter order.  An ``Int8Linear`` takes the draw its
+        full-precision twin would (in ``dtype``), quantized, so a quant
+        model equals its seed's twin quantized."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
+        moe_done = set()
         for name, p in self.named_parameters():
-            if name.endswith("bias"):
+            if ".moe." in name:
+                path = name.rsplit(".", 1)[0]
+                if path not in moe_done:
+                    self.get_submodule(path).reset_parameters(generator)
+                    moe_done.add(path)
+            elif name == "pos_embed":
+                p.copy_(torch.randn(p.shape, generator=generator,
+                                    device=generator.device) * 0.02)
+            elif name.endswith("bias"):
                 p.zero_()
             elif ".norm_" in name or name.startswith("norm_"):
                 p.fill_(1.0)
@@ -162,16 +223,24 @@ class CausalLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, train: bool = False,
                 cache: dict | None = None, max_len: int = 0, ragged: bool = False,
-                sow_kv: bool = False):
-        x = self.embed(tokens.long())
+                sow_kv: bool = False, with_moe: bool = False):
+        if cache is not None or sow_kv:
+            check_decodable(self)
+        x = F.embedding(tokens.long(), self.embed.weight.to(self.dtype))
+        if self.pos_embed is not None:
+            if tokens.shape[1] != self.seq_len:
+                raise ValueError(
+                    f"this LM's learned positions were built for seq_len="
+                    f"{self.seq_len}, got sequences of {tokens.shape[1]}")
+            x = x + self.pos_embed.to(self.dtype)
+        if cache is None and not sow_kv:
+            x, moe = run_blocks(self.blocks, x, train, self.block_remat, self.generator)
+            logits = self._head(x)
+            return (logits, moe) if with_moe else logits
         kvs = {}
-        if self.block_remat and cache is None and not sow_kv:
-            for block in self.blocks:
-                x = remat(_block_out, block, x)
-            return self._head(x)
         for i, block in enumerate(self.blocks):
             entry = None if cache is None else cache[f"block_{i}"]
-            x, kv = block(x, cache=entry, max_len=max_len, ragged=ragged)
+            x, kv, _ = block(x, cache=entry, max_len=max_len, ragged=ragged, train=train)
             if sow_kv:
                 kvs[f"block_{i}"] = kv
         logits = self._head(x)
@@ -181,7 +250,10 @@ class CausalLM(nn.Module):
         """Final norm and vocab head: (B, S, dim) -> float32 logits."""
         x = self.norm_out(x)
         if self.tie_embeddings:
-            x = x @ self.embed.weight.T  # logits = x @ embed^T, weights shared
-        else:
+            x = x @ self.embed.weight.to(self.dtype).T  # logits = x @ embed^T, shared
+        elif isinstance(self.logits, Int8Linear):
             x = self.logits(x)
+        else:  # the weights cast per use (a no-op when stored in dtype)
+            x = F.linear(x, self.logits.weight.to(self.dtype),
+                         self.logits.bias.to(self.dtype))
         return x.float()

@@ -7,7 +7,17 @@ causal-LM serving path: ``apply_rope``, ``reset_cache_slots``,
 ``TransformerBlock`` (MHA through one ``qkv`` projection, GQA through
 ``q_proj``/``kv_proj``), with the normal forward and the dense decode
 attention, ragged or uniform, with or without a sliding window; and the
-``VisionTransformer`` over those blocks (dense blocks, no RoPE).
+``VisionTransformer`` over those blocks (no RoPE).
+
+A block with ``use_moe`` runs the MoE FFN (parallel/expert_parallel.py
+``MoEBlock``, float32, under the name ``moe``) in place of
+``dense_0``/``dense_1``, in training and in decode: it routes each call's
+tokens, capacity sized for them.  ``dropout`` (flax's ``nn.Dropout``)
+sits on the attention projection's output and on the MLP/MoE output,
+only when ``train``, its masks drawn from the model's ``generator``.  A
+block returns ``(x, kv, moe)``, ``moe`` its aux, pre-weighted z and
+dropped fraction (None for a dense block); :func:`run_blocks` sums them
+over a stack, as JAX's loss function reduces the sown collections.
 
 Numerics follow flax's: LayerNorm statistics in float32 with epsilon 1e-6
 and the E[x^2] - E[x]^2 variance; GELU is the tanh approximation; compute
@@ -27,11 +37,10 @@ the paged cache (serving/kv_pool.py) carries ``pages_k_scale`` /
 projection an ``Int8Linear`` (models/quant.py).
 
 Not ported yet, each raising ``NotImplementedError`` that names what ports
-it: MoE blocks and dropout (ROADMAP.md queue 1, 'Causal-LM and ViT
-training follow-ups'), and the ViT's pipeline stages.  ``block_remat``
-(the ViT, the causal LM) recomputes each block in the backward
-(``models/remat.py``).
-``StackedBlocks`` (pipeline training) is not ported.  Training
+it: the ViT's pipeline stages (``StackedBlocks``) and a user's
+expert-parallel ``moe_fn``.  ``block_remat`` (the ViT, the causal LM)
+recomputes each block in the backward (``models/remat.py``), its dropout
+masks replayed and its MoE terms taken from the forward.  Training
 runs this forward under autograd: ``attn="flash"`` differentiates through
 the flash kernels' ``torch.autograd.Function``, ``"vanilla"`` through plain
 PyTorch.
@@ -47,10 +56,15 @@ import torch.nn.functional as F
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import (
     _resolve_generator,
+    dropout,
     init_lecun_,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import Int8Linear
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.remat import remat
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.expert_parallel import (
+    EXPERT_PARALLEL,
+    MoEBlock,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.ring_attention import (
     vanilla_attention,
 )
@@ -180,12 +194,31 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
-LM_FOLLOW_UPS = "ROADMAP.md queue 1, 'Causal-LM and ViT training follow-ups',"
-
-
 def _not_in_slice(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not in the PyTorch port yet ({where} ports it)")
+
+
+def is_moe_block(i: int, moe_every: int) -> bool:
+    """Block ``i`` of a stack is a MoE block every ``moe_every`` blocks
+    (JAX's ``(i + 1) % moe_every == 0``)."""
+    return moe_every > 0 and (i + 1) % moe_every == 0
+
+
+def check_moe_knobs(pp_stages: int, depth: int, dropout: float, moe_every: int,
+                    moe_fn) -> None:
+    """What JAX's models refuse with dropout and MoE, in its words; a
+    user's ``moe_fn`` (an expert-parallel island) by its ROADMAP item."""
+    if pp_stages > 0:
+        if depth % pp_stages:
+            raise ValueError(f"depth {depth} not divisible by pp_stages {pp_stages}")
+        if dropout > 0.0 or moe_every > 0:
+            raise ValueError(
+                "pipeline stages need identical per-block programs: "
+                "dropout and MoE blocks don't compose with pp_stages")
+    if moe_fn is not None:
+        raise _not_in_slice("a user moe_fn (the expert-parallel dispatch)",
+                            EXPERT_PARALLEL)
 
 
 def check_quant_knobs(quant: str, kv_cache_dtype: str) -> None:
@@ -198,25 +231,30 @@ def check_quant_knobs(quant: str, kv_cache_dtype: str) -> None:
 
 
 class TransformerBlock(nn.Module):
-    """Pre-norm block: LayerNorm -> attention -> proj (+res) -> LayerNorm ->
-    MLP (+res).  ``forward(x)`` runs the normal (prefill) forward and
-    returns ``(x, (k, v))`` with the post-RoPE K/V the decode cache stores;
-    ``forward(x, cache=entry, max_len=L)`` runs decode attention against
-    the block's cache entry, updated in place, and returns ``(x, None)``.
-    The projections are stored in ``param_dtype`` (``dtype`` when None, as
-    the causal LM keeps them; the ViT keeps float32, as flax does) and cast
-    to ``dtype`` for each product."""
+    """Pre-norm block: LayerNorm -> attention -> proj (+dropout, +res) ->
+    LayerNorm -> MLP or MoE (+dropout, +res).  ``forward(x)`` runs the
+    normal (prefill) forward and returns ``(x, (k, v), moe)`` with the
+    post-RoPE K/V the decode cache stores; ``forward(x, cache=entry,
+    max_len=L)`` runs decode attention against the block's cache entry,
+    updated in place, and returns ``(x, None, moe)``.  ``moe`` is None for
+    a dense block, else ``{"aux", "z", "dropped"}`` (``z`` pre-weighted by
+    ``moe_z_weight``, None when that is 0).  ``train=True`` turns dropout
+    on.  The projections are stored in ``param_dtype`` (``dtype`` when
+    None, as a serving model keeps them; training keeps float32 masters,
+    as flax does) and cast to ``dtype`` for each product; the MoE leaves
+    are float32 always."""
 
     def __init__(self, dim: int, heads: int, heads_kv: int = 0, mlp_ratio: int = 4,
                  dropout: float = 0.0, attn_fn: Callable | None = None,
-                 attn: str = "vanilla", use_moe: bool = False, rope: bool = False,
+                 attn: str = "vanilla", use_moe: bool = False, n_experts: int = 8,
+                 moe_capacity_factor: float = 2.0, moe_top_k: int = 1,
+                 moe_z_weight: float = 0.0, rope: bool = False,
                  window: int = 0, kv_cache_dtype: str = "native",
                  page_size: int = 0, quant: str = "none",
                  dtype: torch.dtype = torch.bfloat16,
-                 param_dtype: torch.dtype | None = None, device=None):
+                 param_dtype: torch.dtype | None = None, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
-        if use_moe:
-            raise _not_in_slice("a MoE block", LM_FOLLOW_UPS)
         check_quant_knobs(quant, kv_cache_dtype)
         if page_size < 0:
             raise ValueError(f"page_size must be >= 0, got {page_size}")
@@ -225,8 +263,9 @@ class TransformerBlock(nn.Module):
                 "the paged cache does not compose with sliding-window "
                 "attention (window > 0) — the windowed span gather assumes a "
                 "dense contiguous cache row")
-        if dropout > 0.0:
-            raise _not_in_slice("dropout in a transformer block", LM_FOLLOW_UPS)
+        if dropout > 0.0 and generator is None:
+            raise ValueError("dropout > 0 draws its masks from the model's generator; "
+                             "pass generator=")
         hkv = heads_kv or heads
         if heads % hkv:
             raise ValueError(f"heads ({heads}) must be a multiple of heads_kv ({hkv})")
@@ -236,6 +275,7 @@ class TransformerBlock(nn.Module):
         self.page_size = page_size
         self.kv_cache_dtype = kv_cache_dtype
         self.attn_fn = _resolve_attn(attn_fn, attn)
+        self.dropout, self.generator = dropout, generator
 
         def linear(fan_in, fan_out):
             if quant == "int8":
@@ -250,8 +290,14 @@ class TransformerBlock(nn.Module):
             self.kv_proj = linear(dim, 2 * hkv * self.head_dim)
         self.proj = linear(dim, dim)
         self.norm_mlp = LayerNorm(dim, dtype, device=device)
-        self.dense_0 = linear(dim, mlp_ratio * dim)
-        self.dense_1 = linear(mlp_ratio * dim, dim)
+        self.moe = None
+        if use_moe:  # the MoE FFN in place of dense_0/dense_1 (float32)
+            self.moe = MoEBlock(dim, n_experts=n_experts, hidden_mult=mlp_ratio,
+                                capacity_factor=moe_capacity_factor, top_k=moe_top_k,
+                                z_weight=moe_z_weight, device=device)
+        else:
+            self.dense_0 = linear(dim, mlp_ratio * dim)
+            self.dense_1 = linear(mlp_ratio * dim, dim)
 
     def _dense(self, layer: nn.Module, x):
         """``layer`` in the compute dtype (a no-op cast when the parameters
@@ -260,8 +306,14 @@ class TransformerBlock(nn.Module):
             return layer(x)
         return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
 
+    def _dropout(self, x, train: bool):
+        """flax's ``nn.Dropout``: active only when ``train``."""
+        if not train or self.dropout <= 0.0:
+            return x
+        return dropout(x, self.dropout, self.generator)
+
     def forward(self, x, cache: dict | None = None, max_len: int = 0,
-                ragged: bool = False):
+                ragged: bool = False, train: bool = False):
         b, s, _ = x.shape
         hd = self.head_dim
         h = self.norm_attn(x)
@@ -286,10 +338,19 @@ class TransformerBlock(nn.Module):
                 q, k = apply_rope(q), apply_rope(k)
             kv_out = (k, v)
             o = self.attn_fn(q, k, v)
-        x = x + self._dense(self.proj, o.reshape(b, s, self.dim))
+        x = x + self._dropout(self._dense(self.proj, o.reshape(b, s, self.dim)), train)
         h = self.norm_mlp(x)
-        h = self._dense(self.dense_1, F.gelu(self._dense(self.dense_0, h), approximate="tanh"))
-        return x + h, kv_out
+        moe = None
+        if self.moe is not None:
+            # routed per call over this call's B * S tokens (a decode step's
+            # B tokens too), capacity sized for them, as JAX's block does
+            h, aux, stats = self.moe(h)
+            moe = {"aux": aux, "dropped": stats["dropped"],
+                   "z": self.moe.z_weight * stats["z"] if self.moe.z_weight > 0.0 else None}
+        else:
+            h = self._dense(self.dense_1,
+                            F.gelu(self._dense(self.dense_0, h), approximate="tanh"))
+        return x + self._dropout(h, train), kv_out, moe
 
     def _decode_attention(self, q, k, v, cache: dict, max_len: int,
                           ragged: bool = False):
@@ -421,9 +482,38 @@ class TransformerBlock(nn.Module):
                 f"{'an int8' if int8_cache else 'a native'} cache")
 
 
-def _block_out(block: TransformerBlock, x: torch.Tensor) -> torch.Tensor:
-    """A block's output without its K/V: the remat region of a block."""
-    return block(x)[0]
+def _block_out(block: TransformerBlock, x: torch.Tensor, train: bool):
+    """A block's output and its MoE terms, without its K/V: the remat
+    region of a block (the MoE terms leave it as outputs, so the loss
+    takes them from the forward and the recompute only rebuilds)."""
+    out, _, moe = block(x, train=train)
+    return out, moe
+
+
+def run_blocks(blocks, x: torch.Tensor, train: bool, remat_blocks: bool,
+               generator: torch.Generator | None):
+    """The training/eval forward through ``blocks``: ``(x, moe)`` with
+    ``moe`` None for a dense stack, else ``{"aux": sum of the blocks'
+    load-balancing losses, "z": sum of their pre-weighted z-losses (0
+    when none is weighted), "dropped": mean dropped fraction over the MoE
+    blocks}`` (JAX's ``losses`` / ``zlosses`` / ``moe_stats``
+    collections as the loss function reduces them).  ``remat_blocks``
+    recomputes each block in the backward, its dropout masks replayed
+    from ``generator``."""
+    terms = []
+    for block in blocks:
+        if remat_blocks:
+            x, moe = remat(_block_out, block, x, train, generators=[generator])
+        else:
+            x, moe = _block_out(block, x, train)
+        if moe is not None:
+            terms.append(moe)
+    if not terms:
+        return x, None
+    zs = [t["z"] for t in terms if t["z"] is not None]
+    return x, {"aux": torch.stack([t["aux"] for t in terms]).sum(),
+               "z": torch.stack(zs).sum() if zs else x.new_zeros((), dtype=torch.float32),
+               "dropped": torch.stack([t["dropped"] for t in terms]).mean()}
 
 
 _PARALLEL = "ROADMAP.md queue 1, 'Remaining parallelism and utilities',"
@@ -435,7 +525,7 @@ class VisionTransformer(nn.Module):
     (1, S, dim); ``depth`` pre-norm blocks without RoPE (``block_{i}`` in
     flax, ``blocks.{i}`` here); ``norm_out``, the mean over tokens, and the
     ``logits`` head, float32.  The counterpart of the JAX package's
-    ``VisionTransformer``, dense blocks only.
+    ``VisionTransformer``.
 
     flax reads the image size from the first input; here ``image_size``
     (H, W) and ``in_channels`` fix it at construction, and an image of
@@ -444,11 +534,13 @@ class VisionTransformer(nn.Module):
     kernels, zero biases, LayerNorm (1, 0), ``pos_embed`` normal(0.02).
     ``block_remat=True`` recomputes each block's activations in the
     backward (``models/remat.py``; flax's ``nn.remat`` of the block).
-    Not ported yet, each raising ``NotImplementedError`` that names its
-    ROADMAP.md item: MoE blocks (``moe_every``), dropout and pipeline stages
-    (``pp_stages``, ``pipeline_fn``).  The MoE sizing
-    knobs are accepted for the JAX signature and unused without
-    ``moe_every``."""
+    ``moe_every=k`` makes every k-th block a MoE block (JAX's ``(i + 1) %
+    k == 0``) with the ``n_experts``/``moe_*`` knobs; ``dropout`` draws
+    its masks from ``self.generator`` (the init generator), as LeNet-5's.
+    Dropout or MoE with ``pp_stages`` is JAX's ``ValueError``; pipeline
+    stages themselves (``pp_stages``, ``pipeline_fn``) and a user's
+    ``moe_fn`` raise ``NotImplementedError`` naming their ROADMAP.md
+    item."""
 
     def __init__(self, patch_size: int = 4, dim: int = 128, depth: int = 4,
                  heads: int = 4, heads_kv: int = 0, mlp_ratio: int = 4,
@@ -462,10 +554,7 @@ class VisionTransformer(nn.Module):
                  in_channels: int = 1, dtype: torch.dtype = torch.bfloat16,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        if moe_every > 0:
-            raise _not_in_slice("a MoE ViT (moe_every)", LM_FOLLOW_UPS)
-        if dropout > 0.0:
-            raise _not_in_slice("dropout in the ViT's blocks", LM_FOLLOW_UPS)
+        check_moe_knobs(pp_stages, depth, dropout, moe_every, moe_fn)
         if pp_stages > 0 or pipeline_fn is not None:
             raise _not_in_slice("pipeline stages (pp_stages, pipeline_fn)", _PARALLEL)
         self.block_remat = block_remat
@@ -479,19 +568,26 @@ class VisionTransformer(nn.Module):
         meta = torch.device("meta")  # shapes first; values from `generator`
         self.patch_embed = nn.Conv2d(in_channels, dim, p, p, device=meta)
         self.pos_embed = nn.Parameter(torch.empty(1, self.seq_len, dim, device=meta))
+        gen = _resolve_generator(generator, device)
+        self.generator = gen  # the dropout masks' source
         self.blocks = nn.ModuleList(
             TransformerBlock(dim=dim, heads=heads, heads_kv=heads_kv,
-                             mlp_ratio=mlp_ratio, attn_fn=attn_fn, attn=attn,
-                             dtype=dtype, param_dtype=torch.float32, device=meta)
-            for _ in range(depth))
+                             mlp_ratio=mlp_ratio, dropout=dropout, attn_fn=attn_fn,
+                             attn=attn, use_moe=is_moe_block(i, moe_every),
+                             n_experts=n_experts, moe_capacity_factor=moe_capacity_factor,
+                             moe_top_k=moe_top_k, moe_z_weight=moe_z_weight,
+                             dtype=dtype, param_dtype=torch.float32, device=meta,
+                             generator=gen)
+            for i in range(depth))
         self.norm_out = LayerNorm(dim, dtype, device=meta)
         self.logits = nn.Linear(dim, num_classes, device=meta)
         self.to_empty(device=device)
-        gen = _resolve_generator(generator, device)
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, (nn.Conv2d, nn.Linear)):
                     init_lecun_(m, gen)
+                elif isinstance(m, MoEBlock):
+                    m.reset_parameters(gen)
                 elif isinstance(m, LayerNorm):
                     m.weight.fill_(1.0)
                     m.bias.zero_()
@@ -503,8 +599,15 @@ class VisionTransformer(nn.Module):
         if h % p or w % p:
             raise ValueError(f"image {h}x{w} not divisible by patch size {p}")
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        """(B, H, W, C) NHWC images in [0, 1] -> (B, num_classes) float32."""
+    @property
+    def has_moe(self) -> bool:
+        return any(block.moe is not None for block in self.blocks)
+
+    def forward(self, x: torch.Tensor, train: bool = False, with_moe: bool = False):
+        """(B, H, W, C) NHWC images in [0, 1] -> (B, num_classes) float32
+        logits; ``with_moe=True`` returns ``(logits, moe)``, the MoE terms
+        of :func:`run_blocks` (None for a dense model).  ``train`` turns
+        dropout on."""
         b, h, w, _ = x.shape
         self._check_image(h, w, self.patch_size)
         if (h, w) != self.image_size:
@@ -516,9 +619,9 @@ class VisionTransformer(nn.Module):
         x = F.conv2d(x, pe.weight.to(dt), pe.bias.to(dt), self.patch_size)
         x = x.permute(0, 2, 3, 1).reshape(b, self.seq_len, self.dim)  # (row, col) order
         x = x + self.pos_embed.to(dt)
-        for block in self.blocks:
-            x = remat(_block_out, block, x) if self.block_remat else block(x)[0]
+        x, moe = run_blocks(self.blocks, x, train, self.block_remat, self.generator)
         x = self.norm_out(x).mean(1, dtype=torch.promote_types(dt, torch.float32))
         x = x.to(dt)  # a float32 mean, as jnp.mean of bf16 takes it
         w_out, b_out = self.logits.weight.to(dt), self.logits.bias.to(dt)
-        return F.linear(x, w_out, b_out).float()
+        logits = F.linear(x, w_out, b_out).float()
+        return (logits, moe) if with_moe else logits

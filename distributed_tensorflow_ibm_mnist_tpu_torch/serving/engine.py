@@ -130,6 +130,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import (
     init_cache,
     make_prefill,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.causal_lm import check_decodable
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
     quantize_state_dict_int8,
     weight_stream_bytes,
@@ -248,6 +249,7 @@ class InferenceEngine:
                     f"InferenceEngine({name}={value!r}) is not in the PyTorch "
                     f"port yet: ROADMAP.md queue 1, {where}; leave it at "
                     f"{default!r}")
+        check_decodable(model)  # JAX's ValueError for pos="learned"
         if role not in ("both", "prefill", "decode"):
             raise ValueError(
                 f"role must be 'both', 'prefill', or 'decode', got {role!r}")

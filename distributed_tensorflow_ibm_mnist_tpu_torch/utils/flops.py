@@ -14,7 +14,10 @@ XLA's includes the elementwise work, this one does not.  The causal
 LM is counted per sequence (:func:`causal_lm_flops_per_sequence`): its
 dense layers as above plus attention's matmuls by the JAX package's own
 :func:`attention_flops` convention, which the JAX Trainer adds to XLA's
-count for flash runs.  Norms, RoPE, softmax, the embedding gather and the
+count for flash runs.  A MoE block (the LM's or the ViT's) counts its
+router and its expert FFN on the routed assignments only, the useful work
+(``_mlp_macs_per_token``), so a MoE run's MFU is the share of the peak
+spent on that work, not on the capacity padding.  Norms, RoPE, softmax, the embedding gather and the
 loss are left out.
 
 MFU's denominator is the card's dense bf16 peak, looked up by the name
@@ -82,22 +85,40 @@ def attention_flops(
     return f
 
 
+def _mlp_macs_per_token(dim: int, depth: int, mlp_ratio: int, moe_every: int,
+                        n_experts: int, moe_top_k: int) -> float:
+    """Multiply-accumulates per token of every block's FFN: the dense MLP
+    (``2 * mlp_ratio * dim^2``), or in a MoE block (every ``moe_every``-th)
+    the router (``dim * n_experts``) plus the expert FFN once per routed
+    assignment (``moe_top_k`` x the dense MLP's).  That is the useful
+    work: the capacity buffers' padding (empty slots run the FFN too) and
+    JAX's one-hot dispatch/combine einsums are not counted."""
+    n_moe = sum(1 for i in range(depth) if moe_every > 0 and (i + 1) % moe_every == 0)
+    mlp = 2 * mlp_ratio * dim * dim
+    return (depth - n_moe) * mlp + n_moe * (dim * n_experts + moe_top_k * mlp)
+
+
 def causal_lm_flops_per_sequence(seq: int, dim: int, depth: int, heads: int,
                                  vocab: int, heads_kv: int = 0, mlp_ratio: int = 4,
-                                 causal: bool = True, window: int = 0) -> float:
+                                 causal: bool = True, window: int = 0,
+                                 moe_every: int = 0, n_experts: int = 8,
+                                 moe_top_k: int = 1) -> float:
     """Analytic FLOPs of one training sequence of the causal LM.
 
     Per block and token, 2 FLOPs per weight of the q/k/v projections, the
     output projection and the MLP: ``2 * 12 * dim^2`` for MHA at
-    ``mlp_ratio`` 4; plus the vocab head, ``2 * dim * vocab``; times 3 for
+    ``mlp_ratio`` 4 (a MoE block's FFN as :func:`_mlp_macs_per_token`
+    counts it); plus the vocab head, ``2 * dim * vocab``; times 3 for
     training; plus :func:`attention_flops` with its backward.  At the
     repo's long-context LM (S=8192, dim 512, depth 4, 8 heads, vocab 256,
     causal) that is ~1.45 TFLOP per sequence.  XLA's count of the same step
     differs by the elementwise work this one leaves out."""
     hd = dim // heads
     hkv = heads_kv or heads
-    per_token = depth * (dim * (dim + 2 * hkv * hd) + dim * dim
-                         + 2 * mlp_ratio * dim * dim) + dim * vocab
+    per_token = (depth * (dim * (dim + 2 * hkv * hd) + dim * dim)
+                 + _mlp_macs_per_token(dim, depth, mlp_ratio, moe_every, n_experts,
+                                       moe_top_k)
+                 + dim * vocab)
     dense = 2.0 * per_token * seq * 3
     return dense + attention_flops(1, seq, heads, hd, causal=causal,
                                    with_backward=True, depth=depth, window=window)
@@ -125,10 +146,12 @@ def resnet_forward_flops(model: str, image_shape: Sequence[int], num_classes: in
 def vit_forward_flops(image_shape: Sequence[int], patch_size: int, dim: int,
                       depth: int, heads: int, num_classes: int = 10,
                       heads_kv: int = 0, mlp_ratio: int = 4,
-                      causal: bool = False) -> float:
+                      causal: bool = False, moe_every: int = 0, n_experts: int = 8,
+                      moe_top_k: int = 1) -> float:
     """Forward FLOPs of one image through the ViT: the patch embedding (a
     stride-p conv), per token and block 2 FLOPs per weight of the q/k/v
-    projections, the output projection and the MLP, attention's forward
+    projections, the output projection and the MLP (a MoE block's FFN as
+    :func:`_mlp_macs_per_token` counts it), attention's forward
     matmuls by :func:`attention_flops`' convention, and the head; norms,
     GELU, softmax and the token mean are left out.  dim 512, depth 8, 8
     heads, patch 2 on 28 px (S=196): 10.50 GFLOP."""
@@ -137,11 +160,18 @@ def vit_forward_flops(image_shape: Sequence[int], patch_size: int, dim: int,
     seq = (h // p) * (w // p)
     hd = dim // heads
     hkv = heads_kv or heads
-    per_token = dim * (dim + 2 * hkv * hd) + dim * dim + 2 * mlp_ratio * dim * dim
-    return (2.0 * seq * dim * p * p * c + 2.0 * depth * seq * per_token
+    per_token = (depth * (dim * (dim + 2 * hkv * hd) + dim * dim)
+                 + _mlp_macs_per_token(dim, depth, mlp_ratio, moe_every, n_experts,
+                                       moe_top_k))
+    return (2.0 * seq * dim * p * p * c + 2.0 * seq * per_token
             + attention_flops(1, seq, heads, hd, causal=causal, with_backward=False,
                               depth=depth)
             + 2.0 * dim * num_classes)
+
+
+def _moe_kw(kw: dict) -> dict:
+    return {"moe_every": kw.get("moe_every", 0), "n_experts": kw.get("n_experts", 8),
+            "moe_top_k": kw.get("moe_top_k", 1)}
 
 
 def model_flops_per_image(model: str, model_kwargs: dict, num_classes: int,
@@ -164,14 +194,14 @@ def model_flops_per_image(model: str, model_kwargs: dict, num_classes: int,
         return causal_lm_flops_per_sequence(
             seq_len, kw["dim"], kw["depth"], kw["heads"], num_classes,
             heads_kv=kw.get("heads_kv", 0), mlp_ratio=kw.get("mlp_ratio", 4),
-            causal=causal, window=kw.get("window", 0))
+            causal=causal, window=kw.get("window", 0), **_moe_kw(kw))
     if model in ("resnet20", "resnet50"):
         return 3 * resnet_forward_flops(model, image_shape, num_classes, **kw)
     if model == "vit":
         return 3 * vit_forward_flops(
             image_shape, kw["patch_size"], kw["dim"], kw["depth"], kw["heads"],
             num_classes, heads_kv=kw.get("heads_kv", 0), mlp_ratio=kw.get("mlp_ratio", 4),
-            causal=causal)
+            causal=causal, **_moe_kw(kw))
     raise ValueError(f"no FLOP count for model {model!r}")
 
 

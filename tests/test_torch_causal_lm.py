@@ -76,14 +76,22 @@ def test_weights_come_from_the_generator_not_global_state():
         assert torch.equal(pa, pb), name
 
 
+def _moe_island(*args):
+    return args
+
+
 @pytest.mark.parametrize("kw, error, slice_", [
-    ({"moe_every": 2}, NotImplementedError, "MoE"),
+    # MoE blocks are ported; a user's expert-parallel island is not
+    ({"moe_every": 2, "moe_fn": _moe_island}, NotImplementedError,
+     r"moe_fn .*ROADMAP.md queue 1, item 7\.5"),
     # int8 weights and the int8 cache are ported: bad values refused as in JAX
     ({"quant": "int4"}, ValueError, "quant must be 'none' or 'int8'"),
     ({"kv_cache_dtype": "fp8"}, ValueError, "kv_cache_dtype must be"),
     # the paged cache is ported; what JAX refuses with it, the port refuses
     ({"page_size": 8, "window": 4}, ValueError, "paged cache does not compose"),
-    ({"pos": "learned"}, NotImplementedError, "training"),
+    # learned positions are ported; the table is sized at construction
+    # (their decode refusal: tests/test_torch_lm_follow_ups.py)
+    ({"pos": "learned"}, ValueError, "pos='learned' needs seq_len"),
 ], ids=["moe", "quant", "kv-int8", "paged", "learned-pos"])
 def test_later_slices_refuse_by_name(kw, error, slice_):
     with pytest.raises(error, match=slice_):

@@ -3,7 +3,8 @@
 Round trip: a flax tree, made numpy, converted and loaded into the port's
 model, gives back every leaf exactly (dense kernels transposed, conv
 kernels HWIO -> OIHW).  A tree with a missing, extra or misshapen leaf
-raises with the leaf's path.  Causal LM, LeNet-5 and the MLP.
+raises with the leaf's path.  Causal LM (MoE blocks and a learned
+position table among its variants), LeNet-5 and the MLP.
 """
 
 import functools
@@ -27,7 +28,14 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.convert import (
 torch.set_num_threads(1)
 
 KW = dict(num_classes=40, dim=64, depth=2, heads=4)
-VARIANTS = {"mha": {}, "gqa": {"heads_kv": 2}, "tied": {"tie_embeddings": True}}
+VARIANTS = {"mha": {}, "gqa": {"heads_kv": 2}, "tied": {"tie_embeddings": True},
+            "moe": {"moe_every": 2, "n_experts": 4}, "learned": {"pos": "learned"}}
+
+
+def _port_kw(extra):
+    """The port sizes a learned position table at construction (flax from
+    the init input, (1, 8) here)."""
+    return {**extra, "seq_len": 8} if extra.get("pos") == "learned" else extra
 
 
 def _params_np(extra, seed=0):
@@ -48,17 +56,17 @@ def _flat(tree, prefix=()):
 def test_round_trip_is_exact_and_strict(variant):
     extra = VARIANTS[variant]
     params = _params_np(extra)
-    model = load_causal_lm(params, device="cpu", **KW, **extra, dtype=torch.float32)
+    model = load_causal_lm(params, device="cpu", **KW, **_port_kw(extra), dtype=torch.float32)
     state = model.state_dict()
-    converted = causal_lm_state_dict(params, {**KW, **extra})
+    converted = causal_lm_state_dict(params, {**KW, **_port_kw(extra)})
     assert set(converted) == set(state)  # every key consumed, none left over
     n_leaves = 0
     for path, leaf in _flat(params):
         n_leaves += 1
-        block, *mod, name = path
+        block, *mod, name = path if len(path) > 1 else (*path, None)
         key = ("blocks." + block.split("_")[1] if block.startswith("block_") else block)
-        key = ".".join([key, *mod, {"kernel": "weight", "scale": "weight",
-                                    "embedding": "weight"}.get(name, name)])
+        key = ".".join([key, *mod] + ([] if name is None else [
+            {"kernel": "weight", "scale": "weight", "embedding": "weight"}.get(name, name)]))
         got = state[key].numpy()
         want = leaf.T if name == "kernel" else leaf
         np.testing.assert_array_equal(got, want, err_msg="/".join(path))
@@ -79,6 +87,35 @@ def test_wrong_shape_names_its_path():
     params["block_0"]["qkv"]["kernel"] = params["block_0"]["qkv"]["kernel"][:, :-1]
     with pytest.raises(ValueError, match="block_0/qkv/kernel"):
         causal_lm_state_dict(params, KW)
+
+
+@pytest.mark.parametrize("leaf", ["router", "w1", "b2"])
+def test_moe_leaf_wrong_shape_names_its_path(leaf):
+    extra = VARIANTS["moe"]
+    params = _params_np(extra)
+    params["block_1"]["moe"][leaf] = params["block_1"]["moe"][leaf][..., :-1]
+    with pytest.raises(ValueError, match=f"block_1/moe/{leaf}"):
+        causal_lm_state_dict(params, {**KW, **extra})
+    del params["block_1"]["moe"]
+    with pytest.raises(ValueError, match="missing leaves.*block_1/moe/router"):
+        causal_lm_state_dict(params, {**KW, **extra})
+
+
+def test_learned_pos_embed_is_strict_and_moe_leaves_stay_float32():
+    """pos_embed must be the table the port was sized for; a bf16 MoE
+    model keeps its MoE leaves float32 (JAX consumes them so) and stores
+    the rest in bf16."""
+    params = _params_np(VARIANTS["learned"])
+    with pytest.raises(ValueError, match="leaf 'pos_embed' has shape"):
+        causal_lm_state_dict(params, {**KW, "pos": "learned", "seq_len": 9})
+    with pytest.raises(ValueError, match="unexpected leaf 'pos_embed'"):
+        causal_lm_state_dict(params, KW)
+    extra = VARIANTS["moe"]
+    model = load_causal_lm(_params_np(extra), device="cpu", **KW, **extra,
+                           dtype=torch.bfloat16)
+    for name, p in model.named_parameters():
+        keep = ".moe." in name or "norm" in name
+        assert p.dtype == (torch.float32 if keep else torch.bfloat16), name
 
 
 def test_unexpected_leaf_names_its_path():

@@ -72,7 +72,8 @@ def test_importing_every_module_loads_no_jax():
                  "serving.radix_cache", "ops.launch_floor",  # the serving features
                  "models.quant", "serving.drafter",  # int8, speculation
                  "utils.checkpoint", "utils.chaos", "utils.elastic", "utils.debug",
-                 "utils.profiling", "data.native", "models.remat"):  # fault tolerance
+                 "utils.profiling", "data.native", "models.remat",  # fault tolerance
+                 "parallel.expert_parallel"):  # the MoE blocks
         assert f"{PORT.name}.{name}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

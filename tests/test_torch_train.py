@@ -298,16 +298,21 @@ def test_measure_throughput_leaves_the_state_unchanged():
         assert torch.equal(a, b)
 
 
+def _moe_island(*args):
+    return args
+
+
 REFUSED = {
     "tp2": dict(tp=2), "sp2": dict(sp=2), "pp2": dict(pp=2),
     "fsdp": dict(fsdp=True), "dcn_dp": dict(dcn_dp=2),
-    # the image models and the causal LM train now; what they still refuse,
-    # under the old ids
-    "vit": dict(model="vit", model_kwargs={"moe_every": 2}),
+    # the image models and the causal LM train now, MoE, dropout and
+    # learned positions too; what they still refuse, under the old ids:
+    # MoE at dp > 1 (automatic expert parallelism) and a user's moe_fn
+    "vit": dict(model="vit", model_kwargs={"moe_every": 2}, dp=2),
     "causal_lm": dict(model="causal_lm", dataset="retrieval",
-                      model_kwargs={"dropout": 0.1}),
+                      model_kwargs={"moe_every": 2, "moe_fn": _moe_island}),
     "retrieval": dict(model="causal_lm", dataset="retrieval",
-                      model_kwargs={"moe_every": 2}),
+                      model_kwargs={"moe_every": 2}, dp=2),
 }
 
 

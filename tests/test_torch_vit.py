@@ -20,6 +20,7 @@ covers and the plain twins take, as JAX's flash does.
 """
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -153,11 +154,24 @@ def test_converter_is_strict():
         vit_state_dict({**params, "block_2": params["block_1"]}, kw)
 
 
-@pytest.mark.parametrize("bad", [dict(moe_every=2), dict(dropout=0.1), dict(pp_stages=2)],
-                         ids=["moe_every", "dropout", "pp_stages"])
-def test_model_refuses_what_the_port_lacks(bad):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+PP_NEEDS_IDENTICAL_BLOCKS = ("pipeline stages need identical per-block programs: "
+                             "dropout and MoE blocks don't compose with pp_stages")
+
+
+# MoE blocks and dropout are ported: what the ViT still refuses with them
+# is JAX's ValueError against pipeline stages, which stay unported
+@pytest.mark.parametrize("bad, error, match", [
+    (dict(moe_every=2, pp_stages=2), ValueError, PP_NEEDS_IDENTICAL_BLOCKS),
+    (dict(dropout=0.1, pp_stages=2), ValueError, PP_NEEDS_IDENTICAL_BLOCKS),
+    (dict(pp_stages=2), NotImplementedError, "ROADMAP.md queue 1"),
+], ids=["moe_every", "dropout", "pp_stages"])
+def test_model_refuses_what_the_port_lacks(bad, error, match):
+    with pytest.raises(error, match=re.escape(match) if error is ValueError else match):
         get_model("vit", device="cpu", **bad)
+    if error is ValueError:  # JAX's own words
+        jm = jax_get_model("vit", dim=32, depth=4, heads=4, **bad)
+        with pytest.raises(ValueError, match=re.escape(match)):
+            jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 28, 28, 1)))
 
 
 def test_patch_size_must_divide_the_image_as_in_jax():
