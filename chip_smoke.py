@@ -289,6 +289,29 @@ never JAX or the JAX package.  Phases, one JSON line each:
    refuses; (e) the ViT with 4 of 8 blocks MoE, dropout 0.1 and
    ``fused_xent`` for one epoch: K1 == K2 == steps, K3/K4 as phase 14,
    ``moe_dropped_frac`` recorded, images/s beside phase 14's;
+15f. data_parallel_rest — ZeRO-3, expert parallelism and multislice, two
+   gloo ranks sharing cuda:0 (after K3 and K4 are held against their
+   plain versions at each rank's attention shape (4, 8192, 8, 64) on
+   packed q/k/v): (a) ``bench_lm8k`` at dp=2 under ``fsdp`` through
+   ``fit()`` (K3 == depth x (steps + the rank's eval batches), K4 ==
+   depth x steps, a rank) beside the same config without fsdp, the
+   resident bytes a rank of parameters, gradients and moments (ZeRO-3
+   under 0.6x dp's), then both step functions on the same 4 global
+   batches from the same seed: the per-step loss within 1e-5 relative
+   on the split backward route (K6a + K6b write each dQ tile once, so
+   only the gradient reduction differs), the fused route's read beside
+   it (K4's dQ atomics), seconds a step and tokens/s/chip of each, and
+   the host ms of one step's collectives (ZeRO-3's gather and gradient
+   reduction, dp's bucketed all-reduce);
+   (b) the MoE + dropout ``bench_lm8k`` of phase 15e at dp=2 under
+   automatic expert parallelism, 2 steps: K3/K4 as (a), each rank
+   holding 4 of the 8 experts' rows (different rows on the two ranks),
+   ``moe_dropped_frac``, steady seconds a step, and the all-to-all's
+   milliseconds on the step's (8, 16384, 512) float32 capacity buffer;
+   (c) ``mnist_lenet_1chip`` at dp=2 under ``fsdp`` + ``sharded_update``
+   + ``fused_xent`` for one epoch of 16384 images: K1 == K2 == steps a
+   rank at the checked (64, 10), every split leaf and its moments at 1/2
+   a rank; (d) ``make_mesh(dcn_dp=2)`` on this one node must refuse;
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2, each
@@ -296,7 +319,8 @@ never JAX or the JAX package.  Phases, one JSON line each:
    the ``fault_tolerant_training`` runs' for K1-K4, the
    ``serving_tier`` runs' for K3 and K4, the ``serving_edge`` runs' for
    K3, by replica role on the disaggregated tier, and the
-   ``lm_vit_follow_ups`` runs' for K1-K4, beside them),
+   ``lm_vit_follow_ups`` runs' for K1-K4 and the ``data_parallel_rest``
+   ranks' for K1-K4, beside them),
    largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
@@ -1316,6 +1340,7 @@ def phase_xent_kernels(torch, xent) -> dict:
     extreme = torch.tensor([[1e4, -1e4, 0.0, 5.0]] * 8, device="cuda")
     cases = [dict(shape=XENT_SHAPE), dict(shape=VIT_XENT_SHAPE, what="vit"),
              dict(shape=DP_XENT_SHAPES[1], what="dp1"),
+             dict(shape=DPR_XENT_SHAPE, what="data_parallel_rest (c), a rank"),
              dict(shape=(37, 10)), dict(shape=(100, 257)),
              dict(shape=(8, 128)), dict(shape=XENT_SHAPE, dtype=bf16),
              dict(shape=(8, 4), x=extreme,
@@ -5176,6 +5201,403 @@ def phase_lm_vit_follow_ups(torch, fa, xent, dense_vit: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# data_parallel_rest: ZeRO-3, expert parallelism and multislice on gloo ranks
+
+DPR_LM_STEPS = 4  # (a): bench_lm8k's global batch of 8 at dp=2, 4 steps
+DPR_LM_CFG = dict(LM_CFG, name="bench_lm8k_zero3", n_train=DPR_LM_STEPS * LM_CFG["batch_size"],
+                  dp=2)
+DPR_LOSS_RTOL = 1e-5  # (a): ZeRO-3 per-step loss against dp=2's, float32 masters
+DPR_MOE_STEPS = 2  # (b): the MoE + dropout bench_lm8k under automatic EP (cut: steps)
+DPR_MOE_CFG = dict(FU_LM_CFG, name="bench_lm8k_moe_ep",
+                   n_train=DPR_MOE_STEPS * LM_CFG["batch_size"], dp=2)
+DPR_A2A_REPS = 3  # (b): timed all-to-alls of the step's capacity buffer
+# (c): mnist_lenet_1chip at dp=2 with ZeRO-3, sharded_update and the K1/K2
+# kernels, one epoch of 16384 images (cut: epochs 12 -> 1, n_train 60000 ->
+# 16384): each rank's logits are (64, 10)
+DPR_LENET_TRAIN = 16384
+DPR_XENT_SHAPE = (64, 10)
+DPR_ATTN = (4, LM_SEQ, 8, 64)  # (a)/(b): each rank's attention shape (B/dp, S, H, D)
+
+
+def dpr_eval_batches(n_test: int, eval_batch: int, dp: int) -> int:
+    """Eval batches a rank runs: its ceil(n_test / dp) padded rows at
+    max(1, eval_batch // dp) rows a batch (Trainer's sharded eval)."""
+    return -(-(-(-n_test // dp)) // max(1, eval_batch // dp))
+
+
+def dpr_nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dpr_resident(trainer, grad_bytes: int) -> dict:
+    """Bytes a rank holds for the parameters, their gradients and the
+    optimizer moments, counted from the tensors themselves, at two
+    moments of a step.  ``at_rest``: the parameters between steps, the
+    gradients as the update is handed them (ZeRO-3: after the
+    reduce-scatter) and the moments.  ``backward_end``: at the end of the
+    backward, before any reduction, where ZeRO-3 holds every leaf gathered
+    whole and a whole gradient for each, beside its masters, its ZeRO-1
+    bucket blocks and the moments (plain dp: its parameters, as many
+    gradient bytes, and the moments)."""
+    plan, opt = trainer._plan, trainer.state.optimizer
+    moments = dpr_nbytes(opt.mu + opt.nu + opt.trace)
+    if plan is None:
+        params = module = dpr_nbytes(trainer.model.parameters())
+        beside = 0
+    else:
+        params, module = plan.resident_bytes(), plan.gathered_bytes()
+        beside = dpr_nbytes([m for m, k in zip(plan.masters, plan.kinds) if k == "fsdp"]
+                            + plan.z1_shards)
+    return {"at_rest": {"params": params, "grads_handed_to_update": grad_bytes,
+                        "moments": moments, "total": params + grad_bytes + moments},
+            "backward_end": {"params_gathered": module, "grads_whole": module,
+                             "masters_and_blocks": beside, "moments": moments,
+                             "total": 2 * module + beside + moments}}
+
+
+def dpr_grad_meter(optimizer) -> list:
+    """Record the bytes of the gradients each update is handed."""
+    seen, step = [0], optimizer.step
+
+    def metered(grads):
+        seen[0] = sum(g.numel() * g.element_size() for g in grads)
+        return step(grads)
+
+    optimizer.step = metered
+    return seen
+
+
+def dpr_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, **replace) -> tuple:
+    """A rank's Trainer on ``cfg_dict`` through fit(), its counts zeroed
+    just before: (trainer, record)."""
+    kw = {**cfg_dict, **replace}
+    cfg = RunConfig(**kw)
+    trainer = Trainer(cfg, device="cuda:0")
+    grads = dpr_grad_meter(trainer.state.optimizer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa, xent)
+    summary = trainer.fit()
+    counts = read_counts(fa, xent)
+    torch.cuda.synchronize()
+    h = trainer.history[-1]
+    steps = trainer.state.step
+    rec = {"config": kw["name"], "fsdp": cfg.fsdp, "sharded_update": cfg.sharded_update,
+           "steps": steps,
+           "eval_batches": dpr_eval_batches(cfg.n_test, cfg.eval_batch_size, cfg.dp),
+           "train_loss": h["train_loss"], "test_loss": h.get("test_loss"),
+           "test_accuracy": h.get("test_accuracy"),
+           "moe_dropped_frac": h.get("moe_dropped_frac"),
+           "fit_s_per_step": round(h["epoch_time_s"] / trainer.steps_per_epoch, 5),
+           "tokens_per_sec_per_chip_summary": summary.get("tokens_per_sec_per_chip"),
+           "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+           "resident_bytes": dpr_resident(trainer, grads[0]), "launches": counts,
+           "path_label": trainer._path_label}
+    check(all(math.isfinite(x) for x in (rec["train_loss"], rec["test_loss"])),
+          f"{kw['name']}: non-finite loss {rec}")
+    return trainer, rec
+
+
+def dpr_steps(torch, step, state, images, labels, batch: int, n: int) -> tuple:
+    """``n`` steps of ``step`` on the first ``n`` global batches: the
+    losses (means across ranks) and seconds a step, to a synchronize."""
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        m = step(state, {"image": images[i * batch:(i + 1) * batch],
+                         "label": labels[i * batch:(i + 1) * batch]})
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    torch.cuda.synchronize()
+    return losses, (time.perf_counter() - t0) / n
+
+
+def dpr_collectives(torch, fs, dp, reps: int = 3) -> dict:
+    """Host wall ms of one step's collectives, to a synchronize: ZeRO-3's
+    gather of the split leaves and its gradient reduction (reduce-scatter
+    a split leaf, the replicated leaves' bucketed all-reduce) on the
+    trainer's own plan, and plain dp's bucketed all-reduce."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
+
+    plan = fs._plan
+    grads = [torch.zeros(s, device="cuda:0") for s in plan.shapes]
+    params = list(dp.model.parameters())
+    lay = C.make_bucket_layout(params, 1)
+    buckets = C.flatten_buckets(params, lay)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return round((time.perf_counter() - t0) / reps * 1e3, 3)
+
+    return {"zero3_gather_ms": timed(lambda: (plan.gather(), plan.release())),
+            "zero3_reduce_ms": timed(lambda: plan.reduce_grads(grads)),
+            "dp_all_reduce_ms": timed(lambda: C.grouped_all_reduce_mean(buckets)),
+            "split_leaves": sum(k == "fsdp" for k in plan.kinds),
+            "leaves": len(plan.kinds)}
+
+
+def dpr_lm(torch, fa, xent, Trainer, RunConfig) -> dict:
+    """(a) bench_lm8k at dp=2: ZeRO-3 through fit() (the launch gates and
+    the resident bytes), the plain dp=2 run beside it, then both steps on
+    the same 4 global batches from the same seed (per-step loss gate)."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.data_parallel import (
+        make_dp_train_step,
+    )
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.fsdp import make_fsdp_train_step
+
+    out = {}
+    for name, fsdp in (("zero3", True), ("dp", False)):
+        trainer, rec = dpr_fit(torch, fa, xent, Trainer, RunConfig, DPR_LM_CFG, fsdp=fsdp)
+        out[name] = rec
+        trainer.close()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    c, steps = out["zero3"]["launches"], out["zero3"]["steps"]
+    check(c["flash_fwd"] == DEPTH * (steps + out["zero3"]["eval_batches"]),
+          f"(a) K3 launched {c['flash_fwd']} times on a rank, expected depth x (steps + "
+          f"the rank's eval batches) = {DEPTH * (steps + out['zero3']['eval_batches'])}")
+    check(c["flash_bwd_fused"] == DEPTH * steps,
+          f"(a) K4 launched {c['flash_bwd_fused']} times on a rank, expected {DEPTH * steps}")
+    check(c["flash_bwd_grouped"] == c["flash_bwd_dkv"] == c["flash_bwd_dq"] == 0,
+          f"(a) another backward kernel ran: {c}")
+    cfg = RunConfig(**DPR_LM_CFG)
+    fs, dp = Trainer(cfg.replace(fsdp=True), device="cuda:0"), Trainer(cfg, device="cuda:0")
+    images, labels = fs.train_images, fs.train_labels  # the whole set, on every rank
+    batch = cfg.batch_size
+    fs_step = make_fsdp_train_step(fs.model, fs.state.optimizer, fs.mesh, None, fs.state)
+    dp_step = make_dp_train_step(dp.model, dp.state.optimizer, dp.mesh)
+    snaps = fs.state.snapshot(), dp.state.snapshot()
+    tokens = batch * LM_SEQ
+    out["steps"] = {"limit": DPR_LOSS_RTOL}
+    # K4 (the fit's route) adds dQ by atomics, in an order that changes
+    # from run to run; the split route (K6a + K6b) writes each dQ tile
+    # once, so there only the gradient reduction differs
+    for route, consts in (("fused", {}), ("split", FORCE_ROUTE["split"])):
+        saved = {k: getattr(fa, k) for k in consts}
+        for k, v in consts.items():
+            setattr(fa, k, v)
+        try:
+            fs_losses, fs_s = dpr_steps(torch, fs_step, fs.state, images, labels, batch,
+                                        DPR_LM_STEPS)
+            dp_losses, dp_s = dpr_steps(torch, dp_step, dp.state, images, labels, batch,
+                                        DPR_LM_STEPS)
+        finally:
+            for k, v in saved.items():
+                setattr(fa, k, v)
+        fs.state.restore(snaps[0])
+        dp.state.restore(snaps[1])
+        out["steps"][route] = {
+            "zero3_losses": fs_losses, "dp_losses": dp_losses,
+            "loss_max_rel_err": max(abs(a - b) / abs(b) for a, b in zip(fs_losses, dp_losses)),
+            "zero3_s_per_step": round(fs_s, 5), "dp_s_per_step": round(dp_s, 5),
+            "zero3_tokens_per_sec_per_chip": round(tokens / fs_s, 1),
+            "dp_tokens_per_sec_per_chip": round(tokens / dp_s, 1)}
+    rel = out["steps"]["split"]["loss_max_rel_err"]
+    check(rel <= DPR_LOSS_RTOL, f"(a) ZeRO-3 per-step loss {rel} off dp=2's: {out['steps']}")
+    out["collectives"] = dpr_collectives(torch, fs, dp)
+    z, d = (out[k]["resident_bytes"]["at_rest"]["total"] for k in ("zero3", "dp"))
+    out["resident_ratio_at_rest"] = round(z / d, 4)
+    check(z < 0.6 * d, f"(a) ZeRO-3 holds {z} bytes a rank at rest, dp {d}: not about half")
+    zb, db = (out[k]["resident_bytes"]["backward_end"]["total"] for k in ("zero3", "dp"))
+    out["resident_ratio_backward_end"] = round(zb / db, 4)
+    for t in (fs, dp):
+        t.close()
+    del fs, dp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dpr_moe(torch, fa, xent, Trainer, RunConfig) -> dict:
+    """(b) the MoE + dropout bench_lm8k at dp=2 under automatic expert
+    parallelism: fit() with its launch gates, the experts each rank
+    holds, steady seconds a step and the all-to-all's milliseconds."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
+
+    trainer, rec = dpr_fit(torch, fa, xent, Trainer, RunConfig, DPR_MOE_CFG)
+    fu_check_flash(rec, DEPTH)
+    drop = rec["moe_dropped_frac"]
+    check(drop is not None and 0.0 <= drop <= 1.0, f"(b) moe_dropped_frac {drop}")
+    plan, e = trainer._plan, FU_MOE["n_experts"]
+    experts = {n: tuple(m.shape) for n, m, k in zip(plan.names, plan.masters, plan.kinds)
+               if k == "expert"}
+    check(len(experts) == 4 * (DEPTH // FU_MOE["moe_every"])
+          and all(s[0] == e // 2 for s in experts.values()),
+          f"(b) expert rows a rank {experts}, expected {e // 2} of {e}")
+    check(all(m is p for m, p, k in zip(plan.masters, plan.params, plan.kinds)
+              if k == "expert"), "(b) an expert leaf is held twice")
+    rec["expert_rows"] = experts
+    rec["expert_block_sums"] = {n: float(m.detach().double().sum()) for n, m, k in
+                                zip(plan.names, plan.masters, plan.kinds) if k == "expert"}
+    tp = trainer.measure_throughput(epochs=1)
+    rec["s_per_step"] = round(LM_CFG["batch_size"] / tp["images_per_sec"], 5)
+    rec["tokens_per_sec_per_chip"] = round(LM_CFG["batch_size"] * LM_SEQ
+                                           / rec["s_per_step"], 1)
+    t_rank = LM_CFG["batch_size"] // 2 * LM_SEQ
+    cap = (trainer.model.blocks[FU_MOE["moe_every"] - 1].moe.capacity(t_rank))
+    buf = torch.randn((e, cap, LM_CFG["model_kwargs"]["dim"]), device="cuda:0")
+    C.all_to_all(buf, 0, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DPR_A2A_REPS):
+        C.all_to_all(buf, 0, 1)
+    torch.cuda.synchronize()
+    rec["all_to_all"] = {"shape": list(buf.shape), "bytes": buf.numel() * 4,
+                         "ms_per_call": round((time.perf_counter() - t0) / DPR_A2A_REPS * 1e3, 3),
+                         "calls_per_step": 4 * (DEPTH // FU_MOE["moe_every"])}
+    trainer.close()
+    del trainer, buf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dpr_lenet(torch, fa, xent, Trainer, get_preset) -> dict:
+    """(c) mnist_lenet_1chip at dp=2, ZeRO-3 + sharded_update + the K1/K2
+    kernels, one epoch: K1 == K2 == steps a rank, every small leaf's
+    moments held at 1/2."""
+    cfg = get_preset("mnist_lenet_1chip").replace(
+        dp=2, fsdp=True, sharded_update=True, fused_xent=True, epochs=1, synthetic=True,
+        n_train=DPR_LENET_TRAIN, quiet=True)
+    trainer = Trainer(cfg, device="cuda:0")
+    grads = dpr_grad_meter(trainer.state.optimizer)
+    reset_counts(fa, xent)
+    summary = trainer.fit()
+    counts = read_counts(fa, xent)
+    steps = trainer.state.step
+    plan, opt = trainer._plan, trainer.state.optimizer
+    mu = dict(zip(plan.opt_names, opt.mu))
+    halves = {n: [m.numel(), mu[n].numel(), int(math.prod(s))] for n, k, m, s in
+              zip(plan.names, plan.kinds, plan.masters, plan.shapes) if k == "fsdp"}
+    # the ZeRO-1 leaves (whole in the module): this rank's half of each of
+    # their padded buckets, and the moments of that half
+    lay = plan.z1_layout
+    zero1 = {"leaves": sum(int(math.prod(s)) for s, k in zip(plan.shapes, plan.kinds)
+                           if k == "zero1"),
+             "buckets": list(lay.bucket_sizes) if lay is not None else [],
+             "moments": [mu[n].numel() for n in plan.opt_names if n.startswith("zero1.")]}
+    rec = {"config": cfg.name, "steps": steps, "per_rank_logits": [cfg.batch_size // 2, 10],
+           "best_test_accuracy": summary["best_test_accuracy"],
+           "images_per_sec_per_chip_summary": summary["images_per_sec_per_chip"],
+           "kinds": dict(zip(plan.names, plan.kinds)), "master_moment_whole": halves,
+           "zero1": zero1,
+           "resident_bytes": dpr_resident(trainer, grads[0]), "launches": counts}
+    check(tuple(rec["per_rank_logits"]) == DPR_XENT_SHAPE,
+          f"(c) K1/K2 run at {rec['per_rank_logits']}, not the checked {DPR_XENT_SHAPE}")
+    check(counts["xent_fwd"] == counts["xent_bwd"] == steps,
+          f"(c) K1/K2 launched {counts['xent_fwd']}/{counts['xent_bwd']}, expected {steps}")
+    check(all(p == m and 2 * m == w for p, m, w in halves.values())
+          and zero1["leaves"] > 0
+          and zero1["moments"] == [b // 2 for b in zero1["buckets"]]
+          and zero1["leaves"] <= sum(zero1["buckets"])
+          < zero1["leaves"] + 2 * len(zero1["buckets"]),
+          f"(c) a leaf or its moments not held at 1/2: {halves} {zero1}")
+    check(math.isfinite(summary["best_test_accuracy"]), "(c) non-finite accuracy")
+    trainer.close()
+    return rec
+
+
+def dpr_rank(rank: int) -> dict:
+    """One of two gloo ranks sharing cuda:0: (a), (b), (c) and (d)."""
+    import torch
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import make_mesh
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig, get_preset
+
+    out = {}
+    for part, run in (("a", lambda: dpr_lm(torch, fa, xent, Trainer, RunConfig)),
+                      ("b", lambda: dpr_moe(torch, fa, xent, Trainer, RunConfig)),
+                      ("c", lambda: dpr_lenet(torch, fa, xent, Trainer, get_preset))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        out[part]["part_s"] = round(time.perf_counter() - t0, 3)
+    try:  # (d): the multislice mesh on this one node
+        make_mesh(2, dcn_dp=2)
+        out["d"] = {"error": None}
+    except ValueError as e:
+        out["d"] = {"error": str(e)}
+    return out
+
+
+def dpr_check_attention(torch, fa) -> dict:
+    """K3 and K4 at each rank's attention shape (4, 8192, 8, 64) bf16 causal
+    on q/k/v views of one (B, S, 3, H, D) tensor, as the blocks give them,
+    against the plain versions (computed one batch row at a time: the
+    whole float32 score tensor would not fit beside them)."""
+    b, s, h, d = DPR_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, g, lse, delta = bwd_inputs(torch, fa, gen, b, s, h, h, d, torch.bfloat16,
+                                        packed=True)
+    with torch.no_grad():
+        out, lse_k = fa.flash_attention_fwd(q, k, v, True, 0)
+    dq, dk, dv = fa._launch_fused(q, k, v, g, lse, delta, True, 0, fa.Route("fused", 1, s))
+    torch.cuda.synchronize()
+    ref = {"out": [], "lse": [], "dq": [], "dk": [], "dv": []}
+    for i in range(b):
+        row = slice(i, i + 1)
+        o, l_ = fa.flash_attention_plain(q[row], k[row], v[row], True, 0)
+        ref["out"].append(o.float())
+        ref["lse"].append(l_)
+        for key, t in zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(
+                q[row], k[row], v[row], g[row], lse[row], delta[row], True, 0)):
+            ref[key].append(t)
+        del o, l_
+        torch.cuda.empty_cache()
+    ref = {key: torch.cat(ts) for key, ts in ref.items()}
+    extra = {"shape": list(DPR_ATTN), "causal": True, "packed_qkv": True,
+             "path": "data_parallel_rest (a)/(b), a rank"}
+    fwd = {"out": (out.float() - ref["out"]).abs().max().item(),
+           "lse": (lse_k - ref["lse"]).abs().max().item()}
+    emit({"phase": "kernel_check", "kernel": "flash_fwd", **extra, "max_abs_err": fwd,
+          "tol": {"out": 2e-2, "lse": 1e-3}})
+    check(fwd["out"] <= 2e-2 and fwd["lse"] <= 1e-3, f"K3 disagrees at {DPR_ATTN}: {fwd}")
+    bwd = compare("flash_bwd_fused", {"dq": dq, "dk": dk, "dv": dv},
+                  {k2: ref[k2] for k2 in ("dq", "dk", "dv")}, torch.bfloat16, extra)
+    return {"flash_fwd": fwd["out"], "flash_bwd_fused": bwd[0]}
+
+
+def phase_data_parallel_rest(torch, fa, xent, port, tmp: Path) -> dict:
+    """ZeRO-3, expert parallelism and multislice at full width: two gloo
+    ranks sharing cuda:0 run (a) bench_lm8k under fsdp beside plain dp,
+    (b) the MoE + dropout bench_lm8k under automatic EP, (c) LeNet under
+    fsdp + sharded_update + the K1/K2 kernels, (d) make_mesh(dcn_dp=2) on
+    this one node, which must refuse.  K3 and K4 are held at the ranks'
+    attention shape here first."""
+    torchrun = port
+    t0 = time.perf_counter()
+    errs = dpr_check_attention(torch, fa)
+    torch.cuda.empty_cache()
+    ranks = torchrun.spawn(dpr_rank, 2, "gloo", "cuda:0", tmp / "dpr", timeout=900)
+    wall = time.perf_counter() - t0
+    out = {"errs": errs}
+    for part in ("a", "b", "c"):
+        out[part] = {"per_rank": [r[part] for r in ranks]}
+        emit({"phase": "data_parallel_rest", "sub": part, "ranks_on": "cuda:0",
+              "backend": "gloo", "world_size": 2, **out[part]})
+    d = [r["d"]["error"] for r in ranks]
+    emit({"phase": "data_parallel_rest", "sub": "d", "errors": d, "phase_wall_s": round(wall, 3)})
+    check(all(e is not None and "slice indices [0]" in e for e in d),
+          f"(d) make_mesh(dcn_dp=2) on one node did not refuse: {d}")
+    a0, a1 = (r["a"] for r in ranks)
+    check(a0["steps"]["split"]["zero3_losses"] == a1["steps"]["split"]["zero3_losses"],
+          "(a) the ranks report different losses")
+    check([r["b"]["expert_block_sums"] for r in ranks][0]
+          != [r["b"]["expert_block_sums"] for r in ranks][1],
+          "(b) both ranks hold the same expert rows")
+    return out
+
+
 MMA_SYNC = "tensor-core bf16: mma.sync on cp.async-fed tiles"
 DESIGN = {"flash_fwd": MMA_SYNC, "flash_bwd_fused": MMA_SYNC, "flash_bwd_grouped": MMA_SYNC,
           "flash_bwd_dkv": MMA_SYNC,
@@ -5258,6 +5680,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_edge_") as tmp:
         edge = phase_serving_edge(torch, fa, xent, Path(tmp))
     fu = phase_lm_vit_follow_ups(torch, fa, xent, vit["throughput"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dpr_") as tmp:
+        dpr = phase_data_parallel_rest(torch, fa, xent, torchrun, Path(tmp))
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -5374,6 +5798,23 @@ def main() -> int:
         "a_moe_dropout_lm": fu["a"]["launches"]["flash_bwd_fused"],
         "d_learned_pos": fu["d"]["launches"]["flash_bwd_fused"],
         "e_moe_vit": fu["e"]["launches"]["flash_bwd_fused"]}
+    # K3/K4 on data_parallel_rest, per rank: (a) ZeRO-3 and plain dp=2,
+    # (b) the MoE LM under expert parallelism; held at the ranks' shape
+    dpr_lm_runs = (("a_zero3", lambda r: r["a"]["zero3"]), ("a_dp", lambda r: r["a"]["dp"]),
+                   ("b_moe_ep", lambda r: r["b"]))
+    for name, e in (("flash_fwd", k3_entry), ("flash_bwd_fused", k4_entry)):
+        e["data_parallel_rest"] = {
+            "shape": list(DPR_ATTN), "max_abs_err": dpr["errs"][name],
+            **{f"{run}_per_rank": [get({"a": ra, "b": rb})["launches"][name]
+                                   for ra, rb in zip(dpr["a"]["per_rank"], dpr["b"]["per_rank"])]
+               for run, get in dpr_lm_runs}}
+
+    def dpr_xent(name):
+        """K1/K2 on data_parallel_rest (c), per rank, at the checked shape."""
+        return {"shape": list(DPR_XENT_SHAPE),
+                "c_lenet_zero3_su_per_rank": [r["launches"][name] for r in dpr["c"]["per_rank"]],
+                "max_abs_err": xk["at_shape"][DPR_XENT_SHAPE][name]}
+
     k4_entry["vit_training"] = on_vit("flash_bwd_fused", dict(zip(
         ("max_abs_err", "max_rel_err", "max_row_rel_err"), vit_kernels["bwd_err"])))
     print(json.dumps({"kernels": [
@@ -5403,12 +5844,14 @@ def main() -> int:
          "vit_training": on_vit_xent("xent_fwd"), "dp_launches": dp_launches(0),
          "fault_tolerant_training": ft_xent_launches("xent_fwd"),
          "lm_vit_follow_ups": {"e_moe_vit": fu["e"]["launches"]["xent_fwd"]},
+         "data_parallel_rest": dpr_xent("xent_fwd"),
          "launch_floor_ms": xk["launch_floor_ms"]},
         {**entry("xent_bwd", "xent.cu", "ops/xent.py:53", counts["xent_bwd"],
                  xk["max_abs_err"]["xent_bwd"], xk["timed"]["xent_bwd"], "by_shape"),
          "vit_training": on_vit_xent("xent_bwd"), "dp_launches": dp_launches(1),
          "fault_tolerant_training": ft_xent_launches("xent_bwd"),
          "lm_vit_follow_ups": {"e_moe_vit": fu["e"]["launches"]["xent_bwd"]},
+         "data_parallel_rest": dpr_xent("xent_bwd"),
          "launch_floor_ms": xk["launch_floor_ms"]},
     ], "launch_floor_ms": xk["launch_floor_ms"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -330,6 +330,55 @@ def load_mlp(params_np: Mapping, device=None, **model_kw) -> MLP:
     return model.eval()
 
 
+def _flax_shape(shape: tuple, layout: str) -> tuple:
+    """The flax shape of a port tensor of ``shape`` under ``layout``."""
+    if layout == _TRANSPOSE:
+        return tuple(reversed(shape))
+    if layout == _HWIO:  # OIHW -> HWIO
+        o, i, h, w = shape
+        return (h, w, i, o)
+    return tuple(shape)
+
+
+def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...], str, tuple]]:
+    """``{parameter name: (flax path, layout change, flax shape)}`` for a
+    port model, read off its modules: the inverse of the tables above
+    (``blocks.{i}`` is flax's ``block_{i}``; a ``Linear`` weight is a
+    transposed ``kernel``, a ``Conv2d`` weight an HWIO ``kernel``, a norm's
+    weight its ``scale``, an ``Embedding``'s its ``embedding``; the MoE
+    leaves and loose parameters keep their names and layouts).  The spec
+    rules (parallel/tensor_parallel.py) decide on these paths and shapes."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import LayerNorm
+
+    out = {}
+    for mod_name, mod in model.named_modules():
+        parts = mod_name.split(".") if mod_name else []
+        path: list[str] = []
+        i = 0
+        while i < len(parts):  # blocks.{i} -> block_{i}
+            if parts[i] == "blocks" and i + 1 < len(parts):
+                path.append(f"block_{parts[i + 1]}")
+                i += 2
+            else:
+                path.append(parts[i])
+                i += 1
+        for leaf, p in mod.named_parameters(recurse=False):
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            layout, flax_leaf = _KEEP, leaf
+            if leaf == "weight":
+                if isinstance(mod, nn.Linear):
+                    layout, flax_leaf = _TRANSPOSE, "kernel"
+                elif isinstance(mod, nn.Conv2d):
+                    layout, flax_leaf = _HWIO, "kernel"
+                elif isinstance(mod, (LayerNorm, BatchNorm)):
+                    flax_leaf = "scale"
+                elif isinstance(mod, nn.Embedding):
+                    flax_leaf = "embedding"
+            out[name] = (tuple(path) + (flax_leaf,), layout,
+                         _flax_shape(tuple(p.shape), layout))
+    return out
+
+
 # ---------------------------------------------------------------- train state
 
 def _field(tree: Any, name: str):

@@ -14,11 +14,17 @@ not by position, and loaded strictly (every name, every shape).  Under the ZeRO-
 optimizer is this rank's sharded one: its count and its 1/N moments are
 what the snapshot carries (its parameter shards are copied from the
 model's parameters at every step, so they need no copy of their own).
+A sharded run (ZeRO-3, expert parallelism) carries its ``plan``
+(``parallel.fsdp.ShardPlan``): the snapshot copies the plan's masters, the
+save form holds every leaf and moment gathered whole (a collective: every
+rank calls it), the replicated form, and loading gives each rank its
+block.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 from torch import nn
@@ -34,6 +40,7 @@ class TrainState:
     model: nn.Module
     optimizer: Optimizer
     data_generator: torch.Generator
+    plan: Any = None  # parallel.fsdp.ShardPlan of a sharded run
 
     @property
     def params(self) -> list[torch.Tensor]:
@@ -48,17 +55,22 @@ class TrainState:
         return gens
 
     def param_count(self) -> int:
+        if self.plan is not None:
+            return self.plan.numel()
         return sum(p.numel() for p in self.model.parameters())
 
     @torch.no_grad()
     def snapshot(self) -> dict:
         """Device copies of the parameters, the model's buffers and the
         optimizer state, with the step and every generator's state."""
-        return {"step": self.step,
+        snap = {"step": self.step,
                 "params": [p.clone() for p in self.params],
                 "buffers": [b.clone() for b in self.model.buffers()],
                 "optimizer": self.optimizer.state(),
                 "generators": [g.get_state() for g in self.generators]}
+        if self.plan is not None:
+            snap["masters"] = [m.clone() for m in self.plan.masters]
+        return snap
 
     def state_dict(self, optimizer: dict | None = None) -> dict:
         """The save form: ``step``; ``params`` and ``buffers`` as ``{name:
@@ -68,10 +80,18 @@ class TrainState:
         states (``"model"`` absent for a model without one).  Tensors are
         the live ones; a caller that keeps them past the next step copies
         them (``utils.checkpoint.snapshot_to_host``)."""
-        if optimizer is None:
-            optimizer = self.optimizer.state_dict([n for n, _ in self.model.named_parameters()])
-        return {"step": self.step,
-                "params": {n: p.detach() for n, p in self.model.named_parameters()},
+        plan = self.plan
+        if plan is not None:  # every leaf and moment gathered whole
+            if optimizer is None:
+                optimizer = {"count": self.optimizer.count,
+                             **plan.whole_moments(self.optimizer)}
+            params = dict(zip(plan.names, plan.whole(plan.masters)))
+        else:
+            if optimizer is None:
+                optimizer = self.optimizer.state_dict(
+                    [n for n, _ in self.model.named_parameters()])
+            params = {n: p.detach() for n, p in self.model.named_parameters()}
+        return {"step": self.step, "params": params,
                 "buffers": dict(self.model.named_buffers()),
                 "optimizer": optimizer, "generators": self.generator_states()}
 
@@ -90,8 +110,22 @@ class TrainState:
         naming the entry otherwise).  Generator states are optional (a
         converted JAX state has none): absent ones are left as they are.  ``optimizer=False`` leaves the
         optimizer to the caller (the ZeRO-1 form)."""
-        live = {"params": dict(self.model.named_parameters()),
-                "buffers": dict(self.model.named_buffers())}
+        plan = self.plan
+        if plan is not None:  # the whole form: each rank takes its block
+            names = plan.names
+            missing, extra = set(names) - set(state["params"]), set(state["params"]) - set(names)
+            if missing or extra:
+                raise ValueError(
+                    f"params: the saved state does not match this model (missing "
+                    f"{sorted(missing)[:4]}, unexpected {sorted(extra)[:4]})")
+            if optimizer:
+                plan.load_moments(self.optimizer, state["optimizer"])
+            plan.load_whole(state["params"])
+            state = {**state, "params": {}}
+            live = {"params": {}, "buffers": dict(self.model.named_buffers())}
+        else:
+            live = {"params": dict(self.model.named_parameters()),
+                    "buffers": dict(self.model.named_buffers())}
         for key, tensors in live.items():
             saved = state[key]
             if set(saved) != set(tensors):
@@ -103,7 +137,7 @@ class TrainState:
                 if tuple(saved[name].shape) != tuple(dst.shape):
                     raise ValueError(f"{key}/{name}: saved shape {tuple(saved[name].shape)},"
                                      f" expected {tuple(dst.shape)}")
-        if optimizer:  # checks every moment before it copies one
+        if optimizer and plan is None:  # checks every moment before it copies one
             self.optimizer.load_state_dict(state["optimizer"], list(live["params"]))
         for key, tensors in live.items():
             for name, dst in tensors.items():
@@ -124,5 +158,8 @@ class TrainState:
         for b, saved in zip(self.model.buffers(), snap["buffers"]):
             b.copy_(saved)
         self.optimizer.load_state(snap["optimizer"])
+        for m, saved in zip(self.plan.masters if self.plan is not None else (),
+                            snap.get("masters", ())):
+            m.copy_(saved)
         for g, s in zip(self.generators, snap["generators"]):
             g.set_state(s)

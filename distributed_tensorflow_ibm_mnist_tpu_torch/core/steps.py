@@ -35,7 +35,11 @@ each rank runs the same step on its own rows.  The gradients are flattened
 into a few buckets (``parallel/collectives.py``) and each bucket is
 all-reduced, summed and divided by the rank count: JAX's one fused
 ``pmean`` over the tree (``steps.py:240`` there).  With ``sharded_update``
-the ZeRO-1 update replaces it (:func:`_apply_sharded_update`).  Loss and
+the ZeRO-1 update replaces it (:func:`_apply_sharded_update`).  With a
+``plan`` (``parallel.fsdp.ShardPlan``: ZeRO-3 and expert parallelism) the
+step gathers the fsdp leaves whole before the forward, releases them after
+the backward, and the plan reduces the gradients and updates this rank's
+blocks (``ShardPlan.apply``).  Loss and
 accuracy stay per rank on the device; the Trainer averages them across
 ranks once at its fence (a mean of means over equal shards, the same
 numbers as JAX's per-step ``pmean``).  Eval masks padded rows and sums
@@ -58,13 +62,13 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.remat import remat as rem
 from distributed_tensorflow_ibm_mnist_tpu_torch.ops.xent import softmax_xent_mean
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
     ShardedUpdate,
-    all_gather,
     all_reduce_sum,
-    bucket_shard,
+    bucket_reduce_scatter_mean,
     flatten_buckets,
+    gather_bucket_shards,
     grad_norm_global,
     grouped_all_reduce_mean,
-    grouped_reduce_scatter_mean,
+    load_bucket_shards,
     make_bucket_layout,
     unflatten_buckets,
 )
@@ -163,24 +167,20 @@ def _apply_sharded_update(optimizer, grads, params, su: ShardedUpdate,
     state (``optimizer``, from ``core.optim.init_sharded_opt_state``),
     all-gather the updated blocks and write them into ``params`` in place."""
     lay = su.layout
-    g_shards = grouped_reduce_scatter_mean(flatten_buckets(grads, lay))
+    g_shards = bucket_reduce_scatter_mean(grads, lay)
     if su.clip is not None:
         gnorm = grad_norm_global(g_shards, mesh)
         scale = torch.where(gnorm < su.clip, 1.0, su.clip / gnorm.clamp_min(1e-38))
         g_shards = torch._foreach_mul(g_shards, scale)
-    p_shards = bucket_shard(flatten_buckets(params, lay), lay)
-    for dst, src in zip(optimizer.params, p_shards):
-        dst.copy_(src)  # the sharded optimizer updates this rank's block
+    load_bucket_shards(optimizer.params, params, lay)  # the optimizer updates this block
     optimizer.step(g_shards)
-    full = [all_gather(shard) for shard in optimizer.params]
-    for p, new in zip(params, unflatten_buckets(full, lay)):
-        p.copy_(new)
+    gather_bucket_shards(optimizer.params, params, lay)
 
 
 def make_train_step(model, optimizer, label_smoothing: float = 0.0,
                     fused_xent: bool = False, remat: bool = False,
                     grad_accum: int = 1, mesh: Mesh | None = None,
-                    sharded_update: ShardedUpdate | None = None):
+                    sharded_update: ShardedUpdate | None = None, plan=None):
     """Build ``train_step(state, batch) -> metrics``; it updates
     ``state`` (parameters, optimizer, step) in place.  Metrics are device
     scalars: ``loss`` and ``accuracy`` (this rank's, under a ``mesh``).
@@ -190,14 +190,17 @@ def make_train_step(model, optimizer, label_smoothing: float = 0.0,
     ``mesh``: average the gradients across its ranks before the update,
     one all-reduce a bucket of ``make_bucket_layout``'s default count.
     ``sharded_update`` (needs ``mesh``): the ZeRO-1 update instead,
-    ``optimizer`` being the sharded one."""
+    ``optimizer`` being the sharded one.  ``plan`` (a
+    ``parallel.fsdp.ShardPlan``): the sharded step of ZeRO-3 and expert
+    parallelism, ``optimizer`` over the plan's masters."""
     if sharded_update is not None and mesh is None:
         raise ValueError("sharded_update needs a mesh (it is a cross-replica scheme)")
     loss_fn = make_loss_fn(model, label_smoothing, fused_xent=fused_xent, remat=remat,
                            with_drop=True)
-    params = optimizer.params if sharded_update is None else list(model.parameters())
+    params = (optimizer.params if sharded_update is None and plan is None
+              else list(model.parameters()))
     layout = (make_bucket_layout(params, 1)
-              if mesh is not None and sharded_update is None else None)
+              if mesh is not None and sharded_update is None and plan is None else None)
 
     def grads_of(batch: Batch):
         loss, logits, drop = loss_fn(batch, train=True)
@@ -205,7 +208,7 @@ def make_train_step(model, optimizer, label_smoothing: float = 0.0,
         accuracy = (logits.argmax(-1) == batch["label"]).float().mean()
         return loss.detach(), accuracy, drop, grads
 
-    def train_step(state: TrainState, batch: Batch) -> dict[str, torch.Tensor]:
+    def grads_and_metrics(batch: Batch):
         if grad_accum == 1:
             loss, accuracy, drop, grads = grads_of(batch)
         else:
@@ -224,7 +227,19 @@ def make_train_step(model, optimizer, label_smoothing: float = 0.0,
             loss, accuracy = loss / grad_accum, accuracy / grad_accum
             # the micro-batches' mean (None for a model without MoE blocks)
             drop = None if drops[0] is None else torch.stack(drops).mean()
-        if sharded_update is not None:
+        return loss, accuracy, drop, grads
+
+    def train_step(state: TrainState, batch: Batch) -> dict[str, torch.Tensor]:
+        if plan is not None:
+            plan.gather()  # the one transient whole copy of the fsdp leaves
+        try:
+            loss, accuracy, drop, grads = grads_and_metrics(batch)
+        finally:
+            if plan is not None:
+                plan.release()
+        if plan is not None:
+            plan.apply(optimizer, grads)
+        elif sharded_update is not None:
             _apply_sharded_update(optimizer, grads, params, sharded_update, mesh)
         else:
             if layout is not None:  # the gradient mean across ranks

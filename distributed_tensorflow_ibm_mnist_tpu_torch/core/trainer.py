@@ -114,15 +114,32 @@ pre-weighted z-losses to the training loss and ``moe_dropped_frac`` (6
 places) to the epoch records; dropout draws from the model's generator;
 a learned position table is sized by the data's ``seq_len``.
 
+Sharded runs (JAX's GSPMD paths): ``fsdp=True`` (ZeRO-3,
+``parallel/fsdp.py``; ``ValueError`` at dp = 1) splits every large leaf
+and its moments over the ranks, ``sharded_update`` with it splits the
+small leaves' moments too; MoE blocks at dp > 1 run expert-parallel
+automatically (``parallel/expert_parallel.py``: each rank owns
+n_experts / dp experts, ``ValueError`` when they do not divide).  Both
+keep a ``parallel.fsdp.ShardPlan`` in ``state.plan`` and, as JAX's GSPMD
+epoch does, draw one permutation of the whole training set (each rank
+holds all of it) and train each rank on its block of every global
+batch, so a sharded run sees the global batches of the dp = 1 run.  Eval
+gathers the fsdp leaves (the experts stay on their ranks);
+``generate``, ``InferenceEngine.from_trainer`` and ``_decode_params``
+gather every leaf whole, and checkpoints hold the whole (replicated)
+form, which resumes at any dp; under a sharded run each of these is a
+collective.  ``input_mode="stream"`` does not compose with them
+(``ValueError``, as in JAX).  ``dcn_dp > 1`` builds the multislice mesh
+(``parallel.mesh.make_mesh``: the group must span that many nodes).
+
 Refused with ``NotImplementedError`` naming the ROADMAP.md item that will
-port them: tp/sp/pp > 1, ``fsdp``, ``dcn_dp`` > 1, MoE blocks at dp > 1
-(item 3b, automatic expert parallelism) and a user's ``moe_fn`` (item
-7.5).  The models' constructors refuse the rest of what they cannot
-build yet the same way (the ViT's pipeline stages).
+port them: tp/sp/pp > 1.  The models' constructors refuse the rest of
+what they cannot build yet the same way (the ViT's pipeline stages).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
 import math
@@ -169,7 +186,24 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.data_parallel import (
     shard_eval_set,
     stream_rows,
 )
-from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh, make_mesh
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.expert_parallel import (
+    make_moe_dispatch_auto,
+    moe_expert_rule,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.fsdp import (
+    ShardPlan,
+    make_fsdp_epoch_runner,
+    make_fsdp_opt_specs,
+    make_fsdp_specs,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import (
+    Mesh,
+    hybrid_mesh_shapes,
+    make_mesh,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import (
+    model_param_specs,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.chaos import ChaosFault
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.checkpoint import CheckpointManager
@@ -186,10 +220,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.utils.profiling import TraceSess
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTracker
 
 TRAINABLE = ("lenet5", "mlp", "resnet20", "resnet50", "vit", "causal_lm")
-_DP = "'Data-parallel training with torch.distributed'"
-_PARALLEL = "'Remaining parallelism and utilities'"
-_EP_UNDER_DP = "item 3b, 'Automatic expert parallelism under dp'"
-_EXPERT_DISPATCH = "item 7.5, the dispatch of expert_parallel.py"
+_PARALLEL = "item 7, 'Remaining parallelism and utilities'"
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -202,10 +233,8 @@ def _refuse_unported(config: RunConfig) -> None:
     for axis in ("tp", "sp", "pp"):
         if getattr(config, axis) > 1:
             raise _later(f"{axis}={getattr(config, axis)}", _PARALLEL)
-    if config.fsdp:
-        raise _later("fsdp (ZeRO-3)", _DP)
-    if config.dcn_dp != 1:
-        raise _later(f"dcn_dp={config.dcn_dp}", _DP)
+    if config.dcn_dp < 1:
+        raise ValueError(f"dcn_dp must be >= 1, got {config.dcn_dp}")
     if config.input_mode not in ("device", "stream"):
         raise ValueError(
             f"input_mode must be 'device' or 'stream', got {config.input_mode!r}")
@@ -214,22 +243,11 @@ def _refuse_unported(config: RunConfig) -> None:
     if config.model not in TRAINABLE:
         raise ValueError(
             f"unknown model {config.model!r}; the port trains: {list(TRAINABLE)}")
-    if config.model_kwargs.get("moe_fn") is not None:
-        raise _later("a user moe_fn (the expert-parallel dispatch)", _EXPERT_DISPATCH)
-    _refuse_moe_under_dp(config, config.dp)
     if (config.model == "causal_lm") != (config.dataset == "retrieval"):
         raise ValueError(
             "causal_lm trains on token sequences (dataset='retrieval') and the "
             f"image models on images; got model={config.model!r}, "
             f"dataset={config.dataset!r}")
-
-
-def _refuse_moe_under_dp(config: RunConfig, dp: int) -> None:
-    """MoE blocks train at dp=1 only: JAX averages the routing fractions
-    across shards before the aux loss's product (its automatic expert
-    parallelism), which replicated local experts would not."""
-    if dp > 1 and config.model_kwargs.get("moe_every", 0):
-        raise _later(f"MoE blocks at dp={dp}", _EP_UNDER_DP)
 
 
 def _seed_words(*key: int) -> int:
@@ -241,13 +259,22 @@ def _data_mesh(config: RunConfig, mesh: Mesh | None) -> tuple[int, Mesh | None]:
     """``(dp, mesh)`` of a run: ``config.dp`` (0: the process group's world
     size, 1 without a group); dp > 1 builds a mesh over the initialised
     group unless one is given (``ValueError`` naming launch.torchrun
-    without a group); a given mesh must have dp ranks."""
+    without a group); a given mesh must have dp ranks.  ``dcn_dp > 1``
+    builds the multislice mesh, at dp = 1 too (where it cannot divide)."""
     dp = config.dp
     if dp == 0:
         dp = mesh.size if mesh is not None else (
             dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1)
     if dp < 1:
         raise ValueError(f"dp must be >= 0, got {config.dp}")
+    if config.dcn_dp > 1:
+        if mesh is not None:
+            raise ValueError(
+                "dcn_dp with an explicit mesh is ambiguous — build the multislice "
+                "mesh yourself via make_mesh(..., dcn_dp=N) and leave config.dcn_dp "
+                "at 1, or pass no mesh")
+        hybrid_mesh_shapes(dp, 1, 1, 1, config.dcn_dp)
+        mesh = make_mesh(dp, dcn_dp=config.dcn_dp)
     if mesh is None and dp > 1:
         mesh = make_mesh(dp)
     if mesh is not None and mesh.size != dp:
@@ -285,6 +312,20 @@ class Trainer:
             self._compile.bind(tracer)
         self._stream = config.input_mode == "stream"
         self.dp, self.mesh = _data_mesh(config, mesh)
+        if config.fsdp and self.dp <= 1:
+            raise ValueError(
+                "fsdp=True needs dp>1 (ZeRO-3 shards over the 'data' axis); "
+                f"got dp={self.dp}")
+        # MoE + dp>1 runs expert-parallel automatically: experts split over
+        # 'data', tokens exchanged by all_to_all (JAX's _moe_ep)
+        self._moe_ep = (self.dp > 1 and bool(config.model_kwargs.get("moe_every", 0))
+                        and model_accepts(config.model, "moe_fn"))
+        # the sharded runs (JAX's GSPMD paths): a ShardPlan owns the update
+        self._sharded_run = bool(config.fsdp) or self._moe_ep
+        if self._sharded_run and self._stream:
+            raise ValueError(
+                "input_mode='stream' does not compose with tp/sp/pp/fsdp/"
+                "expert parallelism; use device mode")
         if config.sharded_update:
             if self.dp <= 1:
                 raise ValueError(
@@ -294,7 +335,17 @@ class Trainer:
                 raise ValueError(
                     f"sharded_update_buckets must be >= 1, got "
                     f"{config.sharded_update_buckets}")
-        _refuse_moe_under_dp(config, self.dp)  # dp=0: the group's size
+            if self._sharded_run and not config.fsdp:
+                raise ValueError(
+                    "sharded_update composes with plain dp (bucketed "
+                    "reduce-scatter step) and with fsdp (opt-spec upgrade); "
+                    "tp/sp/pp/expert runs already shard their updates via "
+                    "their param specs")
+        # the path label of the kernel-build attribution (JAX's census label)
+        self._path_label = "_".join(
+            [f"dp{self.dp}"] + [part for part, on in (
+                ("fsdp", config.fsdp), ("ep", self._moe_ep),
+                ("su", config.sharded_update), ("stream", self._stream)) if on])
         if config.batch_size % self.dp:
             raise ValueError(f"batch_size {config.batch_size} not divisible by dp={self.dp}")
         self.rank = 0 if self.mesh is None else self.mesh.rank
@@ -351,6 +402,16 @@ class Trainer:
                 _resolve_attn(None, model_kwargs.get("attn", "vanilla")), causal=True))
         if self.dp > 1 and model_accepts(config.model, "axis_name"):
             model_kwargs.setdefault("axis_name", "data")  # cross-replica BatchNorm
+        if self._moe_ep:
+            n_exp = model_kwargs.get("n_experts", 8)
+            if n_exp % self.dp:
+                raise ValueError(
+                    f"expert parallelism needs n_experts ({n_exp}) divisible "
+                    f"by dp ({self.dp})")
+            model_kwargs.setdefault("moe_fn", make_moe_dispatch_auto(
+                self.mesh, n_exp,
+                capacity_factor=model_kwargs.get("moe_capacity_factor", 2.0),
+                top_k=int(model_kwargs.get("moe_top_k", 1))))
         if config.remat == "blocks":
             if not model_accepts(config.model, "block_remat"):
                 raise ValueError(
@@ -371,7 +432,10 @@ class Trainer:
                 model_gen.manual_seed(_seed_words(config.seed, 0, self.rank))
         params = list(self.model.parameters())
         self._sharded = None
-        if config.sharded_update:
+        self._plan = None
+        if self._sharded_run:
+            optimizer = make_optimizer(config, total_steps, params)
+        elif config.sharded_update:
             layout = make_bucket_layout(params, self.dp, config.sharded_update_buckets)
             optimizer, clip = init_sharded_opt_state(config, total_steps, params, layout)
             self._sharded = ShardedUpdate(layout=layout, clip=clip)
@@ -381,7 +445,21 @@ class Trainer:
                                 data_generator=torch.Generator(device=self.device))
         step_kw = dict(label_smoothing=config.label_smoothing, fused_xent=config.fused_xent,
                        grad_accum=config.grad_accum, remat=config.remat is True)
-        if self._stream:  # k steps a transferred chunk; under dp this rank's rows
+        if self._sharded_run:
+            # structural (expert) leaves first, then ZeRO-3's largest-dim rule
+            fsdp_specs = make_fsdp_specs(self.model, self.mesh) if config.fsdp else None
+            self._plan = ShardPlan.build(
+                self.mesh, self.model, fsdp_specs,
+                opt_specs=(make_fsdp_opt_specs(self.model, self.mesh, fsdp_specs)
+                           if config.fsdp and config.sharded_update else None),
+                expert_specs=(model_param_specs(self.model, moe_expert_rule())
+                              if self._moe_ep else None),
+                n_buckets=config.sharded_update_buckets)
+            self._plan.adopt(self.state)
+            self._run_epoch = make_fsdp_epoch_runner(
+                self.model, self._plan, self.state.optimizer, config.batch_size,
+                self.mesh, **step_kw)
+        elif self._stream:  # k steps a transferred chunk; under dp this rank's rows
             self._train_chunk = (
                 make_chunk_runner(self.model, optimizer, **step_kw) if self.mesh is None
                 else make_dp_chunk_runner(self.model, optimizer, self.mesh,
@@ -420,8 +498,11 @@ class Trainer:
             self.test_images = put("test_images", inputs)
             self.test_labels = put("test_labels", torch.int32)
             self._eval = make_eval_fn(self.model, config.eval_batch_size)
-        else:  # this rank's rows only
-            if not self._stream:
+        else:  # this rank's rows only (a sharded run: every row, one global order)
+            if self._sharded_run:
+                self.train_images = put("train_images", inputs)
+                self.train_labels = put("train_labels", torch.int32)
+            elif not self._stream:
                 train = shard_dataset(self.mesh, data["train_images"], data["train_labels"],
                                       self.device)
                 self.train_images = train[0].to(inputs)
@@ -457,9 +538,10 @@ class Trainer:
     def _epoch_seed(self, *key: int) -> int:
         """An epoch's data-order seed.  Under dp > 1 in device mode it folds
         in the rank, as JAX folds the axis index into the epoch key (each
-        rank permutes its own shard); in stream mode every rank draws the
-        same global permutation and reads its rows of each global batch."""
-        if self.dp > 1 and not self._stream:
+        rank permutes its own shard); in stream mode and in a sharded run
+        every rank draws the same global permutation and reads its rows of
+        each global batch."""
+        if self.dp > 1 and not self._stream and not self._sharded_run:
             key = (*key, self.rank)
         return _seed_words(self._data_seed, *key)
 
@@ -503,6 +585,15 @@ class Trainer:
         if self._stream:
             return self._run_epoch_stream(preemption)
         return self._run_epoch(self.state, self.train_images, self.train_labels)
+
+    def _nonfinite_leaves(self) -> list[str]:
+        """Names of the parameters holding NaN/Inf (a sharded run: in this
+        rank's blocks)."""
+        if self._plan is None:
+            return find_nonfinite(self.model)
+        with torch.no_grad():
+            return [n for n, m in zip(self._plan.names, self._plan.masters)
+                    if not bool(torch.isfinite(m).all())]
 
     def _any_rank(self, flag: bool) -> bool:
         """``flag`` OR-ed across the ranks (itself without a mesh): every
@@ -735,10 +826,11 @@ class Trainer:
     def _decode_model(self):
         """A fresh model of the run's configuration for decode, on the
         trainer's device: the training-only knobs (``attn_fn``,
-        ``block_remat``, ``axis_name``) dropped, as JAX drops its training
+        ``block_remat``, ``axis_name``, ``moe_fn``) dropped, as JAX drops its training
         islands; its weights are whatever :meth:`_decode_params` loads."""
         clean = {k: v for k, v in self._model_kwargs.items()
-                 if k not in ("attn_fn", "block_remat", "axis_name", "param_dtype")}
+                 if k not in ("attn_fn", "block_remat", "axis_name", "param_dtype",
+                              "moe_fn")}
         return get_model(self.config.model, num_classes=self.num_classes,
                          device=self.device, **clean)
 
@@ -748,7 +840,8 @@ class Trainer:
         every step and by a restore), in JAX's decode cast
         (``trainer.py:1291-1330`` there): floating leaves in the model's
         compute dtype, except the norms' and the MoE leaves (``norm_*``,
-        ``moe``), which the model consumes at float32 and keep."""
+        ``moe``), which the model consumes at float32 and keep.  A sharded
+        run gathers every leaf whole first (a collective)."""
         if self._gen_params is not None and self._gen_params[0] == self.state.step:
             return self._gen_params[1]
         dtype = self._model_kwargs.get("dtype", torch.bfloat16)
@@ -760,7 +853,9 @@ class Trainer:
                 return t.detach().clone()
             return t.detach().to(dtype, copy=True)
 
-        params = {k: cast(k, v) for k, v in self.model.state_dict().items()}
+        whole = (self.model.state_dict() if self._plan is None
+                 else self._plan.whole_state_dict(self.model))  # a collective
+        params = {k: cast(k, v) for k, v in whole.items()}
         self._gen_params = (self.state.step, params)
         return params
 
@@ -775,9 +870,9 @@ class Trainer:
         :meth:`_decode_params`, and one generator per (max_len, max_new,
         sampling, eos_id, pad_id, with_lengths) configuration, cached.
         ``prompt`` is a (P,) or (B, P) int array or tensor; the result is
-        on the trainer's device.  ``on_mesh=True`` is refused as JAX
-        refuses it for a run without tp/fsdp/expert parallelism, which
-        every port run is."""
+        on the trainer's device; under a sharded run a collective (every
+        rank calls it).  ``on_mesh=True`` (decoding in the run's GSPMD
+        layout) is refused: the port decodes from whole leaves."""
         from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import make_generator
 
         if not model_accepts(self.config.model, "pos"):
@@ -791,6 +886,8 @@ class Trainer:
                 "logits condition on future positions the decode path cannot "
                 "provide — train causally to decode")
         if on_mesh:
+            if self._plan is not None:
+                raise _later("on_mesh=True (decoding in the sharded layout)", _PARALLEL)
             raise ValueError(
                 "on_mesh=True decodes in the run's GSPMD layout; this run "
                 "has none (tp/fsdp/EP shard params — dp/sp and single-chip "
@@ -834,8 +931,10 @@ class Trainer:
 
     def evaluate(self) -> dict[str, float]:
         """Test accuracy and loss over the whole test set (under a mesh a
-        collective: every rank calls it, and every rank gets the same)."""
-        out = self._eval(self.test_images, self.test_labels)
+        collective: every rank calls it, and every rank gets the same).  A
+        ZeRO-3 run gathers its fsdp leaves for it."""
+        with self._plan.gathered() if self._plan is not None else contextlib.nullcontext():
+            out = self._eval(self.test_images, self.test_labels)
         acc, loss = torch.stack([out["accuracy"], out["loss"]]).tolist()
         return {"accuracy": acc, "loss": loss}
 
@@ -929,11 +1028,18 @@ class Trainer:
                                              self._chaos.events("train-step") - 1)
                         # poison ONE parameter element: the epoch's loss goes
                         # non-finite and the real detector below must fire
-                        inject_nan(self.model, next(iter(self.model.named_parameters()))[0])
+                        if self._plan is not None:  # the first leaf's block
+                            with torch.no_grad():
+                                self._plan.masters[0].view(-1)[0] = float("nan")
+                        else:
+                            inject_nan(self.model,
+                                       next(iter(self.model.named_parameters()))[0])
                 espan = (self._tracer.begin("epoch_dispatch", cat="train", epoch=epoch)
                          if self._tracer is not None else None)
                 try:
-                    metrics = self._epoch(self._epoch_seed(abs_epoch0 + epoch), preemption)
+                    with self._compile.site(f"train_epoch[{self._path_label}]"):
+                        metrics = self._epoch(self._epoch_seed(abs_epoch0 + epoch),
+                                              preemption)
                 except BaseException as e:
                     # a faulted epoch still closes its span: the timeline
                     # shows where the run died
@@ -974,7 +1080,7 @@ class Trainer:
                             f"non-finite train loss in epoch {ep} (leaves localized "
                             f"from end-of-interval state, epoch {epoch})",
                             step=step0 + self.steps_per_epoch * (ep + 1),
-                            bad_leaves=find_nonfinite(self.model),
+                            bad_leaves=self._nonfinite_leaves(),
                         )
                     epoch_times.append(epoch_time)
                     record = {
@@ -993,7 +1099,8 @@ class Trainer:
                     if ep == epoch and eval_now:
                         vspan = (self._tracer.begin("eval", cat="train", epoch=ep)
                                  if self._tracer is not None else None)
-                        ev = self.evaluate()
+                        with self._compile.site(f"eval[{self._path_label}]"):
+                            ev = self.evaluate()
                         if vspan is not None:
                             self._tracer.end(vspan)
                         record["test_accuracy"] = ev["accuracy"]

@@ -23,7 +23,14 @@ Data-parallel runs, one process per rank (``launch/torchrun.py``):
 
 Under a world of N ranks a config at ``dp`` 0 or 1 trains at ``dp=N``;
 any other ``dp`` must equal N.  Only rank 0 prints records and the
-``final`` line.
+``final`` line.  The sharded runs take their knobs through ``--set`` as
+any other field: ``--set fsdp=True`` (ZeRO-3), with ``--set
+sharded_update=True`` (its small leaves' moments split too), ``--set
+dcn_dp=2`` (the group must span two nodes), and a model with
+``moe_every`` under N > 1 ranks trains expert-parallel::
+
+    python -m distributed_tensorflow_ibm_mnist_tpu_torch.launch.cli --virtual-devices 2 \
+        --device cpu --preset mnist_mlp_smoke --set fsdp=True --set synthetic=True
 """
 
 from __future__ import annotations

@@ -9,7 +9,8 @@ per-position vocab head, logits in float32.  Positions are rotary
 at construction, and another length is refused); the head is its own
 ``logits`` projection or, with ``tie_embeddings``, ``x @ embed^T``.
 ``moe_every=k`` makes every k-th block a MoE block (parallel/
-expert_parallel.py), ``dropout`` drops in every block when ``train``.
+expert_parallel.py; ``moe_fn`` runs them expert-parallel), ``dropout``
+drops in every block when ``train``.
 
 Calls:
 
@@ -115,7 +116,7 @@ class CausalLM(nn.Module):
             raise ValueError(
                 "pos='learned' needs seq_len: the (1, S, dim) table is sized at "
                 "construction (flax sizes it from the first input)")
-        check_moe_knobs(0, depth, dropout, moe_every, moe_fn)
+        check_moe_knobs(0, depth, dropout, moe_every)
         check_quant_knobs(quant, kv_cache_dtype)
         device = resolve_device(device)
         self._config = dict(
@@ -148,7 +149,7 @@ class CausalLM(nn.Module):
                              mlp_ratio=mlp_ratio, dropout=dropout,
                              attn_fn=attn_fn, use_moe=is_moe_block(i, moe_every),
                              n_experts=n_experts, moe_capacity_factor=moe_capacity_factor,
-                             moe_top_k=moe_top_k, moe_z_weight=moe_z_weight,
+                             moe_top_k=moe_top_k, moe_z_weight=moe_z_weight, moe_fn=moe_fn,
                              rope=pos == "rope", window=window,
                              kv_cache_dtype=kv_cache_dtype, page_size=page_size,
                              quant=quant, dtype=dtype, param_dtype=param_dtype,

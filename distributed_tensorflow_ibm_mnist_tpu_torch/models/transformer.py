@@ -36,9 +36,10 @@ the paged cache (serving/kv_pool.py) carries ``pages_k_scale`` /
 ``pages_v_scale`` beside its pools.  ``quant="int8"`` makes every
 projection an ``Int8Linear`` (models/quant.py).
 
-Not ported yet, each raising ``NotImplementedError`` that names what ports
-it: the ViT's pipeline stages (``StackedBlocks``) and a user's
-expert-parallel ``moe_fn``.  ``block_remat`` (the ViT, the causal LM)
+Not ported yet, raising ``NotImplementedError`` that names what ports it:
+the ViT's pipeline stages (``StackedBlocks``).  ``moe_fn`` (the models'
+keyword, ``parallel.expert_parallel.make_moe_dispatch_auto`` or a user's
+island) runs every MoE block through it.  ``block_remat`` (the ViT, the causal LM)
 recomputes each block in the backward (``models/remat.py``), its dropout
 masks replayed and its MoE terms taken from the forward.  Training
 runs this forward under autograd: ``attn="flash"`` differentiates through
@@ -61,10 +62,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import (
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import Int8Linear
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.remat import remat
-from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.expert_parallel import (
-    EXPERT_PARALLEL,
-    MoEBlock,
-)
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.expert_parallel import MoEBlock
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.ring_attention import (
     vanilla_attention,
 )
@@ -205,10 +203,8 @@ def is_moe_block(i: int, moe_every: int) -> bool:
     return moe_every > 0 and (i + 1) % moe_every == 0
 
 
-def check_moe_knobs(pp_stages: int, depth: int, dropout: float, moe_every: int,
-                    moe_fn) -> None:
-    """What JAX's models refuse with dropout and MoE, in its words; a
-    user's ``moe_fn`` (an expert-parallel island) by its ROADMAP item."""
+def check_moe_knobs(pp_stages: int, depth: int, dropout: float, moe_every: int) -> None:
+    """What JAX's models refuse with dropout and MoE, in its words."""
     if pp_stages > 0:
         if depth % pp_stages:
             raise ValueError(f"depth {depth} not divisible by pp_stages {pp_stages}")
@@ -216,9 +212,6 @@ def check_moe_knobs(pp_stages: int, depth: int, dropout: float, moe_every: int,
             raise ValueError(
                 "pipeline stages need identical per-block programs: "
                 "dropout and MoE blocks don't compose with pp_stages")
-    if moe_fn is not None:
-        raise _not_in_slice("a user moe_fn (the expert-parallel dispatch)",
-                            EXPERT_PARALLEL)
 
 
 def check_quant_knobs(quant: str, kv_cache_dtype: str) -> None:
@@ -248,7 +241,8 @@ class TransformerBlock(nn.Module):
                  dropout: float = 0.0, attn_fn: Callable | None = None,
                  attn: str = "vanilla", use_moe: bool = False, n_experts: int = 8,
                  moe_capacity_factor: float = 2.0, moe_top_k: int = 1,
-                 moe_z_weight: float = 0.0, rope: bool = False,
+                 moe_z_weight: float = 0.0, moe_fn: Callable | None = None,
+                 rope: bool = False,
                  window: int = 0, kv_cache_dtype: str = "native",
                  page_size: int = 0, quant: str = "none",
                  dtype: torch.dtype = torch.bfloat16,
@@ -294,7 +288,7 @@ class TransformerBlock(nn.Module):
         if use_moe:  # the MoE FFN in place of dense_0/dense_1 (float32)
             self.moe = MoEBlock(dim, n_experts=n_experts, hidden_mult=mlp_ratio,
                                 capacity_factor=moe_capacity_factor, top_k=moe_top_k,
-                                z_weight=moe_z_weight, device=device)
+                                z_weight=moe_z_weight, ep_fn=moe_fn, device=device)
         else:
             self.dense_0 = linear(dim, mlp_ratio * dim)
             self.dense_1 = linear(mlp_ratio * dim, dim)
@@ -537,10 +531,10 @@ class VisionTransformer(nn.Module):
     ``moe_every=k`` makes every k-th block a MoE block (JAX's ``(i + 1) %
     k == 0``) with the ``n_experts``/``moe_*`` knobs; ``dropout`` draws
     its masks from ``self.generator`` (the init generator), as LeNet-5's.
+    ``moe_fn`` runs the MoE blocks through an expert-parallel island.
     Dropout or MoE with ``pp_stages`` is JAX's ``ValueError``; pipeline
-    stages themselves (``pp_stages``, ``pipeline_fn``) and a user's
-    ``moe_fn`` raise ``NotImplementedError`` naming their ROADMAP.md
-    item."""
+    stages themselves (``pp_stages``, ``pipeline_fn``) raise
+    ``NotImplementedError`` naming their ROADMAP.md item."""
 
     def __init__(self, patch_size: int = 4, dim: int = 128, depth: int = 4,
                  heads: int = 4, heads_kv: int = 0, mlp_ratio: int = 4,
@@ -554,7 +548,7 @@ class VisionTransformer(nn.Module):
                  in_channels: int = 1, dtype: torch.dtype = torch.bfloat16,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        check_moe_knobs(pp_stages, depth, dropout, moe_every, moe_fn)
+        check_moe_knobs(pp_stages, depth, dropout, moe_every)
         if pp_stages > 0 or pipeline_fn is not None:
             raise _not_in_slice("pipeline stages (pp_stages, pipeline_fn)", _PARALLEL)
         self.block_remat = block_remat
@@ -576,7 +570,8 @@ class VisionTransformer(nn.Module):
                              attn=attn, use_moe=is_moe_block(i, moe_every),
                              n_experts=n_experts, moe_capacity_factor=moe_capacity_factor,
                              moe_top_k=moe_top_k, moe_z_weight=moe_z_weight,
-                             dtype=dtype, param_dtype=torch.float32, device=meta,
+                             moe_fn=moe_fn, dtype=dtype, param_dtype=torch.float32,
+                             device=meta,
                              generator=gen)
             for i in range(depth))
         self.norm_out = LayerNorm(dim, dtype, device=meta)

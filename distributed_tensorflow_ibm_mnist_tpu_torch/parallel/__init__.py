@@ -1,3 +1,4 @@
-"""Parallelism of the port: the data mesh, collectives and data-parallel
-steps over torch.distributed, and the attention reference paths (the
-ring itself is a later slice)."""
+"""Parallelism of the port: the data mesh (multislice included),
+collectives, data-parallel, ZeRO-3 and expert-parallel steps over
+torch.distributed, the parameter spec rules, and the attention reference
+paths (the ring itself is a later slice)."""

@@ -21,11 +21,30 @@ cross-rank exchange of the port goes through one of them:
   :func:`unflatten_buckets` move between the two forms,
   :func:`grouped_all_reduce_mean` and :func:`grouped_reduce_scatter_mean`
   reduce whole buckets (sum, then divide by the rank count, as
-  ``psum_scatter / n`` does), :func:`bucket_shard` is this rank's block.
+  ``psum_scatter / n`` does), :func:`bucket_shard` is this rank's block;
+  the ZeRO-1 update's three moves over them,
+  :func:`bucket_reduce_scatter_mean`, :func:`load_bucket_shards` and
+  :func:`gather_bucket_shards`, serve plain dp's sharded update and the
+  ZeRO-1 leaves of a ZeRO-3 run alike.
+
+* the ZeRO-3 pair along a chosen dim of a leaf (``parallel/fsdp.py``):
+  :func:`all_gather_dim` (every rank's block concatenated along ``dim``)
+  and :func:`reduce_scatter_dim` (sum, then this rank's block along
+  ``dim``), each the dim-0 collective on the leaf with that dim moved to
+  the front;
+* :func:`all_to_all` (JAX's tiled ``all_to_all(x, axis, split_axis,
+  concat_axis)``, the expert-parallel dispatch's exchange) over
+  ``all_to_all_single``, differentiable: its backward is the reverse
+  all-to-all, as JAX transposes it.
 
 A mean is a sum divided by the rank count: gloo has no ``AVG``.  gloo
-takes CUDA tensors too (several ranks sharing one card).  The ring's neighbour exchange and the experts'
-all-to-all are not here yet (ROADMAP.md queue 1, item 7).
+takes CUDA tensors too (several ranks sharing one card).
+:func:`all_reduce_mean` is differentiable on a tensor that requires grad
+(the expert-parallel routing fractions): its backward is the mean of the
+incoming gradients across ranks, the transpose under the port's
+convention that every rank differentiates its own loss and the
+gradients are averaged afterwards.  The ring's neighbour exchange is not
+here yet (ROADMAP.md queue 1, item 7.2).
 """
 
 from __future__ import annotations
@@ -71,10 +90,27 @@ def all_reduce_sum(x: Tensors):
     return _map(lambda t: _all_reduce(t, dist.ReduceOp.SUM), x)
 
 
+def _mean(t: torch.Tensor) -> torch.Tensor:
+    return _all_reduce(t.detach(), dist.ReduceOp.SUM).div_(axis_size())
+
+
+class _AllReduceMean(torch.autograd.Function):
+    """The cross-rank mean, differentiable: the backward is the mean of
+    the incoming gradients (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _mean(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _mean(g)
+
+
 def all_reduce_mean(x: Tensors):
-    """Mean across ranks: the sum divided by the rank count."""
-    n = axis_size()
-    return _map(lambda t: _all_reduce(t, dist.ReduceOp.SUM).div_(n), x)
+    """Mean across ranks: the sum divided by the rank count
+    (differentiable where the input requires grad)."""
+    return _map(lambda t: _AllReduceMean.apply(t) if t.requires_grad else _mean(t), x)
 
 
 def all_reduce_max(x: Tensors):
@@ -101,6 +137,60 @@ def reduce_scatter(x: torch.Tensor) -> torch.Tensor:
     out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
     _reduce_scatter_into(out, x)
     return out
+
+
+def all_gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order: the
+    whole leaf from its blocks (ZeRO-3's parameter gather)."""
+    if dim == 0:
+        return all_gather(x)
+    return all_gather(x.movedim(dim, 0)).movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum across ranks, then this rank's 1/N block along ``dim``
+    (ZeRO-3's gradient reduction)."""
+    if dim == 0:
+        return reduce_scatter(x)
+    return reduce_scatter(x.movedim(dim, 0)).movedim(0, dim).contiguous()
+
+
+def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
+    a = axis_size()
+    moved = x.movedim(split_axis, 0).contiguous()
+    s = moved.shape[0]
+    if s % a:
+        raise ValueError(f"split axis of size {s} does not divide over {a} ranks")
+    out = torch.empty_like(moved)
+    dist.all_to_all_single(out, moved)  # block j of dim 0 to rank j
+    # (a, s/a, ...): the block from each source rank, in rank order, back
+    # in x's axis order, then laid side by side along concat_axis
+    out = out.view(a, s // a, *moved.shape[1:]).movedim(1, split_axis + 1)
+    out = out.movedim(0, concat_axis)
+    shape = list(out.shape)
+    shape[concat_axis:concat_axis + 2] = [a * shape[concat_axis + 1]]
+    return out.reshape(shape)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_axis: int, concat_axis: int):
+        ctx.axes = (split_axis, concat_axis)
+        return _all_to_all(x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return _all_to_all(g, concat_axis, split_axis), None, None
+
+
+def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
+    """JAX's tiled ``all_to_all``: ``x`` split into N blocks along
+    ``split_axis``, block j sent to rank j, and the N blocks this rank
+    receives concatenated along ``concat_axis`` in source-rank order (so
+    ``split_axis`` shrinks N-fold and ``concat_axis`` grows N-fold).
+    Differentiable; the backward is the reverse exchange."""
+    return _AllToAll.apply(x, split_axis, concat_axis)
 
 
 def broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
@@ -271,3 +361,37 @@ def bucket_shard(buckets: Sequence[torch.Tensor],
     communication)."""
     idx = axis_index()
     return tuple(b[idx * sz:(idx + 1) * sz] for b, sz in zip(buckets, layout.shard_sizes))
+
+
+# The ZeRO-1 update's bucket moves, shared by plain dp's sharded update
+# (``core/steps.py``) and by the ZeRO-1 leaves of a ZeRO-3 run
+# (``parallel/fsdp.py``): reduce-scatter the gradients bucket by bucket,
+# load this rank's block of the parameters into the optimizer's shards,
+# and after the update gather the buckets back into the parameters.
+
+
+def bucket_reduce_scatter_mean(tensors: Sequence[torch.Tensor],
+                               layout: BucketLayout) -> tuple[torch.Tensor, ...]:
+    """``tensors`` -> this rank's block of each bucket of their mean across
+    ranks (one reduce-scatter a bucket)."""
+    return grouped_reduce_scatter_mean(flatten_buckets(tensors, layout))
+
+
+@torch.no_grad()
+def load_bucket_shards(shards: Sequence[torch.Tensor], tensors: Sequence[torch.Tensor],
+                       layout: BucketLayout) -> None:
+    """Copy this rank's block of each bucket of ``tensors`` into ``shards``
+    (no communication)."""
+    for dst, src in zip(shards, bucket_shard(flatten_buckets(tensors, layout), layout),
+                        strict=True):
+        dst.copy_(src)
+
+
+@torch.no_grad()
+def gather_bucket_shards(shards: Sequence[torch.Tensor], tensors: Sequence[torch.Tensor],
+                         layout: BucketLayout) -> None:
+    """All-gather each bucket from every rank's block in ``shards`` and write
+    it back into ``tensors`` in place (one all-gather a bucket)."""
+    full = [all_gather(s) for s in shards]
+    for t, new in zip(tensors, unflatten_buckets(full, layout), strict=True):
+        t.copy_(new)

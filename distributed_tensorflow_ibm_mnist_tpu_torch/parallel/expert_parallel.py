@@ -30,9 +30,22 @@ float32 the gather equals the one-hot einsum exactly and the combine's
 sum is the einsum's (exactly for k <= 2).  Empty slots run through the
 FFN (their ``b1``/``b2`` path) with combine weight 0, as in JAX.
 
-Expert parallelism (``make_moe_dispatch``, ``make_moe_dispatch_auto``,
-``moe_expert_rule``: the all_to_all island over a mesh axis) is not
-ported; each raises ``NotImplementedError`` naming its ROADMAP.md item.
+Expert parallelism over the ``data`` mesh (``make_moe_dispatch``, JAX's
+shard_map island, in its order): with ``E`` experts over ``A`` ranks each
+rank owns ``E/A`` of them (``moe_expert_rule``: the rows of ``w1``/``b1``/
+``w2``/``b2``; the router stays replicated) and routes its own tokens to
+all ``E``; the same index dispatch fills its ``(E, C, D)`` float32
+capacity buffers (``C`` a (rank, expert) pair), one
+``collectives.all_to_all`` turns them into ``(E/A, A*C, D)``, the local
+experts' FFN runs on every rank's tokens, the reverse all-to-all brings
+the outputs home and the combine gathers them.  The routing fractions and
+the stats are averaged across ranks BEFORE the aux product, so the aux
+loss is exactly the global one (JAX ``expert_parallel.py:129-172``).
+Both exchanges and the mean are differentiable: the gradient of an expert
+row sums every rank's tokens on the rank that owns it, which
+``parallel.fsdp.ShardPlan`` scales by 1/A instead of all-reducing.
+``make_moe_dispatch_auto`` sizes the capacity from the token count of
+each call (the trainer's hook) and runs ``moe_ffn_local`` on one rank.
 """
 
 from __future__ import annotations
@@ -44,9 +57,11 @@ from torch import nn
 import torch.nn.functional as F
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import _TRUNC_STD
-
-EXPERT_PARALLEL = ("ROADMAP.md queue 1, item 7.5 ('Remaining parallelism and "
-                   "utilities': the dispatch of expert_parallel.py)")
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
+    all_reduce_mean,
+    all_to_all,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import P
 
 
 def expert_capacity(n_tokens: int, n_experts: int, factor: float = 1.25) -> int:
@@ -160,22 +175,66 @@ def moe_ffn_local(params: dict, x: torch.Tensor, n_experts: int, capacity: int,
     return out.to(x.dtype), _aux_loss(*fracs, n_experts), stats
 
 
-def make_moe_dispatch(*args, **kwargs):
-    raise NotImplementedError(
-        f"make_moe_dispatch (the all_to_all MoE island) is not in the PyTorch "
-        f"port yet ({EXPERT_PARALLEL} ports it)")
+def make_moe_dispatch(mesh, n_experts: int, capacity: int, axis_name: str = "data",
+                      top_k: int = 1):
+    """The expert-parallel MoE forward over ``mesh``'s ``axis_name``:
+    ``moe(params, x) -> (out, aux, stats)`` with ``x`` this rank's (T, D)
+    tokens, ``params["router"]`` whole and ``w1``/``b1``/``w2``/``b2`` this
+    rank's ``n_experts / A`` expert rows; ``capacity`` is per (rank,
+    expert) pair.  A collective: every rank calls it with the same
+    ``capacity``."""
+    a = mesh.shape[axis_name]
+    if n_experts % a:
+        raise ValueError(f"n_experts={n_experts} not divisible by |{axis_name}|={a}")
+
+    def moe(params: dict, x: torch.Tensor):
+        r, fracs, stats = _route(x, params["router"], n_experts, capacity, top_k)
+        expert_in, flat = _dispatch(x, r, n_experts, capacity)
+        # (E, C, D) -> (E/A, A*C, D): expert block j of every rank lands on rank j
+        expert_in = all_to_all(expert_in, split_axis=0, concat_axis=1)
+        expert_out = _expert_ffn(params, expert_in)
+        # the reverse: (E/A, A*C, D) -> (E, C, D), each rank's buffers home
+        expert_out = all_to_all(expert_out, split_axis=1, concat_axis=0)
+        out = _combine(expert_out, flat, r.gates)
+        # global fractions first, THEN the product: the exact global aux
+        fracs = all_reduce_mean(list(fracs))
+        stats = dict(zip(stats, all_reduce_mean(list(stats.values()))))
+        return out.to(x.dtype), _aux_loss(*fracs, n_experts), stats
+
+    return moe
 
 
-def make_moe_dispatch_auto(*args, **kwargs):
-    raise NotImplementedError(
-        f"make_moe_dispatch_auto (the trainer's expert-parallel hook) is not in "
-        f"the PyTorch port yet ({EXPERT_PARALLEL} ports it)")
+def make_moe_dispatch_auto(mesh, n_experts: int, capacity_factor: float = 2.0,
+                           axis_name: str = "data", top_k: int = 1):
+    """The trainer's expert-parallel hook: the capacity is sized per call
+    from this rank's token count (``expert_capacity(T * top_k, E,
+    capacity_factor)``, T the rank's tokens, as JAX sizes it from the
+    global count over A); a mesh of one rank, or experts that do not divide
+    over it, run ``moe_ffn_local``."""
+    a = mesh.shape[axis_name]
+
+    def moe(params: dict, x: torch.Tensor):
+        cap = expert_capacity(x.shape[0] * top_k, n_experts, capacity_factor)
+        if a == 1 or n_experts % a:
+            return moe_ffn_local(params, x, n_experts, cap, top_k)
+        return make_moe_dispatch(mesh, n_experts, cap, axis_name, top_k)(params, x)
+
+    return moe
 
 
-def moe_expert_rule(*args, **kwargs):
-    raise NotImplementedError(
-        f"moe_expert_rule (sharding the expert-stacked leaves) is not in the "
-        f"PyTorch port yet ({EXPERT_PARALLEL} ports it)")
+def moe_expert_rule(axis: str = "data", marker: str = "moe"):
+    """Spec rule splitting the expert-stacked leaves (``w1``/``b1``/``w2``/
+    ``b2`` under a ``moe`` module) over ``axis`` along the expert dim: each
+    rank owns its experts' weights, and their moments with them; the
+    router stays replicated."""
+    targets = {"w1", "b1", "w2", "b2"}
+
+    def rule(path: tuple[str, ...], leaf) -> P:
+        if marker in path and path[-1] in targets and getattr(leaf, "ndim", 0) >= 1:
+            return P(axis, *([None] * (leaf.ndim - 1)))
+        return P()
+
+    return rule
 
 
 @torch.no_grad()
@@ -189,7 +248,7 @@ def _lecun_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
 
 
 class MoEBlock(nn.Module):
-    """MoE FFN on (B, S, D) activations, the experts local: ``forward(x)``
+    """MoE FFN on (B, S, D) activations: ``forward(x)``
     -> ``(out (B, S, D), aux, stats)``, with the Switch load-balancing
     ``aux`` loss and ``stats`` = ``{"dropped", "z"}`` (raw; the caller
     weights ``z`` by ``z_weight``).  Capacity is sized per call for that
@@ -198,17 +257,20 @@ class MoEBlock(nn.Module):
     decode cast exempts them); flax's init: ``lecun_normal`` on the router
     and on the stacked ``w1``/``w2``, whose fan-in counts the expert axis
     (E * D for ``w1``, E * H for ``w2``, as flax's ``variance_scaling``
-    reads a 3-D kernel), zero biases."""
+    reads a 3-D kernel), zero biases.  ``ep_fn`` (``make_moe_dispatch_auto``
+    or a user's ``moe_fn``, ``ep_fn(params, tokens) -> (out, aux, stats)``)
+    runs it expert-parallel; None computes every expert locally."""
 
     def __init__(self, dim: int, n_experts: int = 8, hidden_mult: int = 4,
                  capacity_factor: float = 2.0, top_k: int = 1, z_weight: float = 0.0,
-                 device=None):
+                 ep_fn=None, device=None):
         super().__init__()
         if not 1 <= top_k <= n_experts:
             raise ValueError(f"top_k must be in [1, n_experts={n_experts}], got {top_k}")
         h = hidden_mult * dim
         self.dim, self.n_experts, self.hidden = dim, n_experts, h
         self.capacity_factor, self.top_k, self.z_weight = capacity_factor, top_k, z_weight
+        self.ep_fn = ep_fn
         f32 = dict(dtype=torch.float32, device=device)
         self.router = nn.Parameter(torch.empty(dim, n_experts, **f32))
         self.w1 = nn.Parameter(torch.empty(n_experts, dim, h, **f32))
@@ -234,8 +296,11 @@ class MoEBlock(nn.Module):
     def forward(self, x: torch.Tensor):
         b, s, d = x.shape
         tokens = x.reshape(b * s, d)
-        out, aux, stats = moe_ffn_local(self.params(), tokens, self.n_experts,
-                                        self.capacity(b * s), self.top_k)
+        if self.ep_fn is not None:
+            out, aux, stats = self.ep_fn(self.params(), tokens)
+        else:
+            out, aux, stats = moe_ffn_local(self.params(), tokens, self.n_experts,
+                                            self.capacity(b * s), self.top_k)
         return out.reshape(b, s, d), aux, stats
 
 

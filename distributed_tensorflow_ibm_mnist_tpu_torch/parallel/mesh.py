@@ -3,8 +3,18 @@
 The counterpart of the JAX package's ``parallel/mesh.py`` ``make_mesh``.
 JAX lays the visible devices out on a ``(data, model, seq, pipe)`` grid;
 the port has one axis, ``data``, whose size is the process group's world
-size (each rank one process, one device).  The other axes and multislice
-(``dcn_dp``) are refused by name until their ROADMAP.md items port them.
+size (each rank one process, one device).  The other axes are refused by
+name until their ROADMAP.md item ports them.
+
+Multislice (``dcn_dp=N``, JAX's hybrid ICI x DCN mesh): the group must
+span N nodes with dp/N ranks each.  A rank's node is its host name,
+gathered from every rank (:func:`rank_records`; its ``slice_index`` is the
+node's place in rank order), or records a caller passes, as JAX's tests
+pass mock devices.  :func:`hybrid_mesh_shapes` and
+:func:`pick_multislice_devices` are JAX's, over those records; the mesh
+records the node-major rank order and the ``(dp/N, N)`` ici/dcn factors.
+The data axis's collectives stay the flat ones over the whole group: NCCL
+picks its own rings across nodes, as XLA does over JAX's hybrid mesh.
 
 The models that take JAX's ``axis_name="data"`` (cross-replica
 BatchNorm) resolve it when they are built (:func:`axis_mesh`) to the mesh
@@ -14,10 +24,10 @@ over the initialised default group; with no group they raise.
 from __future__ import annotations
 
 import dataclasses
+import socket
 
 import torch.distributed as dist
 
-_DP = "ROADMAP.md queue 1, 'Data-parallel training with torch.distributed'"
 _PARALLEL = "ROADMAP.md queue 1, 'Remaining parallelism and utilities'"
 
 
@@ -35,24 +45,79 @@ class Mesh:
 
     shape: dict[str, int]
     rank: int
+    dcn_dp: int = 1  # nodes the data axis spans (multislice)
+    ici_shape: tuple[int, ...] = ()  # (data, model, seq, pipe) within a node
+    dcn_shape: tuple[int, ...] = ()  # the same factors across nodes
+    order: tuple[int, ...] = ()  # ranks in node-major order
 
     @property
     def size(self) -> int:
         return self.shape["data"]
 
 
+def hybrid_mesh_shapes(dp: int, tp: int, sp: int, pp: int, dcn_dp: int
+                       ) -> tuple[tuple[int, int, int, int], tuple[int, int, int, int]]:
+    """Split a (data, model, seq, pipe) request into the within-node (ICI)
+    and cross-node (DCN) factors: only the data axis spans nodes, so
+    ``dcn_dp`` must divide ``dp``."""
+    if dcn_dp < 1:
+        raise ValueError(f"dcn_dp must be >= 1, got {dcn_dp}")
+    if dp % dcn_dp:
+        raise ValueError(
+            f"dcn_dp ({dcn_dp}) must divide dp ({dp}): the data axis factors "
+            "as (cross-slice x within-slice)")
+    return (dp // dcn_dp, tp, sp, pp), (dcn_dp, 1, 1, 1)
+
+
+def pick_multislice_devices(devices: list, dcn_dp: int, per_slice: int) -> list:
+    """``per_slice`` records from EACH of ``dcn_dp`` slices, slice-major:
+    grouped by ``slice_index`` (None never counts), ``ValueError`` naming
+    the slices found when fewer than ``dcn_dp`` hold ``per_slice`` each."""
+    groups: dict = {}
+    for d in devices:
+        groups.setdefault(getattr(d, "slice_index", None), []).append(d)
+    usable = sorted(s for s, g in groups.items() if s is not None and len(g) >= per_slice)
+    if len(usable) < dcn_dp:
+        found = sorted(s for s in groups if s is not None)
+        raise ValueError(
+            f"dcn_dp={dcn_dp} needs {dcn_dp} slices (nodes) with >= {per_slice} "
+            f"ranks each (found slice indices {found or 'none'}); a multislice "
+            "run spans that many nodes of the process group")
+    return [d for s in usable[:dcn_dp] for d in groups[s][:per_slice]]
+
+
+@dataclasses.dataclass(frozen=True)
+class RankRecord:
+    """One rank as the multislice selection sees it: its rank, host and
+    ``slice_index`` (the node's place among the group's nodes)."""
+
+    rank: int
+    host: str
+    slice_index: int | None
+
+
+def rank_records() -> list[RankRecord]:
+    """Every rank's record, in rank order (a collective): the slice is the
+    rank's node, numbered by first appearance in rank order."""
+    hosts = [None] * dist.get_world_size()
+    dist.all_gather_object(hosts, socket.gethostname())
+    index: dict[str, int] = {}
+    return [RankRecord(r, h, index.setdefault(h, len(index))) for r, h in enumerate(hosts)]
+
+
 def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1,
-              dcn_dp: int = 1) -> Mesh:
+              dcn_dp: int = 1, devices: list | None = None) -> Mesh:
     """The ``data`` mesh over the initialised default process group.
 
     ``dp=None`` (or 0) is the group's world size; any other ``dp`` must
-    equal it (one rank per process).  ``tp``, ``sp``, ``pp`` and
-    ``dcn_dp`` above 1 raise ``NotImplementedError``."""
+    equal it (one rank per process).  ``tp``, ``sp`` and ``pp`` above 1
+    raise ``NotImplementedError``.  ``dcn_dp > 1`` is multislice (module
+    docstring): ``devices`` are the group's rank records in rank order
+    (default :func:`rank_records`); ``ValueError`` unless they span
+    ``dcn_dp`` slices of ``dp / dcn_dp`` ranks each, laid out node-major
+    (ranks of a node contiguous, as torchrun numbers them)."""
     if dcn_dp < 1:
         raise ValueError(f"dcn_dp must be >= 1, got {dcn_dp}")
-    if dcn_dp > 1:
-        raise NotImplementedError(
-            f"dcn_dp={dcn_dp} (multislice) is not ported to the PyTorch package yet: {_DP}")
     for name, n in (("tp", tp), ("sp", sp), ("pp", pp)):
         if n > 1:
             raise NotImplementedError(
@@ -66,8 +131,21 @@ def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1,
         raise ValueError(
             f"dp={dp} but the process group has {world} rank(s): the port runs "
             "one rank per process, so dp must equal the world size")
-    return Mesh(shape={"data": dp, "model": 1, "seq": 1, "pipe": 1},
-                rank=dist.get_rank())
+    shape = {"data": dp, "model": 1, "seq": 1, "pipe": 1}
+    if dcn_dp == 1:
+        return Mesh(shape=shape, rank=dist.get_rank())
+    ici, dcn = hybrid_mesh_shapes(dp, tp, sp, pp, dcn_dp)
+    records = list(devices) if devices is not None else rank_records()
+    if len(records) != world:
+        raise ValueError(f"{len(records)} rank records for a group of {world}")
+    chosen = pick_multislice_devices(records, dcn_dp, dp // dcn_dp)
+    order = tuple(r.rank for r in chosen)
+    if order != tuple(range(world)):
+        raise ValueError(
+            f"dcn_dp={dcn_dp}: the ranks are not node-major (node-major order "
+            f"{list(order)}); number each node's ranks contiguously, as torchrun does")
+    return Mesh(shape=shape, rank=dist.get_rank(), dcn_dp=dcn_dp, ici_shape=ici,
+                dcn_shape=dcn, order=order)
 
 
 def axis_mesh(axis_name: str) -> Mesh:

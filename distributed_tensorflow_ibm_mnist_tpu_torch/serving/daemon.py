@@ -300,6 +300,11 @@ class ServingDaemon:
         self._adm_cv = threading.Condition()
         self._admission: list[tuple[tuple, DaemonRequest]] = []
         self._inflight: list[DaemonRequest] = []   # dispatched, not ended
+        # popped by the dispatcher, not yet in _inflight nor ended: the
+        # third place a counted request can be.  Every move between the
+        # three, and every terminal count, happens under _adm_cv, so
+        # conservation() is exact at every instant
+        self._dispatching = 0
         self._delivery_q: queue.Queue = queue.Queue()
         self._ids = 0
         self._counts_lock = threading.Lock()
@@ -472,17 +477,13 @@ class ServingDaemon:
         # requeued after transient backpressure), its next overdue check
         # cancels it — there is no unguarded window
         dr.deadline_s = -1e18
-        removed = False
         with self._adm_cv:
             for i, (_key, queued_dr) in enumerate(self._admission):
                 if queued_dr is dr:
                     del self._admission[i]
                     heapq.heapify(self._admission)
-                    removed = True
-                    break
-        if removed:
-            self._end_request(dr, "cancelled", reason)
-            return True
+                    self._end_request(dr, "cancelled", reason)
+                    return True
         with self._tier_lock:
             if dr.rr is not None and not dr.rr.done:
                 self.router.cancel(dr.rr, reason=reason)
@@ -491,14 +492,18 @@ class ServingDaemon:
     @property
     def outstanding(self) -> int:
         with self._adm_cv:
-            return len(self._admission) + len(self._inflight)
+            return (len(self._admission) + self._dispatching
+                    + len(self._inflight))
 
     def conservation(self) -> dict:
         """The exact-accounting check: every submitted request is
-        terminal or still in the tier, and nothing is double-counted."""
-        with self._counts_lock:
-            c = dict(self.counters)
-        c["outstanding"] = self.outstanding
+        terminal or still in the tier, and nothing is double-counted.
+        One snapshot under ``_adm_cv`` then ``_counts_lock`` (the order
+        ``_reject`` already takes them in), so it holds at every instant."""
+        with self._adm_cv:
+            with self._counts_lock:
+                c = dict(self.counters)
+            c["outstanding"] = self.outstanding
         c["conserved"] = (c["submitted"] == c["done"] + c["cancelled"]
                           + c["failed"] + c["outstanding"])
         return c
@@ -624,23 +629,24 @@ class ServingDaemon:
             leftovers = [dr for _, dr in self._admission] + list(self._inflight)
             self._admission.clear()
             self._inflight.clear()
-        for dr in leftovers:
-            if not dr._done.is_set():
+            leftovers = [dr for dr in leftovers if not dr._done.is_set()]
+            for dr in leftovers:
                 dr.final_status = "cancelled"
                 dr.final_error = "daemon closed with request outstanding"
                 self._count("cancelled")
-                if self._journal is not None:
-                    # leftovers bypass the delivery queue (it is already
-                    # joined) — journal their terminal verdict here so a
-                    # clean close leaves zero incomplete entries
-                    try:
-                        self._journal.retired(dr.id, "cancelled",
-                                              dr.final_error)
-                    except Exception:
-                        self._count("journal_errors")
-                self._tr_close_dr(dr, "cancelled")
-                dr._events.put((_END, "cancelled"))
-                dr._done.set()
+        for dr in leftovers:
+            if self._journal is not None:
+                # leftovers bypass the delivery queue (it is already
+                # joined) — journal their terminal verdict here so a
+                # clean close leaves zero incomplete entries
+                try:
+                    self._journal.retired(dr.id, "cancelled",
+                                          dr.final_error)
+                except Exception:
+                    self._count("journal_errors")
+            self._tr_close_dr(dr, "cancelled")
+            dr._events.put((_END, "cancelled"))
+            dr._done.set()
         with self._tier_lock:
             self.router.close()
         if self._journal is not None:
@@ -750,13 +756,18 @@ class ServingDaemon:
                 if self._stop.is_set() and not self._admission:
                     return
                 key, dr = heapq.heappop(self._admission)
+                self._dispatching += 1
             if self._stop.is_set() and self._closed:
+                self._end_request(dr, "cancelled",
+                                  "daemon closed with request outstanding",
+                                  dispatching=True)
                 return
             requeue = False
             with self._tier_lock:
                 if self.clock() > dr.overdue_at:
                     self._end_request(dr, "cancelled",
-                                      "deadline lapsed in admission queue")
+                                      "deadline lapsed in admission queue",
+                                      dispatching=True)
                     continue
                 remaining = (None if dr.deadline_s is None
                              else dr.overdue_at - self.clock())
@@ -774,11 +785,13 @@ class ServingDaemon:
                 except NoHealthyReplica:
                     if not self.router.healthy():
                         self._end_request(dr, "failed",
-                                          "no healthy replica remained")
+                                          "no healthy replica remained",
+                                          dispatching=True)
                         continue
                     requeue = True
                 except RuntimeError as e:   # router closed under us
-                    self._end_request(dr, "failed", str(e))
+                    self._end_request(dr, "failed", str(e),
+                                      dispatching=True)
                     continue
                 else:
                     dr.rr = rr
@@ -787,9 +800,11 @@ class ServingDaemon:
                         self._tracer.end(dr._tspan["admit"])
                         dr._tspan["admit"] = None
                     with self._adm_cv:
+                        self._dispatching -= 1
                         self._inflight.append(dr)
             if requeue:
                 with self._adm_cv:
+                    self._dispatching -= 1
                     heapq.heappush(self._admission, (key, dr))
                 time.sleep(self.idle_sleep_s)   # let pumps free slots
 
@@ -893,35 +908,41 @@ class ServingDaemon:
         self._tracer.end(t["root"], **kw)
 
     def _end_request(self, dr: DaemonRequest, status: str,
-                     error: str | None) -> None:
+                     error: str | None, *, dispatching: bool = False) -> None:
         """Terminal verdict for a request the ROUTER never finished (or
-        never saw).  Counted once; the end event rides the delivery queue
-        so it lands after any tokens already enqueued."""
+        never saw).  Counted once, in the same ``_adm_cv`` section that
+        takes it out of the dispatcher's hands (``dispatching``) or that
+        the caller removed it from admission in; the end event rides the
+        delivery queue so it lands after any tokens already enqueued."""
         if dr.final_status is None and (dr.rr is None or not dr.rr.done):
             dr.final_status = status
             dr.final_error = error
-        self._count(status if status in ("done", "cancelled", "failed")
-                    else "failed")
+        with self._adm_cv:
+            if dispatching:
+                self._dispatching -= 1
+            self._count(status if status in ("done", "cancelled", "failed")
+                        else "failed")
         self._delivery_q.put((_END, dr, status))
 
     def _scan_completions(self) -> None:
         """Move router-terminal requests out of ``_inflight`` and enqueue
-        their end events.  Runs on pumps and the watchdog; the claim is
-        made under the admission lock so each request ends exactly once."""
-        ended: list[DaemonRequest] = []
+        their end events.  Runs on pumps and the watchdog; the claim and the terminal
+        count are made in one admission-lock section, so each request
+        ends exactly once and is never uncounted in between."""
+        ended: list[tuple[DaemonRequest, str]] = []
         with self._adm_cv:
             still: list[DaemonRequest] = []
             for dr in self._inflight:
                 rr = dr.rr
                 if rr is not None and rr.done:
-                    ended.append(dr)
+                    ended.append((dr, dr.status))
                 else:
                     still.append(dr)
             self._inflight[:] = still
-        for dr in ended:
-            status = dr.status
-            self._count(status if status in ("done", "cancelled", "failed")
-                        else "failed")
+            for dr, status in ended:
+                self._count(status if status in ("done", "cancelled",
+                                                 "failed") else "failed")
+        for dr, status in ended:
             self._delivery_q.put((_END, dr, status))
 
     # ------------------------------------------------------------------
@@ -997,11 +1018,11 @@ class ServingDaemon:
     # telemetry
 
     def _telemetry_vitals(self) -> dict:
-        with self._counts_lock:
-            c = dict(self.counters)
         with self._adm_cv:
+            with self._counts_lock:
+                c = dict(self.counters)
             admission = len(self._admission)
-            inflight = len(self._inflight)
+            inflight = self._dispatching + len(self._inflight)
         return {
             "policy": self.policy.name,
             "admission_depth": admission,

@@ -3,11 +3,12 @@
 The JAX package's ``utils/config.py``, copied so the port imports nothing
 of that package: the same ``RunConfig`` fields with the same defaults, and
 the same five ``PRESETS``.  The port's Trainer runs these knobs but the
-ones it refuses by name (``core/trainer.py``: tp/sp/pp, fsdp).  Two fields keep their JAX meaning only for
+ones it refuses by name (``core/trainer.py``: tp/sp/pp); ``fsdp``,
+``sharded_update`` and ``dcn_dp`` reach it as any other field (``--set``
+on the command line).  One field keeps its JAX meaning only for
 configuration compatibility: ``compile_cache_dir`` (eager PyTorch compiles
 no programs at run time, so there is nothing to cache; the field is
-accepted and has no effect) and ``dcn_dp`` (multislice; the Trainer refuses
-any value but 1).
+accepted and has no effect).
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ class RunConfig:
     fsdp: bool = False  # ZeRO-3 sharding (needs dp > 1)
     sharded_update: bool = False  # ZeRO-1 sharded weight update (needs dp > 1)
     sharded_update_buckets: int = 4  # gradient buckets for sharded_update
-    dcn_dp: int = 1  # multislice data axis: only 1 in the port
+    dcn_dp: int = 1  # multislice: nodes the data axis spans (parallel/mesh.py)
     # run control
     seed: int = 0
     target_accuracy: float | None = None  # stop early when test acc reaches this

@@ -76,14 +76,31 @@ def test_weights_come_from_the_generator_not_global_state():
         assert torch.equal(pa, pb), name
 
 
-def _moe_island(*args):
-    return args
+def test_a_user_moe_fn_runs_every_moe_block():
+    """``moe_fn`` (an expert-parallel island, JAX's ``ep_fn`` contract:
+    ``fn(params, tokens) -> (out, aux, stats)``) replaces each MoE block's
+    local experts; here the local FFN itself, counted."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.expert_parallel import (
+        expert_capacity,
+        moe_ffn_local,
+    )
+
+    calls = []
+
+    def island(params, tokens):
+        calls.append(tuple(tokens.shape))
+        cap = expert_capacity(tokens.shape[0], 4, 2.0)
+        return moe_ffn_local(params, tokens, 4, cap)
+
+    kw = dict(KW, moe_every=2, n_experts=4, dtype=torch.float32, device="cpu")
+    a = get_model("causal_lm", **kw, generator=torch.Generator().manual_seed(1))
+    b = get_model("causal_lm", **kw, moe_fn=island, generator=torch.Generator().manual_seed(1))
+    tokens = torch.randint(0, KW["num_classes"], (2, 6), generator=torch.Generator())
+    torch.testing.assert_close(b(tokens), a(tokens), rtol=0, atol=0)
+    assert calls == [(12, KW["dim"])] * (KW["depth"] // 2)
 
 
 @pytest.mark.parametrize("kw, error, slice_", [
-    # MoE blocks are ported; a user's expert-parallel island is not
-    ({"moe_every": 2, "moe_fn": _moe_island}, NotImplementedError,
-     r"moe_fn .*ROADMAP.md queue 1, item 7\.5"),
     # int8 weights and the int8 cache are ported: bad values refused as in JAX
     ({"quant": "int4"}, ValueError, "quant must be 'none' or 'int8'"),
     ({"kv_cache_dtype": "fp8"}, ValueError, "kv_cache_dtype must be"),
@@ -92,7 +109,7 @@ def _moe_island(*args):
     # learned positions are ported; the table is sized at construction
     # (their decode refusal: tests/test_torch_lm_follow_ups.py)
     ({"pos": "learned"}, ValueError, "pos='learned' needs seq_len"),
-], ids=["moe", "quant", "kv-int8", "paged", "learned-pos"])
+], ids=["quant", "kv-int8", "paged", "learned-pos"])
 def test_later_slices_refuse_by_name(kw, error, slice_):
     with pytest.raises(error, match=slice_):
         get_model("causal_lm", **KW, **kw, device="cpu")

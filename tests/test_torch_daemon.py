@@ -333,3 +333,52 @@ def test_priority_daemon_dispatches_in_policy_order(weights, daemons):
     assert d.drain(timeout=WAIT_S)
     d.close()
     d2.close()
+
+
+def test_conservation_holds_inside_the_dispatch_window(weights, daemons):
+    """The books balance at every instant, not only at rest: (a) with the
+    dispatcher stalled inside ``router.submit`` (popped from admission,
+    not yet in flight) and (b) with ``_scan_completions`` paused between
+    taking a finished request out of flight and counting it."""
+    _, _, sd = weights
+    router = Router(_factory(sd), 1)
+    d = _daemon(daemons, router, max_queue=8, liveness_timeout_s=60.0)
+    entered, release = threading.Event(), threading.Event()
+    real_submit = router.submit
+
+    def stalled_submit(*a, **kw):
+        entered.set()
+        assert release.wait(WAIT_S)
+        return real_submit(*a, **kw)
+
+    router.submit = stalled_submit
+    d.start()
+    first = d.submit(PROMPTS[0], 3)
+    assert entered.wait(WAIT_S)
+    cons = d.conservation()
+    release.set()
+    assert cons["conserved"] and cons["outstanding"] == 1
+    assert first.wait(WAIT_S) and first.status == "done"
+
+    paused, resume = threading.Event(), threading.Event()
+    real_count = d._count
+
+    def pausing_count(name, n=1):
+        if name == "done" and not paused.is_set():
+            paused.set()
+            assert resume.wait(WAIT_S)
+        real_count(name, n)
+
+    d._count = pausing_count
+    second = d.submit(PROMPTS[1], 3)
+    assert paused.wait(WAIT_S)
+    seen: dict = {}
+    reader = threading.Thread(target=lambda: seen.update(d.conservation()))
+    reader.start()
+    reader.join(0.5)   # inside the window: blocks on the books, or reads them
+    resume.set()
+    reader.join(WAIT_S)
+    assert not reader.is_alive()
+    assert seen["conserved"] and seen["submitted"] == 2
+    assert second.wait(WAIT_S) and second.status == "done"
+    assert d.drain(timeout=WAIT_S) and d.conservation()["conserved"]

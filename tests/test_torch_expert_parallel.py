@@ -16,7 +16,20 @@ inputs, float32:
   sizing and a block that trains;
 * the ``MoEBlock`` module on converted weights against flax's, its flax
   initialisation scales, and that no ``(T, E, C)`` tensor is ever built;
-* expert parallelism is refused by its ROADMAP item.
+* expert parallelism on two gloo ranks (spawned once for the module,
+  ``tests/torch_shard_ranks.py``) against JAX's on 2 virtual devices:
+  ``make_moe_dispatch``'s outputs, aux and stats at 1e-5 and the gradients
+  with respect to x and every parameter at 1e-4 (JAX's own tolerance,
+  ``tests/test_expert_parallel.py:66``), top-1 and top-2, at ample
+  capacity and under capacity pressure (capacity 2, where each rank drops
+  other tokens than one device would); ``moe_expert_rule`` as JAX's; the
+  Trainer's automatic EP on a MoE ViT: expert leaves and their moments at
+  2 of 4 rows a rank, the router whole, one momentum step with a
+  global-norm clip that bites, from JAX's EP trainer's own initial
+  TrainState (dropout off: the ViT's default), equal to that trainer's
+  step within 1e-4 (loss, every parameter and momentum trace), the drop
+  metric in the epoch record, and JAX's refusals (indivisible experts,
+  ``sharded_update`` with EP).
 """
 
 import jax
@@ -26,9 +39,16 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import torch_shard_ranks as ranks
+from distributed_tensorflow_ibm_mnist_tpu.core.trainer import Trainer as JaxTrainer
 from distributed_tensorflow_ibm_mnist_tpu.parallel import expert_parallel as jep
+from distributed_tensorflow_ibm_mnist_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from distributed_tensorflow_ibm_mnist_tpu.utils.config import RunConfig as JaxRunConfig
+from distributed_tensorflow_ibm_mnist_tpu_torch.convert import train_state_dict
+from distributed_tensorflow_ibm_mnist_tpu_torch.launch import torchrun
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import TransformerBlock
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import expert_parallel as ep
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
 
 torch.set_num_threads(1)
 
@@ -185,6 +205,9 @@ def test_z_loss_sown_and_weighted():
     gen = torch.Generator().manual_seed(0)
     kw = dict(dim=D, heads=2, use_moe=True, n_experts=4, dtype=torch.float32, device="cpu")
     block = TransformerBlock(**kw, moe_z_weight=1e-2, generator=gen)
+    with torch.no_grad():  # a block's constructor leaves its weights unset
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.3)
     block0 = TransformerBlock(**kw, moe_z_weight=0.0, generator=gen)
     block0.load_state_dict(block.state_dict())
     raw = []  # the MoE FFN's own, unweighted z
@@ -292,13 +315,6 @@ def test_no_tokens_by_experts_by_capacity_tensor_is_built():
     assert mode.largest < t * e * t
 
 
-@pytest.mark.parametrize("fn", ["make_moe_dispatch", "make_moe_dispatch_auto",
-                                "moe_expert_rule"])
-def test_expert_parallelism_is_refused_by_its_item(fn):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue 1, item 7\.5"):
-        getattr(ep, fn)(None, 8)
-
-
 def test_top_k_out_of_range_is_refused_as_in_jax():
     x, w = torch.zeros(4, D), torch.zeros(D, 4)
     with pytest.raises(ValueError) as got:
@@ -306,3 +322,161 @@ def test_top_k_out_of_range_is_refused_as_in_jax():
     with pytest.raises(ValueError) as want:
         jep._route(jnp.zeros((4, D)), jnp.zeros((D, 4)), 4, 4, top_k=5)
     assert str(got.value) == str(want.value)
+
+
+# ---------------------------------------------------------------- two ranks
+
+# name -> (top_k, capacity per (rank, expert)): T/2 tokens a rank
+DISPATCH = {"ample_top1": (1, T // 2), "ample_top2": (2, T // 2),
+            "pressure_top1": (1, 2), "pressure_top2": (2, 2)}
+EP_CLIP = 4.0  # half the step's global norm (8.03): the clip bites
+EP_TRAINER = dict(name="moe_ep", model="vit", dataset="mnist", synthetic=True,
+                  n_train=64, n_test=32, batch_size=64, epochs=1, optimizer="momentum", lr=0.1,
+                  grad_clip=EP_CLIP, quiet=True, seed=12, eval_batch_size=32, dp=2,
+                  target_accuracy=None)
+EP_MODEL = {"patch_size": 7, "dim": 16, "depth": 1, "heads": 2, "moe_every": 1,
+            "n_experts": 4, "moe_capacity_factor": 8.0}
+VIT_DATA_KW = {"num_classes": 10, "image_size": (28, 28), "in_channels": 1}
+
+
+def _dispatch_case(name):
+    top_k, capacity = DISPATCH[name]
+    return {"params": _params(20 + top_k), "x": _tokens(30 + capacity), "top_k": top_k,
+            "capacity": capacity}
+
+
+def _jax_dispatch(case):
+    """JAX's island on 2 devices: outputs, aux, stats and the gradients of
+    sum(out^2) + 0.01 aux with respect to the parameters and x."""
+    mesh = jax_make_mesh(dp=2)
+    moe = jep.make_moe_dispatch(mesh, E, case["capacity"], top_k=case["top_k"])
+    params = {k: jnp.asarray(v) for k, v in case["params"].items()}
+    x = jnp.asarray(case["x"])
+    out, aux, stats = jax.jit(moe)(params, x)
+
+    def loss(p, xx):
+        o, a, _ = moe(p, xx)
+        return jnp.sum(o ** 2) + 0.01 * a
+
+    gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(params, x)
+    return out, aux, stats, {"x": gx, **gp}
+
+
+@pytest.fixture(scope="module")
+def jax_ep_trainer():
+    """JAX's EP trainer: its initial state (numpy) and, after one epoch
+    (one step), its history and parameters."""
+    jt = JaxTrainer(JaxRunConfig(**EP_TRAINER, model_kwargs={**EP_MODEL,
+                                                             "dtype": jnp.float32}))
+    assert jt._moe_ep
+    init = jax.tree.map(np.asarray, jt.state)
+    jt.fit()
+    return init, jt.history, jax.tree.map(np.asarray, jt.state)
+
+
+@pytest.fixture(scope="module")
+def port(tmp_path_factory, jax_ep_trainer):
+    tmp = tmp_path_factory.mktemp("expert_parallel")
+    init, _, _ = jax_ep_trainer
+    cfg = dict(EP_TRAINER, model_kwargs={**EP_MODEL, "dtype": torch.float32})
+    form = train_state_dict(init, RunConfig(**cfg), **VIT_DATA_KW)
+    cases = {name: _dispatch_case(name) for name in DISPATCH}
+    return torchrun.spawn(ranks.expert_parallel, 2, "gloo", "cpu", tmp / "store",
+                          args=(cases, {"config": cfg, "form": form}), timeout=300)
+
+
+def test_ranks_import_no_jax(port):
+    assert all(r["forbidden"] == [] for r in port)
+
+
+@pytest.mark.parametrize("name", sorted(DISPATCH))
+def test_dispatch_matches_jax(port, name):
+    out, aux, stats, grads = _jax_dispatch(_dispatch_case(name))
+    got = [r[name] for r in port]
+    np.testing.assert_allclose(np.concatenate([g["out"] for g in got]), np.asarray(out),
+                               rtol=1e-5, atol=1e-5)
+    for g in got:
+        np.testing.assert_allclose(g["aux"], float(aux), rtol=1e-5)
+        for k in ("dropped", "z"):
+            np.testing.assert_allclose(g["stats"][k], float(stats[k]), rtol=1e-5, atol=1e-6)
+    # the port's gradient convention (parallel/fsdp.py ShardPlan): a rank's
+    # x gradient / N, the router's averaged, an expert row's / N
+    want = {k: np.asarray(v) for k, v in grads.items()}
+    np.testing.assert_allclose(np.concatenate([g["grads"]["x"] for g in got]) / 2, want["x"],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose((got[0]["grads"]["router"] + got[1]["grads"]["router"]) / 2,
+                               want["router"], rtol=1e-4, atol=1e-4)
+    for k in ("w1", "b1", "w2", "b2"):
+        np.testing.assert_allclose(np.concatenate([g["grads"][k] for g in got]) / 2, want[k],
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    if name.startswith("pressure"):
+        assert float(stats["dropped"]) > 0.0  # the pressure is real
+
+
+def test_moe_expert_rule_equals_jax():
+    jr, pr = jep.moe_expert_rule(), ep.moe_expert_rule()
+    for path, shape in ((("block_0", "moe", "w1"), (8, 16, 64)),
+                        (("block_0", "moe", "b2"), (8, 16)),
+                        (("block_0", "moe", "router"), (16, 8)),
+                        (("block_0", "qkv", "kernel"), (16, 48))):
+        assert tuple(pr(path, jnp.zeros(shape))) == tuple(jr(path, jnp.zeros(shape)))
+
+
+def test_auto_dispatch_runs_locally_on_one_rank():
+    mesh1 = type("M", (), {"shape": {"data": 1}})()
+    p, x = _torch(_params(3)), torch.tensor(_tokens(4))
+    got = ep.make_moe_dispatch_auto(mesh1, E, capacity_factor=2.0, top_k=2)(p, x)
+    want = ep.moe_ffn_local(p, x, E, ep.expert_capacity(T * 2, E, 2.0), 2)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="not divisible"):
+        ep.make_moe_dispatch(type("M", (), {"shape": {"data": 3}})(), E, 4)
+
+
+def test_trainer_ep_holds_its_experts_and_the_whole_router(port):
+    for r in port:
+        for i in range(EP_MODEL["depth"]):
+            for leaf, whole in (("w1", (4, 16, 64)), ("b1", (4, 64)), ("w2", (4, 64, 16)),
+                                ("b2", (4, 16))):
+                name = f"blocks.{i}.moe.{leaf}"
+                assert r["kinds"][name] == "expert"
+                assert r["rows"][name] == (2, *whole[1:]) == r["moment_rows"][name]
+            router = f"blocks.{i}.moe.router"
+            assert r["kinds"][router] == "replicated" and r["rows"][router] == (16, 4)
+
+
+def test_trainer_ep_step_equals_jaxs_ep_trainer(port, jax_ep_trainer):
+    init, history, final = jax_ep_trainer
+    cfg = RunConfig(**EP_TRAINER, model_kwargs=EP_MODEL)
+    start = train_state_dict(init, cfg, **VIT_DATA_KW)
+    want = train_state_dict(final, cfg, **VIT_DATA_KW)
+    for r in port:
+        for n, t in start["params"].items():  # each rank took its block and kept it
+            np.testing.assert_array_equal(r["loaded"]["params"][n], t.numpy(), err_msg=n)
+        rec = r["fit"]["history"][0]
+        np.testing.assert_allclose(rec["train_loss"], history[0]["train_loss"], rtol=1e-4)
+        assert "moe_dropped_frac" in rec and rec["moe_dropped_frac"] == 0.0
+        for n, t in want["params"].items():
+            np.testing.assert_allclose(r["fit"]["whole"]["params"][n], t.numpy(),
+                                       rtol=1e-4, atol=1e-4, err_msg=n)
+        # the clip bites, so the momentum trace is the clipped gradient: an
+        # expert block left out of the norm or the router counted twice
+        # would scale every element
+        assert len(r["fit"]["norms"]) == 1 and r["fit"]["norms"][0] > EP_CLIP
+        for n, t in want["optimizer"]["trace"].items():
+            w = t.numpy()
+            np.testing.assert_allclose(r["fit"]["whole"]["trace"][n], w, rtol=1e-4,
+                                       atol=1e-4 * np.abs(w).max(), err_msg=f"trace/{n}")
+
+
+def test_trainer_ep_decodes_from_whole_experts(port):
+    for r in port:
+        for i in range(EP_MODEL["depth"]):
+            assert r["decode_shapes"][f"blocks.{i}.moe.w1"] == (4, 16, 64)
+            assert r["decode_shapes"][f"blocks.{i}.moe.b2"] == (4, 16)
+
+
+def test_trainer_ep_refusals_as_jax(port):
+    for r in port:
+        assert r["indivisible"].startswith("ValueError") and "divisible" in r["indivisible"]
+        assert r["su_with_ep"].startswith("ValueError")
+        assert "sharded_update composes" in r["su_with_ep"]

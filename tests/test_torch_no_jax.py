@@ -73,7 +73,8 @@ def test_importing_every_module_loads_no_jax():
                  "models.quant", "serving.drafter",  # int8, speculation
                  "utils.checkpoint", "utils.chaos", "utils.elastic", "utils.debug",
                  "utils.profiling", "data.native", "models.remat",  # fault tolerance
-                 "parallel.expert_parallel"):  # the MoE blocks
+                 "parallel.expert_parallel",  # the MoE blocks
+                 "parallel.fsdp", "parallel.tensor_parallel"):  # ZeRO-3, spec rules
         assert f"{PORT.name}.{name}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

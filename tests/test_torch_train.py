@@ -298,22 +298,7 @@ def test_measure_throughput_leaves_the_state_unchanged():
         assert torch.equal(a, b)
 
 
-def _moe_island(*args):
-    return args
-
-
-REFUSED = {
-    "tp2": dict(tp=2), "sp2": dict(sp=2), "pp2": dict(pp=2),
-    "fsdp": dict(fsdp=True), "dcn_dp": dict(dcn_dp=2),
-    # the image models and the causal LM train now, MoE, dropout and
-    # learned positions too; what they still refuse, under the old ids:
-    # MoE at dp > 1 (automatic expert parallelism) and a user's moe_fn
-    "vit": dict(model="vit", model_kwargs={"moe_every": 2}, dp=2),
-    "causal_lm": dict(model="causal_lm", dataset="retrieval",
-                      model_kwargs={"moe_every": 2, "moe_fn": _moe_island}),
-    "retrieval": dict(model="causal_lm", dataset="retrieval",
-                      model_kwargs={"moe_every": 2}, dp=2),
-}
+REFUSED = {"tp2": dict(tp=2), "sp2": dict(sp=2), "pp2": dict(pp=2)}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
@@ -328,6 +313,11 @@ NEEDS_A_GROUP = {
     "dp2": dict(dp=2),
     "sharded_update": dict(dp=2, sharded_update=True),
     "resnet20": dict(model="resnet20", model_kwargs={"axis_name": "data"}),
+    # ZeRO-3, multislice and expert parallelism under dp are ported too
+    "fsdp": dict(dp=2, fsdp=True), "dcn_dp": dict(dp=2, dcn_dp=2),
+    "vit_moe": dict(model="vit", model_kwargs={"moe_every": 2}, dp=2),
+    "causal_lm_moe": dict(model="causal_lm", dataset="retrieval",
+                          model_kwargs={"moe_every": 2}, dp=2),
 }
 
 
