@@ -34,7 +34,7 @@ never JAX or the JAX package.  Phases, one JSON line each:
    it, on the same model, 8 slots, max_len 1024, 32 new tokens a request:
    (a) phase 3's 16 requests greedy at decode_ahead 1, 4 and 8 (streams
    identical to k=1, K3 == depth x admissions; the busy share of one
-   more profiled run each); (b) 8 greedy + 8 sampled requests
+   more profiled run at k=8); (b) 8 greedy + 8 sampled requests
    (temperature 0.8, top-k 40, top-p 0.9, min-p 0.05, seed = request
    index) replayed identically at k=1, k=8 and paged, the Threefry key
    bits on CUDA equal to the CPU's, and the pick on CUDA equal to the
@@ -60,7 +60,7 @@ never JAX or the JAX package.  Phases, one JSON line each:
    in at most ``INT8_ATTN_MISMATCH`` of its outputs, dense and paged; two
    planted faults, ``fault_p_bf16`` (the cache's known trap) and
    ``fault_paged_v_scale``, must each fail its gate, their other readings
-   recorded; weight and KV bytes, busy share); (f) ``speculative="ngram"`` at draft_len 3 and 7 on
+   recorded; weight and KV bytes, weights + KV's busy share); (f) ``speculative="ngram"`` at draft_len 3 and 7 on
    ``scripts/bench_speculative.py``'s motif and control prompt sets, 16 x
    64 tokens, against decode_ahead = draft_len + 1 (K3 == depth x
    admissions; the float32 twin's spec streams identical to its plain
@@ -193,8 +193,8 @@ never JAX or the JAX package.  Phases, one JSON line each:
    per-step losses equal device mode's on the same permutation (to the
    floor), 0.99 reached, K1 == K2 == steps; images/s/chip of stream and
    device mode (``measure_throughput``), the busy share and the H2D
-   device time per chunk (a profiled stream epoch), and the native and
-   numpy renders of 60k images; (e) ``cifar_resnet50_dp32`` (dp=1, batch
+   device time per chunk (a profiled stream epoch), and the native
+   render of 60k images beside the numpy one of 6k; (e) ``cifar_resnet50_dp32`` (dp=1, batch
    4096) for 3 steps plain at grad_accum 4 and 1, ``remat=True`` and
    ``remat="blocks"`` at 1: peak memory, s/step, and each remat run's
    first-step loss and BatchNorm statistics equal to the plain grad_accum
@@ -312,6 +312,23 @@ never JAX or the JAX package.  Phases, one JSON line each:
    + ``fused_xent`` for one epoch of 16384 images: K1 == K2 == steps a
    rank at the checked (64, 10), every split leaf and its moments at 1/2
    a rank; (d) ``make_mesh(dcn_dp=2)`` on this one node must refuse;
+15g. sequence_parallel — ``bench_lm8k`` under sequence parallelism: (a)
+   K7 (``flash_block_fwd`` / ``flash_block_bwd``) at the ring's block of
+   sp=2, (8, 4096, 8, 64) bf16, diagonal and fully visible, against the
+   plain versions under the two blocks' merged lse and delta, row by
+   row, a float32 twin, timed beside SDPA and the bound; then gloo ranks
+   sharing cuda:0: (b) the ring (flash and dense inners) and Ulysses
+   (the flash kernel inside) on whole (8, 8192, 8, 64) sequences against
+   single-card flash attention, out and dq/dk/dv, globally and (on the
+   kernels' paths) row by row, float32 twins at S=1024, the kernels each
+   launched gated, one hop and Ulysses' exchanges timed; (c) sp=2 through
+   the ring, (d) through Ulysses, (e) dp=2 x sp=2 on four ranks, each
+   ``fit()`` for 4 steps with the counts zeroed just before: per-step
+   losses within 3e-4 of the sp=1 fit's on the same global batches, K7,
+   K3 and K4 == depth x (s + 1) x (steps + eval batches) forward and
+   depth x (s + 1) x steps backward on seq rank s under the ring, the
+   2-D mesh's groups, s a step, tokens/s/chip, peak memory a rank; (f)
+   JAX's refusals (a window with the ring, Ulysses' heads_kv);
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2, each
@@ -319,8 +336,9 @@ never JAX or the JAX package.  Phases, one JSON line each:
    the ``fault_tolerant_training`` runs' for K1-K4, the
    ``serving_tier`` runs' for K3 and K4, the ``serving_edge`` runs' for
    K3, by replica role on the disaggregated tier, and the
-   ``lm_vit_follow_ups`` runs' for K1-K4 and the ``data_parallel_rest``
-   ranks' for K1-K4, beside them),
+   ``lm_vit_follow_ups`` runs' for K1-K4, the ``data_parallel_rest``
+   ranks' for K1-K4 and the ``sequence_parallel`` ranks' for K3, K4 and
+   K7, beside them),
    largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
@@ -675,7 +693,7 @@ def phase_serving(torch, fa, xent, port) -> dict:
            "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
     emit(rec)
     emit(profile_run(torch, lambda: serve(prompts)[2], "serving",
-                     {"flash_fwd_device_s": "flash_fwd"}))
+                     {"flash_fwd_device_s": "flash_fwd"}, host_ops=False))
     return rec
 
 
@@ -803,7 +821,9 @@ def phase_serving_features(torch, fa, xent, port) -> dict:
     # (a) greedy, dense, decode_ahead 1 / 4 / 8
     runs = serve_abba(serve, {k: dict(model=model, prompts=prompts, decode_ahead=k)
                               for k in FEATURE_K})
-    for k in FEATURE_K:  # one more run of each under the profiler: busy share
+    # one more run of the longest window under the profiler: busy share
+    # (k=1 and 4 read 9.6-13.1% as well, PERF.md section 5)
+    for k in FEATURE_K[-1:]:
         runs[k]["rec"]["device_busy_share"] = serve(
             model, prompts, decode_ahead=k,
             profile_of=f"serving_features[a,k={k}]")["rec"]["device_busy_share"]
@@ -1073,7 +1093,7 @@ def phase_serving_spec_quant_chunk(torch, fa, xent, port) -> dict:
         "w8_kv8": dict(model=kv8, prompts=prompts, quant="int8")})
     e["w8_paged"] = serve(model, prompts, quant="int8", kv_page_size=PAGE)
     e["w8_kv8_paged"] = serve(kv8, prompts, quant="int8", kv_page_size=PAGE)
-    for name in ("w8", "w8_kv8"):
+    for name in ("w8_kv8",):  # the busy share of weights + KV under the profiler
         e[name]["rec"]["device_busy_share"] = serve(
             kv8 if "kv8" in name else model, prompts, quant="int8",
             profile_of=f"serving_spec_quant_chunk[e,{name}]")["rec"]["device_busy_share"]
@@ -1474,8 +1494,10 @@ def phase_training(torch, fa, xent, port) -> dict:
         trainer._epoch(12345)["loss"][-1].item()  # one epoch, to its fence
         return time.perf_counter() - t
 
+    # device only: the host ops of a 469-step epoch took ~30 s to read back
     emit(profile_run(torch, one_epoch, "training epoch",
-                     {"xent_fwd_device_s": "xent_fwd", "xent_bwd_device_s": "xent_bwd"}))
+                     {"xent_fwd_device_s": "xent_fwd", "xent_bwd_device_s": "xent_bwd"},
+                     host_ops=False))
     trainer.close()
     return {**rec, "throughput": tp}
 
@@ -3445,12 +3467,11 @@ def phase_fault_tolerant_training(torch, fa, xent, port, steps_mod, tmp: Path) -
                            host_ops=False)
         chunks = -(-s8.steps_per_epoch // 8)
         templates = synthetic._glyphs_to_array(synthetic._DIGIT_GLYPHS)
-        render = {}
-        for backend in ("numpy", "native"):
+        render = {}  # seconds: numpy on a tenth of the images (~1.3 s, not ~13)
+        for backend, n in (("numpy", 6_000), ("native", 60_000)):
             t1 = time.perf_counter()
-            synthetic._make_split(templates, 60_000, 1, backend=backend,
-                                  **FT_MNIST_RENDER)
-            render[backend] = round(time.perf_counter() - t1, 3)
+            synthetic._make_split(templates, n, 1, backend=backend, **FT_MNIST_RENDER)
+            render[backend] = {"images": n, "s": round(time.perf_counter() - t1, 3)}
         rec = {"phase": "fault_tolerant_training", "sub": "d_stream", **card,
                "native_available": native.available(),
                **{f"chunk{c}": {"loss_diff_vs_device": s["loss_diff"], "steps": s["steps"],
@@ -3463,7 +3484,7 @@ def phase_fault_tolerant_training(torch, fa, xent, port, steps_mod, tmp: Path) -
                "busy_share_stream8": prof["device_busy_share"],
                "h2d_ms_per_chunk": (round(prof["h2d_device_s"] * 1e3 / chunks, 4)
                                     if prof["h2d_device_s"] is not None else None),
-               "profile": prof, "render_60k_s": render, "floor": a["floor"],
+               "profile": prof, "render_s": render, "floor": a["floor"],
                "wall_s": round(time.perf_counter() - t0, 3)}
         emit(rec)
         for c, s in streams.items():
@@ -5598,6 +5619,464 @@ def phase_data_parallel_rest(torch, fa, xent, port, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# sequence_parallel: the ring over K7 and Ulysses on gloo ranks sharing the card
+
+SP_DEVICE = "cuda:0"  # every rank of the phase shares the one card
+SP_BLOCK = (8, LM_SEQ // 2, 8, 64)  # (a): K7's block at sp=2, (B, S_local, H, D)
+SP_F32_BLOCK = (2, 512, 8, 64)  # (a): the float32 twin's block (S=1024 over sp=2)
+# (b): the ring (its flash or dense inner) and Ulysses (the flash kernel
+# inside) alone, causal, on a whole sequence of bench_lm8k's attention:
+# name -> ((B, S, H, D), dtype, inner).  The dense inner's float32 S_local^2
+# scores cut its batch to 2 (~1 GB a block); the float32 twins run at S=1024.
+SP_ATTN = {"flash_bf16": ((8, LM_SEQ, 8, 64), "bfloat16", "flash"),
+           "dense_bf16": ((2, LM_SEQ, 8, 64), "bfloat16", "dense"),
+           "flash_f32": ((2, 1024, 8, 64), "float32", "flash"),
+           "ulysses_bf16": ((8, LM_SEQ, 8, 64), "bfloat16", "ulysses"),
+           "ulysses_f32": ((2, 1024, 8, 64), "float32", "ulysses")}
+SP_TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # (b): relative to the reference's largest
+SP_STEPS = 4  # (c)-(e): bench_lm8k's global batch of 8, 4 steps
+SP_LM_CFG = dict(LM_CFG, name="bench_lm8k_sp2", n_train=SP_STEPS * LM_CFG["batch_size"],
+                 sp=2)
+# (c)-(e): per-step loss against the sp=1 fit on the same global batches
+# and weights: the ring merges bf16-rounded blocks where one K3 call covers
+# the whole sequence (and K4 adds dQ by atomics), so sound runs differ at
+# bf16's rounding, at most 2.4e-5 relative on the H100; a planted fault (seq
+# rank 1 dropping its visible ring block, or Ulysses returning its head
+# blocks swapped) reads 3.5e-3 and 6.2e-3 (PERF.md, sequence parallelism).
+# The limit sits near their geometric mean, ~12x from each.
+SP_LOSS_RTOL = 3e-4
+SP_HOP_REPS = 3
+SP_SP1_PEAK_GB_DP2 = 4.45  # bench_lm8k's peak a rank at dp=2 (data_parallel_rest), 4 x 8192 tokens
+
+
+def sp_counts(fa, xent) -> dict:
+    """``read_counts`` and the K7 entries' counts."""
+    return {**read_counts(fa, xent), "flash_block_fwd": fa.flash_block_fwd.launches,
+            "flash_block_bwd": fa.flash_block_bwd.launches}
+
+
+def sp_reset(fa, xent) -> None:
+    reset_counts(fa, xent)
+    fa.flash_block_fwd.launches = fa.flash_block_bwd.launches = 0
+
+
+def sp_sync(torch) -> None:
+    if SP_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def sp_rel(got, ref) -> float:
+    """The largest error relative to the reference's largest magnitude."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def sp_block_inputs(torch, fa, gen, shape, dtype, visible: bool):
+    """One ring block as seq rank 1 of sp=2 sees it: q the second half of a
+    sequence, k/v its own half (the diagonal: causal) or the first half
+    (fully visible), and the GLOBAL lse and delta of the two blocks merged
+    (from the plain forward, a batch row at a time)."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import ring_attention as ra
+
+    def mk():
+        return torch.randn(shape, generator=gen, device=SP_DEVICE).to(dtype)
+
+    q, k0, v0, k1, v1, g = mk(), mk(), mk(), mk(), mk(), mk()
+    lse, out = [], []
+    with torch.no_grad():
+        for i in range(shape[0]):
+            r = slice(i, i + 1)
+            acc = (torch.full(q[r].shape[:3], ra._NEG, device=q.device),
+                   torch.zeros(q[r].shape[:3], device=q.device),
+                   torch.zeros(q[r].shape, device=q.device))
+            for kk, vv, causal in ((k1, v1, True), (k0, v0, False)):
+                acc = ra._merge_block(*acc, *fa.flash_attention_plain(q[r], kk[r], vv[r],
+                                                                      causal))
+            m, l_, o = acc
+            out.append((o / l_[..., None]).to(dtype))
+            lse.append(m + torch.log(l_))
+        out, lse = torch.cat(out), torch.cat(lse)
+        delta = (g.float() * out.float()).sum(-1)
+    k, v = (k0, v0) if visible else (k1, v1)
+    return q, k, v, g, lse, delta
+
+
+def sp_check_k7(torch, fa, gen, shape, dtype) -> dict:
+    """(a) K7 against its plain versions: the forward, and the backward
+    under the global statistics, for the diagonal and the fully visible
+    block, a batch row at a time, also row by row."""
+    errs = {}
+    for case, visible in (("diagonal", False), ("visible", True)):
+        q, k, v, g, lse, delta = sp_block_inputs(torch, fa, gen, shape, dtype, visible)
+        causal = not visible
+        with torch.no_grad():
+            out, lse_k = fa.flash_block_fwd(q, k, v, causal=causal)
+        dq, dk, dv = fa.flash_block_bwd(q, k, v, g, lse, delta, causal=causal)
+        sp_sync(torch)
+        ref = {key: [] for key in ("out", "lse", "dq", "dk", "dv")}
+        for i in range(shape[0]):
+            r = slice(i, i + 1)
+            with torch.no_grad():
+                o, l_ = fa.flash_attention_plain(q[r], k[r], v[r], causal)
+                ref["out"].append(o.float())
+                ref["lse"].append(l_)
+                for key, t in zip(("dq", "dk", "dv"), fa.flash_attention_bwd_plain(
+                        q[r], k[r], v[r], g[r], lse[r], delta[r], causal)):
+                    ref[key].append(t)
+        ref = {key: torch.cat(ts) for key, ts in ref.items()}
+        extra = {"shape": list(shape), "block": case, "causal": causal,
+                 "path": "sequence_parallel (a): a ring block of sp=2"}
+        fwd = compare("flash_block_fwd", {"out": out}, {"out": ref["out"]}, dtype, extra,
+                      by_row=True)
+        lse_err = (lse_k - ref["lse"]).abs().max().item()
+        check(lse_err <= 1e-3, f"(a) K7's forward lse off by {lse_err} ({case})")
+        bwd = compare("flash_block_bwd", {"dq": dq, "dk": dk, "dv": dv},
+                      {key: ref[key] for key in ("dq", "dk", "dv")}, dtype,
+                      dict(extra, statistics="global: both blocks' merged lse and delta"),
+                      by_row=True)
+        errs[case] = {"fwd": fwd, "lse": lse_err, "bwd": bwd}
+        del q, k, v, g, lse, delta, out, dq, dk, dv, ref
+        if SP_DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    return errs
+
+
+def sp_time_k7(torch, fa, gen) -> dict:
+    """(a) K7 at the block shape: its time beside its plain versions (batch
+    1), SDPA (its gradient for the backward) and the bound (operations over
+    the bf16 peak, or bytes over HBM)."""
+    import torch.nn.functional as F
+
+    b, s, h, d = SP_BLOCK
+    bf16 = torch.bfloat16
+    slow = dict(reps=3, inner=3, sleep=0)
+    timed = {}
+    for case, visible in (("visible", True), ("diagonal", False)):
+        causal = not visible
+        q, k, v, g, lse, delta = sp_block_inputs(torch, fa, gen, SP_BLOCK, bf16, visible)
+        small = tuple(x[:1] for x in (q, k, v, g, lse, delta))
+        pairs = b * h * live_pairs(s, causal, 0)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib = f"F.scaled_dot_product_attention(is_causal={causal})"
+        with torch.no_grad():
+            fwd = (gpu_ms(lambda: fa.flash_block_fwd(q, k, v, causal=causal), torch, **slow),
+                   gpu_ms(lambda: fa.flash_attention_plain(*small[:3], causal), torch,
+                          **slow),
+                   gpu_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                 is_causal=causal),
+                          torch, **slow))
+        bwd = (gpu_ms(lambda: fa.flash_block_bwd(q, k, v, g, lse, delta, causal=causal),
+                      torch, **slow),
+               gpu_ms(lambda: fa.flash_attention_bwd_plain(*small, causal), torch, **slow),
+               gpu_ms(sdpa_grad(q, k, v, g, "qkv", causal=causal), torch, **slow))
+        common = {"shape": list(SP_BLOCK), "causal": causal, "plain_shape": [1, s, h, d]}
+        timed[case] = {
+            "flash_block_fwd": {**common, "ms": fwd[0], "plain_ms": fwd[1],
+                                "library_ms": fwd[2], "library_call": lib,
+                                **bound(4.0 * d * pairs,
+                                        attn_bytes(q, k, v, q, lse), H100_BF16_FLOPS)},
+            "flash_block_bwd": {**common, "ms": bwd[0], "plain_ms": bwd[1],
+                                "library_ms": bwd[2], "route": fa.bwd_route(s, d, bf16).name,
+                                "library_call": f"torch.autograd.grad through {lib} with "
+                                "respect to (q, k, v), its backward alone",
+                                **bound(5 * 2.0 * d * pairs,
+                                        attn_bytes(q, k, v, g, lse, delta, q, k, v),
+                                        H100_BF16_FLOPS)}}
+        for name, rec in timed[case].items():
+            emit({"phase": "kernel_time", "kernel": name, "block": case, "dtype": "bf16",
+                  **rec})
+        del q, k, v, g, lse, delta, small, qt, kt, vt
+        if SP_DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    return timed
+
+
+def sp_attn_case(torch, fa, xent, ra, SPm, mesh, name: str) -> dict:
+    """(b) on one rank: the case's whole sequence (made from its seed on the
+    card, the same on every rank), this rank's half through the ring or
+    Ulysses, backward from its half of the output gradient; held against
+    single-card flash attention of the whole sequence, this rank's half,
+    relative to the reference's largest magnitude and row by row.  The
+    kernels the case launched: K7's blocks, K3, and the backward's."""
+    shape, dtype, inner = SP_ATTN[name]
+    gen = torch.Generator(device=SP_DEVICE).manual_seed(sorted(SP_ATTN).index(name))
+    q, k, v, g = (torch.randn(shape, generator=gen, device=SP_DEVICE).to(getattr(torch, dtype))
+                  for _ in range(4))
+    half = shape[1] // 2
+    mine = slice(mesh.seq_index * half, (mesh.seq_index + 1) * half)
+    ql, kl, vl = (x[:, mine].clone().requires_grad_(True) for x in (q, k, v))
+    if inner == "ulysses":  # the Trainer's Ulysses under attn="flash"
+        attn = SPm.make_ulysses_attention(mesh, causal=True, inner_attn=fa.flash_attention)
+    else:
+        attn = ra.make_ring_attention(mesh, causal=True, inner=inner)
+    before = sp_counts(fa, xent)
+    out = attn(ql, kl, vl)
+    out.backward(g[:, mine])
+    sp_sync(torch)
+    after = sp_counts(fa, xent)
+    launched = {key: after[key] - before[key] for key in
+                ("flash_block_fwd", "flash_block_bwd", "flash_fwd")}
+    launched["flash_bwd"] = sum(after[key] - before[key] for key in BWD_COUNTERS)
+    qr, kr, vr = (x.requires_grad_(True) for x in (q, k, v))
+    ref = fa.flash_attention(qr, kr, vr, causal=True)
+    ref.backward(g)
+    got = {"out": out, "dq": ql.grad, "dk": kl.grad, "dv": vl.grad}
+    want = {"out": ref[:, mine], "dq": qr.grad[:, mine], "dk": kr.grad[:, mine],
+            "dv": vr.grad[:, mine]}
+    rec = {"rel_err": {key: sp_rel(got[key].detach(), want[key].detach()) for key in got},
+           "row_rel_err": {key: row_rel_err(got[key].detach(), want[key].detach())
+                           for key in got},
+           "finite": all(bool(t.isfinite().all()) for t in got.values()),
+           "launched": launched, "local_shape": list(ql.shape)}
+    del q, k, v, g, ql, kl, vl, out, ref, qr, kr, vr, got, want
+    if SP_DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def sp_timed(torch, fn, reps: int = SP_HOP_REPS) -> float:
+    """Host ms a call of ``fn``, to a synchronize, after one warm call."""
+    fn()
+    sp_sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sp_sync(torch)
+    return round((time.perf_counter() - t0) / reps * 1e3, 3)
+
+
+def sp_exchanges(torch, C, mesh) -> dict:
+    """The exchanges at bench_lm8k's shape: (b) one ring hop of a block's K
+    and V, (8, 4096, 8, 64) bf16 each, and whether gloo staged it through
+    host memory; (d) Ulysses' two all-to-alls, q/k/v to heads and the
+    (8, 8192, 4, 64) output back."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import sequence_parallel as SPm
+
+    b, s, h, d = SP_BLOCK
+
+    def mk(shape):
+        return torch.randn(shape, device=SP_DEVICE).to(torch.bfloat16)
+
+    kv, qkv, o = [mk(SP_BLOCK), mk(SP_BLOCK)], [mk(SP_BLOCK) for _ in range(3)], \
+        mk((b, 2 * s, h // 2, d))
+    staged0 = C.ring_shift.host_staged
+    return {"hop_ms": sp_timed(torch, lambda: C.ring_shift(kv, mesh.seq_group)),
+            "hop_bytes": 2 * kv[0].numel() * kv[0].element_size(),
+            "hop_host_staged": C.ring_shift.host_staged > staged0,
+            "backend": str(torch.distributed.get_backend(mesh.seq_group)),
+            "all_to_all_to_heads_ms": sp_timed(torch, lambda: SPm._to_heads(
+                qkv, mesh.seq_group)),
+            "all_to_all_back_ms": sp_timed(torch, lambda: C.all_to_all(o, 1, 2,
+                                                                       mesh.seq_group)),
+            "all_to_all_bytes": 3 * qkv[0].numel() * qkv[0].element_size()}
+
+
+def sp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict) -> dict:
+    """A Trainer through fit(), every count zeroed just before and read just
+    after (the main path): its per-step losses (under sp the mean over the
+    ranks' local tokens; the sp=1 fit draws the same global batches, from
+    the same seed), seconds a step, tokens/s/chip and peak memory; under a
+    mesh its coordinates and each axis group's sum of the ranks' numbers."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
+
+    cfg = RunConfig(**cfg_dict)
+    trainer = Trainer(cfg, device=SP_DEVICE)
+    caught = first_epoch_losses(trainer)
+    sp_sync(torch)
+    if SP_DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    sp_reset(fa, xent)
+    summary = trainer.fit()
+    counts = sp_counts(fa, xent)
+    sp_sync(torch)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if SP_DEVICE != "cpu" else None
+    mesh = trainer.mesh
+    losses = caught[0] if mesh is None else C.all_reduce_mean(caught[0])
+    h = trainer.history[-1]
+    s_step = h["epoch_time_s"] / trainer.steps_per_epoch
+    rec = {"config": cfg.name, "sp_impl": cfg.sp_impl, "steps": trainer.state.step,
+           "data_index": 0 if mesh is None else mesh.data_index,
+           "seq_index": 0 if mesh is None else mesh.seq_index,
+           "path_label": trainer._path_label,
+           "eval_batches": -(-cfg.n_test // cfg.eval_batch_size),
+           "train_loss": h["train_loss"], "test_loss": h.get("test_loss"),
+           "step_losses": [float(x) for x in losses], "s_per_step": round(s_step, 5),
+           "tokens_per_sec_per_chip": summary.get("tokens_per_sec_per_chip"),
+           "peak_mem_gb": round(peak, 3) if peak is not None else None, "launches": counts}
+    if mesh is not None:
+        tag = torch.tensor([float(torch.distributed.get_rank())], device=SP_DEVICE)
+        rec["group_sums"] = {"seq": float(C.all_reduce_sum(tag, mesh.seq_group)),
+                             "data": float(C.all_reduce_sum(tag, mesh.data_group))}
+    trainer.close()
+    del trainer
+    gc.collect()
+    if SP_DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def sp_refusals(Trainer, RunConfig) -> dict:
+    """(f) JAX's refusals at bench_lm8k's width: a window with the ring,
+    Ulysses with a head count that does not divide sp."""
+    out = {}
+    for name, kw in (("window_with_ring", {"model_kwargs": dict(LM_CFG["model_kwargs"],
+                                                                window=512)}),
+                     ("ulysses_heads_kv", {"sp_impl": "ulysses", "model_kwargs": dict(
+                         LM_CFG["model_kwargs"], heads_kv=1)})):
+        try:
+            Trainer(RunConfig(**dict(SP_LM_CFG, **kw)), device=SP_DEVICE).close()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def sp_rank(rank: int) -> dict:
+    """One of two gloo ranks sharing the card: (b), the exchanges, (c),
+    (d) and (f)."""
+    import torch
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import ring_attention as ra
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import sequence_parallel as SPm
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import make_mesh
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
+
+    out = {}
+    mesh = make_mesh(1, sp=2)
+    t0 = time.perf_counter()
+    out["b"] = {name: sp_attn_case(torch, fa, xent, ra, SPm, mesh, name) for name in SP_ATTN}
+    out["b"]["part_s"] = round(time.perf_counter() - t0, 3)
+    out["exchanges"] = sp_exchanges(torch, C, mesh)
+    for part, impl in (("c", "ring"), ("d", "ulysses")):
+        t0 = time.perf_counter()
+        out[part] = sp_fit(torch, fa, xent, Trainer, RunConfig, dict(SP_LM_CFG, sp_impl=impl))
+        out[part]["part_s"] = round(time.perf_counter() - t0, 3)
+    out["f"] = sp_refusals(Trainer, RunConfig)
+    return out
+
+
+def sp_rank4(rank: int) -> dict:
+    """(e) one of four gloo ranks sharing the card: bench_lm8k at dp=2 x
+    sp=2 (the ring's flash inner) through fit(), as (c)."""
+    import torch
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
+
+    return sp_fit(torch, fa, xent, Trainer, RunConfig,
+                  dict(SP_LM_CFG, name="bench_lm8k_dp2_sp2", dp=2, sp=2))
+
+
+def sp_loss_rel(got: list, want: list) -> float:
+    return max(abs(a - w) / abs(w) for a, w in zip(got, want))
+
+
+def phase_sequence_parallel(torch, fa, xent, port, tmp: Path) -> dict:
+    """Sequence parallelism at full width (bench_lm8k): (a) K7 alone at the
+    ring's block shape against its plain versions, and its time; then gloo
+    ranks sharing the card: (b) the ring (both inners) and Ulysses alone on
+    whole bench_lm8k sequences against single-card flash attention (float32
+    twins too), the hop and Ulysses' exchanges; (c) bench_lm8k at dp=1 x
+    sp=2 through the ring's flash inner (the main path: K7, K3, K4 launches
+    gated per rank); (d) the same under Ulysses; (e) dp=2 x sp=2 on four
+    ranks; (c)-(e) through fit() against the sp=1 fit on the same global
+    batches; (f) JAX's refusals."""
+    Trainer, RunConfig, torchrun = port
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=SP_DEVICE).manual_seed(15)
+    out = {"a": {"errs": {"bf16": sp_check_k7(torch, fa, gen, SP_BLOCK, torch.bfloat16),
+                          "f32": sp_check_k7(torch, fa, gen, SP_F32_BLOCK, torch.float32)},
+                 "timed": sp_time_k7(torch, fa, gen)}}
+    emit({"phase": "sequence_parallel", "sub": "a", **out["a"]})
+    # (c)-(e)'s reference: the sp=1 fit from the same weights on the same
+    # global batches (the config's seed), its counts too
+    sp1 = sp_fit(torch, fa, xent, Trainer, RunConfig,
+                 dict(SP_LM_CFG, name="bench_lm8k_sp1", sp=1))
+    t1 = time.perf_counter()
+    ranks = torchrun.spawn(sp_rank, 2, "gloo", SP_DEVICE, tmp / "sp2", timeout=900)
+    ranks4 = torchrun.spawn(sp_rank4, 4, "gloo", SP_DEVICE, tmp / "sp4", timeout=600)
+    spawn_s = time.perf_counter() - t1
+
+    out["b"] = {"cases": {name: {"shape": list(shape), "dtype": dtype, "inner": inner,
+                                 "tol": SP_TOL[dtype],
+                                 "row_tol": None if inner == "dense" else ROW_TOL[f"torch.{dtype}"],
+                                 "per_rank": [r["b"][name] for r in ranks]}
+                          for name, (shape, dtype, inner) in SP_ATTN.items()},
+                "exchanges": [r["exchanges"] for r in ranks]}
+    emit({"phase": "sequence_parallel", "sub": "b", **out["b"]})
+    for name, (shape, dtype, inner) in SP_ATTN.items():
+        # one flash call on the half (a K7 block) or the whole sequence
+        # (Ulysses); the split route's backward is two kernels
+        s_call = shape[1] if inner == "ulysses" else shape[1] // 2
+        per_bwd = 2 if fa.bwd_route(s_call, shape[3], getattr(torch, dtype)).name == "split" \
+            else 1
+        # row by row on the kernels' paths; the dense inner keeps P and dS in
+        # float32 where the reference rounds them to bf16, which its causal
+        # first rows of dq (zero for the first query) show as a row error
+        row_tol = ROW_TOL[f"torch.{dtype}"] if inner != "dense" else math.inf
+        for seq_index, rec in enumerate(r["b"][name] for r in ranks):
+            check(rec["finite"] and all(e <= SP_TOL[dtype] for e in rec["rel_err"].values())
+                  and all(e <= row_tol for e in rec["row_rel_err"].values()),
+                  f"(b) {name} disagrees with single-card flash on seq rank {seq_index}: {rec}")
+            n = {"flash": seq_index + 1, "dense": 0, "ulysses": 0}[inner]
+            calls = 1 if inner == "ulysses" else n
+            want = {"flash_block_fwd": n, "flash_block_bwd": n, "flash_fwd": calls,
+                    "flash_bwd": per_bwd * calls}
+            check(SP_DEVICE == "cpu" or rec["launched"] == want,
+                  f"(b) {name}'s kernels on seq rank {seq_index}: {rec['launched']}, "
+                  f"expected {want}")
+
+    for part, per_rank in (("c", [r["c"] for r in ranks]), ("d", [r["d"] for r in ranks]),
+                           ("e", ranks4)):
+        rel = max(sp_loss_rel(rec["step_losses"], sp1["step_losses"]) for rec in per_rank)
+        out[part] = {"per_rank": per_rank, "sp1": sp1, "loss_max_rel_err": rel,
+                     "limit": SP_LOSS_RTOL, "sp1_peak_gb_dp2": SP_SP1_PEAK_GB_DP2}
+        emit({"phase": "sequence_parallel", "sub": part, "ranks_on": SP_DEVICE,
+              "backend": "gloo", "world_size": len(per_rank), **out[part]})
+        check(rel <= SP_LOSS_RTOL, f"({part}) per-step loss {rel} off sp=1's")
+        for rec in per_rank:
+            c, steps, ev = rec["launches"], rec["steps"], rec["eval_batches"]
+            check(all(math.isfinite(x) for x in (rec["train_loss"], rec["test_loss"])),
+                  f"({part}) non-finite loss {rec}")
+            if rec["sp_impl"] == "ring":  # seq rank s: s + 1 K7 blocks a layer each way
+                n = rec["seq_index"] + 1
+                want = {"flash_block_fwd": DEPTH * n * (steps + ev),
+                        "flash_fwd": DEPTH * n * (steps + ev),
+                        "flash_block_bwd": DEPTH * n * steps,
+                        "flash_bwd_fused": DEPTH * n * steps}
+            else:  # Ulysses: one K3 and one K4 a layer on the whole sequence
+                want = {"flash_block_fwd": 0, "flash_fwd": DEPTH * (steps + ev),
+                        "flash_block_bwd": 0, "flash_bwd_fused": DEPTH * steps}
+            got = {k: c[k] for k in want}
+            check(SP_DEVICE == "cpu" or got == want,
+                  f"({part}) launches on seq rank {rec['seq_index']}: {got}, expected {want}")
+            check(c["flash_bwd_grouped"] == c["flash_bwd_dkv"] == c["flash_bwd_dq"] == 0,
+                  f"({part}) another backward kernel ran: {c}")
+    for rec in ranks4:  # the 2-D mesh: rank = 2 * data_index + seq_index
+        d_, s_ = rec["data_index"], rec["seq_index"]
+        check(rec["path_label"] == "dp2_sp2"
+              and rec["group_sums"] == {"seq": 4 * d_ + 1, "data": 2 + 2 * s_},
+              f"(e) the 2-D groups: {rec}")
+
+    out["f"] = [r["f"] for r in ranks]
+    emit({"phase": "sequence_parallel", "sub": "f", "errors": out["f"],
+          "spawn_s": round(spawn_s, 3), "phase_wall_s": round(time.perf_counter() - t0, 3)})
+    for f in out["f"]:
+        check(f["window_with_ring"] is not None
+              and "cannot window-limit" in f["window_with_ring"],
+              f"(f) a window with the ring was not refused: {f}")
+        check(f["ulysses_heads_kv"] is not None and "heads % sp == 0" in f["ulysses_heads_kv"],
+              f"(f) Ulysses' heads_kv was not refused: {f}")
+    return out
+
+
 MMA_SYNC = "tensor-core bf16: mma.sync on cp.async-fed tiles"
 DESIGN = {"flash_fwd": MMA_SYNC, "flash_bwd_fused": MMA_SYNC, "flash_bwd_grouped": MMA_SYNC,
           "flash_bwd_dkv": MMA_SYNC,
@@ -5682,6 +6161,8 @@ def main() -> int:
     fu = phase_lm_vit_follow_ups(torch, fa, xent, vit["throughput"])
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dpr_") as tmp:
         dpr = phase_data_parallel_rest(torch, fa, xent, torchrun, Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
+        sp = phase_sequence_parallel(torch, fa, xent, (Trainer, RunConfig, torchrun), Path(tmp))
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -5815,6 +6296,44 @@ def main() -> int:
                 "c_lenet_zero3_su_per_rank": [r["launches"][name] for r in dpr["c"]["per_rank"]],
                 "max_abs_err": xk["at_shape"][DPR_XENT_SHAPE][name]}
 
+    # K3/K4 on sequence_parallel, per rank: (c) under the ring (seq rank s
+    # runs s + 1 blocks a layer each way), (d) under Ulysses
+    for name, e in (("flash_fwd", k3_entry), ("flash_bwd_fused", k4_entry)):
+        e["sequence_parallel"] = {f"{part}_{impl}_per_rank": [
+            r["launches"][name] for r in sp[part]["per_rank"]]
+            for part, impl in (("c", "ring"), ("d", "ulysses"))}
+
+    def k7_entry(name, line):
+        """K7: the ring's block entry over K3 (forward) or K4 (the backward
+        route at S_local), timed at the block shape (the fully visible
+        block; the diagonal beside it), launched on (c)'s ring run."""
+        timed = sp["a"]["timed"]
+        head = timed["visible"][name]
+        per_rank = [r["launches"][name] for r in sp["c"]["per_rank"]]
+        errs = sp["a"]["errs"]["bf16"]["visible"]["fwd" if name.endswith("fwd") else "bwd"]
+        return {"name": name, "route": "cuda",
+                "source": "distributed_tensorflow_ibm_mnist_tpu_torch/ops/flash_attention.py",
+                "replaces": f"distributed_tensorflow_ibm_mnist_tpu/ops/flash_attention.py:{line}",
+                "design": ("the ring's block over K3 (" + MMA_SYNC + "), lse (B, S, H) out"
+                           if name.endswith("fwd") else
+                           "the ring's block over K4-K6 by bwd_route at S_local ("
+                           + head.get("route", "") + "), under the global lse and delta"),
+                "launches": sum(per_rank), "launches_per_rank": per_rank,
+                "launches_ulysses": [r["launches"][name] for r in sp["d"]["per_rank"]],
+                "launches_dp2_sp2": [r["launches"][name] for r in sp["e"]["per_rank"]],
+                "max_abs_err": errs[0], "max_rel_err": errs[1], "max_row_rel_err": errs[2],
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "plain_shape": head["plain_shape"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+                "library_call": head["library_call"], "shape": head["shape"],
+                "causal": head["causal"],
+                "diagonal": {k: timed["diagonal"][name][k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "causal")},
+                "f32_twin": {"shape": list(SP_F32_BLOCK), **{
+                    case: sp["a"]["errs"]["f32"][case]["fwd" if name.endswith("fwd")
+                                                       else "bwd"][0]
+                    for case in ("diagonal", "visible")}}}
+
     k4_entry["vit_training"] = on_vit("flash_bwd_fused", dict(zip(
         ("max_abs_err", "max_rel_err", "max_row_rel_err"), vit_kernels["bwd_err"])))
     print(json.dumps({"kernels": [
@@ -5853,6 +6372,9 @@ def main() -> int:
          "lm_vit_follow_ups": {"e_moe_vit": fu["e"]["launches"]["xent_bwd"]},
          "data_parallel_rest": dpr_xent("xent_bwd"),
          "launch_floor_ms": xk["launch_floor_ms"]},
+        # K7 at the ring's block of bench_lm8k at sp=2; launches on (c)'s run
+        k7_entry("flash_block_fwd", 893),
+        k7_entry("flash_block_bwd", 907),
     ], "launch_floor_ms": xk["launch_floor_ms"]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                              "count": dev["count"]}}), flush=True)

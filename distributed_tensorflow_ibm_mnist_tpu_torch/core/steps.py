@@ -30,6 +30,20 @@ against (B, S, V) logits.  Loss and accuracy are then means over every
 scored position, as optax's mean is, and eval's denominator counts scored
 positions, not sequences (JAX ``steps.py:368-400``).
 
+Sequence parallelism (a model whose ``attn_fn`` is the ring or Ulysses,
+``parallel/ring_attention.py``): the causal LM's logits cover this rank's
+token slice only (``model.seq_span``), so the loss and accuracy take the
+labels of those positions (:func:`local_labels`) and are means over the
+local tokens.  Every rank of the ``dp * sp`` group holds as many tokens,
+so the mean of the ranks' local means is the mean over every token of the
+global batch, and averaging each rank's gradient of its local mean over
+the whole group gives that global mean's gradient: each rank's gradient
+holds the paths through its own activations, and the ring's (or the
+all-to-all's) backward brings home its share of every other rank's loss.
+The ViT's logits are whole on every seq rank (its pool sums across the
+seq group), so its labels stay whole; eval then sums over the data axis
+only, the LM's over every rank.
+
 Data parallelism (``mesh``, a ``parallel.mesh.Mesh``; JAX's ``axis_name``):
 each rank runs the same step on its own rows.  The gradients are flattened
 into a few buckets (``parallel/collectives.py``) and each bucket is
@@ -99,6 +113,16 @@ def _smoothed_cross_entropy(logits, labels, smoothing: float) -> torch.Tensor:
     return -(targets * torch.log_softmax(logits.float(), -1)).sum(-1)
 
 
+def local_labels(model, labels: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """The labels of the positions ``logits`` scores: under sequence
+    parallelism the causal LM's (B, S_local, V) logits score this rank's
+    slice of the (B, S) labels (module docstring); otherwise all of them."""
+    if labels.ndim > 1 and logits.ndim > labels.ndim and logits.shape[1] != labels.shape[1]:
+        lo, hi = model.seq_span(labels.shape[1])
+        return labels[:, lo:hi]
+    return labels
+
+
 def make_loss_fn(model, label_smoothing: float = 0.0, fused_xent: bool = False,
                  remat: bool = False, moe_aux_weight: float = 0.01,
                  with_drop: bool = False) -> Callable:
@@ -138,7 +162,7 @@ def make_loss_fn(model, label_smoothing: float = 0.0, fused_xent: bool = False,
                                      generators=[getattr(model, "generator", None)])
         else:
             logits, terms = forward(x, train)
-        labels = batch["label"]
+        labels = local_labels(model, batch["label"], logits)
         if train and label_smoothing > 0.0:
             loss = _smoothed_cross_entropy(logits, labels, label_smoothing).mean()
         elif fused_xent:  # the kernels take (N, C) rows
@@ -205,7 +229,8 @@ def make_train_step(model, optimizer, label_smoothing: float = 0.0,
     def grads_of(batch: Batch):
         loss, logits, drop = loss_fn(batch, train=True)
         grads = torch.autograd.grad(loss, params)
-        accuracy = (logits.argmax(-1) == batch["label"]).float().mean()
+        labels = local_labels(model, batch["label"], logits)
+        accuracy = (logits.argmax(-1) == labels).float().mean()
         return loss.detach(), accuracy, drop, grads
 
     def grads_and_metrics(batch: Batch):
@@ -326,19 +351,26 @@ def make_eval_fn(model, batch_size: int = 2000, mesh: Mesh | None = None,
 
     ``n_valid``: the true number of examples when the set was zero-padded
     (``parallel.data_parallel.shard_eval_set``); rows at or past it are
-    masked out of both sums.  ``mesh``: ``images`` is this rank's block of
-    the padded set (rank ``r`` holds rows ``r * n_local`` on), and
-    ``correct`` and the loss sum are added across ranks."""
+    masked out of both sums.  ``mesh``: ``images`` is this data row's block
+    of the padded set (data index ``d`` holds rows ``d * n_local`` on), and
+    ``correct`` and the loss sum are added across ranks: every rank's when
+    the logits cover this rank's token slice (sequence parallelism), the
+    data axis's when they are whole on every seq rank."""
 
     @torch.no_grad()
     def eval_fn(images: torch.Tensor, labels: torch.Tensor) -> dict[str, torch.Tensor]:
         n = images.shape[0]
         correct = torch.zeros((), device=images.device)
         loss_sum = torch.zeros((), device=images.device)
-        first = 0 if mesh is None else mesh.rank * n  # this block's first global row
+        first = 0 if mesh is None else mesh.data_index * n  # this block's first global row
+        group = None  # where the sums add up: every rank, or the data axis
         for start in range(0, n, batch_size):
             imgs, labs = images[start:start + batch_size], labels[start:start + batch_size]
             logits = model(_as_input(imgs), train=False)
+            local = local_labels(model, labs, logits)
+            if mesh is not None and local is labs:
+                group = mesh.data_group
+            labs = local
             hits = (logits.argmax(-1) == labs).float()
             losses = cross_entropy(logits, labs)
             if n_valid is not None:
@@ -348,7 +380,7 @@ def make_eval_fn(model, batch_size: int = 2000, mesh: Mesh | None = None,
             correct += hits.sum()
             loss_sum += losses.sum()
         if mesh is not None:
-            correct, loss_sum = all_reduce_sum(torch.stack([correct, loss_sum]))
+            correct, loss_sum = all_reduce_sum(torch.stack([correct, loss_sum]), group)
         per_example = labels[0].numel() if labels.ndim > 1 else 1
         examples = n if n_valid is None else n_valid
         if mesh is not None and n_valid is None:

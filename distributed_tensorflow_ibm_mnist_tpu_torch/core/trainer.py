@@ -84,7 +84,7 @@ broadcast at start and each rank's dropout generator folds in its rank.
 Metrics are averaged across ranks at each fence, so early stop and
 ``TrainingDiverged`` take the same branch on every rank; only rank 0
 writes records, and ``fit()`` returns rank 0's summary on every rank.
-``n_chips`` is dp.
+``n_chips`` is dp (``dp * sp`` under sequence parallelism, below).
 
 ``tracer`` (utils/tracing.Tracer) records the JAX Trainer's spans:
 ``epoch_dispatch`` per epoch, ``fetch`` per readback interval, ``eval``,
@@ -132,8 +132,28 @@ collective.  ``input_mode="stream"`` does not compose with them
 (``ValueError``, as in JAX).  ``dcn_dp > 1`` builds the multislice mesh
 (``parallel.mesh.make_mesh``: the group must span that many nodes).
 
+Sequence parallelism (``sp > 1``; JAX ``trainer.py:117-121, 349-356,
+766-845``): the ranks form a ``(data, seq)`` mesh (``dp`` = world / sp
+when 0), the model's attention is the ring (``sp_impl="ring"``, its
+flash inner under ``attn="flash"``) or Ulysses (``"ulysses"``, the
+window passed through) over the seq group, with the derived causal flag.
+Each rank keeps its token slice of every activation (``core/steps.py``:
+the loss on the local tokens; the ViT pools across the seq group), the
+gradients are averaged over all ``dp * sp`` ranks, and, as JAX's GSPMD
+epoch, one permutation of the whole set (on every rank) is cut into
+global batches, each data row training on its block.  JAX's refusals
+come with its messages (a model without ``attn_fn``, an unknown
+``sp_impl``, a microbatch that does not divide by dp, ``window`` with
+the ring, a sequence that does not divide by sp, Ulysses' head counts).
+``n_chips`` and the throughput and MFU divisors are ``dp * sp``.  The
+state is the same on every rank: rank 0 saves it, and a checkpoint
+resumes at any layout; ``generate`` decodes on one device from the
+whole weights (the decode model drops the island).  Not ported beside
+sp: fsdp, MoE blocks and multislice (``NotImplementedError`` naming item
+7's title), ``sharded_update`` and stream mode (JAX's ``ValueError``).
+
 Refused with ``NotImplementedError`` naming the ROADMAP.md item that will
-port them: tp/sp/pp > 1.  The models' constructors refuse the rest of
+port them: tp/pp > 1.  The models' constructors refuse the rest of
 what they cannot build yet the same way (the ViT's pipeline stages).
 """
 
@@ -181,6 +201,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.data_parallel import (
     make_dp_chunk_runner,
     make_dp_epoch_runner,
+    make_global_epoch_runner,
     replicate,
     shard_dataset,
     shard_eval_set,
@@ -192,7 +213,6 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.expert_parallel import 
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.fsdp import (
     ShardPlan,
-    make_fsdp_epoch_runner,
     make_fsdp_opt_specs,
     make_fsdp_specs,
 )
@@ -228,9 +248,16 @@ def _later(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to the PyTorch package yet: ROADMAP.md queue 1, {item}")
 
 
+_SP_IMPLS = ("ring", "ulysses")
+
+
+def _unknown_sp_impl_msg(sp_impl: str) -> str:
+    return f"unknown sp_impl {sp_impl!r}; use 'ring' or 'ulysses'"
+
+
 def _refuse_unported(config: RunConfig) -> None:
     """Raise for every knob the port does not have yet."""
-    for axis in ("tp", "sp", "pp"):
+    for axis in ("tp", "pp"):
         if getattr(config, axis) > 1:
             raise _later(f"{axis}={getattr(config, axis)}", _PARALLEL)
     if config.dcn_dp < 1:
@@ -250,21 +277,32 @@ def _refuse_unported(config: RunConfig) -> None:
             f"dataset={config.dataset!r}")
 
 
+def _default(model: str, name: str):
+    """The model family's constructor default for ``name`` (0 when it has
+    no such parameter)."""
+    family = {"causal_lm": CausalLM, "vit": VisionTransformer}.get(model)
+    par = inspect.signature(family).parameters.get(name) if family else None
+    return 0 if par is None else par.default
+
+
 def _seed_words(*key: int) -> int:
     """A 63-bit generator seed that is a pure function of ``key``."""
     return int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0] >> 1)
 
 
-def _data_mesh(config: RunConfig, mesh: Mesh | None) -> tuple[int, Mesh | None]:
-    """``(dp, mesh)`` of a run: ``config.dp`` (0: the process group's world
-    size, 1 without a group); dp > 1 builds a mesh over the initialised
-    group unless one is given (``ValueError`` naming launch.torchrun
-    without a group); a given mesh must have dp ranks.  ``dcn_dp > 1``
-    builds the multislice mesh, at dp = 1 too (where it cannot divide)."""
+def _data_mesh(config: RunConfig, mesh: Mesh | None) -> tuple[int, int, Mesh | None]:
+    """``(dp, sp, mesh)`` of a run: ``config.dp`` (0: the process group's
+    world size over sp, 1 without a group); dp or sp > 1 builds a mesh over
+    the initialised group unless one is given (``ValueError`` naming
+    launch.torchrun without a group); a given mesh must have dp x sp
+    ranks.  ``dcn_dp > 1`` builds the multislice mesh, at dp = 1 too
+    (where it cannot divide)."""
+    sp = max(1, config.sp)
     dp = config.dp
     if dp == 0:
         dp = mesh.size if mesh is not None else (
-            dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1)
+            max(1, dist.get_world_size() // sp)
+            if dist.is_available() and dist.is_initialized() else 1)
     if dp < 1:
         raise ValueError(f"dp must be >= 0, got {config.dp}")
     if config.dcn_dp > 1:
@@ -273,13 +311,15 @@ def _data_mesh(config: RunConfig, mesh: Mesh | None) -> tuple[int, Mesh | None]:
                 "dcn_dp with an explicit mesh is ambiguous — build the multislice "
                 "mesh yourself via make_mesh(..., dcn_dp=N) and leave config.dcn_dp "
                 "at 1, or pass no mesh")
-        hybrid_mesh_shapes(dp, 1, 1, 1, config.dcn_dp)
-        mesh = make_mesh(dp, dcn_dp=config.dcn_dp)
-    if mesh is None and dp > 1:
-        mesh = make_mesh(dp)
+        hybrid_mesh_shapes(dp, 1, sp, 1, config.dcn_dp)
+        mesh = make_mesh(dp, sp=sp, dcn_dp=config.dcn_dp)
+    if mesh is None and (dp > 1 or sp > 1):
+        mesh = make_mesh(dp, sp=sp)
     if mesh is not None and mesh.size != dp:
         raise ValueError(f"dp={dp} but the mesh's data axis has {mesh.size} rank(s)")
-    return dp, mesh
+    if mesh is not None and mesh.seq_size != sp:
+        raise ValueError(f"sp={sp} but the mesh's seq axis has {mesh.seq_size} rank(s)")
+    return dp, sp, mesh
 
 
 class Trainer:
@@ -311,18 +351,26 @@ class Trainer:
         if tracer is not None:
             self._compile.bind(tracer)
         self._stream = config.input_mode == "stream"
-        self.dp, self.mesh = _data_mesh(config, mesh)
+        self.dp, self.sp, self.mesh = _data_mesh(config, mesh)
         if config.fsdp and self.dp <= 1:
             raise ValueError(
                 "fsdp=True needs dp>1 (ZeRO-3 shards over the 'data' axis); "
                 f"got dp={self.dp}")
+        if self.sp > 1:
+            for what, on in (("fsdp", config.fsdp),
+                             ("MoE blocks (moe_every)", config.model_kwargs.get("moe_every"))):
+                if on:
+                    raise _later(f"{what} with sp={self.sp}", _PARALLEL)
         # MoE + dp>1 runs expert-parallel automatically: experts split over
         # 'data', tokens exchanged by all_to_all (JAX's _moe_ep)
         self._moe_ep = (self.dp > 1 and bool(config.model_kwargs.get("moe_every", 0))
                         and model_accepts(config.model, "moe_fn"))
         # the sharded runs (JAX's GSPMD paths): a ShardPlan owns the update
         self._sharded_run = bool(config.fsdp) or self._moe_ep
-        if self._sharded_run and self._stream:
+        # the runs that draw JAX's GSPMD epoch: one global permutation, the
+        # whole set on every rank, each data row on its block of a batch
+        self._global_batches = self._sharded_run or self.sp > 1
+        if self._global_batches and self._stream:
             raise ValueError(
                 "input_mode='stream' does not compose with tp/sp/pp/fsdp/"
                 "expert parallelism; use device mode")
@@ -335,7 +383,7 @@ class Trainer:
                 raise ValueError(
                     f"sharded_update_buckets must be >= 1, got "
                     f"{config.sharded_update_buckets}")
-            if self._sharded_run and not config.fsdp:
+            if self._global_batches and not config.fsdp:
                 raise ValueError(
                     "sharded_update composes with plain dp (bucketed "
                     "reduce-scatter step) and with fsdp (opt-spec upgrade); "
@@ -344,7 +392,7 @@ class Trainer:
         # the path label of the kernel-build attribution (JAX's census label)
         self._path_label = "_".join(
             [f"dp{self.dp}"] + [part for part, on in (
-                ("fsdp", config.fsdp), ("ep", self._moe_ep),
+                (f"sp{self.sp}", self.sp > 1), ("fsdp", config.fsdp), ("ep", self._moe_ep),
                 ("su", config.sharded_update), ("stream", self._stream)) if on])
         if config.batch_size % self.dp:
             raise ValueError(f"batch_size {config.batch_size} not divisible by dp={self.dp}")
@@ -394,6 +442,15 @@ class Trainer:
                            else family_causal)
         if family_causal and config.causal is not None:
             model_kwargs.setdefault("causal", self.causal)
+        if self.sp > 1:
+            # sequence parallelism: the model's attention over 'seq', the
+            # strategy by sp_impl (JAX trainer.py:349-356)
+            if not model_accepts(config.model, "attn_fn"):
+                raise ValueError(
+                    f"sp={self.sp} needs a sequence model taking attn_fn "
+                    f"(e.g. 'vit'); got {config.model!r}")
+            self._validate_sp_hot_path(model_kwargs, data)
+            model_kwargs.setdefault("attn_fn", self._make_sp_attn(model_kwargs))
         elif (self.causal and model_accepts(config.model, "attn_fn")
               and not model_accepts(config.model, "causal")):
             # causal attention for a family with no causal knob of its own
@@ -428,7 +485,8 @@ class Trainer:
         if self.mesh is not None:
             replicate(self.mesh, self.model)
             model_gen = getattr(self.model, "generator", None)
-            if self.dp > 1 and model_gen is not None:  # decorrelated dropout masks
+            if self.dp * self.sp > 1 and model_gen is not None:
+                # decorrelated dropout masks, each rank's tokens its own
                 model_gen.manual_seed(_seed_words(config.seed, 0, self.rank))
         params = list(self.model.parameters())
         self._sharded = None
@@ -456,9 +514,10 @@ class Trainer:
                               if self._moe_ep else None),
                 n_buckets=config.sharded_update_buckets)
             self._plan.adopt(self.state)
-            self._run_epoch = make_fsdp_epoch_runner(
-                self.model, self._plan, self.state.optimizer, config.batch_size,
-                self.mesh, **step_kw)
+        if self._global_batches:  # JAX's GSPMD epoch: a block of every global batch
+            self._run_epoch = make_global_epoch_runner(
+                self.model, self.state.optimizer, config.batch_size, self.mesh,
+                plan=self._plan, **step_kw)
         elif self._stream:  # k steps a transferred chunk; under dp this rank's rows
             self._train_chunk = (
                 make_chunk_runner(self.model, optimizer, **step_kw) if self.mesh is None
@@ -498,8 +557,8 @@ class Trainer:
             self.test_images = put("test_images", inputs)
             self.test_labels = put("test_labels", torch.int32)
             self._eval = make_eval_fn(self.model, config.eval_batch_size)
-        else:  # this rank's rows only (a sharded run: every row, one global order)
-            if self._sharded_run:
+        else:  # this rank's rows only (global batches: every row, one global order)
+            if self._global_batches:
                 self.train_images = put("train_images", inputs)
                 self.train_labels = put("train_labels", torch.int32)
             elif not self._stream:
@@ -533,21 +592,92 @@ class Trainer:
     @property
     def n_chips(self) -> int:
         """Devices the run occupies: the images/sec/chip denominator."""
-        return self.dp
+        return self.dp * self.sp
 
     def _epoch_seed(self, *key: int) -> int:
         """An epoch's data-order seed.  Under dp > 1 in device mode it folds
         in the rank, as JAX folds the axis index into the epoch key (each
         rank permutes its own shard); in stream mode and in a sharded run
         every rank draws the same global permutation and reads its rows of
-        each global batch."""
-        if self.dp > 1 and not self._stream and not self._sharded_run:
+        each global batch, as under sequence parallelism."""
+        if self.dp > 1 and not self._stream and not self._global_batches:
             key = (*key, self.rank)
         return _seed_words(self._data_seed, *key)
 
     def _rank_mean(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` averaged across the ranks (itself without a mesh)."""
         return x if self.mesh is None else all_reduce_mean(x)
+
+    def _validate_sp_hot_path(self, model_kwargs: dict, data: dict) -> None:
+        """JAX's refusals of configs whose TRAINING batches would all miss
+        the sp island (``trainer.py:766-817`` there, with its messages): the
+        islands take the unsharded path for shapes that do not divide, which
+        is right for an odd eval batch and wrong for every hot step."""
+        cfg = self.config
+        if cfg.sp_impl not in _SP_IMPLS:
+            raise ValueError(_unknown_sp_impl_msg(cfg.sp_impl))
+        ga = max(1, cfg.grad_accum)
+        if cfg.batch_size % ga:
+            raise ValueError(
+                f"batch_size {cfg.batch_size} not divisible by "
+                f"grad_accum={ga} (the per-step microbatch is batch/accum)")
+        if (cfg.batch_size // ga) % self.dp:
+            raise ValueError(
+                f"sp={self.sp}: per-step microbatch (batch_size "
+                f"{cfg.batch_size} / grad_accum {ga} = {cfg.batch_size // ga}) "
+                f"must divide by dp={self.dp}, or every training step would "
+                "fall back to unsharded attention")
+        if model_kwargs.get("window", 0) and cfg.sp_impl == "ring":
+            raise ValueError(
+                f"sp={self.sp} with window={model_kwargs['window']}: the ring "
+                "rotates K/V shards and cannot window-limit its hops — use "
+                "sp_impl='ulysses' (full sequence local after the head "
+                "reshard, window passes through) or sp=1")
+        shape = data["train_images"].shape
+        s = None
+        if len(shape) == 2:
+            s = int(shape[1])
+        elif model_accepts(cfg.model, "patch_size") and len(shape) == 4:
+            p = int(model_kwargs.get("patch_size", _default(cfg.model, "patch_size")))
+            s = (shape[1] // p) * (shape[2] // p)
+        if s is not None and s % self.sp:
+            raise ValueError(
+                f"sp={self.sp} does not divide the training sequence length "
+                f"{s}; every training step would fall back to unsharded "
+                "attention (pad the dataset's seq_len or change sp)")
+        if cfg.sp_impl == "ulysses":
+            heads = int(model_kwargs.get("heads", _default(cfg.model, "heads")))
+            heads_kv = int(model_kwargs.get("heads_kv", _default(cfg.model, "heads_kv"))
+                           or 0) or heads
+            if heads % self.sp or heads_kv % self.sp:
+                raise ValueError(
+                    f"sp_impl='ulysses' re-shards heads over the seq axis and "
+                    f"needs heads % sp == 0 (and heads_kv % sp == 0 for GQA); "
+                    f"got heads={heads}, heads_kv={heads_kv}, sp={self.sp} "
+                    "— every training step would fall back to unsharded "
+                    "attention (use sp_impl='ring' or adjust heads)")
+
+    def _make_sp_attn(self, model_kwargs: dict):
+        """The sp > 1 attention callable of the config (JAX
+        ``trainer.py:819-845``): the ring (its flash inner under
+        ``attn="flash"``) or Ulysses (the flash kernel or the plain
+        attention inside, the window passed through), with the derived
+        causal flag."""
+        from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.ring_attention import (
+            make_ring_attention,
+            vanilla_attention,
+        )
+        from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.sequence_parallel import (
+            make_ulysses_attention,
+        )
+
+        flash = model_kwargs.get("attn") == "flash"
+        if self.config.sp_impl == "ring":
+            return make_ring_attention(self.mesh, causal=self.causal,
+                                       inner="flash" if flash else "dense")
+        inner = _resolve_attn(None, "flash") if flash else vanilla_attention
+        return make_ulysses_attention(self.mesh, causal=self.causal, inner_attn=inner,
+                                      window=int(model_kwargs.get("window", 0) or 0))
 
     def _hot_seq_len(self, data: dict) -> int | None:
         """Sequence length the attention sees on the training path: the
@@ -713,7 +843,7 @@ class Trainer:
     # checkpoints
 
     def _save_form(self) -> dict:
-        """The on-disk state (``TrainState.state_dict``) plus ``dp``; under
+        """The on-disk state (``TrainState.state_dict``) plus ``dp`` and ``sp``; under
         a mesh every rank's generator states; under ZeRO-1 the optimizer's
         buckets gathered whole (collectives: every rank calls this)."""
         opt = None
@@ -724,7 +854,7 @@ class Trainer:
                    **{key: {n: all_gather(t) for n, t in zip(names, ts)}
                       for key, ts in (("mu", o.mu), ("nu", o.nu), ("trace", o.trace))}}
         form = self.state.state_dict(optimizer=opt)
-        form["dp"] = self.dp
+        form["dp"], form["sp"] = self.dp, self.sp
         if self.mesh is not None:
             form["rank_generators"] = all_gather_object(form["generators"])
         return form
@@ -734,6 +864,7 @@ class Trainer:
         """Load a save form into this run (strict; ``ValueError`` when the
         optimizer's layout cannot continue here)."""
         saved_dp = int(form.get("dp", 1))
+        same_ranks = (saved_dp, int(form.get("sp", 1))) == (self.dp, self.sp)
         opt = form["optimizer"]
         zero1 = "zero1_dp" in opt
         if zero1 != (self._sharded is not None):
@@ -748,9 +879,9 @@ class Trainer:
                 f"{int(opt['zero1_dp'])}; this run has dp={self.dp}: resume it at "
                 f"dp={int(opt['zero1_dp'])} (a replicated checkpoint resumes at any dp)")
         form = dict(form)
-        if "rank_generators" in form and saved_dp == self.dp:
+        if "rank_generators" in form and same_ranks:
             form["generators"] = form["rank_generators"][self.rank]
-        elif saved_dp != self.dp:  # another layout: this run's own streams
+        elif not same_ranks:  # another layout: this run's own streams
             form["generators"] = self.state.generator_states()
         if not zero1:
             self.state.load_state_dict(form)
@@ -1161,7 +1292,7 @@ class Trainer:
             summary["preempted"] = True
         elif self._ckpt is not None:
             self.save_checkpoint(wait=True)
-        if self.dp > 1:  # every rank returns rank 0's summary
+        if self.mesh is not None:  # every rank returns rank 0's summary
             summary = broadcast_object(summary)
         self.writer.write("summary", **summary)
         return summary

@@ -21,8 +21,16 @@ Data-parallel runs, one process per rank (``launch/torchrun.py``):
 * ``--virtual-devices N --device cpu``: N local gloo ranks on the CPU,
   spawned by this command (the port's form of JAX's virtual CPU mesh).
 
-Under a world of N ranks a config at ``dp`` 0 or 1 trains at ``dp=N``;
-any other ``dp`` must equal N.  Only rank 0 prints records and the
+Under a world of N ranks a config at ``dp`` 0 or 1 trains at ``dp=N /
+sp``; any other ``dp`` times ``sp`` must equal N.  ``--set sp=2 --set
+sp_impl=ulysses`` (or ``ring``, the default) shards the sequence of a
+sequence model (the causal LM, the ViT) over each data row's sp ranks::
+
+    python -m distributed_tensorflow_ibm_mnist_tpu_torch.launch.cli --virtual-devices 4 \
+        --device cpu --set model=causal_lm --set dataset=retrieval --set sp=2 \
+        --set sp_impl=ulysses
+
+Only rank 0 prints records and the
 ``final`` line.  The sharded runs take their knobs through ``--set`` as
 any other field: ``--set fsdp=True`` (ZeRO-3), with ``--set
 sharded_update=True`` (its small leaves' moments split too), ``--set
@@ -133,12 +141,19 @@ def _join(args: argparse.Namespace) -> dict | None:
     return None
 
 
+def world_config(config: RunConfig, world: int) -> RunConfig:
+    """``config`` as a rank of ``world`` runs it: at ``dp`` 0 or 1 the data
+    axis takes the ranks the seq axis leaves (``world / sp``)."""
+    if world > 1 and config.dp in (0, 1):
+        return config.replace(dp=max(1, world // max(1, config.sp)))
+    return config
+
+
 def _run(config: RunConfig, device, throughput: int | None, world: int, rank: int) -> int:
     """Train (or measure) as one rank of ``world``; rank 0 prints the result."""
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
 
-    if world > 1 and config.dp in (0, 1):
-        config = config.replace(dp=world)
+    config = world_config(config, world)
     with Trainer(config, device=device) as trainer:
         if throughput and config.profile_dir and rank == 0:
             # the measurement region, its warm-up epoch included (fit()

@@ -26,6 +26,16 @@ Calls:
   the dense cache (core/generate.py ``init_cache``) or the paged one
   (serving/kv_pool.py ``init_paged_cache``), updated in place.
 
+``attn_fn`` (the Trainer's sequence-parallel island, JAX's
+``attn_fn``: ``parallel.ring_attention.make_ring_attention`` or
+``parallel.sequence_parallel.make_ulysses_attention``, bringing its own
+causal flag) replaces the model's own attention in the normal forward.
+The model then keeps only this rank's slice of the tokens
+(``transformer.seq_shard``): RoPE's positions start at the slice's first
+position, the learned table is sliced, and the logits are (B, S_local, V),
+this rank's positions only (``seq_span(S)`` names them); a sequence that
+does not divide the seq axis runs whole through the island's ``dense``.
+
 ``block_remat=True`` recomputes each block's activations in the backward
 (``models/remat.py``), as the JAX model's ``nn.remat`` blocks do; decode,
 the ``sow_kv`` prefill and ``torch.no_grad`` run the blocks plainly.
@@ -74,6 +84,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
     check_quant_knobs,
     is_moe_block,
     run_blocks,
+    seq_shard,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
 
@@ -96,7 +107,8 @@ class CausalLM(nn.Module):
 
     def __init__(self, num_classes: int = 64, dim: int = 128, depth: int = 2,
                  heads: int = 4, heads_kv: int = 0, window: int = 0,
-                 mlp_ratio: int = 4, dropout: float = 0.0, attn: str = "vanilla",
+                 mlp_ratio: int = 4, dropout: float = 0.0, attn_fn=None,
+                 attn: str = "vanilla",
                  causal: bool = True, pos: str = "rope", seq_len: int = 0,
                  tie_embeddings: bool = False, moe_every: int = 0, n_experts: int = 8,
                  moe_capacity_factor: float = 2.0, moe_top_k: int = 1,
@@ -122,7 +134,7 @@ class CausalLM(nn.Module):
         self._config = dict(
             num_classes=num_classes, dim=dim, depth=depth, heads=heads,
             heads_kv=heads_kv, window=window, mlp_ratio=mlp_ratio, dropout=dropout,
-            attn=attn, causal=causal, pos=pos, seq_len=seq_len,
+            attn_fn=attn_fn, attn=attn, causal=causal, pos=pos, seq_len=seq_len,
             tie_embeddings=tie_embeddings, moe_every=moe_every, n_experts=n_experts,
             moe_capacity_factor=moe_capacity_factor, moe_top_k=moe_top_k,
             moe_z_weight=moe_z_weight, kv_cache_dtype=kv_cache_dtype,
@@ -139,7 +151,9 @@ class CausalLM(nn.Module):
         self.page_size = page_size  # > 0: the blocks decode the paged cache only
         self.generator = _resolve_generator(generator, device)  # init, then dropout
         store = param_dtype or dtype  # the projections' and embedding's storage
-        attn_fn = partial(_resolve_attn(None, attn), causal=causal, window=window)
+        if attn_fn is None:  # the model's own kernel; an island brings its own flag
+            attn_fn = partial(_resolve_attn(None, attn), causal=causal, window=window)
+        self.attn_fn = attn_fn
         meta = torch.device("meta")  # shapes first; values from `generator`
         self.embed = nn.Embedding(num_classes, dim, dtype=store, device=meta)
         self.pos_embed = (nn.Parameter(torch.empty(1, seq_len, dim, dtype=store, device=meta))
@@ -227,15 +241,21 @@ class CausalLM(nn.Module):
                 sow_kv: bool = False, with_moe: bool = False):
         if cache is not None or sow_kv:
             check_decodable(self)
-        x = F.embedding(tokens.long(), self.embed.weight.to(self.dtype))
+        s = tokens.shape[1]
+        span = attn = None
+        if cache is None and not sow_kv:
+            span, attn = seq_shard(self.attn_fn, s, self.heads, self.heads_kv)
+        lo, hi = span if span is not None else (0, s)
+        x = F.embedding(tokens[:, lo:hi].long(), self.embed.weight.to(self.dtype))
         if self.pos_embed is not None:
-            if tokens.shape[1] != self.seq_len:
+            if s != self.seq_len:
                 raise ValueError(
                     f"this LM's learned positions were built for seq_len="
-                    f"{self.seq_len}, got sequences of {tokens.shape[1]}")
-            x = x + self.pos_embed.to(self.dtype)
+                    f"{self.seq_len}, got sequences of {s}")
+            x = x + self.pos_embed[:, lo:hi].to(self.dtype)
         if cache is None and not sow_kv:
-            x, moe = run_blocks(self.blocks, x, train, self.block_remat, self.generator)
+            x, moe = run_blocks(self.blocks, x, train, self.block_remat, self.generator,
+                                attn=attn, offset=lo)
             logits = self._head(x)
             return (logits, moe) if with_moe else logits
         kvs = {}
@@ -246,6 +266,11 @@ class CausalLM(nn.Module):
                 kvs[f"block_{i}"] = kv
         logits = self._head(x)
         return (logits, kvs) if sow_kv else logits
+
+    def seq_span(self, s: int) -> tuple[int, int] | None:
+        """This rank's positions ``(lo, hi)`` of a length-``s`` forward's
+        logits under sequence parallelism (None: all of them)."""
+        return seq_shard(self.attn_fn, s, self.heads, self.heads_kv)[0]
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and vocab head: (B, S, dim) -> float32 logits."""

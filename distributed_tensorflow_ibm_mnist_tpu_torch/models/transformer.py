@@ -36,6 +36,15 @@ the paged cache (serving/kv_pool.py) carries ``pages_k_scale`` /
 ``pages_v_scale`` beside its pools.  ``quant="int8"`` makes every
 projection an ``Int8Linear`` (models/quant.py).
 
+Sequence parallelism (``attn_fn`` a ``parallel.ring_attention.
+SeqParallelAttention``: the ring or Ulysses): the models keep only this
+rank's slice of the tokens (:func:`seq_shard`), their positions offset by
+the slice's start (RoPE's ``offset``, the learned table sliced), and the
+blocks attend through the callable; the ViT's token mean-pool sums across
+the seq group (a differentiable all-reduce: its backward is the sum
+too).  Where the sequence does not divide the axis the whole sequence
+stays on every rank and the blocks call the callable's ``dense`` inner.
+
 Not ported yet, raising ``NotImplementedError`` that names what ports it:
 the ViT's pipeline stages (``StackedBlocks``).  ``moe_fn`` (the models'
 keyword, ``parallel.expert_parallel.make_moe_dispatch_auto`` or a user's
@@ -62,8 +71,10 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import (
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import Int8Linear
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.remat import remat
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import all_reduce_sum
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.expert_parallel import MoEBlock
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.ring_attention import (
+    SeqParallelAttention,
     vanilla_attention,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
@@ -307,7 +318,11 @@ class TransformerBlock(nn.Module):
         return dropout(x, self.dropout, self.generator)
 
     def forward(self, x, cache: dict | None = None, max_len: int = 0,
-                ragged: bool = False, train: bool = False):
+                ragged: bool = False, train: bool = False,
+                attn: Callable | None = None, offset: int = 0):
+        """``attn`` overrides the block's attention callable for this call
+        and ``offset`` is the first position of ``x`` in its sequence
+        (RoPE's offset): the sequence-parallel forward's slice."""
         b, s, _ = x.shape
         hd = self.head_dim
         h = self.norm_attn(x)
@@ -329,9 +344,9 @@ class TransformerBlock(nn.Module):
             o = self._decode_attention(q, k, v, cache, max_len, ragged)
         else:
             if self.rope:
-                q, k = apply_rope(q), apply_rope(k)
+                q, k = apply_rope(q, offset=offset), apply_rope(k, offset=offset)
             kv_out = (k, v)
-            o = self.attn_fn(q, k, v)
+            o = (attn or self.attn_fn)(q, k, v)
         x = x + self._dropout(self._dense(self.proj, o.reshape(b, s, self.dim)), train)
         h = self.norm_mlp(x)
         moe = None
@@ -476,16 +491,31 @@ class TransformerBlock(nn.Module):
                 f"{'an int8' if int8_cache else 'a native'} cache")
 
 
-def _block_out(block: TransformerBlock, x: torch.Tensor, train: bool):
+def _block_out(block: TransformerBlock, x: torch.Tensor, train: bool,
+               attn: Callable | None = None, offset: int = 0):
     """A block's output and its MoE terms, without its K/V: the remat
     region of a block (the MoE terms leave it as outputs, so the loss
     takes them from the forward and the recompute only rebuilds)."""
-    out, _, moe = block(x, train=train)
+    out, _, moe = block(x, train=train, attn=attn, offset=offset)
     return out, moe
 
 
+def seq_shard(attn_fn, s: int, heads: int, heads_kv: int):
+    """The sequence-parallel layout of a length-``s`` forward through
+    ``attn_fn``: ``(span, attn)`` with ``span`` this rank's token slice
+    ``(lo, hi)`` (None: the whole sequence) and ``attn`` the blocks'
+    callable for the call (None: their own).  Not sequence parallel: the
+    whole sequence, the blocks' own; sharded: the slice, the callable;
+    indivisible: the whole sequence through the callable's ``dense``."""
+    if not isinstance(attn_fn, SeqParallelAttention):
+        return None, None
+    span = attn_fn.local_span(s, heads, heads_kv)
+    return span, (None if span is not None else attn_fn.dense)
+
+
 def run_blocks(blocks, x: torch.Tensor, train: bool, remat_blocks: bool,
-               generator: torch.Generator | None):
+               generator: torch.Generator | None, attn: Callable | None = None,
+               offset: int = 0):
     """The training/eval forward through ``blocks``: ``(x, moe)`` with
     ``moe`` None for a dense stack, else ``{"aux": sum of the blocks'
     load-balancing losses, "z": sum of their pre-weighted z-losses (0
@@ -493,13 +523,15 @@ def run_blocks(blocks, x: torch.Tensor, train: bool, remat_blocks: bool,
     blocks}`` (JAX's ``losses`` / ``zlosses`` / ``moe_stats``
     collections as the loss function reduces them).  ``remat_blocks``
     recomputes each block in the backward, its dropout masks replayed
-    from ``generator``."""
+    from ``generator``.  ``attn`` / ``offset``: the sequence-parallel
+    call's (:func:`seq_shard`; ``TransformerBlock.forward``)."""
     terms = []
     for block in blocks:
         if remat_blocks:
-            x, moe = remat(_block_out, block, x, train, generators=[generator])
+            x, moe = remat(_block_out, block, x, train, attn, offset,
+                           generators=[generator])
         else:
-            x, moe = _block_out(block, x, train)
+            x, moe = _block_out(block, x, train, attn, offset)
         if moe is not None:
             terms.append(moe)
     if not terms:
@@ -558,6 +590,8 @@ class VisionTransformer(nn.Module):
         device = resolve_device(device)
         self.patch_size, self.image_size, self.dim = p, (h, w), dim
         self.seq_len = (h // p) * (w // p)
+        self.heads, self.heads_kv = heads, heads_kv or heads
+        self.attn_fn = attn_fn
         self.dtype = dtype
         meta = torch.device("meta")  # shapes first; values from `generator`
         self.patch_embed = nn.Conv2d(in_channels, dim, p, p, device=meta)
@@ -598,6 +632,19 @@ class VisionTransformer(nn.Module):
     def has_moe(self) -> bool:
         return any(block.moe is not None for block in self.blocks)
 
+    def _patches(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) -> (B, S, p * p * C) raw patches in token (row, col)
+        order, each flattened (p, p, C) as the conv kernel's (O, p, p, C)."""
+        b, h, w, c = x.shape
+        p = self.patch_size
+        x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(b, self.seq_len, p * p * c)
+
+    def seq_span(self, s: int) -> tuple[int, int] | None:
+        """This rank's token slice of a length-``s`` sequence under
+        sequence parallelism (None: the whole sequence)."""
+        return seq_shard(self.attn_fn, s, self.heads, self.heads_kv)[0]
+
     def forward(self, x: torch.Tensor, train: bool = False, with_moe: bool = False):
         """(B, H, W, C) NHWC images in [0, 1] -> (B, num_classes) float32
         logits; ``with_moe=True`` returns ``(logits, moe)``, the MoE terms
@@ -609,13 +656,22 @@ class VisionTransformer(nn.Module):
             raise ValueError(f"this ViT was built for {self.image_size[0]}x"
                              f"{self.image_size[1]} images, got {h}x{w}")
         dt = self.dtype
-        x = x.to(dt).permute(0, 3, 1, 2)  # NCHW view, channels-last strides
         pe = self.patch_embed
-        x = F.conv2d(x, pe.weight.to(dt), pe.bias.to(dt), self.patch_size)
-        x = x.permute(0, 2, 3, 1).reshape(b, self.seq_len, self.dim)  # (row, col) order
-        x = x + self.pos_embed.to(dt)
-        x, moe = run_blocks(self.blocks, x, train, self.block_remat, self.generator)
-        x = self.norm_out(x).mean(1, dtype=torch.promote_types(dt, torch.float32))
+        span, attn = seq_shard(self.attn_fn, self.seq_len, self.heads, self.heads_kv)
+        # the stride-p conv as a product over flattened patches: this rank's
+        # token slice only under sequence parallelism, every token otherwise
+        lo, hi = (0, self.seq_len) if span is None else span
+        w_pe = pe.weight.to(dt).permute(0, 2, 3, 1).reshape(self.dim, -1)
+        x = F.linear(self._patches(x.to(dt))[:, lo:hi], w_pe, pe.bias.to(dt))
+        x = x + self.pos_embed[:, lo:hi].to(dt)
+        x, moe = run_blocks(self.blocks, x, train, self.block_remat, self.generator,
+                            attn=attn, offset=lo)
+        acc = torch.promote_types(dt, torch.float32)
+        if span is None:
+            x = self.norm_out(x).mean(1, dtype=acc)
+        else:  # the mean over every rank's tokens: a sum across the seq group
+            x = all_reduce_sum(self.norm_out(x).sum(1, dtype=acc),
+                               group=self.attn_fn.mesh.seq_group) / self.seq_len
         x = x.to(dt)  # a float32 mean, as jnp.mean of bf16 takes it
         w_out, b_out = self.logits.weight.to(dt), self.logits.bias.to(dt)
         logits = F.linear(x, w_out, b_out).float()

@@ -41,7 +41,9 @@ same functions in plain PyTorch (:func:`flash_attention_plain`,
 :func:`flash_attention_bwd_plain`), which the CPU tests hold against the JAX
 kernels.  Launch counters, plain integers counted where a kernel launches:
 ``flash_attention_fwd.launches`` and ``flash_attention_bwd.fused_launches``,
-``.grouped_launches``, ``.dkv_launches``, ``.dq_launches``.
+``.grouped_launches``, ``.dkv_launches``, ``.dq_launches``; the K7 entries
+count their calls that launched those kernels in
+``flash_block_fwd.launches`` and ``flash_block_bwd.launches``.
 """
 
 from __future__ import annotations
@@ -472,14 +474,33 @@ def flash_attention(q, k, v, causal: bool = False, window: int = 0):
 
 
 def flash_block_fwd(q, k, v, causal: bool = False):
-    """The ring's block forward (K7): ``(out, lse)`` with lse (B, S, H)
-    float32.  Not differentiable, as JAX's: the ring writes its own
-    backward from :func:`flash_block_bwd`."""
-    return flash_attention_fwd(q, k, v, causal)
+    """The ring's block forward (K7, JAX ``flash_block_fwd``): ``(out,
+    lse)`` of one (B, S, H, D) block with lse (B, S, H) float32, through K3
+    on CUDA tensors (counted in ``flash_block_fwd.launches`` beside K3's
+    own count) and :func:`flash_attention_plain` on CPU tensors.  Not
+    differentiable, as JAX's: the ring writes its own backward from
+    :func:`flash_block_bwd`.  Under the ring's three static cases
+    (diagonal with ``causal``, fully visible without) every q row sees at
+    least one key, so every lse row is finite."""
+    out = flash_attention_fwd(q, k, v, causal)
+    if q.device.type == "cuda":
+        flash_block_fwd.launches += 1
+    return out
 
 
 def flash_block_bwd(q, k, v, g, lse, delta, causal: bool = False):
-    """The ring's per-block backward (K7) under GLOBAL row statistics:
-    ``lse``/``delta`` (B, S, H) float32 of the full (ring-merged) softmax;
-    returns this block's ``(dq, dk, dv)``."""
-    return flash_attention_bwd(q, k, v, g, lse, delta, causal)
+    """The ring's per-block backward (K7, JAX ``flash_block_bwd``) under
+    GLOBAL row statistics: ``lse``/``delta`` (B, S, H) float32 of the full
+    (ring-merged) softmax, so ``p = exp(s - lse)`` is this block's share of
+    it; returns this block's ``(dq, dk, dv)`` in the inputs' dtypes.  On
+    CUDA tensors the kernels of :func:`bwd_route` at the block's length
+    (counted in ``flash_block_bwd.launches`` beside theirs), on CPU tensors
+    :func:`flash_attention_bwd_plain`."""
+    out = flash_attention_bwd(q, k, v, g, lse, delta, causal)
+    if q.device.type == "cuda":
+        flash_block_bwd.launches += 1
+    return out
+
+
+flash_block_fwd.launches = 0  # K7 forward entries that launched K3
+flash_block_bwd.launches = 0  # K7 backward entries that launched K4-K6

@@ -1,11 +1,14 @@
-"""The port's collectives: ``torch.distributed`` over the ``data`` mesh.
+"""The port's collectives: ``torch.distributed`` over the mesh's axes.
 
 The counterpart of the JAX package's ``parallel/collectives.py``.  JAX's
 collectives run inside a ``shard_map`` body on a named axis and XLA fuses
 them into the step; here each is a plain function on tensors, one
-``torch.distributed`` call over the default process group (NCCL on
-cards, gloo on the CPU: the ``data`` mesh is the whole group), and every
-cross-rank exchange of the port goes through one of them:
+``torch.distributed`` call over a process group (NCCL on cards, gloo on
+the CPU), and every cross-rank exchange of the port goes through one of
+them.  JAX's ``axis_name`` is the ``group`` argument: None is the default
+(whole) group, which is the ``data`` axis at sp = 1 and the ``dp * sp``
+ranks whose gradients a step averages; ``mesh.seq_group`` /
+``mesh.data_group`` (``parallel/mesh.py``) are the axes of a 2-D mesh:
 
 * :func:`all_reduce_sum` / :func:`all_reduce_mean` / :func:`all_reduce_max`,
   :func:`all_gather` (tiled), :func:`reduce_scatter`,
@@ -33,9 +36,18 @@ cross-rank exchange of the port goes through one of them:
   ``dim``), each the dim-0 collective on the leaf with that dim moved to
   the front;
 * :func:`all_to_all` (JAX's tiled ``all_to_all(x, axis, split_axis,
-  concat_axis)``, the expert-parallel dispatch's exchange) over
-  ``all_to_all_single``, differentiable: its backward is the reverse
-  all-to-all, as JAX transposes it.
+  concat_axis)``, the expert-parallel dispatch's exchange and Ulysses'
+  two reshards over the seq group) over ``all_to_all_single``,
+  differentiable: its backward is the reverse all-to-all, as JAX
+  transposes it;
+* :func:`ring_shift` (JAX's ``ring_shift``, ``lax.ppermute(x, axis, [(i,
+  (i + shift) % n)])``): the ring attention's neighbour exchange, every
+  rank sending to the rank ``shift`` places on and receiving from the one
+  ``shift`` places back in one ``dist.batch_isend_irecv``, so no pair of
+  blocking sends can deadlock.  gloo's point-to-point takes host memory
+  only, so under gloo a CUDA tensor is staged through pinned host buffers
+  (``ring_shift.host_staged`` counts those hops); NCCL sends device
+  memory.  Differentiable: the backward shifts the gradient back.
 
 A mean is a sum divided by the rank count: gloo has no ``AVG``.  gloo
 takes CUDA tensors too (several ranks sharing one card).
@@ -43,8 +55,9 @@ takes CUDA tensors too (several ranks sharing one card).
 (the expert-parallel routing fractions): its backward is the mean of the
 incoming gradients across ranks, the transpose under the port's
 convention that every rank differentiates its own loss and the
-gradients are averaged afterwards.  The ring's neighbour exchange is not
-here yet (ROADMAP.md queue 1, item 7.2).
+gradients are averaged afterwards; :func:`all_reduce_sum` is likewise
+differentiable, its backward the sum (the ViT's token pool across the
+seq group).
 """
 
 from __future__ import annotations
@@ -69,29 +82,49 @@ def _map(fn: Callable[[torch.Tensor], torch.Tensor], x: Tensors):
     return fn(x) if isinstance(x, torch.Tensor) else [fn(t) for t in x]
 
 
-def axis_size() -> int:
-    """Ranks along the data axis."""
-    return dist.get_world_size()
+def axis_size(group=None) -> int:
+    """Ranks along the axis of ``group`` (the whole group when None)."""
+    return dist.get_world_size(group)
 
 
-def axis_index() -> int:
-    """This rank's position along the data axis."""
-    return dist.get_rank()
+def axis_index(group=None) -> int:
+    """This rank's position along the axis of ``group``."""
+    return dist.get_rank(group)
 
 
-def _all_reduce(x: torch.Tensor, op) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, op, group=None) -> torch.Tensor:
     y = x.clone()
-    dist.all_reduce(y, op=op)
+    dist.all_reduce(y, op=op, group=group)
     return y
 
 
-def all_reduce_sum(x: Tensors):
-    """Sum across ranks: the NCCL all-reduce of the source system."""
-    return _map(lambda t: _all_reduce(t, dist.ReduceOp.SUM), x)
+def _sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    return _all_reduce(t.detach(), dist.ReduceOp.SUM, group)
 
 
-def _mean(t: torch.Tensor) -> torch.Tensor:
-    return _all_reduce(t.detach(), dist.ReduceOp.SUM).div_(axis_size())
+class _AllReduceSum(torch.autograd.Function):
+    """The cross-rank sum, differentiable: the backward is the sum of the
+    incoming gradients (every rank's loss reads every rank's input)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _sum(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+def all_reduce_sum(x: Tensors, group=None):
+    """Sum across ranks: the NCCL all-reduce of the source system
+    (differentiable where the input requires grad)."""
+    return _map(lambda t: _AllReduceSum.apply(t, group) if t.requires_grad
+                else _sum(t, group), x)
+
+
+def _mean(t: torch.Tensor, group=None) -> torch.Tensor:
+    return _sum(t, group).div_(axis_size(group))
 
 
 class _AllReduceMean(torch.autograd.Function):
@@ -99,70 +132,73 @@ class _AllReduceMean(torch.autograd.Function):
     the incoming gradients (module docstring)."""
 
     @staticmethod
-    def forward(ctx, t):
-        return _mean(t)
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _mean(t, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _mean(g)
+        return _mean(g, ctx.group), None
 
 
-def all_reduce_mean(x: Tensors):
+def all_reduce_mean(x: Tensors, group=None):
     """Mean across ranks: the sum divided by the rank count
     (differentiable where the input requires grad)."""
-    return _map(lambda t: _AllReduceMean.apply(t) if t.requires_grad else _mean(t), x)
+    return _map(lambda t: _AllReduceMean.apply(t, group) if t.requires_grad
+                else _mean(t, group), x)
 
 
-def all_reduce_max(x: Tensors):
+def all_reduce_max(x: Tensors, group=None):
     """Elementwise max across ranks."""
-    return _map(lambda t: _all_reduce(t, dist.ReduceOp.MAX), x)
+    return _map(lambda t: _all_reduce(t, dist.ReduceOp.MAX, group), x)
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``x`` concatenated along dim 0 (tiled: that dim grows
     by the rank count)."""
     x = x.contiguous()
-    out = x.new_empty((axis_size() * x.shape[0], *x.shape[1:]))
-    _all_gather_into(out, x)
+    out = x.new_empty((axis_size(group) * x.shape[0], *x.shape[1:]))
+    _all_gather_into(out, x, group=group)
     return out
 
 
-def reduce_scatter(x: torch.Tensor) -> torch.Tensor:
+def reduce_scatter(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum across ranks, then keep this rank's 1/N block of dim 0 (the
     ZeRO gradient primitive: ``psum`` then this shard's slice)."""
-    n = axis_size()
+    n = axis_size(group)
     x = x.contiguous()
     if x.shape[0] % n:
         raise ValueError(f"dim 0 of size {x.shape[0]} does not divide over {n} ranks")
     out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
-    _reduce_scatter_into(out, x)
+    _reduce_scatter_into(out, x, group=group)
     return out
 
 
-def all_gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+def all_gather_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order: the
     whole leaf from its blocks (ZeRO-3's parameter gather)."""
     if dim == 0:
-        return all_gather(x)
-    return all_gather(x.movedim(dim, 0)).movedim(0, dim).contiguous()
+        return all_gather(x, group)
+    return all_gather(x.movedim(dim, 0), group).movedim(0, dim).contiguous()
 
 
-def reduce_scatter_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     """Sum across ranks, then this rank's 1/N block along ``dim``
     (ZeRO-3's gradient reduction)."""
     if dim == 0:
-        return reduce_scatter(x)
-    return reduce_scatter(x.movedim(dim, 0)).movedim(0, dim).contiguous()
+        return reduce_scatter(x, group)
+    return reduce_scatter(x.movedim(dim, 0), group).movedim(0, dim).contiguous()
 
 
-def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
-    a = axis_size()
+def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
+                group=None) -> torch.Tensor:
+    a = axis_size(group)
     moved = x.movedim(split_axis, 0).contiguous()
     s = moved.shape[0]
     if s % a:
         raise ValueError(f"split axis of size {s} does not divide over {a} ranks")
     out = torch.empty_like(moved)
-    dist.all_to_all_single(out, moved)  # block j of dim 0 to rank j
+    dist.all_to_all_single(out, moved, group=group)  # block j of dim 0 to rank j
     # (a, s/a, ...): the block from each source rank, in rank order, back
     # in x's axis order, then laid side by side along concat_axis
     out = out.view(a, s // a, *moved.shape[1:]).movedim(1, split_axis + 1)
@@ -174,29 +210,88 @@ def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Ten
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, split_axis: int, concat_axis: int):
-        ctx.axes = (split_axis, concat_axis)
-        return _all_to_all(x, split_axis, concat_axis)
+    def forward(ctx, x, split_axis: int, concat_axis: int, group):
+        ctx.axes, ctx.group = (split_axis, concat_axis), group
+        return _all_to_all(x, split_axis, concat_axis, group)
 
     @staticmethod
     def backward(ctx, g):
         split_axis, concat_axis = ctx.axes
-        return _all_to_all(g, concat_axis, split_axis), None, None
+        return _all_to_all(g, concat_axis, split_axis, ctx.group), None, None, None
 
 
-def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
+               group=None) -> torch.Tensor:
     """JAX's tiled ``all_to_all``: ``x`` split into N blocks along
     ``split_axis``, block j sent to rank j, and the N blocks this rank
     receives concatenated along ``concat_axis`` in source-rank order (so
     ``split_axis`` shrinks N-fold and ``concat_axis`` grows N-fold).
     Differentiable; the backward is the reverse exchange."""
-    return _AllToAll.apply(x, split_axis, concat_axis)
+    return _AllToAll.apply(x, split_axis, concat_axis, group)
 
 
-def broadcast(x: torch.Tensor, root: int = 0) -> torch.Tensor:
-    """Every rank receives rank ``root``'s ``x``."""
+def _shift(xs: Sequence[torch.Tensor], shift: int, group) -> list[torch.Tensor]:
+    """Each of ``xs`` from this rank to the rank ``shift`` places on along
+    ``group``, and from the rank ``shift`` places back into new tensors:
+    every send and receive of the call in one ``batch_isend_irecv``."""
+    n, me = axis_size(group), axis_index(group)
+    if n == 1 or shift % n == 0:
+        return [x.clone() for x in xs]
+    to = dist.get_global_rank(group, (me + shift) % n) if group is not None else (me + shift) % n
+    frm = dist.get_global_rank(group, (me - shift) % n) if group is not None else (me - shift) % n
+    staged = any(x.is_cuda for x in xs) and dist.get_backend(group) == "gloo"
+    sends, recvs = [], []
+    for x in xs:
+        x = x.contiguous()
+        if staged:  # gloo's point-to-point reads host memory only
+            x = x.to("cpu", non_blocking=False).pin_memory()
+        sends.append(x)
+        recvs.append(torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                                 pin_memory=staged))
+    ops = [op for s, r in zip(sends, recvs)
+           for op in (dist.P2POp(dist.isend, s, to, group),
+                      dist.P2POp(dist.irecv, r, frm, group))]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if staged:
+        ring_shift.host_staged += 1
+        return [r.to(x.device) for r, x in zip(recvs, xs)]
+    return recvs
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, shift: int, group, *xs):
+        ctx.shift, ctx.group = shift, group
+        return tuple(_shift(xs, shift, group))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *_shift([g.contiguous() for g in gs], -ctx.shift, ctx.group))
+
+
+def ring_shift(x: Tensors, group=None, shift: int = 1):
+    """Pass ``x`` (a tensor or a sequence of them) to the neighbour
+    ``shift`` places up the ring of ``group``: rank i's value lands on rank
+    ``(i + shift) % n`` and rank i receives rank ``(i - shift) % n``'s
+    (JAX's ``ring_shift``).  Differentiable where an input requires grad:
+    the gradient rides back ``-shift`` places."""
+    xs = [x] if isinstance(x, torch.Tensor) else list(x)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in xs):
+        out = list(_RingShift.apply(shift, group, *xs))
+    else:
+        out = _shift(xs, shift, group)
+    return out[0] if isinstance(x, torch.Tensor) else out
+
+
+ring_shift.host_staged = 0  # hops staged through pinned host buffers (gloo, CUDA)
+
+
+def broadcast(x: torch.Tensor, root: int = 0, group=None) -> torch.Tensor:
+    """Every rank receives the ``x`` of rank ``root`` of ``group``."""
     y = x.clone()
-    dist.broadcast(y, src=root)
+    dist.broadcast(y, src=root if group is None else dist.get_global_rank(group, root),
+                   group=group)
     return y
 
 
@@ -207,10 +302,10 @@ def broadcast_object(obj, root: int = 0):
     return box[0]
 
 
-def all_gather_object(obj) -> list:
+def all_gather_object(obj, group=None) -> list:
     """Every rank's picklable ``obj``, in rank order, on every rank."""
-    out = [None] * axis_size()
-    dist.all_gather_object(out, obj)
+    out = [None] * axis_size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 

@@ -22,7 +22,16 @@ all-gather instead with ``sharded_update``):
   rank on its own rows of the ``k`` global batches;
 * :func:`stream_rows` is the index order of a rank's rows in stream mode:
   the epoch's global permutation, each global batch split over the ranks
-  as ``P("data")`` splits it.
+  as ``P("data")`` splits it;
+* :func:`make_global_epoch_runner` runs an epoch as JAX's GSPMD epoch does
+  (the sharded and the sequence-parallel Trainer's): one permutation of
+  the whole set, each data row training on its block of every global
+  batch.
+
+Rows go by a rank's place along the data axis (``mesh.data_index``), so
+under sequence parallelism the seq ranks of a data row read the same
+rows (each keeps its own token slice: ``parallel/ring_attention.py``);
+at sp = 1 that place is the rank.
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh
 def _rows(x: np.ndarray, mesh: Mesh, n: int, device) -> torch.Tensor:
     """This rank's block of the first ``n`` rows of ``x``, on ``device``."""
     per = n // mesh.size
-    block = x[mesh.rank * per:(mesh.rank + 1) * per]
+    block = x[mesh.data_index * per:(mesh.data_index + 1) * per]
     return torch.from_numpy(np.ascontiguousarray(block)).to(device)
 
 
@@ -96,7 +105,8 @@ def make_dp_train_step(model, optimizer, mesh: Mesh, label_smoothing: float = 0.
         if n % mesh.size:
             raise ValueError(f"global batch {n} not divisible by dp={mesh.size}")
         per = n // mesh.size
-        local = {k: v[mesh.rank * per:(mesh.rank + 1) * per] for k, v in batch.items()}
+        d = mesh.data_index
+        local = {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
         m = step(state, local)
         loss, accuracy = all_reduce_mean(torch.stack([m["loss"], m["accuracy"]]))
         return {"loss": loss, "accuracy": accuracy}
@@ -142,4 +152,40 @@ def stream_rows(perm: np.ndarray, global_batch: int, mesh: Mesh | None) -> np.nd
     if mesh is None:
         return perm.reshape(-1)
     per = global_batch // mesh.size
-    return np.ascontiguousarray(perm[:, mesh.rank * per:(mesh.rank + 1) * per]).reshape(-1)
+    d = mesh.data_index
+    return np.ascontiguousarray(perm[:, d * per:(d + 1) * per]).reshape(-1)
+
+
+def make_global_epoch_runner(model, optimizer, global_batch: int, mesh: Mesh,
+                             label_smoothing: float = 0.0, fused_xent: bool = False,
+                             remat: bool = False, grad_accum: int = 1, plan=None):
+    """An epoch as JAX's GSPMD epoch runs it (the sharded runs and the
+    sequence-parallel ones): one permutation of the WHOLE training set
+    (drawn from ``state.data_generator``, the same on every rank), cut into
+    global batches, data row ``d`` training on its block of each, its
+    gradients averaged over every rank, or, with a ``plan``
+    (``parallel.fsdp.ShardPlan``: ZeRO-3 and expert parallelism), reduced
+    and applied by the plan.  ``run_epoch(state, images, labels,
+    perm=None)`` with the whole set on every rank; returns this rank's
+    per-step metrics stacked (the Trainer averages them)."""
+    if global_batch % mesh.size:
+        raise ValueError(f"global batch {global_batch} not divisible by dp={mesh.size}")
+    step = make_train_step(model, optimizer, label_smoothing=label_smoothing,
+                           fused_xent=fused_xent, remat=remat, grad_accum=grad_accum,
+                           mesh=mesh if plan is None else None, plan=plan)
+    per = global_batch // mesh.size
+    lo = mesh.data_index * per
+
+    def run_epoch(state, images: torch.Tensor, labels: torch.Tensor,
+                  perm: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+        n = images.shape[0]
+        steps = n // global_batch
+        if perm is None:
+            perm = torch.randperm(n, generator=state.data_generator, device=images.device)
+        perm = perm.to(images.device)[: steps * global_batch].view(steps, global_batch)
+        ms = [step(state, {"image": images.index_select(0, idx),
+                           "label": labels.index_select(0, idx)})
+              for idx in perm[:, lo:lo + per]]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return run_epoch

@@ -488,36 +488,5 @@ def make_fsdp_train_step(model, tx, mesh: Mesh, param_specs, state, data_axis: s
     return fsdp_step
 
 
-def make_fsdp_epoch_runner(model, plan: ShardPlan, optimizer, global_batch: int, mesh: Mesh,
-                           label_smoothing: float = 0.0, fused_xent: bool = False,
-                           remat: bool = False, grad_accum: int = 1):
-    """An epoch of a sharded run (fsdp or expert parallelism) as JAX's
-    GSPMD epoch runs it: one permutation of the WHOLE training set (drawn
-    from ``state.data_generator``, the same on every rank), cut into global
-    batches, rank ``r`` training on its block of each.  ``run_epoch(state,
-    images, labels, perm=None)`` with the whole set on every rank; returns
-    this rank's per-step metrics stacked (the Trainer averages them)."""
-    if global_batch % mesh.size:
-        raise ValueError(f"global batch {global_batch} not divisible by dp={mesh.size}")
-    step = make_train_step(model, optimizer, label_smoothing=label_smoothing,
-                           fused_xent=fused_xent, remat=remat, grad_accum=grad_accum,
-                           plan=plan)
-    per = global_batch // mesh.size
-
-    def run_epoch(state, images: torch.Tensor, labels: torch.Tensor,
-                  perm: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
-        n = images.shape[0]
-        steps = n // global_batch
-        if perm is None:
-            perm = torch.randperm(n, generator=state.data_generator, device=images.device)
-        perm = perm.to(images.device)[: steps * global_batch].view(steps, global_batch)
-        mine = perm[:, mesh.rank * per:(mesh.rank + 1) * per]
-        ms = [step(state, {"image": images.index_select(0, idx),
-                           "label": labels.index_select(0, idx)}) for idx in mine]
-        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
-
-    return run_epoch
-
-
-__all__ = ["ShardPlan", "fsdp_rule", "make_fsdp_epoch_runner", "make_fsdp_opt_specs",
+__all__ = ["ShardPlan", "fsdp_rule", "make_fsdp_opt_specs",
            "make_fsdp_specs", "make_fsdp_train_step", "shard_train_state"]

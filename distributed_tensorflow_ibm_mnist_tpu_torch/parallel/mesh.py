@@ -1,10 +1,16 @@
-"""The data mesh of the port: one rank per process over ``torch.distributed``.
+"""The mesh of the port: one rank per process over ``torch.distributed``.
 
 The counterpart of the JAX package's ``parallel/mesh.py`` ``make_mesh``.
 JAX lays the visible devices out on a ``(data, model, seq, pipe)`` grid;
-the port has one axis, ``data``, whose size is the process group's world
-size (each rank one process, one device).  The other axes are refused by
-name until their ROADMAP.md item ports them.
+the port lays its ranks (each one process, one device) out on the same
+grid with ``data`` outermost, so rank ``r`` sits at ``data_index = r //
+sp`` and ``seq_index = r % sp``, and ``dp * sp`` is the world size.  Under
+``sp > 1`` each axis has its own process group: the ``seq`` group of a
+rank holds the ranks of its data row (the ring's hops and Ulysses'
+all-to-alls run there), the ``data`` group the ranks at its seq index.
+Every rank builds every group, in the same order (``dist.new_group`` is
+collective).  ``model`` and ``pipe`` are refused by name until their
+ROADMAP.md item ports them.
 
 Multislice (``dcn_dp=N``, JAX's hybrid ICI x DCN mesh): the group must
 span N nodes with dp/N ranks each.  A rank's node is its host name,
@@ -25,6 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import socket
+from typing import Any
 
 import torch.distributed as dist
 
@@ -40,8 +47,11 @@ def no_group_error(what: str) -> ValueError:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The ``data`` axis over the default process group and this
-    process's rank in it."""
+    """The ``(data, seq)`` grid over the default process group and this
+    process's rank in it.  ``data_group`` / ``seq_group`` are the axes'
+    process groups; None means the default group for ``data`` (sp = 1:
+    the data axis is the whole group) and no group for ``seq`` (sp = 1:
+    a seq axis of one rank, which exchanges nothing)."""
 
     shape: dict[str, int]
     rank: int
@@ -49,10 +59,28 @@ class Mesh:
     ici_shape: tuple[int, ...] = ()  # (data, model, seq, pipe) within a node
     dcn_shape: tuple[int, ...] = ()  # the same factors across nodes
     order: tuple[int, ...] = ()  # ranks in node-major order
+    data_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    seq_group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def size(self) -> int:
+        """Ranks along the data axis (dp)."""
         return self.shape["data"]
+
+    @property
+    def seq_size(self) -> int:
+        """Ranks along the seq axis (sp)."""
+        return self.shape["seq"]
+
+    @property
+    def data_index(self) -> int:
+        """This rank's place along the data axis: the rows it trains on."""
+        return self.rank // self.shape["seq"]
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's place along the seq axis: the token slice it holds."""
+        return self.rank % self.shape["seq"]
 
 
 def hybrid_mesh_shapes(dp: int, tp: int, sp: int, pp: int, dcn_dp: int
@@ -105,35 +133,68 @@ def rank_records() -> list[RankRecord]:
     return [RankRecord(r, h, index.setdefault(h, len(index))) for r, h in enumerate(hosts)]
 
 
+def _axis_groups(dp: int, sp: int, rank: int) -> tuple:
+    """``(data_group, seq_group)`` of ``rank`` on a ``(dp, sp)`` grid: one
+    new group per data row (its sp ranks) and per seq column (its dp
+    ranks), built on every rank in the same order."""
+    data_group = seq_group = None
+    for d in range(dp):
+        g = dist.new_group(list(range(d * sp, (d + 1) * sp)))
+        if rank // sp == d:
+            seq_group = g
+    for s in range(sp):
+        g = dist.new_group(list(range(s, dp * sp, sp)))
+        if rank % sp == s:
+            data_group = g
+    return data_group, seq_group
+
+
 def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1,
               dcn_dp: int = 1, devices: list | None = None) -> Mesh:
-    """The ``data`` mesh over the initialised default process group.
+    """The ``(data, seq)`` mesh over the initialised default process group.
 
-    ``dp=None`` (or 0) is the group's world size; any other ``dp`` must
-    equal it (one rank per process).  ``tp``, ``sp`` and ``pp`` above 1
-    raise ``NotImplementedError``.  ``dcn_dp > 1`` is multislice (module
-    docstring): ``devices`` are the group's rank records in rank order
-    (default :func:`rank_records`); ``ValueError`` unless they span
-    ``dcn_dp`` slices of ``dp / dcn_dp`` ranks each, laid out node-major
-    (ranks of a node contiguous, as torchrun numbers them)."""
+    ``dp=None`` (or 0) is the world size over ``sp``, as JAX gives the
+    data axis the devices the other axes leave; ``dp * sp`` must equal the
+    world size (one rank per process).  ``sp > 1`` builds the two axes'
+    process groups (module docstring).  ``tp`` and ``pp`` above 1 raise
+    ``NotImplementedError``.  ``dcn_dp > 1`` is multislice (module
+    docstring), at ``sp = 1`` only: ``devices`` are the group's rank
+    records in rank order (default :func:`rank_records`); ``ValueError``
+    unless they span ``dcn_dp`` slices of ``dp / dcn_dp`` ranks each, laid
+    out node-major (ranks of a node contiguous, as torchrun numbers them)."""
     if dcn_dp < 1:
         raise ValueError(f"dcn_dp must be >= 1, got {dcn_dp}")
-    for name, n in (("tp", tp), ("sp", sp), ("pp", pp)):
+    for name, n in (("tp", tp), ("pp", pp)):
         if n > 1:
             raise NotImplementedError(
                 f"{name}={n} is not ported to the PyTorch package yet: {_PARALLEL}")
+    if sp < 1:
+        raise ValueError(f"sp must be >= 1, got {sp}")
+    if dcn_dp > 1 and sp > 1:
+        raise NotImplementedError(
+            f"dcn_dp={dcn_dp} with sp={sp} (a multislice data axis beside a seq "
+            f"axis) is not ported to the PyTorch package yet: {_PARALLEL}")
     if not (dist.is_available() and dist.is_initialized()):
-        raise no_group_error(f"make_mesh(dp={dp})")
+        raise no_group_error(f"make_mesh(dp={dp}, sp={sp})" if sp > 1
+                             else f"make_mesh(dp={dp})")
     world = dist.get_world_size()
     if dp is None or dp == 0:
-        dp = world
-    if dp != world:
+        dp = world // sp
+        if dp == 0:
+            raise ValueError(
+                f"tp*sp*pp={sp} exceeds device count {world}; no room for a data axis")
+    if dp * sp != world:
+        what, axes = (f"dp={dp}", "dp") if sp == 1 else (f"dp={dp} x sp={sp}", "dp x sp")
         raise ValueError(
-            f"dp={dp} but the process group has {world} rank(s): the port runs "
-            "one rank per process, so dp must equal the world size")
-    shape = {"data": dp, "model": 1, "seq": 1, "pipe": 1}
+            f"{what} but the process group has {world} rank(s): the port runs "
+            f"one rank per process, so {axes} must equal the world size")
+    shape = {"data": dp, "model": 1, "seq": sp, "pipe": 1}
+    rank = dist.get_rank()
+    if sp > 1:
+        data_group, seq_group = _axis_groups(dp, sp, rank)
+        return Mesh(shape=shape, rank=rank, data_group=data_group, seq_group=seq_group)
     if dcn_dp == 1:
-        return Mesh(shape=shape, rank=dist.get_rank())
+        return Mesh(shape=shape, rank=rank)
     ici, dcn = hybrid_mesh_shapes(dp, tp, sp, pp, dcn_dp)
     records = list(devices) if devices is not None else rank_records()
     if len(records) != world:
@@ -144,7 +205,7 @@ def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1,
         raise ValueError(
             f"dcn_dp={dcn_dp}: the ranks are not node-major (node-major order "
             f"{list(order)}); number each node's ranks contiguously, as torchrun does")
-    return Mesh(shape=shape, rank=dist.get_rank(), dcn_dp=dcn_dp, ici_shape=ici,
+    return Mesh(shape=shape, rank=rank, dcn_dp=dcn_dp, ici_shape=ici,
                 dcn_shape=dcn, order=order)
 
 

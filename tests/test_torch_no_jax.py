@@ -74,7 +74,8 @@ def test_importing_every_module_loads_no_jax():
                  "utils.checkpoint", "utils.chaos", "utils.elastic", "utils.debug",
                  "utils.profiling", "data.native", "models.remat",  # fault tolerance
                  "parallel.expert_parallel",  # the MoE blocks
-                 "parallel.fsdp", "parallel.tensor_parallel"):  # ZeRO-3, spec rules
+                 "parallel.fsdp", "parallel.tensor_parallel",  # ZeRO-3, spec rules
+                 "parallel.ring_attention", "parallel.sequence_parallel"):  # the ring, Ulysses
         assert f"{PORT.name}.{name}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -298,7 +298,7 @@ def test_measure_throughput_leaves_the_state_unchanged():
         assert torch.equal(a, b)
 
 
-REFUSED = {"tp2": dict(tp=2), "sp2": dict(sp=2), "pp2": dict(pp=2)}
+REFUSED = {"tp2": dict(tp=2), "pp2": dict(pp=2)}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
@@ -318,6 +318,8 @@ NEEDS_A_GROUP = {
     "vit_moe": dict(model="vit", model_kwargs={"moe_every": 2}, dp=2),
     "causal_lm_moe": dict(model="causal_lm", dataset="retrieval",
                           model_kwargs={"moe_every": 2}, dp=2),
+    # sequence parallelism is ported too (its mesh needs a group first)
+    "sp2": dict(sp=2),
 }
 
 
