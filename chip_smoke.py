@@ -60,7 +60,7 @@ never JAX or the JAX package.  Phases, one JSON line each:
    in at most ``INT8_ATTN_MISMATCH`` of its outputs, dense and paged; two
    planted faults, ``fault_p_bf16`` (the cache's known trap) and
    ``fault_paged_v_scale``, must each fail its gate, their other readings
-   recorded; weight and KV bytes, weights + KV's busy share); (f) ``speculative="ngram"`` at draft_len 3 and 7 on
+   recorded; weight and KV bytes); (f) ``speculative="ngram"`` at draft_len 3 and 7 on
    ``scripts/bench_speculative.py``'s motif and control prompt sets, 16 x
    64 tokens, against decode_ahead = draft_len + 1 (K3 == depth x
    admissions; the float32 twin's spec streams identical to its plain
@@ -83,7 +83,8 @@ never JAX or the JAX package.  Phases, one JSON line each:
    60k/10k, Adam 1e-3 with the cosine schedule, bf16, early stop at 0.99):
    the best test accuracy must reach 0.99, the loss stay finite, and K1
    and K2 must each launch once per step taken; then
-   ``measure_throughput(epochs=2)`` and one epoch under ``torch.profiler``;
+   ``measure_throughput(epochs=2)`` and a quarter epoch under
+   ``torch.profiler``;
 6. flash backward kernels — every entry of ``csrc/flash_bwd.cu`` against
    the plain backward on the card: K4 (fused) at (1, 8192, 8, 64) bf16
    causal; K5 (grouped) at (1, 8192, 4, 128) bf16 causal, the summed result
@@ -329,6 +330,22 @@ never JAX or the JAX package.  Phases, one JSON line each:
    depth x (s + 1) x steps backward on seq rank s under the ring, the
    2-D mesh's groups, s a step, tokens/s/chip, peak memory a rank; (f)
    JAX's refusals (a window with the ring, Ulysses' heads_kv);
+15h. tensor_parallel — the model axis: K3 and K4 held at each rank's
+   attention shape at tp=2, (8, 8192, 4, 64) bf16 causal, against their
+   plain versions; then gloo ranks sharing cuda:0: (a) ``bench_lm8k`` at
+   tp=2 through ``fit()`` (4 steps, 2 eval batches; each rank holds half of
+   every split leaf and runs K3/K4 on its 4 of the 8 heads) with the
+   counts zeroed just before: K3 == 24 and K4 == 16 a rank, per-step
+   losses within 1.4e-3 of the tp=1 fit's (sequence_parallel's sp=1 fit:
+   the same config, seed and global batches), s a step, tokens/s/chip,
+   peak memory a rank, the collectives a step, and one more step with
+   every all-reduce and all-gather timed on a synced card (host-staged
+   through gloo); (b) ResNet-20 at dp=2 x tp=2 on four ranks, batch 256,
+   ``fused_xent``, 2 steps against its tp=1 fit: losses within 2.5e-3,
+   BatchNorm statistics (over the data group) within 0.2 of each
+   buffer's largest magnitude, K1 == K2 == steps a rank, the conv
+   outputs gathered over the model group; (c) the refusals beside tp
+   (fsdp, MoE blocks, multislice: ROADMAP item 7; pp; stream mode);
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2, each
@@ -337,8 +354,9 @@ never JAX or the JAX package.  Phases, one JSON line each:
    ``serving_tier`` runs' for K3 and K4, the ``serving_edge`` runs' for
    K3, by replica role on the disaggregated tier, and the
    ``lm_vit_follow_ups`` runs' for K1-K4, the ``data_parallel_rest``
-   ranks' for K1-K4 and the ``sequence_parallel`` ranks' for K3, K4 and
-   K7, beside them),
+   ranks' for K1-K4, the ``sequence_parallel`` ranks' for K3, K4 and
+   K7, and the ``tensor_parallel`` ranks' for K1-K4 (``launches_tp2``),
+   beside them),
    largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
@@ -430,6 +448,15 @@ def live_pairs(s: int, causal: bool, window: int) -> int:
     if not window:
         return s * (s + 1) // 2
     return sum(min(q + 1, window) for q in range(s))
+
+
+def collect_garbage(torch, device) -> None:
+    """Free what earlier phases left unreachable (a trainer in a reference
+    cycle holds its card memory until the cyclic collector runs), so a
+    peak-memory reading that follows is its own run's."""
+    gc.collect()
+    if str(device) != "cpu":
+        torch.cuda.empty_cache()
 
 
 def gpu_ms(fn, torch, reps: int = 25, inner: int = 20, sleep: int = 2_000_000) -> float:
@@ -1093,10 +1120,8 @@ def phase_serving_spec_quant_chunk(torch, fa, xent, port) -> dict:
         "w8_kv8": dict(model=kv8, prompts=prompts, quant="int8")})
     e["w8_paged"] = serve(model, prompts, quant="int8", kv_page_size=PAGE)
     e["w8_kv8_paged"] = serve(kv8, prompts, quant="int8", kv_page_size=PAGE)
-    for name in ("w8_kv8",):  # the busy share of weights + KV under the profiler
-        e[name]["rec"]["device_busy_share"] = serve(
-            kv8 if "kv8" in name else model, prompts, quant="int8",
-            profile_of=f"serving_spec_quant_chunk[e,{name}]")["rec"]["device_busy_share"]
+    # (the busy share of weights + KV under the profiler, ~21 s, is cut to
+    # make room for tensor_parallel: PERF.md section 4)
     # the drift gates on JAX's own protocol (tests/test_quant.py:150, 270):
     # 2 rows x 16 tokens, the weights' full forward and the cache's 8-token
     # decode-mode prefill + 8 steps; the same at 4 x 128 (64 + 64) recorded
@@ -1489,12 +1514,18 @@ def phase_training(torch, fa, xent, port) -> dict:
     tp["first_epoch_overhead_s"] = round(rec["epoch_times_s"][0] - steady_epoch_s, 4)
     emit({"phase": "throughput", **tp})
 
+    # a quarter epoch (117 steps), to its fence: the whole epoch's trace took
+    # ~18 s on a slow host, cut to make room for tensor_parallel (PERF.md
+    # section 4); device only: the host ops of a 469-step epoch took ~30 s
+    # to read back
+    quarter = trainer.steps_per_epoch // 4 * cfg.batch_size
+
     def one_epoch():
         t = time.perf_counter()
-        trainer._epoch(12345)["loss"][-1].item()  # one epoch, to its fence
+        trainer._run_epoch(trainer.state, trainer.train_images[:quarter],
+                           trainer.train_labels[:quarter])["loss"][-1].item()
         return time.perf_counter() - t
 
-    # device only: the host ops of a 469-step epoch took ~30 s to read back
     emit(profile_run(torch, one_epoch, "training epoch",
                      {"xent_fwd_device_s": "xent_fwd", "xent_bwd_device_s": "xent_bwd"},
                      host_ops=False))
@@ -2952,7 +2983,7 @@ def resnet_dp2_rank(rank: int, images, labels, n_train: int) -> dict:
     out["small"] = {}
     for run in ("clean", "fault_per_rank_backward"):
         if run != "clean":  # each rank's own channel sums, as if every rank's were alike
-            resnet.all_reduce_sum = lambda t, n=trainer.dp: t * n
+            resnet.all_reduce_sum = lambda t, group=None, n=trainer.dp: t * n
         try:
             grads = bn_grads(torch, init, images[rows], labels[rows], axis_name="data")
         finally:
@@ -4849,6 +4880,7 @@ def fu_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict):
     if mk.get("param_dtype") == "bf16":
         mk["param_dtype"] = torch.bfloat16
     cfg = RunConfig(**kw, model_kwargs=mk)
+    collect_garbage(torch, "cuda")  # the peak below is this fit's, not a dead trainer's
     t0 = time.perf_counter()
     trainer = Trainer(cfg, device="cuda")
     setup_s = time.perf_counter() - t0
@@ -4991,9 +5023,11 @@ def fu_moe_lm(torch, fa, xent, Trainer, RunConfig, ep) -> dict:
                            trainer.train_labels[:LM_CFG["batch_size"]])["loss"][-1].item()
         return time.perf_counter() - t0
 
+    # device only (~20 s of host-op readback on a slow host, cut to make
+    # room for tensor_parallel: PERF.md section 4)
     prof = profile_run(torch, one_step, "moe lm training step",
                        {"flash_fwd_device_s": "flash_fwd", "flash_bwd_device_s": "flash_bwd"},
-                       top_n=12)
+                       top_n=12, host_ops=False)
     emit(prof)
     rec["profile"] = {k: prof[k] for k in ("wall_s", "device_busy_s", "device_busy_share",
                                            "flash_fwd_device_s", "flash_bwd_device_s")}
@@ -5551,12 +5585,13 @@ def dpr_rank(rank: int) -> dict:
     return out
 
 
-def dpr_check_attention(torch, fa) -> dict:
-    """K3 and K4 at each rank's attention shape (4, 8192, 8, 64) bf16 causal
-    on q/k/v views of one (B, S, 3, H, D) tensor, as the blocks give them,
-    against the plain versions (computed one batch row at a time: the
-    whole float32 score tensor would not fit beside them)."""
-    b, s, h, d = DPR_ATTN
+def dpr_check_attention(torch, fa, shape: tuple = DPR_ATTN,
+                        path: str = "data_parallel_rest (a)/(b), a rank") -> dict:
+    """K3 and K4 at a rank's attention shape (``shape``, (4, 8192, 8, 64) bf16
+    causal by default) on q/k/v views of one (B, S, 3, H, D) tensor, as the
+    blocks give them, against the plain versions (computed one batch row at
+    a time: the whole float32 score tensor would not fit beside them)."""
+    b, s, h, d = shape
     gen = torch.Generator(device="cuda").manual_seed(14)
     q, k, v, g, lse, delta = bwd_inputs(torch, fa, gen, b, s, h, h, d, torch.bfloat16,
                                         packed=True)
@@ -5576,13 +5611,12 @@ def dpr_check_attention(torch, fa) -> dict:
         del o, l_
         torch.cuda.empty_cache()
     ref = {key: torch.cat(ts) for key, ts in ref.items()}
-    extra = {"shape": list(DPR_ATTN), "causal": True, "packed_qkv": True,
-             "path": "data_parallel_rest (a)/(b), a rank"}
+    extra = {"shape": list(shape), "causal": True, "packed_qkv": True, "path": path}
     fwd = {"out": (out.float() - ref["out"]).abs().max().item(),
            "lse": (lse_k - ref["lse"]).abs().max().item()}
     emit({"phase": "kernel_check", "kernel": "flash_fwd", **extra, "max_abs_err": fwd,
           "tol": {"out": 2e-2, "lse": 1e-3}})
-    check(fwd["out"] <= 2e-2 and fwd["lse"] <= 1e-3, f"K3 disagrees at {DPR_ATTN}: {fwd}")
+    check(fwd["out"] <= 2e-2 and fwd["lse"] <= 1e-3, f"K3 disagrees at {shape}: {fwd}")
     bwd = compare("flash_bwd_fused", {"dq": dq, "dk": dk, "dv": dv},
                   {k2: ref[k2] for k2 in ("dq", "dk", "dv")}, torch.bfloat16, extra)
     return {"flash_fwd": fwd["out"], "flash_bwd_fused": bwd[0]}
@@ -5881,6 +5915,7 @@ def sp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict) -> dict:
     from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
 
     cfg = RunConfig(**cfg_dict)
+    collect_garbage(torch, SP_DEVICE)  # the peak below is this fit's
     trainer = Trainer(cfg, device=SP_DEVICE)
     caught = first_epoch_losses(trainer)
     sp_sync(torch)
@@ -6077,6 +6112,297 @@ def phase_sequence_parallel(torch, fa, xent, port, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor_parallel: the model axis on gloo ranks sharing the card
+
+TP_DEVICE = "cuda:0"  # every rank of the phase shares the one card
+TP_ATTN = (8, LM_SEQ, 4, 64)  # (a): each rank's attention shape at tp=2, (B, S, H/tp, D)
+TP_LM_CFG = dict(SP_LM_CFG, name="bench_lm8k_tp2", sp=1, tp=2)
+# (a): per-step loss against the tp=1 fit (sequence_parallel's sp=1 fit, the
+# same config, seed and global batches): the row-parallel products add two
+# bf16-rounded partial sums where one product rounds once (and K4 adds dQ by
+# atomics), so a sound run reads 1.2e-4 on the H100; a planted fault (the
+# fused qkv cut as contiguous blocks, not head-major) reads 1.7e-2.  The
+# limit sits near their geometric mean, ~12x from each (PERF.md, tensor parallelism).
+TP_LOSS_RTOL = 1.4e-3
+# (b): ResNet-20 at dp=2 x tp=2, fused_xent, its global batch of 256 (cut
+# from the preset's 4096: every conv's output channels cross the model group
+# through gloo's host staging) for 2 steps against tp=1 on the same batches,
+# at the preset's peak learning rate (its warmup would keep two steps' updates
+# near 0, where no gradient fault shows in the loss)
+TP_RESNET_CFG = dict(n_train=512, n_test=512, batch_size=256, eval_batch_size=256,
+                     epochs=1, fused_xent=True, synthetic=True, quiet=True,
+                     schedule="constant")
+# (b): per-step loss and the BatchNorm statistics (relative to each buffer's
+# largest magnitude) against tp=1: sound 3.2e-4 and 2.5e-2 on the H100; a
+# planted BatchNorm over every rank (dp x tp) reads 2.6e-2 and 1.8, a planted
+# gather whose backward sums (x tp) 2.0e-2 and 1e18; each limit near the
+# geometric mean of the sound reading and the nearer fault's
+TP_RESNET_LOSS_RTOL = 2.5e-3
+TP_RESNET_BN_REL = 0.2
+TP_REPS = 3
+
+
+def tp_collective_meter(torch, C):
+    """Count (and, with ``timed``, time with the card synced) every
+    all-reduce and all-gather the model axis issues, by wrapping the
+    collectives' module-level entries the mappings call."""
+    calls: list = []
+    saved = (C._sum, C.all_gather_dim)
+    state = {"timed": False}
+
+    def run(kind, fn, x, *a, **kw):
+        if state["timed"] and x.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = fn(x, *a, **kw)
+        if state["timed"] and x.is_cuda:
+            torch.cuda.synchronize()
+        calls.append((kind, x.numel() * x.element_size(), time.perf_counter() - t0))
+        return y
+
+    C._sum = lambda x, group=None: run("all_reduce", saved[0], x, group)
+    C.all_gather_dim = lambda x, dim, group=None: run("all_gather", saved[1], x, dim, group)
+
+    def restore():
+        C._sum, C.all_gather_dim = saved
+
+    return calls, state, restore
+
+
+def tp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, timed_step: bool) -> dict:
+    """sp_fit's record of a tp run (every count zeroed just before fit() and
+    read just after), its mesh coordinates and group sums, the collectives
+    a step issued (counted during fit()), and with ``timed_step`` one more
+    step after the fit with each collective timed on a synced card: the
+    all-reduce and all-gather ms a step."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
+
+    cfg = cfg_dict if isinstance(cfg_dict, RunConfig) else RunConfig(**cfg_dict)
+    collect_garbage(torch, TP_DEVICE)  # the peak below is this fit's
+    trainer = Trainer(cfg, device=TP_DEVICE)
+    caught = first_epoch_losses(trainer)
+    run_epoch = trainer._run_epoch
+    sp_sync(torch)
+    if TP_DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    calls, meter, restore = tp_collective_meter(torch, C)
+    sp_reset(fa, xent)
+    try:
+        summary = trainer.fit()
+        counts = sp_counts(fa, xent)
+    finally:
+        restore()
+    sp_sync(torch)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if TP_DEVICE != "cpu" else None
+    mesh = trainer.mesh
+    steps = trainer.state.step
+    h = trainer.history[-1]
+    fit_calls = {kind: sum(1 for c in calls if c[0] == kind) for kind in ("all_reduce",
+                                                                          "all_gather")}
+    rec = {"config": cfg.name, "steps": steps, "path_label": trainer._path_label,
+           "data_index": mesh.data_index, "model_index": mesh.model_index,
+           "eval_batches": -(-cfg.n_test // cfg.eval_batch_size),
+           "train_loss": h["train_loss"], "test_loss": h.get("test_loss"),
+           "step_losses": [float(x) for x in C.all_reduce_mean(caught[0])],
+           "s_per_step": round(h["epoch_time_s"] / trainer.steps_per_epoch, 5),
+           "tokens_per_sec_per_chip": summary.get("tokens_per_sec_per_chip"),
+           "images_per_sec_per_chip": summary.get("images_per_sec_per_chip"),
+           "chips": trainer.n_chips, "peak_mem_gb": round(peak, 3) if peak is not None else None,
+           "launches": counts, "fit_collectives": fit_calls,
+           "fit_collective_bytes": sum(c[1] for c in calls),
+           "heads_a_rank": [b.tp_heads for b in getattr(trainer.model, "blocks", [])][:1],
+           "attn_pairs": [b.tp_attn_pair for b in getattr(trainer.model, "blocks", [])]}
+    tag = torch.tensor([float(torch.distributed.get_rank())], device=TP_DEVICE)
+    rec["group_sums"] = {"model": float(C.all_reduce_sum(tag, mesh.model_group)),
+                         "data": float(C.all_reduce_sum(tag, mesh.data_group))}
+    if cfg.model != "causal_lm":  # the BatchNorm statistics after fit(), for (b)'s gate
+        rec["bn_stats"] = {k: v.float().cpu().clone() for k, v in trainer.model.named_buffers()
+                           if "running" in k}
+    if timed_step:  # one more step, every collective timed on a synced card
+        calls.clear()
+        calls, meter, restore = tp_collective_meter(torch, C)
+        meter["timed"] = True
+        b = cfg.batch_size
+        t0 = time.perf_counter()
+        try:
+            run_epoch(trainer.state, trainer.train_images[:b], trainer.train_labels[:b])
+            sp_sync(torch)
+        finally:
+            restore()
+        rec["timed_step"] = {
+            "wall_s": round(time.perf_counter() - t0, 4), "host_staged": (
+                TP_DEVICE != "cpu" and torch.distributed.get_backend(mesh.model_group) == "gloo"),
+            **{f"{kind}_{what}": round(fn(c for c in calls if c[0] == kind), 4)
+               for kind in ("all_reduce", "all_gather")
+               for what, fn in (("n", lambda cs: sum(1 for _ in cs)),
+                                ("mb", lambda cs: sum(c[1] for c in cs) / 1e6),
+                                ("ms", lambda cs: sum(c[2] for c in cs) * 1e3))}}
+    trainer.close()
+    del trainer
+    gc.collect()
+    if TP_DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def tp_refusals(Trainer, RunConfig, get_preset) -> dict:
+    """(c) what the port leaves beside tp, at dp=2 x tp=2: fsdp, MoE blocks
+    and multislice (item 7's title), pp, and stream mode (JAX's message)."""
+    base = get_preset(RESNET_DP_PRESET).replace(dp=2, tp=2, **TP_RESNET_CFG)
+    cases = {"fsdp": {"fsdp": True}, "multislice": {"dcn_dp": 2}, "pp": {"pp": 2},
+             "stream": {"input_mode": "stream"}}
+    out = {}
+    for name, kw in cases.items():
+        try:
+            Trainer(base.replace(**kw), device=TP_DEVICE).close()
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    try:
+        Trainer(RunConfig(**dict(TP_LM_CFG, dp=2, model_kwargs=dict(
+            LM_CFG["model_kwargs"], moe_every=2))), device=TP_DEVICE).close()
+        out["moe"] = None
+    except (ValueError, NotImplementedError) as e:
+        out["moe"] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def tp_rank(rank: int) -> dict:
+    """(a) one of two gloo ranks sharing the card: bench_lm8k at tp=2
+    through fit(), then one step with its collectives timed."""
+    import torch
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
+
+    return tp_fit(torch, fa, xent, Trainer, RunConfig, TP_LM_CFG, timed_step=True)
+
+
+def tp_rank4(rank: int) -> dict:
+    """(b) and (c): one of four gloo ranks sharing the card, ResNet-20 at
+    dp=2 x tp=2 through fit(), then the refusals."""
+    import torch
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig, get_preset
+
+    cfg = get_preset(RESNET_DP_PRESET).replace(dp=2, tp=2, **TP_RESNET_CFG)
+    return {"b": tp_fit(torch, fa, xent, Trainer, RunConfig,
+                        cfg.replace(name="resnet20_dp2_tp2"), timed_step=True),
+            "c": tp_refusals(Trainer, RunConfig, get_preset)}
+
+
+def tp_resnet_reference(torch, fa, xent, Trainer, get_preset) -> dict:
+    """(b)'s reference: the same ResNet-20 config at tp=1 in one process,
+    the same seed, so the same weights and global batches."""
+    cfg = get_preset(RESNET_DP_PRESET).replace(dp=1, **TP_RESNET_CFG)
+    trainer = Trainer(cfg, device=TP_DEVICE)
+    caught = first_epoch_losses(trainer)
+    sp_reset(fa, xent)
+    summary = trainer.fit()
+    counts = read_counts(fa, xent)
+    rec = {"step_losses": [float(x) for x in caught[0]], "launches": counts,
+           "s_per_step": round(trainer.history[-1]["epoch_time_s"] / trainer.steps_per_epoch, 5),
+           "images_per_sec_per_chip": summary.get("images_per_sec_per_chip"),
+           "bn_stats": {k: v.float().cpu().clone() for k, v in trainer.model.named_buffers()
+                        if "running" in k}}
+    trainer.close()
+    return rec
+
+
+def tp_bn_rel(got: dict, want: dict) -> float:
+    """The BatchNorm statistics' largest difference, relative to each
+    buffer's largest magnitude."""
+    return max(float((got[k] - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-12))
+               for k in want)
+
+
+def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict) -> dict:
+    """Tensor parallelism at full width: K3 and K4 held at each rank's
+    attention shape (8, 8192, 4, 64) first; then gloo ranks sharing the
+    card: (a) bench_lm8k at tp=2 through fit() (the main path: each rank's
+    K3 and K4 on its 4 of the 8 heads, gated per rank) against ``tp1``,
+    sequence_parallel's sp=1 fit of the same config; (b) ResNet-20 at dp=2 x
+    tp=2 (the convs' output channels gathered, BatchNorm over the data
+    group, K1/K2 through fused_xent) against its tp=1 fit; (c) the
+    refusals."""
+    Trainer, RunConfig, get_preset, torchrun = port
+    t0 = time.perf_counter()
+    errs = dpr_check_attention(torch, fa, TP_ATTN, "tensor_parallel (a), a rank at tp=2")
+    if TP_DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    ref_b = tp_resnet_reference(torch, fa, xent, Trainer, get_preset)
+    t1 = time.perf_counter()
+    ranks = torchrun.spawn(tp_rank, 2, "gloo", TP_DEVICE, tmp / "tp2", timeout=600)
+    ranks4 = torchrun.spawn(tp_rank4, 4, "gloo", TP_DEVICE, tmp / "tp4", timeout=600)
+    spawn_s = time.perf_counter() - t1
+    out = {"errs": errs}
+
+    rel = max(sp_loss_rel(r["step_losses"], tp1["step_losses"]) for r in ranks)
+    out["a"] = {"per_rank": ranks, "tp1": {k: tp1[k] for k in (
+        "step_losses", "s_per_step", "tokens_per_sec_per_chip", "peak_mem_gb", "launches")},
+                "loss_max_rel_err": rel, "limit": TP_LOSS_RTOL, "attn_shape": list(TP_ATTN)}
+    emit({"phase": "tensor_parallel", "sub": "a", "ranks_on": TP_DEVICE, "backend": "gloo",
+          "world_size": 2, "nvidia_smi": nvidia_smi_line(), **out["a"]})
+    check(rel <= TP_LOSS_RTOL, f"(a) per-step loss {rel} off tp=1's")
+    for rec in ranks:
+        c, steps, ev = rec["launches"], rec["steps"], rec["eval_batches"]
+        check(all(math.isfinite(x) for x in (rec["train_loss"], rec["test_loss"])),
+              f"(a) non-finite loss {rec}")
+        want = {"flash_fwd": DEPTH * (steps + ev), "flash_bwd_fused": DEPTH * steps}
+        got = {k: c[k] for k in want}
+        check(TP_DEVICE == "cpu" or got == want,
+              f"(a) launches on model rank {rec['model_index']}: {got}, expected {want}")
+        check(c["flash_bwd_grouped"] == c["flash_bwd_dkv"] == c["flash_bwd_dq"] == 0,
+              f"(a) another backward kernel ran: {c}")
+        check(rec["heads_a_rank"] == [TP_ATTN[2]] and all(rec["attn_pairs"]),
+              f"(a) the attention did not run on {TP_ATTN[2]} heads a rank: {rec}")
+        check(rec["path_label"] == "dp1_tp2" and rec["chips"] == 2,
+              f"(a) the layout: {rec['path_label']}, {rec['chips']} chips")
+
+    per_b = [r["b"] for r in ranks4]
+    rel_b = max(sp_loss_rel(r["step_losses"], ref_b["step_losses"]) for r in per_b)
+    bn_b = max(tp_bn_rel(r["bn_stats"], ref_b["bn_stats"]) for r in per_b)
+    out["b"] = {"per_rank": [{k: v for k, v in r.items() if k != "bn_stats"} for r in per_b],
+                "tp1": {k: v for k, v in ref_b.items() if k != "bn_stats"},
+                "loss_max_rel_err": rel_b, "bn_stats_max_rel_err": bn_b,
+                "limit": TP_RESNET_LOSS_RTOL, "bn_limit": TP_RESNET_BN_REL}
+    emit({"phase": "tensor_parallel", "sub": "b", "ranks_on": TP_DEVICE, "backend": "gloo",
+          "world_size": 4, "config": dict(TP_RESNET_CFG, preset=RESNET_DP_PRESET),
+          **out["b"]})
+    check(rel_b <= TP_RESNET_LOSS_RTOL and bn_b <= TP_RESNET_BN_REL,
+          f"(b) ResNet-20 at dp=2 x tp=2 off tp=1's: loss {rel_b}, statistics {bn_b}")
+    for rec in per_b:
+        c = rec["launches"]
+        d_, m_ = rec["data_index"], rec["model_index"]
+        check(TP_DEVICE == "cpu" or c["xent_fwd"] == c["xent_bwd"] == rec["steps"],
+              f"(b) K1/K2 on rank ({d_}, {m_}): {c}, expected {rec['steps']} each")
+        # rank = 2 * data_index + model_index: the model group is a data row
+        check(rec["group_sums"] == {"model": 4 * d_ + 1, "data": 2 + 2 * m_}
+              and rec["path_label"] == "dp2_tp2" and rec["fit_collectives"]["all_gather"] > 0,
+              f"(b) the mesh or the conv gathers: {rec}")
+
+    out["c"] = [r["c"] for r in ranks4]
+    emit({"phase": "tensor_parallel", "sub": "c", "errors": out["c"],
+          "spawn_s": round(spawn_s, 3), "phase_wall_s": round(time.perf_counter() - t0, 3)})
+    for c in out["c"]:
+        for name in ("fsdp", "moe", "multislice"):
+            check(c[name] is not None and c[name].startswith("NotImplementedError")
+                  and "Remaining parallelism" in c[name],
+                  f"(c) {name} beside tp was not refused by item 7: {c[name]}")
+        check(c["pp"] is not None and c["pp"].startswith("NotImplementedError"),
+              f"(c) pp was not refused: {c['pp']}")
+        check(c["stream"] == ("ValueError: input_mode='stream' does not compose with "
+                              "tp/sp/pp/fsdp/expert parallelism; use device mode"),
+              f"(c) stream mode beside tp: {c['stream']}")
+    return out
+
+
 MMA_SYNC = "tensor-core bf16: mma.sync on cp.async-fed tiles"
 DESIGN = {"flash_fwd": MMA_SYNC, "flash_bwd_fused": MMA_SYNC, "flash_bwd_grouped": MMA_SYNC,
           "flash_bwd_dkv": MMA_SYNC,
@@ -6163,6 +6489,9 @@ def main() -> int:
         dpr = phase_data_parallel_rest(torch, fa, xent, torchrun, Path(tmp))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sp_") as tmp:
         sp = phase_sequence_parallel(torch, fa, xent, (Trainer, RunConfig, torchrun), Path(tmp))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        tp = phase_tensor_parallel(torch, fa, xent, (Trainer, RunConfig, get_preset, torchrun),
+                                   Path(tmp), sp["c"]["sp1"])
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -6334,6 +6663,19 @@ def main() -> int:
                                                        else "bwd"][0]
                     for case in ("diagonal", "visible")}}}
 
+    # K3/K4 on tensor_parallel (a), per rank: bench_lm8k at tp=2, each rank
+    # on its 4 of the 8 heads; held at that shape in the phase
+    for name, e in (("flash_fwd", k3_entry), ("flash_bwd_fused", k4_entry)):
+        e["launches_tp2"] = {"shape": list(TP_ATTN), "max_abs_err": tp["errs"][name],
+                             "a_lm_per_rank": [r["launches"][name]
+                                               for r in tp["a"]["per_rank"]]}
+
+    def tp_xent(name):
+        """K1/K2 on tensor_parallel (b), per rank: ResNet-20 at dp=2 x tp=2,
+        (128, 10) logits a rank, the shape phase_xent_kernels held."""
+        return {"shape": list(XENT_SHAPE), "max_abs_err": xk["at_shape"][XENT_SHAPE][name],
+                "b_resnet_per_rank": [r["launches"][name] for r in tp["b"]["per_rank"]]}
+
     k4_entry["vit_training"] = on_vit("flash_bwd_fused", dict(zip(
         ("max_abs_err", "max_rel_err", "max_row_rel_err"), vit_kernels["bwd_err"])))
     print(json.dumps({"kernels": [
@@ -6363,14 +6705,14 @@ def main() -> int:
          "vit_training": on_vit_xent("xent_fwd"), "dp_launches": dp_launches(0),
          "fault_tolerant_training": ft_xent_launches("xent_fwd"),
          "lm_vit_follow_ups": {"e_moe_vit": fu["e"]["launches"]["xent_fwd"]},
-         "data_parallel_rest": dpr_xent("xent_fwd"),
+         "data_parallel_rest": dpr_xent("xent_fwd"), "launches_tp2": tp_xent("xent_fwd"),
          "launch_floor_ms": xk["launch_floor_ms"]},
         {**entry("xent_bwd", "xent.cu", "ops/xent.py:53", counts["xent_bwd"],
                  xk["max_abs_err"]["xent_bwd"], xk["timed"]["xent_bwd"], "by_shape"),
          "vit_training": on_vit_xent("xent_bwd"), "dp_launches": dp_launches(1),
          "fault_tolerant_training": ft_xent_launches("xent_bwd"),
          "lm_vit_follow_ups": {"e_moe_vit": fu["e"]["launches"]["xent_bwd"]},
-         "data_parallel_rest": dpr_xent("xent_bwd"),
+         "data_parallel_rest": dpr_xent("xent_bwd"), "launches_tp2": tp_xent("xent_bwd"),
          "launch_floor_ms": xk["launch_floor_ms"]},
         # K7 at the ring's block of bench_lm8k at sp=2; launches on (c)'s run
         k7_entry("flash_block_fwd", 893),

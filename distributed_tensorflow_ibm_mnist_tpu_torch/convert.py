@@ -481,7 +481,7 @@ def train_state_dict(jax_state_np: Any, config, **model_kw) -> dict:
 
 
 def load_train_state(jax_state_np: Any, config, device=None, total_steps: int | None = None,
-                     **model_kw):
+                     mesh=None, **model_kw):
     """A JAX ``TrainState`` (numpy leaves) as the port's ``TrainState``:
     the run's model on ``device`` (the GPU unless ``device="cpu"``) holding
     the JAX parameters and batch statistics, ``config``'s optimizer over
@@ -495,7 +495,10 @@ def load_train_state(jax_state_np: Any, config, device=None, total_steps: int | 
     A causal LM is built with float32 masters (``param_dtype``, as the
     Trainer builds it), so JAX's float32 parameters and moments arrive
     unrounded; a learned position table needs ``seq_len`` among the
-    model keywords."""
+    model keywords.  ``mesh`` with a model axis of more than one rank
+    (``parallel.mesh.make_mesh(tp=N)``): the whole leaves land first, then
+    each rank keeps its blocks of the leaves ``megatron_rule(N)`` splits
+    (``parallel.tensor_parallel.shard_train_state``)."""
     import torch as _torch
 
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.optim import make_optimizer
@@ -517,4 +520,9 @@ def load_train_state(jax_state_np: Any, config, device=None, total_steps: int | 
     state = TrainState(step=0, model=model, optimizer=optimizer,
                        data_generator=_torch.Generator(device=device))
     state.load_state_dict(form)
+    if mesh is not None and mesh.model_size > 1:
+        from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tp
+
+        specs = tp.model_param_specs(model, tp.megatron_rule(mesh.model_size))
+        tp.shard_train_state(mesh, state, specs)
     return state

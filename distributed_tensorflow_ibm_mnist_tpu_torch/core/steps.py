@@ -353,9 +353,10 @@ def make_eval_fn(model, batch_size: int = 2000, mesh: Mesh | None = None,
     (``parallel.data_parallel.shard_eval_set``); rows at or past it are
     masked out of both sums.  ``mesh``: ``images`` is this data row's block
     of the padded set (data index ``d`` holds rows ``d * n_local`` on), and
-    ``correct`` and the loss sum are added across ranks: every rank's when
-    the logits cover this rank's token slice (sequence parallelism), the
-    data axis's when they are whole on every seq rank."""
+    ``correct`` and the loss sum are added across ranks: the replica
+    group's (every rank of this model index) when the logits cover this
+    rank's token slice (sequence parallelism), the data axis's when they
+    are whole on every seq and model rank."""
 
     @torch.no_grad()
     def eval_fn(images: torch.Tensor, labels: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -363,13 +364,13 @@ def make_eval_fn(model, batch_size: int = 2000, mesh: Mesh | None = None,
         correct = torch.zeros((), device=images.device)
         loss_sum = torch.zeros((), device=images.device)
         first = 0 if mesh is None else mesh.data_index * n  # this block's first global row
-        group = None  # where the sums add up: every rank, or the data axis
+        group = None  # where the sums add up (below)
         for start in range(0, n, batch_size):
             imgs, labs = images[start:start + batch_size], labels[start:start + batch_size]
             logits = model(_as_input(imgs), train=False)
             local = local_labels(model, labs, logits)
-            if mesh is not None and local is labs:
-                group = mesh.data_group
+            if mesh is not None:  # whole logits: the data axis; a token slice: its replicas
+                group = mesh.data_group if local is labs else mesh.replica_group
             labs = local
             hits = (logits.argmax(-1) == labs).float()
             losses = cross_entropy(logits, labs)

@@ -84,7 +84,8 @@ broadcast at start and each rank's dropout generator folds in its rank.
 Metrics are averaged across ranks at each fence, so early stop and
 ``TrainingDiverged`` take the same branch on every rank; only rank 0
 writes records, and ``fit()`` returns rank 0's summary on every rank.
-``n_chips`` is dp (``dp * sp`` under sequence parallelism, below).
+``n_chips`` is dp (``dp * tp * sp`` under tensor and sequence
+parallelism, below).
 
 ``tracer`` (utils/tracing.Tracer) records the JAX Trainer's spans:
 ``epoch_dispatch`` per epoch, ``fetch`` per readback interval, ``eval``,
@@ -152,8 +153,29 @@ whole weights (the decode model drops the island).  Not ported beside
 sp: fsdp, MoE blocks and multislice (``NotImplementedError`` naming item
 7's title), ``sharded_update`` and stream mode (JAX's ``ValueError``).
 
+Tensor parallelism (``tp > 1``; JAX ``trainer.py:169-187, 471, 546-600``):
+the ranks form a ``(data, model, seq)`` mesh (``dp`` = world / (tp x sp)
+when 0; rank ``(d * tp + m) * sp + s``), and each model rank keeps its
+block of every leaf ``megatron_rule(tp)`` splits, with its moments
+(``parallel.tensor_parallel.TPPlan``, ``state.plan``).  The models run
+Megatron's pairs where tp divides the heads (the attention on H/tp heads a
+rank: K3/K4, or the ring and Ulysses under sp) and the generic gather /
+scatter path elsewhere (the convs' output channels gathered before their
+BatchNorm, whose statistics are the data group's).  Every model in
+``TRAINABLE`` runs at any dp and sp, with remat, ``grad_accum``, label
+smoothing and ``fused_xent``; the data is JAX's GSPMD epoch (one global
+permutation, each data row on its block); gradients are averaged over
+the ``dp x sp`` ranks of a model index and the clip's norm counts each
+block once.  Dropout masks are drawn equal across a model group (seeded
+by the data and seq index).  Saves gather the blocks whole (rank 0
+writes), so a tp checkpoint resumes at any tp; ``generate`` and
+``InferenceEngine.from_trainer`` decode from whole leaves.  ``n_chips``
+is ``dp * tp * sp``; the run name's label gets ``tp{n}``.  Refused beside
+tp, by item 7's title: fsdp, MoE blocks, multislice; ``sharded_update``
+and stream mode take JAX's ``ValueError``.
+
 Refused with ``NotImplementedError`` naming the ROADMAP.md item that will
-port them: tp/pp > 1.  The models' constructors refuse the rest of
+port them: pp > 1.  The models' constructors refuse the rest of
 what they cannot build yet the same way (the ViT's pipeline stages).
 """
 
@@ -222,6 +244,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import (
     make_mesh,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import (
+    TPPlan,
     model_param_specs,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
@@ -257,9 +280,8 @@ def _unknown_sp_impl_msg(sp_impl: str) -> str:
 
 def _refuse_unported(config: RunConfig) -> None:
     """Raise for every knob the port does not have yet."""
-    for axis in ("tp", "pp"):
-        if getattr(config, axis) > 1:
-            raise _later(f"{axis}={getattr(config, axis)}", _PARALLEL)
+    if config.pp > 1:
+        raise _later(f"pp={config.pp}", _PARALLEL)
     if config.dcn_dp < 1:
         raise ValueError(f"dcn_dp must be >= 1, got {config.dcn_dp}")
     if config.input_mode not in ("device", "stream"):
@@ -290,18 +312,19 @@ def _seed_words(*key: int) -> int:
     return int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0] >> 1)
 
 
-def _data_mesh(config: RunConfig, mesh: Mesh | None) -> tuple[int, int, Mesh | None]:
-    """``(dp, sp, mesh)`` of a run: ``config.dp`` (0: the process group's
-    world size over sp, 1 without a group); dp or sp > 1 builds a mesh over
-    the initialised group unless one is given (``ValueError`` naming
-    launch.torchrun without a group); a given mesh must have dp x sp
-    ranks.  ``dcn_dp > 1`` builds the multislice mesh, at dp = 1 too
-    (where it cannot divide)."""
-    sp = max(1, config.sp)
+def _data_mesh(config: RunConfig, mesh: Mesh | None
+               ) -> tuple[int, int, int, Mesh | None]:
+    """``(dp, tp, sp, mesh)`` of a run: ``config.dp`` (0: the process
+    group's world size over tp x sp, 1 without a group); dp, tp or sp > 1
+    builds a mesh over the initialised group unless one is given
+    (``ValueError`` naming launch.torchrun without a group); a given mesh
+    must have dp x tp x sp ranks.  ``dcn_dp > 1`` builds the multislice
+    mesh, at dp = 1 too (where it cannot divide)."""
+    tp, sp = max(1, config.tp), max(1, config.sp)
     dp = config.dp
     if dp == 0:
         dp = mesh.size if mesh is not None else (
-            max(1, dist.get_world_size() // sp)
+            max(1, dist.get_world_size() // (tp * sp))
             if dist.is_available() and dist.is_initialized() else 1)
     if dp < 1:
         raise ValueError(f"dp must be >= 0, got {config.dp}")
@@ -311,15 +334,17 @@ def _data_mesh(config: RunConfig, mesh: Mesh | None) -> tuple[int, int, Mesh | N
                 "dcn_dp with an explicit mesh is ambiguous — build the multislice "
                 "mesh yourself via make_mesh(..., dcn_dp=N) and leave config.dcn_dp "
                 "at 1, or pass no mesh")
-        hybrid_mesh_shapes(dp, 1, sp, 1, config.dcn_dp)
-        mesh = make_mesh(dp, sp=sp, dcn_dp=config.dcn_dp)
-    if mesh is None and (dp > 1 or sp > 1):
-        mesh = make_mesh(dp, sp=sp)
+        hybrid_mesh_shapes(dp, tp, sp, 1, config.dcn_dp)
+        mesh = make_mesh(dp, tp=tp, sp=sp, dcn_dp=config.dcn_dp)
+    if mesh is None and (dp > 1 or tp > 1 or sp > 1):
+        mesh = make_mesh(dp, tp=tp, sp=sp)
     if mesh is not None and mesh.size != dp:
         raise ValueError(f"dp={dp} but the mesh's data axis has {mesh.size} rank(s)")
+    if mesh is not None and mesh.model_size != tp:
+        raise ValueError(f"tp={tp} but the mesh's model axis has {mesh.model_size} rank(s)")
     if mesh is not None and mesh.seq_size != sp:
         raise ValueError(f"sp={sp} but the mesh's seq axis has {mesh.seq_size} rank(s)")
-    return dp, sp, mesh
+    return dp, tp, sp, mesh
 
 
 class Trainer:
@@ -351,16 +376,17 @@ class Trainer:
         if tracer is not None:
             self._compile.bind(tracer)
         self._stream = config.input_mode == "stream"
-        self.dp, self.sp, self.mesh = _data_mesh(config, mesh)
+        self.dp, self.tp, self.sp, self.mesh = _data_mesh(config, mesh)
         if config.fsdp and self.dp <= 1:
             raise ValueError(
                 "fsdp=True needs dp>1 (ZeRO-3 shards over the 'data' axis); "
                 f"got dp={self.dp}")
-        if self.sp > 1:
-            for what, on in (("fsdp", config.fsdp),
-                             ("MoE blocks (moe_every)", config.model_kwargs.get("moe_every"))):
-                if on:
-                    raise _later(f"{what} with sp={self.sp}", _PARALLEL)
+        for axis, n in (("tp", self.tp), ("sp", self.sp)):
+            if n > 1:
+                for what, on in (("fsdp", config.fsdp), ("MoE blocks (moe_every)",
+                                                         config.model_kwargs.get("moe_every"))):
+                    if on:
+                        raise _later(f"{what} with {axis}={n}", _PARALLEL)
         # MoE + dp>1 runs expert-parallel automatically: experts split over
         # 'data', tokens exchanged by all_to_all (JAX's _moe_ep)
         self._moe_ep = (self.dp > 1 and bool(config.model_kwargs.get("moe_every", 0))
@@ -369,7 +395,7 @@ class Trainer:
         self._sharded_run = bool(config.fsdp) or self._moe_ep
         # the runs that draw JAX's GSPMD epoch: one global permutation, the
         # whole set on every rank, each data row on its block of a batch
-        self._global_batches = self._sharded_run or self.sp > 1
+        self._global_batches = self._sharded_run or self.tp > 1 or self.sp > 1
         if self._global_batches and self._stream:
             raise ValueError(
                 "input_mode='stream' does not compose with tp/sp/pp/fsdp/"
@@ -392,7 +418,8 @@ class Trainer:
         # the path label of the kernel-build attribution (JAX's census label)
         self._path_label = "_".join(
             [f"dp{self.dp}"] + [part for part, on in (
-                (f"sp{self.sp}", self.sp > 1), ("fsdp", config.fsdp), ("ep", self._moe_ep),
+                (f"tp{self.tp}", self.tp > 1), (f"sp{self.sp}", self.sp > 1),
+                ("fsdp", config.fsdp), ("ep", self._moe_ep),
                 ("su", config.sharded_update), ("stream", self._stream)) if on])
         if config.batch_size % self.dp:
             raise ValueError(f"batch_size {config.batch_size} not divisible by dp={self.dp}")
@@ -486,8 +513,9 @@ class Trainer:
             replicate(self.mesh, self.model)
             model_gen = getattr(self.model, "generator", None)
             if self.dp * self.sp > 1 and model_gen is not None:
-                # decorrelated dropout masks, each rank's tokens its own
-                model_gen.manual_seed(_seed_words(config.seed, 0, self.rank))
+                # decorrelated dropout masks, each rank's tokens its own; the
+                # ranks of a model group (the same tokens) draw the same
+                model_gen.manual_seed(_seed_words(config.seed, 0, self.mesh.replica_index))
         params = list(self.model.parameters())
         self._sharded = None
         self._plan = None
@@ -513,6 +541,9 @@ class Trainer:
                 expert_specs=(model_param_specs(self.model, moe_expert_rule())
                               if self._moe_ep else None),
                 n_buckets=config.sharded_update_buckets)
+            self._plan.adopt(self.state)
+        elif self.tp > 1:  # each model rank keeps its blocks (megatron_rule(tp))
+            self._plan = TPPlan.shard(self.mesh, self.model)
             self._plan.adopt(self.state)
         if self._global_batches:  # JAX's GSPMD epoch: a block of every global batch
             self._run_epoch = make_global_epoch_runner(
@@ -592,7 +623,7 @@ class Trainer:
     @property
     def n_chips(self) -> int:
         """Devices the run occupies: the images/sec/chip denominator."""
-        return self.dp * self.sp
+        return self.dp * self.tp * self.sp
 
     def _epoch_seed(self, *key: int) -> int:
         """An epoch's data-order seed.  Under dp > 1 in device mode it folds
@@ -649,6 +680,9 @@ class Trainer:
             heads = int(model_kwargs.get("heads", _default(cfg.model, "heads")))
             heads_kv = int(model_kwargs.get("heads_kv", _default(cfg.model, "heads_kv"))
                            or 0) or heads
+            if self.tp > 1 and not (heads % self.tp or heads_kv % self.tp):
+                # the head-aligned tp path hands the attention H/tp heads
+                heads, heads_kv = heads // self.tp, heads_kv // self.tp
             if heads % self.sp or heads_kv % self.sp:
                 raise ValueError(
                     f"sp_impl='ulysses' re-shards heads over the seq axis and "
@@ -854,7 +888,7 @@ class Trainer:
                    **{key: {n: all_gather(t) for n, t in zip(names, ts)}
                       for key, ts in (("mu", o.mu), ("nu", o.nu), ("trace", o.trace))}}
         form = self.state.state_dict(optimizer=opt)
-        form["dp"], form["sp"] = self.dp, self.sp
+        form["dp"], form["tp"], form["sp"] = self.dp, self.tp, self.sp
         if self.mesh is not None:
             form["rank_generators"] = all_gather_object(form["generators"])
         return form
@@ -864,7 +898,8 @@ class Trainer:
         """Load a save form into this run (strict; ``ValueError`` when the
         optimizer's layout cannot continue here)."""
         saved_dp = int(form.get("dp", 1))
-        same_ranks = (saved_dp, int(form.get("sp", 1))) == (self.dp, self.sp)
+        same_ranks = ((saved_dp, int(form.get("tp", 1)), int(form.get("sp", 1)))
+                      == (self.dp, self.tp, self.sp))
         opt = form["optimizer"]
         zero1 = "zero1_dp" in opt
         if zero1 != (self._sharded is not None):

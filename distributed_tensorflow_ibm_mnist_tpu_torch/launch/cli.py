@@ -22,7 +22,14 @@ Data-parallel runs, one process per rank (``launch/torchrun.py``):
   spawned by this command (the port's form of JAX's virtual CPU mesh).
 
 Under a world of N ranks a config at ``dp`` 0 or 1 trains at ``dp=N /
-sp``; any other ``dp`` times ``sp`` must equal N.  ``--set sp=2 --set
+(tp * sp)``; any other ``dp`` times ``tp`` times ``sp`` must equal N.
+``--set tp=2`` splits every leaf Megatron's rule splits over each data
+row's tp ranks (tensor parallelism)::
+
+    python -m distributed_tensorflow_ibm_mnist_tpu_torch.launch.cli --virtual-devices 4 \
+        --device cpu --preset mnist_mlp_smoke --set tp=2 --set synthetic=True
+
+``--set sp=2 --set
 sp_impl=ulysses`` (or ``ring``, the default) shards the sequence of a
 sequence model (the causal LM, the ViT) over each data row's sp ranks::
 
@@ -143,9 +150,10 @@ def _join(args: argparse.Namespace) -> dict | None:
 
 def world_config(config: RunConfig, world: int) -> RunConfig:
     """``config`` as a rank of ``world`` runs it: at ``dp`` 0 or 1 the data
-    axis takes the ranks the seq axis leaves (``world / sp``)."""
+    axis takes the ranks the model and seq axes leave (``world / (tp *
+    sp)``)."""
     if world > 1 and config.dp in (0, 1):
-        return config.replace(dp=max(1, world // max(1, config.sp)))
+        return config.replace(dp=max(1, world // (max(1, config.tp) * max(1, config.sp))))
     return config
 
 

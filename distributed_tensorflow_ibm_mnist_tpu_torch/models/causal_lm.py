@@ -36,6 +36,11 @@ position, the learned table is sliced, and the logits are (B, S_local, V),
 this rank's positions only (``seq_span(S)`` names them); a sequence that
 does not divide the seq axis runs whole through the island's ``dense``.
 
+Under tensor parallelism (``parallel.tensor_parallel.TPPlan``) the
+embedding is split on its features (looked up a block a rank, then
+gathered), the head is a row split over ``dim`` (the tied head too), and
+the blocks run Megatron's pairs (models/transformer.py).
+
 ``block_remat=True`` recomputes each block's activations in the backward
 (``models/remat.py``), as the JAX model's ``nn.remat`` blocks do; decode,
 the ``sow_kv`` prefill and ``torch.no_grad`` run the blocks plainly.
@@ -73,19 +78,19 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
     quantize_kernel_int8,
     quantize_state_dict_int8,
 )
-import torch.nn.functional as F
-
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import _resolve_generator
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
     LayerNorm,
     TransformerBlock,
     _resolve_attn,
+    attention_heads,
     check_moe_knobs,
     check_quant_knobs,
     is_moe_block,
     run_blocks,
     seq_shard,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tp
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
 
 # JAX's refusal of decode for a learned position table, word for word
@@ -244,9 +249,9 @@ class CausalLM(nn.Module):
         s = tokens.shape[1]
         span = attn = None
         if cache is None and not sow_kv:
-            span, attn = seq_shard(self.attn_fn, s, self.heads, self.heads_kv)
+            span, attn = seq_shard(self.attn_fn, s, *attention_heads(self))
         lo, hi = span if span is not None else (0, s)
-        x = F.embedding(tokens[:, lo:hi].long(), self.embed.weight.to(self.dtype))
+        x = tp.embedding(tokens[:, lo:hi].long(), self.embed, self.dtype)
         if self.pos_embed is not None:
             if s != self.seq_len:
                 raise ValueError(
@@ -270,16 +275,15 @@ class CausalLM(nn.Module):
     def seq_span(self, s: int) -> tuple[int, int] | None:
         """This rank's positions ``(lo, hi)`` of a length-``s`` forward's
         logits under sequence parallelism (None: all of them)."""
-        return seq_shard(self.attn_fn, s, self.heads, self.heads_kv)[0]
+        return seq_shard(self.attn_fn, s, *attention_heads(self))[0]
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and vocab head: (B, S, dim) -> float32 logits."""
         x = self.norm_out(x)
         if self.tie_embeddings:
-            x = x @ self.embed.weight.to(self.dtype).T  # logits = x @ embed^T, shared
+            x = tp.tied_head(x, self.embed, self.dtype)  # logits = x @ embed^T, shared
         elif isinstance(self.logits, Int8Linear):
             x = self.logits(x)
         else:  # the weights cast per use (a no-op when stored in dtype)
-            x = F.linear(x, self.logits.weight.to(self.dtype),
-                         self.logits.bias.to(self.dtype))
+            x = tp.linear(x, self.logits, self.dtype)
         return x.float()

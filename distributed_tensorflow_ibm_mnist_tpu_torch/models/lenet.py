@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tp
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
 
 # flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal"),
@@ -97,12 +98,13 @@ class LeNet5(nn.Module):
         init_lecun_(self, self.generator)
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """The SAME conv in the compute dtype; under tensor parallelism this
+        rank's output channels, gathered, then the whole bias."""
         dt = self.dtype
-        return F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), padding=2)
+        return tp.conv2d(x, conv, conv.weight.to(dt), conv.bias.to(dt), padding=2)
 
     def _dense(self, fc: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        return F.linear(x, fc.weight.to(dt), fc.bias.to(dt))
+        return tp.linear(x, fc, self.dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, 28, 28, 1) NHWC images in [0, 1] -> (B, num_classes) float32."""

@@ -22,6 +22,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import (
     _resolve_generator,
     init_lecun_,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tp
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
 
 
@@ -45,7 +46,9 @@ class MLP(nn.Module):
         init_lecun_(self, self.generator)
 
     def _dense(self, fc: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, fc.weight.to(self.dtype), fc.bias.to(self.dtype))
+        """``fc`` in the compute dtype; a tensor-parallel split of it on the
+        generic path (``parallel.tensor_parallel.linear``)."""
+        return tp.linear(x, fc, self.dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """(B, ...) inputs -> (B, num_classes) float32; ``train`` is unused

@@ -34,14 +34,19 @@ Cross-replica BatchNorm (``axis_name="data"``, as flax's ``axis_name``):
 the name is resolved when the model is built to the active data mesh
 (``parallel.mesh.axis_mesh``; ``ValueError`` with no process group).  A
 training forward then averages the float32 mean and ``E[x^2]`` across
-ranks before forming the variance, as flax ``pmean``s both, so every rank
+the mesh's data group (under tensor parallelism the ranks of this model
+index only, so each row of the batch counts once) before forming the
+variance, as flax ``pmean``s both, so every rank
 normalises with the global moments and holds the same running statistics.
 The gradient through the moments needs the two channel reductions summed
-across ranks: ``batch_norm_backward_reduce``, an all-reduce, then
+across the data group: ``batch_norm_backward_reduce``, an all-reduce, then
 ``batch_norm_backward_elemt``, as ``SyncBatchNorm`` does (on CUDA; their
 plain versions, :func:`backward_reduce_plain` and
 :func:`backward_elemt_plain`, on the CPU, which has no such kernels).  Without
-``axis_name`` nothing of this runs.
+``axis_name`` nothing of this runs.  Under tensor parallelism every
+convolution's output channels are split over the model group and gathered
+before their BatchNorm (``parallel.tensor_parallel.conv2d``), so the
+BatchNorm and its statistics stay whole on every model rank.
 
 Weights are created on ``device`` (the GPU unless ``device="cpu"``) from
 ``generator`` (a fresh one seeded 0 when None): convolution and dense
@@ -70,6 +75,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
     all_reduce_mean,
     all_reduce_sum,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tp
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh, axis_mesh
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
 
@@ -187,7 +193,8 @@ class _NormalizeCrossReplica(torch.autograd.Function):
                else torch.contiguous_format)
         g = g.contiguous(memory_format=fmt)
         sum_dy, sum_dy_xmu, gw, gb = _backward_reduce(g, x, mean, invstd, weight)
-        sum_dy, sum_dy_xmu = all_reduce_sum(torch.stack([sum_dy, sum_dy_xmu]))
+        sum_dy, sum_dy_xmu = all_reduce_sum(torch.stack([sum_dy, sum_dy_xmu]),
+                                            ctx.mesh.data_group)
         gx = _backward_elemt(g, x, mean, invstd, weight, sum_dy, sum_dy_xmu,
                              x.numel() // x.shape[1], ctx.mesh.size)
         return gx, gw, gb, None, None, None, None
@@ -217,7 +224,8 @@ class BatchNorm(nn.Module):
             if self.mesh is None:
                 mean, var = batch_moments(x)
             else:  # flax pmeans E[x] and E[x^2], then forms the variance
-                mean, mean_sq = all_reduce_mean(torch.stack(_raw_moments(x)))
+                mean, mean_sq = all_reduce_mean(torch.stack(_raw_moments(x)),
+                                                self.mesh.data_group)
                 var = (mean_sq - mean.square()).clamp_min(0.0)
             if not recomputing():  # a remat region's recompute: moved once already
                 m = self.momentum
@@ -235,10 +243,16 @@ class _ConvNet(nn.Module):
     dtype: torch.dtype
 
     def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """The SAME conv in the compute dtype; split on its output channels
+        (tensor parallelism), this rank's channels, gathered before the
+        BatchNorm and kept channels-last."""
         k, s = conv.kernel_size[0], conv.stride[0]
         x, pad = same_pad(x, k, s)
         w = conv.weight.to(self.dtype, memory_format=torch.channels_last)
-        return F.conv2d(x, w, None, s, pad)
+        y = tp.conv2d(x, conv, w, None, s, pad)
+        if tp.layer_mesh(conv) is not None:
+            y = y.contiguous(memory_format=torch.channels_last)
+        return y
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -368,8 +382,7 @@ class ResNet(_ConvNet):
             x = remat(block, x, train) if self.block_remat else block(x, train)
         x = x.mean((2, 3), dtype=torch.promote_types(self.dtype, torch.float32))
         x = x.to(self.dtype)  # a float32 mean, as jnp.mean of bf16 takes it
-        w, b = self.logits.weight.to(self.dtype), self.logits.bias.to(self.dtype)
-        return F.linear(x, w, b).float()
+        return tp.linear(x, self.logits, self.dtype).float()
 
 
 # The registry's architectures as ResNet keywords (convert.py reads them too)

@@ -45,6 +45,17 @@ the seq group (a differentiable all-reduce: its backward is the sum
 too).  Where the sequence does not divide the axis the whole sequence
 stays on every rank and the blocks call the callable's ``dense`` inner.
 
+Tensor parallelism (``parallel.tensor_parallel.TPPlan`` cuts a built
+model to a model rank's blocks and marks it): where tp divides a block's
+heads and heads_kv, its attention and MLP are Megatron's pairs, one
+``copy_to_model`` in and one all-reduce out each, the attention on this
+rank's ``tp_heads`` (and ``tp_heads_kv``) heads of a head-major ``qkv`` /
+``kv_proj`` block; any other split layer takes the generic path
+(``tensor_parallel.linear``: a column's output gathered, a row's input
+scattered and its output reduced), so the attention then runs on every
+head on every model rank.  The patch conv's output channels are gathered,
+and the ``logits`` head is a row split.
+
 Not ported yet, raising ``NotImplementedError`` that names what ports it:
 the ViT's pipeline stages (``StackedBlocks``).  ``moe_fn`` (the models'
 keyword, ``parallel.expert_parallel.make_moe_dispatch_auto`` or a user's
@@ -71,11 +82,19 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import (
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import Int8Linear
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.remat import remat
-from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import all_reduce_sum
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    copy_to_model,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.expert_parallel import MoEBlock
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.ring_attention import (
     SeqParallelAttention,
     vanilla_attention,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import (
+    column,
+    layer_mesh,
+    linear as tp_linear,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
 
@@ -281,6 +300,12 @@ class TransformerBlock(nn.Module):
         self.kv_cache_dtype = kv_cache_dtype
         self.attn_fn = _resolve_attn(attn_fn, attn)
         self.dropout, self.generator = dropout, generator
+        # the model axis (parallel.tensor_parallel.TPPlan.shard sets these):
+        # its mesh, the heads this rank attends over, and whether the
+        # attention and the MLP run as Megatron pairs
+        self.tp_mesh = None
+        self.tp_heads, self.tp_heads_kv = heads, hkv
+        self.tp_attn_pair = self.tp_mlp_pair = False
 
         def linear(fan_in, fan_out):
             if quant == "int8":
@@ -304,12 +329,15 @@ class TransformerBlock(nn.Module):
             self.dense_0 = linear(dim, mlp_ratio * dim)
             self.dense_1 = linear(mlp_ratio * dim, dim)
 
-    def _dense(self, layer: nn.Module, x):
+    def _dense(self, layer: nn.Module, x, pair: bool = False):
         """``layer`` in the compute dtype (a no-op cast when the parameters
-        are already in it); an ``Int8Linear`` computes its own way."""
+        are already in it); an ``Int8Linear`` computes its own way.  A split
+        layer runs its generic path, or with ``pair`` its half of a Megatron
+        pair (``x`` already past ``copy_to_model`` for a column, this rank's
+        slice for a row)."""
         if isinstance(layer, Int8Linear):
             return layer(x)
-        return F.linear(x, layer.weight.to(self.dtype), layer.bias.to(self.dtype))
+        return tp_linear(x, layer, self.dtype, entered=pair, local=pair)
 
     def _dropout(self, x, train: bool):
         """flax's ``nn.Dropout``: active only when ``train``."""
@@ -325,13 +353,17 @@ class TransformerBlock(nn.Module):
         (RoPE's offset): the sequence-parallel forward's slice."""
         b, s, _ = x.shape
         hd = self.head_dim
+        heads, heads_kv = self.tp_heads, self.tp_heads_kv  # this rank's
         h = self.norm_attn(x)
+        pair = self.tp_attn_pair
+        if pair:  # the column half's entry: its backward sums the partials
+            h = copy_to_model(h, self.tp_mesh)
         if self.heads_kv == self.heads:
-            qkv = self._dense(self.qkv, h).view(b, s, 3, self.heads, hd)
+            qkv = self._dense(self.qkv, h, pair).view(b, s, 3, heads, hd)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         else:
-            q = self._dense(self.q_proj, h).view(b, s, self.heads, hd)
-            kv = self._dense(self.kv_proj, h).view(b, s, 2, self.heads_kv, hd)
+            q = self._dense(self.q_proj, h, pair).view(b, s, heads, hd)
+            kv = self._dense(self.kv_proj, h, pair).view(b, s, 2, heads_kv, hd)
             k, v = kv[:, :, 0], kv[:, :, 1]
         kv_out = None
         if cache is not None and "block_table" in cache:
@@ -347,7 +379,8 @@ class TransformerBlock(nn.Module):
                 q, k = apply_rope(q, offset=offset), apply_rope(k, offset=offset)
             kv_out = (k, v)
             o = (attn or self.attn_fn)(q, k, v)
-        x = x + self._dropout(self._dense(self.proj, o.reshape(b, s, self.dim)), train)
+        x = x + self._dropout(self._dense(self.proj, o.reshape(b, s, heads * hd), pair),
+                              train)
         h = self.norm_mlp(x)
         moe = None
         if self.moe is not None:
@@ -357,8 +390,11 @@ class TransformerBlock(nn.Module):
             moe = {"aux": aux, "dropped": stats["dropped"],
                    "z": self.moe.z_weight * stats["z"] if self.moe.z_weight > 0.0 else None}
         else:
-            h = self._dense(self.dense_1,
-                            F.gelu(self._dense(self.dense_0, h), approximate="tanh"))
+            pair = self.tp_mlp_pair
+            if pair:
+                h = copy_to_model(h, self.tp_mesh)
+            h = self._dense(self.dense_1, F.gelu(self._dense(self.dense_0, h, pair),
+                                                 approximate="tanh"), pair)
         return x + self._dropout(h, train), kv_out, moe
 
     def _decode_attention(self, q, k, v, cache: dict, max_len: int,
@@ -498,6 +534,16 @@ def _block_out(block: TransformerBlock, x: torch.Tensor, train: bool,
     takes them from the forward and the recompute only rebuilds)."""
     out, _, moe = block(x, train=train, attn=attn, offset=offset)
     return out, moe
+
+
+def attention_heads(model) -> tuple[int, int]:
+    """The (heads, heads_kv) a model's blocks hand their attention on this
+    rank: H/tp of each on the head-aligned tensor-parallel path, all of
+    them otherwise."""
+    block = model.blocks[0] if len(model.blocks) else None
+    if block is None:
+        return model.heads, model.heads_kv
+    return block.tp_heads, block.tp_heads_kv
 
 
 def seq_shard(attn_fn, s: int, heads: int, heads_kv: int):
@@ -643,7 +689,7 @@ class VisionTransformer(nn.Module):
     def seq_span(self, s: int) -> tuple[int, int] | None:
         """This rank's token slice of a length-``s`` sequence under
         sequence parallelism (None: the whole sequence)."""
-        return seq_shard(self.attn_fn, s, self.heads, self.heads_kv)[0]
+        return seq_shard(self.attn_fn, s, *attention_heads(self))[0]
 
     def forward(self, x: torch.Tensor, train: bool = False, with_moe: bool = False):
         """(B, H, W, C) NHWC images in [0, 1] -> (B, num_classes) float32
@@ -657,12 +703,18 @@ class VisionTransformer(nn.Module):
                              f"{self.image_size[1]} images, got {h}x{w}")
         dt = self.dtype
         pe = self.patch_embed
-        span, attn = seq_shard(self.attn_fn, self.seq_len, self.heads, self.heads_kv)
+        span, attn = seq_shard(self.attn_fn, self.seq_len, *attention_heads(self))
         # the stride-p conv as a product over flattened patches: this rank's
-        # token slice only under sequence parallelism, every token otherwise
+        # token slice only under sequence parallelism, every token otherwise;
+        # split on its output channels, this rank's channels, gathered
         lo, hi = (0, self.seq_len) if span is None else span
-        w_pe = pe.weight.to(dt).permute(0, 2, 3, 1).reshape(self.dim, -1)
-        x = F.linear(self._patches(x.to(dt))[:, lo:hi], w_pe, pe.bias.to(dt))
+        w_pe = pe.weight.to(dt).permute(0, 2, 3, 1).reshape(pe.weight.shape[0], -1)
+        patches = self._patches(x.to(dt))[:, lo:hi]
+        mesh = layer_mesh(pe)
+        if mesh is None:
+            x = F.linear(patches, w_pe, pe.bias.to(dt))
+        else:
+            x = column(patches, lambda t: F.linear(t, w_pe), mesh, pe.bias.to(dt))
         x = x + self.pos_embed[:, lo:hi].to(dt)
         x, moe = run_blocks(self.blocks, x, train, self.block_remat, self.generator,
                             attn=attn, offset=lo)
@@ -673,6 +725,5 @@ class VisionTransformer(nn.Module):
             x = all_reduce_sum(self.norm_out(x).sum(1, dtype=acc),
                                group=self.attn_fn.mesh.seq_group) / self.seq_len
         x = x.to(dt)  # a float32 mean, as jnp.mean of bf16 takes it
-        w_out, b_out = self.logits.weight.to(dt), self.logits.bias.to(dt)
-        logits = F.linear(x, w_out, b_out).float()
+        logits = tp_linear(x, self.logits, dt).float()
         return (logits, moe) if with_moe else logits

@@ -49,6 +49,19 @@ ranks whose gradients a step averages; ``mesh.seq_group`` /
   (``ring_shift.host_staged`` counts those hops); NCCL sends device
   memory.  Differentiable: the backward shifts the gradient back.
 
+* Megatron's four mappings over the mesh's ``model`` group (tensor
+  parallelism; each the identity at tp = 1, each a
+  ``torch.autograd.Function``): :func:`copy_to_model` (forward identity,
+  backward all-reduce: the entry of a column-parallel region, whose
+  replicated input each rank uses with its own block of the weight),
+  :func:`reduce_from_model` (forward all-reduce of the partial sums of a
+  row-parallel product, backward identity), :func:`scatter_to_model`
+  (forward this rank's slice of a dim, backward all-gather) and
+  :func:`gather_from_model` (forward all-gather of a dim, backward this
+  rank's slice).  The backward of a gather is a slice, not a
+  reduce-scatter: every rank of a replicated region already holds the
+  whole gradient, so a sum over the group would multiply it by tp.
+
 A mean is a sum divided by the rank count: gloo has no ``AVG``.  gloo
 takes CUDA tensors too (several ranks sharing one card).
 :func:`all_reduce_mean` is differentiable on a tensor that requires grad
@@ -287,6 +300,103 @@ def ring_shift(x: Tensors, group=None, shift: int = 1):
 ring_shift.host_staged = 0  # hops staged through pinned host buffers (gloo, CUDA)
 
 
+# ---------------------------------------------------------------------------
+# Megatron's mappings over the model axis (tensor parallelism).  A model
+# rank holds its block of every split leaf and the whole of every other
+# activation; these four move activations between the two forms.  Each
+# takes the mesh (None, or a model axis of one rank: the identity).
+# ---------------------------------------------------------------------------
+
+
+def _model_axis(mesh: Mesh | None):
+    """``(group, size, index)`` of the mesh's model axis, or None when it has
+    one rank (or there is no mesh)."""
+    if mesh is None or mesh.model_size == 1:
+        return None
+    return mesh.model_group, mesh.model_size, mesh.model_index
+
+
+def _slice(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over {n} model ranks")
+    return x.chunk(n, dim)[i].contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n, i):
+        ctx.dim, ctx.group = dim, group
+        return _slice(x, dim, n, i)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g.contiguous(), ctx.dim % g.ndim, ctx.group), None, None, None, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n, i):
+        ctx.dim, ctx.n, ctx.i = dim, n, i
+        return all_gather_dim(x.contiguous(), dim % x.ndim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.dim, ctx.n, ctx.i), None, None, None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """Forward the identity, backward the sum of the gradients over the
+    model group: where a replicated activation enters a column-parallel
+    region (each rank's gradient holds only its block's share)."""
+    axis = _model_axis(mesh)
+    return x if axis is None else _CopyToModel.apply(x, axis[0])
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
+    """Forward the sum over the model group (a row-parallel product's
+    partial sums made whole), backward the identity."""
+    axis = _model_axis(mesh)
+    if axis is None:
+        return x
+    return _ReduceFromModel.apply(x, axis[0]) if x.requires_grad else _sum(x, axis[0])
+
+
+def scatter_to_model(x: torch.Tensor, dim: int, mesh: Mesh | None) -> torch.Tensor:
+    """Forward this model rank's 1/tp slice of ``dim`` (the input of a
+    row-parallel product), backward the all-gather of the gradients."""
+    axis = _model_axis(mesh)
+    return x if axis is None else _ScatterToModel.apply(x, dim, *axis)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, mesh: Mesh | None) -> torch.Tensor:
+    """Forward every model rank's block concatenated along ``dim`` (the
+    output of a column-parallel product made whole), backward this rank's
+    slice of the gradient."""
+    axis = _model_axis(mesh)
+    return x if axis is None else _GatherFromModel.apply(x, dim, *axis)
+
+
 def broadcast(x: torch.Tensor, root: int = 0, group=None) -> torch.Tensor:
     """Every rank receives the ``x`` of rank ``root`` of ``group``."""
     y = x.clone()
@@ -432,13 +542,14 @@ def unflatten_buckets(buckets: Sequence[torch.Tensor],
             for s in layout.slots]
 
 
-def grouped_all_reduce_mean(buckets: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
-    """Mean every bucket across ranks, in place (sum, then divide by the
-    rank count): the data-parallel step's gradient all-reduce, one
-    collective a bucket."""
-    n = axis_size()
+def grouped_all_reduce_mean(buckets: Sequence[torch.Tensor],
+                            group=None) -> Sequence[torch.Tensor]:
+    """Mean every bucket across the ranks of ``group`` (every rank when
+    None), in place (sum, then divide by the rank count): the
+    data-parallel step's gradient all-reduce, one collective a bucket."""
+    n = axis_size(group)
     for b in buckets:
-        dist.all_reduce(b)
+        dist.all_reduce(b, group=group)
         b.div_(n)
     return buckets
 

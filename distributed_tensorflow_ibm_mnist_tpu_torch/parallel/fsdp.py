@@ -74,6 +74,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import (
+    BESIDE_TP,
     P,
     SpecRule,
     make_param_specs,
@@ -216,6 +217,10 @@ class ShardPlan:
         splits is an fsdp leaf, else one ``opt_specs`` splits has ZeRO-1
         moments (in ``n_buckets`` buckets), else it is replicated (specs in
         the port's layout)."""
+        if any(ax == "model" for specs in (param_specs, opt_specs, expert_specs) if specs
+               for spec in specs.values() for ax in spec):
+            raise NotImplementedError(f"fsdp beside tp (a spec over 'model') is not "
+                                      f"ported: {BESIDE_TP}")
         names, params, kinds, split = [], [], [], []
         for name, p in model.named_parameters():
             kind, dim = REPLICATED, None
@@ -449,7 +454,12 @@ def shard_train_state(mesh: Mesh, state, param_specs: Mapping[str, P], opt_specs
     (:func:`make_fsdp_opt_specs`) shards the moments of replicated leaves
     too.  Returns the state, now carrying its :class:`ShardPlan` (the
     module's parameters of sharded leaves are released until a step
-    gathers them)."""
+    gathers them).  Specs over ``model`` are tensor parallelism's
+    (``tensor_parallel.shard_train_state``)."""
+    if any(ax == "model" for spec in param_specs.values() for ax in spec):
+        from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel
+
+        return tensor_parallel.shard_train_state(mesh, state, param_specs, opt_specs)
     plan = ShardPlan.build(mesh, state.model, param_specs, opt_specs=opt_specs)
     plan.adopt(state)
     return state

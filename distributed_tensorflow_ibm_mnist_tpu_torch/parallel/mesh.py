@@ -3,14 +3,20 @@
 The counterpart of the JAX package's ``parallel/mesh.py`` ``make_mesh``.
 JAX lays the visible devices out on a ``(data, model, seq, pipe)`` grid;
 the port lays its ranks (each one process, one device) out on the same
-grid with ``data`` outermost, so rank ``r`` sits at ``data_index = r //
-sp`` and ``seq_index = r % sp``, and ``dp * sp`` is the world size.  Under
-``sp > 1`` each axis has its own process group: the ``seq`` group of a
-rank holds the ranks of its data row (the ring's hops and Ulysses'
-all-to-alls run there), the ``data`` group the ranks at its seq index.
-Every rank builds every group, in the same order (``dist.new_group`` is
-collective).  ``model`` and ``pipe`` are refused by name until their
-ROADMAP.md item ports them.
+grid in the same order, ``data`` outermost and ``seq`` innermost, so rank
+``r = (d * tp + m) * sp + s`` sits at ``data_index = d``, ``model_index =
+m`` and ``seq_index = s``, and ``dp * tp * sp`` is the world size.  Each
+axis of more than one rank has its own process group: the ``seq`` group
+of a rank holds the ranks that differ from it in ``s`` only (the ring's
+hops and Ulysses' all-to-alls run there), the ``model`` group those that
+differ in ``m`` only (Megatron's mappings, ``parallel/collectives.py``),
+the ``data`` group those that differ in ``d`` only (cross-replica
+BatchNorm); the ``replica`` group holds the ``dp * sp`` ranks of one
+model index, which hold the same blocks of the weights and average their
+gradients.  Every rank builds every group, in the same order
+(``dist.new_group`` is collective, and a group built out of order
+deadlocks).  ``pipe`` is refused by name until its ROADMAP.md item ports
+it.
 
 Multislice (``dcn_dp=N``, JAX's hybrid ICI x DCN mesh): the group must
 span N nodes with dp/N ranks each.  A rank's node is its host name,
@@ -24,7 +30,8 @@ picks its own rings across nodes, as XLA does over JAX's hybrid mesh.
 
 The models that take JAX's ``axis_name="data"`` (cross-replica
 BatchNorm) resolve it when they are built (:func:`axis_mesh`) to the mesh
-over the initialised default group; with no group they raise.
+:func:`make_mesh` built last in this process (over the initialised default
+group when none was built); with no group they raise.
 """
 
 from __future__ import annotations
@@ -47,11 +54,13 @@ def no_group_error(what: str) -> ValueError:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The ``(data, seq)`` grid over the default process group and this
-    process's rank in it.  ``data_group`` / ``seq_group`` are the axes'
-    process groups; None means the default group for ``data`` (sp = 1:
-    the data axis is the whole group) and no group for ``seq`` (sp = 1:
-    a seq axis of one rank, which exchanges nothing)."""
+    """The ``(data, model, seq)`` grid over the default process group and
+    this process's rank in it.  ``data_group`` / ``model_group`` /
+    ``seq_group`` / ``replica_group`` are the axes' process groups (module
+    docstring).  None means the default group for ``data`` (tp = sp = 1:
+    the data axis is the whole group) and for ``replica`` (tp = 1: every
+    rank holds the same weights), and no group for ``model`` and ``seq``
+    (an axis of one rank, which exchanges nothing)."""
 
     shape: dict[str, int]
     rank: int
@@ -61,6 +70,8 @@ class Mesh:
     order: tuple[int, ...] = ()  # ranks in node-major order
     data_group: Any = dataclasses.field(default=None, compare=False, repr=False)
     seq_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    model_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    replica_group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def size(self) -> int:
@@ -73,9 +84,28 @@ class Mesh:
         return self.shape["seq"]
 
     @property
+    def model_size(self) -> int:
+        """Ranks along the model axis (tp)."""
+        return self.shape["model"]
+
+    @property
     def data_index(self) -> int:
         """This rank's place along the data axis: the rows it trains on."""
-        return self.rank // self.shape["seq"]
+        return self.rank // (self.shape["model"] * self.shape["seq"])
+
+    @property
+    def model_index(self) -> int:
+        """This rank's place along the model axis: the block of each split
+        leaf it holds."""
+        return (self.rank // self.shape["seq"]) % self.shape["model"]
+
+    @property
+    def replica_index(self) -> int:
+        """This rank's place among the ``dp * sp`` ranks of its model index
+        (``data_index * sp + seq_index``; the rank itself at tp = 1): what
+        its random streams are keyed by, so the ranks of a model group draw
+        the same ones."""
+        return self.data_index * self.shape["seq"] + self.seq_index
 
     @property
     def seq_index(self) -> int:
@@ -133,87 +163,118 @@ def rank_records() -> list[RankRecord]:
     return [RankRecord(r, h, index.setdefault(h, len(index))) for r, h in enumerate(hosts)]
 
 
-def _axis_groups(dp: int, sp: int, rank: int) -> tuple:
-    """``(data_group, seq_group)`` of ``rank`` on a ``(dp, sp)`` grid: one
-    new group per data row (its sp ranks) and per seq column (its dp
-    ranks), built on every rank in the same order."""
-    data_group = seq_group = None
-    for d in range(dp):
-        g = dist.new_group(list(range(d * sp, (d + 1) * sp)))
-        if rank // sp == d:
-            seq_group = g
-    for s in range(sp):
-        g = dist.new_group(list(range(s, dp * sp, sp)))
-        if rank % sp == s:
-            data_group = g
-    return data_group, seq_group
+def _axis_groups(dp: int, tp: int, sp: int, rank: int) -> dict:
+    """This rank's process group of each axis of a ``(dp, tp, sp)`` grid
+    (``{"data_group": ..., ...}``; an axis of one rank, or the whole world,
+    gets none).  Every rank builds every group, in one fixed order: the
+    seq groups, the data groups, the model groups, the replica groups."""
+    def at(d, m, s):
+        return (d * tp + m) * sp + s
+
+    mine: dict = {}
+
+    def build(name, members_of):
+        for members in members_of:
+            g = dist.new_group(members)
+            if rank in members:
+                mine[name] = g
+
+    if sp > 1:
+        build("seq_group", ([at(d, m, s) for s in range(sp)]
+                            for d in range(dp) for m in range(tp)))
+    if tp > 1 or sp > 1:
+        build("data_group", ([at(d, m, s) for d in range(dp)]
+                             for m in range(tp) for s in range(sp)))
+    if tp > 1:
+        build("model_group", ([at(d, m, s) for m in range(tp)]
+                              for d in range(dp) for s in range(sp)))
+        build("replica_group", ([at(d, m, s) for d in range(dp) for s in range(sp)]
+                                for m in range(tp)))
+    return mine
+
+
+_CURRENT: list = [None]  # the mesh make_mesh built last in this process
 
 
 def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1,
               dcn_dp: int = 1, devices: list | None = None) -> Mesh:
-    """The ``(data, seq)`` mesh over the initialised default process group.
+    """The ``(data, model, seq)`` mesh over the initialised default process
+    group.
 
-    ``dp=None`` (or 0) is the world size over ``sp``, as JAX gives the
-    data axis the devices the other axes leave; ``dp * sp`` must equal the
-    world size (one rank per process).  ``sp > 1`` builds the two axes'
-    process groups (module docstring).  ``tp`` and ``pp`` above 1 raise
+    ``dp=None`` (or 0) is the world size over ``tp * sp``, as JAX gives the
+    data axis the devices the other axes leave; ``dp * tp * sp`` must equal
+    the world size (one rank per process).  ``tp > 1`` or ``sp > 1`` builds
+    the axes' process groups (module docstring).  ``pp`` above 1 raises
     ``NotImplementedError``.  ``dcn_dp > 1`` is multislice (module
-    docstring), at ``sp = 1`` only: ``devices`` are the group's rank
+    docstring), at ``tp = sp = 1`` only: ``devices`` are the group's rank
     records in rank order (default :func:`rank_records`); ``ValueError``
     unless they span ``dcn_dp`` slices of ``dp / dcn_dp`` ranks each, laid
-    out node-major (ranks of a node contiguous, as torchrun numbers them)."""
+    out node-major (ranks of a node contiguous, as torchrun numbers them).
+    The mesh becomes the one :func:`axis_mesh` returns."""
     if dcn_dp < 1:
         raise ValueError(f"dcn_dp must be >= 1, got {dcn_dp}")
-    for name, n in (("tp", tp), ("pp", pp)):
-        if n > 1:
-            raise NotImplementedError(
-                f"{name}={n} is not ported to the PyTorch package yet: {_PARALLEL}")
-    if sp < 1:
-        raise ValueError(f"sp must be >= 1, got {sp}")
-    if dcn_dp > 1 and sp > 1:
+    if pp > 1:
         raise NotImplementedError(
-            f"dcn_dp={dcn_dp} with sp={sp} (a multislice data axis beside a seq "
-            f"axis) is not ported to the PyTorch package yet: {_PARALLEL}")
+            f"pp={pp} is not ported to the PyTorch package yet: {_PARALLEL}")
+    for name, n in (("tp", tp), ("sp", sp)):
+        if n < 1:
+            raise ValueError(f"{name} must be >= 1, got {n}")
+    for name, n in (("tp", tp), ("sp", sp)):
+        if dcn_dp > 1 and n > 1:
+            axis = "model" if name == "tp" else "seq"
+            raise NotImplementedError(
+                f"dcn_dp={dcn_dp} with {name}={n} (a multislice data axis beside a "
+                f"{axis} axis) is not ported to the PyTorch package yet: {_PARALLEL}")
     if not (dist.is_available() and dist.is_initialized()):
-        raise no_group_error(f"make_mesh(dp={dp}, sp={sp})" if sp > 1
-                             else f"make_mesh(dp={dp})")
+        axes = "".join(f", {k}={v}" for k, v in (("tp", tp), ("sp", sp)) if v > 1)
+        raise no_group_error(f"make_mesh(dp={dp}{axes})")
     world = dist.get_world_size()
+    inner = tp * sp
     if dp is None or dp == 0:
-        dp = world // sp
+        dp = world // inner
         if dp == 0:
             raise ValueError(
-                f"tp*sp*pp={sp} exceeds device count {world}; no room for a data axis")
-    if dp * sp != world:
-        what, axes = (f"dp={dp}", "dp") if sp == 1 else (f"dp={dp} x sp={sp}", "dp x sp")
+                f"tp*sp*pp={inner} exceeds device count {world}; no room for a data axis")
+    if dp * inner != world:
+        parts = [f"dp={dp}"] + [f"{k}={v}" for k, v in (("tp", tp), ("sp", sp)) if v > 1]
+        axes = " x ".join(p.split("=")[0] for p in parts)
         raise ValueError(
-            f"{what} but the process group has {world} rank(s): the port runs "
-            f"one rank per process, so {axes} must equal the world size")
-    shape = {"data": dp, "model": 1, "seq": sp, "pipe": 1}
+            f"{' x '.join(parts)} but the process group has {world} rank(s): the port "
+            f"runs one rank per process, so {axes} must equal the world size")
+    shape = {"data": dp, "model": tp, "seq": sp, "pipe": 1}
     rank = dist.get_rank()
-    if sp > 1:
-        data_group, seq_group = _axis_groups(dp, sp, rank)
-        return Mesh(shape=shape, rank=rank, data_group=data_group, seq_group=seq_group)
-    if dcn_dp == 1:
-        return Mesh(shape=shape, rank=rank)
-    ici, dcn = hybrid_mesh_shapes(dp, tp, sp, pp, dcn_dp)
-    records = list(devices) if devices is not None else rank_records()
-    if len(records) != world:
-        raise ValueError(f"{len(records)} rank records for a group of {world}")
-    chosen = pick_multislice_devices(records, dcn_dp, dp // dcn_dp)
-    order = tuple(r.rank for r in chosen)
-    if order != tuple(range(world)):
-        raise ValueError(
-            f"dcn_dp={dcn_dp}: the ranks are not node-major (node-major order "
-            f"{list(order)}); number each node's ranks contiguously, as torchrun does")
-    return Mesh(shape=shape, rank=rank, dcn_dp=dcn_dp, ici_shape=ici,
-                dcn_shape=dcn, order=order)
+    if inner > 1:
+        mesh = Mesh(shape=shape, rank=rank, **_axis_groups(dp, tp, sp, rank))
+    elif dcn_dp == 1:
+        mesh = Mesh(shape=shape, rank=rank)
+    else:
+        ici, dcn = hybrid_mesh_shapes(dp, tp, sp, pp, dcn_dp)
+        records = list(devices) if devices is not None else rank_records()
+        if len(records) != world:
+            raise ValueError(f"{len(records)} rank records for a group of {world}")
+        chosen = pick_multislice_devices(records, dcn_dp, dp // dcn_dp)
+        order = tuple(r.rank for r in chosen)
+        if order != tuple(range(world)):
+            raise ValueError(
+                f"dcn_dp={dcn_dp}: the ranks are not node-major (node-major order "
+                f"{list(order)}); number each node's ranks contiguously, as torchrun does")
+        mesh = Mesh(shape=shape, rank=rank, dcn_dp=dcn_dp, ici_shape=ici,
+                    dcn_shape=dcn, order=order)
+    _CURRENT[0] = mesh
+    return mesh
 
 
 def axis_mesh(axis_name: str) -> Mesh:
-    """The mesh a model's ``axis_name`` names: the one over the default
-    group; ``ValueError`` without a group."""
+    """The mesh a model's ``axis_name`` names: the one :func:`make_mesh`
+    built last (its ``data_group`` is the axis), or, when none was built,
+    one over the default group; ``ValueError`` without a group."""
     if axis_name != "data":
         raise ValueError(f"unknown mesh axis {axis_name!r}: the port's mesh has 'data'")
     if not (dist.is_available() and dist.is_initialized()):
         raise no_group_error(f"axis_name={axis_name!r} (cross-replica reduction)")
+    current = _CURRENT[0]
+    if current is not None and current.rank == dist.get_rank() and (
+            current.shape["data"] * current.shape["model"] * current.shape["seq"]
+            == dist.get_world_size()):
+        return current
     return make_mesh()

@@ -19,21 +19,83 @@ permuted to OIHW.
 
 Placement is explicit here, not GSPMD's: ``fsdp.shard_train_state`` makes
 a state whose ranks each keep their block of every sharded leaf, and
-``parallel/fsdp.py`` has the step that runs on it.  The ``model`` axis
-(tensor parallelism proper: ``make_tp_train_step``,
-``make_tp_epoch_runner``) and the serving half (``kv_cache_rule``,
-``serving_mesh``, ``tp_device_groups``, ``per_chip_bytes``) are not ported
-yet: each raises ``NotImplementedError`` naming its ROADMAP.md item.
+``parallel/fsdp.py`` has the step that runs on it.
+
+The ``model`` axis (tensor parallelism in training).  JAX jits the
+unchanged single-device step under ``megatron_rule(tp)``'s shardings and
+GSPMD inserts every collective.  A port rank is a process, so the port
+places them itself, and its numbers are still the single-device step's:
+
+* :class:`TPPlan` (``shard_train_state`` over ``model``) keeps, on each
+  model rank, its block of every leaf the rule splits, in the module's
+  own parameter, and the optimizer's moments of those blocks; a leaf
+  whose dim does not divide stays whole, as JAX degrades it.  Each split
+  layer carries ``tp_dim`` (the dim of its weight that is split) and
+  ``tp_mesh``.
+* The forward places Megatron's four mappings
+  (``collectives.copy_to_model`` / ``reduce_from_model`` /
+  ``scatter_to_model`` / ``gather_from_model``).  Where tp divides a
+  block's ``heads`` and ``heads_kv``, the attention and the MLP are the
+  Megatron pairs: the column ``qkv`` (or ``q_proj`` + ``kv_proj``) on
+  this rank's H/tp heads, attention on those heads, the row ``proj`` and
+  one all-reduce; ``dense_0`` -> ``dense_1`` likewise.  JAX's fused
+  ``qkv`` output is laid ``[3][H][D]``, so a contiguous 1/tp block of it
+  is not this rank's heads: such a block holds rows ``{c * dim + r *
+  dim / tp + j}`` of each of q, k and v (:func:`head_major_order`;
+  ``kv_proj`` within its ``[2][H_kv][D]``), the values JAX's spec puts on
+  the rank, in head-major order.  Everywhere else the generic path holds
+  (:func:`linear`, :func:`conv2d`, :func:`embedding`, :func:`tied_head`):
+  a column-split layer's output is gathered, a row-split layer's input is
+  scattered and its output reduced; the ViT at tp=4 with 2 heads runs its
+  attention whole on every model rank, the convs' output channels are
+  gathered before their BatchNorm or ReLU.
+* Gradients: a block's gradient is this rank's share of the whole leaf's,
+  a replicated leaf's is the same on every model rank (each rank's
+  ``copy_to_model`` sums the partial gradients of a replicated activation),
+  so nothing reduces over ``model``; every gradient is averaged over the
+  ``dp * sp`` ranks of the replica group, and the clip's global norm
+  counts each block once across the model group and each replicated leaf
+  once.
+* The save form is whole: :meth:`TPPlan.whole` gathers each block over
+  the model group (its head-major rows put back in order), so a tp
+  checkpoint resumes at any tp.
+
+The serving half (``kv_cache_rule``, ``serving_mesh``,
+``tp_device_groups``, ``per_chip_bytes``) is not ported yet: each raises
+``NotImplementedError`` naming its ROADMAP.md item (7.1b).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import re
 from collections.abc import Mapping, Sequence
 from typing import Any, Callable
 
-TENSOR_PARALLEL = ("ROADMAP.md queue 1, item 7.1 ('Remaining parallelism and "
-                   "utilities': tensor parallelism over the model axis)")
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
+    all_gather_dim,
+    all_reduce_sum,
+    copy_to_model,
+    flatten_buckets,
+    gather_from_model,
+    grouped_all_reduce_mean,
+    make_bucket_layout,
+    reduce_from_model,
+    scatter_to_model,
+    unflatten_buckets,
+)
+
+TENSOR_PARALLEL = ("ROADMAP.md queue 1, item 7.1b ('Remaining parallelism and "
+                   "utilities': serving at tp and cp > 1)")
+PARALLEL = "ROADMAP.md queue 1, item 7, 'Remaining parallelism and utilities'"
+BESIDE_TP = ("ROADMAP.md queue 1, item 7.7 ('Remaining parallelism and utilities': "
+             "fsdp, MoE blocks and multislice beside sp and tp)")
 
 
 class P(tuple):
@@ -238,15 +300,435 @@ def model_param_specs(model, rule: SpecRule) -> dict[str, P]:
 
 
 def shard_dim(spec: P, axis: str = "data") -> int | None:
-    """The one dim ``spec`` splits over ``axis`` (None when it splits none);
-    any other axis is tensor parallelism, not ported."""
+    """The one dim ``spec`` splits over ``axis`` (None when it splits none).
+    A spec may name ``data`` and ``model``; any other axis (``pipe``) is
+    not ported."""
     for ax in spec:
-        if ax is not None and ax != axis:
+        if ax is not None and ax not in ("data", "model"):
             raise NotImplementedError(
-                f"a spec over the {ax!r} axis ({spec}) needs tensor parallelism: "
-                f"{TENSOR_PARALLEL}")
+                f"a spec over the {ax!r} axis ({spec}) is not ported: {PARALLEL}")
     dims = [i for i, ax in enumerate(spec) if ax == axis]
     return dims[0] if dims else None
+
+
+# ---------------------------------------------------------------------------
+# The model axis in the forward: the generic path of each split layer (module
+# docstring).  ``layer.tp_mesh`` is None (or absent) on an unsplit layer,
+# which then runs its plain product, the tp = 1 launches exactly.
+# ---------------------------------------------------------------------------
+
+
+def layer_mesh(layer: nn.Module):
+    """The mesh of a split layer, None for a whole one."""
+    return getattr(layer, "tp_mesh", None)
+
+
+def column(x: torch.Tensor, fn: Callable, mesh, bias: torch.Tensor | None = None,
+           dim: int = -1, entered: bool = False, gather: bool = True) -> torch.Tensor:
+    """A column-parallel product ``fn(x)`` (this rank's block of the
+    output features along ``dim``).  ``entered``: ``x`` already passed
+    ``copy_to_model``; ``gather=False`` keeps the block (a Megatron pair's
+    first half).  ``bias``, whole, is added after the gather; a block's
+    own bias belongs in ``fn``."""
+    y = fn(x if entered else copy_to_model(x, mesh))
+    if not gather:
+        return y
+    y = gather_from_model(y, dim, mesh)
+    if bias is None:
+        return y
+    return y + (bias if dim in (-1, y.ndim - 1) else bias.view(-1, *[1] * (y.ndim - dim - 1)))
+
+
+def row(x: torch.Tensor, fn: Callable, mesh, bias: torch.Tensor | None = None,
+        local: bool = False) -> torch.Tensor:
+    """A row-parallel product: ``fn`` on this rank's slice of the last dim
+    of ``x`` (already sliced when ``local``), the partial sums reduced over
+    the model group, then the whole ``bias``."""
+    y = reduce_from_model(fn(x if local else scatter_to_model(x, -1, mesh)), mesh)
+    return y if bias is None else y + bias
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, entered: bool = False,
+           local: bool = False) -> torch.Tensor:
+    """``layer`` in ``dtype`` on ``x``: the plain product when it is whole,
+    else its column (``tp_dim`` 0) or row (``tp_dim`` 1) split on the
+    generic path, or, with ``local``, as one half of a Megatron pair (a
+    column keeps its output block, a row takes ``x`` as this rank's
+    slice)."""
+    w = layer.weight.to(dtype)
+    b = None if layer.bias is None else layer.bias.to(dtype)
+    mesh = layer_mesh(layer)
+    if mesh is None:
+        return F.linear(x, w, b)
+    if layer.tp_dim == 0:
+        own = b is not None and b.shape[0] == w.shape[0]  # the bias block
+        return column(x, lambda h: F.linear(h, w, b if own else None), mesh,
+                      None if own else b, entered=entered, gather=not local)
+    return row(x, lambda h: F.linear(h, w), mesh, b, local=local)
+
+
+def conv2d(x: torch.Tensor, layer: nn.Conv2d, weight: torch.Tensor,
+           bias: torch.Tensor | None = None, stride=1, padding=0) -> torch.Tensor:
+    """``F.conv2d`` of NCHW ``x`` with ``weight`` (the layer's, cast); a
+    layer split on its output channels runs this rank's channels and
+    gathers them (dim 1), the whole ``bias`` added after."""
+    mesh = layer_mesh(layer)
+    if mesh is None:
+        return F.conv2d(x, weight, bias, stride, padding)
+    return column(x, lambda h: F.conv2d(h, weight, None, stride, padding), mesh, bias, dim=1)
+
+
+def embedding(tokens: torch.Tensor, layer: nn.Embedding, dtype: torch.dtype) -> torch.Tensor:
+    """The embedding lookup; split on its features, each rank looks its
+    block up and the features are gathered."""
+    w = layer.weight.to(dtype)
+    mesh = layer_mesh(layer)
+    if mesh is None:
+        return F.embedding(tokens, w)
+    return gather_from_model(F.embedding(tokens, w), -1, mesh)
+
+
+def tied_head(x: torch.Tensor, layer: nn.Embedding, dtype: torch.dtype) -> torch.Tensor:
+    """``x @ embed^T`` (the tied vocab head); with the embedding split on
+    its features, a row split over ``dim``."""
+    w = layer.weight.to(dtype)
+    mesh = layer_mesh(layer)
+    if mesh is None:
+        return x @ w.T
+    return row(x, lambda h: h @ w.T, mesh)
+
+
+# ---------------------------------------------------------------------------
+# The model axis in the state: each rank's blocks, the whole form, the step.
+# ---------------------------------------------------------------------------
+
+
+def head_major_order(rows: int, parts: int, n: int) -> torch.Tensor:
+    """The row order whose contiguous 1/n blocks are a model rank's heads of
+    a fused projection laid ``[parts][width]`` (``qkv``: 3 parts of dim,
+    ``kv_proj``: 2 of ``H_kv * D``): block r holds rows ``{c * width + r *
+    width / n + j}`` for each part c, parts in order."""
+    width = rows // parts
+    blk = width // n
+    return torch.tensor([c * width + r * blk + j for r in range(n) for c in range(parts)
+                         for j in range(blk)], dtype=torch.long)
+
+
+def _block_attention(block, specs: Mapping[str, P], prefix: str, n: int) -> dict:
+    """The head-aligned layout of a transformer block, when tp divides its
+    heads and heads_kv and the rule splits its projections as Megatron's
+    pair: ``{parameter name: (parts)}`` of the fused leaves to lay out
+    head-major (empty when the block takes the generic path, None)."""
+    def dim(leaf):
+        return shard_dim(specs.get(f"{prefix}{leaf}", P()), "model")
+
+    if block.heads % n or block.heads_kv % n or dim("proj.weight") != 1:
+        return None
+    if block.heads_kv == block.heads:
+        fused = {"qkv.weight": 3, "qkv.bias": 3}
+    else:
+        if dim("q_proj.weight") != 0:
+            return None
+        fused = {"kv_proj.weight": 2, "kv_proj.bias": 2}
+    if any(dim(leaf) != 0 for leaf in fused):
+        return None
+    return fused
+
+
+class TPPlan:
+    """How each parameter of a tp run lives on this rank (the counterpart
+    of ``fsdp.ShardPlan``'s interface, which ``core.state`` and the step
+    use): per leaf ``i`` (``names[i]``, whole shape ``shapes[i]``),
+    ``split[i]``, the dim its block is cut along (None: whole), and
+    ``perm[i]``, the row order of a head-major leaf (None: in order).  The
+    module's own parameters are the blocks (``masters``), and the
+    optimizer updates them.  ``clip`` is the run's global-norm clip, lifted
+    out of the optimizer and applied against the norm over the model
+    group."""
+
+    def __init__(self, mesh, names: Sequence[str], params: Sequence[nn.Parameter],
+                 shapes: Sequence[tuple], split: Sequence[int | None],
+                 perm: Sequence[torch.Tensor | None]):
+        self.mesh, self.n, self.index = mesh, mesh.model_size, mesh.model_index
+        self.names, self.params = list(names), list(params)
+        self.shapes, self.split, self.perm = list(shapes), list(split), list(perm)
+        self.masters = self.params
+        self.clip: float | None = None
+        self._inverse = [None if q is None else torch.argsort(q) for q in self.perm]
+        self._replicas = mesh.shape["data"] * mesh.shape["seq"]
+        self._layout = None  # the gradient buckets, laid over the blocks at first use
+
+    @classmethod
+    def shard(cls, mesh, model: nn.Module, param_specs: Mapping[str, P] | None = None
+              ) -> "TPPlan":
+        """Cut ``model`` (whole, the same on every rank) to this model
+        rank's blocks in place, by ``param_specs`` (port layout, by name;
+        default ``megatron_rule(tp)``'s), mark the split layers and the
+        head-aligned transformer blocks for the forward, and return the
+        plan."""
+        n = mesh.model_size
+        if param_specs is None:
+            param_specs = model_param_specs(model, megatron_rule(n))
+        from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import Int8Linear
+        from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
+            TransformerBlock,
+        )
+
+        fused: dict[str, int] = {}
+        for mod_name, mod in model.named_modules():
+            if isinstance(mod, Int8Linear):
+                raise NotImplementedError(
+                    f"{mod_name}: int8 weights under tp (serving) are not ported: "
+                    "ROADMAP.md queue 1, item 7.1b")
+            if isinstance(mod, TransformerBlock):
+                prefix = f"{mod_name}." if mod_name else ""
+                layout = _block_attention(mod, param_specs, prefix, n)
+                aligned = layout is not None
+                mod.tp_mesh = mesh
+                mod.tp_heads = mod.heads // n if aligned else mod.heads
+                mod.tp_heads_kv = mod.heads_kv // n if aligned else mod.heads_kv
+                mod.tp_attn_pair = aligned
+                mod.tp_mlp_pair = (mod.moe is None and all(
+                    shard_dim(param_specs.get(f"{prefix}{leaf}", P()), "model") == d
+                    for leaf, d in (("dense_0.weight", 0), ("dense_1.weight", 1))))
+                fused.update({prefix + k: v for k, v in (layout or {}).items()})
+        names, params, shapes, split, perm = [], [], [], [], []
+        with torch.no_grad():
+            for mod_name, mod in model.named_modules():
+                for leaf, p in mod.named_parameters(recurse=False):
+                    name = f"{mod_name}.{leaf}" if mod_name else leaf
+                    d = shard_dim(param_specs.get(name, P()), "model")
+                    order = None
+                    if d is not None:
+                        if p.shape[d] % n:
+                            raise ValueError(f"{name}: dim {d} of {tuple(p.shape)} does "
+                                             f"not divide over tp={n}")
+                        if name in fused:
+                            order = head_major_order(p.shape[d], fused[name], n)
+                        if leaf == "weight":
+                            mod.tp_dim, mod.tp_mesh = d, mesh
+                    names.append(name)
+                    params.append(p)
+                    shapes.append(tuple(p.shape))
+                    split.append(d)
+                    perm.append(order)
+            plan = cls(mesh, names, params, shapes, split, perm)
+            for i, p in enumerate(plan.params):
+                if split[i] is not None:
+                    p.data = plan.block_of(i, p.detach()).clone()
+        model.tp_mesh = mesh
+        return plan
+
+    # ---------------------------------------------------------------- layout
+
+    def block_of(self, i: int, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of leaf ``i``'s whole tensor (itself if whole)."""
+        d = self.split[i]
+        if d is None:
+            return whole
+        if self.perm[i] is not None:
+            whole = whole.index_select(d, self.perm[i].to(whole.device))
+        return whole.chunk(self.n, d)[self.index]
+
+    def whole(self, tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """Tensors laid out as the blocks, one a leaf, gathered whole over the
+        model group in the leaves' own row order (a collective)."""
+        out = []
+        for t, d, inv in zip(tensors, self.split, self._inverse):
+            if d is not None:
+                t = all_gather_dim(t.detach().contiguous(), d, self.mesh.model_group)
+                if inv is not None:
+                    t = t.index_select(d, inv.to(t.device))
+            out.append(t)
+        return out
+
+    def numel(self) -> int:
+        """Elements of the whole parameter set."""
+        return sum(int(np.prod(s)) for s in self.shapes)
+
+    # ---------------------------------------------------------------- step
+
+    def gather(self) -> None:
+        """Nothing to gather: the forward runs on the blocks."""
+
+    def release(self) -> None:
+        """Nothing to release."""
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """The eval runs the same forward on the blocks."""
+        yield self
+
+    @torch.no_grad()
+    def reduce_grads(self, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """Each rank's gradients of its blocks and whole leaves -> their mean
+        over the replica group (the ``dp * sp`` ranks of this model index),
+        one bucketed all-reduce; nothing crosses the model group."""
+        if self._replicas == 1:
+            return list(grads)
+        if self._layout is None:
+            self._layout = make_bucket_layout(self.params, 1)
+        lay = self._layout
+        return unflatten_buckets(grouped_all_reduce_mean(
+            flatten_buckets(grads, lay), self.mesh.replica_group), lay)
+
+    def grad_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The whole gradient's global L2 norm: each block's squares summed
+        over the model group, each whole leaf (the same on every model
+        rank) counted once."""
+        zero = torch.zeros((), device=grads[0].device)
+        split = sum((g.float().square().sum() for g, d in zip(grads, self.split, strict=True)
+                     if d is not None), zero)
+        whole = sum((g.float().square().sum() for g, d in zip(grads, self.split)
+                     if d is None), zero)
+        return (all_reduce_sum(split, self.mesh.model_group) + whole).sqrt()
+
+    @torch.no_grad()
+    def apply(self, optimizer, grads: Sequence[torch.Tensor]) -> None:
+        """One update: the replica mean, the clip against the global norm,
+        the optimizer's step on the blocks."""
+        g = self.reduce_grads(grads)
+        if self.clip is not None:
+            norm = self.grad_norm(g)
+            scale = torch.where(norm < self.clip, 1.0, self.clip / norm.clamp_min(1e-38))
+            g = torch._foreach_mul(g, scale)
+        optimizer.step(g)
+
+    # ---------------------------------------------------------------- state
+
+    def adopt(self, state) -> None:
+        """Make ``state`` (a ``core.state.TrainState`` whose optimizer was
+        built over the whole parameters) this plan's: its moments cut to
+        the blocks, the clip lifted out (:meth:`apply` applies it)."""
+        old = state.optimizer
+        opt = copy.copy(old)
+        opt.params = self.params
+        for key in ("mu", "nu", "trace"):
+            ts = getattr(old, key)
+            setattr(opt, key, [self.block_of(i, t).clone() for i, t in enumerate(ts)])
+        self.clip, opt.grad_clip = old.grad_clip, None
+        state.optimizer = opt
+        state.plan = self
+
+    def whole_moments(self, optimizer) -> dict[str, dict[str, torch.Tensor]]:
+        """``optimizer``'s moments as ``{key: {leaf name: whole tensor}}``
+        (a collective)."""
+        return {key: dict(zip(self.names, self.whole(getattr(optimizer, key))))
+                if getattr(optimizer, key) else {} for key in ("mu", "nu", "trace")}
+
+    @torch.no_grad()
+    def load_moments(self, optimizer, saved: Mapping) -> None:
+        """Load whole moments (``count`` and ``{key: {leaf name: tensor}}``),
+        each cut to this rank's block; strict, as
+        ``Optimizer.load_state_dict``."""
+        form = {"count": saved["count"]}
+        for key in ("mu", "nu", "trace"):
+            ts = saved[key]
+            if ts and set(ts) == set(self.names):
+                for n, shape in zip(self.names, self.shapes):
+                    if tuple(ts[n].shape) != shape:
+                        raise ValueError(f"optimizer {key}/{n}: saved shape "
+                                         f"{tuple(ts[n].shape)}, expected {shape}")
+                ts = {n: self.block_of(i, ts[n]) for i, n in enumerate(self.names)}
+            form[key] = ts
+        optimizer.load_state_dict(form, self.names)
+
+    @torch.no_grad()
+    def load_whole(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Load whole parameters (by name), each rank taking its block."""
+        for i, name in enumerate(self.names):
+            src = params[name]
+            if tuple(src.shape) != self.shapes[i]:
+                raise ValueError(f"params/{name}: saved shape {tuple(src.shape)}, "
+                                 f"expected {self.shapes[i]}")
+            self.params[i].copy_(self.block_of(i, src.to(self.params[i].device)))
+
+    def whole_state_dict(self, model: nn.Module) -> dict[str, torch.Tensor]:
+        """The model's ``state_dict`` with every leaf whole (a collective)."""
+        whole = dict(zip(self.names, self.whole(self.masters)))
+        return {k: whole.get(k, v) for k, v in model.state_dict().items()}
+
+
+def shard_train_state(mesh, state, param_specs: Mapping[str, P], opt_specs=None):
+    """Place a replicated ``core.state.TrainState`` on the mesh by
+    ``param_specs`` (port layout, by parameter name; JAX's
+    ``shard_train_state``): specs over ``model`` give each model rank its
+    blocks and their moments (:class:`TPPlan`); specs over ``data`` alone
+    are ZeRO-3's (``fsdp.shard_train_state``).  Both at once (fsdp beside
+    tp) is not ported."""
+    axes = {ax for spec in param_specs.values() for ax in spec if ax is not None}
+    if "model" not in axes:
+        from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import fsdp
+
+        return fsdp.shard_train_state(mesh, state, param_specs, opt_specs=opt_specs)
+    if axes != {"model"} or opt_specs is not None:
+        raise NotImplementedError(f"fsdp beside tp is not ported: {BESIDE_TP}")
+    TPPlan.shard(mesh, state.model, param_specs).adopt(state)
+    return state
+
+
+def _tp_state(mesh, state, param_specs):
+    if getattr(state, "plan", None) is None:
+        shard_train_state(mesh, state, param_specs)
+    return state.plan
+
+
+def make_tp_train_step(model, tx, mesh, param_specs, state, data_axis: str = "data",
+                       label_smoothing: float = 0.0, fused_xent: bool = False,
+                       remat: bool = False, grad_accum: int = 1, opt_specs=None):
+    """One step under dp x tp (x sp): ``step(state, batch) -> metrics`` with
+    ``batch`` the same global batch on every rank; data row ``d`` trains on
+    its block of rows, every model rank of the row on the same rows, and
+    ``loss`` / ``accuracy`` are the means across ranks, as JAX's step
+    returns them.  ``state`` is sharded here when it is not yet
+    (:func:`shard_train_state`); ``tx`` and ``data_axis`` are kept for
+    JAX's signature (the update is ``state.optimizer``'s)."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.steps import make_train_step
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
+        all_reduce_mean,
+    )
+
+    del tx, data_axis
+    if opt_specs is not None:
+        raise NotImplementedError(f"sharded moments beside tp are not ported: {BESIDE_TP}")
+    plan = _tp_state(mesh, state, param_specs)
+    step = make_train_step(model, state.optimizer, label_smoothing=label_smoothing,
+                           fused_xent=fused_xent, remat=remat, grad_accum=grad_accum,
+                           plan=plan)
+    dp = mesh.shape["data"]
+
+    def tp_step(st, batch: dict) -> dict:
+        n = batch["label"].shape[0]
+        if n % dp:
+            raise ValueError(f"global batch {n} not divisible by dp={dp}")
+        per, d = n // dp, mesh.data_index
+        m = step(st, {k: v[d * per:(d + 1) * per] for k, v in batch.items()})
+        loss, accuracy = all_reduce_mean(torch.stack([m["loss"], m["accuracy"]]))
+        return {"loss": loss, "accuracy": accuracy}
+
+    return tp_step
+
+
+def make_tp_epoch_runner(model, tx, mesh, param_specs, state, batch_size: int,
+                         data_axis: str = "data", label_smoothing: float = 0.0,
+                         fused_xent: bool = False, remat: bool = False, grad_accum: int = 1,
+                         img_ndim: int = 4, opt_specs=None):
+    """The Trainer's tp path: an epoch as JAX's GSPMD epoch runs it (one
+    permutation of the whole set, data row ``d`` on its block of every
+    global batch, ``data_parallel.make_global_epoch_runner``) on the
+    state's :class:`TPPlan`.  ``run_epoch(state, images, labels,
+    perm=None)`` returns this rank's per-step metrics stacked."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.data_parallel import (
+        make_global_epoch_runner,
+    )
+
+    del tx, data_axis, img_ndim
+    if opt_specs is not None:
+        raise NotImplementedError(f"sharded moments beside tp are not ported: {BESIDE_TP}")
+    plan = _tp_state(mesh, state, param_specs)
+    return make_global_epoch_runner(model, state.optimizer, batch_size, mesh, plan=plan,
+                                    label_smoothing=label_smoothing, fused_xent=fused_xent,
+                                    remat=remat, grad_accum=grad_accum)
 
 
 def _tp_later(what: str):
@@ -257,15 +739,14 @@ def _tp_later(what: str):
     return refuse
 
 
-make_tp_train_step = _tp_later("make_tp_train_step")
-make_tp_epoch_runner = _tp_later("make_tp_epoch_runner")
 kv_cache_rule = _tp_later("kv_cache_rule")
 serving_mesh = _tp_later("serving_mesh")
 tp_device_groups = _tp_later("tp_device_groups")
 per_chip_bytes = _tp_later("per_chip_bytes")
 
-__all__ = ["Leaf", "P", "SpecRule", "chain_rules", "flax_shape_tree", "kv_cache_rule",
+__all__ = ["Leaf", "P", "SpecRule", "TPPlan", "chain_rules", "column", "conv2d",
+           "embedding", "flax_shape_tree", "head_major_order", "kv_cache_rule", "linear",
            "make_param_specs", "make_tp_epoch_runner", "make_tp_train_step",
            "megatron_dense_rule", "megatron_rule", "model_param_specs", "per_chip_bytes",
-           "serving_mesh", "shard_dim", "specs_like",
-           "tp_device_groups"]
+           "row", "serving_mesh", "shard_dim", "shard_train_state", "specs_like",
+           "tied_head", "tp_device_groups"]

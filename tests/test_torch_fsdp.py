@@ -142,8 +142,8 @@ def test_fsdp_composes_with_the_tp_rule_as_jax():
     for path, shape in ((("dense_0", "kernel"), (784, 64)), (("dense_1", "kernel"), (64, 784)),
                         (("logits", "kernel"), (64, 10)), (("dense_0", "kernel"), (17, 64))):
         assert tuple(pr(path, tp.Leaf(shape))) == tuple(jr(path, jnp.zeros(shape)))
-    # the Megatron dims need the model axis: not ported
-    with pytest.raises(NotImplementedError, match=r"item 7\.1"):
+    # the Megatron dims beside fsdp's: not ported (tp alone is, item 7.1a)
+    with pytest.raises(NotImplementedError, match=r"item 7\.7"):
         fsdp.ShardPlan.build(MESH2, get_model("mlp", device="cpu", hidden=(64,)),
                              tp.model_param_specs(get_model("mlp", device="cpu", hidden=(64,)),
                                                   pr))
@@ -175,9 +175,13 @@ def test_specs_like_matches_by_suffix_as_jax():
 
 
 def test_tensor_parallel_proper_is_refused_by_its_item():
-    for fn in (tp.make_tp_train_step, tp.make_tp_epoch_runner, tp.kv_cache_rule,
-               tp.serving_mesh, tp.tp_device_groups, tp.per_chip_bytes):
+    # the serving half is still refused by its item (7.1b); the training
+    # half is ported: its step and epoch factories need JAX's arguments
+    for fn in (tp.kv_cache_rule, tp.serving_mesh, tp.tp_device_groups, tp.per_chip_bytes):
         with pytest.raises(NotImplementedError, match=r"item 7\.1"):
+            fn()
+    for fn in (tp.make_tp_train_step, tp.make_tp_epoch_runner):
+        with pytest.raises(TypeError, match="missing"):
             fn()
 
 

@@ -6,7 +6,9 @@
   and no module of the JAX package
   (``distributed_tensorflow_ibm_mnist_tpu`` or below it — mind the prefix:
   the port's own name starts with the JAX package's).
-* No source of the port, nor chip_smoke.py, imports them.
+* No source of the port, nor chip_smoke.py, nor the tests' rank bodies
+  (``tests/torch_*_ranks.py``, which every spawned rank imports), imports
+  them.
 * With no GPU and no ``device`` argument, the entry points raise instead
   of running on the CPU.
 """
@@ -88,7 +90,8 @@ def _imports(path: pathlib.Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "tests").glob("torch_*_ranks.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_imports_jax(path):
     bad = [m for m in _imports(path) if _forbidden(m)]

@@ -298,13 +298,17 @@ def test_measure_throughput_leaves_the_state_unchanged():
         assert torch.equal(a, b)
 
 
-REFUSED = {"tp2": dict(tp=2), "pp2": dict(pp=2)}
+# case -> (config, error, match): pp is not ported; tensor parallelism is,
+# so without a process group it asks for one
+REFUSED = {"tp2": (dict(tp=2), ValueError, "launch.torchrun"),
+           "pp2": (dict(pp=2), NotImplementedError, "ROADMAP.md queue 1")}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_knobs_raise_not_implemented(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Trainer(_mlp_cfg(**REFUSED[case]), device="cpu")
+    kw, error, match = REFUSED[case]
+    with pytest.raises(error, match=match):
+        Trainer(_mlp_cfg(**kw), device="cpu")
 
 
 # data parallelism is ported: without a process group it asks for one (the
