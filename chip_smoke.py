@@ -33,8 +33,7 @@ never JAX or the JAX package.  Phases, one JSON line each:
 3b. serving_features — the engine's decode path as the JAX engine runs
    it, on the same model, 8 slots, max_len 1024, 32 new tokens a request:
    (a) phase 3's 16 requests greedy at decode_ahead 1, 4 and 8 (streams
-   identical to k=1, K3 == depth x admissions; the busy share of one
-   more profiled run at k=8); (b) 8 greedy + 8 sampled requests
+   identical to k=1, K3 == depth x admissions); (b) 8 greedy + 8 sampled requests
    (temperature 0.8, top-k 40, top-p 0.9, min-p 0.05, seed = request
    index) replayed identically at k=1, k=8 and paged, the Threefry key
    bits on CUDA equal to the CPU's, and the pick on CUDA equal to the
@@ -235,7 +234,7 @@ never JAX or the JAX package.  Phases, one JSON line each:
    drops; every leg conserved exactly, exactly-once, drained with no open
    span and every pool at refcount zero, no build or load after the
    prewarm; bf16 agreement with one engine recorded; (f) the bf16 wave
-   with the tracer and telemetry off and on in 3 interleaved pairs: each
+   with the tracer and telemetry off and on in 2 interleaved pairs: each
    ratio and the spread (recorded, not gated: host noise);
 15c. serving_edge — the tier's edge at the same full width (paged KV,
    page 16, the radix trie, 8 slots a replica, max_len 1024): (a) three
@@ -275,7 +274,7 @@ never JAX or the JAX package.  Phases, one JSON line each:
    [0, 1], float32 parameters and Adam state, K3 == depth x (steps + eval
    batches), K4 == depth x steps; its tokens/s beside the dense model's
    under float32 masters and under bf16 masters (the store before the
-   repair) in the order A B C C B A, a profiled step, and each MoE stage's
+   repair) in the order A B C, a profiled step, and each MoE stage's
    device time (router, dispatch, expert FFN, combine) and one block's
    attention at the step's shape; (b) a float32 twin at S=1024: the loss
    and gradients under block remat equal the plain step's (``FU_REMAT_REL``)
@@ -345,7 +344,25 @@ never JAX or the JAX package.  Phases, one JSON line each:
    BatchNorm statistics (over the data group) within 0.2 of each
    buffer's largest magnitude, K1 == K2 == steps a rank, the conv
    outputs gathered over the model group; (c) the refusals beside tp
-   (fsdp, MoE blocks, multislice: ROADMAP item 7; pp; stream mode);
+   (fsdp, MoE blocks, multislice: ROADMAP item 7; pp on ResNet-20: JAX's
+   "pipelineable block stack"; stream mode); (a)'s first step's gradient
+   of three LM leaves within 6.8e-2 of the single-card step's (Adam hides
+   a gradient scaled x tp from the loss);
+15i. pipeline — GPipe over the mesh's pipe axis, inside tensor_parallel's
+   two spawns: K3/K4 at (4, 8192, 4, 64) on the first rows of (15h)'s
+   check, row by row; (a) ``bench_lm8k`` at pp=2 (dp=1, 2 microbatches of
+   4) through ``fit()``: each rank holds and runs 2 blocks, K3 == 24 and
+   K4 == 16 a rank (none in a bubble), per-step losses within 8e-4 of the
+   sp=1 fit's, the first step's gradient of stage 0's and stage 1's
+   ``qkv`` and of the embedding within 2.7e-2 of the single-card step's
+   (sequence_parallel's sp=1 trainer, before it trained), s a step,
+   tokens/s/chip, peak memory a rank, and one more step with the stage
+   hops, the output broadcast and the replicated gradients' broadcast
+   timed (host-staged through gloo); ``generate(on_mesh=True)`` refused;
+   (b) the same at pp=2 x tp=2 on four ranks (the stage blocks Megatron's
+   pairs, 4 heads a rank; the all-reduces timed too); (c) JAX's refusals
+   beside pp (sp, fsdp, dropout and MoE in the stages) and multislice
+   (item 7.7);
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2, each
@@ -360,6 +377,10 @@ never JAX or the JAX package.  Phases, one JSON line each:
    largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
+
+``chip_smoke.py --pipeline-faults`` runs none of the above: it plants,
+one at a time on two fresh ranks, the faults that place the pipeline's
+and tp=2's loss and gradient limits, and prints each one's readings.
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; the launches made to compare or time a kernel are not counted.
@@ -459,7 +480,7 @@ def collect_garbage(torch, device) -> None:
         torch.cuda.empty_cache()
 
 
-def gpu_ms(fn, torch, reps: int = 25, inner: int = 20, sleep: int = 2_000_000) -> float:
+def gpu_ms(fn, torch, reps: int = 15, inner: int = 20, sleep: int = 2_000_000) -> float:
     """Median over ``reps`` of the mean device time of ``inner`` back-to-back
     calls, from CUDA events.  A sleep kernel of ``sleep`` cycles ahead of
     each batch keeps the host's enqueue off the clock, as long as enqueuing
@@ -848,12 +869,9 @@ def phase_serving_features(torch, fa, xent, port) -> dict:
     # (a) greedy, dense, decode_ahead 1 / 4 / 8
     runs = serve_abba(serve, {k: dict(model=model, prompts=prompts, decode_ahead=k)
                               for k in FEATURE_K})
-    # one more run of the longest window under the profiler: busy share
-    # (k=1 and 4 read 9.6-13.1% as well, PERF.md section 5)
-    for k in FEATURE_K[-1:]:
-        runs[k]["rec"]["device_busy_share"] = serve(
-            model, prompts, decode_ahead=k,
-            profile_of=f"serving_features[a,k={k}]")["rec"]["device_busy_share"]
+    # (the busy share of the longest window under the profiler, ~8 s, is
+    # cut to make room for pipeline: PERF.md section 4; k=1, 4 and 8 read
+    # 9.6-13.1%, PERF.md section 5, and phase_serving profiles the serve)
     for k, run in runs.items():
         check(run["streams"] == runs[1]["streams"],
               f"(a) decode_ahead={k} streams differ from decode_ahead=1")
@@ -3627,7 +3645,7 @@ TIER_WARM = ([1, 2, 3], 4)  # the request each replica serves inside its factory
 TIER_WAVE, TIER_BRIDGE = 10, 3  # router_soak.py's wave and bridge sizes
 TIER_SHARED = 64  # even prompts share a 64-token head (4 pages): radix hits
 TIER_CALIB, TIER_OPEN, TIER_PUMP = 24, 48, 12  # daemon requests per leg
-TIER_PAIRS = 3  # (f): interleaved off/on pairs
+TIER_PAIRS = 2  # (f): interleaved off/on pairs (a depth cut: PERF.md section 4)
 TIER_WAIT_S = 300.0  # any single wait, drain or join: generous, never load-bearing
 
 
@@ -4988,8 +5006,9 @@ def fu_stage_times(torch, fa, ep, trainer) -> dict:
 def fu_moe_lm(torch, fa, xent, Trainer, RunConfig, ep) -> dict:
     """(a) MoE + dropout bench_lm8k through fit(), its gates, then its
     throughput beside the dense model's (float32 masters, and bf16 masters
-    as before the repair) in the order A B C C B A, a profiled step and
-    the MoE stages' device time."""
+    as before the repair) in the order A B C (C B A cut to make room for
+    pipeline: PERF.md section 4), a profiled step and the MoE stages'
+    device time."""
     trainer, rec = fu_fit(torch, fa, xent, Trainer, RunConfig, FU_LM_CFG)
     fu_check_flash(rec, DEPTH)
     drop = rec["moe_dropped_frac"]
@@ -5006,14 +5025,14 @@ def fu_moe_lm(torch, fa, xent, Trainer, RunConfig, ep) -> dict:
     order = (("dense_f32_masters", dense), ("moe_dropout", trainer),
              ("dense_bf16_masters", bf16m))
     runs = {name: [] for name, _ in order}
-    for name, t in order + order[::-1]:
+    for name, t in order:
         tp = t.measure_throughput(epochs=1)
         runs[name].append({"tokens_per_sec_per_chip": tp["tokens_per_sec_per_chip"],
                            "s_per_step": round(LM_CFG["batch_size"] / tp["images_per_sec"], 5),
                            "mfu": tp["mfu"]})
         check(math.isfinite(tp["last_loss"]), f"(a) {name}: non-finite throughput loss")
     rec["abba"] = runs
-    rec["order"] = [n for n, _ in order + order[::-1]]
+    rec["order"] = [n for n, _ in order]
     del dense, bf16m
     torch.cuda.empty_cache()
 
@@ -5586,11 +5605,16 @@ def dpr_rank(rank: int) -> dict:
 
 
 def dpr_check_attention(torch, fa, shape: tuple = DPR_ATTN,
-                        path: str = "data_parallel_rest (a)/(b), a rank") -> dict:
+                        path: str = "data_parallel_rest (a)/(b), a rank",
+                        by_row: bool = False, sub_batch: int = 0, sub_path: str = "") -> dict:
     """K3 and K4 at a rank's attention shape (``shape``, (4, 8192, 8, 64) bf16
     causal by default) on q/k/v views of one (B, S, 3, H, D) tensor, as the
     blocks give them, against the plain versions (computed one batch row at
-    a time: the whole float32 score tensor would not fit beside them)."""
+    a time: the whole float32 score tensor would not fit beside them);
+    ``by_row``: K4's outputs also row by row (``row_rel_err``).
+    ``sub_batch``: K3 and K4 also launched on the first ``sub_batch`` rows
+    alone (another rank's shape, ``sub_path``), against the same plain rows
+    (returned under ``"sub_batch"``)."""
     b, s, h, d = shape
     gen = torch.Generator(device="cuda").manual_seed(14)
     q, k, v, g, lse, delta = bwd_inputs(torch, fa, gen, b, s, h, h, d, torch.bfloat16,
@@ -5618,8 +5642,30 @@ def dpr_check_attention(torch, fa, shape: tuple = DPR_ATTN,
           "tol": {"out": 2e-2, "lse": 1e-3}})
     check(fwd["out"] <= 2e-2 and fwd["lse"] <= 1e-3, f"K3 disagrees at {shape}: {fwd}")
     bwd = compare("flash_bwd_fused", {"dq": dq, "dk": dk, "dv": dv},
-                  {k2: ref[k2] for k2 in ("dq", "dk", "dv")}, torch.bfloat16, extra)
-    return {"flash_fwd": fwd["out"], "flash_bwd_fused": bwd[0]}
+                  {k2: ref[k2] for k2 in ("dq", "dk", "dv")}, torch.bfloat16, extra,
+                  by_row=by_row)
+    out = {"flash_fwd": fwd["out"], "flash_bwd_fused": bwd[0],
+           "flash_bwd_fused_row_rel": bwd[2]}
+    if sub_batch:
+        n = slice(0, sub_batch)
+        with torch.no_grad():
+            o_s, lse_s = fa.flash_attention_fwd(q[n], k[n], v[n], True, 0)
+        grads = fa._launch_fused(q[n], k[n], v[n], g[n], lse[n], delta[n], True, 0,
+                                 fa.Route("fused", 1, s))
+        torch.cuda.synchronize()
+        sub = {**extra, "shape": [sub_batch, s, h, d], "path": sub_path}
+        fwd_s = {"out": (o_s.float() - ref["out"][n]).abs().max().item(),
+                 "lse": (lse_s - ref["lse"][n]).abs().max().item()}
+        emit({"phase": "kernel_check", "kernel": "flash_fwd", **sub, "max_abs_err": fwd_s,
+              "tol": {"out": 2e-2, "lse": 1e-3}})
+        check(fwd_s["out"] <= 2e-2 and fwd_s["lse"] <= 1e-3,
+              f"K3 disagrees at {sub['shape']}: {fwd_s}")
+        bwd_s = compare("flash_bwd_fused", dict(zip(("dq", "dk", "dv"), grads)),
+                        {k2: ref[k2][n] for k2 in ("dq", "dk", "dv")}, torch.bfloat16, sub,
+                        by_row=by_row)
+        out["sub_batch"] = {"shape": sub["shape"], "flash_fwd": fwd_s["out"],
+                            "flash_bwd_fused": bwd_s[0], "flash_bwd_fused_row_rel": bwd_s[2]}
+    return out
 
 
 def phase_data_parallel_rest(torch, fa, xent, port, tmp: Path) -> dict:
@@ -5680,7 +5726,7 @@ SP_LM_CFG = dict(LM_CFG, name="bench_lm8k_sp2", n_train=SP_STEPS * LM_CFG["batch
 # blocks swapped) reads 3.5e-3 and 6.2e-3 (PERF.md, sequence parallelism).
 # The limit sits near their geometric mean, ~12x from each.
 SP_LOSS_RTOL = 3e-4
-SP_HOP_REPS = 3
+SP_HOP_REPS = 2  # timed calls an exchange, after a warm one (PERF.md section 4)
 SP_SP1_PEAK_GB_DP2 = 4.45  # bench_lm8k's peak a rank at dp=2 (data_parallel_rest), 4 x 8192 tokens
 
 
@@ -5906,17 +5952,21 @@ def sp_exchanges(torch, C, mesh) -> dict:
             "all_to_all_bytes": 3 * qkv[0].numel() * qkv[0].element_size()}
 
 
-def sp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict) -> dict:
+def sp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, grads: bool = False) -> dict:
     """A Trainer through fit(), every count zeroed just before and read just
     after (the main path): its per-step losses (under sp the mean over the
     ranks' local tokens; the sp=1 fit draws the same global batches, from
     the same seed), seconds a step, tokens/s/chip and peak memory; under a
-    mesh its coordinates and each axis group's sum of the ranks' numbers."""
+    mesh its coordinates and each axis group's sum of the ranks' numbers.
+    ``grads``: first, the gradient of the gated leaves one step applies
+    from the fresh state (``one_step_grads``: the tp=2 and pp=2 gates'
+    reference)."""
     from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
 
     cfg = RunConfig(**cfg_dict)
     collect_garbage(torch, SP_DEVICE)  # the peak below is this fit's
     trainer = Trainer(cfg, device=SP_DEVICE)
+    step_grads = one_step_grads(torch, trainer, PP_GRAD_LEAVES) if grads else None
     caught = first_epoch_losses(trainer)
     sp_sync(torch)
     if SP_DEVICE != "cpu":
@@ -5938,7 +5988,8 @@ def sp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict) -> dict:
            "train_loss": h["train_loss"], "test_loss": h.get("test_loss"),
            "step_losses": [float(x) for x in losses], "s_per_step": round(s_step, 5),
            "tokens_per_sec_per_chip": summary.get("tokens_per_sec_per_chip"),
-           "peak_mem_gb": round(peak, 3) if peak is not None else None, "launches": counts}
+           "peak_mem_gb": round(peak, 3) if peak is not None else None, "launches": counts,
+           "grads": step_grads}
     if mesh is not None:
         tag = torch.tensor([float(torch.distributed.get_rank())], device=SP_DEVICE)
         rec["group_sums"] = {"seq": float(C.all_reduce_sum(tag, mesh.seq_group)),
@@ -6033,7 +6084,7 @@ def phase_sequence_parallel(torch, fa, xent, port, tmp: Path) -> dict:
     # (c)-(e)'s reference: the sp=1 fit from the same weights on the same
     # global batches (the config's seed), its counts too
     sp1 = sp_fit(torch, fa, xent, Trainer, RunConfig,
-                 dict(SP_LM_CFG, name="bench_lm8k_sp1", sp=1))
+                 dict(SP_LM_CFG, name="bench_lm8k_sp1", sp=1), grads=True)
     t1 = time.perf_counter()
     ranks = torchrun.spawn(sp_rank, 2, "gloo", SP_DEVICE, tmp / "sp2", timeout=900)
     ranks4 = torchrun.spawn(sp_rank4, 4, "gloo", SP_DEVICE, tmp / "sp4", timeout=600)
@@ -6074,7 +6125,8 @@ def phase_sequence_parallel(torch, fa, xent, port, tmp: Path) -> dict:
         out[part] = {"per_rank": per_rank, "sp1": sp1, "loss_max_rel_err": rel,
                      "limit": SP_LOSS_RTOL, "sp1_peak_gb_dp2": SP_SP1_PEAK_GB_DP2}
         emit({"phase": "sequence_parallel", "sub": part, "ranks_on": SP_DEVICE,
-              "backend": "gloo", "world_size": len(per_rank), **out[part]})
+              "backend": "gloo", "world_size": len(per_rank), **out[part],
+              "sp1": {k: v for k, v in sp1.items() if k != "grads"}})
         check(rel <= SP_LOSS_RTOL, f"({part}) per-step loss {rel} off sp=1's")
         for rec in per_rank:
             c, steps, ev = rec["launches"], rec["steps"], rec["eval_batches"]
@@ -6143,50 +6195,31 @@ TP_RESNET_BN_REL = 0.2
 TP_REPS = 3
 
 
-def tp_collective_meter(torch, C):
-    """Count (and, with ``timed``, time with the card synced) every
-    all-reduce and all-gather the model axis issues, by wrapping the
-    collectives' module-level entries the mappings call."""
-    calls: list = []
-    saved = (C._sum, C.all_gather_dim)
-    state = {"timed": False}
-
-    def run(kind, fn, x, *a, **kw):
-        if state["timed"] and x.is_cuda:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        y = fn(x, *a, **kw)
-        if state["timed"] and x.is_cuda:
-            torch.cuda.synchronize()
-        calls.append((kind, x.numel() * x.element_size(), time.perf_counter() - t0))
-        return y
-
-    C._sum = lambda x, group=None: run("all_reduce", saved[0], x, group)
-    C.all_gather_dim = lambda x, dim, group=None: run("all_gather", saved[1], x, dim, group)
-
-    def restore():
-        C._sum, C.all_gather_dim = saved
-
-    return calls, state, restore
+def tp_metered(C):
+    """The model axis's collectives, as call_meter counts them."""
+    return ((C, "_sum", "all_reduce"), (C, "all_gather_dim", "all_gather"))
 
 
-def tp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, timed_step: bool) -> dict:
+def tp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, timed_step: bool,
+           grads: bool = False) -> dict:
     """sp_fit's record of a tp run (every count zeroed just before fit() and
     read just after), its mesh coordinates and group sums, the collectives
     a step issued (counted during fit()), and with ``timed_step`` one more
     step after the fit with each collective timed on a synced card: the
-    all-reduce and all-gather ms a step."""
+    all-reduce and all-gather ms a step.  ``grads``: first, the gradient of
+    the gated leaves one step applies from the fresh state (``one_step_grads``)."""
     from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
 
     cfg = cfg_dict if isinstance(cfg_dict, RunConfig) else RunConfig(**cfg_dict)
     collect_garbage(torch, TP_DEVICE)  # the peak below is this fit's
     trainer = Trainer(cfg, device=TP_DEVICE)
+    step_grads = one_step_grads(torch, trainer, PP_GRAD_LEAVES) if grads else None
     caught = first_epoch_losses(trainer)
     run_epoch = trainer._run_epoch
     sp_sync(torch)
     if TP_DEVICE != "cpu":
         torch.cuda.reset_peak_memory_stats()
-    calls, meter, restore = tp_collective_meter(torch, C)
+    calls, meter, restore = call_meter(torch, tp_metered(C))
     sp_reset(fa, xent)
     try:
         summary = trainer.fit()
@@ -6212,7 +6245,8 @@ def tp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, timed_step: bool
            "launches": counts, "fit_collectives": fit_calls,
            "fit_collective_bytes": sum(c[1] for c in calls),
            "heads_a_rank": [b.tp_heads for b in getattr(trainer.model, "blocks", [])][:1],
-           "attn_pairs": [b.tp_attn_pair for b in getattr(trainer.model, "blocks", [])]}
+           "attn_pairs": [b.tp_attn_pair for b in getattr(trainer.model, "blocks", [])],
+           "grads": step_grads}
     tag = torch.tensor([float(torch.distributed.get_rank())], device=TP_DEVICE)
     rec["group_sums"] = {"model": float(C.all_reduce_sum(tag, mesh.model_group)),
                          "data": float(C.all_reduce_sum(tag, mesh.data_group))}
@@ -6220,8 +6254,7 @@ def tp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, timed_step: bool
         rec["bn_stats"] = {k: v.float().cpu().clone() for k, v in trainer.model.named_buffers()
                            if "running" in k}
     if timed_step:  # one more step, every collective timed on a synced card
-        calls.clear()
-        calls, meter, restore = tp_collective_meter(torch, C)
+        calls, meter, restore = call_meter(torch, tp_metered(C))
         meter["timed"] = True
         b = cfg.batch_size
         t0 = time.perf_counter()
@@ -6270,7 +6303,8 @@ def tp_refusals(Trainer, RunConfig, get_preset) -> dict:
 
 def tp_rank(rank: int) -> dict:
     """(a) one of two gloo ranks sharing the card: bench_lm8k at tp=2
-    through fit(), then one step with its collectives timed."""
+    through fit() (its first step's gradient gated), then one step with its
+    collectives timed; then the pipeline phase's (a), bench_lm8k at pp=2."""
     import torch
 
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
@@ -6278,7 +6312,13 @@ def tp_rank(rank: int) -> dict:
     from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
     from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
 
-    return tp_fit(torch, fa, xent, Trainer, RunConfig, TP_LM_CFG, timed_step=True)
+    t0 = time.perf_counter()
+    out = {"a": tp_fit(torch, fa, xent, Trainer, RunConfig, TP_LM_CFG, timed_step=True,
+                       grads=True)}
+    t1 = time.perf_counter()
+    out["pp_a"] = pp_fit(torch, fa, xent, Trainer, RunConfig, PP_LM_CFG)
+    out["body_s"] = {"tp": t1 - t0, "pp": time.perf_counter() - t1}
+    return out
 
 
 def tp_rank4(rank: int) -> dict:
@@ -6292,9 +6332,15 @@ def tp_rank4(rank: int) -> dict:
     from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig, get_preset
 
     cfg = get_preset(RESNET_DP_PRESET).replace(dp=2, tp=2, **TP_RESNET_CFG)
-    return {"b": tp_fit(torch, fa, xent, Trainer, RunConfig,
-                        cfg.replace(name="resnet20_dp2_tp2"), timed_step=True),
-            "c": tp_refusals(Trainer, RunConfig, get_preset)}
+    t0 = time.perf_counter()
+    out = {"b": tp_fit(torch, fa, xent, Trainer, RunConfig,
+                       cfg.replace(name="resnet20_dp2_tp2"), timed_step=True),
+           "c": tp_refusals(Trainer, RunConfig, get_preset)}
+    t1 = time.perf_counter()
+    out["pp_b"] = pp_fit(torch, fa, xent, Trainer, RunConfig, PP_TP_LM_CFG)
+    out["pp_c"] = pp_refusals(Trainer, RunConfig)
+    out["body_s"] = {"tp": t1 - t0, "pp": time.perf_counter() - t1}
+    return out
 
 
 def tp_resnet_reference(torch, fa, xent, Trainer, get_preset) -> dict:
@@ -6333,23 +6379,35 @@ def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict) -> dict:
     refusals."""
     Trainer, RunConfig, get_preset, torchrun = port
     t0 = time.perf_counter()
-    errs = dpr_check_attention(torch, fa, TP_ATTN, "tensor_parallel (a), a rank at tp=2")
+    errs = dpr_check_attention(torch, fa, TP_ATTN, "tensor_parallel (a), a rank at tp=2",
+                               by_row=True, sub_batch=PP_TP_ATTN[0],
+                               sub_path="pipeline (b), a rank's microbatch at pp=2 x tp=2")
+    pp_errs = errs.pop("sub_batch")
     if TP_DEVICE != "cpu":
         torch.cuda.empty_cache()
     ref_b = tp_resnet_reference(torch, fa, xent, Trainer, get_preset)
+    ref_grads = tp1["grads"]  # sequence_parallel's sp=1 trainer's first step
     t1 = time.perf_counter()
-    ranks = torchrun.spawn(tp_rank, 2, "gloo", TP_DEVICE, tmp / "tp2", timeout=600)
+    spawned = torchrun.spawn(tp_rank, 2, "gloo", TP_DEVICE, tmp / "tp2", timeout=600)
     ranks4 = torchrun.spawn(tp_rank4, 4, "gloo", TP_DEVICE, tmp / "tp4", timeout=600)
     spawn_s = time.perf_counter() - t1
+    ranks = [r["a"] for r in spawned]
     out = {"errs": errs}
 
     rel = max(sp_loss_rel(r["step_losses"], tp1["step_losses"]) for r in ranks)
-    out["a"] = {"per_rank": ranks, "tp1": {k: tp1[k] for k in (
-        "step_losses", "s_per_step", "tokens_per_sec_per_chip", "peak_mem_gb", "launches")},
-                "loss_max_rel_err": rel, "limit": TP_LOSS_RTOL, "attn_shape": list(TP_ATTN)}
+    grad_rel = max(grad_rel_errs(r["grads"], ref_grads)[1] for r in ranks)
+    out["a"] = {"per_rank": [{k: v for k, v in r.items() if k != "grads"} for r in ranks],
+                "tp1": {k: tp1[k] for k in (
+                    "step_losses", "s_per_step", "tokens_per_sec_per_chip", "peak_mem_gb",
+                    "launches")},
+                "loss_max_rel_err": rel, "limit": TP_LOSS_RTOL, "attn_shape": list(TP_ATTN),
+                "grad_rel_err": {k: max(grad_rel_errs(r["grads"], ref_grads)[0][k]
+                                        for r in ranks) for k in PP_GRAD_LEAVES},
+                "grad_limit": TP_GRAD_REL}
     emit({"phase": "tensor_parallel", "sub": "a", "ranks_on": TP_DEVICE, "backend": "gloo",
           "world_size": 2, "nvidia_smi": nvidia_smi_line(), **out["a"]})
     check(rel <= TP_LOSS_RTOL, f"(a) per-step loss {rel} off tp=1's")
+    check(grad_rel <= TP_GRAD_REL, f"(a) a first-step gradient {grad_rel} off tp=1's")
     for rec in ranks:
         c, steps, ev = rec["launches"], rec["steps"], rec["eval_batches"]
         check(all(math.isfinite(x) for x in (rec["train_loss"], rec["test_loss"])),
@@ -6395,12 +6453,395 @@ def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict) -> dict:
             check(c[name] is not None and c[name].startswith("NotImplementedError")
                   and "Remaining parallelism" in c[name],
                   f"(c) {name} beside tp was not refused by item 7: {c[name]}")
-        check(c["pp"] is not None and c["pp"].startswith("NotImplementedError"),
-              f"(c) pp was not refused: {c['pp']}")
+        check(c["pp"] is not None and "needs a model with a pipelineable block stack"
+              in c["pp"], f"(c) pp on ResNet-20 was not JAX's refusal: {c['pp']}")
         check(c["stream"] == ("ValueError: input_mode='stream' does not compose with "
                               "tp/sp/pp/fsdp/expert parallelism; use device mode"),
               f"(c) stream mode beside tp: {c['stream']}")
+    # each spawn's bodies run in step across its ranks: a body's seconds are
+    # its slowest rank's, and the pipeline's own seconds are its two bodies'
+    body_s = {w: {k: max(r["body_s"][k] for r in rs) for k in ("tp", "pp")}
+              for w, rs in ((2, spawned), (4, ranks4))}
+    out["pipeline"] = pipeline_gates([r["pp_a"] for r in spawned], ranks4, tp1, ref_grads,
+                                     pp_errs, spawn_s, body_s)
     return out
+
+
+# ---------------------------------------------------------------------------
+# pipeline: GPipe over the mesh's pipe axis, run inside tensor_parallel's two
+# gloo spawns (no spawn and no CUDA context of its own)
+
+PP_DEVICE = TP_DEVICE  # every rank shares the one card
+PP_M = 2  # bench_lm8k at pp=2 with the default microbatch count (pp_microbatches=0: pp)
+PP_ATTN = (LM_CFG["batch_size"] // PP_M, LM_SEQ, 8, 64)  # (a): a microbatch's attention
+PP_TP_ATTN = (LM_CFG["batch_size"] // PP_M, LM_SEQ, 4, 64)  # (b): a rank's at pp=2 x tp=2
+PP_LM_CFG = dict(SP_LM_CFG, name="bench_lm8k_pp2", sp=1, pp=2)
+PP_TP_LM_CFG = dict(PP_LM_CFG, name="bench_lm8k_pp2_tp2", tp=2)
+# the gradient gate (and queue 3 gap 7's at tp=2): the gradient one step
+# applies (after the reductions and the clip) from the same weights on the
+# first global batch, against the single-card step's, for stage 0's and
+# stage 1's fused qkv (blocks 0 and 2 of depth 4) and the embedding, each
+# relative to the reference's largest magnitude.  Adam's update is
+# scale-free a leaf, so a gradient x pp or x tp does not show in the loss.
+PP_GRAD_LEAVES = ("blocks.0.qkv.weight", "blocks.2.qkv.weight", "embed.weight")
+# Limits, each near the geometric mean of the sound reading and the nearer
+# planted fault's on the H100 (PERF.md, pipeline parallelism): per-step loss
+# against the sp=1 fit, sound 3.2e-6 (pp=2) and 1.03e-4 (pp=2 x tp=2), a
+# microbatch written one slot off 6.4e-3, the stages swapped 1.5e-2 (the
+# broadcast's backward summing over pipe leaves it at 3.2e-6: Adam); the
+# first step's gradient, sound <= 4.7e-3, one slot off 0.15, swapped 0.99,
+# the summing broadcast 1.0 (x pp).  At tp=2 (queue 3 gap 7): sound <=
+# 4.7e-3, the embedding's gather summing its backward (x tp) 1.0, its loss
+# 1.1e-4 (under TP_LOSS_RTOL: the loss cannot see it).
+PP_LOSS_RTOL = 8e-4
+PP_GRAD_REL = 2.7e-2
+TP_GRAD_REL = 6.8e-2
+
+
+def one_step_grads(torch, trainer, leaves) -> dict:
+    """The gradient one training step applies (after its reductions and the
+    clip, as the optimizer receives it) from the trainer's state on the
+    first global batch (rows 0..B of the training set, in order), whole (a
+    collective under a plan) and named as the plain stack names it, for
+    ``leaves``; the update is skipped and the state put back."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import _unstacked_name
+
+    st = trainer.state
+    snap = st.snapshot()
+    got: list = []
+    st.optimizer.step = lambda g: got.append([x.detach().clone() for x in g])
+    b = trainer.config.batch_size
+    try:
+        trainer._run_epoch(st, trainer.train_images[:b], trainer.train_labels[:b],
+                           perm=torch.arange(b, device=trainer.train_images.device))
+    finally:
+        del st.optimizer.step
+    st.restore(snap)
+    plan = trainer._plan
+    if plan is None:
+        whole = dict(zip((n for n, _ in trainer.model.named_parameters()), got[0]))
+    else:
+        whole = dict(zip(plan.names, plan.whole(got[0])))
+    stacked = getattr(trainer.model, "pipe_blocks", None)
+    per = stacked.per_stage if stacked is not None else 1
+    whole = {_unstacked_name(k, per): v for k, v in whole.items()}
+    return {k: whole[k].float().cpu() for k in leaves}
+
+
+def grad_rel_errs(got: dict, want: dict) -> tuple[dict, float]:
+    """Each leaf's largest gradient difference over the reference's largest
+    magnitude, and the largest of them."""
+    errs = {k: float((got[k] - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for k, w in want.items()}
+    return errs, max(errs.values())
+
+
+def call_meter(torch, targets):
+    """Record ``(kind, bytes of the first argument, seconds)`` for each call
+    of ``targets`` (``(module, attribute, kind)`` triples) until
+    ``restore()``; with ``state["timed"]`` the card is synced around each
+    call whose first argument is a CUDA tensor."""
+    calls: list = []
+    state = {"timed": False}
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in targets]
+
+    def wrap(fn, kind):
+        def run(*a, **kw):
+            x = a[0] if a and isinstance(a[0], torch.Tensor) else None
+            sync = state["timed"] and x is not None and x.is_cuda
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            calls.append((kind, 0 if x is None else x.numel() * x.element_size(),
+                          time.perf_counter() - t0))
+            return y
+        return run
+
+    for (mod, attr, kind), (_, _, fn) in zip(targets, saved):
+        setattr(mod, attr, wrap(fn, kind))
+
+    def restore():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+    return calls, state, restore
+
+
+PP_KINDS = ("hop", "broadcast", "grad_broadcast", "all_reduce")
+
+
+def pp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict) -> dict:
+    """A pp run through fit(), as tp_fit: the first step's gradient of the
+    gated leaves from the fresh state, every count zeroed just before fit()
+    and read just after, the exchanges fit() issued, peak memory; then
+    ``generate(on_mesh=True)``'s refusal and one more step with each
+    exchange timed on a synced card: the stage hops (ms, MB, whether gloo
+    staged them through host memory), the output broadcast, the replicated
+    leaves' gradient broadcast and, under tp, the all-reduces."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import model_blocks
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import pipeline as PL
+
+    cfg = RunConfig(**cfg_dict)
+    collect_garbage(torch, PP_DEVICE)  # the peak below is this fit's
+    trainer = Trainer(cfg, device=PP_DEVICE)
+    step_grads = one_step_grads(torch, trainer, PP_GRAD_LEAVES)
+    caught = first_epoch_losses(trainer)
+    run_epoch = trainer._run_epoch
+    targets = ((PL, "stage_hop", "hop"), (C, "broadcast", "broadcast"),
+               (PL, "broadcast", "grad_broadcast"), (C, "_sum", "all_reduce"))
+    sp_sync(torch)
+    if PP_DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    calls, meter, restore = call_meter(torch, targets)
+    sp_reset(fa, xent)
+    try:
+        summary = trainer.fit()
+        counts = sp_counts(fa, xent)
+    finally:
+        restore()
+    sp_sync(torch)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if PP_DEVICE != "cpu" else None
+    mesh, plan, h = trainer.mesh, trainer._plan, trainer.history[-1]
+    try:
+        trainer.generate([[1, 2, 3]], max_new=1, on_mesh=True)
+        on_mesh = None
+    except ValueError as e:
+        on_mesh = f"ValueError: {e}"
+    blocks = model_blocks(trainer.model)
+    rec = {"config": cfg.name, "steps": trainer.state.step, "path_label": trainer._path_label,
+           "data_index": mesh.data_index, "model_index": mesh.model_index,
+           "pipe_index": mesh.pipe_index, "chips": trainer.n_chips,
+           "eval_batches": -(-cfg.n_test // cfg.eval_batch_size),
+           "train_loss": h["train_loss"], "test_loss": h.get("test_loss"),
+           "step_losses": [float(x) for x in C.all_reduce_mean(caught[0])],
+           "s_per_step": round(h["epoch_time_s"] / trainer.steps_per_epoch, 5),
+           "tokens_per_sec_per_chip": summary.get("tokens_per_sec_per_chip"),
+           "peak_mem_gb": round(peak, 3) if peak is not None else None, "launches": counts,
+           "fit_exchanges": {k: sum(1 for c in calls if c[0] == k) for k in PP_KINDS},
+           "held_stages": sorted({n.split(".")[2] for n in plan.local_names
+                                  if PL.is_stage_leaf(n)}),
+           "blocks_held": len(blocks), "heads_a_rank": [b.tp_heads for b in blocks][:1],
+           "attn_pairs": [b.tp_attn_pair for b in blocks], "on_mesh": on_mesh,
+           "grads": step_grads}
+    staged0 = C.stage_hop.host_staged
+    calls, meter, restore = call_meter(torch, targets)
+    meter["timed"] = True
+    b = cfg.batch_size
+    t0 = time.perf_counter()
+    try:
+        run_epoch(trainer.state, trainer.train_images[:b], trainer.train_labels[:b])
+        sp_sync(torch)
+    finally:
+        restore()
+    rec["timed_step"] = {
+        "wall_s": round(time.perf_counter() - t0, 4),
+        "hops_host_staged": C.stage_hop.host_staged > staged0,
+        **{f"{kind}_{what}": round(fn([c for c in calls if c[0] == kind]), 4)
+           for kind in PP_KINDS
+           for what, fn in (("n", len), ("mb", lambda cs: sum(c[1] for c in cs) / 1e6),
+                            ("ms", lambda cs: sum(c[2] for c in cs) * 1e3))}}
+    trainer.close()
+    del trainer
+    gc.collect()
+    if PP_DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def pp_refusals(Trainer, RunConfig) -> dict:
+    """(c) JAX's refusals beside pp at bench_lm8k's width, on four ranks:
+    pp beside sp and beside fsdp (the Trainer's ValueError), dropout and
+    MoE blocks in the stages (the model's), multislice (item 7.7)."""
+    mk = LM_CFG["model_kwargs"]
+    cases = {"sp": {"sp": 2, "dp": 1}, "fsdp": {"dp": 2, "fsdp": True},
+             "dropout": {"dp": 2, "model_kwargs": dict(mk, dropout=0.1)},
+             "moe": {"dp": 2, "model_kwargs": dict(mk, moe_every=2)},
+             "multislice": {"dp": 2, "dcn_dp": 2}}
+    out = {}
+    for name, kw in cases.items():
+        try:
+            Trainer(RunConfig(**dict(PP_LM_CFG, **kw)), device=PP_DEVICE).close()
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def pipeline_gates(per_a: list, per_b: list, pp1: dict, ref_grads: dict, errs: dict,
+                   spawn_s: float, body_s: dict) -> dict:
+    """The pipeline phase's records and gates: (a) bench_lm8k at pp=2 (two
+    ranks) and (b) at pp=2 x tp=2 (four), each per-step loss against
+    ``pp1`` (sequence_parallel's sp=1 fit: the same weights and global
+    batches), each first-step gradient against ``ref_grads`` (that fit's
+    first step, before it trained), the launches
+    a rank (K3 (depth/pp) x M x (steps + eval batches), K4 (depth/pp) x M x
+    steps: a bubble launches nothing), the layout; (c) the refusals.
+    ``body_s``: each spawn's tp and pp bodies' seconds (slowest rank)."""
+    out = {}
+    for part, recs, world, label in (("a", per_a, 2, "dp1_pp2"),
+                                     ("b", [r["pp_b"] for r in per_b], 4, "dp1_tp2_pp2")):
+        rel = max(sp_loss_rel(r["step_losses"], pp1["step_losses"]) for r in recs)
+        grad_errs = [grad_rel_errs(r["grads"], ref_grads) for r in recs]
+        grad_rel = max(g[1] for g in grad_errs)
+        out[part] = {"per_rank": [{k: v for k, v in r.items() if k != "grads"} for r in recs],
+                     "pp1": {k: pp1[k] for k in ("step_losses", "s_per_step",
+                                                 "tokens_per_sec_per_chip", "peak_mem_gb")},
+                     "loss_max_rel_err": rel, "limit": PP_LOSS_RTOL,
+                     "grad_rel_err": {k: max(g[0][k] for g in grad_errs)
+                                      for k in PP_GRAD_LEAVES},
+                     "grad_limit": PP_GRAD_REL,
+                     "attn_shape": list(PP_ATTN if part == "a" else PP_TP_ATTN)}
+        emit({"phase": "pipeline", "sub": part, "ranks_on": PP_DEVICE, "backend": "gloo",
+              "world_size": world, "microbatches": PP_M, **out[part]})
+        check(rel <= PP_LOSS_RTOL, f"({part}) per-step loss {rel} off pp=1's")
+        check(grad_rel <= PP_GRAD_REL, f"({part}) a first-step gradient {grad_rel} off pp=1's")
+        heads = (PP_ATTN if part == "a" else PP_TP_ATTN)[2]
+        for rec in recs:
+            c, steps, ev = rec["launches"], rec["steps"], rec["eval_batches"]
+            check(all(math.isfinite(x) for x in (rec["train_loss"], rec["test_loss"])),
+                  f"({part}) non-finite loss {rec}")
+            per_stage = DEPTH // 2
+            want = {"flash_fwd": per_stage * PP_M * (steps + ev),
+                    "flash_bwd_fused": per_stage * PP_M * steps}
+            got = {k: c[k] for k in want}
+            check(PP_DEVICE == "cpu" or got == want,
+                  f"({part}) launches on pipe rank {rec['pipe_index']}: {got}, expected {want}")
+            check(c["flash_bwd_grouped"] == c["flash_bwd_dkv"] == c["flash_bwd_dq"] == 0,
+                  f"({part}) another backward kernel ran: {c}")
+            check(rec["path_label"] == label and rec["chips"] == world
+                  and rec["held_stages"] == [str(rec["pipe_index"])]
+                  and rec["blocks_held"] == per_stage
+                  and rec["heads_a_rank"] == [heads] and all(rec["attn_pairs"]) == (part == "b"),
+                  f"({part}) the layout: {rec}")
+            check(rec["on_mesh"] is not None and rec["on_mesh"].startswith(
+                "ValueError: on_mesh=True with pipeline stages"),
+                  f"({part}) generate(on_mesh=True) after a pp fit: {rec['on_mesh']}")
+            check(PP_DEVICE == "cpu" or rec["timed_step"]["hops_host_staged"],
+                  f"({part}) the hops were not host-staged under gloo: {rec['timed_step']}")
+    out["c"] = [r["pp_c"] for r in per_b]
+    emit({"phase": "pipeline", "sub": "c", "errors": out["c"], "errs": errs,
+          "spawn_s_with_tensor_parallel": round(spawn_s, 3),
+          "body_s": {w: {k: round(v, 3) for k, v in b.items()} for w, b in body_s.items()},
+          "pipeline_own_s": round(sum(b["pp"] for b in body_s.values()), 3)})
+    for c in out["c"]:
+        for name in ("sp", "fsdp"):
+            check(c[name] is not None and "fsdp do not pipeline yet" in c[name],
+                  f"(c) pp beside {name}: {c[name]}")
+        for name in ("dropout", "moe"):
+            check(c[name] is not None and "dropout and MoE blocks don't compose" in c[name],
+                  f"(c) {name} in the stages: {c[name]}")
+        check(c["multislice"] is not None and c["multislice"].startswith("NotImplementedError")
+              and "item 7.7" in c["multislice"], f"(c) multislice beside pp: {c['multislice']}")
+    out["errs"] = errs
+    return out
+
+
+PP_FAULTS = ("slot_off", "stages_swapped", "sum_over_pipe", "tp_gather_sum")
+
+
+def plant_fault(fault: str) -> None:
+    """Plant one fault in this process (a rank of ``pipeline_faults``):
+    ``slot_off`` each stage hand-off delivers the previous microbatch's
+    tensor; ``stages_swapped`` pipe rank p keeps stage N - 1 - p;
+    ``sum_over_pipe`` the output broadcast's backward sums the cotangents
+    over the pipe group; ``tp_gather_sum`` the model axis's gather sums its
+    backward over the model group (x tp)."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import pipeline as PL
+
+    if fault == "slot_off":
+        hop, prev = PL.stage_hop, [None]
+
+        def off(send, to, like, frm, group):
+            got = hop(send, to, like, frm, group)
+            if got is not None:
+                got, prev[0] = (prev[0] if prev[0] is not None else got), got
+            return got
+
+        PL.stage_hop = off
+    elif fault == "stages_swapped":
+        PL.keep_own_stage = lambda model, mesh: model.pipe_blocks.keep_stage(
+            mesh.pipe_size - 1 - mesh.pipe_index)
+    elif fault == "sum_over_pipe":
+        C._BroadcastFromRoot.backward = staticmethod(
+            lambda ctx, g: (C._sum(g, ctx.group), None, None))
+    elif fault == "tp_gather_sum":
+        forward = C._GatherFromModel.forward
+
+        def keep_group(ctx, x, dim, group, n, i):
+            ctx.group = group
+            return forward(ctx, x, dim, group, n, i)
+
+        def summed(ctx, g):
+            whole = C.all_reduce_sum(g.contiguous(), ctx.group)
+            return whole.chunk(ctx.n, ctx.dim)[ctx.i].contiguous(), None, None, None, None
+
+        C._GatherFromModel.forward = staticmethod(keep_group)
+        C._GatherFromModel.backward = staticmethod(summed)
+
+
+def pp_fault_rank(rank: int, fault: str) -> dict:
+    """One of two gloo ranks sharing the card under a planted fault:
+    bench_lm8k at pp=2 (tp=2 for ``tp_gather_sum``) through fit(), with
+    its first step's gradient (pp_fit / tp_fit)."""
+    import torch
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
+
+    plant_fault(fault)
+    if fault == "tp_gather_sum":
+        return tp_fit(torch, fa, xent, Trainer, RunConfig, TP_LM_CFG, timed_step=False,
+                      grads=True)
+    return pp_fit(torch, fa, xent, Trainer, RunConfig, PP_LM_CFG)
+
+
+def pipeline_faults() -> int:
+    """``chip_smoke.py --pipeline-faults``: the readings that place
+    ``PP_LOSS_RTOL``, ``PP_GRAD_REL`` and ``TP_GRAD_REL`` (PERF.md,
+    pipeline parallelism): the kernels built, the sp=1 fit and its first
+    step's gradient (the references), then each of ``PP_FAULTS`` on two
+    fresh gloo ranks sharing the card: its per-step loss and first-step
+    gradient errors against the references, one JSON line a fault.  The
+    readings are recorded, not gated: a planted fault is expected to read
+    above the limits (the normal run gates the sound path)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.launch import torchrun
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import _build
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
+
+    os.environ.setdefault("DTM_DATA_BACKEND", "native")
+    phase_device(torch, _build)
+    sp1 = sp_fit(torch, fa, xent, Trainer, RunConfig,
+                 dict(SP_LM_CFG, name="bench_lm8k_sp1", sp=1), grads=True)
+    emit({"phase": "pipeline_faults", "nvidia_smi": nvidia_smi_line(),
+          "sp1_step_losses": sp1["step_losses"]})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_faults_") as tmp:
+        for fault in PP_FAULTS:
+            t0 = time.perf_counter()
+            recs = torchrun.spawn(pp_fault_rank, 2, "gloo", PP_DEVICE, Path(tmp) / fault,
+                                  args=(fault,), timeout=600)
+            emit({"phase": "pipeline_faults", "fault": fault,
+                  "loss_max_rel_err": max(sp_loss_rel(r["step_losses"], sp1["step_losses"])
+                                          for r in recs),
+                  "grad_rel_err": [grad_rel_errs(r["grads"], sp1["grads"])[0] for r in recs],
+                  "limits": {"loss": PP_LOSS_RTOL, "pp_grad": PP_GRAD_REL,
+                             "tp_grad": TP_GRAD_REL},
+                  "s": round(time.perf_counter() - t0, 1)})
+    return 0
 
 
 MMA_SYNC = "tensor-core bf16: mma.sync on cp.async-fed tiles"
@@ -6415,6 +6856,8 @@ def main() -> int:
         return preempt_child(sys.argv[2])
     if sys.argv[1:2] == ["--serve-child"]:  # serving_edge (b)'s child process
         return serve_child(sys.argv[2])
+    if sys.argv[1:2] == ["--pipeline-faults"]:  # the pipeline limits' planted faults
+        return pipeline_faults()
     import torch
 
     if not torch.cuda.is_available():

@@ -30,6 +30,11 @@ The mapping, per leaf:
 * A MoE block's ``moe/{router,w1,b1,w2,b2}`` are stored in the same layout
   on both sides (parallel/expert_parallel.py): kept as they are, float32,
   and never quantized.
+* A pipelined model's (``pp_stages > 0``) ``pipe_blocks/stacked`` tree
+  holds every block's leaf in one ``(n_stages, per_stage, ...)`` array;
+  slice ``[s, i]`` maps, as a ``block_{i}`` leaf does, to the port's
+  ``pipe_blocks.stages.{s}.{i}`` (models/transformer.py
+  ``StackedBlocks``), every slice consumed and the stacked shape checked.
 
 A causal LM tree that ``quantize_params_int8`` has quantized (int8
 ``kernel`` and a ``scale`` sibling under each projection) converts to the
@@ -97,32 +102,52 @@ def _norm(out: Expected, path: tuple[str, ...], key: str, n: int):
     out[path + ("bias",)] = (f"{key}.bias", (n,), _KEEP)
 
 
+_STACKED = "{s}.{i}"  # the stage and block of a stacked leaf's port key
+
+
 def _blocks(out: Expected, c: Mapping, scale: bool = False) -> None:
     """The pre-norm blocks ``block_{i}`` -> ``blocks.{i}`` (CausalLM, ViT);
-    ``scale``: the projections are int8 with scales."""
+    ``scale``: the projections are int8 with scales.  With ``pp_stages``
+    the stacked tree: one ``pipe_blocks/stacked`` entry a leaf, its port
+    key a template over :data:`_STACKED` and its shape the stacked one."""
     dim, heads = c["dim"], c["heads"]
     hkv = c["heads_kv"] or heads
     hd = dim // heads
+    n_stages = c.get("pp_stages", 0)
+    if n_stages:
+        block: Expected = {}
+        _block(block, (), "", 0, c, dim, hkv, hd, scale)  # keys ".norm_attn.weight", ...
+        lead = (n_stages, c["depth"] // n_stages)
+        for path, (key, shape, layout) in block.items():
+            out[("pipe_blocks", "stacked") + path] = (
+                "pipe_blocks.stages." + _STACKED + key, lead + shape, layout)
+        return
     for i in range(c["depth"]):
-        p, k = (f"block_{i}",), f"blocks.{i}"
-        _norm(out, p + ("norm_attn",), f"{k}.norm_attn", dim)
-        if hkv == heads:
-            _dense(out, p + ("qkv",), f"{k}.qkv", dim, 3 * dim, scale)
-        else:
-            _dense(out, p + ("q_proj",), f"{k}.q_proj", dim, dim, scale)
-            _dense(out, p + ("kv_proj",), f"{k}.kv_proj", dim, 2 * hkv * hd, scale)
-        _dense(out, p + ("proj",), f"{k}.proj", dim, dim, scale)
-        _norm(out, p + ("norm_mlp",), f"{k}.norm_mlp", dim)
-        hidden = c["mlp_ratio"] * dim
-        if is_moe_block(i, c["moe_every"]):  # float32, never quantized
-            e = c["n_experts"]
-            for leaf, shape in (("router", (dim, e)), ("w1", (e, dim, hidden)),
-                                ("b1", (e, hidden)), ("w2", (e, hidden, dim)),
-                                ("b2", (e, dim))):
-                out[p + ("moe", leaf)] = (f"{k}.moe.{leaf}", shape, _KEEP)
-        else:
-            _dense(out, p + ("dense_0",), f"{k}.dense_0", dim, hidden, scale)
-            _dense(out, p + ("dense_1",), f"{k}.dense_1", hidden, dim, scale)
+        _block(out, (f"block_{i}",), f"blocks.{i}", i, c, dim, hkv, hd, scale)
+
+
+def _block(out: Expected, p: tuple, k: str, i: int, c: Mapping, dim: int, hkv: int,
+           hd: int, scale: bool) -> None:
+    """One pre-norm block's leaves under flax path ``p`` and port key ``k``."""
+    heads = c["heads"]
+    _norm(out, p + ("norm_attn",), f"{k}.norm_attn", dim)
+    if hkv == heads:
+        _dense(out, p + ("qkv",), f"{k}.qkv", dim, 3 * dim, scale)
+    else:
+        _dense(out, p + ("q_proj",), f"{k}.q_proj", dim, dim, scale)
+        _dense(out, p + ("kv_proj",), f"{k}.kv_proj", dim, 2 * hkv * hd, scale)
+    _dense(out, p + ("proj",), f"{k}.proj", dim, dim, scale)
+    _norm(out, p + ("norm_mlp",), f"{k}.norm_mlp", dim)
+    hidden = c["mlp_ratio"] * dim
+    if is_moe_block(i, c["moe_every"]):  # float32, never quantized
+        e = c["n_experts"]
+        for leaf, shape in (("router", (dim, e)), ("w1", (e, dim, hidden)),
+                            ("b1", (e, hidden)), ("w2", (e, hidden, dim)),
+                            ("b2", (e, dim))):
+            out[p + ("moe", leaf)] = (f"{k}.moe.{leaf}", shape, _KEEP)
+    else:
+        _dense(out, p + ("dense_0",), f"{k}.dense_0", dim, hidden, scale)
+        _dense(out, p + ("dense_1",), f"{k}.dense_1", hidden, dim, scale)
 
 
 def _expected_leaves(cfg: Mapping, quantized: bool = False) -> Expected:
@@ -210,8 +235,18 @@ def _mlp_leaves(cfg: Mapping) -> Expected:
     return out
 
 
+def _port_tensor(arr: np.ndarray, layout: str) -> torch.Tensor:
+    t = torch.from_numpy(arr.copy())
+    if layout == _TRANSPOSE:
+        t = t.T
+    elif layout == _HWIO:
+        t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
+    return t.contiguous()
+
+
 def _convert(params: Mapping, expected: Expected) -> dict[str, torch.Tensor]:
-    """Strict conversion against the ``expected`` leaf table."""
+    """Strict conversion against the ``expected`` leaf table (a stacked
+    leaf's key template gives one tensor a ``[s, i]`` slice)."""
     state: dict[str, torch.Tensor] = {}
     seen = set()
     for path, leaf in _leaves(params):
@@ -225,12 +260,12 @@ def _convert(params: Mapping, expected: Expected) -> dict[str, torch.Tensor]:
         if arr.shape != shape:
             raise ValueError(
                 f"leaf {name!r} has shape {arr.shape}, expected {shape}")
-        t = torch.from_numpy(arr.copy())
-        if layout == _TRANSPOSE:
-            t = t.T
-        elif layout == _HWIO:
-            t = t.permute(3, 2, 0, 1)  # HWIO -> OIHW
-        state[key] = t.contiguous()
+        if _STACKED in key:
+            for s in range(shape[0]):
+                for i in range(shape[1]):
+                    state[key.replace(_STACKED, f"{s}.{i}")] = _port_tensor(arr[s, i], layout)
+        else:
+            state[key] = _port_tensor(arr, layout)
         seen.add(path)
     missing = ["/".join(p) for p in expected if p not in seen]
     if missing:
@@ -343,7 +378,9 @@ def _flax_shape(shape: tuple, layout: str) -> tuple:
 def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...], str, tuple]]:
     """``{parameter name: (flax path, layout change, flax shape)}`` for a
     port model, read off its modules: the inverse of the tables above
-    (``blocks.{i}`` is flax's ``block_{i}``; a ``Linear`` weight is a
+    (``blocks.{i}`` is flax's ``block_{i}``, a stage block's
+    ``pipe_blocks.stages.{s}.{i}`` the ``[s, i]`` slice of flax's
+    ``pipe_blocks/stacked``, its flax shape the slice's; a ``Linear`` weight is a
     transposed ``kernel``, a ``Conv2d`` weight an HWIO ``kernel``, a norm's
     weight its ``scale``, an ``Embedding``'s its ``embedding``; the MoE
     leaves and loose parameters keep their names and layouts).  The spec
@@ -359,6 +396,9 @@ def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...], str, tuple
             if parts[i] == "blocks" and i + 1 < len(parts):
                 path.append(f"block_{parts[i + 1]}")
                 i += 2
+            elif parts[i] == "pipe_blocks":  # pipe_blocks.stages.{s}.{i}
+                path += ["pipe_blocks", "stacked"]
+                i += 4
             else:
                 path.append(parts[i])
                 i += 1
@@ -415,6 +455,15 @@ def _opt_nodes(tree: Any, path: str):
         raise ValueError(f"{path}: unexpected optimizer-state leaf {type(tree).__name__}")
 
 
+def _run_model_kw(config, model_kw: Mapping) -> dict:
+    """The model keywords of a run: ``config.model_kwargs``, ``model_kw``,
+    and, at pp > 1, ``pp_stages`` (as JAX's Trainer sets it)."""
+    kw = {**config.model_kwargs, **model_kw}
+    if config.pp > 1:
+        kw.setdefault("pp_stages", config.pp)
+    return kw
+
+
 def train_state_dict(jax_state_np: Any, config, **model_kw) -> dict:
     """A JAX ``TrainState`` with numpy leaves (the tree the JAX package's
     ``restore_state`` returns, ``jax.tree.map(np.asarray, state)``) -> the
@@ -432,8 +481,9 @@ def train_state_dict(jax_state_np: Any, config, **model_kw) -> dict:
     decayed weights).  Strict: every leaf is consumed, the moments map
     like the parameters (transposed, HWIO -> OIHW), the counts must agree,
     the records must be the config's chain's, and every error names its
-    path."""
-    kw = {**config.model_kwargs, **model_kw}
+    path.  A JAX pp run's tree (``config.pp > 1``) is the stacked one, its
+    ``pp_stages`` the run's pp unless ``model_kw`` says otherwise."""
+    kw = _run_model_kw(config, model_kw)
     convert = _params_table(config, kw)
     params = _field(jax_state_np, "params")
     stats = _field(jax_state_np, "batch_stats") or {}
@@ -498,7 +548,10 @@ def load_train_state(jax_state_np: Any, config, device=None, total_steps: int | 
     model keywords.  ``mesh`` with a model axis of more than one rank
     (``parallel.mesh.make_mesh(tp=N)``): the whole leaves land first, then
     each rank keeps its blocks of the leaves ``megatron_rule(N)`` splits
-    (``parallel.tensor_parallel.shard_train_state``)."""
+    (``parallel.tensor_parallel.shard_train_state``).  With a pipe axis
+    (``config.pp > 1``, the stacked model) each rank keeps its stage and,
+    under tp, its Megatron blocks inside it where tp divides the heads
+    (``parallel.pipeline.shard_train_state``)."""
     import torch as _torch
 
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.optim import make_optimizer
@@ -512,7 +565,7 @@ def load_train_state(jax_state_np: Any, config, device=None, total_steps: int | 
         if not config.n_train:
             raise ValueError("total_steps is needed when config.n_train is not set")
         total_steps = config.n_train // config.batch_size * config.epochs
-    kw = {**config.model_kwargs, **model_kw}
+    kw = _run_model_kw(config, model_kw)
     if config.model == "causal_lm":  # float32 masters, as the Trainer builds it
         kw.setdefault("param_dtype", _torch.float32)
     model = get_model(config.model, device=device, **kw)
@@ -520,7 +573,14 @@ def load_train_state(jax_state_np: Any, config, device=None, total_steps: int | 
     state = TrainState(step=0, model=model, optimizer=optimizer,
                        data_generator=_torch.Generator(device=device))
     state.load_state_dict(form)
-    if mesh is not None and mesh.model_size > 1:
+    if mesh is not None and mesh.pipe_size > 1:
+        from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import pipeline
+
+        n = mesh.model_size
+        specs = pipeline.stage_param_specs(
+            model, n, pipeline.tp_in_stages(model.heads, model.heads_kv, n))
+        pipeline.shard_train_state(mesh, state, specs)
+    elif mesh is not None and mesh.model_size > 1:
         from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tp
 
         specs = tp.model_param_specs(model, tp.megatron_rule(mesh.model_size))

@@ -84,8 +84,8 @@ broadcast at start and each rank's dropout generator folds in its rank.
 Metrics are averaged across ranks at each fence, so early stop and
 ``TrainingDiverged`` take the same branch on every rank; only rank 0
 writes records, and ``fit()`` returns rank 0's summary on every rank.
-``n_chips`` is dp (``dp * tp * sp`` under tensor and sequence
-parallelism, below).
+``n_chips`` is dp (``dp * tp * sp * pp`` under tensor, sequence and
+pipeline parallelism, below).
 
 ``tracer`` (utils/tracing.Tracer) records the JAX Trainer's spans:
 ``epoch_dispatch`` per epoch, ``fetch`` per readback interval, ``eval``,
@@ -174,9 +174,32 @@ is ``dp * tp * sp``; the run name's label gets ``tp{n}``.  Refused beside
 tp, by item 7's title: fsdp, MoE blocks, multislice; ``sharded_update``
 and stream mode take JAX's ``ValueError``.
 
-Refused with ``NotImplementedError`` naming the ROADMAP.md item that will
-port them: pp > 1.  The models' constructors refuse the rest of
-what they cannot build yet the same way (the ViT's pipeline stages).
+Pipeline parallelism (``pp > 1``; JAX ``trainer.py:171-254, 383-389,
+483-489, 578-586, 656-750``): the ranks form a ``(data, model, seq,
+pipe)`` mesh (rank ``((d * tp + m) * sp + s) * pp + p``; ``dp`` = world /
+(tp x pp) when 0), the ViT or the causal LM is built stage-stacked
+(``pp_stages`` = pp, ``models/transformer.py`` ``StackedBlocks``) and
+each pipe rank keeps its own stage's blocks and moments
+(``parallel.pipeline.PipePlan``, ``state.plan``), its ``pipeline_fn``
+the GPipe schedule of ``parallel/pipeline.py`` over ``pp_microbatches``
+(0: pp) microbatches of each data row's batch (a batch that does not
+divide, an eval remainder, padded to the multiple and cut back).  With
+tp > 1 the stage blocks are Megatron-split too where tp divides the heads
+(and heads_kv: JAX's ``_pp_tp_in_stages``; ``ValueError`` when the heads
+do not divide), else kept whole on every model rank with JAX's warning.
+The data is JAX's GSPMD epoch; each pipe rank takes stage 0's gradients
+of the replicated leaves, the gradients are averaged over the data
+group, and the clip's norm counts each stage leaf and each replicated
+leaf once.  ``remat="blocks"`` recomputes each block inside its stage,
+``remat=True`` the whole stage.  Saves gather every stage whole (rank 0
+writes), so a pp checkpoint resumes at any pp; ``generate`` and
+``InferenceEngine.from_trainer`` decode from the unstacked whole leaves
+(``_decode_params``); ``generate(on_mesh=True)`` is JAX's ``ValueError``.
+``n_chips`` is ``dp * tp * sp * pp``; the label gets ``pp{n}``.  JAX's
+refusals come with its messages: a model without a block stack, pp
+beside sp or fsdp, a batch that is not a multiple of ``dp *
+microbatches``, dropout or MoE blocks in the stages (the models').
+Multislice beside pp is refused by ROADMAP.md item 7.7.
 """
 
 from __future__ import annotations
@@ -238,6 +261,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.fsdp import (
     make_fsdp_opt_specs,
     make_fsdp_specs,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import pipeline
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import (
     Mesh,
     hybrid_mesh_shapes,
@@ -278,10 +302,25 @@ def _unknown_sp_impl_msg(sp_impl: str) -> str:
     return f"unknown sp_impl {sp_impl!r}; use 'ring' or 'ulysses'"
 
 
+# JAX's refusal of pp beside sp or fsdp (core/trainer.py:195-203 there), word for word
+PP_BESIDE = ("pp composes with dp (batch over 'data') and with tp on the "
+             "NON-pipelined leaves only (embed/head/patch — stacked-block "
+             "leaves are claimed by the 'pipe' sharding; TP inside stages "
+             "would need explicit-collective blocks, a measured rejection "
+             "— see README); sp (nested shard_map islands) and fsdp do "
+             "not pipeline yet")
+
+
 def _refuse_unported(config: RunConfig) -> None:
-    """Raise for every knob the port does not have yet."""
+    """Raise for every knob the port does not have yet, and JAX's refusals
+    of pp (a model without a block stack; pp beside sp or fsdp)."""
     if config.pp > 1:
-        raise _later(f"pp={config.pp}", _PARALLEL)
+        if not model_accepts(config.model, "pipeline_fn"):
+            raise ValueError(
+                f"pp={config.pp} needs a model with a pipelineable block "
+                f"stack (pipeline_fn/pp_stages, e.g. 'vit'); got {config.model!r}")
+        if config.sp > 1 or config.fsdp:
+            raise ValueError(PP_BESIDE)
     if config.dcn_dp < 1:
         raise ValueError(f"dcn_dp must be >= 1, got {config.dcn_dp}")
     if config.input_mode not in ("device", "stream"):
@@ -307,24 +346,34 @@ def _default(model: str, name: str):
     return 0 if par is None else par.default
 
 
+def _unstacked_name(name: str, per_stage: int) -> str:
+    """A stage block's parameter name in the plain stack's layout:
+    ``pipe_blocks.stages.{s}.{i}.X`` -> ``blocks.{s * per_stage + i}.X``
+    (every other name as it is)."""
+    if not pipeline.is_stage_leaf(name):
+        return name
+    s, i, rest = name[len(pipeline.STAGE_PREFIX):].split(".", 2)
+    return f"blocks.{int(s) * per_stage + int(i)}.{rest}"
+
+
 def _seed_words(*key: int) -> int:
     """A 63-bit generator seed that is a pure function of ``key``."""
     return int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0] >> 1)
 
 
 def _data_mesh(config: RunConfig, mesh: Mesh | None
-               ) -> tuple[int, int, int, Mesh | None]:
-    """``(dp, tp, sp, mesh)`` of a run: ``config.dp`` (0: the process
-    group's world size over tp x sp, 1 without a group); dp, tp or sp > 1
-    builds a mesh over the initialised group unless one is given
+               ) -> tuple[int, int, int, int, Mesh | None]:
+    """``(dp, tp, sp, pp, mesh)`` of a run: ``config.dp`` (0: the process
+    group's world size over tp x sp x pp, 1 without a group); dp, tp, sp or
+    pp > 1 builds a mesh over the initialised group unless one is given
     (``ValueError`` naming launch.torchrun without a group); a given mesh
-    must have dp x tp x sp ranks.  ``dcn_dp > 1`` builds the multislice
-    mesh, at dp = 1 too (where it cannot divide)."""
-    tp, sp = max(1, config.tp), max(1, config.sp)
+    must have dp x tp x sp x pp ranks.  ``dcn_dp > 1`` builds the
+    multislice mesh, at dp = 1 too (where it cannot divide)."""
+    tp, sp, pp = max(1, config.tp), max(1, config.sp), max(1, config.pp)
     dp = config.dp
     if dp == 0:
         dp = mesh.size if mesh is not None else (
-            max(1, dist.get_world_size() // (tp * sp))
+            max(1, dist.get_world_size() // (tp * sp * pp))
             if dist.is_available() and dist.is_initialized() else 1)
     if dp < 1:
         raise ValueError(f"dp must be >= 0, got {config.dp}")
@@ -334,17 +383,19 @@ def _data_mesh(config: RunConfig, mesh: Mesh | None
                 "dcn_dp with an explicit mesh is ambiguous — build the multislice "
                 "mesh yourself via make_mesh(..., dcn_dp=N) and leave config.dcn_dp "
                 "at 1, or pass no mesh")
-        hybrid_mesh_shapes(dp, tp, sp, 1, config.dcn_dp)
-        mesh = make_mesh(dp, tp=tp, sp=sp, dcn_dp=config.dcn_dp)
-    if mesh is None and (dp > 1 or tp > 1 or sp > 1):
-        mesh = make_mesh(dp, tp=tp, sp=sp)
+        hybrid_mesh_shapes(dp, tp, sp, pp, config.dcn_dp)
+        mesh = make_mesh(dp, tp=tp, sp=sp, pp=pp, dcn_dp=config.dcn_dp)
+    if mesh is None and (dp > 1 or tp > 1 or sp > 1 or pp > 1):
+        mesh = make_mesh(dp, tp=tp, sp=sp, pp=pp)
     if mesh is not None and mesh.size != dp:
         raise ValueError(f"dp={dp} but the mesh's data axis has {mesh.size} rank(s)")
     if mesh is not None and mesh.model_size != tp:
         raise ValueError(f"tp={tp} but the mesh's model axis has {mesh.model_size} rank(s)")
     if mesh is not None and mesh.seq_size != sp:
         raise ValueError(f"sp={sp} but the mesh's seq axis has {mesh.seq_size} rank(s)")
-    return dp, tp, sp, mesh
+    if mesh is not None and mesh.pipe_size != pp:
+        raise ValueError(f"pp={pp} but the mesh's pipe axis has {mesh.pipe_size} rank(s)")
+    return dp, tp, sp, pp, mesh
 
 
 class Trainer:
@@ -376,7 +427,7 @@ class Trainer:
         if tracer is not None:
             self._compile.bind(tracer)
         self._stream = config.input_mode == "stream"
-        self.dp, self.tp, self.sp, self.mesh = _data_mesh(config, mesh)
+        self.dp, self.tp, self.sp, self.pp, self.mesh = _data_mesh(config, mesh)
         if config.fsdp and self.dp <= 1:
             raise ValueError(
                 "fsdp=True needs dp>1 (ZeRO-3 shards over the 'data' axis); "
@@ -395,7 +446,7 @@ class Trainer:
         self._sharded_run = bool(config.fsdp) or self._moe_ep
         # the runs that draw JAX's GSPMD epoch: one global permutation, the
         # whole set on every rank, each data row on its block of a batch
-        self._global_batches = self._sharded_run or self.tp > 1 or self.sp > 1
+        self._global_batches = self._sharded_run or self.tp > 1 or self.sp > 1 or self.pp > 1
         if self._global_batches and self._stream:
             raise ValueError(
                 "input_mode='stream' does not compose with tp/sp/pp/fsdp/"
@@ -419,10 +470,11 @@ class Trainer:
         self._path_label = "_".join(
             [f"dp{self.dp}"] + [part for part, on in (
                 (f"tp{self.tp}", self.tp > 1), (f"sp{self.sp}", self.sp > 1),
-                ("fsdp", config.fsdp), ("ep", self._moe_ep),
+                (f"pp{self.pp}", self.pp > 1), ("fsdp", config.fsdp), ("ep", self._moe_ep),
                 ("su", config.sharded_update), ("stream", self._stream)) if on])
         if config.batch_size % self.dp:
             raise ValueError(f"batch_size {config.batch_size} not divisible by dp={self.dp}")
+        self._pp_tp_in_stages = self._check_pipeline(config)
         self.rank = 0 if self.mesh is None else self.mesh.rank
         self.device = resolve_device(device) if self.mesh is None else rank_device(device)
         data = load_dataset(
@@ -496,6 +548,9 @@ class Trainer:
                 self.mesh, n_exp,
                 capacity_factor=model_kwargs.get("moe_capacity_factor", 2.0),
                 top_k=int(model_kwargs.get("moe_top_k", 1))))
+        if self.pp > 1:  # the block stack stage-stacked, run by the pipeline
+            model_kwargs.setdefault("pp_stages", self.pp)
+            model_kwargs.setdefault("pipeline_fn", self._make_pipeline_fn())
         if config.remat == "blocks":
             if not model_accepts(config.model, "block_remat"):
                 raise ValueError(
@@ -529,8 +584,10 @@ class Trainer:
             optimizer = make_optimizer(config, total_steps, params)
         self.state = TrainState(step=0, model=self.model, optimizer=optimizer,
                                 data_generator=torch.Generator(device=self.device))
+        # under pp, remat=True recomputes each stage in the pipeline's backward
         step_kw = dict(label_smoothing=config.label_smoothing, fused_xent=config.fused_xent,
-                       grad_accum=config.grad_accum, remat=config.remat is True)
+                       grad_accum=config.grad_accum,
+                       remat=config.remat is True and self.pp == 1)
         if self._sharded_run:
             # structural (expert) leaves first, then ZeRO-3's largest-dim rule
             fsdp_specs = make_fsdp_specs(self.model, self.mesh) if config.fsdp else None
@@ -542,6 +599,9 @@ class Trainer:
                               if self._moe_ep else None),
                 n_buckets=config.sharded_update_buckets)
             self._plan.adopt(self.state)
+        elif self.pp > 1:  # each pipe rank keeps its stage (and its model blocks)
+            self._plan = pipeline.shard_train_state(self.mesh, self.state, pipeline.stage_param_specs(
+                self.model, self.tp, self._pp_tp_in_stages))
         elif self.tp > 1:  # each model rank keeps its blocks (megatron_rule(tp))
             self._plan = TPPlan.shard(self.mesh, self.model)
             self._plan.adopt(self.state)
@@ -622,8 +682,62 @@ class Trainer:
 
     @property
     def n_chips(self) -> int:
-        """Devices the run occupies: the images/sec/chip denominator."""
-        return self.dp * self.tp * self.sp
+        """Devices the run occupies: the images/sec/chip denominator (so the
+        per-chip FLOPs of the MFU divide by ``dp * tp * sp * pp``)."""
+        return self.dp * self.tp * self.sp * self.pp
+
+    def _check_pipeline(self, config: RunConfig) -> bool:
+        """JAX's checks of a pp run (``trainer.py:204-254, 483-489`` there):
+        whether tp splits the stage blocks too (MHA, or GQA whose heads_kv
+        tp divides; ``ValueError`` when the heads do not divide), the
+        warning of an unaligned GQA stack (its stage blocks whole on every
+        model rank), and the batch's multiple of ``dp * microbatches``."""
+        if self.pp == 1:
+            return False
+        mk = config.model_kwargs
+        heads = int(mk.get("heads", _default(config.model, "heads")) or 0)
+        hkv = int(mk.get("heads_kv", _default(config.model, "heads_kv")) or 0)
+        dim = int(mk.get("dim", _default(config.model, "dim")) or 0)
+        in_stages = dim > 0 and pipeline.tp_in_stages(heads, hkv, self.tp)
+        if in_stages and heads % self.tp:
+            raise ValueError(f"pp x tp inside stages needs heads ({heads}) divisible "
+                             f"by tp ({self.tp})")
+        if self.tp > 1 and not in_stages:
+            import warnings
+
+            warnings.warn(
+                f"pp={self.pp} x tp={self.tp} with heads_kv={hkv}: "
+                "stacked-block params are sharded over 'pipe' only; "
+                "Megatron 'model' sharding applies to the non-pipelined "
+                "leaves (embeddings/head/patch). Attention/MLP weights "
+                "inside stages are NOT tensor-parallel (MHA stacks are "
+                "since round 4, GQA stacks with tp | heads_kv since "
+                "round 5).", stacklevel=3)
+        m = config.pp_microbatches or self.pp
+        if config.batch_size % (self.dp * m):
+            raise ValueError(
+                f"batch_size {config.batch_size} must be a multiple of "
+                f"dp*microbatches ({self.dp}x{m}={self.dp * m}) so training "
+                f"always uses the pipeline island")
+        return in_stages
+
+    def _make_pipeline_fn(self):
+        """The pp > 1 block-stack hook (JAX's ``_make_pipeline_fn``): the
+        GPipe schedule of ``parallel/pipeline.py`` over this rank's stage,
+        ``pp_microbatches`` microbatches (0: pp) of each data row's batch, a
+        batch that does not divide padded to the microbatch multiple and
+        cut back (init samples and eval remainders in JAX, where its local
+        scan over the gathered stages gives the same values); ``remat=True``
+        recomputes the stage in the backward."""
+        mesh, m = self.mesh, self.config.pp_microbatches or self.pp
+        remat = self.config.remat is True
+
+        def pipeline_fn(stage_fn, params, x):
+            return pipeline.pad_to_microbatches(
+                lambda h: pipeline.run_pipeline(stage_fn, params, h, mesh, m, remat=remat),
+                x, m)
+
+        return pipeline_fn
 
     def _epoch_seed(self, *key: int) -> int:
         """An epoch's data-order seed.  Under dp > 1 in device mode it folds
@@ -756,7 +870,7 @@ class Trainer:
         if self._plan is None:
             return find_nonfinite(self.model)
         with torch.no_grad():
-            return [n for n, m in zip(self._plan.names, self._plan.masters)
+            return [n for n, m in zip(self._plan.local_names, self._plan.masters)
                     if not bool(torch.isfinite(m).all())]
 
     def _any_rank(self, flag: bool) -> bool:
@@ -888,7 +1002,7 @@ class Trainer:
                    **{key: {n: all_gather(t) for n, t in zip(names, ts)}
                       for key, ts in (("mu", o.mu), ("nu", o.nu), ("trace", o.trace))}}
         form = self.state.state_dict(optimizer=opt)
-        form["dp"], form["tp"], form["sp"] = self.dp, self.tp, self.sp
+        form["dp"], form["tp"], form["sp"], form["pp"] = self.dp, self.tp, self.sp, self.pp
         if self.mesh is not None:
             form["rank_generators"] = all_gather_object(form["generators"])
         return form
@@ -898,8 +1012,8 @@ class Trainer:
         """Load a save form into this run (strict; ``ValueError`` when the
         optimizer's layout cannot continue here)."""
         saved_dp = int(form.get("dp", 1))
-        same_ranks = ((saved_dp, int(form.get("tp", 1)), int(form.get("sp", 1)))
-                      == (self.dp, self.tp, self.sp))
+        same_ranks = ((saved_dp, int(form.get("tp", 1)), int(form.get("sp", 1)),
+                       int(form.get("pp", 1))) == (self.dp, self.tp, self.sp, self.pp))
         opt = form["optimizer"]
         zero1 = "zero1_dp" in opt
         if zero1 != (self._sharded is not None):
@@ -996,7 +1110,7 @@ class Trainer:
         islands; its weights are whatever :meth:`_decode_params` loads."""
         clean = {k: v for k, v in self._model_kwargs.items()
                  if k not in ("attn_fn", "block_remat", "axis_name", "param_dtype",
-                              "moe_fn")}
+                              "moe_fn", "pipeline_fn", "pp_stages")}
         return get_model(self.config.model, num_classes=self.num_classes,
                          device=self.device, **clean)
 
@@ -1021,6 +1135,9 @@ class Trainer:
 
         whole = (self.model.state_dict() if self._plan is None
                  else self._plan.whole_state_dict(self.model))  # a collective
+        stacked = getattr(self.model, "pipe_blocks", None)
+        if stacked is not None:  # unstacked in schedule order (JAX's _decode_param_tree)
+            whole = {_unstacked_name(k, stacked.per_stage): v for k, v in whole.items()}
         params = {k: cast(k, v) for k, v in whole.items()}
         self._gen_params = (self.state.step, params)
         return params
@@ -1051,6 +1168,12 @@ class Trainer:
                 "run trained a BIDIRECTIONAL model (causal=False), whose "
                 "logits condition on future positions the decode path cannot "
                 "provide — train causally to decode")
+        if on_mesh and (self.pp > 1 or self._model_kwargs.get("pp_stages", 0)):
+            raise ValueError(
+                "on_mesh=True with pipeline stages is unsupported: the "
+                "decode model runs the plain block stack, not the "
+                "pipe-sharded pipe_blocks/stacked layout — use the default "
+                "path (which unstacks the stages on device)")
         if on_mesh:
             if self._plan is not None:
                 raise _later("on_mesh=True (decoding in the sharded layout)", _PARALLEL)

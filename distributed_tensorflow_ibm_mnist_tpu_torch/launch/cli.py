@@ -22,7 +22,8 @@ Data-parallel runs, one process per rank (``launch/torchrun.py``):
   spawned by this command (the port's form of JAX's virtual CPU mesh).
 
 Under a world of N ranks a config at ``dp`` 0 or 1 trains at ``dp=N /
-(tp * sp)``; any other ``dp`` times ``tp`` times ``sp`` must equal N.
+(tp * sp * pp)``; any other ``dp`` times ``tp`` times ``sp`` times ``pp``
+must equal N.
 ``--set tp=2`` splits every leaf Megatron's rule splits over each data
 row's tp ranks (tensor parallelism)::
 
@@ -36,6 +37,15 @@ sequence model (the causal LM, the ViT) over each data row's sp ranks::
     python -m distributed_tensorflow_ibm_mnist_tpu_torch.launch.cli --virtual-devices 4 \
         --device cpu --set model=causal_lm --set dataset=retrieval --set sp=2 \
         --set sp_impl=ulysses
+
+``--set pp=4 --set pp_microbatches=8`` pipelines a block-stacked model
+(the ViT, the causal LM) over each data row's pp ranks (GPipe,
+``parallel/pipeline.py``), example 07(a)'s layout at dp=2::
+
+    python -m distributed_tensorflow_ibm_mnist_tpu_torch.launch.cli --virtual-devices 8 \
+        --device cpu --set model=vit --set pp=4 --set pp_microbatches=8 \
+        --set synthetic=True --set n_train=256 --set n_test=64 --set batch_size=32 \
+        --set "model_kwargs={'patch_size': 7, 'dim': 32, 'depth': 4, 'heads': 2}"
 
 Only rank 0 prints records and the
 ``final`` line.  The sharded runs take their knobs through ``--set`` as
@@ -150,10 +160,11 @@ def _join(args: argparse.Namespace) -> dict | None:
 
 def world_config(config: RunConfig, world: int) -> RunConfig:
     """``config`` as a rank of ``world`` runs it: at ``dp`` 0 or 1 the data
-    axis takes the ranks the model and seq axes leave (``world / (tp *
-    sp)``)."""
+    axis takes the ranks the model, seq and pipe axes leave (``world / (tp
+    * sp * pp)``)."""
     if world > 1 and config.dp in (0, 1):
-        return config.replace(dp=max(1, world // (max(1, config.tp) * max(1, config.sp))))
+        inner = max(1, config.tp) * max(1, config.sp) * max(1, config.pp)
+        return config.replace(dp=max(1, world // inner))
     return config
 
 

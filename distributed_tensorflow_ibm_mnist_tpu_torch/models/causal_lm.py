@@ -41,6 +41,14 @@ embedding is split on its features (looked up a block a rank, then
 gathered), the head is a row split over ``dim`` (the tied head too), and
 the blocks run Megatron's pairs (models/transformer.py).
 
+``pp_stages > 0`` stacks the blocks for pipeline parallelism
+(``pipe_blocks``, ``transformer.StackedBlocks``, run by ``pipeline_fn``
+when given; initialised as the plain stack would be), as JAX's model
+does; it refuses what JAX's refuses beside it: ``quant`` (at
+construction here) and decode (the cache paths and the ``sow_kv``
+prefill: ``Trainer.generate`` decodes a pp run from its unstacked
+weights).
+
 ``block_remat=True`` recomputes each block's activations in the backward
 (``models/remat.py``), as the JAX model's ``nn.remat`` blocks do; decode,
 the ``sow_kv`` prefill and ``torch.no_grad`` run the blocks plainly.
@@ -81,6 +89,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import (
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import _resolve_generator
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
     LayerNorm,
+    StackedBlocks,
     TransformerBlock,
     _resolve_attn,
     attention_heads,
@@ -98,6 +107,17 @@ LEARNED_POS_DECODE = (
     "decode mode needs position-free params: pos='learned' bakes "
     "the trained length into a (1, S, dim) table that cannot "
     "address incremental positions — use pos='rope' (the default)")
+# JAX's refusals beside pipeline stages, word for word
+PP_QUANT = (
+    "quant composes with the plain block stack only: pp_stages "
+    "stacks params (n_stages, per_stage, ...) for the training "
+    "pipeline, which the int8 kernel/scale layout does not "
+    "cover — decode already unstacks pp weights (core/trainer."
+    "_decode_param_tree), so quantize the unstacked tree")
+PP_DECODE = (
+    "decode mode runs the plain block stack, not stage-stacked "
+    "params — Trainer.generate unstacks pp-trained weights into "
+    "this layout for you (core/trainer._decode_param_tree)")
 
 
 def check_decodable(model) -> None:
@@ -119,8 +139,8 @@ class CausalLM(nn.Module):
                  moe_capacity_factor: float = 2.0, moe_top_k: int = 1,
                  moe_z_weight: float = 0.0, moe_fn=None,
                  kv_cache_dtype: str = "native", page_size: int = 0,
-                 quant: str = "none", block_remat: bool = False,
-                 dtype: torch.dtype = torch.bfloat16,
+                 quant: str = "none", pp_stages: int = 0, pipeline_fn=None,
+                 block_remat: bool = False, dtype: torch.dtype = torch.bfloat16,
                  param_dtype: torch.dtype | None = None,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
@@ -133,8 +153,10 @@ class CausalLM(nn.Module):
             raise ValueError(
                 "pos='learned' needs seq_len: the (1, S, dim) table is sized at "
                 "construction (flax sizes it from the first input)")
-        check_moe_knobs(0, depth, dropout, moe_every)
+        check_moe_knobs(pp_stages, depth, dropout, moe_every)
         check_quant_knobs(quant, kv_cache_dtype)
+        if quant != "none" and pp_stages > 0:
+            raise ValueError(PP_QUANT)
         device = resolve_device(device)
         self._config = dict(
             num_classes=num_classes, dim=dim, depth=depth, heads=heads,
@@ -143,8 +165,8 @@ class CausalLM(nn.Module):
             tie_embeddings=tie_embeddings, moe_every=moe_every, n_experts=n_experts,
             moe_capacity_factor=moe_capacity_factor, moe_top_k=moe_top_k,
             moe_z_weight=moe_z_weight, kv_cache_dtype=kv_cache_dtype,
-            page_size=page_size, quant=quant, block_remat=block_remat, dtype=dtype,
-            param_dtype=param_dtype)
+            page_size=page_size, quant=quant, pp_stages=pp_stages, pipeline_fn=pipeline_fn,
+            block_remat=block_remat, dtype=dtype, param_dtype=param_dtype)
         self.block_remat = block_remat
         self.quant, self.kv_cache_dtype = quant, kv_cache_dtype
         self.num_classes, self.dim, self.depth = num_classes, dim, depth
@@ -173,7 +195,15 @@ class CausalLM(nn.Module):
                              kv_cache_dtype=kv_cache_dtype, page_size=page_size,
                              quant=quant, dtype=dtype, param_dtype=param_dtype,
                              device=meta, generator=self.generator)
-            for i in range(depth))
+            for i in range(0 if pp_stages > 0 else depth))
+        self.pp_stages = pp_stages
+        if pp_stages > 0:  # the stage-stacked form of the same blocks
+            self.pipe_blocks = StackedBlocks(
+                dim=dim, heads=heads, n_stages=pp_stages, per_stage=depth // pp_stages,
+                heads_kv=heads_kv, mlp_ratio=mlp_ratio, attn_fn=attn_fn,
+                pipeline_fn=pipeline_fn, block_remat=block_remat, rope=pos == "rope",
+                window=window, dtype=dtype, param_dtype=param_dtype, device=meta,
+                generator=self.generator)
         self.norm_out = LayerNorm(dim, dtype, device=meta)
         if tie_embeddings:
             self.logits = None
@@ -246,6 +276,8 @@ class CausalLM(nn.Module):
                 sow_kv: bool = False, with_moe: bool = False):
         if cache is not None or sow_kv:
             check_decodable(self)
+            if self.pp_stages > 0:
+                raise ValueError(PP_DECODE)
         s = tokens.shape[1]
         span = attn = None
         if cache is None and not sow_kv:
@@ -259,8 +291,11 @@ class CausalLM(nn.Module):
                     f"{self.seq_len}, got sequences of {s}")
             x = x + self.pos_embed[:, lo:hi].to(self.dtype)
         if cache is None and not sow_kv:
-            x, moe = run_blocks(self.blocks, x, train, self.block_remat, self.generator,
-                                attn=attn, offset=lo)
+            if self.pp_stages > 0:
+                x, moe = self.pipe_blocks(x), None
+            else:
+                x, moe = run_blocks(self.blocks, x, train, self.block_remat, self.generator,
+                                    attn=attn, offset=lo)
             logits = self._head(x)
             return (logits, moe) if with_moe else logits
         kvs = {}

@@ -56,8 +56,12 @@ scattered and its output reduced), so the attention then runs on every
 head on every model rank.  The patch conv's output channels are gathered,
 and the ``logits`` head is a row split.
 
-Not ported yet, raising ``NotImplementedError`` that names what ports it:
-the ViT's pipeline stages (``StackedBlocks``).  ``moe_fn`` (the models'
+Pipeline stages (``pp_stages``, the ViT and the causal LM): the block
+stack is a :class:`StackedBlocks`, ``pipe_blocks.stages.{s}.{i}`` (JAX's
+one ``pipe_blocks/stacked`` tree with ``(n_stages, per_stage, ...)``
+leaves; ``convert.py`` maps the two), and the model's ``pipeline_fn`` (the
+Trainer's, ``parallel/pipeline.py``) runs it; a pipe rank keeps its own
+stage only (``StackedBlocks.keep_stage``).  ``moe_fn`` (the models'
 keyword, ``parallel.expert_parallel.make_moe_dispatch_auto`` or a user's
 island) runs every MoE block through it.  ``block_remat`` (the ViT, the causal LM)
 recomputes each block in the backward (``models/remat.py``), its dropout
@@ -220,11 +224,6 @@ class LayerNorm(nn.Module):
         var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(self.dtype)
-
-
-def _not_in_slice(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet ({where} ports it)")
 
 
 def is_moe_block(i: int, moe_every: int) -> bool:
@@ -540,7 +539,8 @@ def attention_heads(model) -> tuple[int, int]:
     """The (heads, heads_kv) a model's blocks hand their attention on this
     rank: H/tp of each on the head-aligned tensor-parallel path, all of
     them otherwise."""
-    block = model.blocks[0] if len(model.blocks) else None
+    held = model_blocks(model)
+    block = held[0] if held else None
     if block is None:
         return model.heads, model.heads_kv
     return block.tp_heads, block.tp_heads_kv
@@ -557,6 +557,75 @@ def seq_shard(attn_fn, s: int, heads: int, heads_kv: int):
         return None, None
     span = attn_fn.local_span(s, heads, heads_kv)
     return span, (None if span is not None else attn_fn.dense)
+
+
+def model_blocks(model) -> list:
+    """The transformer blocks a model holds, in order: its ``blocks``, or
+    the blocks of the pipeline stages it holds."""
+    stacked = getattr(model, "pipe_blocks", None)
+    return list(model.blocks) if stacked is None else stacked.held_blocks()
+
+
+class StackedBlocks(nn.Module):
+    """The block stack of a pipelined model: ``n_stages`` stages of
+    ``per_stage`` blocks each, ``stages.{s}.{i}`` (JAX's ``StackedBlocks``,
+    whose one ``stacked`` tree holds the same leaves with ``(n_stages,
+    per_stage, ...)`` dims).  ``forward(x)`` with no ``pipeline_fn`` runs
+    every block in order (the plain stack: the unstacked model's values);
+    with one, ``pipeline_fn(stage_fn, params, x)`` (the Trainer's,
+    ``parallel/pipeline.py``) runs the schedule, ``stage_fn(params, h)``
+    being this rank's stage and ``params`` its parameters.  After
+    :meth:`keep_stage` the module holds one stage's blocks.  No dropout, no
+    MoE (JAX's equal-program contract)."""
+
+    def __init__(self, dim: int, heads: int, n_stages: int, per_stage: int,
+                 heads_kv: int = 0, mlp_ratio: int = 4, attn_fn: Callable | None = None,
+                 attn: str = "vanilla", pipeline_fn: Callable | None = None,
+                 block_remat: bool = False, rope: bool = False, window: int = 0,
+                 dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.n_stages, self.per_stage = n_stages, per_stage
+        self.pipeline_fn, self.block_remat, self.generator = pipeline_fn, block_remat, generator
+        self.stage: int | None = None  # the one stage held (None: every stage)
+        self.stages = nn.ModuleList(
+            nn.ModuleList(
+                TransformerBlock(dim=dim, heads=heads, heads_kv=heads_kv,
+                                 mlp_ratio=mlp_ratio, attn_fn=attn_fn, attn=attn, rope=rope,
+                                 window=window, dtype=dtype, param_dtype=param_dtype,
+                                 device=device, generator=generator)
+                for _ in range(per_stage))
+            for _ in range(n_stages))
+
+    def keep_stage(self, stage: int) -> None:
+        """Drop every stage's blocks but ``stage``'s (its names stay
+        ``stages.{stage}.{i}``)."""
+        if not 0 <= stage < self.n_stages:
+            raise ValueError(f"stage {stage} out of {self.n_stages}")
+        for s in range(self.n_stages):
+            if s != stage:
+                self.stages[s] = nn.ModuleList()
+        self.stage = stage
+
+    def held_blocks(self) -> list:
+        """The blocks this module holds, in schedule order."""
+        return [b for stage in self.stages for b in stage]
+
+    def _run(self, blocks, h: torch.Tensor) -> torch.Tensor:
+        return run_blocks(blocks, h, False, self.block_remat, self.generator)[0]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pipeline_fn is None:
+            if self.stage is not None:
+                raise ValueError("this stack holds one pipeline stage: it runs under a "
+                                 "pipeline_fn (parallel/pipeline.py)")
+            return self._run(self.held_blocks(), x)
+        if self.stage is None:
+            raise ValueError("a pipelined stack runs one stage a rank: keep_stage() first")
+        blocks = self.stages[self.stage]
+        return self.pipeline_fn(lambda params, h: self._run(blocks, h),
+                                list(blocks.parameters()), x)
 
 
 def run_blocks(blocks, x: torch.Tensor, train: bool, remat_blocks: bool,
@@ -588,9 +657,6 @@ def run_blocks(blocks, x: torch.Tensor, train: bool, remat_blocks: bool,
                "dropped": torch.stack([t["dropped"] for t in terms]).mean()}
 
 
-_PARALLEL = "ROADMAP.md queue 1, 'Remaining parallelism and utilities',"
-
-
 class VisionTransformer(nn.Module):
     """Patch ViT over (B, H, W, C) NHWC images in [0, 1]: a stride-p VALID
     conv (with bias) patchifies into (B, S, dim) tokens, plus ``pos_embed``
@@ -610,9 +676,10 @@ class VisionTransformer(nn.Module):
     k == 0``) with the ``n_experts``/``moe_*`` knobs; ``dropout`` draws
     its masks from ``self.generator`` (the init generator), as LeNet-5's.
     ``moe_fn`` runs the MoE blocks through an expert-parallel island.
-    Dropout or MoE with ``pp_stages`` is JAX's ``ValueError``; pipeline
-    stages themselves (``pp_stages``, ``pipeline_fn``) raise
-    ``NotImplementedError`` naming their ROADMAP.md item."""
+    ``pp_stages > 0`` stacks the blocks as ``pipe_blocks``
+    (:class:`StackedBlocks`, run by ``pipeline_fn`` when given; ``blocks``
+    is then empty), initialised as the plain stack would be; dropout or MoE
+    with ``pp_stages`` is JAX's ``ValueError``."""
 
     def __init__(self, patch_size: int = 4, dim: int = 128, depth: int = 4,
                  heads: int = 4, heads_kv: int = 0, mlp_ratio: int = 4,
@@ -627,8 +694,6 @@ class VisionTransformer(nn.Module):
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
         check_moe_knobs(pp_stages, depth, dropout, moe_every)
-        if pp_stages > 0 or pipeline_fn is not None:
-            raise _not_in_slice("pipeline stages (pp_stages, pipeline_fn)", _PARALLEL)
         self.block_remat = block_remat
         p = patch_size
         h, w = image_size
@@ -653,7 +718,13 @@ class VisionTransformer(nn.Module):
                              moe_fn=moe_fn, dtype=dtype, param_dtype=torch.float32,
                              device=meta,
                              generator=gen)
-            for i in range(depth))
+            for i in range(0 if pp_stages > 0 else depth))
+        if pp_stages > 0:  # the stage-stacked form of the same blocks
+            self.pipe_blocks = StackedBlocks(
+                dim=dim, heads=heads, n_stages=pp_stages, per_stage=depth // pp_stages,
+                heads_kv=heads_kv, mlp_ratio=mlp_ratio, attn_fn=attn_fn, attn=attn,
+                pipeline_fn=pipeline_fn, block_remat=block_remat, dtype=dtype,
+                param_dtype=torch.float32, device=meta, generator=gen)
         self.norm_out = LayerNorm(dim, dtype, device=meta)
         self.logits = nn.Linear(dim, num_classes, device=meta)
         self.to_empty(device=device)
@@ -716,8 +787,11 @@ class VisionTransformer(nn.Module):
         else:
             x = column(patches, lambda t: F.linear(t, w_pe), mesh, pe.bias.to(dt))
         x = x + self.pos_embed[:, lo:hi].to(dt)
-        x, moe = run_blocks(self.blocks, x, train, self.block_remat, self.generator,
-                            attn=attn, offset=lo)
+        if hasattr(self, "pipe_blocks"):
+            x, moe = self.pipe_blocks(x), None
+        else:
+            x, moe = run_blocks(self.blocks, x, train, self.block_remat, self.generator,
+                                attn=attn, offset=lo)
         acc = torch.promote_types(dt, torch.float32)
         if span is None:
             x = self.norm_out(x).mean(1, dtype=acc)

@@ -48,6 +48,13 @@ ranks whose gradients a step averages; ``mesh.seq_group`` /
   only, so under gloo a CUDA tensor is staged through pinned host buffers
   (``ring_shift.host_staged`` counts those hops); NCCL sends device
   memory.  Differentiable: the backward shifts the gradient back.
+* the pipeline's two exchanges over the mesh's ``pipe`` group
+  (``parallel/pipeline.py``): :func:`stage_hop`, one point-to-point
+  hand-off between neighbouring stages (a send, a receive, or both, in one
+  ``batch_isend_irecv``, host-staged under gloo as the ring's hop is), and
+  :func:`broadcast_from_root`, the last stage's output on every stage,
+  whose backward hands the root its own cotangent once (not the sum over
+  the group).
 
 * Megatron's four mappings over the mesh's ``model`` group (tensor
   parallelism; each the identity at tp = 1, each a
@@ -243,6 +250,37 @@ def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
     return _AllToAll.apply(x, split_axis, concat_axis, group)
 
 
+def _global(group, place: int) -> int:
+    """The global rank at ``place`` along ``group`` (None: the default group)."""
+    return dist.get_global_rank(group, place) if group is not None else place
+
+
+def _exchange(sends: Sequence[tuple[torch.Tensor, int]],
+              recvs: Sequence[tuple[torch.Tensor, int]], group) -> tuple[list, bool]:
+    """Point-to-point sends ``(tensor, global rank)`` and receives ``(tensor
+    to mimic, global rank)`` in one ``batch_isend_irecv``: the received
+    tensors (new, on the mimicked tensors' devices) and whether gloo staged
+    CUDA tensors through pinned host buffers (its point-to-point reads host
+    memory only)."""
+    staged = (any(t.is_cuda for t, _ in (*sends, *recvs))
+              and dist.get_backend(group) == "gloo")
+    out_s, out_r = [], []
+    for x, _ in sends:
+        x = x.contiguous()
+        out_s.append(x.to("cpu", non_blocking=False).pin_memory() if staged else x)
+    for like, _ in recvs:
+        out_r.append(torch.empty(like.shape, dtype=like.dtype,
+                                 device="cpu" if staged else like.device, pin_memory=staged))
+    ops = ([dist.P2POp(dist.isend, t, to, group) for t, (_, to) in zip(out_s, sends)]
+           + [dist.P2POp(dist.irecv, t, frm, group) for t, (_, frm) in zip(out_r, recvs)])
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if staged:
+        out_r = [r.to(like.device) for r, (like, _) in zip(out_r, recvs)]
+    return out_r, staged
+
+
 def _shift(xs: Sequence[torch.Tensor], shift: int, group) -> list[torch.Tensor]:
     """Each of ``xs`` from this rank to the rank ``shift`` places on along
     ``group``, and from the rank ``shift`` places back into new tensors:
@@ -250,26 +288,34 @@ def _shift(xs: Sequence[torch.Tensor], shift: int, group) -> list[torch.Tensor]:
     n, me = axis_size(group), axis_index(group)
     if n == 1 or shift % n == 0:
         return [x.clone() for x in xs]
-    to = dist.get_global_rank(group, (me + shift) % n) if group is not None else (me + shift) % n
-    frm = dist.get_global_rank(group, (me - shift) % n) if group is not None else (me - shift) % n
-    staged = any(x.is_cuda for x in xs) and dist.get_backend(group) == "gloo"
-    sends, recvs = [], []
-    for x in xs:
-        x = x.contiguous()
-        if staged:  # gloo's point-to-point reads host memory only
-            x = x.to("cpu", non_blocking=False).pin_memory()
-        sends.append(x)
-        recvs.append(torch.empty(x.shape, dtype=x.dtype, device=x.device,
-                                 pin_memory=staged))
-    ops = [op for s, r in zip(sends, recvs)
-           for op in (dist.P2POp(dist.isend, s, to, group),
-                      dist.P2POp(dist.irecv, r, frm, group))]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
+    to, frm = _global(group, (me + shift) % n), _global(group, (me - shift) % n)
+    out, staged = _exchange([(x, to) for x in xs], [(x, frm) for x in xs], group)
     if staged:
         ring_shift.host_staged += 1
-        return [r.to(x.device) for r, x in zip(recvs, xs)]
-    return recvs
+    return out
+
+
+def stage_hop(send: torch.Tensor | None, to: int | None, like: torch.Tensor | None,
+              frm: int | None, group) -> torch.Tensor | None:
+    """One hand-off between pipeline stages (the pipeline's point-to-point
+    hop, ``parallel/pipeline.py``): ``send`` to the rank at place ``to``
+    along ``group`` and, from the rank at place ``frm``, a new tensor shaped
+    as ``like``, in one ``batch_isend_irecv``; a None half is not made, and
+    the call returns the received tensor or None.  Under gloo a CUDA tensor
+    goes through pinned host memory (``stage_hop.host_staged`` counts such
+    calls, ``stage_hop.bytes`` the bytes sent)."""
+    sends = [] if send is None else [(send, _global(group, to))]
+    recvs = [] if like is None else [(like, _global(group, frm))]
+    if not sends and not recvs:
+        return None
+    out, staged = _exchange(sends, recvs, group)
+    stage_hop.host_staged += int(staged)
+    stage_hop.bytes += 0 if send is None else send.numel() * send.element_size()
+    return out[0] if out else None
+
+
+stage_hop.host_staged = 0  # hops staged through pinned host buffers (gloo, CUDA)
+stage_hop.bytes = 0  # bytes the hops sent
 
 
 class _RingShift(torch.autograd.Function):
@@ -403,6 +449,30 @@ def broadcast(x: torch.Tensor, root: int = 0, group=None) -> torch.Tensor:
     dist.broadcast(y, src=root if group is None else dist.get_global_rank(group, root),
                    group=group)
     return y
+
+
+class _BroadcastFromRoot(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, root, group):
+        ctx.root, ctx.group = root, group
+        return broadcast(x, root, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if axis_index(ctx.group) == ctx.root else torch.zeros_like(g)), None, None
+
+
+def broadcast_from_root(x: torch.Tensor, root: int, group) -> torch.Tensor:
+    """:func:`broadcast` (``x`` of the rank at place ``root`` of ``group``
+    on every rank), differentiable: every rank's loss reads the same value,
+    so every rank's cotangent is the same, and the backward hands the root
+    its own copy, once (zeros elsewhere): a sum over the group would count
+    it ``n`` times.  The pipeline's output leaves its last stage this way
+    (JAX's ``broadcast``, a psum of the root-masked value, whose transpose
+    the port would otherwise inherit as that sum)."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return broadcast(x, root, group)
+    return _BroadcastFromRoot.apply(x, root, group)
 
 
 def broadcast_object(obj, root: int = 0):

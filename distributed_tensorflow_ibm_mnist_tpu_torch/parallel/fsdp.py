@@ -169,7 +169,8 @@ class ShardPlan:
     (``replicated``, ``fsdp``, ``zero1`` or ``expert``), ``split[i]``, the
     dim its master and moments are blocks of (None: whole), and
     ``masters[i]``, this rank's block of an fsdp or expert leaf, else the
-    whole parameter itself.  The ``zero1`` leaves stay whole in the module
+    whole parameter itself (``local_names``, the names beside ``masters``
+    on every plan, are ``names``).  The ``zero1`` leaves stay whole in the module
     and are updated as plain dp's ZeRO-1 updates its leaves: packed into
     a few buckets (``collectives.make_bucket_layout``), of which the
     optimizer holds this rank's 1/N block.  So the optimizer's tensors,
@@ -181,6 +182,7 @@ class ShardPlan:
                  kinds: Sequence[str], split: Sequence[int | None], n_buckets: int = 4):
         self.mesh, self.n, self.rank = mesh, mesh.size, mesh.rank
         self.params, self.names = list(params), list(names)
+        self.local_names = self.names
         self.kinds, self.split = list(kinds), list(split)
         self.shapes = [tuple(p.shape) for p in self.params]
         self.clip: float | None = None

@@ -3,20 +3,23 @@
 The counterpart of the JAX package's ``parallel/mesh.py`` ``make_mesh``.
 JAX lays the visible devices out on a ``(data, model, seq, pipe)`` grid;
 the port lays its ranks (each one process, one device) out on the same
-grid in the same order, ``data`` outermost and ``seq`` innermost, so rank
-``r = (d * tp + m) * sp + s`` sits at ``data_index = d``, ``model_index =
-m`` and ``seq_index = s``, and ``dp * tp * sp`` is the world size.  Each
-axis of more than one rank has its own process group: the ``seq`` group
-of a rank holds the ranks that differ from it in ``s`` only (the ring's
-hops and Ulysses' all-to-alls run there), the ``model`` group those that
-differ in ``m`` only (Megatron's mappings, ``parallel/collectives.py``),
-the ``data`` group those that differ in ``d`` only (cross-replica
-BatchNorm); the ``replica`` group holds the ``dp * sp`` ranks of one
-model index, which hold the same blocks of the weights and average their
+grid in the same order, ``data`` outermost and ``pipe`` innermost, so rank
+``r = ((d * tp + m) * sp + s) * pp + p`` sits at ``data_index = d``,
+``model_index = m``, ``seq_index = s`` and ``pipe_index = p``, and ``dp *
+tp * sp * pp`` is the world size (at pp = 1 every rank keeps the index
+``(d * tp + m) * sp + s`` it had before the pipe axis).  Each axis of more
+than one rank has its own process group: the ``seq`` group of a rank holds
+the ranks that differ from it in ``s`` only (the ring's hops and Ulysses'
+all-to-alls run there), the ``model`` group those that differ in ``m`` only
+(Megatron's mappings, ``parallel/collectives.py``), the ``pipe`` group
+those that differ in ``p`` only (the pipeline's stage hand-offs and its
+output broadcast, ``parallel/pipeline.py``), the ``data`` group those that
+differ in ``d`` only (cross-replica BatchNorm, eval's sums); the
+``replica`` group holds the ``dp * sp`` ranks of one ``(model_index,
+pipe_index)``, which hold the same blocks of the weights and average their
 gradients.  Every rank builds every group, in the same order
 (``dist.new_group`` is collective, and a group built out of order
-deadlocks).  ``pipe`` is refused by name until its ROADMAP.md item ports
-it.
+deadlocks).
 
 Multislice (``dcn_dp=N``, JAX's hybrid ICI x DCN mesh): the group must
 span N nodes with dp/N ranks each.  A rank's node is its host name,
@@ -43,6 +46,9 @@ from typing import Any
 import torch.distributed as dist
 
 _PARALLEL = "ROADMAP.md queue 1, 'Remaining parallelism and utilities'"
+# multislice beside a pipe axis: ROADMAP.md queue 1's item 7.7
+PIPE_MULTISLICE = ("ROADMAP.md queue 1, item 7.7 ('Remaining parallelism and utilities': "
+                   "multislice beside sp, tp and pp)")
 
 
 def no_group_error(what: str) -> ValueError:
@@ -54,13 +60,14 @@ def no_group_error(what: str) -> ValueError:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The ``(data, model, seq)`` grid over the default process group and
-    this process's rank in it.  ``data_group`` / ``model_group`` /
-    ``seq_group`` / ``replica_group`` are the axes' process groups (module
-    docstring).  None means the default group for ``data`` (tp = sp = 1:
-    the data axis is the whole group) and for ``replica`` (tp = 1: every
-    rank holds the same weights), and no group for ``model`` and ``seq``
-    (an axis of one rank, which exchanges nothing)."""
+    """The ``(data, model, seq, pipe)`` grid over the default process group
+    and this process's rank in it.  ``data_group`` / ``model_group`` /
+    ``seq_group`` / ``pipe_group`` / ``replica_group`` are the axes'
+    process groups (module docstring).  None means the default group for
+    ``data`` (tp = sp = pp = 1: the data axis is the whole group) and for
+    ``replica`` (tp = pp = 1: every rank holds the same weights), and no
+    group for ``model``, ``seq`` and ``pipe`` (an axis of one rank, which
+    exchanges nothing)."""
 
     shape: dict[str, int]
     rank: int
@@ -72,6 +79,7 @@ class Mesh:
     seq_group: Any = dataclasses.field(default=None, compare=False, repr=False)
     model_group: Any = dataclasses.field(default=None, compare=False, repr=False)
     replica_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    pipe_group: Any = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def size(self) -> int:
@@ -89,15 +97,26 @@ class Mesh:
         return self.shape["model"]
 
     @property
+    def pipe_size(self) -> int:
+        """Ranks along the pipe axis (pp)."""
+        return self.shape["pipe"]
+
+    @property
     def data_index(self) -> int:
         """This rank's place along the data axis: the rows it trains on."""
-        return self.rank // (self.shape["model"] * self.shape["seq"])
+        return self.rank // (self.shape["model"] * self.shape["seq"] * self.shape["pipe"])
 
     @property
     def model_index(self) -> int:
         """This rank's place along the model axis: the block of each split
         leaf it holds."""
-        return (self.rank // self.shape["seq"]) % self.shape["model"]
+        return (self.rank // (self.shape["seq"] * self.shape["pipe"])) % self.shape["model"]
+
+    @property
+    def pipe_index(self) -> int:
+        """This rank's place along the pipe axis: the pipeline stage whose
+        blocks it holds and runs."""
+        return self.rank % self.shape["pipe"]
 
     @property
     def replica_index(self) -> int:
@@ -110,7 +129,7 @@ class Mesh:
     @property
     def seq_index(self) -> int:
         """This rank's place along the seq axis: the token slice it holds."""
-        return self.rank % self.shape["seq"]
+        return (self.rank // self.shape["pipe"]) % self.shape["seq"]
 
 
 def hybrid_mesh_shapes(dp: int, tp: int, sp: int, pp: int, dcn_dp: int
@@ -163,13 +182,15 @@ def rank_records() -> list[RankRecord]:
     return [RankRecord(r, h, index.setdefault(h, len(index))) for r, h in enumerate(hosts)]
 
 
-def _axis_groups(dp: int, tp: int, sp: int, rank: int) -> dict:
-    """This rank's process group of each axis of a ``(dp, tp, sp)`` grid
+def _axis_groups(dp: int, tp: int, sp: int, rank: int, pp: int = 1) -> dict:
+    """This rank's process group of each axis of a ``(dp, tp, sp, pp)`` grid
     (``{"data_group": ..., ...}``; an axis of one rank, or the whole world,
     gets none).  Every rank builds every group, in one fixed order: the
-    seq groups, the data groups, the model groups, the replica groups."""
-    def at(d, m, s):
-        return (d * tp + m) * sp + s
+    seq groups, the data groups, the model groups, the replica groups, the
+    pipe groups (at pp = 1 the order and the groups of a ``(dp, tp, sp)``
+    grid)."""
+    def at(d, m, s, p):
+        return ((d * tp + m) * sp + s) * pp + p
 
     mine: dict = {}
 
@@ -179,17 +200,22 @@ def _axis_groups(dp: int, tp: int, sp: int, rank: int) -> dict:
             if rank in members:
                 mine[name] = g
 
+    pipes = range(pp)
     if sp > 1:
-        build("seq_group", ([at(d, m, s) for s in range(sp)]
-                            for d in range(dp) for m in range(tp)))
-    if tp > 1 or sp > 1:
-        build("data_group", ([at(d, m, s) for d in range(dp)]
-                             for m in range(tp) for s in range(sp)))
+        build("seq_group", ([at(d, m, s, p) for s in range(sp)]
+                            for d in range(dp) for m in range(tp) for p in pipes))
+    if tp > 1 or sp > 1 or pp > 1:
+        build("data_group", ([at(d, m, s, p) for d in range(dp)]
+                             for m in range(tp) for s in range(sp) for p in pipes))
     if tp > 1:
-        build("model_group", ([at(d, m, s) for m in range(tp)]
-                              for d in range(dp) for s in range(sp)))
-        build("replica_group", ([at(d, m, s) for d in range(dp) for s in range(sp)]
-                                for m in range(tp)))
+        build("model_group", ([at(d, m, s, p) for m in range(tp)]
+                              for d in range(dp) for s in range(sp) for p in pipes))
+    if tp > 1 or pp > 1:
+        build("replica_group", ([at(d, m, s, p) for d in range(dp) for s in range(sp)]
+                                for m in range(tp) for p in pipes))
+    if pp > 1:
+        build("pipe_group", ([at(d, m, s, p) for p in pipes]
+                             for d in range(dp) for m in range(tp) for s in range(sp)))
     return mine
 
 
@@ -198,53 +224,52 @@ _CURRENT: list = [None]  # the mesh make_mesh built last in this process
 
 def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1,
               dcn_dp: int = 1, devices: list | None = None) -> Mesh:
-    """The ``(data, model, seq)`` mesh over the initialised default process
-    group.
+    """The ``(data, model, seq, pipe)`` mesh over the initialised default
+    process group.
 
-    ``dp=None`` (or 0) is the world size over ``tp * sp``, as JAX gives the
-    data axis the devices the other axes leave; ``dp * tp * sp`` must equal
-    the world size (one rank per process).  ``tp > 1`` or ``sp > 1`` builds
-    the axes' process groups (module docstring).  ``pp`` above 1 raises
-    ``NotImplementedError``.  ``dcn_dp > 1`` is multislice (module
-    docstring), at ``tp = sp = 1`` only: ``devices`` are the group's rank
+    ``dp=None`` (or 0) is the world size over ``tp * sp * pp``, as JAX gives
+    the data axis the devices the other axes leave; ``dp * tp * sp * pp``
+    must equal the world size (one rank per process).  ``tp``, ``sp`` or
+    ``pp`` above 1 builds the axes' process groups (module docstring).
+    ``dcn_dp > 1`` is multislice (module docstring), at ``tp = sp = pp = 1``
+    only: ``devices`` are the group's rank
     records in rank order (default :func:`rank_records`); ``ValueError``
     unless they span ``dcn_dp`` slices of ``dp / dcn_dp`` ranks each, laid
     out node-major (ranks of a node contiguous, as torchrun numbers them).
     The mesh becomes the one :func:`axis_mesh` returns."""
     if dcn_dp < 1:
         raise ValueError(f"dcn_dp must be >= 1, got {dcn_dp}")
-    if pp > 1:
-        raise NotImplementedError(
-            f"pp={pp} is not ported to the PyTorch package yet: {_PARALLEL}")
-    for name, n in (("tp", tp), ("sp", sp)):
+    axes_in = (("tp", tp), ("sp", sp), ("pp", pp))
+    for name, n in axes_in:
         if n < 1:
             raise ValueError(f"{name} must be >= 1, got {n}")
-    for name, n in (("tp", tp), ("sp", sp)):
+    for name, n in axes_in:
         if dcn_dp > 1 and n > 1:
-            axis = "model" if name == "tp" else "seq"
+            axis = {"tp": "model", "sp": "seq", "pp": "pipe"}[name]
+            item = (PIPE_MULTISLICE if name == "pp" else _PARALLEL)
             raise NotImplementedError(
                 f"dcn_dp={dcn_dp} with {name}={n} (a multislice data axis beside a "
-                f"{axis} axis) is not ported to the PyTorch package yet: {_PARALLEL}")
+                f"{axis} axis) is not ported to the PyTorch package yet: {item}")
     if not (dist.is_available() and dist.is_initialized()):
-        axes = "".join(f", {k}={v}" for k, v in (("tp", tp), ("sp", sp)) if v > 1)
+        axes = "".join(f", {k}={v}" for k, v in axes_in if v > 1)
         raise no_group_error(f"make_mesh(dp={dp}{axes})")
     world = dist.get_world_size()
-    inner = tp * sp
+    inner = tp * sp * pp
     if dp is None or dp == 0:
         dp = world // inner
         if dp == 0:
             raise ValueError(
                 f"tp*sp*pp={inner} exceeds device count {world}; no room for a data axis")
     if dp * inner != world:
-        parts = [f"dp={dp}"] + [f"{k}={v}" for k, v in (("tp", tp), ("sp", sp)) if v > 1]
+        parts = [f"dp={dp}"] + [f"{k}={v}" for k, v in axes_in if v > 1]
         axes = " x ".join(p.split("=")[0] for p in parts)
         raise ValueError(
             f"{' x '.join(parts)} but the process group has {world} rank(s): the port "
             f"runs one rank per process, so {axes} must equal the world size")
-    shape = {"data": dp, "model": tp, "seq": sp, "pipe": 1}
+    shape = {"data": dp, "model": tp, "seq": sp, "pipe": pp}
     rank = dist.get_rank()
     if inner > 1:
-        mesh = Mesh(shape=shape, rank=rank, **_axis_groups(dp, tp, sp, rank))
+        mesh = Mesh(shape=shape, rank=rank, **_axis_groups(dp, tp, sp, rank, pp))
     elif dcn_dp == 1:
         mesh = Mesh(shape=shape, rank=rank)
     else:
@@ -275,6 +300,6 @@ def axis_mesh(axis_name: str) -> Mesh:
     current = _CURRENT[0]
     if current is not None and current.rank == dist.get_rank() and (
             current.shape["data"] * current.shape["model"] * current.shape["seq"]
-            == dist.get_world_size()):
+            * current.shape["pipe"] == dist.get_world_size()):
         return current
     return make_mesh()

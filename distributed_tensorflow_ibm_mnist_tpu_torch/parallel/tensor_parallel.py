@@ -301,8 +301,9 @@ def model_param_specs(model, rule: SpecRule) -> dict[str, P]:
 
 def shard_dim(spec: P, axis: str = "data") -> int | None:
     """The one dim ``spec`` splits over ``axis`` (None when it splits none).
-    A spec may name ``data`` and ``model``; any other axis (``pipe``) is
-    not ported."""
+    A spec may name ``data`` and ``model``; any other axis raises (a pipe
+    rank holds its stage by ``parallel.pipeline.stage_param_specs``'s
+    stage split, never by a spec over ``pipe``)."""
     for ax in spec:
         if ax is not None and ax not in ("data", "model"):
             raise NotImplementedError(
@@ -441,7 +442,8 @@ class TPPlan:
     use): per leaf ``i`` (``names[i]``, whole shape ``shapes[i]``),
     ``split[i]``, the dim its block is cut along (None: whole), and
     ``perm[i]``, the row order of a head-major leaf (None: in order).  The
-    module's own parameters are the blocks (``masters``), and the
+    module's own parameters are the blocks (``masters``, named by
+    ``local_names``, here ``names``: every plan has that pair), and the
     optimizer updates them.  ``clip`` is the run's global-norm clip, lifted
     out of the optimizer and applied against the norm over the model
     group."""
@@ -452,7 +454,7 @@ class TPPlan:
         self.mesh, self.n, self.index = mesh, mesh.model_size, mesh.model_index
         self.names, self.params = list(names), list(params)
         self.shapes, self.split, self.perm = list(shapes), list(split), list(perm)
-        self.masters = self.params
+        self.masters, self.local_names = self.params, self.names
         self.clip: float | None = None
         self._inverse = [None if q is None else torch.argsort(q) for q in self.perm]
         self._replicas = mesh.shape["data"] * mesh.shape["seq"]

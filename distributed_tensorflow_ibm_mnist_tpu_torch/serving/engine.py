@@ -551,8 +551,11 @@ class InferenceEngine:
                      ) -> "InferenceEngine":
         """An engine over a trained :class:`~..core.trainer.Trainer` run:
         a fresh causal LM of the run's configuration on the trainer's
-        device, holding :meth:`Trainer._decode_params`, with the trainer's
-        writer and ``compile_cache_dir`` unless ``kw`` sets them."""
+        device (its training islands dropped: ``attn_fn``, ``moe_fn``,
+        ``pipeline_fn`` and ``pp_stages``, as JAX's ``from_trainer``
+        drops them), holding :meth:`Trainer._decode_params` (a pp run's
+        stages unstacked), with the trainer's writer and
+        ``compile_cache_dir`` unless ``kw`` sets them."""
         from distributed_tensorflow_ibm_mnist_tpu_torch.models import model_accepts
 
         if not model_accepts(trainer.config.model, "pos") or not trainer.causal:

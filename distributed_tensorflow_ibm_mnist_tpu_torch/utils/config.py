@@ -2,10 +2,11 @@
 
 The JAX package's ``utils/config.py``, copied so the port imports nothing
 of that package: the same ``RunConfig`` fields with the same defaults, and
-the same five ``PRESETS``.  The port's Trainer runs these knobs but the
-ones it refuses by name (``core/trainer.py``: tp/pp); ``fsdp``,
-``sharded_update``, ``dcn_dp``, ``sp`` and ``sp_impl`` reach it as any
-other field (``--set`` on the command line).  One field keeps its JAX meaning only for
+the same five ``PRESETS``.  The port's Trainer runs these knobs, the
+parallel ones (``dp``, ``tp``, ``sp``, ``sp_impl``, ``pp``,
+``pp_microbatches``, ``fsdp``, ``sharded_update``, ``dcn_dp``) as any
+other field (``--set`` on the command line), and refuses by name what it
+does not compose (``core/trainer.py``).  One field keeps its JAX meaning only for
 configuration compatibility: ``compile_cache_dir`` (eager PyTorch compiles
 no programs at run time, so there is nothing to cache; the field is
 accepted and has no effect).
@@ -52,7 +53,7 @@ class RunConfig:
     #                             resident, batches from the native prefetcher
     prefetch_depth: int = 3  # stream mode: batches assembled ahead of the consumer
     stream_chunk: int = 8  # stream mode: batches per host->device transfer
-    # parallelism (the port runs dp and sp; tp and pp must be 1)
+    # parallelism (one rank a process: dp * tp * sp * pp ranks)
     dp: int = 1  # data-parallel degree; 0 => all visible devices
     tp: int = 1  # tensor-parallel degree
     sp: int = 1  # sequence-parallel degree

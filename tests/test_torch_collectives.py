@@ -226,7 +226,7 @@ def test_rank_device_is_local_rank_and_never_remapped(monkeypatch):
     (dict(dp=2), ValueError, "launch.torchrun"),
     (dict(tp=2), ValueError, "launch.torchrun"),  # tensor parallelism is ported: needs a group
     (dict(sp=2), ValueError, "launch.torchrun"),  # sequence parallelism is ported: needs a group
-    (dict(pp=2), NotImplementedError, "ROADMAP.md queue 1"),
+    (dict(pp=2), ValueError, "launch.torchrun"),  # pipeline parallelism is ported: needs a group
     (dict(dcn_dp=2), ValueError, "launch.torchrun"),  # multislice is ported: needs a group
     (dict(dcn_dp=0), ValueError, "dcn_dp"),
 ], ids=["no-group", "tp", "sp", "pp", "dcn_dp", "dcn_dp0"])

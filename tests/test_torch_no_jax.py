@@ -77,7 +77,8 @@ def test_importing_every_module_loads_no_jax():
                  "utils.profiling", "data.native", "models.remat",  # fault tolerance
                  "parallel.expert_parallel",  # the MoE blocks
                  "parallel.fsdp", "parallel.tensor_parallel",  # ZeRO-3, spec rules
-                 "parallel.ring_attention", "parallel.sequence_parallel"):  # the ring, Ulysses
+                 "parallel.ring_attention", "parallel.sequence_parallel",  # the ring, Ulysses
+                 "parallel.pipeline"):  # GPipe
         assert f"{PORT.name}.{name}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 

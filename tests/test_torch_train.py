@@ -298,10 +298,11 @@ def test_measure_throughput_leaves_the_state_unchanged():
         assert torch.equal(a, b)
 
 
-# case -> (config, error, match): pp is not ported; tensor parallelism is,
-# so without a process group it asks for one
+# case -> (config, error, match): tensor parallelism is ported, so without a
+# process group it asks for one; pipeline parallelism is, and the MLP has no
+# block stack to pipeline (JAX's ValueError, before any group is asked for)
 REFUSED = {"tp2": (dict(tp=2), ValueError, "launch.torchrun"),
-           "pp2": (dict(pp=2), NotImplementedError, "ROADMAP.md queue 1")}
+           "pp2": (dict(pp=2), ValueError, "needs a model with a pipelineable block stack")}
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))

@@ -158,12 +158,13 @@ PP_NEEDS_IDENTICAL_BLOCKS = ("pipeline stages need identical per-block programs:
                              "dropout and MoE blocks don't compose with pp_stages")
 
 
-# MoE blocks and dropout are ported: what the ViT still refuses with them
-# is JAX's ValueError against pipeline stages, which stay unported
+# MoE blocks, dropout and pipeline stages are ported: what the ViT refuses
+# with them is JAX's ValueError (dropout or MoE beside stages, a depth the
+# stages do not divide)
 @pytest.mark.parametrize("bad, error, match", [
     (dict(moe_every=2, pp_stages=2), ValueError, PP_NEEDS_IDENTICAL_BLOCKS),
     (dict(dropout=0.1, pp_stages=2), ValueError, PP_NEEDS_IDENTICAL_BLOCKS),
-    (dict(pp_stages=2), NotImplementedError, "ROADMAP.md queue 1"),
+    (dict(pp_stages=3), ValueError, "depth 4 not divisible by pp_stages 3"),
 ], ids=["moe_every", "dropout", "pp_stages"])
 def test_model_refuses_what_the_port_lacks(bad, error, match):
     with pytest.raises(error, match=re.escape(match) if error is ValueError else match):
