@@ -234,8 +234,9 @@ never JAX or the JAX package.  Phases, one JSON line each:
    drops; every leg conserved exactly, exactly-once, drained with no open
    span and every pool at refcount zero, no build or load after the
    prewarm; bf16 agreement with one engine recorded; (f) the bf16 wave
-   with the tracer and telemetry off and on in 2 interleaved pairs: each
-   ratio and the spread (recorded, not gated: host noise);
+   with the tracer and telemetry off and on in TIER_PAIRS pairs of
+   alternating order (one pair, off then on: its ratio, and no spread),
+   recorded, not gated (host noise);
 15c. serving_edge — the tier's edge at the same full width (paged KV,
    page 16, the radix trie, 8 slots a replica, max_len 1024): (a) three
    bf16 replicas behind the daemon and a ``FrontDoor`` on 127.0.0.1:
@@ -363,6 +364,26 @@ never JAX or the JAX package.  Phases, one JSON line each:
    pairs, 4 heads a rank; the all-reduces timed too); (c) JAX's refusals
    beside pp (sp, fsdp, dropout and MoE in the stages) and multislice
    (item 7.7);
+15j. tp_serving — tensor-parallel serving, inside tensor_parallel's two
+   spawns: K3 held at each rank's prefill shape (1, bucket, 4, 64) against
+   its plain version, row by row; (a) phase 3's bf16 LM at tp=2 on two
+   ranks (a leader and a follower), prewarmed, then phase 3's 16 requests x
+   32 tokens with every count zeroed just before on each rank: K3 ==
+   depth x admissions a rank, no build after prewarm on either rank, KV
+   bytes a rank exactly half of one card's slabs plus the cursors, weight
+   bytes a rank within 10% of half, TTFT, decode tokens/s and wall beside
+   phase 3's, the all-reduce and all-gather ms of a prefill and of a decode
+   window (host-staged through gloo), the bf16 streams' agreement with
+   phase 3's (recorded) and each first divergence's top-2 gap on one
+   card's bf16 logits (at most 2 bf16 ulps, divergence 3's reading); the float32 twin's
+   streams at tp=2 identical to one card's; (b) on four ranks the router
+   over two tp=2 groups whose followers are disjoint (the router's process
+   holds both leaders), float32, a transient serving-step fault, 8 of the
+   prompts: the wave identical to one card's with exactly one failover;
+   int8 weights at tp=2 identical to one card's int8 streams on those 8;
+   (c) the refusals (a tp that does
+   not divide the heads, cp and a role beside tp: item 7.1c, tp outside a
+   spawned world);
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2, each
@@ -372,8 +393,8 @@ never JAX or the JAX package.  Phases, one JSON line each:
    K3, by replica role on the disaggregated tier, and the
    ``lm_vit_follow_ups`` runs' for K1-K4, the ``data_parallel_rest``
    ranks' for K1-K4, the ``sequence_parallel`` ranks' for K3, K4 and
-   K7, and the ``tensor_parallel`` ranks' for K1-K4 (``launches_tp2``),
-   beside them),
+   K7, the ``tensor_parallel`` ranks' for K1-K4 (``launches_tp2``) and
+   the ``tp_serving`` ranks' for K3, beside them),
    largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
@@ -740,7 +761,12 @@ def phase_serving(torch, fa, xent, port) -> dict:
            "greedy_token_agreement_vs_vanilla": round(agree / total, 4),
            "peak_mem_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
     emit(rec)
-    emit(profile_run(torch, lambda: serve(prompts)[2], "serving",
+    # the greedy streams, in submission order: tp_serving's single-card reference
+    rec["streams"] = [list(r.generated) for r in sorted(done, key=lambda r: r.id)]
+    # the busy share over the first 8 requests (the whole wave's trace took
+    # ~13 s on a slow host, halved to make room for tp_serving: PERF.md
+    # section 4)
+    emit(profile_run(torch, lambda: serve(prompts[:8])[2], "serving (8 requests)",
                      {"flash_fwd_device_s": "flash_fwd"}, host_ops=False))
     return rec
 
@@ -1525,7 +1551,7 @@ def phase_training(torch, fa, xent, port) -> dict:
     check(counts["xent_fwd"] == counts["xent_bwd"] == steps,
           f"xent launches {counts} != steps taken {steps}: the path skipped a kernel")
 
-    tp = trainer.measure_throughput(epochs=2)
+    tp = trainer.measure_throughput(epochs=1)  # 2 -> 1 timed epoch: PERF.md section 4
     # fit() stopped after its first interval, so its own overhead figure is
     # 0 by definition; against the steady epoch time measured here instead:
     steady_epoch_s = trainer.steps_per_epoch * cfg.batch_size / tp["images_per_sec"]
@@ -2507,7 +2533,7 @@ def phase_dp1_nccl(torch, fa, xent, port, tmp: Path) -> dict:
             reset_counts(fa, xent)
             summary = trainer.fit()
             counts = read_counts(fa, xent)
-            tp = trainer.measure_throughput(epochs=2)
+            tp = trainer.measure_throughput(epochs=1)  # 2 -> 1 timed epoch: PERF.md section 4
             runs[name] = {"summary": summary, "steps": trainer.state.step,
                           "launches": {k: counts[k] for k in ("xent_fwd", "xent_bwd")},
                           "losses": caught[0], "s_per_step": cfg.batch_size / tp[
@@ -3645,7 +3671,7 @@ TIER_WARM = ([1, 2, 3], 4)  # the request each replica serves inside its factory
 TIER_WAVE, TIER_BRIDGE = 10, 3  # router_soak.py's wave and bridge sizes
 TIER_SHARED = 64  # even prompts share a 64-token head (4 pages): radix hits
 TIER_CALIB, TIER_OPEN, TIER_PUMP = 24, 48, 12  # daemon requests per leg
-TIER_PAIRS = 2  # (f): interleaved off/on pairs (a depth cut: PERF.md section 4)
+TIER_PAIRS = 1  # (f): off/on pairs, alternating order (depth cuts: PERF.md section 4)
 TIER_WAIT_S = 300.0  # any single wait, drain or join: generous, never load-bearing
 
 
@@ -4075,7 +4101,9 @@ def phase_serving_tier(torch, fa, xent, port, tmp: Path) -> dict:
           f"(f) open spans {on_tracer.open_spans}, telemetry samples {tel.samples}")
     out["f"] = {"phase": "serving_tier", "part": "f_overhead", "pairs": pairs,
                 "ratio_median": statistics.median(ratios),
-                "ratio_spread": round(max(ratios) - min(ratios), 4),
+                # one pair (off then on) has no spread to read
+                "ratio_spread": (round(max(ratios) - min(ratios), 4)
+                                 if len(ratios) > 1 else None),
                 "telemetry_samples": tel.samples, "trace_events": len(on_tracer.events()),
                 "builds_after_prewarm": built["n_compiled_programs"],
                 "loads_after_prewarm": built["n_loads"]}
@@ -4100,7 +4128,7 @@ EDGE_VOCAB = 256
 EDGE_WAIT_S = 300.0  # any single wait, join or drain: generous, never load-bearing
 EDGE_NEW = 16  # (a) budget per request
 EDGE_PARITY = 6  # (a) prompts of 3-16 tokens (under one page: never a radix hit)
-EDGE_WIRE = 16  # (a) requests of the wire-cost wave, each way
+EDGE_WIRE = 8  # (a) requests of the wire-cost wave, each way (a depth cut: PERF.md section 4)
 EDGE_SSE_CLIENTS = 6  # (a) SSE clients connected through the pump fault
 EDGE_FLOOD = 24  # (a) concurrent unary clients against a 4-deep admission bound
 EDGE_CRASH_CLIENTS = 6  # (b) keyed SSE clients at the SIGKILL
@@ -6301,10 +6329,11 @@ def tp_refusals(Trainer, RunConfig, get_preset) -> dict:
     return out
 
 
-def tp_rank(rank: int) -> dict:
+def tp_rank(rank: int, tps_refs: dict) -> dict:
     """(a) one of two gloo ranks sharing the card: bench_lm8k at tp=2
     through fit() (its first step's gradient gated), then one step with its
-    collectives timed; then the pipeline phase's (a), bench_lm8k at pp=2."""
+    collectives timed; then the pipeline phase's (a), bench_lm8k at pp=2;
+    then tp_serving's (a), the serving LM at tp=2."""
     import torch
 
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
@@ -6318,12 +6347,14 @@ def tp_rank(rank: int) -> dict:
     t1 = time.perf_counter()
     out["pp_a"] = pp_fit(torch, fa, xent, Trainer, RunConfig, PP_LM_CFG)
     out["body_s"] = {"tp": t1 - t0, "pp": time.perf_counter() - t1}
+    out["tps"] = tps_rank2(torch, fa, xent, tps_refs)
     return out
 
 
-def tp_rank4(rank: int) -> dict:
+def tp_rank4(rank: int, tps_refs: dict) -> dict:
     """(b) and (c): one of four gloo ranks sharing the card, ResNet-20 at
-    dp=2 x tp=2 through fit(), then the refusals."""
+    dp=2 x tp=2 through fit(), then the refusals; the pipeline phase's (b)
+    and (c); then tp_serving's (b), the router over two tp=2 groups."""
     import torch
 
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
@@ -6340,6 +6371,7 @@ def tp_rank4(rank: int) -> dict:
     out["pp_b"] = pp_fit(torch, fa, xent, Trainer, RunConfig, PP_TP_LM_CFG)
     out["pp_c"] = pp_refusals(Trainer, RunConfig)
     out["body_s"] = {"tp": t1 - t0, "pp": time.perf_counter() - t1}
+    out["tps"] = tps_rank4(torch, tps_refs)
     return out
 
 
@@ -6368,7 +6400,8 @@ def tp_bn_rel(got: dict, want: dict) -> float:
                for k in want)
 
 
-def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict) -> dict:
+def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict,
+                          serving_port=None, serving: dict | None = None) -> dict:
     """Tensor parallelism at full width: K3 and K4 held at each rank's
     attention shape (8, 8192, 4, 64) first; then gloo ranks sharing the
     card: (a) bench_lm8k at tp=2 through fit() (the main path: each rank's
@@ -6387,9 +6420,14 @@ def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict) -> dict:
         torch.cuda.empty_cache()
     ref_b = tp_resnet_reference(torch, fa, xent, Trainer, get_preset)
     ref_grads = tp1["grads"]  # sequence_parallel's sp=1 trainer's first step
+    t_tps = time.perf_counter()  # tp_serving's references and K3 checks, in the parent
+    tps_refs = tps_references(torch, fa, serving_port, serving)
+    tps_own_s = time.perf_counter() - t_tps
     t1 = time.perf_counter()
-    spawned = torchrun.spawn(tp_rank, 2, "gloo", TP_DEVICE, tmp / "tp2", timeout=600)
-    ranks4 = torchrun.spawn(tp_rank4, 4, "gloo", TP_DEVICE, tmp / "tp4", timeout=600)
+    spawned = torchrun.spawn(tp_rank, 2, "gloo", TP_DEVICE, tmp / "tp2", args=(tps_refs,),
+                             timeout=600)
+    ranks4 = torchrun.spawn(tp_rank4, 4, "gloo", TP_DEVICE, tmp / "tp4", args=(tps_refs,),
+                            timeout=600)
     spawn_s = time.perf_counter() - t1
     ranks = [r["a"] for r in spawned]
     out = {"errs": errs}
@@ -6464,6 +6502,17 @@ def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict) -> dict:
               for w, rs in ((2, spawned), (4, ranks4))}
     out["pipeline"] = pipeline_gates([r["pp_a"] for r in spawned], ranks4, tp1, ref_grads,
                                      pp_errs, spawn_s, body_s)
+    t_tps = time.perf_counter()
+    refusals = tps_refusals(torch, serving_port)
+    out["tp_serving"] = tps_gates(torch, serving_port, tps_refs, [r["tps"] for r in spawned],
+                                  [r["tps"] for r in ranks4], refusals)
+    # the phase's own seconds: the parent's references and refusals, and each
+    # spawn's tp_serving body (slowest rank)
+    out["tp_serving"]["own_s"] = {
+        "parent": round(tps_own_s + time.perf_counter() - t_tps, 3),
+        "world2": round(max(r["tps"]["body_s"] for r in spawned), 3),
+        "world4": round(max(r["tps"]["body_s"] for r in ranks4), 3)}
+    emit({"phase": "tp_serving", "sub": "own_s", **out["tp_serving"]["own_s"]})
     return out
 
 
@@ -6844,6 +6893,371 @@ def pipeline_faults() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# tp_serving: tensor-parallel serving, inside tensor_parallel's two gloo
+# spawns (no spawn and no CUDA context of its own)
+
+TPS_DEVICE = TP_DEVICE  # every rank shares the one card
+TPS_TP = 2
+TPS_ENGINE = dict(slots=8, max_len=1024, buckets=SLICE_SEQS)  # phase_serving's engine
+TPS_NEW = 32
+TPS_WAVE_B = 8  # (b)'s waves: the first 8 prompts, one replica's slots
+TPS_HEADS = MODEL_KW["heads"] // TPS_TP  # a rank's heads: K3 at (1, bucket, 4, 64)
+# (a)'s weight bytes a rank against half of one card's (JAX's
+# scripts/bench_tp_serving.py memory leg: within 10%)
+TPS_WEIGHT_REL = 0.10
+# (a)'s bf16 streams against one card's: every first divergence a near-tie,
+# at most the 2 bf16 ulps that divergence 3 (serving_features (c): the radix
+# extend against K3) reads, divergence 5 (speculation) reading 0-1
+TPS_DIV_ULPS = 2.0
+
+
+def tps_model(torch, get_model, dtype):
+    """phase_serving's LM (seed 0) on this rank; a float32 twin holds the
+    same bf16 weights."""
+    gen = torch.Generator(device=TPS_DEVICE).manual_seed(0)
+    model = get_model("causal_lm", dtype=torch.bfloat16, generator=gen, device=TPS_DEVICE,
+                      **MODEL_KW)
+    if dtype == torch.bfloat16:
+        return model
+    twin = get_model("causal_lm", dtype=dtype, generator=gen, device=TPS_DEVICE, **MODEL_KW)
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def tps_wave(engine_cls, model, prompts, **kw) -> list:
+    """Greedy streams of ``prompts`` (TPS_NEW tokens each) on one card."""
+    eng = engine_cls(model, device=TPS_DEVICE, **TPS_ENGINE, **kw)
+    reqs = [eng.submit(p, max_new=TPS_NEW) for p in prompts]
+    eng.run()
+    eng.close()
+    return [list(r.generated) for r in reqs]
+
+
+def tps_references(torch, fa, port, serving: dict) -> dict:
+    """What the ranks are held to, made once in the parent: serving's bf16
+    streams and tp=1 figures (phase_serving's run, passed in), one card's
+    float32 and int8 streams on the float32 twin of the same weights, and
+    one card's cache slab, cursor and weight bytes; then K3 at each rank's
+    prefill shape (1, bucket, 4, 64) against its plain twin, row by row."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import init_cache
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import weight_stream_bytes
+
+    get_model, engine_cls, _ = port
+    prompts = serving_prompts(torch)
+    f32 = tps_model(torch, get_model, torch.float32)
+    bf16 = tps_model(torch, get_model, torch.bfloat16)
+    cache = init_cache(bf16, TPS_ENGINE["slots"], TPS_ENGINE["max_len"])
+    refs = {"prompts": prompts, "bf16": serving["streams"],
+            "f32": tps_wave(engine_cls, f32, prompts),
+            "int8": tps_wave(engine_cls, f32, prompts[:TPS_WAVE_B], quant="int8"),
+            "slab_bytes": sum(t.nbytes for e in cache.values() for k, t in e.items()
+                              if k != "index"),
+            "cursor_bytes": sum(e["index"].nbytes for e in cache.values()),
+            "weight_bytes": weight_stream_bytes(bf16.state_dict()),
+            "tp1": {k: serving[k] for k in ("wall_s", "ttft_s_p50", "ttft_s_p99",
+                                            "decode_tokens_per_s", "tokens_per_sec")}}
+    del f32, bf16, cache
+    checks = []
+    gen = torch.Generator(device=TPS_DEVICE).manual_seed(18)
+    for s in SLICE_SEQS:
+        q, k, v = torch.randn((1, s, 3, TPS_HEADS, 64), generator=gen,
+                              device=TPS_DEVICE).to(torch.bfloat16).unbind(2)
+        with torch.no_grad():
+            out, lse = fa.flash_attention_fwd(q, k, v, True, 0)
+        ref, ref_lse = fa.flash_attention_plain(q, k, v, True, 0)
+        err = {"out": (out.float() - ref.float()).abs().max().item(),
+               "lse": (lse - ref_lse).abs().max().item(), "row_rel": row_rel_err(out, ref)}
+        rec = {"shape": [1, s, TPS_HEADS, 64], "causal": True, "packed_qkv": True,
+               "max_abs_err": err, "tol": {"out": 2e-2, "lse": 1e-3,
+                                           "row_rel": ROW_TOL["torch.bfloat16"]}}
+        emit({"phase": "kernel_check", "kernel": "flash_fwd",
+              "path": "tp_serving (a), a rank's prefill at tp=2", **rec})
+        check(err["out"] <= 2e-2 and err["lse"] <= 1e-3
+              and err["row_rel"] <= ROW_TOL["torch.bfloat16"],
+              f"K3 disagrees at a tp=2 rank's prefill shape {rec['shape']}: {err}")
+        checks.append(rec)
+    refs["k3_checks"] = checks
+    collect_garbage(torch, TPS_DEVICE)
+    return refs
+
+
+def tps_rank2(torch, fa, xent, refs: dict) -> dict:
+    """(a) on two ranks sharing the card: the bf16 LM at tp=2, prewarmed,
+    then phase_serving's 16 requests x 32 tokens (every count zeroed just
+    before the wave on each rank, read just after); one more request with
+    the collectives timed; then the float32 twin at tp=2 on the same
+    prompts."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tpar
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTracker
+
+    t0 = time.perf_counter()
+    mesh = tpar.serving_mesh(TPS_TP, list(range(TPS_TP)))
+    prompts = refs["prompts"]
+    eng = InferenceEngine(tps_model(torch, get_model, torch.bfloat16), tp=TPS_TP,
+                          tp_devices=mesh, device=TPS_DEVICE, **TPS_ENGINE)
+    out = {"model_index": mesh.model_index, "kv_bytes": eng.kv_bytes_per_chip(),
+           "weight_bytes": eng.weight_bytes_per_chip(),
+           "heads_a_rank": eng.model.blocks[0].tp_heads}
+    if not eng.is_leader:
+        real_mark = InferenceEngine._op_mark
+        wave: dict = {}
+
+        def mark(self, name):  # the leader's words: the wave starts, it ended
+            real_mark(self, name)
+            sp_sync(torch)
+            if name == "wave":
+                reset_counts(fa, xent)
+            elif name == "waved":
+                wave.update(read_counts(fa, xent))
+
+        InferenceEngine._op_mark = mark
+        try:
+            follow = eng.follow()
+        finally:
+            InferenceEngine._op_mark = real_mark
+        out.update(launches=wave, ops=follow["ops"],
+                   builds_after_prewarm=follow["compile_since"]["prewarm"]["n_compiled_programs"])
+    else:
+        tracker = CompileTracker.install()
+        prewarm = eng.prewarm()
+        after = tracker.snapshot()
+        reqs = [eng.submit(p, max_new=TPS_NEW) for p in prompts]
+        eng._dev("mark", "wave")
+        sp_sync(torch)
+        reset_counts(fa, xent)
+        t1 = time.perf_counter()
+        eng.run()
+        sp_sync(torch)
+        wall = time.perf_counter() - t1
+        out["launches"] = read_counts(fa, xent)
+        eng._dev("mark", "waved")
+        s = eng.stats.summary()
+        admissions = sum(r.admit_t is not None for r in reqs)
+        out.update(
+            streams=[list(r.generated) for r in reqs], admissions=admissions,
+            statuses=[r.status for r in reqs], wall_s=round(wall, 4),
+            ttft_s_p50=s["ttft_s_p50"], ttft_s_p99=s["ttft_s_p99"],
+            tokens_per_sec=s["tokens_per_sec"], decode_s=s["decode_s"],
+            prefill_s=s["prefill_s"],
+            decode_tokens_per_s=round((s["tokens_generated"] - admissions) / s["decode_s"], 3),
+            n_windows=s["n_windows"], prewarm_programs=prewarm["programs"],
+            builds_after_prewarm=CompileTracker.delta(tracker.snapshot(),
+                                                      after)["n_compiled_programs"],
+            stats_tp=s["tp"])
+        # one more request, its collectives timed on a synced card: a
+        # 512-token prefill's, then 8 decode windows' (one bf16 token a slot:
+        # at most slots x max(dim, vocab) elements a call, a prefill's more)
+        calls, meter, restore = call_meter(torch, tp_metered(C))
+        meter["timed"] = True
+        try:
+            longest = max(prompts, key=len)
+            eng.submit(longest[:SLICE_SEQS[-1]], max_new=9)
+            eng.run()
+        finally:
+            restore()
+        windows = 8
+        small = TPS_ENGINE["slots"] * max(MODEL_KW["dim"], MODEL_KW["num_classes"]) * 2
+
+        def total(prefill, kind):
+            return sum(c[2] for c in calls if c[0] == kind and (c[1] > small) == prefill)
+        out["collectives"] = {
+            "prefill_all_reduce_ms": round(total(True, "all_reduce") * 1e3, 4),
+            "prefill_all_gather_ms": round(total(True, "all_gather") * 1e3, 4),
+            "window_all_reduce_ms": round(total(False, "all_reduce") * 1e3 / windows, 4),
+            "window_all_gather_ms": round(total(False, "all_gather") * 1e3 / windows, 4),
+            "n_prefill": sum(1 for c in calls if c[1] > small),
+            "n_window": sum(1 for c in calls if c[1] <= small) / windows,
+            "host_staged": TPS_DEVICE != "cpu"}
+        eng.close()
+    del eng
+    collect_garbage(torch, TPS_DEVICE)
+    # the float32 twin at tp=2: its streams must be one card's
+    eng = InferenceEngine(tps_model(torch, get_model, torch.float32), tp=TPS_TP,
+                          tp_devices=mesh, device=TPS_DEVICE, **TPS_ENGINE)
+    if eng.is_leader:
+        reqs = [eng.submit(p, max_new=TPS_NEW) for p in prompts]
+        eng.run()
+        eng.close()
+        out["f32_streams"] = [list(r.generated) for r in reqs]
+    else:
+        eng.follow()
+    del eng
+    collect_garbage(torch, TPS_DEVICE)
+    out["body_s"] = time.perf_counter() - t0
+    return out
+
+
+def tps_rank4(torch, refs: dict) -> dict:
+    """(b) on four ranks sharing the card: the router over two tp=2 groups
+    whose followers are disjoint (rank 0, the router's process, holds each
+    replica's model rank 0), float32, a transient serving-step fault at
+    event 1; then int8 weights at tp=2 on group 0."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tpar
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine, Router
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import engine as engine_mod
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.chaos import (
+        FaultInjector,
+        FaultPlan,
+        FaultSpec,
+    )
+
+    t0 = time.perf_counter()
+    rank = torch.distributed.get_rank()
+    groups = tpar.tp_device_groups(2, TPS_TP, leader=0)
+    meshes = [tpar.serving_mesh(TPS_TP, g) for g in groups]
+    inj = FaultInjector(FaultPlan(faults=(
+        FaultSpec(site="serving-step", kind="transient", at=(1,)),)))
+    prompts = refs["prompts"][:TPS_WAVE_B]
+
+    def make_engine(tid, index):
+        return InferenceEngine(tps_model(torch, get_model, torch.float32), tp=TPS_TP,
+                               tp_devices=meshes[index], device=TPS_DEVICE, trace_tid=tid,
+                               chaos=inj, stall_timeout_s=None, **TPS_ENGINE)
+
+    out = {"groups": groups}
+    if rank == 0:
+        with Router(make_engine, len(groups)) as r:
+            rrs = [r.submit(p, max_new=TPS_NEW) for p in prompts]
+            t1 = time.perf_counter()
+            r.run_until_done()
+            summ = r.summary()
+            out.update(streams=[list(rr.generated) for rr in rrs],
+                       statuses=[rr.status for rr in rrs], failovers=r.failovers,
+                       wall_s=round(time.perf_counter() - t1, 4),
+                       rollup={k: summ[k] for k in ("tp", "kv_bytes_per_chip",
+                                                    "kv_bytes_cluster", "weight_bytes_cluster")})
+        for m in meshes:
+            engine_mod.release_followers(m)
+    else:
+        for index, g in enumerate(groups):
+            if rank in g:
+                out["followed"] = len(engine_mod.follow_engines(
+                    lambda index=index: make_engine(0, index), meshes[index]))
+    collect_garbage(torch, TPS_DEVICE)
+    if meshes[0] is not None:  # int8 weights at tp=2 on group 0
+        eng = InferenceEngine(tps_model(torch, get_model, torch.float32), tp=TPS_TP,
+                              tp_devices=meshes[0], device=TPS_DEVICE, quant="int8",
+                              **TPS_ENGINE)
+        out["int8_weight_bytes"] = eng.weight_bytes_per_chip()
+        if eng.is_leader:
+            reqs = [eng.submit(p, max_new=TPS_NEW) for p in prompts]
+            eng.run()
+            eng.close()
+            out["int8_streams"] = [list(r.generated) for r in reqs]
+        else:
+            eng.follow()
+        del eng
+        collect_garbage(torch, TPS_DEVICE)
+    out["body_s"] = time.perf_counter() - t0
+    return out
+
+
+def tps_refusals(torch, port) -> dict:
+    """(c): a tp that does not divide the heads (JAX's message), cp (item
+    7.1c), a role beside tp (7.1c), and tp outside a spawned world (the
+    launcher asked for), on the parent's card."""
+    get_model, engine_cls, _ = port
+    model = get_model("causal_lm", dtype=torch.bfloat16, **{**MODEL_KW, "depth": 1})
+    out = {}
+    for name, kw in {"tp3": {"tp": 3}, "cp2": {"cp": 2},
+                     "role": {"tp": TPS_TP, "role": "prefill", "kv_page_size": 16},
+                     "no_world": {"tp": TPS_TP}}.items():
+        try:
+            engine_cls(model, **TPS_ENGINE, **kw).close()
+            out[name] = None
+        except (ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+def tps_gates(torch, port, refs: dict, per2: list, per4: list, refusals: dict) -> dict:
+    """tp_serving's three lines and gates, from the spawns' records; each
+    bf16 stream that leaves one card's does so at a near-tie of one card's
+    logits (its top-2 gap, read on the bf16 model in this process)."""
+    get_model, _, make_prefill = port
+    lead = next(r for r in per2 if r["model_index"] == 0)
+    model = tps_model(torch, get_model, torch.bfloat16)
+    diverged = divergences(torch, make_prefill, model, refs["prompts"], refs["bf16"],
+                           lead["streams"])
+    del model
+    agree = sum(x == y for a, b in zip(refs["bf16"], lead["streams"]) for x, y in zip(a, b))
+    kv_want = refs["slab_bytes"] // TPS_TP + refs["cursor_bytes"]
+    rec_a = {"phase": "tp_serving", "sub": "a", "ranks_on": TPS_DEVICE, "backend": "gloo",
+             "world_size": 2, "tp": TPS_TP, "model": MODEL_KW, "dtype": "bf16",
+             **{k: lead[k] for k in ("wall_s", "ttft_s_p50", "ttft_s_p99", "tokens_per_sec",
+                                     "decode_tokens_per_s", "decode_s", "prefill_s",
+                                     "n_windows", "admissions", "collectives",
+                                     "prewarm_programs")},
+             "tp1": refs["tp1"], "nvidia_smi": nvidia_smi_line(),
+             "per_rank": [{k: r[k] for k in ("model_index", "kv_bytes", "weight_bytes",
+                                             "heads_a_rank", "launches",
+                                             "builds_after_prewarm", "body_s")}
+                          for r in per2],
+             "kv_bytes_want": kv_want, "tp1_slab_bytes": refs["slab_bytes"],
+             "tp1_cursor_bytes": refs["cursor_bytes"], "tp1_weight_bytes": refs["weight_bytes"],
+             "weight_ratio": [r["weight_bytes"] / refs["weight_bytes"] for r in per2],
+             "bf16_token_agreement": round(agree / (len(refs["bf16"]) * TPS_NEW), 4),
+             "bf16_divergences": diverged, "bf16_divergence_ulps_limit": TPS_DIV_ULPS,
+             "f32_streams_identical": lead["f32_streams"] == refs["f32"]}
+    emit(rec_a)
+    check(all(d["ulps"] <= TPS_DIV_ULPS for d in diverged),
+          f"(a) a bf16 stream at tp=2 left one card's at a top-2 gap above "
+          f"{TPS_DIV_ULPS} bf16 ulps: {[d for d in diverged if d['ulps'] > TPS_DIV_ULPS]}")
+    check(lead["statuses"] == ["done"] * len(refs["prompts"]),
+          f"(a) not every request finished: {lead['statuses']}")
+    check(rec_a["f32_streams_identical"], "(a) the float32 streams at tp=2 differ from one card's")
+    check(lead["stats_tp"] == TPS_TP, f"(a) the stats' tp: {lead['stats_tp']}")
+    for r in per2:
+        want = DEPTH * lead["admissions"]
+        check(TPS_DEVICE == "cpu" or r["launches"]["flash_fwd"] == want,
+              f"(a) K3 on model rank {r['model_index']}: {r['launches']['flash_fwd']}, "
+              f"expected depth x admissions = {want}")
+        check(r["heads_a_rank"] == TPS_HEADS, f"(a) heads a rank: {r['heads_a_rank']}")
+        check(r["kv_bytes"] == kv_want,
+              f"(a) KV bytes on model rank {r['model_index']}: {r['kv_bytes']}, expected "
+              f"half the slabs plus the cursors, {kv_want}")
+        check(abs(r["weight_bytes"] / refs["weight_bytes"] - 1 / TPS_TP) <= TPS_WEIGHT_REL / TPS_TP,
+              f"(a) weight bytes on model rank {r['model_index']}: {r['weight_bytes']} "
+              f"of {refs['weight_bytes']}")
+        check(r["builds_after_prewarm"] == 0,
+              f"(a) model rank {r['model_index']} built after prewarm: "
+              f"{r['builds_after_prewarm']}")
+    router = next(r for r in per4 if "streams" in r)
+    rec_b = {"phase": "tp_serving", "sub": "b", "ranks_on": TPS_DEVICE, "world_size": 4,
+             "groups": router["groups"], "dtype": "float32",
+             **{k: router[k] for k in ("failovers", "wall_s", "rollup")},
+             "followed": [r.get("followed") for r in per4],
+             "requests": TPS_WAVE_B,
+             "router_streams_identical": router["streams"] == refs["f32"][:TPS_WAVE_B],
+             "int8_streams_identical": router["int8_streams"] == refs["int8"],
+             "int8_weight_bytes": [r.get("int8_weight_bytes") for r in per4],
+             "body_s": [r["body_s"] for r in per4]}
+    emit(rec_b)
+    check(router["statuses"] == ["done"] * TPS_WAVE_B and router["failovers"] == 1,
+          f"(b) the router wave: {router['statuses']}, {router['failovers']} failovers")
+    check(rec_b["router_streams_identical"],
+          "(b) the router's streams over two tp=2 groups differ from one card's")
+    check(rec_b["int8_streams_identical"], "(b) int8 at tp=2 differs from one card's int8")
+    check(router["rollup"]["tp"] == TPS_TP and router["rollup"]["kv_bytes_cluster"],
+          f"(b) the rollup: {router['rollup']}")
+    rec_c = {"phase": "tp_serving", "sub": "c", "errors": refusals}
+    emit(rec_c)
+    check(refusals["tp3"] is not None and "must divide heads" in refusals["tp3"],
+          f"(c) tp=3 on 8 heads: {refusals['tp3']}")
+    for name in ("cp2", "role"):
+        check(refusals[name] is not None and "item 7.1c" in refusals[name],
+              f"(c) {name} did not name item 7.1c: {refusals[name]}")
+    check(refusals["no_world"] is not None and "launch.torchrun" in refusals["no_world"],
+          f"(c) tp outside a spawned world: {refusals['no_world']}")
+    return {"a": rec_a, "b": rec_b, "c": rec_c, "k3_checks": refs["k3_checks"],
+            "launches_per_rank": [r["launches"]["flash_fwd"] for r in per2]}
+
+
 MMA_SYNC = "tensor-core bf16: mma.sync on cp.async-fed tiles"
 DESIGN = {"flash_fwd": MMA_SYNC, "flash_bwd_fused": MMA_SYNC, "flash_bwd_grouped": MMA_SYNC,
           "flash_bwd_dkv": MMA_SYNC,
@@ -6934,7 +7348,8 @@ def main() -> int:
         sp = phase_sequence_parallel(torch, fa, xent, (Trainer, RunConfig, torchrun), Path(tmp))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
         tp = phase_tensor_parallel(torch, fa, xent, (Trainer, RunConfig, get_preset, torchrun),
-                                   Path(tmp), sp["c"]["sp1"])
+                                   Path(tmp), sp["c"]["sp1"],
+                                   (get_model, InferenceEngine, make_prefill), serving)
 
     def entry(name, source, replaces, launches, max_err, timed, by):
         head = timed[0] if by == "by_shape" else timed[-1]  # the path's shape
@@ -7106,6 +7521,12 @@ def main() -> int:
                                                        else "bwd"][0]
                     for case in ("diagonal", "visible")}}}
 
+    # K3 on tp_serving (a), per rank: the serving LM at tp=2, every prefill on
+    # its 4 of the 8 heads, held at (1, bucket, 4, 64) row by row
+    tps = tp["tp_serving"]
+    k3_entry["tp_serving"] = {"a_per_rank": tps["launches_per_rank"],
+                              "checks": [{k: c[k] for k in ("shape", "max_abs_err")}
+                                         for c in tps["k3_checks"]]}
     # K3/K4 on tensor_parallel (a), per rank: bench_lm8k at tp=2, each rank
     # on its 4 of the 8 heads; held at that shape in the phase
     for name, e in (("flash_fwd", k3_entry), ("flash_bwd_fused", k4_entry)):

@@ -382,9 +382,13 @@ def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...], str, tuple
     ``pipe_blocks.stages.{s}.{i}`` the ``[s, i]`` slice of flax's
     ``pipe_blocks/stacked``, its flax shape the slice's; a ``Linear`` weight is a
     transposed ``kernel``, a ``Conv2d`` weight an HWIO ``kernel``, a norm's
-    weight its ``scale``, an ``Embedding``'s its ``embedding``; the MoE
-    leaves and loose parameters keep their names and layouts).  The spec
-    rules (parallel/tensor_parallel.py) decide on these paths and shapes."""
+    weight its ``scale``, an ``Embedding``'s its ``embedding``; an
+    ``Int8Linear``'s int8 weight a transposed ``kernel`` and its scale
+    buffer the ``scale`` leaf beside it, as JAX's quantized tree holds
+    them; the MoE leaves and loose parameters keep their names and
+    layouts).  The spec rules (parallel/tensor_parallel.py) decide on these
+    paths and shapes."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import Int8Linear
     from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import LayerNorm
 
     out = {}
@@ -406,7 +410,7 @@ def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...], str, tuple
             name = f"{mod_name}.{leaf}" if mod_name else leaf
             layout, flax_leaf = _KEEP, leaf
             if leaf == "weight":
-                if isinstance(mod, nn.Linear):
+                if isinstance(mod, (nn.Linear, Int8Linear)):
                     layout, flax_leaf = _TRANSPOSE, "kernel"
                 elif isinstance(mod, nn.Conv2d):
                     layout, flax_leaf = _HWIO, "kernel"
@@ -416,6 +420,9 @@ def flax_layout(model: nn.Module) -> dict[str, tuple[tuple[str, ...], str, tuple
                     flax_leaf = "embedding"
             out[name] = (tuple(path) + (flax_leaf,), layout,
                          _flax_shape(tuple(p.shape), layout))
+        if isinstance(mod, Int8Linear):
+            out[f"{mod_name}.scale"] = (tuple(path) + ("scale",), _KEEP,
+                                        tuple(mod.scale.shape))
     return out
 
 

@@ -45,6 +45,7 @@ import torch
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.causal_lm import check_decodable
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import quantize_kv_int8
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import rank_cache_shape
 
 
 def _cache_from_sown(kvs: dict, lens: torch.Tensor, max_len: int,
@@ -145,18 +146,21 @@ def init_cache(model, batch: int, max_len: int) -> dict:
     """A zeroed (batch, max_len) decode cache on the model's device, in its
     dtype (int8 with float32 ``k_scale``/``v_scale`` for
     ``kv_cache_dtype="int8"``) — the serving engine's slot cache before
-    any admission."""
-    shape = (batch, max_len, model.heads_kv, model.head_dim)
+    any admission.  A model cut for tensor parallelism gets this rank's
+    heads of each slab (``tensor_parallel.kv_cache_rule``)."""
+    whole = (batch, max_len, model.heads_kv, model.head_dim)
     dev = model.device
     int8 = getattr(model, "kv_cache_dtype", "native") == "int8"
     store = torch.int8 if int8 else model.dtype
+    shape = rank_cache_shape(model, "k", whole)
+    scale = rank_cache_shape(model, "k_scale", whole[:3])
 
     def entry():
         e = {"k": torch.zeros(shape, dtype=store, device=dev),
              "v": torch.zeros(shape, dtype=store, device=dev)}
         if int8:
-            e["k_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=dev)
-            e["v_scale"] = torch.zeros(shape[:3], dtype=torch.float32, device=dev)
+            e["k_scale"] = torch.zeros(scale, dtype=torch.float32, device=dev)
+            e["v_scale"] = torch.zeros(scale, dtype=torch.float32, device=dev)
         e["index"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
         return e
 

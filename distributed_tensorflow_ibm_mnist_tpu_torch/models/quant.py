@@ -16,6 +16,14 @@ full-precision embedding).  :class:`Int8Linear` computes as JAX's
 that dtype, accumulated in float32, then ``* scale + bias`` in float32 and
 one cast to the compute dtype.  The weight is dequantized eagerly (a
 float32 copy per call); a fused int8 GEMM is later speed work.
+
+Under tensor parallelism (``parallel.tensor_parallel.TPPlan`` cuts the
+quantized model, as JAX shards its quantized tree, ``models/quant.py:14-33``
+there): a column layer holds its block of the int8 rows with their
+per-output scales and bias; a row layer holds its block of the columns and
+the whole scale, applied after the partial sums are reduced over the model
+group (a per-output factor is uniform over the contraction, so it passes
+through the sum).
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
+
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import column, row
 
 # the module names whose 2-D weight is quantized (JAX's rule, copied)
 _QUANT_MODULE = re.compile(r"qkv|q_proj|kv_proj|proj|dense_\d+|logits|fc\d*")
@@ -106,6 +116,19 @@ class Int8Linear(nn.Module):
                                  requires_grad=False)
         self.register_buffer("scale", torch.ones(out_features, device=device))
 
-    def forward(self, x):
-        y = F.linear(x.to(self.dtype).float(), self.weight.float())
+    def _product(self, x):
+        return F.linear(x.to(self.dtype).float(), self.weight.float())
+
+    def forward(self, x, entered: bool = False, local: bool = False):
+        """The whole layer; split (``tp_dim``/``tp_mesh``, set by
+        ``TPPlan.shard``) a column on the generic path (its output gathered)
+        or, with ``local``, half of a Megatron pair, as
+        ``tensor_parallel.linear``; ``entered``: ``x`` already passed
+        ``copy_to_model``."""
+        mesh = getattr(self, "tp_mesh", None)
+        if mesh is not None and self.tp_dim == 0:
+            return column(x, lambda h: (self._product(h) * self.scale + self.bias
+                                        ).to(self.dtype),
+                          mesh, entered=entered, gather=not local)
+        y = self._product(x) if mesh is None else row(x, self._product, mesh, local=local)
         return (y * self.scale + self.bias).to(self.dtype)

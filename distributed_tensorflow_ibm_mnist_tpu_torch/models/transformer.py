@@ -335,7 +335,7 @@ class TransformerBlock(nn.Module):
         pair (``x`` already past ``copy_to_model`` for a column, this rank's
         slice for a row)."""
         if isinstance(layer, Int8Linear):
-            return layer(x)
+            return layer(x, entered=pair, local=pair)
         return tp_linear(x, layer, self.dtype, entered=pair, local=pair)
 
     def _dropout(self, x, train: bool):

@@ -80,6 +80,14 @@ class Mesh:
     model_group: Any = dataclasses.field(default=None, compare=False, repr=False)
     replica_group: Any = dataclasses.field(default=None, compare=False, repr=False)
     pipe_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    # a serving mesh (parallel/tensor_parallel.serving_mesh): the global ranks
+    # of its model axis in order (``rank`` is this process's place among
+    # them), the group the engine's leader sends its step records on, and
+    # the model group's failures (a collective that timed out, a follower
+    # that raised): once one is recorded, no engine is built on the mesh
+    ranks: tuple[int, ...] = ()
+    control_group: Any = dataclasses.field(default=None, compare=False, repr=False)
+    failed: list = dataclasses.field(default_factory=list, compare=False, repr=False)
 
     @property
     def size(self) -> int:
@@ -130,6 +138,12 @@ class Mesh:
     def seq_index(self) -> int:
         """This rank's place along the seq axis: the token slice it holds."""
         return (self.rank // self.shape["pipe"]) % self.shape["seq"]
+
+    def group_ranks(self, group: str) -> list[list[int]]:
+        """The ranks of every group of axis group ``group`` (``"model_group"``,
+        ``"data_group"``, ...), in the order every rank builds them."""
+        return _axis_members(self.shape["data"], self.shape["model"], self.shape["seq"],
+                             self.shape["pipe"])[group]
 
 
 def hybrid_mesh_shapes(dp: int, tp: int, sp: int, pp: int, dcn_dp: int
@@ -182,6 +196,28 @@ def rank_records() -> list[RankRecord]:
     return [RankRecord(r, h, index.setdefault(h, len(index))) for r, h in enumerate(hosts)]
 
 
+def _axis_members(dp: int, tp: int, sp: int, pp: int = 1) -> dict:
+    """The members of every group of each axis of a ``(dp, tp, sp, pp)``
+    grid (``{"data_group": [[rank, ...], ...], ...}``), each axis's groups
+    in the order every rank builds them."""
+    def at(d, m, s, p):
+        return ((d * tp + m) * sp + s) * pp + p
+
+    pipes = range(pp)
+    return {
+        "seq_group": [[at(d, m, s, p) for s in range(sp)]
+                      for d in range(dp) for m in range(tp) for p in pipes],
+        "data_group": [[at(d, m, s, p) for d in range(dp)]
+                       for m in range(tp) for s in range(sp) for p in pipes],
+        "model_group": [[at(d, m, s, p) for m in range(tp)]
+                        for d in range(dp) for s in range(sp) for p in pipes],
+        "replica_group": [[at(d, m, s, p) for d in range(dp) for s in range(sp)]
+                          for m in range(tp) for p in pipes],
+        "pipe_group": [[at(d, m, s, p) for p in pipes]
+                       for d in range(dp) for m in range(tp) for s in range(sp)],
+    }
+
+
 def _axis_groups(dp: int, tp: int, sp: int, rank: int, pp: int = 1) -> dict:
     """This rank's process group of each axis of a ``(dp, tp, sp, pp)`` grid
     (``{"data_group": ..., ...}``; an axis of one rank, or the whole world,
@@ -189,33 +225,18 @@ def _axis_groups(dp: int, tp: int, sp: int, rank: int, pp: int = 1) -> dict:
     seq groups, the data groups, the model groups, the replica groups, the
     pipe groups (at pp = 1 the order and the groups of a ``(dp, tp, sp)``
     grid)."""
-    def at(d, m, s, p):
-        return ((d * tp + m) * sp + s) * pp + p
-
+    members = _axis_members(dp, tp, sp, pp)
+    built = {"seq_group": sp > 1, "data_group": tp > 1 or sp > 1 or pp > 1,
+             "model_group": tp > 1, "replica_group": tp > 1 or pp > 1,
+             "pipe_group": pp > 1}
     mine: dict = {}
-
-    def build(name, members_of):
-        for members in members_of:
-            g = dist.new_group(members)
-            if rank in members:
+    for name, on in built.items():
+        if not on:
+            continue
+        for group in members[name]:
+            g = dist.new_group(group)
+            if rank in group:
                 mine[name] = g
-
-    pipes = range(pp)
-    if sp > 1:
-        build("seq_group", ([at(d, m, s, p) for s in range(sp)]
-                            for d in range(dp) for m in range(tp) for p in pipes))
-    if tp > 1 or sp > 1 or pp > 1:
-        build("data_group", ([at(d, m, s, p) for d in range(dp)]
-                             for m in range(tp) for s in range(sp) for p in pipes))
-    if tp > 1:
-        build("model_group", ([at(d, m, s, p) for m in range(tp)]
-                              for d in range(dp) for s in range(sp) for p in pipes))
-    if tp > 1 or pp > 1:
-        build("replica_group", ([at(d, m, s, p) for d in range(dp) for s in range(sp)]
-                                for m in range(tp) for p in pipes))
-    if pp > 1:
-        build("pipe_group", ([at(d, m, s, p) for p in pipes]
-                             for d in range(dp) for m in range(tp) for s in range(sp)))
     return mine
 
 

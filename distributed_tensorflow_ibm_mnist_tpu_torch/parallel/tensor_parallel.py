@@ -60,21 +60,32 @@ places them itself, and its numbers are still the single-device step's:
   the model group (its head-major rows put back in order), so a tp
   checkpoint resumes at any tp.
 
-The serving half (``kv_cache_rule``, ``serving_mesh``,
-``tp_device_groups``, ``per_chip_bytes``) is not ported yet: each raises
-``NotImplementedError`` naming its ROADMAP.md item (7.1b).
+The serving half (JAX's ``tensor_parallel.py:296-457``): the same rule
+splits a serving model's weights (``TPPlan.shard``: int8 kernels as their
+full-precision ancestors, a column layer's per-output scales with its
+output features, a row layer's whole, as JAX's ``megatron_rule`` places
+them), :func:`kv_cache_rule` splits the decode cache over its head axis,
+:func:`serving_mesh` builds an engine's groups over given ranks (JAX's
+devices), :func:`tp_device_groups` partitions ranks among a router's
+replicas and :func:`per_chip_bytes` counts what a rank holds.  JAX's
+``mesh_shardings`` (a spec tree to ``NamedSharding`` s) has no
+counterpart: a port rank holds its blocks itself, nothing places them.
+Context parallelism (``cp > 1``) raises ``NotImplementedError`` naming its
+ROADMAP.md item (7.1c).
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import datetime
 import re
 from collections.abc import Mapping, Sequence
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -90,9 +101,11 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
     scatter_to_model,
     unflatten_buckets,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh, no_group_error
 
-TENSOR_PARALLEL = ("ROADMAP.md queue 1, item 7.1b ('Remaining parallelism and "
-                   "utilities': serving at tp and cp > 1)")
+CONTEXT_PARALLEL = ("ROADMAP.md queue 1, item 7.1c ('Remaining parallelism and "
+                    "utilities': context-parallel serving, the tp -> tp reshard and "
+                    "decode on the mesh)")
 PARALLEL = "ROADMAP.md queue 1, item 7, 'Remaining parallelism and utilities'"
 BESIDE_TP = ("ROADMAP.md queue 1, item 7.7 ('Remaining parallelism and utilities': "
              "fsdp, MoE blocks and multislice beside sp and tp)")
@@ -457,6 +470,8 @@ class TPPlan:
         self.masters, self.local_names = self.params, self.names
         self.clip: float | None = None
         self._inverse = [None if q is None else torch.argsort(q) for q in self.perm]
+        # split buffers (an int8 column's scales): name -> (dim, row order)
+        self.buffers: dict[str, tuple[int, torch.Tensor | None]] = {}
         self._replicas = mesh.shape["data"] * mesh.shape["seq"]
         self._layout = None  # the gradient buckets, laid over the blocks at first use
 
@@ -478,13 +493,13 @@ class TPPlan:
 
         fused: dict[str, int] = {}
         for mod_name, mod in model.named_modules():
-            if isinstance(mod, Int8Linear):
-                raise NotImplementedError(
-                    f"{mod_name}: int8 weights under tp (serving) are not ported: "
-                    "ROADMAP.md queue 1, item 7.1b")
             if isinstance(mod, TransformerBlock):
                 prefix = f"{mod_name}." if mod_name else ""
                 layout = _block_attention(mod, param_specs, prefix, n)
+                if layout and isinstance(mod.proj, Int8Linear):
+                    # an int8 column's scales are laid out as its rows
+                    layout.update({k.replace(".weight", ".scale"): v
+                                   for k, v in layout.items() if k.endswith(".weight")})
                 aligned = layout is not None
                 mod.tp_mesh = mesh
                 mod.tp_heads = mod.heads // n if aligned else mod.heads
@@ -518,19 +533,34 @@ class TPPlan:
             for i, p in enumerate(plan.params):
                 if split[i] is not None:
                     p.data = plan.block_of(i, p.detach()).clone()
+            for mod_name, mod in model.named_modules():
+                if not isinstance(mod, Int8Linear):
+                    continue
+                name = f"{mod_name}.scale"
+                d = shard_dim(param_specs.get(name, P()), "model")
+                if d is not None:  # a column's scales: this rank's output features
+                    order = (head_major_order(mod.scale.shape[0], fused[name], n)
+                             if name in fused else None)
+                    plan.buffers[name] = (d, order)
+                    mod.scale = plan.cut(mod.scale, d, order).clone()
         model.tp_mesh = mesh
         return plan
 
     # ---------------------------------------------------------------- layout
 
-    def block_of(self, i: int, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's block of leaf ``i``'s whole tensor (itself if whole)."""
-        d = self.split[i]
+    def cut(self, whole: torch.Tensor, d: int | None, order: torch.Tensor | None
+            ) -> torch.Tensor:
+        """This rank's block along dim ``d`` of ``whole`` taken in row order
+        ``order`` (None: in order; ``d`` None: ``whole`` itself)."""
         if d is None:
             return whole
-        if self.perm[i] is not None:
-            whole = whole.index_select(d, self.perm[i].to(whole.device))
+        if order is not None:
+            whole = whole.index_select(d, order.to(whole.device))
         return whole.chunk(self.n, d)[self.index]
+
+    def block_of(self, i: int, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of leaf ``i``'s whole tensor (itself if whole)."""
+        return self.cut(whole, self.split[i], self.perm[i])
 
     def whole(self, tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """Tensors laid out as the blocks, one a leaf, gathered whole over the
@@ -645,6 +675,29 @@ class TPPlan:
                                  f"expected {self.shapes[i]}")
             self.params[i].copy_(self.block_of(i, src.to(self.params[i].device)))
 
+    @torch.no_grad()
+    def load_whole_state_dict(self, model: nn.Module, state: Mapping[str, torch.Tensor]
+                              ) -> None:
+        """Load a whole ``state_dict`` (every leaf as one card holds it) into
+        the cut ``model``, strictly, each rank keeping its block of every
+        split leaf and buffer (a serving engine's weight swap)."""
+        own = model.state_dict()
+        if set(own) != set(state):
+            raise ValueError(
+                f"state_dict keys differ: missing {sorted(set(own) - set(state))}, "
+                f"unexpected {sorted(set(state) - set(own))}")
+        index = {name: i for i, name in enumerate(self.names)}
+        for key, dst in own.items():
+            src = state[key].to(dst.device)
+            if key in index:
+                src = self.block_of(index[key], src)
+            elif key in self.buffers:
+                src = self.cut(src, *self.buffers[key])
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{key}: this rank's block is {tuple(src.shape)}, "
+                                 f"the model holds {tuple(dst.shape)}")
+            dst.copy_(src)
+
     def whole_state_dict(self, model: nn.Module) -> dict[str, torch.Tensor]:
         """The model's ``state_dict`` with every leaf whole (a collective)."""
         whole = dict(zip(self.names, self.whole(self.masters)))
@@ -733,22 +786,189 @@ def make_tp_epoch_runner(model, tx, mesh, param_specs, state, batch_size: int,
                                     remat=remat, grad_accum=grad_accum)
 
 
-def _tp_later(what: str):
-    def refuse(*args, **kwargs):
+# ---------------------------------------------------------------------------
+# The serving half (JAX's tensor_parallel.py:296-457).  Every cache slab,
+# dense ``(slots, max_len, H_kv, D)`` rows and paged ``(n_pages, page_size,
+# H_kv, D)`` pools alike, splits over its HEAD axis, the decode analog of
+# splitting the kv projection's output features; cursors and block tables
+# stay whole on every rank: the host's page allocator (serving/kv_pool.py)
+# works in whole pages and never sees the head axis, so allocation is the
+# same at any tp.
+# ---------------------------------------------------------------------------
+
+# cache leaves with a head axis (dim 2 of the 4-D slabs); an int8 cache's
+# float32 scales carry it last
+_KV_HEAD_LEAVES = ("k", "v", "pages_k", "pages_v")
+_KV_SCALE_LEAVES = ("k_scale", "v_scale", "pages_k_scale", "pages_v_scale")
+# the model group's timeout (seconds) by default: a follower that stops
+# answering fails the leader's next collective no later than this
+SERVING_TIMEOUT_S = 300.0
+
+
+def _check_cp(cp: int, what: str) -> None:
+    if cp < 1:
+        raise ValueError(f"cp must be >= 1, got {cp}")
+    if cp > 1:
         raise NotImplementedError(
-            f"{what} is not in the PyTorch port yet ({TENSOR_PARALLEL} ports it)")
-    refuse.__name__ = what
-    return refuse
+            f"{what} with cp={cp} (context-parallel serving) is not in the PyTorch "
+            f"port yet: {CONTEXT_PARALLEL}")
 
 
-kv_cache_rule = _tp_later("kv_cache_rule")
-serving_mesh = _tp_later("serving_mesh")
-tp_device_groups = _tp_later("tp_device_groups")
-per_chip_bytes = _tp_later("per_chip_bytes")
+def kv_cache_rule(n_shards: int, axis: str = "tp", cp: int = 1, cp_axis: str = "cp"
+                  ) -> SpecRule:
+    """Spec rule for a decode cache (JAX's ``kv_cache_rule``,
+    ``tensor_parallel.py:313-367``): the K/V slabs split over their head
+    axis, dense ``k``/``v`` ``(B, max_len, H_kv, D)`` and paged
+    ``pages_k``/``pages_v`` ``(n_pages, page_size, H_kv, D)`` alike, and
+    their int8 ``*_scale`` companions over their last (head) axis;
+    everything else (cursors, block tables) whole.  A head count that does
+    not divide degrades to whole, as JAX's rule does (the engine refuses
+    such a tp first).  ``cp > 1`` is not ported (item 7.1c)."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    _check_cp(cp, "kv_cache_rule")
+    del cp_axis
+
+    def rule(path: tuple[str, ...], leaf) -> P:
+        name = path[-1] if path else ""
+        shape = getattr(leaf, "shape", ())
+        if name in _KV_HEAD_LEAVES and len(shape) == 4:
+            return P(None, None, axis, None) if shape[2] % n_shards == 0 else P()
+        if name in _KV_SCALE_LEAVES and len(shape) == 3:
+            return P(None, None, axis) if shape[2] % n_shards == 0 else P()
+        return P()
+
+    return rule
+
+
+def local_shape(shape: Sequence[int], spec: P, n: int) -> tuple[int, ...]:
+    """A whole leaf's shape cut to one rank's block under ``spec`` over an
+    axis of ``n`` ranks (every named dim divided by ``n``)."""
+    return tuple(d // n if i < len(spec) and spec[i] is not None else d
+                 for i, d in enumerate(shape))
+
+
+def rank_cache_shape(model, leaf: str, shape: Sequence[int]) -> tuple[int, ...]:
+    """The shape of decode-cache leaf ``leaf`` (whole ``shape``) on this
+    rank: whole, or for a model ``TPPlan.shard`` cut, its
+    :func:`kv_cache_rule` block (this rank's heads)."""
+    mesh = getattr(model, "tp_mesh", None)
+    if mesh is None or mesh.model_size == 1:
+        return tuple(shape)
+    n = mesh.model_size
+    return local_shape(shape, kv_cache_rule(n)((leaf,), Leaf(shape)), n)
+
+
+def kv_whole_bytes(tree, n: int) -> int:
+    """Bytes of a decode cache or prefill row ``tree`` of this rank's heads,
+    counted whole (what JAX's ``nbytes`` reads of a global array): every
+    head-split leaf ``n`` times, the rest once."""
+    return sum(leaf.nbytes * (n if path[-1] in _KV_HEAD_LEAVES + _KV_SCALE_LEAVES else 1)
+               for path, leaf in _tree_leaves(tree))
+
+
+def serving_mesh(tp: int, devices: Sequence[int] | None = None, cp: int = 1,
+                 timeout_s: float = SERVING_TIMEOUT_S) -> Mesh | None:
+    """The serving mesh of one tensor-parallel engine (JAX's
+    ``serving_mesh``, ``tensor_parallel.py:370-399``, over ranks where JAX
+    has devices): ``devices`` are the global ranks of its model axis in
+    order (default the first ``tp``), the first the engine's leader.  A
+    collective over the whole process group: every rank calls it, in the
+    same order, member or not (``dist.new_group``).  It builds two gloo
+    groups over the ranks: the model group, which Megatron's collectives
+    run on, with a timeout of ``timeout_s`` (a follower that stops
+    answering fails the leader's next collective within it), and the
+    control group the leader sends its step records on (a timeout of days:
+    an idle follower waits there).  Returns this rank's mesh (``rank`` is
+    its place among ``devices``), or None on a rank outside them.  At
+    ``tp=1`` it builds no group and needs none.  ``cp > 1`` is not ported
+    (item 7.1c)."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    _check_cp(cp, "serving_mesh")
+    shape = {"data": 1, "model": tp, "seq": 1, "pipe": 1}
+    if tp == 1 and devices is None:
+        return Mesh(shape=shape, rank=0)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise no_group_error(f"serving_mesh(tp={tp})")
+    world = dist.get_world_size()
+    ranks = list(range(tp)) if devices is None else [int(r) for r in devices]
+    if len(ranks) != tp or len(set(ranks)) != tp or not all(0 <= r < world for r in ranks):
+        raise ValueError(
+            f"serving_mesh(tp={tp}) needs exactly {tp} distinct ranks of the process "
+            f"group, got {ranks} (of {world} ranks) — start the ranks with "
+            "launch.torchrun")
+    groups = (None, None)
+    if tp > 1:
+        groups = (dist.new_group(ranks, timeout=datetime.timedelta(seconds=timeout_s)),
+                  dist.new_group(ranks, timeout=datetime.timedelta(days=7)))
+    me = dist.get_rank()
+    if me not in ranks:
+        return None
+    return Mesh(shape=shape, rank=ranks.index(me), ranks=tuple(ranks),
+                model_group=groups[0], control_group=groups[1])
+
+
+def tp_device_groups(n_groups: int, tp: int, devices: Sequence[int] | None = None,
+                     cp: int = 1, leader: int | None = None) -> list[list[int]]:
+    """Partition ``devices`` (ranks; default every rank of the process group)
+    into ``n_groups`` groups of ``tp`` (JAX's ``tp_device_groups``,
+    ``tensor_parallel.py:402-426``): replica ``i`` of a router builds its
+    engine on group ``i``.  JAX's groups are disjoint slices; with
+    ``leader=r`` each group is ``[r]`` followed by ``tp - 1`` followers
+    disjoint from every other group's: the router's process holds every
+    replica's model rank 0 (``[[0, 1], [0, 2]]`` for 2 groups of 2), since
+    a port rank is a process and the router drives each replica's leader
+    in its own.  ``cp > 1`` is not ported (item 7.1c)."""
+    if n_groups < 1:
+        raise ValueError(f"n_groups must be >= 1, got {n_groups}")
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    _check_cp(cp, "tp_device_groups")
+    if devices is None:
+        if not (dist.is_available() and dist.is_initialized()):
+            raise no_group_error(f"tp_device_groups({n_groups}, {tp})")
+        devices = range(dist.get_world_size())
+    ranks = [int(r) for r in devices]
+    if leader is None:
+        need = n_groups * tp
+        if len(ranks) < need:
+            raise ValueError(
+                f"tp_device_groups({n_groups}, {tp}) needs {need} devices (= groups x cp "
+                f"x tp), got {len(ranks)}")
+        return [ranks[i * tp:(i + 1) * tp] for i in range(n_groups)]
+    if leader not in ranks:
+        raise ValueError(f"the leader rank {leader} is not among {ranks}")
+    rest = [r for r in ranks if r != leader]
+    per = tp - 1
+    if len(rest) < n_groups * per:
+        raise ValueError(
+            f"tp_device_groups({n_groups}, {tp}, leader={leader}) needs "
+            f"{1 + n_groups * per} ranks (= one leader + groups x (tp - 1) followers), "
+            f"got {len(ranks)}")
+    return [[leader] + rest[i * per:(i + 1) * per] for i in range(n_groups)]
+
+
+def per_chip_bytes(tree, device=None) -> int:
+    """Bytes of ``tree`` resident on this rank (JAX's ``per_chip_bytes``,
+    ``tensor_parallel.py:437-456``): a rank holds its own blocks, so every
+    tensor leaf counts whole (with ``device``, only those on it); host
+    (numpy) leaves count whole."""
+    dev = None if device is None else torch.device(device)
+    total = 0
+    for _, leaf in _tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            if dev is None or leaf.device == dev:
+                total += leaf.nbytes
+        else:
+            total += int(getattr(leaf, "nbytes", 0))
+    return total
+
 
 __all__ = ["Leaf", "P", "SpecRule", "TPPlan", "chain_rules", "column", "conv2d",
-           "embedding", "flax_shape_tree", "head_major_order", "kv_cache_rule", "linear",
-           "make_param_specs", "make_tp_epoch_runner", "make_tp_train_step",
-           "megatron_dense_rule", "megatron_rule", "model_param_specs", "per_chip_bytes",
-           "row", "serving_mesh", "shard_dim", "shard_train_state", "specs_like",
-           "tied_head", "tp_device_groups"]
+           "embedding", "flax_shape_tree", "head_major_order",
+           "kv_cache_rule", "kv_whole_bytes", "linear", "local_shape", "make_param_specs",
+           "rank_cache_shape",
+           "make_tp_epoch_runner", "make_tp_train_step", "megatron_dense_rule",
+           "megatron_rule", "model_param_specs", "per_chip_bytes", "row", "serving_mesh",
+           "shard_dim", "shard_train_state", "specs_like", "tied_head", "tp_device_groups"]

@@ -108,20 +108,57 @@ submissions and land those packets through :meth:`admit_prefilled`, so they
 never prefill.  A role needs the paged cache and refuses speculation, as in
 JAX.
 
-``tp`` and ``cp`` raise ``NotImplementedError`` away from their defaults,
-naming the ROADMAP.md item that ports them.  The engine is
-single-threaded: submit and run from one thread (the daemonized tier
-gives each engine one pump thread).
+Tensor parallelism (``tp=N``; JAX's engine at ``tp > 1``,
+``serving/engine.py:458-560`` there): the engine's model and cache are
+split over the N ranks of a serving mesh (``parallel/tensor_parallel.py``
+``serving_mesh``; ``tp_devices`` gives its ranks, or the mesh itself), the
+weights by Megatron's rule (int8 weights quantized whole first, then cut),
+the cache over its heads.  Every rank of the mesh builds the engine with
+the same configuration; model rank 0 is the LEADER, which the caller
+submits to and runs, and the others are FOLLOWERS, which call
+:meth:`InferenceEngine.follow`.  The leader keeps every piece of host state
+(scheduler, sampling planes, page allocator, radix trie, prefix cache,
+drafter, chaos, tracer, stats: the host loop never sees the mesh, so its
+decisions are the same at any tp), and each device call it makes passes
+through one seam, ``_dev``: the call's name and host inputs go to every
+follower over the mesh's control group (sent without waiting, so a
+follower that stopped reading cannot block the leader), then the call runs
+on this rank's shard, its collectives over the model group.  A follower
+receives each call and makes it on its own shard.  The head's all-reduce
+leaves the whole logits bit-identical on every rank, so every rank picks
+the same tokens (the same Threefry keys); only the leader reads them back.
+A prefilled row is named by a handle, which a follower keeps its shard
+under until the leader drops the row.  A follower that raises or dies
+surfaces on the leader as the failure of its next collective, within the
+model group's timeout (``serving_mesh``'s ``timeout_s``); the leader then
+marks its group broken and sends nothing more, and the window fault fails
+the in-flight requests (a router fails the replica over).  Such a failure
+marks the mesh failed on every rank that saw it, and no engine is built
+on a failed mesh again: a replica whose group failed cannot be restarted
+on it (a fault on the leader's host side, such as a chaos fault, leaves
+the group sound, and the replica restarts).  A router holds each
+replica's leader in its own process: the followers of a replica loop
+:func:`follow_engines` until :func:`release_followers`.  ``role`` and
+``cp`` are not ported beside tp (ROADMAP.md item 7.1c), nor MoE blocks
+(7.7).
+
+``cp`` raises ``NotImplementedError`` away from 1, naming the ROADMAP.md
+item that ports it.  The engine is single-threaded: submit and run from
+one thread (the daemonized tier gives each engine one pump thread).
 """
 
 from __future__ import annotations
 
+import datetime
+import pickle
 import time
+import weakref
 from collections import deque
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import (
     _sample_window_core,
@@ -139,6 +176,8 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
     check_quant_knobs,
     reset_cache_slots,
 )
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tpar
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh, no_group_error
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving import kv_handoff
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.drafter import NgramDrafter
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.kv_pool import (
@@ -170,9 +209,99 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTrac
 
 # knob -> (default, the ROADMAP.md queue 1 item that ports it)
 _REFUSED = {
-    "tp": (1, "item 7 ('Remaining parallelism and utilities')"),
-    "cp": (1, "item 7 ('Remaining parallelism and utilities')"),
+    "cp": (1, "item 7.1c ('Remaining parallelism and utilities': context-parallel "
+              "serving)"),
 }
+# what tp > 1 leaves to later items of ROADMAP.md queue 1
+_TP_ROLES = ("item 7.1c ('Remaining parallelism and utilities': the disaggregated "
+             "tier's tp -> tp reshard)")
+_TP_MOE = ("item 7.7 ('Remaining parallelism and utilities': MoE blocks beside tp)")
+# the device calls that run the model (its collectives over the model
+# group): once one returns on the leader, every follower has read every
+# record sent before it
+_COLLECTIVE_OPS = frozenset({"prefill", "extend", "window", "verify"})
+
+
+class _Row(dict):
+    """A prefilled B=1 row cache of this rank's heads on a tp leader: its
+    ``handle`` names the followers' shards of it, ``nbytes`` is the whole
+    row's (the prefix cache's budget counts it as one card would hold
+    it)."""
+
+
+class _RowRef:
+    """A row as it travels in a step record: its handle."""
+
+    __slots__ = ("handle",)
+
+    def __init__(self, handle: int):
+        self.handle = handle
+
+
+def _wire(arg):
+    """A device call's argument as the followers receive it: a row by its
+    handle, a tensor as a host array, anything else as it is."""
+    if isinstance(arg, _Row):
+        return _RowRef(arg.handle)
+    if isinstance(arg, torch.Tensor):
+        return arg.detach().cpu().numpy()
+    return arg
+
+
+def _send(mesh: Mesh, record: tuple, pending: list) -> None:
+    """Send ``record`` to every follower of ``mesh`` over its control group
+    without waiting (``isend``: the leader never blocks on a follower);
+    the requests and their buffers go into ``pending``."""
+    data = torch.frombuffer(bytearray(pickle.dumps(record, protocol=5)), dtype=torch.uint8)
+    head = torch.tensor([data.numel()], dtype=torch.int64)
+    for dst in mesh.ranks[1:]:
+        pending.append((dist.isend(head, dst, group=mesh.control_group), head))
+        pending.append((dist.isend(data, dst, group=mesh.control_group), data))
+
+
+def _recv(mesh: Mesh) -> tuple:
+    """The leader's next step record, on a follower (blocks while the
+    leader is idle: the control group's timeout is days)."""
+    src = mesh.ranks[0]
+    head = torch.zeros(1, dtype=torch.int64)
+    dist.recv(head, src, group=mesh.control_group)
+    data = torch.empty(int(head), dtype=torch.uint8)
+    dist.recv(data, src, group=mesh.control_group)
+    return pickle.loads(data.numpy().tobytes())
+
+
+def follow_engines(make_engine: Callable[[], "InferenceEngine"], mesh: Mesh) -> list[dict]:
+    """A follower rank of a replica whose leader lives in another process
+    (a router's): wait for the leader's next engine, build this rank's
+    half with ``make_engine()`` (the leader's configuration, on ``mesh``),
+    :meth:`InferenceEngine.follow` it until the leader closes it, and again
+    (the replica respawned after a fault on the leader's host side), until
+    the leader calls :func:`release_followers` on ``mesh``.  Returns each
+    engine's :meth:`~InferenceEngine.follow` summary.  A failure on the
+    group itself (this rank's call raising, or a collective timing out)
+    ends the loop and re-raises: the mesh is then marked failed on both
+    sides, and no engine is built on it again, so such a replica cannot be
+    restarted (serve it on a new ``serving_mesh``)."""
+    out = []
+    while True:
+        record = _recv(mesh)
+        if record[0] == "exit":
+            return out
+        out.append(make_engine().follow(record))
+
+
+def release_followers(mesh: Mesh, timeout_s: float = tpar.SERVING_TIMEOUT_S) -> None:
+    """Leader side: end every :func:`follow_engines` loop on ``mesh`` (after
+    the replica's last engine closed), waiting at most ``timeout_s`` for
+    each follower to take the word.  A failed mesh's followers left
+    already: nothing is sent."""
+    if mesh.failed:
+        return
+    pending: list = []
+    _send(mesh, ("exit", (), []), pending)
+    for work, _ in pending:
+        work.wait(datetime.timedelta(seconds=timeout_s))
+
 
 # a parked request whose radix match skipped the prefill: the suffix
 # extend runs at landing, against the trie and pool of that moment
@@ -231,7 +360,7 @@ class InferenceEngine:
                  prefix_cache_bytes: int = 0,
                  kv_page_size: int = 0, kv_pages: int = 0,
                  radix_cache: bool | None = None, prefill_chunk: int = 0,
-                 tp: int = 1, cp: int = 1, quant: str | None = None,
+                 tp: int = 1, tp_devices=None, cp: int = 1, quant: str | None = None,
                  eos_id: int | None = None, pad_id: int = 0,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                  min_p: float = 0.0, rng=None, role: str = "both",
@@ -241,7 +370,7 @@ class InferenceEngine:
                  compile_cache_dir: str | None = None,
                  chaos=None, tracer=None, trace_tid: int = 0, telemetry=None,
                  device=None):
-        knobs = dict(tp=tp, cp=cp)
+        knobs = dict(cp=cp)
         for name, value in knobs.items():
             default, where = _REFUSED[name]
             if value != default:
@@ -249,6 +378,26 @@ class InferenceEngine:
                     f"InferenceEngine({name}={value!r}) is not in the PyTorch "
                     f"port yet: ROADMAP.md queue 1, {where}; leave it at "
                     f"{default!r}")
+        if tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        if tp > 1:
+            heads = getattr(model, "heads", 0)
+            heads_kv = getattr(model, "heads_kv", None) or heads
+            if not heads or heads % tp or heads_kv % tp:
+                raise ValueError(
+                    f"tp={tp} must divide heads ({heads}) and heads_kv "
+                    f"({heads_kv}): the Megatron column/row split and the "
+                    "KV head-axis shard both partition WHOLE heads — a "
+                    "silent replicated degrade would void the 1/tp "
+                    "per-chip memory claim")
+            if role != "both":
+                raise NotImplementedError(
+                    f"InferenceEngine(role={role!r}, tp={tp}) is not in the PyTorch port "
+                    f"yet: ROADMAP.md queue 1, {_TP_ROLES}")
+            if getattr(model, "has_moe", False):
+                raise NotImplementedError(
+                    f"InferenceEngine(tp={tp}) over MoE blocks is not in the PyTorch port "
+                    f"yet: ROADMAP.md queue 1, {_TP_MOE}")
         check_decodable(model)  # JAX's ValueError for pos="learned"
         if role not in ("both", "prefill", "decode"):
             raise ValueError(
@@ -353,6 +502,8 @@ class InferenceEngine:
                     "the paged cache does not compose with sliding-window "
                     "attention (model.window > 0) — the windowed decode "
                     "gathers a contiguous dense span")
+        self.tp = int(tp)
+        self._mesh = self._serving_mesh(self.tp, tp_devices) if tp > 1 else None
         self.device = resolve_device(device)
         mdev = model.device
         if mdev.type != self.device.type or (
@@ -372,8 +523,19 @@ class InferenceEngine:
                 model = model.clone(quant="int8")
             if params is not None:
                 params = quantize_state_dict_int8(params)
+        elif self.tp > 1:
+            model = model.clone()  # the engine cuts its own copy to this rank's blocks
         if params is not None:
             model.load_state_dict(params, strict=True)
+        # tp > 1: this rank's blocks of the (quantized) weights
+        self._plan = (tpar.TPPlan.shard(self._mesh, model) if self._mesh is not None
+                      else None)
+        self.is_leader = self._mesh is None or self._mesh.rank == 0
+        self._sends: list = []      # the leader's unsettled step-record sends
+        self._freed: list[int] = []  # handles of rows the leader dropped
+        self._rows: dict[int, dict] = {}  # a follower's row shards, by handle
+        self._row_ids = 0
+        self._broken: BaseException | None = None  # the tp group's first failure
         if scheduler is None:
             scheduler = FIFOScheduler(
                 max_len=max_len,
@@ -485,7 +647,7 @@ class InferenceEngine:
 
         self._slot_req: list[Request | None] = [None] * slots
         # chunked prefill: per slot, None while decoding, else the chunk
-        # record {"done", "m_blocks", "path", "bt", "bt_dev", "last"} of a
+        # record {"done", "m_blocks", "path", "bt", "last"} of a
         # PREFILLING slot (occupied, inactive in every window)
         self._slot_prefill: list[dict | None] = [None] * slots
         self._slot_tok = np.full((slots,), self.pad_id, np.int64)
@@ -522,13 +684,58 @@ class InferenceEngine:
             telemetry.register_source(f"engine{self._trace_tid}",
                                       self._telemetry_vitals)
         self._stamp_memory()
+        if self._mesh is not None:
+            self._announce(dict(
+                slots=slots, max_len=max_len, buckets=list(self.buckets),
+                decode_ahead=self.decode_ahead, speculative=speculative,
+                draft_len=self.draft_len, kv_page_size=self._page_size,
+                kv_pages=kv_pages, radix=self._radix is not None,
+                prefix=self._prefix is not None, prefill_chunk=self._prefill_chunk,
+                quant=self.quant, pad_id=self.pad_id, stall=stall_timeout_s is not None,
+                model={k: str(getattr(model, k, None)) for k in (
+                    "num_classes", "dim", "depth", "heads", "heads_kv", "dtype",
+                    "kv_cache_dtype", "window", "tie_embeddings")}))
+
+    @staticmethod
+    def _serving_mesh(tp: int, tp_devices) -> Mesh:
+        """This rank's serving mesh: ``tp_devices`` itself (a
+        ``tensor_parallel.serving_mesh``), or one built here over those
+        ranks (default the first ``tp``): a collective over the whole
+        process group, so every rank must be building an engine at this
+        point (a router's replicas pass meshes built beforehand)."""
+        if isinstance(tp_devices, Mesh):
+            if tp_devices.model_size != tp:
+                raise ValueError(f"tp={tp} but tp_devices is a mesh of "
+                                 f"{tp_devices.model_size} model ranks")
+            if tp_devices.failed:
+                e = tp_devices.failed[0]
+                raise RuntimeError(
+                    f"the model group of serving ranks {list(tp_devices.ranks)} failed "
+                    f"({type(e).__name__}: {e}); no engine is built on it again: serve "
+                    "this replica on a new tensor_parallel.serving_mesh")
+            return tp_devices
+        if not (dist.is_available() and dist.is_initialized()):
+            raise no_group_error(f"InferenceEngine(tp={tp})")
+        mesh = tpar.serving_mesh(tp, tp_devices)
+        if mesh is None:
+            raise ValueError(f"rank {dist.get_rank()} is not among this engine's "
+                             f"serving ranks {list(tp_devices)}")
+        return mesh
+
+    def _announce(self, config: dict) -> None:
+        """The leader announces its engine (its configuration) to every
+        follower; a follower keeps its own, which :meth:`follow` holds
+        against the leader's."""
+        self._config = config
+        if self.is_leader:
+            _send(self._mesh, ("build", config, []), self._sends)
 
     def _stamp_memory(self) -> None:
         """Stamp the footprint into ``self.stats`` (at construction and at
         every emission, so a swapped-in stats object still reports it)."""
         self.stats.memory(kv_bytes_per_chip=self.kv_bytes_per_chip(),
                           weight_bytes_per_chip=self.weight_bytes_per_chip(),
-                          quant=self.quant)
+                          quant=self.quant, tp=self.tp)
 
     def _telemetry_vitals(self) -> dict:
         """Health-sampler vitals: queue, slot and pool state plus the stats
@@ -565,18 +772,26 @@ class InferenceEngine:
         kw.setdefault("writer", trainer.writer)
         kw.setdefault("compile_cache_dir", trainer.config.compile_cache_dir)
         kw.setdefault("device", trainer.device)
-        return cls(trainer._decode_model(), trainer._decode_params(),
-                   slots=slots, max_len=max_len, **kw)
+        params = trainer._decode_params()  # a collective under a sharded run
+        if trainer.tp > 1 and "tp" not in kw:
+            # serve at the run's tp on its model groups: every rank builds one
+            # serving mesh per group, in one order (a collective), and joins its own
+            mine = None
+            for ranks in trainer.mesh.group_ranks("model_group"):
+                mine = tpar.serving_mesh(trainer.tp, ranks) or mine
+            kw.update(tp=trainer.tp, tp_devices=mine)
+        return cls(trainer._decode_model(), params, slots=slots, max_len=max_len, **kw)
 
     def kv_bytes_per_chip(self) -> int:
-        """Bytes of the decode cache on the card (the whole cache: one
-        card, no tp or cp), block tables and cursors included."""
-        return sum(leaf.nbytes for entry in self.cache.values()
-                   for leaf in entry.values())
+        """Bytes of the decode cache on this rank's card (JAX's
+        ``engine.py:1005-1010``): the whole cache on one card, this rank's
+        heads of every slab under tp, block tables and cursors whole."""
+        return tpar.per_chip_bytes(self.cache)
 
     def weight_bytes_per_chip(self) -> int:
-        """Bytes of the served weights on the card (int8 weights 1 byte an
-        element, their scales 4)."""
+        """Bytes of the served weights on this rank's card (int8 weights 1
+        byte an element, their scales 4): this rank's blocks under tp
+        (JAX's ``engine.py:1013-1016``)."""
         return weight_stream_bytes(self.model.state_dict())
 
     # ------------------------------------------------------------------
@@ -597,6 +812,7 @@ class InferenceEngine:
             raise RuntimeError(
                 "engine is " + ("closed" if self._closed else "draining")
                 + " — no new requests")
+        self._leader_only("submit")
         if self.role == "decode":
             raise RuntimeError(
                 "decode-role engine takes no direct submissions — its work "
@@ -773,12 +989,184 @@ class InferenceEngine:
     def _reset(self, mask: np.ndarray) -> None:
         """Reset the masked slots' rows (dense: zero them; paged: point
         their block tables at the trash page), cursors to 0."""
+        self._dev("reset", mask)
+
+    # ------------------------------------------------------------------
+    # the device calls: each ``_op_*`` runs on this rank's shard; the leader
+    # reaches them through ``_dev``, a follower through ``follow``
+
+    def _leader_only(self, what: str) -> None:
+        if not self.is_leader:
+            raise RuntimeError(
+                f"{what} on a follower rank of a tp={self.tp} engine: submit to and "
+                f"run the leader (model rank {self._mesh.ranks[0]}); a follower "
+                "calls follow()")
+
+    def _dev(self, op: str, *args):
+        """Run device call ``op`` on this rank's shard.  A tp leader first
+        sends it to every follower (the tp engine's one seam); once its
+        group failed, the leader sends nothing more and only a reset passes
+        (as a no-op: the engine can only close)."""
+        if self._mesh is None:
+            return getattr(self, f"_op_{op}")(*args)
+        if self._broken is not None:
+            if op == "reset":
+                return None
+            raise RuntimeError(
+                f"this tp={self.tp} engine's group failed earlier "
+                f"({type(self._broken).__name__}: {self._broken}); it can only close")
+        freed = self._freed[:]
+        self._freed.clear()
+        try:
+            _send(self._mesh, (op, tuple(_wire(a) for a in args), freed), self._sends)
+            out = getattr(self, f"_op_{op}")(*args)
+            if op in _COLLECTIVE_OPS:  # every follower has read the records so far
+                for work, _ in self._sends:
+                    work.wait()
+                self._sends.clear()
+        except Exception as e:
+            self._group_failed(e)
+            raise
+        return out
+
+    def _group_failed(self, e: BaseException) -> None:
+        """This engine's group failed: it sends and makes no call again, and
+        its mesh serves no engine again (a follower may be stuck in a
+        collective of it, or gone)."""
+        self._broken = e
+        self._mesh.failed.append(e)
+
+    def follow(self, build: tuple | None = None) -> dict:
+        """A follower's loop: take the leader's build record (``build``, when
+        :func:`follow_engines` read it already), refuse a leader's engine
+        built otherwise than this one, then make the leader's device calls
+        on this rank's shard, in the leader's order, until the leader closes
+        its engine.  Returns ``{"ops": {call: count}, "compile_since":
+        {mark: builds since it}}`` (the marks the leader set, ``"prewarm"``
+        among them).  A call that raises here (this rank's shard, or a
+        collective the leader left) ends the loop, marks the mesh failed
+        and re-raises; the leader sees it at its next collective."""
+        if self.is_leader:
+            raise RuntimeError("follow() is a follower's: the leader runs the engine")
+        record = _recv(self._mesh) if build is None else build
+        if record[0] != "build" or record[1] != self._config:
+            e = ValueError(
+                f"this follower's engine differs from its leader's: the leader built "
+                f"{record[1] if record[0] == 'build' else record[0]}, this rank "
+                f"{self._config}")
+            self._group_failed(e)
+            raise e
+        counts: dict[str, int] = {}
+        self._marks: dict = {}
+        while True:
+            op, args, freed = _recv(self._mesh)
+            for handle in freed:
+                self._rows.pop(handle, None)
+            if op == "close":
+                break
+            counts[op] = counts.get(op, 0) + 1
+            args = tuple(self._rows[a.handle] if isinstance(a, _RowRef) else a for a in args)
+            try:
+                getattr(self, f"_op_{op}")(*args)
+            except BaseException as e:
+                self._group_failed(e)
+                self._closed = True
+                raise
+        self._closed = True
+        self._rows.clear()
+        now = self._compile.snapshot()
+        return {"ops": counts, "compile_since": {k: CompileTracker.delta(now, v)
+                                  for k, v in self._marks.items()}}
+
+    def _op_prefill(self, handle, padded: np.ndarray, n: int):
+        """The bucketed B=1 prefill of ``padded`` (``n`` real tokens):
+        ``(row_cache, (1, V) logits)``; a follower keeps its row under
+        ``handle``."""
+        row, logits = self._prefill(torch.as_tensor(padded, device=self.device),
+                                    torch.tensor([n], dtype=torch.int32, device=self.device))
+        if not self.is_leader:
+            self._rows[handle] = row
+        return row, logits
+
+    def _op_insert(self, row, slot: int) -> None:
+        with torch.no_grad():
+            self._insert_impl(self.cache, row, slot)
+
+    def _op_paged_insert(self, row, bt_row, slot: int) -> None:
+        with torch.no_grad():
+            self._insert(self.cache, row, torch.as_tensor(bt_row, device=self.device), slot)
+
+    def _op_extend(self, slot: int, bt_row, padded, start: int, n: int):
+        """The paged extend (a radix suffix or a chunk): its (1, V) logits."""
+        dev = self.device
+        self.cache, logits = self._extend(self.cache, slot, torch.as_tensor(bt_row, device=dev),
+                                          torch.as_tensor(padded, device=dev), start, n)
+        return logits
+
+    def _op_reset(self, mask) -> None:
         with torch.no_grad():
             m = torch.as_tensor(mask, device=self.device)
             if self._pool is not None:
                 paged_reset(self.cache, m)
             else:
                 reset_cache_slots(self.cache, m)
+
+    def _op_set_cursor(self, index) -> None:
+        _set_cursor(self.cache, torch.as_tensor(index, device=self.device))
+
+    def _op_window(self, tok, active, planes, pos, sampled: bool, keep: bool = True):
+        """The decode-ahead window; an input given as None is the device
+        mirror this rank holds (the last upload, or for ``tok`` and ``pos``
+        the last window's own outputs).  ``keep``: the inputs and outputs
+        become the mirrors.  Returns ``(tokens, logprobs, last, pos)``."""
+        tok, active, planes, pos = self._mirrored(tok, active, planes, pos, keep)
+        self._window_sampled = sampled
+        self.cache, blk, logp, last, pos_out = self._window(tok, active, planes, pos)
+        if keep:
+            self._tok_dev, self._pos_dev = last, pos_out
+        return blk, logp, last, pos_out
+
+    def _op_verify(self, host, active, planes, sampled: bool, keep: bool = True):
+        """The speculative verify window over the drafted ``host`` chunk
+        ((slots, k + 2): the chunk, the draft lengths, the PRNG positions):
+        ``(tokens, logprobs, accepted, last)``."""
+        _, active, planes, _ = self._mirrored(None, active, planes, None, keep)
+        self._window_sampled = sampled
+        k = self.draft_len + 1
+        dev = torch.as_tensor(host, device=self.device)
+        self.cache, blk, logp, acc, last = self._verify(dev[:, :k], dev[:, k], active, planes,
+                                                        dev[:, k + 1])
+        return blk, logp, acc, last
+
+    def _op_swap(self, params: dict) -> None:
+        if self._plan is not None:
+            self._plan.load_whole_state_dict(self.model, params)
+        else:
+            self.model.load_state_dict(params, strict=True)
+
+    def _op_mark(self, name: str) -> None:
+        """A point of the leader's (``prewarm``'s end): a follower notes
+        its builds so far."""
+        if not self.is_leader:
+            self._marks[name] = self._compile.snapshot()
+
+    def _mirrored(self, tok, active, planes, pos, keep: bool):
+        """Device tensors of the window inputs: each given host array
+        uploaded (and kept as the mirror with ``keep``), each None the
+        mirror."""
+        dev = self.device
+        got = []
+        for name, x in (("_tok_dev", tok), ("_active_dev", active), ("_planes_dev", planes),
+                        ("_pos_dev", pos)):
+            if x is None:
+                got.append(getattr(self, name))
+                continue
+            x = (tuple(torch.as_tensor(a, device=dev) for a in x) if name == "_planes_dev"
+                 else torch.as_tensor(x, device=dev))
+            if keep:
+                setattr(self, name, x)
+            got.append(x)
+        return got
 
     def _done_reason(self, req: Request) -> str | None:
         if self.eos_id is not None and req.generated and req.generated[-1] == self.eos_id:
@@ -821,12 +1209,24 @@ class InferenceEngine:
                 if self._tracer is not None and req.trace is not None else None)
         try:
             with self._compile.site(f"prefill[b{req.bucket}]"):
-                return self._prefill(torch.as_tensor(padded, device=self.device),
-                                     torch.tensor([req.tokens.size], dtype=torch.int32,
-                                                  device=self.device))
+                return self._prefill_padded(padded, int(req.tokens.size))
         finally:
             if span is not None:
                 self._tracer.end(span)  # a poisoned prefill still closes it
+
+    def _prefill_padded(self, padded: np.ndarray, n: int):
+        """The B=1 prefill of ``padded`` (``n`` real tokens): ``(row_cache,
+        logits)``.  On a tp leader the row is a :class:`_Row` whose handle
+        the followers keep their shards under, freed when it dies."""
+        if self._mesh is None:
+            return self._dev("prefill", None, padded, n)
+        self._row_ids += 1
+        handle = self._row_ids
+        row, logits = self._dev("prefill", handle, padded, n)
+        row = _Row(row)
+        row.handle, row.nbytes = handle, tpar.kv_whole_bytes(row, self.tp)
+        weakref.finalize(row, self._freed.append, handle)
+        return row, logits
 
     def _usable_radix_tokens(self, req: Request, matched: int | None = None) -> int:
         """Whole-page radix match usable for ``req``, capped so at least one
@@ -905,21 +1305,18 @@ class InferenceEngine:
             bt_row[j] = node.page
         bt_row[m_blocks:m_blocks + len(private)] = private
         req.pages = total
-        bt_dev = torch.as_tensor(bt_row, device=self.device)
         with torch.no_grad():
             if m_blocks:
                 suffix = req.tokens[m_tok:]
                 padded = np.full((1, self.scheduler.bucket_for(suffix.size)),
                                  self.pad_id, np.int64)
                 padded[0, : suffix.size] = suffix
-                self.cache, logits = self._extend(
-                    self.cache, slot, bt_dev, torch.as_tensor(padded, device=self.device),
-                    m_tok, int(suffix.size))
+                logits = self._dev("extend", slot, bt_row, padded, m_tok, int(suffix.size))
                 self.stats.radix(True, tokens=m_tok)
                 self._radix.record(True, tokens=m_tok)
                 req.radix_tokens = m_tok
             else:
-                self._insert(self.cache, row_cache, bt_dev, slot)
+                self._dev("paged_insert", row_cache, bt_row, slot)
                 if self._radix is not None:
                     self.stats.radix(False)
                     self._radix.record(False)
@@ -975,8 +1372,7 @@ class InferenceEngine:
                     return True
             else:
                 row_cache, logits, cache_hit = prefilled
-                with torch.no_grad():
-                    self._insert_impl(self.cache, row_cache, slot)
+                self._dev("insert", row_cache, slot)
                 inserted = True
                 # hit or miss, the pick runs HERE, per request: the cache
                 # stores logits, never a token
@@ -1062,8 +1458,7 @@ class InferenceEngine:
         req.status = "prefilling"
         self._slot_req[slot] = req
         self._slot_prefill[slot] = {
-            "done": m_tok, "m_blocks": m_blocks, "path": path, "bt": bt_row,
-            "bt_dev": torch.as_tensor(bt_row, device=self.device), "last": None}
+            "done": m_tok, "m_blocks": m_blocks, "path": path, "bt": bt_row, "last": None}
         self._active_dev = None  # the slot sits out windows until it lands
         if m_blocks:
             self.stats.radix(True, tokens=m_tok)
@@ -1092,10 +1487,7 @@ class InferenceEngine:
         try:
             padded = np.full((1, c), self.pad_id, np.int64)
             padded[0, : part.size] = part
-            with torch.no_grad():
-                self.cache, rec["last"] = self._extend(
-                    self.cache, slot, rec["bt_dev"],
-                    torch.as_tensor(padded, device=self.device), done, int(part.size))
+            rec["last"] = self._dev("extend", slot, rec["bt"], padded, done, int(part.size))
             rec["done"] = done + int(part.size)
             # the extend installed the slot's block table: a reset pending
             # from its previous tenant must not undo it
@@ -1281,36 +1673,26 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # the host loop
 
-    def _active_planes(self):
-        """The frozen active mask and the sampling planes of the next
-        window, re-uploaded only where the host mirrors changed."""
-        dev = self.device
+    def _window_upload(self, tok: bool = True, pos: bool = True):
+        """The next window's inputs whose device mirrors are stale, as host
+        arrays (None: the mirror, the same on every rank, holds): the
+        pending tokens, the frozen active mask, the sampling planes and the
+        PRNG positions; and whether any active row samples."""
+        active = planes = None
         if self._active_dev is None:
             # PREFILLING slots sit out: their garbage writes land above the
             # chunk cursor, where the next chunk overwrites them
             active = np.array([r is not None and p is None
                                for r, p in zip(self._slot_req, self._slot_prefill)])
-            self._active_dev = torch.as_tensor(active, device=dev)
             self._window_sampled = bool((self._slot_temp[active] > 0).any())
         if self._planes_dev is None:
-            self._planes_dev = tuple(
-                torch.as_tensor(x, device=dev) for x in (
-                    self._slot_temp, self._slot_topp, self._slot_topk,
-                    self._slot_minp, self._slot_key))
-        return self._active_dev, self._planes_dev
-
-    def _window_inputs(self):
-        """The decode window's device inputs: the pending tokens, the
-        active mask, the sampling planes and the PRNG positions."""
-        dev = self.device
-        if self._tok_dev is None:
-            self._tok_dev = torch.as_tensor(self._slot_tok, device=dev)
-        if self._pos_dev is None:
-            # PRNG positions = tokens generated so far
-            self._pos_dev = torch.as_tensor(np.array(
-                [0 if r is None else len(r.generated) for r in self._slot_req],
-                np.int64), device=dev)
-        return (self._tok_dev, *self._active_planes(), self._pos_dev)
+            planes = (self._slot_temp, self._slot_topp, self._slot_topk,
+                      self._slot_minp, self._slot_key)
+        toks = self._slot_tok if tok and self._tok_dev is None else None
+        # PRNG positions = tokens generated so far
+        where = (np.array([0 if r is None else len(r.generated) for r in self._slot_req],
+                          np.int64) if pos and self._pos_dev is None else None)
+        return toks, active, planes, where, self._window_sampled
 
     def _window(self, tok, active, planes, pos):
         """The decode-ahead window: ``(cache, tokens, logprobs, last, pos)``."""
@@ -1331,8 +1713,8 @@ class InferenceEngine:
     def _draft_chunk(self):
         """Draft every decoding slot: the (slots, draft_len + 1) chunk
         (column 0 the pending token), the draft lengths and the PRNG
-        positions, uploaded in one copy.  Returns ``(chunk, draft_lens,
-        pos)`` on the device and the host draft lengths."""
+        positions, one (slots, draft_len + 3) host array (the verify call
+        uploads it in one copy), and the host draft lengths."""
         k = self.draft_len + 1
         host = np.full((self.slots, k + 2), self.pad_id, np.int64)
         host[:, 0] = self._slot_tok
@@ -1345,8 +1727,7 @@ class InferenceEngine:
             host[slot, 1:1 + d.size] = d
             host[slot, k] = d.size
             host[slot, k + 1] = len(req.generated)  # the PRNG position
-        dev = torch.as_tensor(host, device=self.device)
-        return (dev[:, :k], dev[:, k], dev[:, k + 1]), host[:, k].copy()
+        return host, host[:, k].copy()
 
     def step(self) -> int:
         """One host-loop iteration: cancel -> admit -> decode (or verify)
@@ -1355,6 +1736,7 @@ class InferenceEngine:
         are discarded, never counted)."""
         if self._closed:
             raise RuntimeError("engine is closed")
+        self._leader_only("step")
         t0 = self.clock()
         reset_mask = np.zeros((self.slots,), bool)
 
@@ -1393,18 +1775,17 @@ class InferenceEngine:
                     self._chaos.raise_if_fired("serving-step", ChaosFault)
                 if spec:
                     t_d0 = self.clock()
-                    (chunk, dls_dev, pos), dls = self._draft_chunk()
+                    chunk, dls = self._draft_chunk()
                     t_d1 = self.clock()
-                    active, planes = self._active_planes()
+                    _, active, planes, _, sampled = self._window_upload(tok=False, pos=False)
                     t_d = self.clock()
-                    self.cache, blk_dev, logp_dev, acc_dev, _ = self._verify(
-                        chunk, dls_dev, active, planes, pos)
+                    blk_dev, logp_dev, acc_dev, _ = self._dev("verify", chunk, active, planes,
+                                                              sampled)
                     tail = [acc_dev[:, None]]
                 else:
-                    tok, active, planes, pos = self._window_inputs()
+                    upload = self._window_upload()
                     t_d = self.clock()
-                    self.cache, blk_dev, logp_dev, last_dev, pos_out = self._window(
-                        tok, active, planes, pos)
+                    blk_dev, logp_dev, _, _ = self._dev("window", *upload)
                     tail = []
                 dispatch_s = self.clock() - t_d
             except Exception as e:
@@ -1448,9 +1829,7 @@ class InferenceEngine:
                 if spec:
                     acc = host[:, 2 * k].astype(np.int64)
                     self._tok_dev = None  # the next chunk is built on the host
-                else:
-                    self._tok_dev = last_dev
-                    self._pos_dev = pos_out
+                else:  # the window kept its last tokens and positions as the mirrors
                     self._slot_tok = blk[:, -1].copy()
                 now = self.clock()
                 t_acc0 = t_rb + readback_s
@@ -1574,7 +1953,7 @@ class InferenceEngine:
             self._fail_in_flight(exc, now)
             raise exc
         try:
-            _set_cursor(self.cache, idx0)
+            self._dev("set_cursor", idx0)
         except Exception:
             self._fail_in_flight(exc, now)
             raise exc
@@ -1653,6 +2032,7 @@ class InferenceEngine:
         instead: it was accepted and then starved.  Idempotent."""
         if self._closed:
             return
+        self._leader_only("close")
         self._draining = True
         now = self.clock()
         mask = np.zeros((self.slots,), bool)
@@ -1697,6 +2077,21 @@ class InferenceEngine:
                                    self._page_size, self._page_bytes)
         self._emit()
         self._closed = True
+        if self._mesh is not None and self._broken is None:
+            self._release()
+
+    def _release(self) -> None:
+        """The leader's last word to its followers: close (waited for at
+        most the model group's timeout; a follower gone already is not
+        waited on twice)."""
+        _send(self._mesh, ("close", (), []), self._sends)
+        timeout = datetime.timedelta(seconds=tpar.SERVING_TIMEOUT_S)
+        try:
+            for work, _ in self._sends:
+                work.wait(timeout)
+        except Exception as e:  # a follower that died or left: nothing to release
+            self._group_failed(e)
+        self._sends.clear()
 
     def __enter__(self) -> "InferenceEngine":
         return self
@@ -1714,9 +2109,12 @@ class InferenceEngine:
         int8 engine quantizes it first (a quantized one passes as it is).
         Every cached K/V was computed under the old weights, so the prefix
         cache is cleared and the radix trie evicted whole, its pages back
-        to the pool."""
+        to the pool.  At tp > 1 ``params`` is the whole ``state_dict`` (as
+        one card holds it, JAX's ``engine.py:2457-2462``): every rank keeps
+        its block of each leaf, an int8 engine's quantized first."""
         if self._closed:
             raise RuntimeError("engine is closed")
+        self._leader_only("swap_params")
         if self.has_work or self._outbox:
             # a parked handoff packet HOLDS pool pages and radix nodes: the
             # wholesale trie eviction below assumes no outstanding
@@ -1729,7 +2127,9 @@ class InferenceEngine:
                 "has_work is False)")
         if self.quant == "int8":
             params = quantize_state_dict_int8(params)
-        self.model.load_state_dict(params, strict=True)
+        if self._mesh is not None:  # every rank keeps its block of the whole tensors
+            params = {k: v.detach().cpu() for k, v in params.items()}
+        self._dev("swap", params)
         if self._prefix is not None:
             self._prefix.clear()
         if self._radix is not None:
@@ -1758,6 +2158,7 @@ class InferenceEngine:
         process, or a respawn, reads 0 and 0)."""
         if self._closed:
             raise RuntimeError("engine is closed")
+        self._leader_only("prewarm")
         if self.has_work:
             raise RuntimeError(
                 f"prewarm on a busy engine (occupied={self.occupied}, "
@@ -1767,13 +2168,13 @@ class InferenceEngine:
         before = self._compile.snapshot()
         dev = self.device
         slots = self.slots
+        bt = (np.zeros((self.max_len // self._page_size,), np.int32)
+              if self._pool is not None else None)
         with torch.no_grad():
-            bt_dev = (torch.zeros((self.max_len // self._page_size,), dtype=torch.int32,
-                                  device=dev) if self._pool is not None else None)
-            one = torch.tensor([1], dtype=torch.int32, device=dev)
             if self.role == "decode":
                 # pages arrive through admit_prefilled: the handoff's
                 # one-page write and block-table install, into the trash page
+                bt_dev = torch.as_tensor(bt, device=dev)
                 last_logits = torch.zeros((1, self.model.num_classes),
                                           dtype=torch.float32, device=dev)
                 with self._compile.site("handoff_install"):
@@ -1787,14 +2188,12 @@ class InferenceEngine:
             elif self._prefill_chunk:
                 c = self._prefill_chunk
                 with self._compile.site(f"extend[b{c}]"):
-                    self.cache, last_logits = self._extend(
-                        self.cache, 0, bt_dev,
-                        torch.zeros((1, c), dtype=torch.int64, device=dev), 0, 1)
+                    last_logits = self._dev("extend", 0, bt, np.zeros((1, c), np.int64), 0, 1)
             else:
                 for b in self.buckets:
                     with self._compile.site(f"prefill[b{b}]"):
-                        row_cache, last_logits = self._prefill(
-                            torch.zeros((1, b), dtype=torch.int64, device=dev), one)
+                        row_cache, last_logits = self._prefill_padded(
+                            np.zeros((1, b), np.int64), 1)
             if self.role == "prefill":
                 # the source half of the handoff: the page read every packet
                 # takes (read-only on the cache)
@@ -1814,39 +2213,33 @@ class InferenceEngine:
             if not self._prefill_chunk and self.role != "decode":
                 with self._compile.site("slot_insert"):
                     if self._pool is not None:
-                        self._insert(self.cache, row_cache, bt_dev, 0)
+                        self._dev("paged_insert", row_cache, bt, 0)
                     else:
-                        self._insert_impl(self.cache, row_cache, 0)
+                        self._dev("insert", row_cache, 0)
                 if self._pool is not None:
                     for b in self.buckets:
                         with self._compile.site(f"extend[b{b}]"):
-                            self.cache, _ = self._extend(
-                                self.cache, 0, bt_dev,
-                                torch.zeros((1, b), dtype=torch.int64, device=dev), 0, 1)
+                            self._dev("extend", 0, bt, np.zeros((1, b), np.int64), 0, 1)
             if self.role != "prefill":
                 # a prefill-role engine never dispatches a window
-                inactive = torch.zeros((slots,), dtype=torch.bool, device=dev)
-                planes = tuple(torch.zeros(shape, dtype=dtype, device=dev)
-                               for shape, dtype in (
-                                   ((slots,), torch.float32), ((slots,), torch.float32),
-                                   ((slots,), torch.int64), ((slots,), torch.float32),
-                                   ((slots, 2), torch.int64)))
-                pos0 = torch.zeros((slots,), dtype=torch.int64, device=dev)
+                inactive = np.zeros((slots,), bool)
+                planes = (np.zeros((slots,), np.float32), np.zeros((slots,), np.float32),
+                          np.zeros((slots,), np.int64), np.zeros((slots,), np.float32),
+                          np.zeros((slots, 2), np.int64))
+                pos0 = np.zeros((slots,), np.int64)
                 if self._drafter is not None:
                     k = self.draft_len + 1
+                    chunk = np.full((slots, k + 2), self.pad_id, np.int64)
+                    chunk[:, k:] = 0
                     with self._compile.site(f"verify_window[k{k}]"):
-                        self.cache = self._verify(
-                            torch.full((slots, k), self.pad_id, dtype=torch.int64,
-                                       device=dev),
-                            torch.zeros((slots,), dtype=torch.int64, device=dev),
-                            inactive, planes, pos0)[0]
+                        self._dev("verify", chunk, inactive, planes, False, False)
                 else:
                     with self._compile.site(f"decode_window[k{self.decode_ahead}]"):
-                        self.cache = self._window(
-                            torch.zeros((slots,), dtype=torch.int64, device=dev),
-                            inactive, planes, pos0)[0]
+                        self._dev("window", pos0, inactive, planes, pos0, False, False)
         with self._compile.site("slot_reset"):
             self._reset(np.ones((slots,), bool))
+        if self._mesh is not None:
+            self._dev("mark", "prewarm")
         delta = CompileTracker.delta(self._compile.snapshot(), before)
         return {"programs": delta["n_compiled_programs"], "loads": delta["n_loads"],
                 "compile_s": delta["compile_time_s"],

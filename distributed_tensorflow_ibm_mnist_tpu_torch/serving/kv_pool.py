@@ -39,6 +39,8 @@ from typing import Callable
 
 import torch
 
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import rank_cache_shape
+
 TRASH_PAGE = 0
 
 
@@ -106,7 +108,8 @@ def paged_cache_shapes(model, slots: int, max_len: int, page_size: int,
                        n_pages: int) -> dict:
     """``{block: {leaf: (shape, dtype)}}`` of the paged cache
     :func:`init_paged_cache` allocates for ``model``, read from its
-    attributes (no forward runs)."""
+    attributes (no forward runs): for a model cut for tensor parallelism,
+    this rank's heads of each pool (``tensor_parallel.kv_cache_rule``)."""
     if max_len % page_size:
         raise ValueError(
             f"max_len ({max_len}) must be a multiple of page_size "
@@ -115,10 +118,11 @@ def paged_cache_shapes(model, slots: int, max_len: int, page_size: int,
         raise ValueError(f"n_pages must be >= 2, got {n_pages}")
     int8 = getattr(model, "kv_cache_dtype", "native") == "int8"
     pool = (n_pages, page_size, model.heads_kv, model.head_dim)
-    page = (pool, torch.int8 if int8 else model.dtype)
+    page = (rank_cache_shape(model, "pages_k", pool), torch.int8 if int8 else model.dtype)
     entry = {"pages_k": page, "pages_v": page}
     if int8:
-        entry["pages_k_scale"] = entry["pages_v_scale"] = (pool[:3], torch.float32)
+        entry["pages_k_scale"] = entry["pages_v_scale"] = (
+            rank_cache_shape(model, "pages_k_scale", pool[:3]), torch.float32)
     entry["block_table"] = ((slots, max_len // page_size), torch.int32)
     entry["index"] = ((slots,), torch.int32)
     return {f"block_{i}": dict(entry) for i in range(model.depth)}

@@ -40,8 +40,14 @@ def prefix_key(bucket: int, tokens) -> str:
 
 
 def _nbytes(tree) -> int:
-    """Bytes of every tensor (or array) in a nested dict/list/tuple."""
+    """Bytes of every tensor (or array) in a nested dict/list/tuple; a row
+    that states its whole size (``nbytes``: a tensor-parallel rank's share
+    of it, serving/engine.py) counts that, so the budget holds the same
+    entries at any tp."""
     if isinstance(tree, dict):
+        stated = getattr(tree, "nbytes", None)
+        if stated is not None:
+            return int(stated)
         return sum(_nbytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
         return sum(_nbytes(v) for v in tree)

@@ -203,7 +203,11 @@ def test_concurrent_submit_hammer_conserves_exactly(weights, daemons):
     rejected = [0] * n_threads
 
     def producer(t):
-        for i in range(per_thread):
+        # producer 0 leaves its last submit (born overdue) to the main thread,
+        # which makes it once the producers have joined and the queue has room:
+        # beside CPU load every producer's overdue submit can meet the full
+        # queue and be refused, and one admitted overdue request must be certain
+        for i in range(per_thread - (t == 0)):
             deadline = 0.0 if i % 5 == 4 else None  # born overdue: cancelled
             try:
                 dr = d.submit(PROMPTS[(t + i) % len(PROMPTS)], 3, deadline_s=deadline)
@@ -224,6 +228,10 @@ def test_concurrent_submit_hammer_conserves_exactly(weights, daemons):
     finally:
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
+    for dr in list(drs):  # every accepted request terminal: the queue has room
+        dr.wait(WAIT_S)
+    i = per_thread - 1  # producer 0's last item, born overdue
+    drs.append(d.submit(PROMPTS[i % len(PROMPTS)], 3, deadline_s=0.0 if i % 5 == 4 else None))
     assert all(dr.wait(WAIT_S) for dr in drs)
     assert d.drain(timeout=WAIT_S)
     cons = d.conservation()

@@ -175,11 +175,15 @@ def test_specs_like_matches_by_suffix_as_jax():
 
 
 def test_tensor_parallel_proper_is_refused_by_its_item():
-    # the serving half is still refused by its item (7.1b); the training
-    # half is ported: its step and epoch factories need JAX's arguments
-    for fn in (tp.kv_cache_rule, tp.serving_mesh, tp.tp_device_groups, tp.per_chip_bytes):
-        with pytest.raises(NotImplementedError, match=r"item 7\.1"):
-            fn()
+    # the serving half is ported (tests/test_torch_tp_serving.py holds it
+    # against JAX's): context-parallel serving is what its item (7.1c) still
+    # refuses, and the other three work; the training half's step and epoch
+    # factories need JAX's arguments
+    with pytest.raises(NotImplementedError, match=r"item 7\.1c"):
+        tp.kv_cache_rule(2, cp=2)
+    assert tp.serving_mesh(1).model_size == 1
+    assert tp.tp_device_groups(2, 2, devices=range(4)) == [[0, 1], [2, 3]]
+    assert tp.per_chip_bytes({"k": torch.zeros(2, 4), "index": torch.zeros(2, dtype=torch.int32)}) == 40
     for fn in (tp.make_tp_train_step, tp.make_tp_epoch_runner):
         with pytest.raises(TypeError, match="missing"):
             fn()

@@ -346,6 +346,65 @@ def test_moe_engine_streams_equal_the_jax_engine(paged):
     assert [tuple(r.generated) for r in reqs] == [tuple(r.generated) for r in jreqs]
 
 
+# capacity factor 1.0 under top-2 routing: a 16-token bucket's 32 assignments
+# meet 4 experts of int(16 / 4) = 4 slots (the prefill drops), and a two-slot
+# window's 4 meet 4 experts of max(1, int(2 / 4)) = 1 slot (a decode step
+# drops whenever the two tokens' expert pairs meet)
+PRESSURE_MOE = dict(moe_every=2, n_experts=4, moe_capacity_factor=1.0, moe_top_k=2)
+
+
+@functools.cache
+def _pressure_pair():
+    jm = jax_get_model("causal_lm", num_classes=16, dim=32, depth=2, heads=2,
+                       **PRESSURE_MOE, dtype=jnp.float32)
+    params = jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.zeros((1, 8), jnp.int32))["params"]
+    tm = load_causal_lm(_np(params), device="cpu", num_classes=16, dim=32, depth=2,
+                        heads=2, **PRESSURE_MOE, dtype=torch.float32)
+    return jm, params, tm
+
+
+def test_moe_engine_under_capacity_pressure_equals_the_jax_engine():
+    """Decode under capacity pressure (queue 3 gap 3): the engine's MoE
+    blocks route each call's padded token set at a capacity factor that
+    drops assignments, as JAX's do, so the greedy streams and per-token
+    logprobs equal the JAX engine's, and the first window (two B=1 bucket
+    prefills inserted into a two-slot cache, one decode step of both rows)
+    gives JAX's logits."""
+    import importlib
+
+    jgen = importlib.import_module("distributed_tensorflow_ibm_mnist_tpu.core.generate")
+    jm, params, tm = _pressure_pair()
+    padded = [p + [0] * (16 - len(p)) for p in PROMPTS[:2]]
+    with torch.no_grad():
+        _, moe = tm(torch.tensor(padded[:1]), with_moe=True)
+    assert float(moe["dropped"]) > 0.0  # the prefill's routing drops
+    eng = InferenceEngine(tm, device="cpu", slots=2, max_len=32)
+    reqs = [eng.submit(p, max_new=8) for p in PROMPTS]
+    eng.run()
+    jeng = JaxEngine(jm, params, slots=2, max_len=32)
+    jreqs = [jeng.submit(np.asarray(p, np.int32), max_new=8) for p in PROMPTS]
+    jeng.run()
+    assert [r.status for r in reqs] == ["done"] * len(PROMPTS)
+    assert [tuple(r.generated) for r in reqs] == [tuple(r.generated) for r in jreqs]
+    np.testing.assert_allclose([x for r in reqs for x in r.logprobs],
+                               [x for r in jreqs for x in r.logprobs], atol=TOL)
+
+    cache, jcache = init_cache(tm, 2, 32), jgen.init_cache(jm, params, 2, 32)
+    toks = []
+    for slot, (p, row) in enumerate(zip(PROMPTS[:2], padded)):
+        lens = [len(p)]
+        tcache, tlast = make_prefill(tm, 32)(torch.tensor([row]), torch.tensor(lens))
+        jrow, jlast = jgen.make_prefill(jm, 32)(params, jnp.asarray([row], jnp.int32),
+                                                jnp.asarray(lens, jnp.int32))
+        np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), atol=TOL)
+        InferenceEngine._insert_impl(cache, tcache, slot)
+        jcache = JaxEngine._insert_impl(jcache, jrow, slot)
+        toks.append(int(np.asarray(jlast).argmax()))
+    _, logits = make_decode_step(tm, 32)(cache, torch.tensor(toks))
+    _, jlogits = jgen.make_decode_step(jm, 32)(params, jcache, jnp.asarray(toks, jnp.int32))
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=TOL)
+
+
 # ------------------------------------------------ learned positions
 
 
