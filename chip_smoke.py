@@ -61,11 +61,11 @@ never JAX or the JAX package.  Phases, one JSON line each:
    ``fault_paged_v_scale``, must each fail its gate, their other readings
    recorded; weight and KV bytes); (f) ``speculative="ngram"`` at draft_len 3 and 7 on
    ``scripts/bench_speculative.py``'s motif and control prompt sets, 16 x
-   64 tokens, against decode_ahead = draft_len + 1 (K3 == depth x
+   32 tokens (its 64 halved for time), against decode_ahead = draft_len + 1 (K3 == depth x
    admissions; the float32 twin's spec streams identical to its plain
    k=1 streams, dense at 3 and paged at 7; bf16 agreement and first
    divergences recorded), a sampled mix replayed dense and paged, and the
-   accept uniforms CUDA == CPU; (g) ``prefill_chunk`` 64 and 128 on 8
+   accept uniforms CUDA == CPU; (g) ``prefill_chunk`` 64 and 128 on 4
    prompts of 600-896 tokens among the 16 short ones (K3 == 0, the chunk
    count exact, the pool drained, the float32 twin's streams identical to
    a whole-prompt engine with a 1024 bucket; long-prompt TTFT, the short
@@ -322,7 +322,11 @@ never JAX or the JAX package.  Phases, one JSON line each:
    (the flash kernel inside) on whole (8, 8192, 8, 64) sequences against
    single-card flash attention, out and dq/dk/dv, globally and (on the
    kernels' paths) row by row, float32 twins at S=1024, the kernels each
-   launched gated, one hop and Ulysses' exchanges timed; (c) sp=2 through
+   launched gated, one hop and Ulysses' exchanges timed; on the dense
+   inner's (2, 8192, 8, 64) inputs, the dense inner's rows, single-card
+   flash's (K3, K4) and the flash ring's (K7) held against a float64
+   reference of the same rows, the dense inner's gated row by row at
+   ``ROW_TOL`` (ROADMAP queue 3 gap 5); (c) sp=2 through
    the ring, (d) through Ulysses, (e) dp=2 x sp=2 on four ranks, each
    ``fit()`` for 4 steps with the counts zeroed just before: per-step
    losses within 3e-4 of the sp=1 fit's on the same global batches, K7,
@@ -382,8 +386,33 @@ never JAX or the JAX package.  Phases, one JSON line each:
    prompts: the wave identical to one card's with exactly one failover;
    int8 weights at tp=2 identical to one card's int8 streams on those 8;
    (c) the refusals (a tp that does
-   not divide the heads, cp and a role beside tp: item 7.1c, tp outside a
-   spawned world);
+   not divide the heads, cp on the dense layout: JAX's messages; a role
+   engine at tp=2 and tp outside a spawned world: the launcher asked for);
+15k. cp_serving — context-parallel serving, inside tensor_parallel's two
+   spawns after tp_serving; one card's paged streams (bf16, float32) and
+   the long prompt's, in the parent: (a) phase 3's bf16 LM at cp=2 on two
+   ranks (paged at 16 on the fewest pages that hold any 8 of the wave's
+   requests, even, split over the two; a third of the first 8 requests'
+   pages on cp row 1), prewarmed,
+   the 16 x 32 wave with every count zeroed just before: K3 == 0 a rank
+   (the ring's dense inner), ring hops == depth x prefills and decode
+   merges == depth x windows a rank, KV bytes a rank exactly half the
+   pages plus the tables, no build after prewarm, TTFT, decode tokens/s
+   and wall beside ``serving``'s and ``tp_serving``'s, one more request's
+   hops and merges timed, bf16 first divergences from one card's paged
+   streams at <= ``CPS_DIV_ULPS``, a planted fault (the decode merge
+   dropping cp rank 1's partial, 8 prompts) leaving one above it, the
+   float32 twin's streams identical; (b) a
+   896-token prompt on a 66-page pool: cp=1's footprint over a 60% budget
+   that a cp=2 rank fits, greedy and seeded-sampled float32 streams
+   identical to one card's; (c) the float32 twin at cp=2 x tp=2 on four
+   ranks on (a)'s pool, 8 prompts identical, KV bytes a quarter of the
+   slabs a rank;
+   (d) the tp=2 -> tp=2 handoff over ``[[0, 1], [0, 2]]`` under the
+   router: 8 prompts identical, the packets' bytes, read and install ms,
+   K3 on the prefill replica's ranks only; (e) ``generate(on_mesh=True)``
+   on each rank of ``tensor_parallel`` (a)'s tp=2 run after its fit:
+   tokens equal to the default path's, K3 == depth a rank at 4 heads;
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2, each
@@ -394,7 +423,7 @@ never JAX or the JAX package.  Phases, one JSON line each:
    ``lm_vit_follow_ups`` runs' for K1-K4, the ``data_parallel_rest``
    ranks' for K1-K4, the ``sequence_parallel`` ranks' for K3, K4 and
    K7, the ``tensor_parallel`` ranks' for K1-K4 (``launches_tp2``) and
-   the ``tp_serving`` ranks' for K3, beside them),
+   the ``tp_serving`` and ``cp_serving`` ranks' for K3, beside them),
    largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
@@ -1025,10 +1054,10 @@ QUANT_AGREEMENT = 0.9
 # that it fails the gate (PERF.md §6).
 INT8_ATTN_MISMATCH = 0.01
 SPEC_DRAFT_LENS = (3, 7)
-SPEC_NEW = 64  # bench_speculative.py's MAX_NEW
+SPEC_NEW = 32  # bench_speculative.py's MAX_NEW is 64 (halved: PERF.md section 4)
 CHUNKS = (64, 128)
 LONG_LENS = (600, 897)  # (g): prompts past the 512 bucket, 600-896 tokens
-LONG_REQUESTS = 8
+LONG_REQUESTS = 4  # (g): a depth cut (PERF.md section 4)
 WHOLE_BUCKETS = FEATURE_BUCKETS + (1024,)  # (g): the whole-prompt reference
 
 
@@ -1120,8 +1149,8 @@ def fault_p_bf16(torch, real):
 def fault_paged_v_scale(make_insert):
     """Planted fault: the paged insert leaves ``pages_v_scale`` as it
     found it, so a prefilled prompt's V is read with stale scales."""
-    def make(page_size, max_len):
-        insert = make_insert(page_size, max_len)
+    def make(page_size, max_len, **kw):
+        insert = make_insert(page_size, max_len, **kw)
 
         def faulty(cache, row_cache, bt_row, slot):
             kept = {n: e["pages_v_scale"].clone() for n, e in cache.items()}
@@ -1330,15 +1359,16 @@ def phase_serving_spec_quant_chunk(torch, fa, xent, port) -> dict:
           "uniform_draws_checked": len(KEY_SEEDS) * len(KEY_INDICES),
           "uniform_draws_differing": u_err, **rec_f})
 
-    # (g) chunked prefill: 8 prompts of 600-896 tokens among the 16 short
-    # ones (cut from 16 long prompts to hold the phase's time)
+    # (g) chunked prefill: 4 prompts of 600-896 tokens among the 16 short
+    # ones (cut to hold the script's time: PERF.md section 4)
     rng = torch.Generator().manual_seed(4)
     long_lens = torch.randint(*LONG_LENS, (LONG_REQUESTS,), generator=rng).tolist()
     longs = [torch.randint(1, 256, (n,), generator=rng).tolist() for n in long_lens]
     mixed, is_long = [], []
-    for i, p in enumerate(prompts):  # a long prompt before every other short one
-        if i % 2 == 0:
-            mixed.append(longs[i // 2])
+    step = len(prompts) // LONG_REQUESTS
+    for i, p in enumerate(prompts):  # a long prompt before every step-th short one
+        if i % step == 0:
+            mixed.append(longs[i // step])
             is_long.append(True)
         mixed.append(p)
         is_long.append(False)
@@ -4128,12 +4158,12 @@ EDGE_VOCAB = 256
 EDGE_WAIT_S = 300.0  # any single wait, join or drain: generous, never load-bearing
 EDGE_NEW = 16  # (a) budget per request
 EDGE_PARITY = 6  # (a) prompts of 3-16 tokens (under one page: never a radix hit)
-EDGE_WIRE = 8  # (a) requests of the wire-cost wave, each way (a depth cut: PERF.md section 4)
+EDGE_WIRE = 4  # (a) requests of the wire-cost wave, each way (a depth cut: PERF.md section 4)
 EDGE_SSE_CLIENTS = 6  # (a) SSE clients connected through the pump fault
 EDGE_FLOOD = 24  # (a) concurrent unary clients against a 4-deep admission bound
 EDGE_CRASH_CLIENTS = 6  # (b) keyed SSE clients at the SIGKILL
 EDGE_CRASH_NEW = 64
-EDGE_JOURNAL_WAVE = 24  # (b) requests per fsync policy
+EDGE_JOURNAL_WAVE = 12  # (b) requests per fsync policy (a depth cut: PERF.md section 4)
 EDGE_SCALE_WAVE = 48  # (c) the backlog
 EDGE_LULL_S = 60.0  # (c) the longest wait for a scale-down in the lull
 EDGE_DRIP = dict(long_len=448, long_new=16, short_len=24, short_new=8, n_longs=12,
@@ -5937,10 +5967,66 @@ def sp_attn_case(torch, fa, xent, ra, SPm, mesh, name: str) -> dict:
                            for key in got},
            "finite": all(bool(t.isfinite().all()) for t in got.values()),
            "launched": launched, "local_shape": list(ql.shape)}
+    if inner == "dense":
+        # queue 3 gap 5: the dense inner's rows, single-card flash's (K3 and
+        # K4) and the flash ring's (K7) on the same inputs, each against a
+        # float64 reference of this rank's rows
+        t_f64 = time.perf_counter()
+        with torch.no_grad():
+            ref64 = sp_f64_attention(torch, q, k, v, g)
+        qf, kf, vf = (x[:, mine].detach().clone().requires_grad_(True) for x in (q, k, v))
+        o7 = ra.make_ring_attention(mesh, causal=True, inner="flash")(qf, kf, vf)
+        o7.backward(g[:, mine])
+        sides = {"dense_inner": got, "k3_k4": want,
+                 "ring_k7": {"out": o7, "dq": qf.grad, "dk": kf.grad, "dv": vf.grad}}
+        rec["f64"] = {side: {
+            "row_rel_err": {key: row_rel_err64(t[key].detach(), ref64[key][:, mine])
+                            for key in t},
+            "rel_err": {key: sp_rel64(t[key].detach(), ref64[key][:, mine]) for key in t}}
+            for side, t in sides.items()}
+        rec["f64_s"] = round(time.perf_counter() - t_f64, 3)
+        del ref64, qf, kf, vf, o7, sides
     del q, k, v, g, ql, kl, vl, out, ref, qr, kr, vr, got, want
     if SP_DEVICE != "cpu":
         torch.cuda.empty_cache()
     return rec
+
+
+def sp_f64_attention(torch, q, k, v, g) -> dict:
+    """Causal attention of whole (B, S, H, D) sequences and its gradients
+    under the output gradient ``g``, in float64, one (batch, head) at a
+    time: ``{"out", "dq", "dk", "dv"}``, each (B, S, H, D) float64."""
+    b_, s_, h_, d_ = q.shape
+    scale = d_ ** -0.5
+    out = {key: torch.empty(q.shape, dtype=torch.float64, device=q.device)
+           for key in ("out", "dq", "dk", "dv")}
+    masked = torch.ones((s_, s_), dtype=torch.bool, device=q.device).triu(1)
+    for b in range(b_):
+        for h in range(h_):
+            qb, kb, vb, gb = (x[b, :, h].double() for x in (q, k, v, g))
+            p = (qb @ kb.T * scale).masked_fill_(masked, float("-inf")).softmax(-1)
+            o = p @ vb
+            ds = gb @ vb.T
+            ds -= (gb * o).sum(-1, keepdim=True)  # dP - delta
+            ds *= p
+            out["out"][b, :, h] = o
+            out["dq"][b, :, h] = ds @ kb * scale
+            out["dk"][b, :, h] = ds.T @ qb * scale
+            out["dv"][b, :, h] = p.T @ gb
+            del p, o, ds
+    return out
+
+
+def row_rel_err64(got, ref) -> float:
+    """``row_rel_err`` against a float64 reference, in float64."""
+    err = (got.double() - ref).norm(dim=-1)
+    norm = ref.norm(dim=-1)
+    return (err / norm.clamp(min=max(ROW_FLOOR * norm.max().item(), 1e-300))).max().item()
+
+
+def sp_rel64(got, ref) -> float:
+    """``sp_rel`` against a float64 reference, in float64."""
+    return ((got.double() - ref).abs().max() / ref.abs().max().clamp_min(1e-300)).item()
 
 
 def sp_timed(torch, fn, reps: int = SP_HOP_REPS) -> float:
@@ -6139,6 +6225,11 @@ def phase_sequence_parallel(torch, fa, xent, port, tmp: Path) -> dict:
             check(rec["finite"] and all(e <= SP_TOL[dtype] for e in rec["rel_err"].values())
                   and all(e <= row_tol for e in rec["row_rel_err"].values()),
                   f"(b) {name} disagrees with single-card flash on seq rank {seq_index}: {rec}")
+            if inner == "dense":  # gap 5: the dense inner row by row against float64
+                f64 = rec["f64"]["dense_inner"]["row_rel_err"]
+                check(all(e <= ROW_TOL[f"torch.{dtype}"] for e in f64.values()),
+                      f"(b) the ring's dense inner is off a float64 reference of its rows on "
+                      f"seq rank {seq_index}: {rec['f64']}")
             n = {"flash": seq_index + 1, "dense": 0, "ulysses": 0}[inner]
             calls = 1 if inner == "ulysses" else n
             want = {"flash_block_fwd": n, "flash_block_bwd": n, "flash_fwd": calls,
@@ -6229,13 +6320,14 @@ def tp_metered(C):
 
 
 def tp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, timed_step: bool,
-           grads: bool = False) -> dict:
+           grads: bool = False, after=None) -> dict:
     """sp_fit's record of a tp run (every count zeroed just before fit() and
     read just after), its mesh coordinates and group sums, the collectives
     a step issued (counted during fit()), and with ``timed_step`` one more
     step after the fit with each collective timed on a synced card: the
     all-reduce and all-gather ms a step.  ``grads``: first, the gradient of
-    the gated leaves one step applies from the fresh state (``one_step_grads``)."""
+    the gated leaves one step applies from the fresh state (``one_step_grads``).
+    ``after(trainer)``: last, its record under ``"after"`` (cp_serving (e))."""
     from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
 
     cfg = cfg_dict if isinstance(cfg_dict, RunConfig) else RunConfig(**cfg_dict)
@@ -6299,6 +6391,8 @@ def tp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, timed_step: bool
                for what, fn in (("n", lambda cs: sum(1 for _ in cs)),
                                 ("mb", lambda cs: sum(c[1] for c in cs) / 1e6),
                                 ("ms", lambda cs: sum(c[2] for c in cs) * 1e3))}}
+    if after is not None:
+        rec["after"] = after(trainer)
     trainer.close()
     del trainer
     gc.collect()
@@ -6333,7 +6427,8 @@ def tp_rank(rank: int, tps_refs: dict) -> dict:
     """(a) one of two gloo ranks sharing the card: bench_lm8k at tp=2
     through fit() (its first step's gradient gated), then one step with its
     collectives timed; then the pipeline phase's (a), bench_lm8k at pp=2;
-    then tp_serving's (a), the serving LM at tp=2."""
+    then tp_serving's (a), the serving LM at tp=2, and cp_serving's (a), (b)
+    and (e) (generate(on_mesh=True) from (a)'s fitted run)."""
     import torch
 
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
@@ -6343,18 +6438,20 @@ def tp_rank(rank: int, tps_refs: dict) -> dict:
 
     t0 = time.perf_counter()
     out = {"a": tp_fit(torch, fa, xent, Trainer, RunConfig, TP_LM_CFG, timed_step=True,
-                       grads=True)}
+                       grads=True, after=lambda t: cps_on_mesh(torch, fa, xent, t))}
     t1 = time.perf_counter()
     out["pp_a"] = pp_fit(torch, fa, xent, Trainer, RunConfig, PP_LM_CFG)
     out["body_s"] = {"tp": t1 - t0, "pp": time.perf_counter() - t1}
     out["tps"] = tps_rank2(torch, fa, xent, tps_refs)
+    out["cps"] = cps_rank2(torch, fa, xent, tps_refs)
     return out
 
 
 def tp_rank4(rank: int, tps_refs: dict) -> dict:
     """(b) and (c): one of four gloo ranks sharing the card, ResNet-20 at
     dp=2 x tp=2 through fit(), then the refusals; the pipeline phase's (b)
-    and (c); then tp_serving's (b), the router over two tp=2 groups."""
+    and (c); then tp_serving's (b), the router over two tp=2 groups, and
+    cp_serving's (c) and (d)."""
     import torch
 
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
@@ -6372,6 +6469,7 @@ def tp_rank4(rank: int, tps_refs: dict) -> dict:
     out["pp_c"] = pp_refusals(Trainer, RunConfig)
     out["body_s"] = {"tp": t1 - t0, "pp": time.perf_counter() - t1}
     out["tps"] = tps_rank4(torch, tps_refs)
+    out["cps"] = cps_rank4(torch, fa, xent, tps_refs)
     return out
 
 
@@ -6423,13 +6521,16 @@ def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict,
     t_tps = time.perf_counter()  # tp_serving's references and K3 checks, in the parent
     tps_refs = tps_references(torch, fa, serving_port, serving)
     tps_own_s = time.perf_counter() - t_tps
+    t_cps = time.perf_counter()  # cp_serving's references, in the parent
+    tps_refs["cp"] = cps_references(torch, serving_port, tps_refs)
+    cps_own_s = time.perf_counter() - t_cps
     t1 = time.perf_counter()
     spawned = torchrun.spawn(tp_rank, 2, "gloo", TP_DEVICE, tmp / "tp2", args=(tps_refs,),
                              timeout=600)
     ranks4 = torchrun.spawn(tp_rank4, 4, "gloo", TP_DEVICE, tmp / "tp4", args=(tps_refs,),
                             timeout=600)
     spawn_s = time.perf_counter() - t1
-    ranks = [r["a"] for r in spawned]
+    ranks = [{k: v for k, v in r["a"].items() if k != "after"} for r in spawned]
     out = {"errs": errs}
 
     rel = max(sp_loss_rel(r["step_losses"], tp1["step_losses"]) for r in ranks)
@@ -6513,6 +6614,18 @@ def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict,
         "world2": round(max(r["tps"]["body_s"] for r in spawned), 3),
         "world4": round(max(r["tps"]["body_s"] for r in ranks4), 3)}
     emit({"phase": "tp_serving", "sub": "own_s", **out["tp_serving"]["own_s"]})
+    t_cps = time.perf_counter()
+    out["cp_serving"] = cps_gates(torch, serving_port, tps_refs, [r["cps"] for r in spawned],
+                                  [r["cps"] for r in ranks4],
+                                  [r["a"]["after"] for r in spawned], out["tp_serving"])
+    # the phase's own seconds: the parent's references and gates, each
+    # spawn's cp_serving bodies (slowest rank) and (e)'s generate calls
+    out["cp_serving"]["own_s"] = {
+        "parent": round(cps_own_s + time.perf_counter() - t_cps, 3),
+        "world2": round(max(r["cps"]["body_s"] for r in spawned), 3),
+        "world4": round(max(r["cps"]["body_s"] for r in ranks4), 3),
+        "e_on_mesh": round(max(r["a"]["after"]["on_mesh_s"] for r in spawned), 3)}
+    emit({"phase": "cp_serving", "sub": "own_s", **out["cp_serving"]["own_s"]})
     return out
 
 
@@ -6766,8 +6879,12 @@ def pipeline_gates(per_a: list, per_b: list, pp1: dict, ref_grads: dict, errs: d
                   and rec["blocks_held"] == per_stage
                   and rec["heads_a_rank"] == [heads] and all(rec["attn_pairs"]) == (part == "b"),
                   f"({part}) the layout: {rec}")
-            check(rec["on_mesh"] is not None and rec["on_mesh"].startswith(
-                "ValueError: on_mesh=True with pipeline stages"),
+            # JAX's order: a run with no sharded layout (pp alone) is refused
+            # for that first, a pp x tp run for its stages
+            refusal = ("ValueError: on_mesh=True with pipeline stages" if part == "b" else
+                       "ValueError: on_mesh=True decodes in the run's GSPMD layout; this "
+                       "run has none")
+            check(rec["on_mesh"] is not None and rec["on_mesh"].startswith(refusal),
                   f"({part}) generate(on_mesh=True) after a pp fit: {rec['on_mesh']}")
             check(PP_DEVICE == "cpu" or rec["timed_step"]["hops_host_staged"],
                   f"({part}) the hops were not host-staged under gloo: {rec['timed_step']}")
@@ -7158,9 +7275,9 @@ def tps_rank4(torch, refs: dict) -> dict:
 
 
 def tps_refusals(torch, port) -> dict:
-    """(c): a tp that does not divide the heads (JAX's message), cp (item
-    7.1c), a role beside tp (7.1c), and tp outside a spawned world (the
-    launcher asked for), on the parent's card."""
+    """(c): a tp that does not divide the heads (JAX's message), cp on the
+    dense layout (JAX's message), and a role beside tp and tp outside a
+    spawned world (the launcher asked for), on the parent's card."""
     get_model, engine_cls, _ = port
     model = get_model("causal_lm", dtype=torch.bfloat16, **{**MODEL_KW, "depth": 1})
     out = {}
@@ -7249,13 +7366,539 @@ def tps_gates(torch, port, refs: dict, per2: list, per4: list, refusals: dict) -
     emit(rec_c)
     check(refusals["tp3"] is not None and "must divide heads" in refusals["tp3"],
           f"(c) tp=3 on 8 heads: {refusals['tp3']}")
-    for name in ("cp2", "role"):
-        check(refusals[name] is not None and "item 7.1c" in refusals[name],
-              f"(c) {name} did not name item 7.1c: {refusals[name]}")
-    check(refusals["no_world"] is not None and "launch.torchrun" in refusals["no_world"],
-          f"(c) tp outside a spawned world: {refusals['no_world']}")
+    check(refusals["cp2"] is not None and "needs the paged cache" in refusals["cp2"],
+          f"(c) cp=2 on the dense layout was not JAX's refusal: {refusals['cp2']}")
+    for name in ("role", "no_world"):
+        check(refusals[name] is not None and "launch.torchrun" in refusals[name],
+              f"(c) {name} outside a spawned world did not ask for the launcher: "
+              f"{refusals[name]}")
     return {"a": rec_a, "b": rec_b, "c": rec_c, "k3_checks": refs["k3_checks"],
             "launches_per_rank": [r["launches"]["flash_fwd"] for r in per2]}
+
+
+# ---------------------------------------------------------------------------
+# cp_serving: context-parallel serving, inside tensor_parallel's two gloo
+# spawns as tp_serving runs (no spawn and no CUDA context of its own)
+
+CPS_DEVICE = TP_DEVICE  # every rank shares the one card
+CPS_CP = 2
+CPS_ENGINE = dict(TPS_ENGINE, kv_page_size=PAGE)  # serving's engine, paged as serving_features
+CPS_NEW = TPS_NEW
+CPS_WAVE = TPS_WAVE_B  # (c)/(d): the first 8 prompts, one replica's slots
+# (b): bench_cp_serving.py's long-prompt leg at the serving LM's width: one
+# prompt near max_len (a bucket of 1024, which divides cp), the smallest pool
+# the engine takes (one full-length row, 1024 / 16 pages, and the trash page,
+# rounded up to split over cp=2), and a per-rank KV budget of 60% of the cp=1
+# footprint on that pool
+CPS_LONG, CPS_LONG_NEW = 896, 32
+CPS_LONG_PAGES = 66
+CPS_LONG_ENGINE = dict(slots=1, max_len=1024, buckets=(1024,), kv_page_size=PAGE,
+                       kv_pages=CPS_LONG_PAGES)
+CPS_BUDGET = 0.6
+CPS_SAMPLED = dict(temperature=0.7, top_k=8, seed=123)  # bench_cp_serving.py's
+CPS_GEN = (64, 8)  # (e): a prompt of the run's first test sequence, tokens generated
+CPS_TIMED_WINDOWS = 8  # (a): decode windows whose merges are timed after the wave
+# (a)'s bf16 streams against one card's paged streams: every first divergence
+# a near-tie of one card's logits, at most this many bf16 ulps apart; sound
+# runs read 2 ulps, the planted dropped partial 17-26 (PERF.md section 6)
+CPS_DIV_ULPS = 4.0
+CPS_FAULT_NEW = 8  # (a)'s planted fault: tokens of each of the first 8 prompts
+
+
+def cps_meter(torch, ra, tr, tag: dict):
+    """Every ring hop of the prefill (``ring_attention.ring_shift``) and every
+    decode merge (``transformer.merge_cp_partials``) this rank makes until
+    ``restore()``: ``(kind, tag["now"], bytes it moves, seconds)``, the card
+    synced around each call while ``tag["timed"]``."""
+    calls: list = []
+    saved = [(ra, "ring_shift"), (tr, "merge_cp_partials")]
+    real = [getattr(m, a) for m, a in saved]
+
+    def wrap(fn, kind):
+        def run(x, *a, **kw):
+            xs = [x] if isinstance(x, torch.Tensor) else list(x)
+            if kind == "merge":  # the out and lse partials each rank gathers
+                xs.append(a[0])
+            sync = tag["timed"] and CPS_DEVICE != "cpu"
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(x, *a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            calls.append((kind, tag["now"], sum(t.numel() * t.element_size() for t in xs),
+                          time.perf_counter() - t0))
+            return y
+        return run
+
+    for (mod, attr), fn, kind in zip(saved, real, ("hop", "merge")):
+        setattr(mod, attr, wrap(fn, kind))
+
+    def restore():
+        for (mod, attr), fn in zip(saved, real):
+            setattr(mod, attr, fn)
+
+    return calls, restore
+
+
+def cps_references(torch, port, refs: dict) -> dict:
+    """What the cp ranks are held to, made once in the parent beside
+    tp_serving's (whose float32 streams, one card's, the float32 gates
+    read): one card's PAGED bf16 streams of the wave, (b)'s long prompt on
+    one card (float32, greedy and seeded-sampled) and its KV footprint,
+    and one card's page and table bytes."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import SamplingParams
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving.kv_pool import (
+        init_paged_cache,
+        pages_needed,
+        pool_page_bytes,
+    )
+
+    get_model, engine_cls, _ = port
+    prompts = refs["prompts"]
+    bf16 = tps_model(torch, get_model, torch.bfloat16)
+    f32 = tps_model(torch, get_model, torch.float32)
+    cache = init_paged_cache(bf16, CPS_ENGINE["slots"], CPS_ENGINE["max_len"], PAGE, 2)
+    # (a)'s and (c)'s pool: the fewest pages that hold any 8 of the wave's
+    # requests at once, and the trash page, even: admission never waits (the
+    # radix trie gives its pages back on demand), and a third of the first 8
+    # requests' pages lie on cp row 1 (on the default pool of 514 pages all
+    # of them lie on row 0)
+    need = sorted(pages_needed(len(p) + CPS_NEW, PAGE) for p in prompts)
+    pool = sum(need[-CPS_ENGINE["slots"]:]) + 1
+    out = {"bf16": tps_wave(engine_cls, bf16, prompts, kv_page_size=PAGE),
+           "page_bytes": pool_page_bytes(cache),
+           "page_bytes_f32": pool_page_bytes(init_paged_cache(f32, 1, PAGE, PAGE, 2)),
+           "table_bytes": sum(e[k].nbytes for e in cache.values()
+                              for k in ("block_table", "index")),
+           "kv_pages": -(-pool // CPS_CP) * CPS_CP}
+    gen = torch.Generator().manual_seed(19)
+    out["long_prompt"] = torch.randint(1, MODEL_KW["num_classes"], (CPS_LONG,),
+                                       generator=gen).tolist()
+    eng = engine_cls(f32, device=CPS_DEVICE, **CPS_LONG_ENGINE)
+    greedy = eng.submit(out["long_prompt"], max_new=CPS_LONG_NEW)
+    sampled = eng.submit(out["long_prompt"], max_new=CPS_LONG_NEW,
+                         sampling=SamplingParams(**CPS_SAMPLED))
+    eng.run()
+    out["long"] = {"greedy": list(greedy.generated), "sampled": list(sampled.generated),
+                   "kv_bytes_cp1": eng.kv_bytes_per_chip()}
+    eng.close()
+    del bf16, f32, cache, eng
+    collect_garbage(torch, CPS_DEVICE)
+    return out
+
+
+def cps_rank2(torch, fa, xent, refs: dict) -> dict:
+    """(a) on two ranks sharing the card: the bf16 LM at cp=2, prewarmed, the
+    16 x 32 wave (every count zeroed just before on each rank, read just
+    after; the ring's hops and the decode merges counted), then one more
+    request with each hop and merge timed on a synced card, then a planted
+    fault's short bf16 wave, then the float32 twin's wave at cp=2; (b) the
+    long prompt at cp=2 under the budget."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import transformer as tr
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import ring_attention as ra
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tpar
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine, SamplingParams
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTracker
+
+    t0 = time.perf_counter()
+    mesh = tpar.serving_mesh(1, list(range(CPS_CP)), cp=CPS_CP)
+    prompts = refs["prompts"]
+    tag = {"now": "prewarm", "timed": False}
+    calls, restore = cps_meter(torch, ra, tr, tag)
+    wave: dict = {}
+    real_mark = InferenceEngine._op_mark
+
+    def mark(self, name):  # the leader's words, on every rank: the wave starts, it ended
+        real_mark(self, name)
+        sp_sync(torch)
+        tag["now"] = name
+        if name == "wave":
+            reset_counts(fa, xent)
+        elif name == "waved":
+            wave.update(read_counts(fa, xent))
+
+    InferenceEngine._op_mark = mark
+    try:
+        eng = InferenceEngine(tps_model(torch, get_model, torch.bfloat16), cp=CPS_CP,
+                              tp_devices=mesh, device=CPS_DEVICE,
+                              kv_pages=refs["cp"]["kv_pages"], **CPS_ENGINE)
+        out = {"seq_index": mesh.seq_index, "kv_bytes": eng.kv_bytes_per_chip(),
+               "pool_pages": int(eng.cache["block_0"]["pages_k"].shape[0])}
+        if not eng.is_leader:
+            follow = eng.follow()
+            out.update(ops=follow["ops"], builds_after_prewarm=follow["compile_since"][
+                "prewarm"]["n_compiled_programs"])
+        else:
+            tracker = CompileTracker.install()
+            prewarm = eng.prewarm()
+            after = tracker.snapshot()
+            reqs = [eng.submit(p, max_new=CPS_NEW) for p in prompts]
+            eng._dev("mark", "wave")
+            t1 = time.perf_counter()
+            eng.run()
+            sp_sync(torch)
+            wall = time.perf_counter() - t1
+            eng._dev("mark", "waved")
+            s = eng.stats.summary()
+            admissions = sum(r.admit_t is not None for r in reqs)
+            out.update(
+                streams=[list(r.generated) for r in reqs], admissions=admissions,
+                buckets=[r.bucket for r in reqs], statuses=[r.status for r in reqs],
+                wall_s=round(wall, 4), ttft_s_p50=s["ttft_s_p50"], ttft_s_p99=s["ttft_s_p99"],
+                tokens_per_sec=s["tokens_per_sec"], decode_s=s["decode_s"],
+                prefill_s=s["prefill_s"],
+                decode_tokens_per_s=round((s["tokens_generated"] - admissions) / s["decode_s"], 3),
+                n_windows=s["n_windows"], prewarm_programs=prewarm["programs"],
+                builds_after_prewarm=CompileTracker.delta(tracker.snapshot(),
+                                                          after)["n_compiled_programs"],
+                stats_cp=s["cp"])
+            # one more request, its hops and merges timed on a synced card: a
+            # 512-token prefill's hops, then CPS_TIMED_WINDOWS decode windows
+            tag["timed"] = True
+            eng._dev("mark", "timed")
+            # the longest prompt reversed: the wave's own would be a radix hit
+            eng.submit(max(prompts, key=len)[::-1][:SLICE_SEQS[-1]],
+                       max_new=CPS_TIMED_WINDOWS + 1)
+            eng.run()
+            eng._dev("mark", "done")
+            tag["timed"] = False
+            eng.close()
+        del eng
+        collect_garbage(torch, CPS_DEVICE)
+    finally:
+        InferenceEngine._op_mark = real_mark
+        restore()
+    waved = [c for c in calls if c[1] == "wave"]
+    timed = [c for c in calls if c[1] == "timed"]
+    out.update(launches=wave, hops=sum(1 for c in waved if c[0] == "hop"),
+               hop_bytes=sum(c[2] for c in waved if c[0] == "hop"),
+               merges=sum(1 for c in waved if c[0] == "merge"))
+    if mesh.seq_index == 0:  # the leader timed its hops and merges
+        hops = [c for c in timed if c[0] == "hop"]
+        merges = [c for c in timed if c[0] == "merge"]
+        out["timed"] = {
+            "prefill_hops": len(hops), "prefill_hop_ms": round(sum(c[3] for c in hops) * 1e3, 4),
+            "prefill_hop_bytes": sum(c[2] for c in hops),
+            "window_merges": len(merges) / CPS_TIMED_WINDOWS,
+            "window_merge_ms": round(sum(c[3] for c in merges) * 1e3 / CPS_TIMED_WINDOWS, 4),
+            "host_staged": CPS_DEVICE != "cpu"}
+    # the planted fault that places CPS_DIV_ULPS: the decode merge drops cp
+    # rank 1's partial (every rank weighs it at 0), on a fresh bf16 engine
+    # (the wave's prompts would be radix hits on the first), the first 8
+    # prompts, CPS_FAULT_NEW tokens each
+    real_merge = tr.merge_cp_partials
+
+    def dropped(o, lse, group):
+        if mesh.seq_index == 1:
+            lse = torch.full_like(lse, -1e30)
+        return real_merge(o, lse, group)
+
+    tr.merge_cp_partials = dropped
+    try:
+        eng = InferenceEngine(tps_model(torch, get_model, torch.bfloat16), cp=CPS_CP,
+                              tp_devices=mesh, device=CPS_DEVICE,
+                              kv_pages=refs["cp"]["kv_pages"], **CPS_ENGINE)
+        if eng.is_leader:
+            reqs = [eng.submit(p, max_new=CPS_FAULT_NEW) for p in prompts[:CPS_WAVE]]
+            eng.run()
+            eng.close()
+            out["fault_streams"] = [list(r.generated) for r in reqs]
+        else:
+            eng.follow()
+        del eng
+    finally:
+        tr.merge_cp_partials = real_merge
+    collect_garbage(torch, CPS_DEVICE)
+    # the float32 twin at cp=2: its streams must be one card's paged streams
+    eng = InferenceEngine(tps_model(torch, get_model, torch.float32), cp=CPS_CP,
+                          tp_devices=mesh, device=CPS_DEVICE,
+                          kv_pages=refs["cp"]["kv_pages"], **CPS_ENGINE)
+    if eng.is_leader:
+        reqs = [eng.submit(p, max_new=CPS_NEW) for p in prompts]
+        eng.run()
+        eng.close()
+        out["f32_streams"] = [list(r.generated) for r in reqs]
+    else:
+        eng.follow()
+    del eng
+    collect_garbage(torch, CPS_DEVICE)
+    # (b) the long prompt at cp=2, float32: greedy, then seeded-sampled
+    eng = InferenceEngine(tps_model(torch, get_model, torch.float32), cp=CPS_CP,
+                          tp_devices=mesh, device=CPS_DEVICE, **CPS_LONG_ENGINE)
+    out["long_kv_bytes"] = eng.kv_bytes_per_chip()
+    if eng.is_leader:
+        greedy = eng.submit(refs["cp"]["long_prompt"], max_new=CPS_LONG_NEW)
+        sampled = eng.submit(refs["cp"]["long_prompt"], max_new=CPS_LONG_NEW,
+                             sampling=SamplingParams(**CPS_SAMPLED))
+        t1 = time.perf_counter()
+        eng.run()
+        out["long"] = {"greedy": list(greedy.generated), "sampled": list(sampled.generated),
+                       "ttft_s": [r.first_token_t - r.submit_t for r in (greedy, sampled)],
+                       "wall_s": round(time.perf_counter() - t1, 4)}
+        eng.close()
+    else:
+        eng.follow()
+    del eng
+    collect_garbage(torch, CPS_DEVICE)
+    out["body_s"] = time.perf_counter() - t0
+    return out
+
+
+def cps_rank4(torch, fa, xent, refs: dict) -> dict:
+    """(c) on four ranks sharing the card: the float32 twin at cp=2 x tp=2 on
+    the first 8 prompts; (d) the disaggregated tier at tp=2 -> tp=2 over
+    ``tp_device_groups(2, 2, leader=0)``: a prefill replica hands every
+    prompt off to a decode replica (the router's process holds both
+    leaders), the packets' bytes, read and install seconds recorded, K3
+    counted on each rank."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tpar
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine, Router
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import engine as engine_mod
+
+    t0 = time.perf_counter()
+    rank = torch.distributed.get_rank()
+    prompts = refs["prompts"][:CPS_WAVE]
+    mesh = tpar.serving_mesh(TPS_TP, list(range(4)), cp=CPS_CP)
+    eng = InferenceEngine(tps_model(torch, get_model, torch.float32), tp=TPS_TP, cp=CPS_CP,
+                          tp_devices=mesh, device=CPS_DEVICE,
+                          kv_pages=refs["cp"]["kv_pages"], **CPS_ENGINE)
+    out = {"grid": [mesh.seq_index, mesh.model_index], "kv_bytes": eng.kv_bytes_per_chip()}
+    if eng.is_leader:
+        reqs = [eng.submit(p, max_new=CPS_NEW) for p in prompts]
+        t1 = time.perf_counter()
+        eng.run()
+        out.update(c_streams=[list(r.generated) for r in reqs],
+                   c_wall_s=round(time.perf_counter() - t1, 4))
+        eng.close()
+    else:
+        eng.follow()
+    del eng
+    collect_garbage(torch, CPS_DEVICE)
+    # (d) the tp=2 -> tp=2 handoff
+    groups = tpar.tp_device_groups(2, TPS_TP, leader=0)
+    meshes = [tpar.serving_mesh(TPS_TP, g) for g in groups]
+    roles = ["prefill", "decode"]
+
+    def make_engine(tid, index):
+        return InferenceEngine(tps_model(torch, get_model, torch.float32), tp=TPS_TP,
+                               tp_devices=meshes[index], device=CPS_DEVICE, trace_tid=tid,
+                               role=roles[index], **CPS_ENGINE)
+
+    out["groups"] = groups
+    reset_counts(fa, xent)
+    if rank == 0:
+        packets = []
+        real_admit = InferenceEngine.admit_prefilled
+
+        def admit(self, packet):
+            landed = real_admit(self, packet)
+            if landed:
+                packets.append((packet.payload_bytes, packet.n_pages, packet.gather_s,
+                                packet.install_s))
+            return landed
+
+        InferenceEngine.admit_prefilled = admit
+        try:
+            with Router(make_engine, len(groups), roles=roles) as r:
+                rrs = [r.submit(p, max_new=CPS_NEW) for p in prompts]
+                t1 = time.perf_counter()
+                r.run_until_done()
+                out.update(d_streams=[list(rr.generated) for rr in rrs],
+                           d_statuses=[rr.status for rr in rrs], handoffs=r.handoffs,
+                           failovers=r.failovers, d_wall_s=round(time.perf_counter() - t1, 4))
+        finally:
+            InferenceEngine.admit_prefilled = real_admit
+        for m in meshes:
+            engine_mod.release_followers(m)
+        out["packets"] = {
+            "n": len(packets), "bytes": sum(p[0] for p in packets),
+            "pages": sum(p[1] for p in packets),
+            "gather_ms": round(sum(p[2] for p in packets) * 1e3 / max(len(packets), 1), 4),
+            "install_ms": round(sum(p[3] for p in packets) * 1e3 / max(len(packets), 1), 4)}
+    else:
+        for index, g in enumerate(groups):
+            if rank in g:
+                out["followed"] = len(engine_mod.follow_engines(
+                    lambda index=index: make_engine(0, index), meshes[index]))
+    sp_sync(torch)
+    out["d_launches"] = read_counts(fa, xent)["flash_fwd"]
+    collect_garbage(torch, CPS_DEVICE)
+    out["body_s"] = time.perf_counter() - t0
+    return out
+
+
+def cps_on_mesh(torch, fa, xent, trainer) -> dict:
+    """(e) on each rank of tensor_parallel (a)'s tp=2 run, after its fit:
+    ``generate(on_mesh=True)`` on a prompt of the run's first test sequence
+    (its blocks, 4 of the 8 heads a rank, the count zeroed just before and
+    read just after: K3 once a block, in the prefill), then the default path
+    (the whole weights gathered, one card's decode) on the same prompt."""
+    n, new = CPS_GEN
+    prompt = trainer.test_images[:1, :n].cpu().numpy()
+    sp_sync(torch)
+    reset_counts(fa, xent)
+    t0 = time.perf_counter()
+    meshed = trainer.generate(prompt, max_new=new, on_mesh=True)
+    sp_sync(torch)
+    rec = {"on_mesh_s": round(time.perf_counter() - t0, 4),
+           "launches": read_counts(fa, xent)["flash_fwd"],
+           "decode_params_empty": trainer._gen_params is None,
+           "heads_a_rank": trainer.model.blocks[0].tp_heads,
+           "on_mesh": meshed[0, n:].tolist()}
+    rec["default"] = trainer.generate(prompt, max_new=new)[0, n:].tolist()
+    return rec
+
+
+def cps_gates(torch, port, tps_refs: dict, per2: list, per4: list, on_mesh: list,
+              tps: dict) -> dict:
+    """cp_serving's lines and gates, from the spawns' records; each bf16
+    stream that leaves one card's paged stream does so at a near-tie of one
+    card's logits (its top-2 gap, read on the bf16 model in this process)."""
+    get_model, _, make_prefill = port
+    refs = tps_refs["cp"]
+    lead = next(r for r in per2 if r["seq_index"] == 0)
+    model = tps_model(torch, get_model, torch.bfloat16)
+    diverged = divergences(torch, make_prefill, model, tps_refs["prompts"], refs["bf16"],
+                           lead["streams"])
+    want = [s[:CPS_FAULT_NEW] for s in refs["bf16"][:CPS_WAVE]]
+    fault = {"divergences": divergences(torch, make_prefill, model,
+                                        tps_refs["prompts"][:CPS_WAVE], want,
+                                        lead["fault_streams"]),
+             "token_agreement": round(sum(
+                 x == y for a, b in zip(want, lead["fault_streams"]) for x, y in zip(a, b))
+                 / (CPS_WAVE * CPS_FAULT_NEW), 4)}
+    del model
+    agree = sum(x == y for a, b in zip(refs["bf16"], lead["streams"]) for x, y in zip(a, b))
+    pages = refs["kv_pages"]
+    kv_want = pages // CPS_CP * refs["page_bytes"] + refs["table_bytes"]
+    prefills = lead["admissions"]
+    rec_a = {"phase": "cp_serving", "sub": "a", "ranks_on": CPS_DEVICE, "backend": "gloo",
+             "world_size": CPS_CP, "cp": CPS_CP, "model": MODEL_KW, "dtype": "bf16",
+             "ring_inner": "dense",
+             **{k: lead[k] for k in ("wall_s", "ttft_s_p50", "ttft_s_p99", "tokens_per_sec",
+                                     "decode_tokens_per_s", "decode_s", "prefill_s",
+                                     "n_windows", "admissions", "timed", "prewarm_programs")},
+             "tp1": tps_refs["tp1"], "tp2": {k: tps["a"][k] for k in (
+                 "wall_s", "ttft_s_p50", "ttft_s_p99", "decode_tokens_per_s")},
+             "nvidia_smi": nvidia_smi_line(),
+             "per_rank": [{k: r[k] for k in ("seq_index", "kv_bytes", "pool_pages", "launches",
+                                             "hops", "hop_bytes", "merges",
+                                             "builds_after_prewarm", "body_s")}
+                          for r in per2],
+             "kv_bytes_want": kv_want, "pool_pages_want": pages // CPS_CP,
+             "hop_bytes_analytic": sum(ring_hop_bytes_of(b) for b in lead["buckets"]),
+             "bf16_token_agreement": round(agree / (len(refs["bf16"]) * CPS_NEW), 4),
+             "bf16_divergences": diverged, "bf16_divergence_ulps_limit": CPS_DIV_ULPS,
+             "fault_drop_partial": fault,
+             "f32_streams_identical": lead["f32_streams"] == tps_refs["f32"]}
+    emit(rec_a)
+    check(all(d["ulps"] <= CPS_DIV_ULPS for d in diverged),
+          f"(a) a bf16 stream at cp=2 left one card's paged stream at a top-2 gap above "
+          f"{CPS_DIV_ULPS} bf16 ulps: {[d for d in diverged if d['ulps'] > CPS_DIV_ULPS]}")
+    check(any(d["ulps"] > CPS_DIV_ULPS for d in fault["divergences"]),
+          f"(a) the planted fault (cp rank 1's partial dropped) left no stream at a gap "
+          f"above {CPS_DIV_ULPS} ulps, so the limit would not catch it: {fault}")
+    check(lead["statuses"] == ["done"] * len(tps_refs["prompts"]),
+          f"(a) not every request finished: {lead['statuses']}")
+    check(rec_a["f32_streams_identical"],
+          "(a) the float32 streams at cp=2 differ from one card's")
+    check(lead["stats_cp"] == CPS_CP, f"(a) the stats' cp: {lead['stats_cp']}")
+    for r in per2:
+        # the ring prefill runs the dense inner (JAX's default): no K3 at all;
+        # every bucket divides cp, so one hop a layer a prefill, and every
+        # decode window merges once a layer
+        check(CPS_DEVICE == "cpu" or r["launches"]["flash_fwd"] == 0,
+              f"(a) K3 ran on cp rank {r['seq_index']}: {r['launches']}")
+        check(r["hops"] == DEPTH * (CPS_CP - 1) * prefills,
+              f"(a) ring hops on cp rank {r['seq_index']}: {r['hops']}, expected depth x "
+              f"prefills = {DEPTH * prefills}")
+        check(r["merges"] == DEPTH * lead["n_windows"],
+              f"(a) decode merges on cp rank {r['seq_index']}: {r['merges']}, expected "
+              f"depth x windows = {DEPTH * lead['n_windows']}")
+        check(r["kv_bytes"] == kv_want and r["pool_pages"] == pages // CPS_CP,
+              f"(a) KV bytes on cp rank {r['seq_index']}: {r['kv_bytes']} ({r['pool_pages']} "
+              f"pages), expected half of {pages} pages plus the tables, {kv_want}")
+        check(r["builds_after_prewarm"] == 0,
+              f"(a) cp rank {r['seq_index']} built after prewarm: {r['builds_after_prewarm']}")
+
+    budget = int(refs["long"]["kv_bytes_cp1"] * CPS_BUDGET)
+    rec_b = {"phase": "cp_serving", "sub": "b", "prompt_len": CPS_LONG, "max_new": CPS_LONG_NEW,
+             "kv_pages": CPS_LONG_PAGES, "dtype": "float32",
+             "kv_bytes_cp1": refs["long"]["kv_bytes_cp1"], "budget_bytes": budget,
+             "kv_bytes_per_rank": [r["long_kv_bytes"] for r in per2],
+             "fits": {"cp1": refs["long"]["kv_bytes_cp1"] <= budget,
+                      "cp2": all(r["long_kv_bytes"] <= budget for r in per2)},
+             "greedy_identical": lead["long"]["greedy"] == refs["long"]["greedy"],
+             "sampled_identical": lead["long"]["sampled"] == refs["long"]["sampled"],
+             "ttft_s": lead["long"]["ttft_s"], "wall_s": lead["long"]["wall_s"]}
+    emit(rec_b)
+    check(not rec_b["fits"]["cp1"] and rec_b["fits"]["cp2"],
+          f"(b) the budget: cp=1 {refs['long']['kv_bytes_cp1']}, cp=2 "
+          f"{rec_b['kv_bytes_per_rank']} against {budget}")
+    check(rec_b["greedy_identical"] and rec_b["sampled_identical"],
+          "(b) the long prompt's float32 streams at cp=2 differ from one card's")
+
+    lead4 = next(r for r in per4 if "c_streams" in r)
+    rec_c = {"phase": "cp_serving", "sub": "c", "world_size": 4, "cp": CPS_CP, "tp": TPS_TP,
+             "dtype": "float32", "requests": CPS_WAVE, "wall_s": lead4["c_wall_s"],
+             "grid": [r["grid"] for r in per4], "kv_bytes": [r["kv_bytes"] for r in per4],
+             "kv_bytes_want": pages // CPS_CP * refs["page_bytes_f32"] // TPS_TP
+             + refs["table_bytes"],
+             "streams_identical": lead4["c_streams"] == tps_refs["f32"][:CPS_WAVE]}
+    emit(rec_c)
+    check(rec_c["streams_identical"],
+          "(c) the float32 streams at cp=2 x tp=2 differ from one card's")
+    check(rec_c["grid"] == [[0, 0], [0, 1], [1, 0], [1, 1]],
+          f"(c) the (cp, tp) grid is not JAX's row-major carve: {rec_c['grid']}")
+    check(all(b == rec_c["kv_bytes_want"] for b in rec_c["kv_bytes"]),
+          f"(c) KV bytes a rank: {rec_c['kv_bytes']}, expected {rec_c['kv_bytes_want']} "
+          "(a quarter of the float32 pool's slabs, the tables whole)")
+
+    rec_d = {"phase": "cp_serving", "sub": "d", "world_size": 4, "groups": lead4["groups"],
+             "roles": ["prefill", "decode"], "dtype": "float32", "requests": CPS_WAVE,
+             **{k: lead4[k] for k in ("handoffs", "failovers", "d_wall_s", "packets")},
+             "followed": [r.get("followed") for r in per4],
+             "k3_per_rank": [r["d_launches"] for r in per4],
+             "streams_identical": lead4["d_streams"] == tps_refs["f32"][:CPS_WAVE]}
+    emit(rec_d)
+    check(lead4["d_statuses"] == ["done"] * CPS_WAVE and lead4["handoffs"] == CPS_WAVE
+          and lead4["failovers"] == 0,
+          f"(d) the handoff wave: {lead4['d_statuses']}, {lead4['handoffs']} handoffs")
+    check(rec_d["streams_identical"],
+          "(d) the tp=2 -> tp=2 handoff's streams differ from one card's")
+    # K3 runs on the prefill replica's ranks only (rank 0 holds both leaders)
+    want_k3 = [DEPTH * CPS_WAVE, DEPTH * CPS_WAVE, 0, 0]
+    check(CPS_DEVICE == "cpu" or rec_d["k3_per_rank"] == want_k3,
+          f"(d) K3 a rank: {rec_d['k3_per_rank']}, expected {want_k3}")
+
+    rec_e = {"phase": "cp_serving", "sub": "e", "world_size": 2, "tp": 2,
+             "config": TP_LM_CFG["name"], "prompt_len": CPS_GEN[0], "max_new": CPS_GEN[1],
+             "per_rank": on_mesh}
+    emit(rec_e)
+    for i, r in enumerate(on_mesh):
+        check(r["on_mesh"] == r["default"] and r["on_mesh"] == on_mesh[0]["on_mesh"],
+              f"(e) generate(on_mesh=True) on rank {i}: {r['on_mesh']}, the default path "
+              f"{r['default']}")
+        check(r["decode_params_empty"] and r["heads_a_rank"] == MODEL_KW["heads"] // 2,
+              f"(e) rank {i}: the decode params were built or the heads are not split: {r}")
+        check(CPS_DEVICE == "cpu" or r["launches"] == DEPTH,
+              f"(e) K3 on rank {i}: {r['launches']}, expected one a block ({DEPTH})")
+    return {"a": rec_a, "b": rec_b, "c": rec_c, "d": rec_d, "e": rec_e,
+            "launches": {"a_per_rank": [r["launches"]["flash_fwd"] for r in per2],
+                         "d_per_rank": rec_d["k3_per_rank"],
+                         "e_on_mesh_per_rank": [r["launches"] for r in on_mesh]}}
+
+
+def ring_hop_bytes_of(bucket: int) -> int:
+    """JAX's analytic ring-hop bytes of one prefill of ``bucket`` tokens at
+    cp=2 (``utils.flops.ring_hop_bytes`` at the model's dtype, every layer)."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import ring_hop_bytes
+
+    return ring_hop_bytes(bucket // CPS_CP, MODEL_KW["heads"],
+                          MODEL_KW["dim"] // MODEL_KW["heads"], dtype_bytes=2, depth=DEPTH)
 
 
 MMA_SYNC = "tensor-core bf16: mma.sync on cp.async-fed tiles"
@@ -7527,6 +8170,11 @@ def main() -> int:
     k3_entry["tp_serving"] = {"a_per_rank": tps["launches_per_rank"],
                               "checks": [{k: c[k] for k in ("shape", "max_abs_err")}
                                          for c in tps["k3_checks"]]}
+    # K3 on cp_serving, per rank: (a) none (the ring prefill's dense inner),
+    # (d) the tp=2 prefill replica's ranks at (1, bucket, 4, 64) (held there
+    # in tp_serving's checks), (e) generate(on_mesh=True)'s prefill at
+    # (1, 64, 4, 64), once a block
+    k3_entry["cp_serving"] = tp["cp_serving"]["launches"]
     # K3/K4 on tensor_parallel (a), per rank: bench_lm8k at tp=2, each rank
     # on its 4 of the 8 heads; held at that shape in the phase
     for name, e in (("flash_fwd", k3_entry), ("flash_bwd_fused", k4_entry)):

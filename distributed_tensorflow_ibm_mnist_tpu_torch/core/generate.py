@@ -44,8 +44,11 @@ from typing import Callable
 import torch
 
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.causal_lm import check_decodable
-from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import quantize_kv_int8
-from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import rank_cache_shape
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
+    attention_heads,
+    quantize_kv_int8,
+)
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import all_gather_dim
 
 
 def _cache_from_sown(kvs: dict, lens: torch.Tensor, max_len: int,
@@ -87,6 +90,28 @@ def _prefill_core(model, prompt, lens, max_len: int):
     return cache, logits[rows, lens.long() - 1]  # (B, V)
 
 
+def _ring_prefill_core(model, ring, prompt, lens, max_len: int):
+    """:func:`_prefill_core` through a sequence-parallel ``ring`` (a
+    context-parallel engine's prefill): each rank of the ring's seq group
+    runs its slice of the prompt's tokens, then the K/V slices are gathered
+    over the group, so every rank holds the whole row, and each row's
+    last-position logits come from the rank whose slice holds that
+    position.  A length that does not divide the ring runs whole on every
+    rank (the ring's ``dense`` inner)."""
+    logits, kvs = model(prompt, sow_kv=True, attn_fn=ring)
+    rows = torch.arange(prompt.shape[0], device=logits.device)
+    last = lens.long() - 1
+    if ring.local_span(prompt.shape[1], *attention_heads(model)) is not None:
+        group, s_local = ring.mesh.seq_group, logits.shape[1]
+        kvs = {name: tuple(all_gather_dim(t, 1, group) for t in kv) for name, kv in kvs.items()}
+        mine = logits[rows, (last - ring.mesh.seq_index * s_local).clamp(0, s_local - 1)]
+        logits = all_gather_dim(mine[None], 0, group)[last // s_local, rows]
+    else:
+        logits = logits[rows, last]
+    cache = _cache_from_sown(kvs, lens, max_len, getattr(model, "kv_cache_dtype", "native"))
+    return cache, logits  # (B, V)
+
+
 def _decode_step_core(model, cache, tok, max_len: int, ragged: bool):
     """One batched decode step: append each row's token at its cursor,
     attend its causal prefix, return (cache, (B, V) next-token logits)."""
@@ -101,14 +126,16 @@ def _lens(prompt, prompt_lens):
     return torch.as_tensor(prompt_lens, device=prompt.device).to(torch.int32)
 
 
-def make_prefill(model, max_len: int) -> Callable:
+def make_prefill(model, max_len: int, ring=None) -> Callable:
     """``prefill(prompt, prompt_lens=None) -> (cache, last_logits)``.
 
     ``prompt`` is (B, P) int tokens on the model's device with P <=
     max_len; ``prompt_lens`` (B,) marks real lengths in a right-padded
     batch (None = full rows).  Returns the cache (K/V padded to max_len,
     cursors at the row lengths) and the (B, V) float32 logits at each
-    row's last real position."""
+    row's last real position.  ``ring`` (a ``parallel.ring_attention``
+    callable over a serving mesh's cp group) runs the prompt sharded over
+    its ranks (:func:`_ring_prefill_core`); every rank returns the same."""
     check_decodable(model)
     if max_len < 1:
         raise ValueError(f"max_len must be >= 1, got {max_len}")
@@ -118,6 +145,8 @@ def make_prefill(model, max_len: int) -> Callable:
         if prompt.shape[1] > max_len:
             raise ValueError(
                 f"prompt length {prompt.shape[1]} exceeds max_len ({max_len})")
+        if ring is not None:
+            return _ring_prefill_core(model, ring, prompt, _lens(prompt, prompt_lens), max_len)
         return _prefill_core(model, prompt, _lens(prompt, prompt_lens), max_len)
 
     return prefill
@@ -146,14 +175,15 @@ def init_cache(model, batch: int, max_len: int) -> dict:
     """A zeroed (batch, max_len) decode cache on the model's device, in its
     dtype (int8 with float32 ``k_scale``/``v_scale`` for
     ``kv_cache_dtype="int8"``) — the serving engine's slot cache before
-    any admission.  A model cut for tensor parallelism gets this rank's
-    heads of each slab (``tensor_parallel.kv_cache_rule``)."""
-    whole = (batch, max_len, model.heads_kv, model.head_dim)
+    any admission.  A model cut for tensor parallelism gets the heads its
+    blocks attend over on this rank: its H_kv / tp where tp divides the
+    heads (``tensor_parallel.kv_cache_rule``), all of them on the generic
+    path."""
+    shape = (batch, max_len, attention_heads(model)[1], model.head_dim)
     dev = model.device
     int8 = getattr(model, "kv_cache_dtype", "native") == "int8"
     store = torch.int8 if int8 else model.dtype
-    shape = rank_cache_shape(model, "k", whole)
-    scale = rank_cache_shape(model, "k_scale", whole[:3])
+    scale = shape[:3]
 
     def entry():
         e = {"k": torch.zeros(shape, dtype=store, device=dev),

@@ -194,7 +194,8 @@ leaf once.  ``remat="blocks"`` recomputes each block inside its stage,
 ``remat=True`` the whole stage.  Saves gather every stage whole (rank 0
 writes), so a pp checkpoint resumes at any pp; ``generate`` and
 ``InferenceEngine.from_trainer`` decode from the unstacked whole leaves
-(``_decode_params``); ``generate(on_mesh=True)`` is JAX's ``ValueError``.
+(``_decode_params``); ``generate(on_mesh=True)`` is JAX's ``ValueError``
+(it decodes in a tp, fsdp or EP layout).
 ``n_chips`` is ``dp * tp * sp * pp``; the label gets ``pp{n}``.  JAX's
 refusals come with its messages: a model without a block stack, pp
 beside sp or fsdp, a batch that is not a multiple of ``dp *
@@ -233,7 +234,10 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models import (
     model_accepts,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.causal_lm import check_decodable
-from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import _resolve_attn
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
+    _resolve_attn,
+    model_blocks,
+)
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
     ShardedUpdate,
     all_gather,
@@ -1154,8 +1158,9 @@ class Trainer:
         sampling, eos_id, pad_id, with_lengths) configuration, cached.
         ``prompt`` is a (P,) or (B, P) int array or tensor; the result is
         on the trainer's device; under a sharded run a collective (every
-        rank calls it).  ``on_mesh=True`` (decoding in the run's GSPMD
-        layout) is refused: the port decodes from whole leaves."""
+        rank calls it).  ``on_mesh=True`` decodes in the run's sharded
+        layout instead (tp, fsdp or EP; :meth:`_generate_on_mesh`), with
+        JAX's ``ValueError`` for a run that has none, sp and pp."""
         from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import make_generator
 
         if not model_accepts(self.config.model, "pos"):
@@ -1168,25 +1173,33 @@ class Trainer:
                 "run trained a BIDIRECTIONAL model (causal=False), whose "
                 "logits condition on future positions the decode path cannot "
                 "provide — train causally to decode")
+        if on_mesh and not (self.tp > 1 or self.config.fsdp or self._moe_ep):
+            raise ValueError(
+                "on_mesh=True decodes in the run's GSPMD layout; this run "
+                "has none (tp/fsdp/EP shard params — dp/sp and single-chip "
+                "runs decode via the default path)")
+        if on_mesh and self.sp > 1:
+            raise ValueError(
+                "on_mesh=True with sp>1 is unsupported: the decode model "
+                "drops the sequence-parallel islands, so its params/cache "
+                "have no 'seq' layout to decode in — use the default "
+                "single-device path")
         if on_mesh and (self.pp > 1 or self._model_kwargs.get("pp_stages", 0)):
             raise ValueError(
                 "on_mesh=True with pipeline stages is unsupported: the "
                 "decode model runs the plain block stack, not the "
                 "pipe-sharded pipe_blocks/stacked layout — use the default "
                 "path (which unstacks the stages on device)")
-        if on_mesh:
-            if self._plan is not None:
-                raise _later("on_mesh=True (decoding in the sharded layout)", _PARALLEL)
-            raise ValueError(
-                "on_mesh=True decodes in the run's GSPMD layout; this run "
-                "has none (tp/fsdp/EP shard params — dp/sp and single-chip "
-                "runs decode via the default path)")
         prompt = torch.as_tensor(np.asarray(prompt), device=self.device)
         if prompt.ndim == 1:
             prompt = prompt[None, :]
         if max_len is None:
             max_len = int(prompt.shape[1]) + max_new
         key = (max_len, max_new, temperature, top_k, top_p, eos_id, pad_id, with_lengths)
+        lens = None if prompt_lens is None else torch.as_tensor(
+            np.asarray(prompt_lens), device=self.device)
+        if on_mesh:
+            return self._generate_on_mesh(key, prompt, lens, rng)
         model = self._gen_cache.get("model")
         if model is None:
             model = self._gen_cache["model"] = self._decode_model().eval()
@@ -1199,9 +1212,32 @@ class Trainer:
             gen = self._gen_cache[key] = make_generator(
                 model, max_len, max_new, temperature, top_k, top_p,
                 eos_id=eos_id, pad_id=pad_id, with_lengths=with_lengths)
-        lens = None if prompt_lens is None else torch.as_tensor(
-            np.asarray(prompt_lens), device=self.device)
         return gen(prompt, prompt_lens=lens, rng=rng)
+
+    def _generate_on_mesh(self, key: tuple, prompt, lens, rng):
+        """``generate(on_mesh=True)``: decode through the run's own model in
+        its sharded layout (a collective: every rank calls it with the same
+        arguments and gets the same tokens).  Under tp each model rank runs
+        its blocks through the split forward with a cache of its H_kv / tp
+        heads; under fsdp each module gathers its leaves for its call and
+        releases them (``ShardPlan.gathered_per_call``: each block's for its
+        call, the embedding's, the final norm's and the head's for the
+        model's); under EP the MoE
+        blocks route through the run's all-to-all dispatch, each expert's
+        leaves staying on the rank that owns them.  The float32 masters
+        are cast to the compute dtype per use, as the default path's
+        decode cast does once.  :meth:`_decode_params` is never built."""
+        from distributed_tensorflow_ibm_mnist_tpu_torch.core.generate import make_generator
+
+        gen = self._gen_cache.get(("on_mesh",) + key)
+        if gen is None:
+            gen = self._gen_cache[("on_mesh",) + key] = make_generator(
+                self.model, key[0], key[1], key[2], key[3], key[4],
+                eos_id=key[5], pad_id=key[6], with_lengths=key[7])
+        gathers = (self._plan.gathered_per_call(self.model, model_blocks(self.model))
+                   if self.config.fsdp else contextlib.nullcontext())
+        with gathers:
+            return gen(prompt, prompt_lens=lens, rng=rng)
 
     def close(self) -> None:
         """Let an async save land, and release a metric writer the trainer

@@ -273,15 +273,21 @@ class CausalLM(nn.Module):
 
     def forward(self, tokens: torch.Tensor, train: bool = False,
                 cache: dict | None = None, max_len: int = 0, ragged: bool = False,
-                sow_kv: bool = False, with_moe: bool = False):
+                sow_kv: bool = False, with_moe: bool = False, attn_fn=None):
+        """``attn_fn``, when given, is this call's attention island in place
+        of the model's own (a context-parallel engine's ring prefill: the
+        K/V and logits it returns are this rank's token slice's)."""
         if cache is not None or sow_kv:
             check_decodable(self)
             if self.pp_stages > 0:
                 raise ValueError(PP_DECODE)
         s = tokens.shape[1]
         span = attn = None
-        if cache is None and not sow_kv:
-            span, attn = seq_shard(self.attn_fn, s, *attention_heads(self))
+        if cache is None and (attn_fn is not None or not sow_kv):
+            span, attn = seq_shard(self.attn_fn if attn_fn is None else attn_fn, s,
+                                   *attention_heads(self))
+            if attn_fn is not None and (span is not None or attn is None):
+                attn = attn_fn
         lo, hi = span if span is not None else (0, s)
         x = tp.embedding(tokens[:, lo:hi].long(), self.embed, self.dtype)
         if self.pos_embed is not None:
@@ -301,7 +307,8 @@ class CausalLM(nn.Module):
         kvs = {}
         for i, block in enumerate(self.blocks):
             entry = None if cache is None else cache[f"block_{i}"]
-            x, kv, _ = block(x, cache=entry, max_len=max_len, ragged=ragged, train=train)
+            x, kv, _ = block(x, cache=entry, max_len=max_len, ragged=ragged, train=train,
+                             attn=attn, offset=lo)
             if sow_kv:
                 kvs[f"block_{i}"] = kv
         logits = self._head(x)

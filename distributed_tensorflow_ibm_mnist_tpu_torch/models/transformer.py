@@ -87,12 +87,15 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import (
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.quant import Int8Linear
 from distributed_tensorflow_ibm_mnist_tpu_torch.models.remat import remat
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
+    all_gather,
     all_reduce_sum,
     copy_to_model,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.expert_parallel import MoEBlock
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.ring_attention import (
+    _NEG,
     SeqParallelAttention,
+    _merge_block,
     vanilla_attention,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import (
@@ -151,7 +154,7 @@ def reset_cache_slots(cache: dict, slot_mask: torch.Tensor) -> dict:
     return cache
 
 
-def _attend_cached(q, kc, vc, mask, dtype, ksc=None, vsc=None):
+def _attend_cached(q, kc, vc, mask, dtype, ksc=None, vsc=None, with_lse: bool = False):
     """Score (B, S, H, D) queries against a (B, L, H_kv, D) cache span with
     a (B|1, S, L) bool mask: float32 scores and softmax, masked at -1e30,
     probabilities in ``dtype`` into the PV product.  GQA queries score a
@@ -160,7 +163,11 @@ def _attend_cached(q, kc, vc, mask, dtype, ksc=None, vsc=None):
     An int8 cache passes its (B, L, H_kv) ``ksc``/``vsc`` scales: the
     scores take ``k_scale`` per (q, k) pair, the probabilities fold in
     ``v_scale`` and stay float32 into the PV product, as JAX's do (its
-    einsum promotes them; torch's would not, so the cache is cast)."""
+    einsum promotes them; torch's would not, so the cache is cast).
+
+    ``with_lse``: ``(out, lse)`` instead, ``out`` uncast and ``lse`` the
+    (B, S, H) float32 log-sum-exp of the masked scores (a context-parallel
+    rank's partial, :func:`merge_cp_partials`)."""
     b, s, h, d = q.shape
     hkv = kc.shape[2]
     quant = ksc is not None
@@ -187,7 +194,49 @@ def _attend_cached(q, kc, vc, mask, dtype, ksc=None, vsc=None):
         if quant:
             p = p * vsc.permute(0, 2, 1)[:, :, None, :]
         out = torch.einsum("bhqk,bkhd->bqhd", p if quant else p.to(dtype), vop)
+    if with_lse:
+        lse = torch.logsumexp(scores, dim=-1)  # (B, H_kv, G, S) or (B, H, S)
+        return out, lse.reshape(b, h, s).transpose(1, 2) if hkv != h else lse.transpose(1, 2)
     return out.to(dtype)
+
+
+def write_held(pool: torch.Tensor, page: torch.Tensor, off: torch.Tensor, x: torch.Tensor,
+               lo: int) -> None:
+    """``pool[page - lo, off] = x`` for the entries whose ``page`` lies in
+    ``lo .. lo + len(pool) - 1`` (the pages a context-parallel rank holds),
+    every other entry leaving the pool as it was, with no host sync: each
+    such entry is sent to the first held entry's slot with that entry's
+    value (where none is held, every entry to one slot with the value it
+    holds), so entries that share a slot all carry the same value.
+    ``page`` and ``off`` share a shape; ``x`` is that shape then the pool's
+    trailing dims."""
+    n = pool.shape[0]
+    held = ((page >= lo) & (page < lo + n)).flatten()
+    page, off = (page - lo).clamp(0, n - 1).flatten(), off.flatten()
+    x = x.reshape(held.shape[0], *pool.shape[2:]).to(pool.dtype)
+    first = held.int().argmax().view(1)  # the first held entry, or entry 0
+    fill = torch.where(held[first].view(1, *[1] * (x.dim() - 1)), x[first],
+                       pool[page[first], off[first]])
+    pool[torch.where(held, page, page[first]), torch.where(held, off, off[first])] = (
+        torch.where(held.view(-1, *[1] * (x.dim() - 1)), x, fill))
+
+
+def merge_cp_partials(out: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """The decode attention of a context-parallel engine: every rank of the
+    cp ``group`` attended over the positions whose pages it holds, giving
+    a partial ``out`` (B, S, H, D) and its ``lse`` (B, S, H); the partials
+    of every rank merge in rank order by the ring's online-softmax merge
+    (``ring_attention._merge_block``), in float32, so every rank of the
+    group ends with the same output.  A rank that holds none of a row's
+    positions gives lse -1e30 there, which the merge weighs at 0."""
+    outs = all_gather(out.float().contiguous()[None], group)
+    lses = all_gather(lse.float().contiguous()[None], group)
+    m = torch.full(lse.shape, _NEG, dtype=torch.float32, device=lse.device)
+    l = torch.zeros(lse.shape, dtype=torch.float32, device=lse.device)
+    o = torch.zeros(out.shape, dtype=torch.float32, device=out.device)
+    for r in range(outs.shape[0]):
+        m, l, o = _merge_block(m, l, o, outs[r], lses[r])
+    return o / l[..., None]
 
 
 def _resolve_attn(attn_fn: Callable | None, attn: str) -> Callable:
@@ -305,6 +354,10 @@ class TransformerBlock(nn.Module):
         self.tp_mesh = None
         self.tp_heads, self.tp_heads_kv = heads, hkv
         self.tp_attn_pair = self.tp_mlp_pair = False
+        # a context-parallel serving engine's mesh (its cp group): the paged
+        # pool then holds this cp row's pages only, and decode attention
+        # merges the rows' partials (serving/engine.py sets it)
+        self.cp_mesh = None
 
         def linear(fan_in, fan_out):
             if quant == "int8":
@@ -482,7 +535,11 @@ class TransformerBlock(nn.Module):
         (the ``ragged`` case).  Unallocated table entries point at the
         trash page 0, whose garbage no live row's mask exposes.  An int8
         pool's ``pages_k_scale``/``pages_v_scale`` are written and gathered
-        beside it."""
+        beside it.  Under context parallelism (``cp_mesh``) the pool holds
+        this cp row's pages only: a write lands on the rank that holds its
+        page, each rank attends over the positions it holds, and the
+        partials merge across the cp group (:func:`merge_cp_partials`), so
+        no rank reads another rank's pages."""
         if max_len <= 0:
             raise ValueError("decode needs max_len > 0 (the KV-cache size)")
         bt, idx = cache["block_table"], cache["index"]
@@ -507,17 +564,32 @@ class TransformerBlock(nn.Module):
         pos = (idx[:, None] + steps).clamp(max=max_len - 1)  # (B, S) writes
         page = bt.gather(1, (pos // ps).long()).long()
         off = (pos % ps).long()
-        for name, x in zip(names, self._cache_values(k, v)):
-            cache[name][page, off] = x.to(cache[name].dtype)
+        rows = bt.long()
+        cp = self.cp_mesh if self.cp_mesh is not None and self.cp_mesh.seq_size > 1 else None
+        if cp is not None:
+            # this cp row holds pages [lo, lo + n_local): writes to them land
+            # here, reads of the others are masked out of this rank's partial
+            n_local = cache["pages_k"].shape[0]
+            lo = cp.seq_index * n_local
+            for name, x in zip(names, self._cache_values(k, v)):
+                write_held(cache[name], page, off, x, lo)
+            held = ((rows >= lo) & (rows < lo + n_local)).repeat_interleave(ps, dim=1)
+            rows = (rows - lo).clamp(0, n_local - 1)
+        else:
+            for name, x in zip(names, self._cache_values(k, v)):
+                cache[name][page, off] = x.to(cache[name].dtype)
         q_pos = idx[:, None] + steps  # unclamped, as the dense path's
         idx.copy_((idx + s).clamp(max=max_len))
-        rows = bt.long()
         # gather each row's virtual span: (n_pages, ps, ...)[bt] -> (B, max_len, ...)
         span_of = [cache[name][rows].reshape(b, max_len, *cache[name].shape[2:])
                    for name in names]
         k_pos = torch.arange(max_len, device=q.device)[None]
         mask = k_pos[:, None, :] <= q_pos[:, :, None]  # (B, S, max_len)
-        return _attend_cached(q, *span_of[:2], mask, self.dtype, *span_of[2:])
+        if cp is None:
+            return _attend_cached(q, *span_of[:2], mask, self.dtype, *span_of[2:])
+        out, lse = _attend_cached(q, *span_of[:2], mask & held[:, None, :], self.dtype,
+                                  *span_of[2:], with_lse=True)
+        return merge_cp_partials(out, lse, cp.seq_group).to(self.dtype)
 
     def _check_cache_layout(self, int8_cache: bool) -> None:
         if int8_cache != (self.kv_cache_dtype == "int8"):

@@ -317,6 +317,41 @@ class ShardPlan:
                 self.params[i].data = _released(self.params[i])
 
     @contextlib.contextmanager
+    def gathered_per_call(self, model: nn.Module, units: Sequence[nn.Module] = ()):
+        """Inside the block, each of the ``units`` (submodules of ``model``,
+        a transformer's blocks) gathers the fsdp leaves under it whole as
+        its call begins and releases them as it ends, and ``model`` does so
+        for the rest of its leaves around its own call (a collective per
+        call: every rank must make the same calls in the same order).  So
+        at most one unit's leaves, beside the others', are whole at a
+        time."""
+        index = {id(p): i for i, (p, k) in enumerate(zip(self.params, self.kinds))
+                 if k == FSDP}
+        owned: dict = {}
+        for unit in units:
+            owned[unit] = [index.pop(id(p)) for p in unit.parameters() if id(p) in index]
+        owned[model] = [index.pop(id(p)) for p in model.parameters() if id(p) in index]
+
+        def gather(ids):
+            for i in ids:
+                self.params[i].data = all_gather_dim(self.masters[i], self.split[i])
+
+        def release(ids):
+            for i in ids:
+                self.params[i].data = _released(self.params[i])
+
+        hooks = []
+        for mod, ids in owned.items():
+            hooks.append(mod.register_forward_pre_hook(lambda m, a, ids=ids: gather(ids)))
+            hooks.append(mod.register_forward_hook(lambda m, a, o, ids=ids: release(ids)))
+        try:
+            yield self
+        finally:
+            for h in hooks:
+                h.remove()
+            self.release()
+
+    @contextlib.contextmanager
     def gathered(self):
         """The fsdp leaves whole for the block (a collective on entry)."""
         self.gather()

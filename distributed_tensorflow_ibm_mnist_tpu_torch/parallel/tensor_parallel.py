@@ -70,8 +70,10 @@ devices), :func:`tp_device_groups` partitions ranks among a router's
 replicas and :func:`per_chip_bytes` counts what a rank holds.  JAX's
 ``mesh_shardings`` (a spec tree to ``NamedSharding`` s) has no
 counterpart: a port rank holds its blocks itself, nothing places them.
-Context parallelism (``cp > 1``) raises ``NotImplementedError`` naming its
-ROADMAP.md item (7.1c).
+Context parallelism (``cp > 1``, JAX's ``tensor_parallel.py:313-434``):
+the serving mesh is a ``(cp, tp)`` grid, and :func:`kv_cache_rule` also
+splits the paged pool's page axis over its ``cp`` rows (cp row ``r`` holds
+pages ``r * n / cp .. (r + 1) * n / cp - 1``).
 """
 
 from __future__ import annotations
@@ -103,9 +105,6 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh, no_group_error
 
-CONTEXT_PARALLEL = ("ROADMAP.md queue 1, item 7.1c ('Remaining parallelism and "
-                    "utilities': context-parallel serving, the tp -> tp reshard and "
-                    "decode on the mesh)")
 PARALLEL = "ROADMAP.md queue 1, item 7, 'Remaining parallelism and utilities'"
 BESIDE_TP = ("ROADMAP.md queue 1, item 7.7 ('Remaining parallelism and utilities': "
              "fsdp, MoE blocks and multislice beside sp and tp)")
@@ -805,15 +804,6 @@ _KV_SCALE_LEAVES = ("k_scale", "v_scale", "pages_k_scale", "pages_v_scale")
 SERVING_TIMEOUT_S = 300.0
 
 
-def _check_cp(cp: int, what: str) -> None:
-    if cp < 1:
-        raise ValueError(f"cp must be >= 1, got {cp}")
-    if cp > 1:
-        raise NotImplementedError(
-            f"{what} with cp={cp} (context-parallel serving) is not in the PyTorch "
-            f"port yet: {CONTEXT_PARALLEL}")
-
-
 def kv_cache_rule(n_shards: int, axis: str = "tp", cp: int = 1, cp_axis: str = "cp"
                   ) -> SpecRule:
     """Spec rule for a decode cache (JAX's ``kv_cache_rule``,
@@ -821,42 +811,48 @@ def kv_cache_rule(n_shards: int, axis: str = "tp", cp: int = 1, cp_axis: str = "
     axis, dense ``k``/``v`` ``(B, max_len, H_kv, D)`` and paged
     ``pages_k``/``pages_v`` ``(n_pages, page_size, H_kv, D)`` alike, and
     their int8 ``*_scale`` companions over their last (head) axis;
-    everything else (cursors, block tables) whole.  A head count that does
-    not divide degrades to whole, as JAX's rule does (the engine refuses
-    such a tp first).  ``cp > 1`` is not ported (item 7.1c)."""
+    everything else (cursors, block tables) whole.  With ``cp > 1`` a
+    ``pages_*`` leaf also splits its page dim 0 over ``cp_axis`` and a dense
+    slab its position dim 1.  A dim that does not divide degrades to whole,
+    as JAX's rule does (the engine refuses such a tp or cp first)."""
     if n_shards < 1:
         raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-    _check_cp(cp, "kv_cache_rule")
-    del cp_axis
+    if cp < 1:
+        raise ValueError(f"cp must be >= 1, got {cp}")
 
     def rule(path: tuple[str, ...], leaf) -> P:
         name = path[-1] if path else ""
         shape = getattr(leaf, "shape", ())
-        if name in _KV_HEAD_LEAVES and len(shape) == 4:
-            return P(None, None, axis, None) if shape[2] % n_shards == 0 else P()
-        if name in _KV_SCALE_LEAVES and len(shape) == 3:
-            return P(None, None, axis) if shape[2] % n_shards == 0 else P()
-        return P()
+        if not ((name in _KV_HEAD_LEAVES and len(shape) == 4)
+                or (name in _KV_SCALE_LEAVES and len(shape) == 3)):
+            return P()
+        head = axis if shape[2] % n_shards == 0 else None
+        tail = (None,) if len(shape) == 4 else ()
+        if cp > 1 and name.startswith("pages_"):
+            spec = P(cp_axis if shape[0] % cp == 0 else None, None, head, *tail)
+        elif cp > 1:
+            spec = P(None, cp_axis if shape[1] % cp == 0 else None, head, *tail)
+        else:
+            spec = P(None, None, head, *tail)
+        return spec if any(a is not None for a in spec) else P()
 
     return rule
 
 
-def local_shape(shape: Sequence[int], spec: P, n: int) -> tuple[int, ...]:
-    """A whole leaf's shape cut to one rank's block under ``spec`` over an
-    axis of ``n`` ranks (every named dim divided by ``n``)."""
-    return tuple(d // n if i < len(spec) and spec[i] is not None else d
-                 for i, d in enumerate(shape))
-
-
 def rank_cache_shape(model, leaf: str, shape: Sequence[int]) -> tuple[int, ...]:
     """The shape of decode-cache leaf ``leaf`` (whole ``shape``) on this
-    rank: whole, or for a model ``TPPlan.shard`` cut, its
-    :func:`kv_cache_rule` block (this rank's heads)."""
-    mesh = getattr(model, "tp_mesh", None)
-    if mesh is None or mesh.model_size == 1:
+    rank: whole, or its :func:`kv_cache_rule` block for a model cut by
+    ``TPPlan.shard`` (this rank's heads) or served over a cp mesh (a
+    serving engine's ``model.cp_mesh``: this cp row's pages)."""
+    tp_mesh, cp_mesh = getattr(model, "tp_mesh", None), getattr(model, "cp_mesh", None)
+    n = 1 if tp_mesh is None else tp_mesh.model_size
+    cp = 1 if cp_mesh is None else cp_mesh.seq_size
+    if n == 1 and cp == 1:
         return tuple(shape)
-    n = mesh.model_size
-    return local_shape(shape, kv_cache_rule(n)((leaf,), Leaf(shape)), n)
+    spec = kv_cache_rule(n, cp=cp)((leaf,), Leaf(shape))
+    size = {"tp": n, "cp": cp}
+    return tuple(d // size[spec[i]] if i < len(spec) and spec[i] is not None else d
+                 for i, d in enumerate(shape))
 
 
 def kv_whole_bytes(tree, n: int) -> int:
@@ -869,90 +865,108 @@ def kv_whole_bytes(tree, n: int) -> int:
 
 def serving_mesh(tp: int, devices: Sequence[int] | None = None, cp: int = 1,
                  timeout_s: float = SERVING_TIMEOUT_S) -> Mesh | None:
-    """The serving mesh of one tensor-parallel engine (JAX's
-    ``serving_mesh``, ``tensor_parallel.py:370-399``, over ranks where JAX
-    has devices): ``devices`` are the global ranks of its model axis in
-    order (default the first ``tp``), the first the engine's leader.  A
-    collective over the whole process group: every rank calls it, in the
-    same order, member or not (``dist.new_group``).  It builds two gloo
-    groups over the ranks: the model group, which Megatron's collectives
-    run on, with a timeout of ``timeout_s`` (a follower that stops
-    answering fails the leader's next collective within it), and the
-    control group the leader sends its step records on (a timeout of days:
-    an idle follower waits there).  Returns this rank's mesh (``rank`` is
-    its place among ``devices``), or None on a rank outside them.  At
-    ``tp=1`` it builds no group and needs none.  ``cp > 1`` is not ported
-    (item 7.1c)."""
+    """The serving mesh of one engine (JAX's ``serving_mesh``,
+    ``tensor_parallel.py:370-399``, over ranks where JAX has devices): a
+    ``(cp, tp)`` grid over ``devices``, the global ranks in JAX's row-major
+    order (cp row ``r`` holds ``devices[r * tp:(r + 1) * tp]``; default the
+    first ``cp * tp`` ranks), the first the engine's leader.  A collective
+    over the whole process group: every rank calls it, in the same order,
+    member or not (``dist.new_group``).  It builds gloo groups over the
+    ranks: a model group per cp row, which Megatron's collectives run on,
+    and a cp group per model index, which the ring prefill's hops and the
+    decode's merge run on, each with a timeout of ``timeout_s`` (a follower
+    that stops answering fails the leader's next collective within it), and
+    the control group over all ``cp * tp`` ranks, which the leader sends
+    its step records on (a timeout of days: an idle follower waits there).
+    Returns this rank's mesh, or None on a rank outside ``devices``: its
+    ``shape`` is ``{"model": tp, "seq": cp}`` (``model_index`` and
+    ``seq_index`` are this rank's column and cp row; ``rank`` is the grid
+    rank ``model_index * cp + seq_index``, 0 on the leader) and ``ranks``
+    is ``devices``.  At ``tp = cp = 1`` it builds no group and needs
+    none."""
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    _check_cp(cp, "serving_mesh")
-    shape = {"data": 1, "model": tp, "seq": 1, "pipe": 1}
-    if tp == 1 and devices is None:
+    if cp < 1:
+        raise ValueError(f"cp must be >= 1, got {cp}")
+    shape = {"data": 1, "model": tp, "seq": cp, "pipe": 1}
+    need = tp * cp
+    if need == 1 and devices is None:
         return Mesh(shape=shape, rank=0)
+    what = f"tp={tp}" if cp == 1 else f"tp={tp}, cp={cp}"
     if not (dist.is_available() and dist.is_initialized()):
-        raise no_group_error(f"serving_mesh(tp={tp})")
+        raise no_group_error(f"serving_mesh({what})")
     world = dist.get_world_size()
-    ranks = list(range(tp)) if devices is None else [int(r) for r in devices]
-    if len(ranks) != tp or len(set(ranks)) != tp or not all(0 <= r < world for r in ranks):
+    ranks = list(range(need)) if devices is None else [int(r) for r in devices]
+    if len(ranks) != need or len(set(ranks)) != need or not all(0 <= r < world for r in ranks):
         raise ValueError(
-            f"serving_mesh(tp={tp}) needs exactly {tp} distinct ranks of the process "
+            f"serving_mesh({what}) needs exactly {need} distinct ranks of the process "
             f"group, got {ranks} (of {world} ranks) — start the ranks with "
             "launch.torchrun")
-    groups = (None, None)
-    if tp > 1:
-        groups = (dist.new_group(ranks, timeout=datetime.timedelta(seconds=timeout_s)),
-                  dist.new_group(ranks, timeout=datetime.timedelta(days=7)))
+    timeout = datetime.timedelta(seconds=timeout_s)
+    # every rank builds every group in this order: the model groups (one a
+    # cp row), the cp groups (one a model index), then the control group
+    rows = [dist.new_group(ranks[r * tp:(r + 1) * tp], timeout=timeout) if tp > 1 else None
+            for r in range(cp)]
+    cols = [dist.new_group(ranks[m::tp], timeout=timeout) if cp > 1 else None
+            for m in range(tp)]
+    control = (dist.new_group(ranks, timeout=datetime.timedelta(days=7)) if need > 1
+               else None)
     me = dist.get_rank()
     if me not in ranks:
         return None
-    return Mesh(shape=shape, rank=ranks.index(me), ranks=tuple(ranks),
-                model_group=groups[0], control_group=groups[1])
+    row, col = divmod(ranks.index(me), tp)
+    return Mesh(shape=shape, rank=col * cp + row, ranks=tuple(ranks),
+                model_group=rows[row], seq_group=cols[col], control_group=control)
 
 
 def tp_device_groups(n_groups: int, tp: int, devices: Sequence[int] | None = None,
                      cp: int = 1, leader: int | None = None) -> list[list[int]]:
     """Partition ``devices`` (ranks; default every rank of the process group)
-    into ``n_groups`` groups of ``tp`` (JAX's ``tp_device_groups``,
+    into ``n_groups`` groups of ``cp * tp`` (JAX's ``tp_device_groups``,
     ``tensor_parallel.py:402-426``): replica ``i`` of a router builds its
-    engine on group ``i``.  JAX's groups are disjoint slices; with
-    ``leader=r`` each group is ``[r]`` followed by ``tp - 1`` followers
-    disjoint from every other group's: the router's process holds every
-    replica's model rank 0 (``[[0, 1], [0, 2]]`` for 2 groups of 2), since
-    a port rank is a process and the router drives each replica's leader
-    in its own.  ``cp > 1`` is not ported (item 7.1c)."""
+    engine on group ``i``, which :func:`serving_mesh` lays out row-major
+    (the first ``tp`` ranks are cp row 0).  JAX's groups are disjoint
+    slices; with ``leader=r`` each group is ``[r]`` followed by ``cp * tp -
+    1`` followers disjoint from every other group's: the router's process
+    holds every replica's leader (``[[0, 1], [0, 2]]`` for 2 groups of 2),
+    since a port rank is a process and the router drives each replica's
+    leader in its own."""
     if n_groups < 1:
         raise ValueError(f"n_groups must be >= 1, got {n_groups}")
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    _check_cp(cp, "tp_device_groups")
+    if cp < 1:
+        raise ValueError(f"cp must be >= 1, got {cp}")
     if devices is None:
         if not (dist.is_available() and dist.is_initialized()):
             raise no_group_error(f"tp_device_groups({n_groups}, {tp})")
         devices = range(dist.get_world_size())
     ranks = [int(r) for r in devices]
+    per = cp * tp
+    what = (f"tp_device_groups({n_groups}, {tp})" if cp == 1
+            else f"tp_device_groups({n_groups}, {tp}, cp={cp})")
     if leader is None:
-        need = n_groups * tp
+        need = n_groups * per
         if len(ranks) < need:
             raise ValueError(
-                f"tp_device_groups({n_groups}, {tp}) needs {need} devices (= groups x cp "
-                f"x tp), got {len(ranks)}")
-        return [ranks[i * tp:(i + 1) * tp] for i in range(n_groups)]
+                f"{what} needs {need} devices (= groups x cp x tp), got {len(ranks)}")
+        return [ranks[i * per:(i + 1) * per] for i in range(n_groups)]
     if leader not in ranks:
         raise ValueError(f"the leader rank {leader} is not among {ranks}")
     rest = [r for r in ranks if r != leader]
-    per = tp - 1
+    per -= 1
     if len(rest) < n_groups * per:
         raise ValueError(
-            f"tp_device_groups({n_groups}, {tp}, leader={leader}) needs "
-            f"{1 + n_groups * per} ranks (= one leader + groups x (tp - 1) followers), "
-            f"got {len(ranks)}")
+            f"{what[:-1]}, leader={leader}) needs {1 + n_groups * per} ranks (= one "
+            f"leader + groups x (cp x tp - 1) followers), got {len(ranks)}")
     return [[leader] + rest[i * per:(i + 1) * per] for i in range(n_groups)]
 
 
 def per_chip_bytes(tree, device=None) -> int:
     """Bytes of ``tree`` resident on this rank (JAX's ``per_chip_bytes``,
-    ``tensor_parallel.py:437-456``): a rank holds its own blocks, so every
-    tensor leaf counts whole (with ``device``, only those on it); host
+    ``tensor_parallel.py:437-456``): a rank holds its own blocks (its heads
+    and, under cp, its cp row's page range of a pool), so every tensor leaf
+    counts whole (with ``device``, only those on it); host
     (numpy) leaves count whole."""
     dev = None if device is None else torch.device(device)
     total = 0
@@ -967,7 +981,7 @@ def per_chip_bytes(tree, device=None) -> int:
 
 __all__ = ["Leaf", "P", "SpecRule", "TPPlan", "chain_rules", "column", "conv2d",
            "embedding", "flax_shape_tree", "head_major_order",
-           "kv_cache_rule", "kv_whole_bytes", "linear", "local_shape", "make_param_specs",
+           "kv_cache_rule", "kv_whole_bytes", "linear", "make_param_specs",
            "rank_cache_shape",
            "make_tp_epoch_runner", "make_tp_train_step", "megatron_dense_rule",
            "megatron_rule", "model_param_specs", "per_chip_bytes", "row", "serving_mesh",

@@ -101,12 +101,12 @@ every path of the engine once before traffic, so the first request pays
 no build or load.  ``compile_cache_dir`` is accepted and has no effect:
 the kernels' build directory already persists across processes.
 
-Disaggregation: ``role="prefill"`` engines stop each landing where the
-first token would be picked and park it, pages and the last logits row, in
-a handoff outbox (serving/kv_handoff.py); ``role="decode"`` engines take no
-submissions and land those packets through :meth:`admit_prefilled`, so they
-never prefill.  A role needs the paged cache and refuses speculation, as in
-JAX.
+Disaggregation (at any tp and cp): ``role="prefill"`` engines stop each
+landing where the first token would be picked and park it, pages and the
+last logits row, in a handoff outbox (serving/kv_handoff.py);
+``role="decode"`` engines take no submissions and land those packets
+through :meth:`admit_prefilled`, so they never prefill.  A role needs the
+paged cache and refuses speculation, as in JAX.
 
 Tensor parallelism (``tp=N``; JAX's engine at ``tp > 1``,
 ``serving/engine.py:458-560`` there): the engine's model and cache are
@@ -138,13 +138,35 @@ on a failed mesh again: a replica whose group failed cannot be restarted
 on it (a fault on the leader's host side, such as a chaos fault, leaves
 the group sound, and the replica restarts).  A router holds each
 replica's leader in its own process: the followers of a replica loop
-:func:`follow_engines` until :func:`release_followers`.  ``role`` and
-``cp`` are not ported beside tp (ROADMAP.md item 7.1c), nor MoE blocks
-(7.7).
+:func:`follow_engines` until :func:`release_followers`.  MoE blocks beside
+tp or cp are not ported (ROADMAP.md item 7.7).
 
-``cp`` raises ``NotImplementedError`` away from 1, naming the ROADMAP.md
-item that ports it.  The engine is single-threaded: submit and run from
-one thread (the daemonized tier gives each engine one pump thread).
+Context parallelism (``cp=N``; JAX's engine at ``cp > 1``,
+``serving/engine.py:470-490, 529-547, 715-740`` there): the mesh is a ``(cp,
+tp)`` grid (``serving_mesh(tp, ranks, cp=)``, ``cp_devices`` or
+``tp_devices`` its ranks in JAX's row-major order), the leader its rank
+(0, 0) and every other rank a follower, through the same seam.  The paged
+pool (required) splits over its page axis: cp row ``r`` holds pages ``r *
+n / cp .. (r + 1) * n / cp - 1`` (``kv_pages``, default rounded up to a
+multiple of cp), and the host allocator hands out flat page ids as at cp=1,
+so one slot's pages may lie on every row.  A prefill runs the prompt's
+token slices through the ring's dense inner over the cp group
+(``parallel/ring_attention.py``; a bucket that does not divide cp runs
+whole on every rank), then gathers the row's K/V over the group so every
+rank holds the whole row, and takes the last token's logits row from the
+rank whose slice holds it; the insert writes each page on the row that
+holds it.  Every decode-mode forward (the windows, the verify window, a
+radix extend, a chunk) writes each new position on the row holding its
+page, attends over the positions each row holds and merges the rows'
+partials over the cp group (``models/transformer.py``
+``merge_cp_partials``), so no rank reads another rank's pages and every
+rank ends with the same logits.  Build sites are cp-qualified
+(``prefill[b16,cp2]``), and a traced prefill carries ``cp - 1``
+``ring_hop`` spans with JAX's analytic bytes.  Role engines work at any
+tp and cp: the handoff packet is whole (serving/kv_handoff.py).
+
+The engine is single-threaded: submit and run from one thread (the
+daemonized tier gives each engine one pump thread).
 """
 
 from __future__ import annotations
@@ -178,6 +200,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import (
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tpar
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh, no_group_error
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.ring_attention import make_ring_attention
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving import kv_handoff
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.drafter import NgramDrafter
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.kv_pool import (
@@ -188,7 +211,6 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.serving.kv_pool import (
     paged_reset,
     pages_needed,
     pool_page_bytes,
-    pool_page_leaves,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.prefix_cache import PrefixCache
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.radix_cache import RadixCache
@@ -204,22 +226,17 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.serving.scheduler import (
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.stats import ServingStats
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.chaos import ChaosFault
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.device import resolve_device
+from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import ring_hop_bytes
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.metrics import MetricWriter
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTracker
 
-# knob -> (default, the ROADMAP.md queue 1 item that ports it)
-_REFUSED = {
-    "cp": (1, "item 7.1c ('Remaining parallelism and utilities': context-parallel "
-              "serving)"),
-}
-# what tp > 1 leaves to later items of ROADMAP.md queue 1
-_TP_ROLES = ("item 7.1c ('Remaining parallelism and utilities': the disaggregated "
-             "tier's tp -> tp reshard)")
-_TP_MOE = ("item 7.7 ('Remaining parallelism and utilities': MoE blocks beside tp)")
-# the device calls that run the model (its collectives over the model
-# group): once one returns on the leader, every follower has read every
+# what tp > 1 and cp > 1 leave to a later item of ROADMAP.md queue 1
+_TP_MOE = ("item 7.7 ('Remaining parallelism and utilities': MoE blocks beside tp "
+           "and cp)")
+# the device calls that run collectives over the mesh (the model and cp
+# groups): once one returns on the leader, every follower has read every
 # record sent before it
-_COLLECTIVE_OPS = frozenset({"prefill", "extend", "window", "verify"})
+_COLLECTIVE_OPS = frozenset({"prefill", "extend", "window", "verify", "handoff_gather"})
 
 
 class _Row(dict):
@@ -238,9 +255,23 @@ class _RowRef:
         self.handle = handle
 
 
-def _wire(arg):
-    """A device call's argument as the followers receive it: a row by its
-    handle, a tensor as a host array, anything else as it is."""
+class _PerRank:
+    """A device call's argument that differs by rank: ``values[i]`` is for
+    the mesh's rank at place ``i`` of ``mesh.ranks`` (each follower receives
+    only its own)."""
+
+    __slots__ = ("values",)
+
+    def __init__(self, values: list):
+        self.values = values
+
+
+def _wire(arg, place: int = 0):
+    """A device call's argument as the follower at ``place`` receives it: a
+    row by its handle, a tensor as a host array, a :class:`_PerRank` as
+    that follower's value, anything else as it is."""
+    if isinstance(arg, _PerRank):
+        return arg.values[place]
     if isinstance(arg, _Row):
         return _RowRef(arg.handle)
     if isinstance(arg, torch.Tensor):
@@ -251,10 +282,19 @@ def _wire(arg):
 def _send(mesh: Mesh, record: tuple, pending: list) -> None:
     """Send ``record`` to every follower of ``mesh`` over its control group
     without waiting (``isend``: the leader never blocks on a follower);
-    the requests and their buffers go into ``pending``."""
-    data = torch.frombuffer(bytearray(pickle.dumps(record, protocol=5)), dtype=torch.uint8)
-    head = torch.tensor([data.numel()], dtype=torch.int64)
-    for dst in mesh.ranks[1:]:
+    the requests and their buffers go into ``pending``.  A device call's
+    arguments go as :func:`_wire` gives them, cut for each follower where
+    one is a :class:`_PerRank`."""
+    args = record[1]
+    call = isinstance(args, tuple)
+    per_rank = call and any(isinstance(a, _PerRank) for a in args)
+    data = head = None
+    for place, dst in enumerate(mesh.ranks[1:], start=1):
+        if data is None or per_rank:
+            rec = ((record[0], tuple(_wire(a, place) for a in args), *record[2:]) if call
+                   else record)
+            data = torch.frombuffer(bytearray(pickle.dumps(rec, protocol=5)), dtype=torch.uint8)
+            head = torch.tensor([data.numel()], dtype=torch.int64)
         pending.append((dist.isend(head, dst, group=mesh.control_group), head))
         pending.append((dist.isend(data, dst, group=mesh.control_group), data))
 
@@ -360,7 +400,8 @@ class InferenceEngine:
                  prefix_cache_bytes: int = 0,
                  kv_page_size: int = 0, kv_pages: int = 0,
                  radix_cache: bool | None = None, prefill_chunk: int = 0,
-                 tp: int = 1, tp_devices=None, cp: int = 1, quant: str | None = None,
+                 tp: int = 1, tp_devices=None, cp: int = 1, cp_devices=None,
+                 quant: str | None = None,
                  eos_id: int | None = None, pad_id: int = 0,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                  min_p: float = 0.0, rng=None, role: str = "both",
@@ -370,14 +411,6 @@ class InferenceEngine:
                  compile_cache_dir: str | None = None,
                  chaos=None, tracer=None, trace_tid: int = 0, telemetry=None,
                  device=None):
-        knobs = dict(cp=cp)
-        for name, value in knobs.items():
-            default, where = _REFUSED[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"InferenceEngine({name}={value!r}) is not in the PyTorch "
-                    f"port yet: ROADMAP.md queue 1, {where}; leave it at "
-                    f"{default!r}")
         if tp < 1:
             raise ValueError(f"tp must be >= 1, got {tp}")
         if tp > 1:
@@ -390,14 +423,38 @@ class InferenceEngine:
                     "KV head-axis shard both partition WHOLE heads — a "
                     "silent replicated degrade would void the 1/tp "
                     "per-chip memory claim")
-            if role != "both":
-                raise NotImplementedError(
-                    f"InferenceEngine(role={role!r}, tp={tp}) is not in the PyTorch port "
-                    f"yet: ROADMAP.md queue 1, {_TP_ROLES}")
-            if getattr(model, "has_moe", False):
-                raise NotImplementedError(
-                    f"InferenceEngine(tp={tp}) over MoE blocks is not in the PyTorch port "
-                    f"yet: ROADMAP.md queue 1, {_TP_MOE}")
+        # context parallelism (JAX's engine.py:470-491): the paged pool's
+        # page axis split over the cp rows of a (cp, tp) mesh, ring prefill
+        if cp < 1:
+            raise ValueError(f"cp must be >= 1, got {cp}")
+        if cp > 1:
+            if not kv_page_size:
+                raise ValueError(
+                    "cp > 1 shards the PAGED KV pool along its page axis — "
+                    "context-parallel serving needs the paged cache "
+                    "(kv_page_size > 0); the dense per-slot layout has no "
+                    "sequence axis a chip row could own")
+            if max_len % cp:
+                raise ValueError(
+                    f"max_len ({max_len}) must be a multiple of cp ({cp}) "
+                    "so every slot's virtual span splits into equal "
+                    "per-chip-row sequence shards")
+            if kv_pages % cp:
+                raise ValueError(
+                    f"kv_pages ({kv_pages}) must be a multiple of cp "
+                    f"({cp}): the pool's page axis shards evenly "
+                    "across the cp rows, or the 1/cp per-chip memory "
+                    "claim silently degrades to replicated")
+            if getattr(model, "_config", {}).get("attn_fn") is not None:
+                raise ValueError(
+                    "cp > 1 installs ring attention as the model's "
+                    "attn_fn for prefill — a model that already carries a "
+                    "custom attn_fn would be silently clobbered; pass the "
+                    "base model and let the engine compose the ring")
+        if (tp > 1 or cp > 1) and getattr(model, "has_moe", False):
+            raise NotImplementedError(
+                f"InferenceEngine(tp={tp}, cp={cp}) over MoE blocks is not in the "
+                f"PyTorch port yet: ROADMAP.md queue 1, {_TP_MOE}")
         check_decodable(model)  # JAX's ValueError for pos="learned"
         if role not in ("both", "prefill", "decode"):
             raise ValueError(
@@ -502,8 +559,10 @@ class InferenceEngine:
                     "the paged cache does not compose with sliding-window "
                     "attention (model.window > 0) — the windowed decode "
                     "gathers a contiguous dense span")
-        self.tp = int(tp)
-        self._mesh = self._serving_mesh(self.tp, tp_devices) if tp > 1 else None
+        self.tp, self.cp = int(tp), int(cp)
+        self._mesh = (self._serving_mesh(self.tp, self.cp,
+                                         cp_devices if cp_devices is not None else tp_devices)
+                      if tp > 1 or cp > 1 else None)
         self.device = resolve_device(device)
         mdev = model.device
         if mdev.type != self.device.type or (
@@ -523,13 +582,22 @@ class InferenceEngine:
                 model = model.clone(quant="int8")
             if params is not None:
                 params = quantize_state_dict_int8(params)
-        elif self.tp > 1:
-            model = model.clone()  # the engine cuts its own copy to this rank's blocks
+        elif self._mesh is not None:
+            model = model.clone()  # the engine cuts and marks its own copy
         if params is not None:
             model.load_state_dict(params, strict=True)
         # tp > 1: this rank's blocks of the (quantized) weights
-        self._plan = (tpar.TPPlan.shard(self._mesh, model) if self._mesh is not None
-                      else None)
+        self._plan = tpar.TPPlan.shard(self._mesh, model) if self.tp > 1 else None
+        # cp > 1: the pools hold this cp row's pages, and the prefill runs
+        # the ring's dense inner over the cp group (JAX's make_ring_attention
+        # default), heads split over tp as the blocks hold them
+        self._ring = None
+        if self.cp > 1:
+            model.cp_mesh = self._mesh
+            for block in model.blocks:
+                block.cp_mesh = self._mesh
+            self._ring = make_ring_attention(self._mesh, causal=bool(model.causal),
+                                             inner="dense")
         self.is_leader = self._mesh is None or self._mesh.rank == 0
         self._sends: list = []      # the leader's unsettled step-record sends
         self._freed: list[int] = []  # handles of rows the leader dropped
@@ -608,7 +676,7 @@ class InferenceEngine:
         self._outbox: deque = deque()
         self.handoffs_out = 0   # packets packaged (prefill side)
         self.handoffs_in = 0    # packets landed (decode side)
-        self._prefill = make_prefill(model, max_len)
+        self._prefill = make_prefill(model, max_len, ring=self._ring)
 
         # per-request sampling defaults (requests without SamplingParams)
         self._default_temp = float(temperature)
@@ -622,20 +690,25 @@ class InferenceEngine:
             n_row = max_len // kv_page_size
             if not kv_pages:
                 kv_pages = slots * n_row + 1  # dense-equivalent + the trash page
+                if kv_pages % self.cp:  # rounded up to split evenly over cp
+                    kv_pages += self.cp - kv_pages % self.cp
             if kv_pages < n_row + 1:
                 raise ValueError(
                     f"kv_pages ({kv_pages}) cannot hold one full-length "
                     f"request: need >= max_len/kv_page_size + 1 "
                     f"({n_row + 1}; page 0 is the reserved trash page)")
+            self._kv_pages = int(kv_pages)
             self.cache = init_paged_cache(model, slots, max_len, kv_page_size, kv_pages)
             self._pool = KVPagePool(kv_pages, kv_page_size)
             self._page_bytes = pool_page_bytes(self.cache)
             self._radix = (RadixCache(kv_page_size)
                            if radix_cache is None or radix_cache else None)
-            self._insert = make_paged_insert(kv_page_size, max_len)
+            self._insert = make_paged_insert(kv_page_size, max_len, shard=(
+                None if self.cp == 1 else (self._mesh.seq_index, kv_pages // self.cp)))
             self._extend = make_paged_extend(model, max_len, kv_page_size)
         else:
             self.cache = init_cache(model, slots, max_len)
+            self._kv_pages = 0
             self._pool = None
             self._radix = None
         # per-slot allocation record [private page ids, held radix nodes],
@@ -691,35 +764,37 @@ class InferenceEngine:
                 draft_len=self.draft_len, kv_page_size=self._page_size,
                 kv_pages=kv_pages, radix=self._radix is not None,
                 prefix=self._prefix is not None, prefill_chunk=self._prefill_chunk,
-                quant=self.quant, pad_id=self.pad_id, stall=stall_timeout_s is not None,
+                quant=self.quant, role=role, pad_id=self.pad_id,
+                stall=stall_timeout_s is not None,
                 model={k: str(getattr(model, k, None)) for k in (
                     "num_classes", "dim", "depth", "heads", "heads_kv", "dtype",
                     "kv_cache_dtype", "window", "tie_embeddings")}))
 
     @staticmethod
-    def _serving_mesh(tp: int, tp_devices) -> Mesh:
-        """This rank's serving mesh: ``tp_devices`` itself (a
+    def _serving_mesh(tp: int, cp: int, devices) -> Mesh:
+        """This rank's serving mesh: ``devices`` itself (a
         ``tensor_parallel.serving_mesh``), or one built here over those
-        ranks (default the first ``tp``): a collective over the whole
+        ranks (default the first ``cp * tp``): a collective over the whole
         process group, so every rank must be building an engine at this
         point (a router's replicas pass meshes built beforehand)."""
-        if isinstance(tp_devices, Mesh):
-            if tp_devices.model_size != tp:
-                raise ValueError(f"tp={tp} but tp_devices is a mesh of "
-                                 f"{tp_devices.model_size} model ranks")
-            if tp_devices.failed:
-                e = tp_devices.failed[0]
+        what = f"tp={tp}" if cp == 1 else f"tp={tp}, cp={cp}"
+        if isinstance(devices, Mesh):
+            if (devices.model_size, devices.seq_size) != (tp, cp):
+                raise ValueError(f"{what} but the mesh given is a (cp={devices.seq_size}, "
+                                 f"tp={devices.model_size}) mesh")
+            if devices.failed:
+                e = devices.failed[0]
                 raise RuntimeError(
-                    f"the model group of serving ranks {list(tp_devices.ranks)} failed "
+                    f"the serving mesh of ranks {list(devices.ranks)} failed "
                     f"({type(e).__name__}: {e}); no engine is built on it again: serve "
                     "this replica on a new tensor_parallel.serving_mesh")
-            return tp_devices
+            return devices
         if not (dist.is_available() and dist.is_initialized()):
-            raise no_group_error(f"InferenceEngine(tp={tp})")
-        mesh = tpar.serving_mesh(tp, tp_devices)
+            raise no_group_error(f"InferenceEngine({what})")
+        mesh = tpar.serving_mesh(tp, devices, cp=cp)
         if mesh is None:
             raise ValueError(f"rank {dist.get_rank()} is not among this engine's "
-                             f"serving ranks {list(tp_devices)}")
+                             f"serving ranks {list(devices)}")
         return mesh
 
     def _announce(self, config: dict) -> None:
@@ -735,7 +810,17 @@ class InferenceEngine:
         every emission, so a swapped-in stats object still reports it)."""
         self.stats.memory(kv_bytes_per_chip=self.kv_bytes_per_chip(),
                           weight_bytes_per_chip=self.weight_bytes_per_chip(),
-                          quant=self.quant, tp=self.tp)
+                          quant=self.quant, tp=self.tp, cp=self.cp)
+
+    def _site(self, name: str) -> str:
+        """A build site's name qualified by the layout (JAX's
+        ``engine.py:976-988``): unchanged at cp=1, else ``prefill[b16]`` ->
+        ``prefill[b16,cp2]`` and ``first_pick`` -> ``first_pick[cp2]``."""
+        if self.cp == 1:
+            return name
+        if name.endswith("]"):
+            return f"{name[:-1]},cp{self.cp}]"
+        return f"{name}[cp{self.cp}]"
 
     def _telemetry_vitals(self) -> dict:
         """Health-sampler vitals: queue, slot and pool state plus the stats
@@ -1018,8 +1103,9 @@ class InferenceEngine:
         freed = self._freed[:]
         self._freed.clear()
         try:
-            _send(self._mesh, (op, tuple(_wire(a) for a in args), freed), self._sends)
-            out = getattr(self, f"_op_{op}")(*args)
+            _send(self._mesh, (op, args, freed), self._sends)
+            out = getattr(self, f"_op_{op}")(*(a.values[0] if isinstance(a, _PerRank) else a
+                                                for a in args))
             if op in _COLLECTIVE_OPS:  # every follower has read the records so far
                 for work, _ in self._sends:
                     work.wait()
@@ -1144,6 +1230,22 @@ class InferenceEngine:
         else:
             self.model.load_state_dict(params, strict=True)
 
+    def _op_handoff_gather(self, ids):
+        """The whole pages ``ids`` of the pool (a handoff packet's rows), on
+        every rank (a collective over the mesh)."""
+        return kv_handoff.gather_pages(self.cache, ids, self._mesh)
+
+    def _op_handoff_install(self, part, bt_row, slot: int, n_tok: int) -> None:
+        """This rank's block of a landing packet, then ``slot``'s table and
+        cursor."""
+        with torch.no_grad():
+            kv_handoff.install_pages(self.cache, part, bt_row, slot, n_tok)
+
+    def _per_rank(self, values: list):
+        """``values`` (one a rank, in the mesh's order) as a device call's
+        argument: each rank gets its own."""
+        return values[0] if self._mesh is None else _PerRank(values)
+
     def _op_mark(self, name: str) -> None:
         """A point of the leader's (``prewarm``'s end): a follower notes
         its builds so far."""
@@ -1207,12 +1309,33 @@ class InferenceEngine:
                                    parent=req.trace["phase"] or req.trace["id"],
                                    tid=req.trace["tid"], bucket=req.bucket)
                 if self._tracer is not None and req.trace is not None else None)
+        t0 = self.clock()
         try:
-            with self._compile.site(f"prefill[b{req.bucket}]"):
+            with self._compile.site(self._site(f"prefill[b{req.bucket}]")):
                 return self._prefill_padded(padded, int(req.tokens.size))
         finally:
             if span is not None:
                 self._tracer.end(span)  # a poisoned prefill still closes it
+                if self.cp > 1 and req.bucket % self.cp == 0:
+                    self._emit_ring_hops(req, span, t0, self.clock())
+
+    def _emit_ring_hops(self, req: Request, parent_span, t0: float, t1: float) -> None:
+        """``cp - 1`` ``ring_hop`` child spans under a cp prefill's span, as
+        JAX's ``_emit_ring_hops`` (``engine.py:1297-1326``) draws them: each a
+        uniform slice of the prefill's measured window, carrying the hop's
+        analytic bytes (``utils.flops.ring_hop_bytes`` at the grouped H_kv
+        width, over every layer)."""
+        m = self.model
+        hop_bytes = ring_hop_bytes(
+            req.bucket // self.cp, m.heads_kv, m.dim // m.heads,
+            dtype_bytes=torch.empty((), dtype=m.dtype).element_size(), depth=m.depth)
+        n_hops = self.cp - 1
+        dt = max(t1 - t0, 0.0) / n_hops
+        for h in range(n_hops):
+            self._tracer.complete(
+                "ring_hop", t0 + h * dt, t0 + (h + 1) * dt, cat="serving",
+                parent=parent_span, tid=req.trace["tid"], hop=h,
+                comm_bytes=hop_bytes, timing="uniform-slice")
 
     def _prefill_padded(self, padded: np.ndarray, n: int):
         """The B=1 prefill of ``padded`` (``n`` real tokens): ``(row_cache,
@@ -2173,52 +2296,48 @@ class InferenceEngine:
         with torch.no_grad():
             if self.role == "decode":
                 # pages arrive through admit_prefilled: the handoff's
-                # one-page write and block-table install, into the trash page
-                bt_dev = torch.as_tensor(bt, device=dev)
+                # one-page write (the trash page, on the rank holding it)
+                # and block-table install
                 last_logits = torch.zeros((1, self.model.num_classes),
                                           dtype=torch.float32, device=dev)
-                with self._compile.site("handoff_install"):
-                    for entry in pool_page_leaves(self.cache).values():
-                        for pool in entry.values():
-                            pool.index_copy_(0, torch.zeros((1,), dtype=torch.int64, device=dev),
-                                             torch.zeros_like(pool[:1]))
-                    for entry in self.cache.values():
-                        entry["block_table"][0] = bt_dev
-                        entry["index"][0] = 0
+                layout = kv_handoff.page_layout(self.cache, self.tp)
+                with self._compile.site(self._site("handoff_install")):
+                    parts = kv_handoff.cut_pages(
+                        torch.zeros((1, sum(e[-1] for e in layout)), dtype=torch.uint8),
+                        np.zeros((1,), np.int64), layout, self._mesh,
+                        self._kv_pages // self.cp)
+                    self._dev("handoff_install", self._per_rank(parts), bt, 0, 0)
             elif self._prefill_chunk:
                 c = self._prefill_chunk
-                with self._compile.site(f"extend[b{c}]"):
+                with self._compile.site(self._site(f"extend[b{c}]")):
                     last_logits = self._dev("extend", 0, bt, np.zeros((1, c), np.int64), 0, 1)
             else:
                 for b in self.buckets:
-                    with self._compile.site(f"prefill[b{b}]"):
+                    with self._compile.site(self._site(f"prefill[b{b}]")):
                         row_cache, last_logits = self._prefill_padded(
                             np.zeros((1, b), np.int64), 1)
             if self.role == "prefill":
                 # the source half of the handoff: the page read every packet
                 # takes (read-only on the cache)
-                with self._compile.site("handoff_gather"):
-                    for entry in pool_page_leaves(self.cache).values():
-                        for pool in entry.values():
-                            pool.index_select(0, torch.zeros((1,), dtype=torch.int64,
-                                                             device=dev)).cpu()
+                with self._compile.site(self._site("handoff_gather")):
+                    self._dev("handoff_gather", np.zeros((1,), np.int64)).cpu()
             else:
                 zeros_f = torch.zeros((1,), dtype=torch.float32, device=dev)
                 zeros_i = torch.zeros((1,), dtype=torch.int64, device=dev)
-                with self._compile.site("first_pick"):
+                with self._compile.site(self._site("first_pick")):
                     tok, logp = first_pick(
                         last_logits, zeros_f, zeros_f, zeros_i, zeros_f,
                         torch.zeros((1, 2), dtype=torch.int64, device=dev), zeros_i)
                     torch.stack((tok.double(), logp.double())).cpu()
             if not self._prefill_chunk and self.role != "decode":
-                with self._compile.site("slot_insert"):
+                with self._compile.site(self._site("slot_insert")):
                     if self._pool is not None:
                         self._dev("paged_insert", row_cache, bt, 0)
                     else:
                         self._dev("insert", row_cache, 0)
                 if self._pool is not None:
                     for b in self.buckets:
-                        with self._compile.site(f"extend[b{b}]"):
+                        with self._compile.site(self._site(f"extend[b{b}]")):
                             self._dev("extend", 0, bt, np.zeros((1, b), np.int64), 0, 1)
             if self.role != "prefill":
                 # a prefill-role engine never dispatches a window
@@ -2231,12 +2350,12 @@ class InferenceEngine:
                     k = self.draft_len + 1
                     chunk = np.full((slots, k + 2), self.pad_id, np.int64)
                     chunk[:, k:] = 0
-                    with self._compile.site(f"verify_window[k{k}]"):
+                    with self._compile.site(self._site(f"verify_window[k{k}]")):
                         self._dev("verify", chunk, inactive, planes, False, False)
                 else:
-                    with self._compile.site(f"decode_window[k{self.decode_ahead}]"):
+                    with self._compile.site(self._site(f"decode_window[k{self.decode_ahead}]")):
                         self._dev("window", pos0, inactive, planes, pos0, False, False)
-        with self._compile.site("slot_reset"):
+        with self._compile.site(self._site("slot_reset")):
             self._reset(np.ones((slots,), bool))
         if self._mesh is not None:
             self._dev("mark", "prewarm")

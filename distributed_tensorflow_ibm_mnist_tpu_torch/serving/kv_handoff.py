@@ -41,6 +41,19 @@ copy; :func:`deliver` sends the pages the destination lacks up in one
 host-to-device copy and scatters them with one ``index_copy_`` a leaf.
 The per-page tree of :func:`~.kv_pool.gather_page` is still what
 :attr:`HandoffPacket.payloads` returns.
+
+Across a serving mesh (an engine at ``tp > 1`` or ``cp > 1``) the packet
+keeps its whole form, each page with every head, so any layout lands any
+other's (tp=2 -> tp=2, tp=2 -> tp=1, tp=1 -> tp=2, cp=2 -> cp=1, as JAX's
+host hop does).  The source's ranks each read the prompt pages they hold
+(their cp row's pages, their heads) and the blocks meet over the mesh
+(:func:`gather_pages`: the cp group's gather, then the model group's over
+the head axis), so the source leader holds the whole pages; the
+destination leader cuts the whole pages for its own layout
+(:func:`cut_pages`) and sends each follower only its block, which every
+rank writes into its own pool (:func:`install_pages`).  The destination's
+allocation is taken on its leader before any rank writes anything, so a
+dry pool still refuses the packet with no write on any rank.
 """
 
 from __future__ import annotations
@@ -51,22 +64,107 @@ from typing import Any
 import numpy as np
 import torch
 
+from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import all_gather_dim
 from distributed_tensorflow_ibm_mnist_tpu_torch.serving.kv_pool import (
     pages_needed,
     pool_page_leaves,
 )
 
 
-def page_layout(cache: dict) -> list[tuple]:
+def page_layout(cache: dict, tp: int = 1) -> list[tuple]:
     """``[(layer, leaf, dtype, page_shape, byte_offset, nbytes), ...]``: where
-    each ``pages_*`` leaf's one-page slab sits in a packet's page row."""
+    each ``pages_*`` leaf's one-page slab sits in a packet's page row, the
+    page whole (``tp``: the head blocks of ``cache``'s rank, so a page
+    holds ``tp`` times its heads)."""
     out, off = [], 0
     for name, entry in pool_page_leaves(cache).items():
         for key, pool in entry.items():
-            nbytes = pool[0].numel() * pool.element_size()
-            out.append((name, key, pool.dtype, tuple(pool.shape[1:]), off, nbytes))
+            shape = list(pool.shape[1:])
+            shape[1] *= tp  # (page_size, H_kv, ...): the head axis
+            nbytes = int(np.prod(shape)) * pool.element_size()
+            out.append((name, key, pool.dtype, tuple(shape), off, nbytes))
             off += nbytes
     return out
+
+
+def _mesh_axes(mesh) -> tuple[int, int, int, int]:
+    """``(tp, cp, model_index, seq_index)`` of a serving mesh (None: one card)."""
+    if mesh is None:
+        return 1, 1, 0, 0
+    return mesh.model_size, mesh.seq_size, mesh.model_index, mesh.seq_index
+
+
+def gather_pages(cache: dict, ids, mesh) -> torch.Tensor:
+    """The whole pages ``ids`` (host int ids) of every ``pages_*`` leaf as one
+    ``(n, page_bytes)`` uint8 tensor laid out by :func:`page_layout`, on
+    every rank of ``mesh`` (a collective over it; None: this card's pool).
+    Under cp each page comes from the cp row that holds it, under tp the
+    head blocks are put side by side in model-rank order."""
+    tp, cp, _, seq_index = _mesh_axes(mesh)
+    pools = pool_page_leaves(cache)
+    first = next(iter(next(iter(pools.values())).values()))
+    dev = first.device
+    ids = torch.as_tensor(np.asarray(ids, np.int64), device=dev)
+    n_local = first.shape[0]
+    local = (ids - seq_index * n_local).clamp(0, n_local - 1) if cp > 1 else ids
+    rows = []
+    for entry in pools.values():
+        for pool in entry.values():
+            x = pool.index_select(0, local).contiguous()
+            x = x.view(torch.uint8).reshape(len(ids), *pool.shape[1:3],
+                                            -1)  # (n, ps, H, bytes a head)
+            if cp > 1:  # each page from the row that holds it
+                x = all_gather_dim(x[None], 0, mesh.seq_group)[
+                    ids // n_local, torch.arange(len(ids), device=dev)]
+            if tp > 1:  # the head blocks in model-rank order
+                x = all_gather_dim(x, 2, mesh.model_group)
+            rows.append(x.reshape(len(ids), -1))
+    return torch.cat(rows, dim=1)
+
+
+def cut_pages(payload: torch.Tensor, dest: np.ndarray, layout: list, mesh,
+              n_local: int) -> list[tuple[np.ndarray, np.ndarray]]:
+    """A destination mesh's blocks of whole page rows ``payload`` ((n,
+    page_bytes) uint8, host) bound for pool pages ``dest``: for each rank,
+    in the order of ``mesh.ranks`` (one card: one block), ``(local page
+    ids, (n_held, page_bytes / tp) rows)``: the pages its cp row holds (of
+    ``n_local`` a row), each cut to its heads."""
+    tp, cp = _mesh_axes(mesh)[:2]
+    out = []
+    for place in range(tp * cp):
+        row, col = divmod(place, tp)
+        held = torch.from_numpy(dest // n_local == row if cp > 1
+                                else np.ones(len(dest), bool))
+        rows, n = payload[held], int(held.sum())
+        parts = [rows[:, off:off + nbytes].reshape(n, shape[0], shape[1],
+                                                   nbytes // (shape[0] * shape[1]))
+                 .chunk(tp, dim=2)[col].reshape(n, nbytes // tp)
+                 for _name, _key, _dtype, shape, off, nbytes in layout]
+        out.append((dest[held.numpy()] - row * n_local, torch.cat(parts, dim=1).numpy()))
+    return out
+
+
+def install_pages(cache: dict, part: tuple, bt_row, slot: int, n_tok: int) -> None:
+    """Write this rank's ``part`` of a packet (:func:`cut_pages`: local page
+    ids and their rows of this rank's heads) into its pools, then install
+    ``slot``'s block table and cursor."""
+    ids, rows = part
+    pools = pool_page_leaves(cache)
+    dev = next(iter(cache.values()))["index"].device
+    if len(ids):
+        rows = torch.as_tensor(rows, device=dev)
+        dest = torch.as_tensor(np.asarray(ids, np.int64), device=dev)
+        off = 0
+        for entry in pools.values():
+            for pool in entry.values():
+                nbytes = pool[0].numel() * pool.element_size()
+                leaf = rows[:, off:off + nbytes].contiguous().view(pool.dtype)
+                pool.index_copy_(0, dest, leaf.reshape(len(ids), *pool.shape[1:]))
+                off += nbytes
+    bt_dev = torch.as_tensor(np.asarray(bt_row), device=dev)
+    for entry in cache.values():
+        entry["block_table"][slot] = bt_dev
+        entry["index"][slot] = n_tok
 
 
 @dataclasses.dataclass
@@ -151,16 +249,11 @@ def package(engine, req, slot: int, logits_dev, bt_row) -> HandoffPacket:
     t0 = engine.clock()
     n_tok = int(req.tokens.size)
     n_blocks = pages_needed(n_tok, engine._page_size)
-    layout = page_layout(engine.cache)
-    pools = pool_page_leaves(engine.cache)
+    layout = page_layout(engine.cache, engine.tp)
     with torch.no_grad():
-        ids = torch.as_tensor(np.asarray(bt_row[:n_blocks], np.int64),
-                              device=engine.device)
-        rows = [pools[name][key].index_select(0, ids).reshape(n_blocks, -1)
-                .view(torch.uint8)
-                for name, key, _dtype, _shape, _off, _nb in layout]
+        pages = engine._dev("handoff_gather", np.asarray(bt_row[:n_blocks], np.int64))
         logits = logits_dev.detach().to(torch.float32).reshape(-1).view(torch.uint8)
-        flat = torch.cat([torch.cat(rows, dim=1).reshape(-1), logits]).cpu()
+        flat = torch.cat([pages.reshape(-1), logits]).cpu()
     split = flat.numel() - logits.numel()
     payload = flat[:split].reshape(n_blocks, -1)
     last = flat[split:].view(torch.float32).reshape(1, -1).numpy()
@@ -197,7 +290,8 @@ def deliver(engine, packet: HandoffPacket) -> bool:
     retries after decode frees capacity.  A packet whose page layout is
     not this engine's (another model, dtype or KV quantization) raises
     before anything is taken."""
-    if [e[:4] for e in packet.layout] != [e[:4] for e in page_layout(engine.cache)]:
+    if [e[:4] for e in packet.layout] != [e[:4] for e in page_layout(engine.cache,
+                                                                      engine.tp)]:
         raise ValueError(
             "handoff packet's page layout differs from this engine's cache "
             "(another model, dtype or kv_cache_dtype): it cannot land here")
@@ -232,20 +326,11 @@ def deliver(engine, packet: HandoffPacket) -> bool:
     try:
         t0 = engine.clock()
         n_blocks = pages_needed(n_tok, ps)
-        pools = pool_page_leaves(engine.cache)
+        parts = cut_pages(packet.payload[m_blocks:max(n_blocks, m_blocks)],
+                          bt_row[m_blocks:max(n_blocks, m_blocks)].astype(np.int64),
+                          packet.layout, engine._mesh, engine._kv_pages // engine.cp)
         with torch.no_grad():
-            if n_blocks > m_blocks:
-                rows = packet.payload[m_blocks:n_blocks].to(engine.device)
-                dest = torch.as_tensor(bt_row[m_blocks:n_blocks].astype(np.int64),
-                                       device=engine.device)
-                for name, key, dtype, shape, off, nbytes in packet.layout:
-                    leaf = rows[:, off:off + nbytes].contiguous().view(dtype)
-                    pools[name][key].index_copy_(
-                        0, dest, leaf.reshape(n_blocks - m_blocks, *shape))
-            bt_dev = torch.as_tensor(bt_row, device=engine.device)
-            for entry in engine.cache.values():
-                entry["block_table"][slot] = bt_dev
-                entry["index"][slot] = n_tok
+            engine._dev("handoff_install", engine._per_rank(parts), bt_row, slot, n_tok)
         t1 = engine.clock()
         packet.install_s = t1 - t0
         if engine._tracer is not None and req.trace is not None:

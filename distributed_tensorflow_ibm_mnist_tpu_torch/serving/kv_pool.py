@@ -39,6 +39,7 @@ from typing import Callable
 
 import torch
 
+from distributed_tensorflow_ibm_mnist_tpu_torch.models.transformer import write_held
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import rank_cache_shape
 
 TRASH_PAGE = 0
@@ -147,14 +148,18 @@ def pool_page_bytes(cache: dict) -> int:
                for key, leaf in entry.items() if key.startswith("pages_"))
 
 
-def make_paged_insert(page_size: int, max_len: int) -> Callable:
+def make_paged_insert(page_size: int, max_len: int, shard: tuple[int, int] | None = None
+                      ) -> Callable:
     """``insert(cache, row_cache, bt_row, slot) -> cache``: scatter a dense
     prefilled B=1 row (core/generate.py ``make_prefill``'s layout) into
     the pool through ``bt_row`` ((max_len // page_size,) int page ids on
     the cache's device) and install the row's block table and cursor at
     ``slot``.  The whole (max_len,) row is scattered, garbage above the
     cursor included: a dense-prefilled request owns all its pages
-    privately, and positions past its allocation map to the trash page."""
+    privately, and positions past its allocation map to the trash page.
+    ``shard=(index, n_local)``: the pool holds pages ``index * n_local ..
+    (index + 1) * n_local - 1`` only (a context-parallel engine's cp row),
+    and the row's positions on other pages are left to their ranks."""
     def insert(cache, row_cache, bt_row, slot: int):
         dev = bt_row.device
         pos = torch.arange(max_len, device=dev)
@@ -164,11 +169,14 @@ def make_paged_insert(page_size: int, max_len: int) -> Callable:
             row = row_cache[name]
             for key, pool in entry.items():
                 if key.startswith("pages_"):  # pages_k <- k, pages_k_scale <- k_scale
-                    pool[page, off] = row[key[len("pages_"):]][0].to(pool.dtype)
+                    src = row[key[len("pages_"):]][0]
+                    if shard is None:
+                        pool[page, off] = src.to(pool.dtype)
+                    else:  # this rank's pages only
+                        write_held(pool, page, off, src, shard[0] * shard[1])
             entry["block_table"][slot] = bt_row
             entry["index"][slot] = row["index"][0]
         return cache
-
     return insert
 
 

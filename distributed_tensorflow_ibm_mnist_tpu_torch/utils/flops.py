@@ -124,6 +124,20 @@ def causal_lm_flops_per_sequence(seq: int, dim: int, depth: int, heads: int,
                                    with_backward=True, depth=depth, window=window)
 
 
+def ring_hop_bytes(seq_local: int, heads_kv: int, head_dim: int, *, batch: int = 1,
+                   dtype_bytes: int = 4, depth: int = 1) -> int:
+    """Bytes ONE rank sends per ring hop of a context-parallel prefill (JAX's
+    ``utils/flops.py:174``): the rotating K and V blocks at their grouped
+    ``H_kv`` width, ``2 * B * S_local * H_kv * D * dtype_bytes`` a layer;
+    a prefill makes ``cp - 1`` hops a layer.  The ``ring_hop`` spans of a
+    cp engine's prefill carry it."""
+    if seq_local < 0 or heads_kv < 1 or head_dim < 1:
+        raise ValueError(
+            f"bad ring hop shape: seq_local={seq_local}, "
+            f"heads_kv={heads_kv}, head_dim={head_dim}")
+    return int(2 * batch * seq_local * heads_kv * head_dim * dtype_bytes * depth)
+
+
 def resnet_forward_flops(model: str, image_shape: Sequence[int], num_classes: int = 10,
                          **model_kw) -> float:
     """Forward FLOPs of one image through the registry ResNet ``model``

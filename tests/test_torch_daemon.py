@@ -172,13 +172,14 @@ def test_refusals_name_their_sub_slice(weights, daemons):
     _, _, sd = weights
     router = Router(_factory(sd), 1)
     # the journal and a role-typed tier are ported: what stays refused is
-    # a negative delivered-mark interval, a role without the paged cache,
-    # and the tp=2 reshard of a role-typed tier (ROADMAP.md item 7's title)
+    # a negative delivered-mark interval and a role without the paged cache;
+    # a role-typed replica at tp=2 is ported too (tests/test_torch_cp_serving.py)
+    # and, outside a spawned world, asks for the launcher
     with pytest.raises(ValueError, match="journal_hw_interval_s"):
         ServingDaemon(router, journal_hw_interval_s=-1)
     with pytest.raises(ValueError, match="needs the paged cache"):
         Router(_factory(sd, role="prefill"), 1, roles=["prefill"])
-    with pytest.raises(NotImplementedError, match="Remaining parallelism and utilities"):
+    with pytest.raises(ValueError, match="launch.torchrun"):
         Router(_factory(sd, role="decode", kv_page_size=8, tp=2), 1, roles=["decode"])
     d = _daemon(daemons, router, max_queue=2)   # never started: the queue fills
     d.submit([1, 2], 2)

@@ -360,8 +360,9 @@ def test_role_refusals_are_jaxs(weights):
         Router(_factory(sd, ["decode", "decode"]), 2, roles=["decode", "decode"])
     with pytest.raises(ValueError, match="decode-capable"):
         Router(_factory(sd, ["prefill", "prefill"]), 2, roles=["prefill", "prefill"])
-    # the tp reshard leg needs tp > 1: ROADMAP.md queue 1 item 7's title
-    with pytest.raises(NotImplementedError, match="Remaining parallelism and utilities"):
+    # role replicas at tp > 1 are ported (tests/test_torch_cp_serving.py hands
+    # off across tp and cp): outside a spawned world they ask for the launcher
+    with pytest.raises(ValueError, match="launch.torchrun"):
         Router(_factory(sd, ["prefill", "decode"], tp=2), 2, roles=["prefill", "decode"])
     # a retire may not take the last decode capacity
     r = Router(_factory(sd, ["prefill", "decode"]), 2, roles=["prefill", "decode"])

@@ -175,12 +175,15 @@ def test_specs_like_matches_by_suffix_as_jax():
 
 
 def test_tensor_parallel_proper_is_refused_by_its_item():
-    # the serving half is ported (tests/test_torch_tp_serving.py holds it
-    # against JAX's): context-parallel serving is what its item (7.1c) still
-    # refuses, and the other three work; the training half's step and epoch
-    # factories need JAX's arguments
-    with pytest.raises(NotImplementedError, match=r"item 7\.1c"):
-        tp.kv_cache_rule(2, cp=2)
+    # the serving half is ported whole (tests/test_torch_tp_serving.py and
+    # tests/test_torch_cp_serving.py hold it against JAX's): the cp rule
+    # splits a pool's pages as JAX's does, and what is left of the module's
+    # refusals is fsdp beside tp, item 7.7; the training half's step and
+    # epoch factories need JAX's arguments
+    assert tp.kv_cache_rule(2, cp=2)(("pages_k",), tp.Leaf((8, 8, 4, 16))) == (
+        "cp", None, "tp", None)
+    with pytest.raises(NotImplementedError, match=r"item 7\.7"):
+        tp.shard_train_state(None, None, {"w": tp.P("data", "model")})
     assert tp.serving_mesh(1).model_size == 1
     assert tp.tp_device_groups(2, 2, devices=range(4)) == [[0, 1], [2, 3]]
     assert tp.per_chip_bytes({"k": torch.zeros(2, 4), "index": torch.zeros(2, dtype=torch.int32)}) == 40

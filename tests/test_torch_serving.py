@@ -145,7 +145,8 @@ def test_callback_failure_is_isolated():
 # ported too (tests/test_torch_router.py holds them against JAX's), and so
 # is role (tests/test_torch_disagg.py): its cases hold JAX's refusals.  tp is
 # ported (tests/test_torch_tp_serving.py): outside a spawned world it asks for
-# the launcher, as the Trainer's tp does; cp names its item, 7.1c
+# the launcher, as the Trainer's tp does; cp is ported too
+# (tests/test_torch_cp_serving.py): on the dense layout it takes JAX's refusal
 @pytest.mark.parametrize("knob, error, match", [
     pytest.param(dict(decode_ahead=0), ValueError, "decode_ahead", id="decode_ahead"),
     pytest.param(dict(speculative="beam"), ValueError, "speculative", id="speculative"),
@@ -153,7 +154,7 @@ def test_callback_failure_is_isolated():
     pytest.param(dict(kv_page_size=7), ValueError, "multiple of kv_page_size", id="kv_page_size"),
     pytest.param(dict(prefill_chunk=8), ValueError, "kv_page_size", id="prefill_chunk"),
     pytest.param(dict(tp=2), ValueError, "launch.torchrun", id="tp"),
-    pytest.param(dict(cp=2), NotImplementedError, r"ROADMAP.md queue 1, item 7\.1c", id="cp"),
+    pytest.param(dict(cp=2), ValueError, "needs the paged cache", id="cp"),
     pytest.param(dict(quant="int4"), ValueError, "quant", id="quant"),
     pytest.param(dict(role="prefill"), ValueError, "needs the paged cache", id="role"),
     pytest.param(dict(role="decode", kv_page_size=8, speculative="ngram"), ValueError,

@@ -534,15 +534,21 @@ def test_tp_must_divide_heads_whole_with_jaxs_message():
 
 
 def test_what_tp_serving_leaves_names_its_item():
+    """cp and roles beside tp are ported (tests/test_torch_cp_serving.py):
+    cp on the dense layout takes JAX's refusal, and a role engine at tp=2,
+    like a cp mesh, asks for the launcher outside a spawned world; MoE
+    blocks beside tp still name item 7.7."""
+    jm, params = _jax_model()
     tm = get_model("causal_lm", device="cpu", dtype=torch.float32, **KW)
-    assert "item 7.1c" in _error(lambda: _port_engine(tm, cp=2))
-    assert "item 7.1c" in _error(lambda: _port_engine(tm, tp=2, kv_page_size=8,
-                                                      role="prefill"))
+    want = _error(lambda: _jax_engine(jm, params, cp=2))
+    assert want is not None and _error(lambda: _port_engine(tm, cp=2)) == want
+    assert "launch.torchrun" in _error(lambda: _port_engine(tm, tp=2, kv_page_size=8,
+                                                            role="prefill"))
     moe = get_model("causal_lm", device="cpu", dtype=torch.float32, moe_every=2, **KW)
     assert "item 7.7" in _error(lambda: _port_engine(moe, tp=2))
     # outside a spawned world a tp engine asks for the launcher, as the Trainer's tp does
     assert "launch.torchrun" in _error(lambda: _port_engine(tm, tp=2))
-    with pytest.raises(NotImplementedError, match=r"item 7\.1c"):
+    with pytest.raises(ValueError, match="launch.torchrun"):
         tp.serving_mesh(2, cp=2)
 
 
@@ -552,7 +558,8 @@ def test_what_tp_serving_leaves_names_its_item():
 def test_kv_cache_rule_matches_jaxs():
     """The head-axis split of dense and paged slabs and of their int8
     scales, whole cursors and block tables, and the indivisible degrade,
-    spec for spec against JAX's rule; ``cp > 1`` names item 7.1c."""
+    spec for spec against JAX's rule; with ``cp = 2`` also the split of a
+    pool's pages and of a dense slab's positions."""
     leaves = {"k": (2, 32, 4, 16), "v": (2, 32, 4, 16), "k_scale": (2, 32, 4),
               "pages_k": (9, 8, 4, 16), "pages_v_scale": (9, 8, 4), "index": (2,),
               "block_table": (2, 4), "k_odd": (2, 32, 3, 16)}
@@ -561,8 +568,8 @@ def test_kv_cache_rule_matches_jaxs():
             leaf = name.removesuffix("_odd")
             want = jtp.kv_cache_rule(n)((leaf,), jax.ShapeDtypeStruct(shape, jnp.float32))
             assert tp.kv_cache_rule(n)((leaf,), tp.Leaf(shape)) == tuple(want), (n, name)
-    with pytest.raises(NotImplementedError, match=r"item 7\.1c"):
-        tp.kv_cache_rule(2, cp=2)
+            want = jtp.kv_cache_rule(n, cp=2)((leaf,), jax.ShapeDtypeStruct(shape, jnp.float32))
+            assert tp.kv_cache_rule(n, cp=2)((leaf,), tp.Leaf(shape)) == tuple(want), (n, name)
     with pytest.raises(ValueError, match="n_shards"):
         tp.kv_cache_rule(0)
 
