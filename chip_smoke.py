@@ -348,9 +348,10 @@ never JAX or the JAX package.  Phases, one JSON line each:
    ``fused_xent``, 2 steps against its tp=1 fit: losses within 2.5e-3,
    BatchNorm statistics (over the data group) within 0.2 of each
    buffer's largest magnitude, K1 == K2 == steps a rank, the conv
-   outputs gathered over the model group; (c) the refusals beside tp
-   (fsdp, MoE blocks, multislice: ROADMAP item 7; pp on ResNet-20: JAX's
-   "pipelineable block stack"; stream mode); (a)'s first step's gradient
+   outputs gathered over the model group; (c) the compositions beside tp
+   (MoE blocks at dp=2 built; multislice on one node refused naming the
+   slices found; pp on ResNet-20: JAX's "pipelineable block stack";
+   stream mode); (a)'s first step's gradient
    of three LM leaves within 6.8e-2 of the single-card step's (Adam hides
    a gradient scaled x tp from the loss);
 15i. pipeline — GPipe over the mesh's pipe axis, inside tensor_parallel's
@@ -366,8 +367,8 @@ never JAX or the JAX package.  Phases, one JSON line each:
    timed (host-staged through gloo); ``generate(on_mesh=True)`` refused;
    (b) the same at pp=2 x tp=2 on four ranks (the stage blocks Megatron's
    pairs, 4 heads a rank; the all-reduces timed too); (c) JAX's refusals
-   beside pp (sp, fsdp, dropout and MoE in the stages) and multislice
-   (item 7.7);
+   beside pp (sp, fsdp, dropout and MoE in the stages) and multislice on
+   one node (the refusal naming the slices found);
 15j. tp_serving — tensor-parallel serving, inside tensor_parallel's two
    spawns: K3 held at each rank's prefill shape (1, bucket, 4, 64) against
    its plain version, row by row; (a) phase 3's bf16 LM at tp=2 on two
@@ -413,6 +414,22 @@ never JAX or the JAX package.  Phases, one JSON line each:
    K3 on the prefill replica's ranks only; (e) ``generate(on_mesh=True)``
    on each rank of ``tensor_parallel`` (a)'s tp=2 run after its fit:
    tokens equal to the default path's, K3 == depth a rank at 4 heads;
+15l. composed — fsdp and MoE blocks beside tp (ROADMAP item 7.7), inside
+   tensor_parallel's two spawns after cp_serving; one card's MoE
+   ``bench_lm8k`` fit and the float32 MoE serving LM's streams in the
+   parent: (a) ResNet-20 at dp=2 x tp=2 with fsdp on four ranks (each
+   conv's tp block cut again over the data group), 2 steps through
+   ``fit()`` with every count zeroed just before: per-step losses within
+   ``CMP_FSDP_LOSS_RTOL`` of the same spawn's tp-only run (tensor_parallel
+   (b)), K1 == K2 == steps a rank, resident parameter bytes a rank at most
+   0.52 of the tp-only run's; (b) the MoE ``bench_lm8k`` (2 of 4 blocks
+   top-2 MoE over 8 experts, run whole on every model rank) at tp=2 on
+   two ranks, 2 steps: K3 == depth x (steps + eval) and K4 == depth x
+   steps a rank (K3/K4 held at that rank shape, (8, 8192, 4, 64), by
+   tensor_parallel's check), per-step losses within ``CMP_MOE_LOSS_RTOL``
+   and the dropped fraction within ``CMP_MOE_DROP_ABS`` of one card's; (c) the float32 MoE serving LM at tp=2 (a leader and a
+   follower), prewarmed, the first 8 prompts x 32 tokens: streams
+   identical to one card's, no build after prewarm on either rank;
 16. the ``kernels`` line: per kernel, its design, its launches on its
    path's run (serving for K3, the LM runs for K4-K6, LeNet training for
    K1/K2; the ViT run's for K1-K4, the ``dp`` runs' for K1/K2, each
@@ -422,8 +439,9 @@ never JAX or the JAX package.  Phases, one JSON line each:
    K3, by replica role on the disaggregated tier, and the
    ``lm_vit_follow_ups`` runs' for K1-K4, the ``data_parallel_rest``
    ranks' for K1-K4, the ``sequence_parallel`` ranks' for K3, K4 and
-   K7, the ``tensor_parallel`` ranks' for K1-K4 (``launches_tp2``) and
-   the ``tp_serving`` and ``cp_serving`` ranks' for K3, beside them),
+   K7, the ``tensor_parallel`` and ``composed`` ranks' for K1-K4
+   (``launches_tp2``) and the ``tp_serving`` and ``cp_serving`` ranks'
+   for K3, beside them),
    largest error, times
    and bound; and ``launch_floor_ms``;
 17. the last line: ``{"ok": true, "device": {...}}``.
@@ -431,6 +449,11 @@ never JAX or the JAX package.  Phases, one JSON line each:
 ``chip_smoke.py --pipeline-faults`` runs none of the above: it plants,
 one at a time on two fresh ranks, the faults that place the pipeline's
 and tp=2's loss and gradient limits, and prints each one's readings.
+``chip_smoke.py --composed-faults`` likewise prints the sound runs' and
+the planted faults' readings behind ``composed``'s limits (an fsdp leaf's
+gradient summed, not averaged, over the data group; a MoE block's output
+summed over the model group; MoE capacity sized from half a block's
+tokens).
 
 Every launch counter is set to 0 just before a path is driven and read
 just after; the launches made to compare or time a kernel are not counted.
@@ -3145,7 +3168,7 @@ def phase_dp(torch, fa, xent, port, steps_mod) -> dict:
 FT_PRESET = "mnist_lenet_1chip"  # the source paper's job, with fused_xent
 FT_EPOCHS = 3
 FT_PROFILE_TRAIN = 8192  # (f): the profiled fit's training set (a trace of 60k is ~1 GB)
-FT_RESNET_BATCHES = 3  # (e): steps of cifar_resnet50_dp32 per configuration
+FT_RESNET_BATCHES = 2  # (e): steps of cifar_resnet50_dp32 per configuration (3 -> 2: PERF.md section 4)
 FT_REMAT = {"plain_ga4": (False, 4), "plain_ga1": (False, 1), "remat_ga1": (True, 1),
             "blocks_ga1": ("blocks", 1)}
 FT_LM_STEPS = 4
@@ -3572,8 +3595,8 @@ def phase_fault_tolerant_training(torch, fa, xent, port, steps_mod, tmp: Path) -
                            host_ops=False)
         chunks = -(-s8.steps_per_epoch // 8)
         templates = synthetic._glyphs_to_array(synthetic._DIGIT_GLYPHS)
-        render = {}  # seconds: numpy on a tenth of the images (~1.3 s, not ~13)
-        for backend, n in (("numpy", 6_000), ("native", 60_000)):
+        render = {}  # seconds: numpy on a twentieth of the images (~0.6 s, not ~13)
+        for backend, n in (("numpy", 3_000), ("native", 60_000)):
             t1 = time.perf_counter()
             synthetic._make_split(templates, n, 1, backend=backend, **FT_MNIST_RENDER)
             render[backend] = {"images": n, "s": round(time.perf_counter() - t1, 3)}
@@ -4163,7 +4186,7 @@ EDGE_SSE_CLIENTS = 6  # (a) SSE clients connected through the pump fault
 EDGE_FLOOD = 24  # (a) concurrent unary clients against a 4-deep admission bound
 EDGE_CRASH_CLIENTS = 6  # (b) keyed SSE clients at the SIGKILL
 EDGE_CRASH_NEW = 64
-EDGE_JOURNAL_WAVE = 12  # (b) requests per fsync policy (a depth cut: PERF.md section 4)
+EDGE_JOURNAL_WAVE = 6  # (b) requests per fsync policy (depth cuts 24 -> 12 -> 6: PERF.md section 4)
 EDGE_SCALE_WAVE = 48  # (c) the backlog
 EDGE_LULL_S = 60.0  # (c) the longest wait for a scale-down in the lull
 EDGE_DRIP = dict(long_len=448, long_new=16, short_len=24, short_new=8, n_longs=12,
@@ -4928,7 +4951,7 @@ FU_LM_CFG = dict(LM_CFG, name="bench_lm8k_moe_dropout",
 # (a): the dense bench_lm8k with bf16 masters, the store before the repair
 FU_BF16_MASTERS_CFG = dict(LM_CFG, name="bench_lm8k_bf16_masters",
                            model_kwargs={**LM_CFG["model_kwargs"], "param_dtype": "bf16"})
-FU_STAGE_REPS = (3, 2)  # gpu_ms (reps, inner) of each MoE stage at the step's shape
+FU_STAGE_REPS = (2, 2)  # gpu_ms (reps, inner) of each MoE stage at the step's shape (3 -> 2 reps: PERF.md section 4)
 # (b): a float32 twin of (a)'s model at S=1024, batch 2; the gradients with
 # remat="blocks" against without, each tensor relative to its largest: the
 # same masks make them equal up to K4's dQ atomics and the MoE backward's
@@ -5343,7 +5366,7 @@ DPR_LOSS_RTOL = 1e-5  # (a): ZeRO-3 per-step loss against dp=2's, float32 master
 DPR_MOE_STEPS = 2  # (b): the MoE + dropout bench_lm8k under automatic EP (cut: steps)
 DPR_MOE_CFG = dict(FU_LM_CFG, name="bench_lm8k_moe_ep",
                    n_train=DPR_MOE_STEPS * LM_CFG["batch_size"], dp=2)
-DPR_A2A_REPS = 3  # (b): timed all-to-alls of the step's capacity buffer
+DPR_A2A_REPS = 2  # (b): timed all-to-alls of the step's capacity buffer (3 -> 2: PERF.md section 4)
 # (c): mnist_lenet_1chip at dp=2 with ZeRO-3, sharded_update and the K1/K2
 # kernels, one epoch of 16384 images (cut: epochs 12 -> 1, n_train 60000 ->
 # 16384): each rank's logits are (64, 10)
@@ -5784,7 +5807,7 @@ SP_LM_CFG = dict(LM_CFG, name="bench_lm8k_sp2", n_train=SP_STEPS * LM_CFG["batch
 # blocks swapped) reads 3.5e-3 and 6.2e-3 (PERF.md, sequence parallelism).
 # The limit sits near their geometric mean, ~12x from each.
 SP_LOSS_RTOL = 3e-4
-SP_HOP_REPS = 2  # timed calls an exchange, after a warm one (PERF.md section 4)
+SP_HOP_REPS = 1  # timed calls an exchange, after a warm one (2 -> 1: PERF.md section 4)
 SP_SP1_PEAK_GB_DP2 = 4.45  # bench_lm8k's peak a rank at dp=2 (data_parallel_rest), 4 x 8192 tokens
 
 
@@ -6095,6 +6118,7 @@ def sp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, grads: bool = Fa
     h = trainer.history[-1]
     s_step = h["epoch_time_s"] / trainer.steps_per_epoch
     rec = {"config": cfg.name, "sp_impl": cfg.sp_impl, "steps": trainer.state.step,
+           "moe_dropped_frac": h.get("moe_dropped_frac"),
            "data_index": 0 if mesh is None else mesh.data_index,
            "seq_index": 0 if mesh is None else mesh.seq_index,
            "path_label": trainer._path_label,
@@ -6311,7 +6335,6 @@ TP_RESNET_CFG = dict(n_train=512, n_test=512, batch_size=256, eval_batch_size=25
 # geometric mean of the sound reading and the nearer fault's
 TP_RESNET_LOSS_RTOL = 2.5e-3
 TP_RESNET_BN_REL = 0.2
-TP_REPS = 3
 
 
 def tp_metered(C):
@@ -6354,6 +6377,7 @@ def tp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, timed_step: bool
     fit_calls = {kind: sum(1 for c in calls if c[0] == kind) for kind in ("all_reduce",
                                                                           "all_gather")}
     rec = {"config": cfg.name, "steps": steps, "path_label": trainer._path_label,
+           "moe_dropped_frac": h.get("moe_dropped_frac"),
            "data_index": mesh.data_index, "model_index": mesh.model_index,
            "eval_batches": -(-cfg.n_test // cfg.eval_batch_size),
            "train_loss": h["train_loss"], "test_loss": h.get("test_loss"),
@@ -6364,6 +6388,8 @@ def tp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, timed_step: bool
            "chips": trainer.n_chips, "peak_mem_gb": round(peak, 3) if peak is not None else None,
            "launches": counts, "fit_collectives": fit_calls,
            "fit_collective_bytes": sum(c[1] for c in calls),
+           "resident_bytes": (trainer._plan.resident_bytes() if trainer._plan is not None
+                              else None),
            "heads_a_rank": [b.tp_heads for b in getattr(trainer.model, "blocks", [])][:1],
            "attn_pairs": [b.tp_attn_pair for b in getattr(trainer.model, "blocks", [])],
            "grads": step_grads}
@@ -6402,11 +6428,12 @@ def tp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict, timed_step: bool
 
 
 def tp_refusals(Trainer, RunConfig, get_preset) -> dict:
-    """(c) what the port leaves beside tp, at dp=2 x tp=2: fsdp, MoE blocks
-    and multislice (item 7's title), pp, and stream mode (JAX's message)."""
+    """(c) the compositions beside tp, at dp=2 x tp=2: MoE blocks (which
+    build: expert parallelism beside tp), multislice (refused on one node),
+    pp, and stream mode (JAX's message); fsdp beside tp trains in
+    ``composed`` (a)."""
     base = get_preset(RESNET_DP_PRESET).replace(dp=2, tp=2, **TP_RESNET_CFG)
-    cases = {"fsdp": {"fsdp": True}, "multislice": {"dcn_dp": 2}, "pp": {"pp": 2},
-             "stream": {"input_mode": "stream"}}
+    cases = {"multislice": {"dcn_dp": 2}, "pp": {"pp": 2}, "stream": {"input_mode": "stream"}}
     out = {}
     for name, kw in cases.items():
         try:
@@ -6428,7 +6455,8 @@ def tp_rank(rank: int, tps_refs: dict) -> dict:
     through fit() (its first step's gradient gated), then one step with its
     collectives timed; then the pipeline phase's (a), bench_lm8k at pp=2;
     then tp_serving's (a), the serving LM at tp=2, and cp_serving's (a), (b)
-    and (e) (generate(on_mesh=True) from (a)'s fitted run)."""
+    and (e) (generate(on_mesh=True) from (a)'s fitted run); then composed's
+    MoE LM at tp=2 and its MoE engine at tp=2."""
     import torch
 
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
@@ -6444,14 +6472,16 @@ def tp_rank(rank: int, tps_refs: dict) -> dict:
     out["body_s"] = {"tp": t1 - t0, "pp": time.perf_counter() - t1}
     out["tps"] = tps_rank2(torch, fa, xent, tps_refs)
     out["cps"] = cps_rank2(torch, fa, xent, tps_refs)
+    out["cmp"] = cmp_rank2(torch, fa, xent, tps_refs["cmp"])
     return out
 
 
 def tp_rank4(rank: int, tps_refs: dict) -> dict:
     """(b) and (c): one of four gloo ranks sharing the card, ResNet-20 at
     dp=2 x tp=2 through fit(), then the refusals; the pipeline phase's (b)
-    and (c); then tp_serving's (b), the router over two tp=2 groups, and
-    cp_serving's (c) and (d)."""
+    and (c); then tp_serving's (b), the router over two tp=2 groups,
+    cp_serving's (c) and (d), and composed's fsdp x tp ResNet-20 (against
+    (b), its tp-only run)."""
     import torch
 
     from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
@@ -6470,6 +6500,7 @@ def tp_rank4(rank: int, tps_refs: dict) -> dict:
     out["body_s"] = {"tp": t1 - t0, "pp": time.perf_counter() - t1}
     out["tps"] = tps_rank4(torch, tps_refs)
     out["cps"] = cps_rank4(torch, fa, xent, tps_refs)
+    out["cmp"] = cmp_rank4(torch, fa, xent, out["b"])
     return out
 
 
@@ -6524,6 +6555,9 @@ def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict,
     t_cps = time.perf_counter()  # cp_serving's references, in the parent
     tps_refs["cp"] = cps_references(torch, serving_port, tps_refs)
     cps_own_s = time.perf_counter() - t_cps
+    # composed's references, in the parent
+    tps_refs["cmp"] = cmp_references(torch, fa, xent, Trainer, RunConfig, serving_port,
+                                     tps_refs["prompts"])
     t1 = time.perf_counter()
     spawned = torchrun.spawn(tp_rank, 2, "gloo", TP_DEVICE, tmp / "tp2", args=(tps_refs,),
                              timeout=600)
@@ -6588,10 +6622,11 @@ def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict,
     emit({"phase": "tensor_parallel", "sub": "c", "errors": out["c"],
           "spawn_s": round(spawn_s, 3), "phase_wall_s": round(time.perf_counter() - t0, 3)})
     for c in out["c"]:
-        for name in ("fsdp", "moe", "multislice"):
-            check(c[name] is not None and c[name].startswith("NotImplementedError")
-                  and "Remaining parallelism" in c[name],
-                  f"(c) {name} beside tp was not refused by item 7: {c[name]}")
+        # composed since item 7.7 (composed (a) trains fsdp beside tp);
+        # multislice meets the one-node refusal
+        check(c["moe"] is None, f"(c) MoE blocks beside tp did not build: {c['moe']}")
+        check(c["multislice"] is not None and c["multislice"].startswith("ValueError")
+              and "slice" in c["multislice"], f"(c) multislice on one node: {c['multislice']}")
         check(c["pp"] is not None and "needs a model with a pipelineable block stack"
               in c["pp"], f"(c) pp on ResNet-20 was not JAX's refusal: {c['pp']}")
         check(c["stream"] == ("ValueError: input_mode='stream' does not compose with "
@@ -6626,6 +6661,15 @@ def phase_tensor_parallel(torch, fa, xent, port, tmp: Path, tp1: dict,
         "world4": round(max(r["cps"]["body_s"] for r in ranks4), 3),
         "e_on_mesh": round(max(r["a"]["after"]["on_mesh_s"] for r in spawned), 3)}
     emit({"phase": "cp_serving", "sub": "own_s", **out["cp_serving"]["own_s"]})
+    out["composed"] = cmp_gates(tps_refs["cmp"], [r["cmp"] for r in spawned],
+                                [r["cmp"] for r in ranks4])
+    # the phase's own seconds: the parent's references and each spawn's
+    # composed bodies (slowest rank)
+    out["composed"]["own_s"] = {
+        "parent": round(tps_refs["cmp"]["own_s"], 3),
+        "world2": round(max(r["cmp"]["body_s"] for r in spawned), 3),
+        "world4": round(max(r["cmp"]["body_s"] for r in ranks4), 3)}
+    emit({"phase": "composed", "sub": "own_s", **out["composed"]["own_s"]})
     return out
 
 
@@ -6817,7 +6861,8 @@ def pp_fit(torch, fa, xent, Trainer, RunConfig, cfg_dict: dict) -> dict:
 def pp_refusals(Trainer, RunConfig) -> dict:
     """(c) JAX's refusals beside pp at bench_lm8k's width, on four ranks:
     pp beside sp and beside fsdp (the Trainer's ValueError), dropout and
-    MoE blocks in the stages (the model's), multislice (item 7.7)."""
+    MoE blocks in the stages (the model's), multislice (the one-node
+    refusal: this machine is one node)."""
     mk = LM_CFG["model_kwargs"]
     cases = {"sp": {"sp": 2, "dp": 1}, "fsdp": {"dp": 2, "fsdp": True},
              "dropout": {"dp": 2, "model_kwargs": dict(mk, dropout=0.1)},
@@ -6900,8 +6945,9 @@ def pipeline_gates(per_a: list, per_b: list, pp1: dict, ref_grads: dict, errs: d
         for name in ("dropout", "moe"):
             check(c[name] is not None and "dropout and MoE blocks don't compose" in c[name],
                   f"(c) {name} in the stages: {c[name]}")
-        check(c["multislice"] is not None and c["multislice"].startswith("NotImplementedError")
-              and "item 7.7" in c["multislice"], f"(c) multislice beside pp: {c['multislice']}")
+        # composed since item 7.7: multislice beside pp meets the one-node refusal
+        check(c["multislice"] is not None and c["multislice"].startswith("ValueError")
+              and "slice" in c["multislice"], f"(c) multislice beside pp: {c['multislice']}")
     out["errs"] = errs
     return out
 
@@ -7892,6 +7938,294 @@ def cps_gates(torch, port, tps_refs: dict, per2: list, per4: list, on_mesh: list
                          "e_on_mesh_per_rank": [r["launches"] for r in on_mesh]}}
 
 
+# ---------------------------------------------------------------------------
+# composed: fsdp beside tp, and MoE blocks beside tp in training and in the
+# serving engine (ROADMAP item 7.7), run inside tensor_parallel's two gloo
+# spawns (no spawn of its own)
+
+CMP_DEVICE = TP_DEVICE  # every rank shares the one card
+CMP_STEPS = 2
+# the 2-rank spawn's MoE bench_lm8k: 2 of its 4 blocks top-2 MoE over 8
+# experts (lm_vit_follow_ups' MoE, no dropout, no z-loss), 2 steps, one eval
+# batch, at tp=2: every model rank runs each MoE block whole
+CMP_MOE = {"moe_every": 2, "n_experts": 8, "moe_top_k": 2, "moe_capacity_factor": 2.0}
+CMP_LM_CFG = dict(TP_LM_CFG, name="bench_lm8k_moe_tp2", n_train=CMP_STEPS * LM_CFG["batch_size"],
+                  n_test=LM_CFG["eval_batch_size"],
+                  model_kwargs={**LM_CFG["model_kwargs"], **CMP_MOE})
+# the 4-rank spawn's ResNet-20 at dp=2 x tp=2 (tensor_parallel (b)'s config)
+# with fsdp: each conv's tp block cut again over the data group
+CMP_SERVE_KW = dict(MODEL_KW, **FU_SERVE_MOE)  # lm_vit_follow_ups (c)'s MoE serving LM
+CMP_WAVE = TPS_WAVE_B  # the engine's wave: the first 8 prompts
+# Limits (``chip_smoke.py --composed-faults``; PERF.md, composed
+# parallelism; H100 80GB HBM3 at 700 W).  (a) the fsdp x tp ResNet's
+# per-step loss against the same spawn's tp-only run: sound runs read 0
+# (the same gathered weights, a two-addend reduce-scatter summing as the
+# all-reduce does), a planted sum for the mean 3.3e-2.  (b) the MoE LM at
+# tp=2 against one card: its loss at tensor_parallel (a)'s limit (sound
+# 3.6e-5-4.7e-5; at random init the planted MoE faults move the loss 1.6e-4
+# and 6.3e-4 only), and the epoch's dropped fraction, absolute: sound
+# 6.4e-4 (bf16 near-ties routed otherwise), a MoE output summed over the
+# model group 2.5e-2, a halved capacity 0.28; the limit near the geometric
+# mean of the sound reading and the nearer fault's, ~6x from each
+CMP_FSDP_LOSS_RTOL = 1e-4
+CMP_MOE_LOSS_RTOL = TP_LOSS_RTOL
+CMP_MOE_DROP_ABS = 4e-3
+CMP_FAULTS = ("fsdp_sum", "moe_output_reduced", "moe_half_capacity")
+
+
+def cmp_model(torch, get_model):
+    """The MoE serving LM, float32, seeded: the same weights on every rank."""
+    gen = torch.Generator(device=CMP_DEVICE).manual_seed(0)
+    return get_model("causal_lm", dtype=torch.float32, generator=gen, device=CMP_DEVICE,
+                     **CMP_SERVE_KW)
+
+
+def cmp_references(torch, fa, xent, Trainer, RunConfig, port, prompts) -> dict:
+    """What the composed ranks are held to, made once in the parent: the
+    single-card MoE bench_lm8k fit (the same config, seed and global
+    batches at tp=1) and one card's float32 streams of the MoE serving LM on
+    the first 8 prompts."""
+    get_model, engine_cls, _ = port
+    t0 = time.perf_counter()
+    lm = sp_fit(torch, fa, xent, Trainer, RunConfig,
+                dict(CMP_LM_CFG, name="bench_lm8k_moe_tp1", tp=1))
+    model = cmp_model(torch, get_model)
+    eng = engine_cls(model, device=CMP_DEVICE, **TPS_ENGINE)
+    reqs = [eng.submit(p, max_new=TPS_NEW) for p in prompts[:CMP_WAVE]]
+    eng.run()
+    eng.close()
+    del eng, model
+    collect_garbage(torch, CMP_DEVICE)
+    return {"lm": {k: lm[k] for k in ("step_losses", "launches", "s_per_step", "peak_mem_gb",
+                                      "moe_dropped_frac")},
+            "serve_f32": [list(r.generated) for r in reqs], "prompts": prompts[:CMP_WAVE],
+            "own_s": time.perf_counter() - t0}
+
+
+def cmp_plant(fault: str) -> None:
+    """Plant one fault in this process (a rank of ``composed_faults``):
+    ``fsdp_sum`` the fsdp leaves' gradients reduce-scattered as a sum, not
+    a mean (x dp); ``moe_output_reduced`` each MoE block's output summed
+    over the model group, as a row-parallel product's would be (x tp: the
+    2-rank world is the model group); ``moe_half_capacity`` each MoE block
+    sizes its capacity from half its tokens (a rank's share reckoned as the
+    whole)."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import collectives as C
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import expert_parallel as EP
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import fsdp as FS
+
+    if fault == "fsdp_sum":
+        real = FS.reduce_scatter_dim
+        FS.reduce_scatter_dim = lambda x, dim, group=None: real(x, dim, group) * 2
+    elif fault == "moe_output_reduced":
+        real_fwd = EP.MoEBlock.forward
+
+        def reduced(self, x, seq_group=None):
+            out, aux, stats = real_fwd(self, x, seq_group=seq_group)
+            return C.all_reduce_sum(out), aux, stats
+
+        EP.MoEBlock.forward = reduced
+    elif fault == "moe_half_capacity":
+        real_cap = EP.MoEBlock.capacity
+        EP.MoEBlock.capacity = lambda self, n: real_cap(self, n // 2)
+
+
+def cmp_rank4(torch, fa, xent, tp_only: dict | None = None) -> dict:
+    """One of four gloo ranks: ResNet-20 at dp=2 x tp=2 with fsdp through
+    fit() (tp_fit's record: every count zeroed just before, read just
+    after; its resident parameter bytes), against ``tp_only``, the same
+    spawn's tensor_parallel (b) fit (run here when not given)."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig, get_preset
+
+    t0 = time.perf_counter()
+    cfg = get_preset(RESNET_DP_PRESET).replace(dp=2, tp=2, **TP_RESNET_CFG)
+    if tp_only is None:
+        tp_only = tp_fit(torch, fa, xent, Trainer, RunConfig,
+                         cfg.replace(name="resnet20_dp2_tp2"), timed_step=False)
+    rec = tp_fit(torch, fa, xent, Trainer, RunConfig,
+                 cfg.replace(name="resnet20_dp2_tp2_fsdp", fsdp=True), timed_step=False)
+    rec.pop("bn_stats", None)
+    return {"fsdp": rec, "tp_only": {k: tp_only[k] for k in ("step_losses", "resident_bytes")},
+            "body_s": time.perf_counter() - t0}
+
+
+def cmp_rank2(torch, fa, xent, refs: dict) -> dict:
+    """One of two gloo ranks: the MoE bench_lm8k at tp=2 through fit()
+    (tp_fit's record), then the MoE serving LM at tp=2 (float32, a leader
+    and a follower), prewarmed, on the first 8 prompts."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.models import get_model
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import tensor_parallel as tpar
+    from distributed_tensorflow_ibm_mnist_tpu_torch.serving import InferenceEngine
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTracker
+
+    t0 = time.perf_counter()
+    out = {"lm": tp_fit(torch, fa, xent, Trainer, RunConfig, CMP_LM_CFG, timed_step=False)}
+    mesh = tpar.serving_mesh(TPS_TP, list(range(TPS_TP)))
+    eng = InferenceEngine(cmp_model(torch, get_model), tp=TPS_TP, tp_devices=mesh,
+                          device=CMP_DEVICE, **TPS_ENGINE)
+    out["engine"] = {"weight_bytes": eng.weight_bytes_per_chip(),
+                     "moe_blocks": sum(b.moe is not None for b in eng.model.blocks),
+                     "heads_a_rank": eng.model.blocks[0].tp_heads}
+    if eng.is_leader:
+        tracker = CompileTracker.install()
+        eng.prewarm()
+        after = tracker.snapshot()
+        reqs = [eng.submit(p, max_new=TPS_NEW) for p in refs["prompts"]]
+        t1 = time.perf_counter()
+        eng.run()
+        out["engine"].update(
+            streams=[list(r.generated) for r in reqs], statuses=[r.status for r in reqs],
+            wall_s=round(time.perf_counter() - t1, 4),
+            builds_after_prewarm=CompileTracker.delta(tracker.snapshot(),
+                                                      after)["n_compiled_programs"])
+        eng.close()
+    else:
+        follow = eng.follow()
+        out["engine"]["builds_after_prewarm"] = (
+            follow["compile_since"]["prewarm"]["n_compiled_programs"])
+    del eng
+    collect_garbage(torch, CMP_DEVICE)
+    out["body_s"] = time.perf_counter() - t0
+    return out
+
+
+def cmp_gates(refs: dict, per2: list, per4: list) -> dict:
+    """The composed phase's three lines and gates: (a) fsdp x tp ResNet-20
+    against the tp-only run (losses, resident bytes, K1/K2 a rank); (b) the
+    MoE LM at tp=2 against one card (losses, K3/K4 a rank); (c) the MoE
+    engine at tp=2 against one card's float32 streams."""
+    out = {}
+    fs = [r["fsdp"] for r in per4]
+    rel_a = max(sp_loss_rel(r["fsdp"]["step_losses"], r["tp_only"]["step_losses"])
+                for r in per4)
+    out["a"] = {"per_rank": [{k: r[k] for k in ("step_losses", "launches", "s_per_step",
+                                                "peak_mem_gb", "resident_bytes", "path_label",
+                                                "data_index", "model_index", "steps")}
+                             for r in fs],
+                "tp_only_step_losses": per4[0]["tp_only"]["step_losses"],
+                "resident_bytes_vs_tp_only": [
+                    round(r["fsdp"]["resident_bytes"] / r["tp_only"]["resident_bytes"], 4)
+                    for r in per4],
+                "loss_max_rel_err": rel_a, "limit": CMP_FSDP_LOSS_RTOL,
+                "body_s": round(max(r["body_s"] for r in per4), 3)}
+    emit({"phase": "composed", "sub": "a", "what": "resnet20 dp2 x tp2 fsdp vs tp only",
+          "nvidia_smi": nvidia_smi_line(), **out["a"]})
+    check(rel_a <= CMP_FSDP_LOSS_RTOL, f"composed (a) fsdp x tp loss {rel_a} off tp-only's")
+    for r, ratio in zip(fs, out["a"]["resident_bytes_vs_tp_only"]):
+        c = r["launches"]
+        check(CMP_DEVICE == "cpu" or c["xent_fwd"] == c["xent_bwd"] == r["steps"],
+              f"composed (a) K1/K2 on a rank: {c}, expected {r['steps']} each")
+        check(r["path_label"] == "dp2_tp2_fsdp" and ratio <= 0.52,
+              f"composed (a) the layout: {r['path_label']}, bytes {ratio} of tp-only's")
+    lm = [r["lm"] for r in per2]
+    rel_b = max(sp_loss_rel(r["step_losses"], refs["lm"]["step_losses"]) for r in lm)
+    drop_b = max(abs(r["moe_dropped_frac"] - refs["lm"]["moe_dropped_frac"]) for r in lm)
+    out["b"] = {"per_rank": [{k: r[k] for k in ("step_losses", "launches", "s_per_step",
+                                               "peak_mem_gb", "path_label", "steps",
+                                               "tokens_per_sec_per_chip", "moe_dropped_frac")}
+                             for r in lm],
+                "tp1": refs["lm"], "loss_max_rel_err": rel_b, "limit": CMP_MOE_LOSS_RTOL,
+                "dropped_abs_err": drop_b, "dropped_limit": CMP_MOE_DROP_ABS,
+                "attn_shape": list(TP_ATTN)}
+    emit({"phase": "composed", "sub": "b", "what": "bench_lm8k MoE at tp=2 vs one card",
+          **out["b"]})
+    check(rel_b <= CMP_MOE_LOSS_RTOL and drop_b <= CMP_MOE_DROP_ABS,
+          f"composed (b) MoE tp=2 off one card's: loss {rel_b}, dropped fraction {drop_b}")
+    for r in lm:
+        c, steps, ev = r["launches"], r["steps"], r["eval_batches"]
+        want = {"flash_fwd": DEPTH * (steps + ev), "flash_bwd_fused": DEPTH * steps}
+        check(CMP_DEVICE == "cpu" or {k: c[k] for k in want} == want,
+              f"composed (b) launches on a rank: {c}, expected {want}")
+        check(all(math.isfinite(x) for x in (r["train_loss"], r["test_loss"])),
+              f"composed (b) non-finite loss {r}")
+    engs = [r["engine"] for r in per2]
+    lead = next(e for e in engs if "streams" in e)
+    out["c"] = {"streams_equal": lead["streams"] == refs["serve_f32"],
+                "builds_after_prewarm": [e["builds_after_prewarm"] for e in engs],
+                "weight_bytes": [e["weight_bytes"] for e in engs], "wall_s": lead["wall_s"],
+                "moe_blocks": lead["moe_blocks"], "heads_a_rank": lead["heads_a_rank"],
+                "prompts": len(refs["prompts"])}
+    emit({"phase": "composed", "sub": "c", "what": "MoE serving LM float32 at tp=2 vs one card",
+          **out["c"]})
+    check(out["c"]["streams_equal"] and lead["statuses"] == ["done"] * CMP_WAVE,
+          "composed (c) the MoE engine's float32 streams at tp=2 are not one card's")
+    check(out["c"]["builds_after_prewarm"] == [0, 0],
+          f"composed (c) builds after prewarm: {out['c']['builds_after_prewarm']}")
+    return out
+
+
+def cmp_fault_rank(rank: int, world: int, fault: str) -> dict:
+    """A rank of ``composed_faults`` under a planted fault: the 4-rank fsdp
+    fit (with its tp-only reference) or the 2-rank MoE LM fit."""
+    import torch
+
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
+
+    cmp_plant(fault)
+    if world == 4:
+        return cmp_rank4(torch, fa, xent)
+    return {"lm": tp_fit(torch, fa, xent, Trainer, RunConfig, CMP_LM_CFG, timed_step=False)}
+
+
+def composed_faults() -> int:
+    """``chip_smoke.py --composed-faults``: the readings that place
+    ``CMP_FSDP_LOSS_RTOL`` and ``CMP_MOE_LOSS_RTOL`` (PERF.md, composed
+    parallelism): the kernels built, the single-card MoE fit, then the
+    sound runs and each of ``CMP_FAULTS`` on fresh gloo ranks sharing the
+    card, one JSON line each with its loss error against its reference.
+    Recorded, not gated."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.trainer import Trainer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.launch import torchrun
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import _build
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import flash_attention as fa
+    from distributed_tensorflow_ibm_mnist_tpu_torch.ops import xent
+    from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
+
+    os.environ.setdefault("DTM_DATA_BACKEND", "native")
+    phase_device(torch, _build)
+    tp1 = sp_fit(torch, fa, xent, Trainer, RunConfig,
+                 dict(CMP_LM_CFG, name="bench_lm8k_moe_tp1", tp=1))
+    emit({"phase": "composed_faults", "nvidia_smi": nvidia_smi_line(),
+          "moe_tp1_step_losses": tp1["step_losses"],
+          "moe_tp1_dropped_frac": tp1["moe_dropped_frac"]})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cmp_faults_") as tmp:
+        for fault in (None, *CMP_FAULTS):
+            for world in (4, 2):
+                if fault is not None and (world == 4) != fault.startswith("fsdp"):
+                    continue
+                t0 = time.perf_counter()
+                recs = torchrun.spawn(cmp_fault_rank, world, "gloo", CMP_DEVICE,
+                                      Path(tmp) / f"{fault}_{world}", args=(world, fault),
+                                      timeout=600)
+                drop = None
+                if world == 4:
+                    rel = max(sp_loss_rel(r["fsdp"]["step_losses"], r["tp_only"]["step_losses"])
+                              for r in recs)
+                    limit = CMP_FSDP_LOSS_RTOL
+                else:
+                    rel = max(sp_loss_rel(r["lm"]["step_losses"], tp1["step_losses"])
+                              for r in recs)
+                    drop = max(abs(r["lm"]["moe_dropped_frac"] - tp1["moe_dropped_frac"])
+                               for r in recs)
+                    limit = CMP_MOE_LOSS_RTOL
+                emit({"phase": "composed_faults", "fault": fault, "world": world,
+                      "loss_max_rel_err": rel, "limit": limit, "dropped_abs_err": drop,
+                      "dropped_limit": CMP_MOE_DROP_ABS if drop is not None else None,
+                      "s": round(time.perf_counter() - t0, 1)})
+    return 0
+
+
 def ring_hop_bytes_of(bucket: int) -> int:
     """JAX's analytic ring-hop bytes of one prefill of ``bucket`` tokens at
     cp=2 (``utils.flops.ring_hop_bytes`` at the model's dtype, every layer)."""
@@ -7915,6 +8249,8 @@ def main() -> int:
         return serve_child(sys.argv[2])
     if sys.argv[1:2] == ["--pipeline-faults"]:  # the pipeline limits' planted faults
         return pipeline_faults()
+    if sys.argv[1:2] == ["--composed-faults"]:  # the composed limits' planted faults
+        return composed_faults()
     import torch
 
     if not torch.cuda.is_available():
@@ -8180,13 +8516,18 @@ def main() -> int:
     for name, e in (("flash_fwd", k3_entry), ("flash_bwd_fused", k4_entry)):
         e["launches_tp2"] = {"shape": list(TP_ATTN), "max_abs_err": tp["errs"][name],
                              "a_lm_per_rank": [r["launches"][name]
-                                               for r in tp["a"]["per_rank"]]}
+                                               for r in tp["a"]["per_rank"]],
+                             # composed (b): the MoE LM at tp=2, the same shape
+                             "composed_b_moe_lm_per_rank": [
+                                 r["launches"][name] for r in tp["composed"]["b"]["per_rank"]]}
 
     def tp_xent(name):
         """K1/K2 on tensor_parallel (b), per rank: ResNet-20 at dp=2 x tp=2,
         (128, 10) logits a rank, the shape phase_xent_kernels held."""
         return {"shape": list(XENT_SHAPE), "max_abs_err": xk["at_shape"][XENT_SHAPE][name],
-                "b_resnet_per_rank": [r["launches"][name] for r in tp["b"]["per_rank"]]}
+                "b_resnet_per_rank": [r["launches"][name] for r in tp["b"]["per_rank"]],
+                "composed_a_fsdp_per_rank": [r["launches"][name]
+                                             for r in tp["composed"]["a"]["per_rank"]]}
 
     k4_entry["vit_training"] = on_vit("flash_bwd_fused", dict(zip(
         ("max_abs_err", "max_rel_err", "max_row_rel_err"), vit_kernels["bwd_err"])))

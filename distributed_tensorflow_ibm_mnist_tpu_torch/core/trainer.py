@@ -131,7 +131,23 @@ gather every leaf whole, and checkpoints hold the whole (replicated)
 form, which resumes at any dp; under a sharded run each of these is a
 collective.  ``input_mode="stream"`` does not compose with them
 (``ValueError``, as in JAX).  ``dcn_dp > 1`` builds the multislice mesh
-(``parallel.mesh.make_mesh``: the group must span that many nodes).
+(``parallel.mesh.make_mesh``: the group must span that many nodes, each
+holding ``(dp/N) * tp * sp * pp`` consecutive ranks), beside any tp, sp
+and pp.
+
+Composed (JAX ``trainer.py:546-600``): fsdp and MoE blocks compose with
+tp and sp as JAX's GSPMD composes them.  Under tp the model is first cut
+to this model rank's blocks (``TPPlan``) and the ``ShardPlan`` splits
+those blocks over the rank's data group: ``make_fsdp_specs(base_rule=
+megatron_rule(tp))`` keeps each Megatron dim and splits the largest free
+one over ``data`` (``P("data", "model")``), and the expert leaves stay
+whole over ``model``.  Under sp the plan lives at each seq index, the
+split leaves' gradients averaged over the seq group before the data
+group's reduce-scatter.  MoE blocks run whole on every model rank (the
+experts and router replicated over ``model``, as ``megatron_rule`` leaves
+them), their EP exchange over the data group; under sp each MoE block
+gathers the seq group's slices and routes the whole sequences (JAX's
+routing, capacity from their whole token count).
 
 Sequence parallelism (``sp > 1``; JAX ``trainer.py:117-121, 349-356,
 766-845``): the ranks form a ``(data, seq)`` mesh (``dp`` = world / sp
@@ -149,9 +165,9 @@ the ring, a sequence that does not divide by sp, Ulysses' head counts).
 ``n_chips`` and the throughput and MFU divisors are ``dp * sp``.  The
 state is the same on every rank: rank 0 saves it, and a checkpoint
 resumes at any layout; ``generate`` decodes on one device from the
-whole weights (the decode model drops the island).  Not ported beside
-sp: fsdp, MoE blocks and multislice (``NotImplementedError`` naming item
-7's title), ``sharded_update`` and stream mode (JAX's ``ValueError``).
+whole weights (the decode model drops the island).  fsdp, MoE blocks and
+multislice compose with sp (above); ``sharded_update`` without fsdp and
+stream mode take JAX's ``ValueError``.
 
 Tensor parallelism (``tp > 1``; JAX ``trainer.py:169-187, 471, 546-600``):
 the ranks form a ``(data, model, seq)`` mesh (``dp`` = world / (tp x sp)
@@ -170,9 +186,10 @@ block once.  Dropout masks are drawn equal across a model group (seeded
 by the data and seq index).  Saves gather the blocks whole (rank 0
 writes), so a tp checkpoint resumes at any tp; ``generate`` and
 ``InferenceEngine.from_trainer`` decode from whole leaves.  ``n_chips``
-is ``dp * tp * sp``; the run name's label gets ``tp{n}``.  Refused beside
-tp, by item 7's title: fsdp, MoE blocks, multislice; ``sharded_update``
-and stream mode take JAX's ``ValueError``.
+is ``dp * tp * sp``; the run name's label gets ``tp{n}``.  fsdp (with or
+without ``sharded_update``), MoE blocks and multislice compose with tp
+(above); ``sharded_update`` without fsdp and stream mode take JAX's
+``ValueError``.
 
 Pipeline parallelism (``pp > 1``; JAX ``trainer.py:171-254, 383-389,
 483-489, 578-586, 656-750``): the ranks form a ``(data, model, seq,
@@ -200,7 +217,7 @@ writes), so a pp checkpoint resumes at any pp; ``generate`` and
 refusals come with its messages: a model without a block stack, pp
 beside sp or fsdp, a batch that is not a multiple of ``dp *
 microbatches``, dropout or MoE blocks in the stages (the models').
-Multislice beside pp is refused by ROADMAP.md item 7.7.
+Multislice composes with pp: only the data axis crosses nodes.
 """
 
 from __future__ import annotations
@@ -273,6 +290,7 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import (
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import (
     TPPlan,
+    megatron_rule,
     model_param_specs,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.config import RunConfig
@@ -291,12 +309,6 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.utils.profiling import TraceSess
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTracker
 
 TRAINABLE = ("lenet5", "mlp", "resnet20", "resnet50", "vit", "causal_lm")
-_PARALLEL = "item 7, 'Remaining parallelism and utilities'"
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet: ROADMAP.md queue 1, {item}")
 
 
 _SP_IMPLS = ("ring", "ulysses")
@@ -436,12 +448,6 @@ class Trainer:
             raise ValueError(
                 "fsdp=True needs dp>1 (ZeRO-3 shards over the 'data' axis); "
                 f"got dp={self.dp}")
-        for axis, n in (("tp", self.tp), ("sp", self.sp)):
-            if n > 1:
-                for what, on in (("fsdp", config.fsdp), ("MoE blocks (moe_every)",
-                                                         config.model_kwargs.get("moe_every"))):
-                    if on:
-                        raise _later(f"{what} with {axis}={n}", _PARALLEL)
         # MoE + dp>1 runs expert-parallel automatically: experts split over
         # 'data', tokens exchanged by all_to_all (JAX's _moe_ep)
         self._moe_ep = (self.dp > 1 and bool(config.model_kwargs.get("moe_every", 0))
@@ -594,14 +600,20 @@ class Trainer:
                        remat=config.remat is True and self.pp == 1)
         if self._sharded_run:
             # structural (expert) leaves first, then ZeRO-3's largest-dim rule
-            fsdp_specs = make_fsdp_specs(self.model, self.mesh) if config.fsdp else None
+            # (beside tp: the Megatron dims kept, the largest free dim split),
+            # each decided on the whole leaves before tp cuts them
+            fsdp_specs = (make_fsdp_specs(self.model, self.mesh, base_rule=(
+                megatron_rule(self.tp) if self.tp > 1 else None)) if config.fsdp else None)
+            opt_specs = (make_fsdp_opt_specs(self.model, self.mesh, fsdp_specs)
+                         if config.fsdp and config.sharded_update else None)
+            expert_specs = (model_param_specs(self.model, moe_expert_rule())
+                            if self._moe_ep else None)
+            # under tp each model rank keeps its blocks first; the plan over
+            # the data group splits those blocks again
+            blocks = TPPlan.shard(self.mesh, self.model) if self.tp > 1 else None
             self._plan = ShardPlan.build(
-                self.mesh, self.model, fsdp_specs,
-                opt_specs=(make_fsdp_opt_specs(self.model, self.mesh, fsdp_specs)
-                           if config.fsdp and config.sharded_update else None),
-                expert_specs=(model_param_specs(self.model, moe_expert_rule())
-                              if self._moe_ep else None),
-                n_buckets=config.sharded_update_buckets)
+                self.mesh, self.model, fsdp_specs, opt_specs=opt_specs,
+                expert_specs=expert_specs, n_buckets=config.sharded_update_buckets, tp=blocks)
             self._plan.adopt(self.state)
         elif self.pp > 1:  # each pipe rank keeps its stage (and its model blocks)
             self._plan = pipeline.shard_train_state(self.mesh, self.state, pipeline.stage_param_specs(

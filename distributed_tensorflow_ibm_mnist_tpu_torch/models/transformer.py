@@ -12,7 +12,10 @@ attention, ragged or uniform, with or without a sliding window; and the
 A block with ``use_moe`` runs the MoE FFN (parallel/expert_parallel.py
 ``MoEBlock``, float32, under the name ``moe``) in place of
 ``dense_0``/``dense_1``, in training and in decode: it routes each call's
-tokens, capacity sized for them.  ``dropout`` (flax's ``nn.Dropout``)
+tokens, capacity sized for them; a call that holds a seq group's slice of
+each sequence (sequence parallelism, a context-parallel prefill) routes
+the whole sequences, gathered over the group.  Under tp every model rank
+runs the MoE block whole on the whole activation.  ``dropout`` (flax's ``nn.Dropout``)
 sits on the attention projection's output and on the MLP/MoE output,
 only when ``train``, its masks drawn from the model's ``generator``.  A
 block returns ``(x, kv, moe)``, ``moe`` its aux, pre-weighted z and
@@ -437,8 +440,9 @@ class TransformerBlock(nn.Module):
         moe = None
         if self.moe is not None:
             # routed per call over this call's B * S tokens (a decode step's
-            # B tokens too), capacity sized for them, as JAX's block does
-            h, aux, stats = self.moe(h)
+            # B tokens too), capacity sized for them, as JAX's block does;
+            # a sequence-parallel call's slices are routed as whole sequences
+            h, aux, stats = self.moe(h, seq_group=self._seq_group(attn, cache))
             moe = {"aux": aux, "dropped": stats["dropped"],
                    "z": self.moe.z_weight * stats["z"] if self.moe.z_weight > 0.0 else None}
         else:
@@ -448,6 +452,16 @@ class TransformerBlock(nn.Module):
             h = self._dense(self.dense_1, F.gelu(self._dense(self.dense_0, h, pair),
                                                  approximate="tanh"), pair)
         return x + self._dropout(h, train), kv_out, moe
+
+    def _seq_group(self, attn: Callable | None, cache: dict | None):
+        """The seq group whose slices of each sequence this call's tokens
+        are (a sequence-parallel forward or a context-parallel prefill:
+        the call's attention is a ``SeqParallelAttention`` over more than
+        one rank), else None."""
+        island = attn or self.attn_fn
+        if cache is not None or not isinstance(island, SeqParallelAttention):
+            return None
+        return island.mesh.seq_group if island.mesh.seq_size > 1 else None
 
     def _decode_attention(self, q, k, v, cache: dict, max_len: int,
                           ragged: bool = False):

@@ -35,6 +35,8 @@ ranks whose gradients a step averages; ``mesh.seq_group`` /
   and :func:`reduce_scatter_dim` (sum, then this rank's block along
   ``dim``), each the dim-0 collective on the leaf with that dim moved to
   the front;
+* :func:`gather_tokens`, the seq group's tokens gathered along a dim,
+  differentiable (its backward the reduce-scatter of the sum);
 * :func:`all_to_all` (JAX's tiled ``all_to_all(x, axis, split_axis,
   concat_axis)``, the expert-parallel dispatch's exchange and Ulysses'
   two reshards over the seq group) over ``all_to_all_single``,
@@ -208,6 +210,28 @@ def reduce_scatter_dim(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     if dim == 0:
         return reduce_scatter(x, group)
     return reduce_scatter(x.movedim(dim, 0), group).movedim(0, dim).contiguous()
+
+
+class _GatherTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x.contiguous(), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g.contiguous(), ctx.dim, ctx.group), None, None
+
+
+def gather_tokens(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """:func:`all_gather_dim` over ``group``, differentiable, its backward
+    the reduce-scatter of the sum: every rank then computes on every
+    rank's slice (the MoE blocks' routing over a whole sequence whose
+    tokens the seq group holds in slices), and each slice's gradient sums
+    what every rank's loss sends it."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return all_gather_dim(x.contiguous(), dim, group)
+    return _GatherTokens.apply(x, dim % x.ndim, group)
 
 
 def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
@@ -624,18 +648,19 @@ def grouped_all_reduce_mean(buckets: Sequence[torch.Tensor],
     return buckets
 
 
-def grouped_reduce_scatter_mean(buckets: Sequence[torch.Tensor]) -> tuple[torch.Tensor, ...]:
-    """Mean-reduce-scatter every bucket: ``(B,)`` -> this rank's
-    ``(B / N,)`` block of the mean."""
-    n = axis_size()
-    return tuple(reduce_scatter(b).div_(n) for b in buckets)
+def grouped_reduce_scatter_mean(buckets: Sequence[torch.Tensor],
+                                group=None) -> tuple[torch.Tensor, ...]:
+    """Mean-reduce-scatter every bucket over ``group``: ``(B,)`` -> this
+    rank's ``(B / N,)`` block of the mean."""
+    n = axis_size(group)
+    return tuple(reduce_scatter(b, group).div_(n) for b in buckets)
 
 
-def bucket_shard(buckets: Sequence[torch.Tensor],
-                 layout: BucketLayout) -> tuple[torch.Tensor, ...]:
-    """This rank's contiguous block of each full bucket (views; no
-    communication)."""
-    idx = axis_index()
+def bucket_shard(buckets: Sequence[torch.Tensor], layout: BucketLayout,
+                 group=None) -> tuple[torch.Tensor, ...]:
+    """This rank's contiguous block (its place along ``group``) of each
+    full bucket (views; no communication)."""
+    idx = axis_index(group)
     return tuple(b[idx * sz:(idx + 1) * sz] for b, sz in zip(buckets, layout.shard_sizes))
 
 
@@ -646,28 +671,29 @@ def bucket_shard(buckets: Sequence[torch.Tensor],
 # and after the update gather the buckets back into the parameters.
 
 
-def bucket_reduce_scatter_mean(tensors: Sequence[torch.Tensor],
-                               layout: BucketLayout) -> tuple[torch.Tensor, ...]:
+def bucket_reduce_scatter_mean(tensors: Sequence[torch.Tensor], layout: BucketLayout,
+                               group=None) -> tuple[torch.Tensor, ...]:
     """``tensors`` -> this rank's block of each bucket of their mean across
-    ranks (one reduce-scatter a bucket)."""
-    return grouped_reduce_scatter_mean(flatten_buckets(tensors, layout))
+    the ranks of ``group`` (one reduce-scatter a bucket)."""
+    return grouped_reduce_scatter_mean(flatten_buckets(tensors, layout), group)
 
 
 @torch.no_grad()
 def load_bucket_shards(shards: Sequence[torch.Tensor], tensors: Sequence[torch.Tensor],
-                       layout: BucketLayout) -> None:
+                       layout: BucketLayout, group=None) -> None:
     """Copy this rank's block of each bucket of ``tensors`` into ``shards``
     (no communication)."""
-    for dst, src in zip(shards, bucket_shard(flatten_buckets(tensors, layout), layout),
+    for dst, src in zip(shards, bucket_shard(flatten_buckets(tensors, layout), layout, group),
                         strict=True):
         dst.copy_(src)
 
 
 @torch.no_grad()
 def gather_bucket_shards(shards: Sequence[torch.Tensor], tensors: Sequence[torch.Tensor],
-                         layout: BucketLayout) -> None:
-    """All-gather each bucket from every rank's block in ``shards`` and write
-    it back into ``tensors`` in place (one all-gather a bucket)."""
-    full = [all_gather(s) for s in shards]
+                         layout: BucketLayout, group=None) -> None:
+    """All-gather each bucket over ``group`` from every rank's block in
+    ``shards`` and write it back into ``tensors`` in place (one all-gather
+    a bucket)."""
+    full = [all_gather(s, group) for s in shards]
     for t, new in zip(tensors, unflatten_buckets(full, layout), strict=True):
         t.copy_(new)

@@ -46,6 +46,23 @@ row sums every rank's tokens on the rank that owns it, which
 ``parallel.fsdp.ShardPlan`` scales by 1/A instead of all-reducing.
 ``make_moe_dispatch_auto`` sizes the capacity from the token count of
 each call (the trainer's hook) and runs ``moe_ffn_local`` on one rank.
+The exchange runs over the mesh's data group: under tp and sp the ranks
+that share this rank's model and seq index, every model rank of a data
+row routing the same (bit-equal) tokens and running the same exchange.
+
+Beside sequence parallelism a rank holds a slice of each sequence, but
+JAX routes over the whole sequence: its island takes ``x`` as ``P("data",
+None)``, so GSPMD gathers the sequence over ``seq`` and every seq device
+runs the whole data shard's MoE.  The port does the same explicitly:
+``MoEBlock(x, seq_group=)`` gathers the seq group's slices
+(``collectives.gather_tokens``, whose backward sums each slice's
+gradient back), routes the whole sequence's tokens in JAX's order (``b *
+S + j``; every first choice before any second), capacity sized from its
+``B * S`` tokens, and keeps this rank's slice of the output.  The aux
+loss and the stats are then the whole sequence's on every seq rank, as
+JAX's are.  (Gathering only the routing counts and scanning them would
+move less, but the experts would still run on whole ``(E, C, D)``
+buffers; the gather keeps one routing code path.)
 """
 
 from __future__ import annotations
@@ -60,6 +77,8 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.models.lenet import _TRUNC_STD
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
     all_reduce_mean,
     all_to_all,
+    axis_index,
+    gather_tokens,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import P
 
@@ -177,28 +196,31 @@ def moe_ffn_local(params: dict, x: torch.Tensor, n_experts: int, capacity: int,
 
 def make_moe_dispatch(mesh, n_experts: int, capacity: int, axis_name: str = "data",
                       top_k: int = 1):
-    """The expert-parallel MoE forward over ``mesh``'s ``axis_name``:
-    ``moe(params, x) -> (out, aux, stats)`` with ``x`` this rank's (T, D)
-    tokens, ``params["router"]`` whole and ``w1``/``b1``/``w2``/``b2`` this
-    rank's ``n_experts / A`` expert rows; ``capacity`` is per (rank,
-    expert) pair.  A collective: every rank calls it with the same
-    ``capacity``."""
+    """The expert-parallel MoE forward over ``mesh``'s ``axis_name`` (its
+    data group): ``moe(params, x) -> (out, aux, stats)`` with ``x`` this
+    rank's (T, D) tokens, ``params["router"]`` whole and
+    ``w1``/``b1``/``w2``/``b2`` this rank's ``n_experts / A`` expert rows;
+    ``capacity`` is per (rank, expert) pair.  A collective: every rank
+    calls it with the same ``capacity``."""
+    if axis_name != "data":
+        raise ValueError(f"expert parallelism runs over the 'data' axis, not {axis_name!r}")
     a = mesh.shape[axis_name]
     if n_experts % a:
         raise ValueError(f"n_experts={n_experts} not divisible by |{axis_name}|={a}")
+    group = mesh.data_group
 
     def moe(params: dict, x: torch.Tensor):
         r, fracs, stats = _route(x, params["router"], n_experts, capacity, top_k)
         expert_in, flat = _dispatch(x, r, n_experts, capacity)
         # (E, C, D) -> (E/A, A*C, D): expert block j of every rank lands on rank j
-        expert_in = all_to_all(expert_in, split_axis=0, concat_axis=1)
+        expert_in = all_to_all(expert_in, split_axis=0, concat_axis=1, group=group)
         expert_out = _expert_ffn(params, expert_in)
         # the reverse: (E/A, A*C, D) -> (E, C, D), each rank's buffers home
-        expert_out = all_to_all(expert_out, split_axis=1, concat_axis=0)
+        expert_out = all_to_all(expert_out, split_axis=1, concat_axis=0, group=group)
         out = _combine(expert_out, flat, r.gates)
         # global fractions first, THEN the product: the exact global aux
-        fracs = all_reduce_mean(list(fracs))
-        stats = dict(zip(stats, all_reduce_mean(list(stats.values()))))
+        fracs = all_reduce_mean(list(fracs), group)
+        stats = dict(zip(stats, all_reduce_mean(list(stats.values()), group)))
         return out.to(x.dtype), _aux_loss(*fracs, n_experts), stats
 
     return moe
@@ -259,7 +281,9 @@ class MoEBlock(nn.Module):
     (E * D for ``w1``, E * H for ``w2``, as flax's ``variance_scaling``
     reads a 3-D kernel), zero biases.  ``ep_fn`` (``make_moe_dispatch_auto``
     or a user's ``moe_fn``, ``ep_fn(params, tokens) -> (out, aux, stats)``)
-    runs it expert-parallel; None computes every expert locally."""
+    runs it expert-parallel; None computes every expert locally.
+    ``forward(x, seq_group=)`` routes the whole sequences of a seq
+    group's slices (module docstring)."""
 
     def __init__(self, dim: int, n_experts: int = 8, hidden_mult: int = 4,
                  capacity_factor: float = 2.0, top_k: int = 1, z_weight: float = 0.0,
@@ -293,15 +317,24 @@ class MoEBlock(nn.Module):
     def capacity(self, n_tokens: int) -> int:
         return expert_capacity(n_tokens * self.top_k, self.n_experts, self.capacity_factor)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, seq_group=None):
+        """``seq_group``: ``x`` is this rank's slice of each sequence, the
+        group's ranks holding the slices in order; the whole sequences are
+        gathered and routed, and this rank's slice of the output returned
+        (module docstring)."""
         b, s, d = x.shape
-        tokens = x.reshape(b * s, d)
+        lo = 0
+        if seq_group is not None:
+            lo = axis_index(seq_group) * s
+            x = gather_tokens(x, 1, seq_group)
+        whole = x.shape[1]
+        tokens = x.reshape(b * whole, d)
         if self.ep_fn is not None:
             out, aux, stats = self.ep_fn(self.params(), tokens)
         else:
             out, aux, stats = moe_ffn_local(self.params(), tokens, self.n_experts,
-                                            self.capacity(b * s), self.top_k)
-        return out.reshape(b, s, d), aux, stats
+                                            self.capacity(b * whole), self.top_k)
+        return out.reshape(b, whole, d)[:, lo:lo + s], aux, stats
 
 
 __all__ = ["MoEBlock", "Routing", "expert_capacity", "make_moe_dispatch",

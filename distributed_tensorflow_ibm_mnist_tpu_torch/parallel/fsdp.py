@@ -44,6 +44,17 @@ backward, so they take the mean's 1/N and no collective.
 The whole-leaf form (:meth:`ShardPlan.whole`, :meth:`ShardPlan.load_whole`)
 is what checkpoints, eval of other layouts and decode read: every leaf
 and moment gathered whole, the replicated form, which resumes at any dp.
+
+Beside tp and sp the plan splits over each rank's data group (the ranks
+that differ from it in the data index only), every collective above
+over that group: under tp its leaves are the model rank's
+``TPPlan`` blocks (``make_fsdp_specs(base_rule=megatron_rule(tp))``'s
+``P("data", "model")`` leaf is the model block cut again along its data
+dim), the whole form gathers over the data group and then over the model
+group (so an fsdp x tp checkpoint resumes at tp alone or at fsdp alone),
+and the clip counts every element once across both; under sp the seq
+ranks of a data row hold the same blocks and average their gradients
+over the seq group first (:class:`ShardPlan`).
 """
 
 from __future__ import annotations
@@ -74,7 +85,6 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.tensor_parallel import (
-    BESIDE_TP,
     P,
     SpecRule,
     make_param_specs,
@@ -165,7 +175,20 @@ def _nbytes(tensors: Sequence[torch.Tensor]) -> int:
 class ShardPlan:
     """How each parameter of a sharded run lives on this rank.
 
-    Per leaf ``i`` (``names[i]``, whole shape ``shapes[i]``): its ``kind``
+    The plan splits over the mesh's data axis: this rank's place along it
+    (``mesh.data_index``) among the ``dp`` ranks of its data group
+    (``mesh.data_group``, the ranks that differ from it in ``d`` only; the
+    whole group at tp = sp = 1).  Under tp (``tp``, the run's
+    :class:`~.tensor_parallel.TPPlan`) the module's parameters are this
+    model rank's blocks, and this plan splits those blocks again over the
+    data group (a ``P("data", "model")`` leaf is the model block cut along
+    its data dim): the shapes and names here are the blocks', the whole
+    forms gather over the data group and then over the model group, and
+    the clip's norm counts every element once across both.  Under sp the
+    seq ranks of a data row hold the same blocks: their gradients are
+    averaged over the seq group before the data group's reduce-scatter.
+
+    Per leaf ``i`` (``names[i]``, this rank's shape ``shapes[i]``): its ``kind``
     (``replicated``, ``fsdp``, ``zero1`` or ``expert``), ``split[i]``, the
     dim its master and moments are blocks of (None: whole), and
     ``masters[i]``, this rank's block of an fsdp or expert leaf, else the
@@ -179,8 +202,11 @@ class ShardPlan:
     global-norm clip, applied against the true cross-rank norm."""
 
     def __init__(self, mesh: Mesh, params: Sequence[nn.Parameter], names: Sequence[str],
-                 kinds: Sequence[str], split: Sequence[int | None], n_buckets: int = 4):
-        self.mesh, self.n, self.rank = mesh, mesh.size, mesh.rank
+                 kinds: Sequence[str], split: Sequence[int | None], n_buckets: int = 4,
+                 tp=None):
+        self.mesh, self.n, self.rank = mesh, mesh.size, mesh.data_index
+        self.group = mesh.data_group  # the data axis of this rank
+        self.tp = tp
         self.params, self.names = list(params), list(names)
         self.local_names = self.names
         self.kinds, self.split = list(kinds), list(split)
@@ -196,6 +222,7 @@ class ShardPlan:
         self._repl = [i for i, k in enumerate(self.kinds) if k == REPLICATED]
         self._repl_layout = (make_bucket_layout([self.params[i] for i in self._repl], 1)
                              if self._repl else None)
+        self._seq_layout = None  # the split leaves' gradients' seq mean, at first use
         self._units = [i for i, k in enumerate(self.kinds) if k != ZERO1]
         self._z1 = [i for i, k in enumerate(self.kinds) if k == ZERO1]
         self.z1_layout = (make_bucket_layout(self._z1_params(), self.n, n_buckets)
@@ -204,25 +231,29 @@ class ShardPlan:
         self.opt_params = [self.masters[i] for i in self._units] + self.z1_shards
         self.opt_names = ([self.names[i] for i in self._units]
                           + [f"zero1.bucket_{b}" for b in range(len(self.z1_shards))])
-        # per optimizer tensor: split across ranks (its squares summed over
-        # them in the norm) or whole and the same on every rank
+        # per optimizer tensor: split across the data group (its squares
+        # summed over it in the norm) or whole and the same on every data
+        # rank; and split across the model group (a tp block) or not
         self._opt_split = ([self.kinds[i] != REPLICATED for i in self._units]
                            + [True] * len(self.z1_shards))
+        self._opt_model = ([tp is not None and tp.split[i] is not None for i in self._units]
+                           + [False] * len(self.z1_shards))
         self.release()
 
     @classmethod
     def build(cls, mesh: Mesh, model: nn.Module, param_specs: Mapping[str, P] | None = None,
               opt_specs: Mapping[str, P] | None = None,
-              expert_specs: Mapping[str, P] | None = None, n_buckets: int = 4) -> "ShardPlan":
-        """The plan of ``model`` (whole, replicated on every rank): a leaf
-        ``expert_specs`` splits is an expert leaf, else one ``param_specs``
-        splits is an fsdp leaf, else one ``opt_specs`` splits has ZeRO-1
-        moments (in ``n_buckets`` buckets), else it is replicated (specs in
-        the port's layout)."""
-        if any(ax == "model" for specs in (param_specs, opt_specs, expert_specs) if specs
-               for spec in specs.values() for ax in spec):
-            raise NotImplementedError(f"fsdp beside tp (a spec over 'model') is not "
-                                      f"ported: {BESIDE_TP}")
+              expert_specs: Mapping[str, P] | None = None, n_buckets: int = 4,
+              tp=None) -> "ShardPlan":
+        """The plan of ``model`` (replicated on every rank of a data group:
+        whole, or under ``tp``, a ``TPPlan`` already cut, this model
+        rank's blocks): a leaf ``expert_specs`` splits over ``data`` is an
+        expert leaf, else one ``param_specs`` splits over ``data`` is an
+        fsdp leaf, else one ``opt_specs`` splits has ZeRO-1 moments (in
+        ``n_buckets`` buckets), else it is replicated over the data group
+        (specs in the port's layout; their ``model`` dims are ``tp``'s)."""
+        if tp is not None and list(tp.names) != [n for n, _ in model.named_parameters()]:
+            raise ValueError("tp's plan does not name the model's parameters in order")
         names, params, kinds, split = [], [], [], []
         for name, p in model.named_parameters():
             kind, dim = REPLICATED, None
@@ -238,7 +269,7 @@ class ShardPlan:
             params.append(p)
             kinds.append(kind)
             split.append(dim)
-        return cls(mesh, params, names, kinds, split, n_buckets)
+        return cls(mesh, params, names, kinds, split, n_buckets, tp=tp)
 
     # ---------------------------------------------------------------- layout
 
@@ -252,38 +283,55 @@ class ShardPlan:
         """This rank's block of each ZeRO-1 bucket of ``tensors`` (views)."""
         if not self._z1:
             return []
-        return list(bucket_shard(flatten_buckets(tensors, self.z1_layout), self.z1_layout))
+        return list(bucket_shard(flatten_buckets(tensors, self.z1_layout), self.z1_layout,
+                                 self.group))
+
+    def _model_block(self, i: int, whole: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i``'s whole tensor -> this model rank's block (itself
+        without tp)."""
+        return whole if self.tp is None else self.tp.block_of(i, whole)
+
+    def _model_whole(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Model blocks, one a leaf -> whole over the model group."""
+        return tensors if self.tp is None else self.tp.whole(tensors)
+
+    @property
+    def whole_shapes(self) -> list[tuple]:
+        """Each leaf's whole shape (across the model group too)."""
+        return self.shapes if self.tp is None else list(self.tp.shapes)
 
     def block_of(self, i: int, whole: torch.Tensor) -> torch.Tensor:
         """This rank's part of leaf ``i``'s whole tensor (itself if whole)."""
-        s = self.split[i]
+        whole, s = self._model_block(i, whole), self.split[i]
         return whole if s is None else self._block(whole, s)
+
+    def _data_whole(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        s = self.split[i]
+        return t if s is None else all_gather_dim(t.detach(), s, self.group)
 
     def whole(self, tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """Tensors laid out as the masters, one a leaf, gathered whole (a
         collective)."""
-        return [t if s is None else all_gather_dim(t.detach(), s)
-                for t, s in zip(tensors, self.split)]
+        return self._model_whole([self._data_whole(t, i) for i, t in enumerate(tensors)])
 
     def opt_blocks(self, whole: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """Whole tensors, one a leaf -> the optimizer's layout: each other
         leaf's block, then this rank's block of each ZeRO-1 bucket (views
         where they can be)."""
         return ([self.block_of(i, whole[i]) for i in self._units]
-                + self._z1_blocks([whole[i] for i in self._z1]))
+                + self._z1_blocks([self._model_block(i, whole[i]) for i in self._z1]))
 
     def opt_whole(self, tensors: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """The inverse of :meth:`opt_blocks`: tensors in the optimizer's
         layout (a moment list) -> one whole tensor a leaf (a collective)."""
         out: list[torch.Tensor | None] = [None] * len(self.names)
         for i, t in zip(self._units, tensors):
-            s = self.split[i]
-            out[i] = t if s is None else all_gather_dim(t.detach(), s)
+            out[i] = self._data_whole(t, i)
         if self._z1:
-            full = [all_gather(b.detach()) for b in tensors[len(self._units):]]
+            full = [all_gather(b.detach(), self.group) for b in tensors[len(self._units):]]
             for i, t in zip(self._z1, unflatten_buckets(full, self.z1_layout)):
                 out[i] = t
-        return out
+        return self._model_whole(out)
 
     def resident_bytes(self) -> int:
         """Bytes this rank holds for the parameters at rest: the masters
@@ -300,15 +348,17 @@ class ShardPlan:
 
     def numel(self) -> int:
         """Elements of the whole parameter set (every expert counted)."""
-        return sum(int(np.prod(s)) for s in self.shapes)
+        return sum(int(np.prod(s)) for s in self.whole_shapes)
 
     # ---------------------------------------------------------------- step
 
     def gather(self) -> None:
-        """Gather every fsdp leaf whole into the module's parameter."""
+        """Gather every fsdp leaf whole (this model rank's block under tp)
+        into the module's parameter, over the data group."""
         for i, k in enumerate(self.kinds):
             if k == FSDP:
-                self.params[i].data = all_gather_dim(self.masters[i], self.split[i])
+                self.params[i].data = all_gather_dim(self.masters[i], self.split[i],
+                                                     self.group)
 
     def release(self) -> None:
         """Drop the gathered copies of the fsdp leaves."""
@@ -334,7 +384,8 @@ class ShardPlan:
 
         def gather(ids):
             for i in ids:
-                self.params[i].data = all_gather_dim(self.masters[i], self.split[i])
+                self.params[i].data = all_gather_dim(self.masters[i], self.split[i],
+                                                     self.group)
 
         def release(ids):
             for i in ids:
@@ -360,43 +411,78 @@ class ShardPlan:
         finally:
             self.release()
 
+    def _seq_mean(self, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """Under sp, the split leaves' gradients averaged over the seq group
+        (one bucketed all-reduce): the seq ranks of a data row hold the same
+        blocks, each differentiating its own tokens' loss."""
+        grads = list(grads)
+        if self.mesh.seq_size == 1:
+            return grads
+        ids = [i for i, k in enumerate(self.kinds) if k != REPLICATED]
+        if not ids:
+            return grads
+        if self._seq_layout is None:
+            self._seq_layout = make_bucket_layout([grads[i] for i in ids], 1)
+        lay = self._seq_layout
+        mean = unflatten_buckets(grouped_all_reduce_mean(
+            flatten_buckets([grads[i] for i in ids], lay), self.mesh.seq_group), lay)
+        for i, g in zip(ids, mean):
+            grads[i] = g
+        return grads
+
     @torch.no_grad()
     def reduce_grads(self, grads: Sequence[torch.Tensor]) -> list[torch.Tensor]:
-        """Whole per-rank gradients, one a leaf -> the gradients of the
-        optimizer's tensors: the mean across ranks, reduce-scattered to this
-        rank's block for fsdp leaves, all-reduced (bucketed) for replicated
+        """Whole per-rank gradients, one a leaf (this model rank's blocks
+        under tp) -> the gradients of the optimizer's tensors: the mean
+        across ranks, reduce-scattered over the data group to this rank's
+        block for fsdp leaves, all-reduced (bucketed) over the replica
+        group (the data x seq ranks of this model index) for replicated
         ones, scaled by 1/N for expert leaves (their all-to-all backward has
-        already summed every rank's tokens), and reduce-scattered bucket by
-        bucket for the ZeRO-1 leaves."""
+        already summed the data group's tokens), and reduce-scattered bucket
+        by bucket for the ZeRO-1 leaves; under sp the split leaves are first
+        averaged over the seq group."""
+        grads = self._seq_mean(grads)
         repl = {}
         if self._repl:
             lay = self._repl_layout
             repl = dict(zip(self._repl, unflatten_buckets(grouped_all_reduce_mean(
-                flatten_buckets([grads[i] for i in self._repl], lay)), lay)))
+                flatten_buckets([grads[i] for i in self._repl], lay),
+                self.mesh.replica_group), lay)))
         out = []
         for i in self._units:
             k = self.kinds[i]
             if k == FSDP:
-                out.append(reduce_scatter_dim(grads[i], self.split[i]).div_(self.n))
+                out.append(reduce_scatter_dim(grads[i], self.split[i], self.group).div_(self.n))
             elif k == EXPERT:
                 out.append(grads[i] / self.n)
             else:
                 out.append(repl[i])
         if self._z1:
-            out += bucket_reduce_scatter_mean([grads[i] for i in self._z1], self.z1_layout)
+            out += bucket_reduce_scatter_mean([grads[i] for i in self._z1], self.z1_layout,
+                                              self.group)
         return out
 
     def grad_norm(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The global L2 norm of the optimizer's gradients: each split one
-        (an fsdp or expert block, a ZeRO-1 bucket block) as the sum of its
-        blocks' squares across ranks, and each replicated leaf (the same on
-        every rank) once."""
+        """The global L2 norm of the optimizer's gradients, every element
+        counted once: each one split over the data group (an fsdp or expert
+        block, a ZeRO-1 bucket block) as the sum of its blocks' squares
+        across the data group, each tp block's across the model group (both,
+        for a block split over both), and each leaf whole on every rank
+        once."""
         zero = torch.zeros((), device=grads[0].device)
-        split = sum((g.float().square().sum() for g, s in zip(grads, self._opt_split, strict=True)
-                     if s), zero)
-        whole = sum((g.float().square().sum() for g, s in zip(grads, self._opt_split)
-                     if not s), zero)
-        return (all_reduce_sum(split) + whole).sqrt()
+
+        def squares(data: bool, model: bool) -> torch.Tensor:
+            return sum((g.float().square().sum() for g, d, m
+                        in zip(grads, self._opt_split, self._opt_model, strict=True)
+                        if d == data and m == model), zero)
+
+        by_data = all_reduce_sum(torch.stack([squares(True, False), squares(True, True)]),
+                                 self.group)
+        total = by_data[0] + squares(False, False)
+        if self.tp is not None:  # the model blocks' squares across the model group
+            total = total + all_reduce_sum(by_data[1] + squares(False, True),
+                                           self.mesh.model_group)
+        return total.sqrt()
 
     @torch.no_grad()
     def apply(self, optimizer, grads: Sequence[torch.Tensor]) -> None:
@@ -409,10 +495,11 @@ class ShardPlan:
             scale = torch.where(norm < self.clip, 1.0, self.clip / norm.clamp_min(1e-38))
             g = torch._foreach_mul(g, scale)
         if self._z1:  # the parameters are the truth; the blocks are loaded from them
-            load_bucket_shards(self.z1_shards, self._z1_params(), self.z1_layout)
+            load_bucket_shards(self.z1_shards, self._z1_params(), self.z1_layout, self.group)
         optimizer.step(g)
         if self._z1:
-            gather_bucket_shards(self.z1_shards, self._z1_params(), self.z1_layout)
+            gather_bucket_shards(self.z1_shards, self._z1_params(), self.z1_layout,
+                                 self.group)
 
     # ---------------------------------------------------------------- state
 
@@ -452,7 +539,7 @@ class ShardPlan:
                         f"optimizer {key}: the saved state does not match this model "
                         f"(missing {sorted(set(self.names) - set(ts))[:4]}, unexpected "
                         f"{sorted(set(ts) - set(self.names))[:4]})")
-                for n, shape in zip(self.names, self.shapes):
+                for n, shape in zip(self.names, self.whole_shapes):
                     if tuple(ts[n].shape) != shape:
                         raise ValueError(f"optimizer {key}/{n}: saved shape "
                                          f"{tuple(ts[n].shape)}, expected {shape}")
@@ -466,11 +553,12 @@ class ShardPlan:
         parameter kept whole takes all of it."""
         for i, name in enumerate(self.names):
             src = params[name]
-            if tuple(src.shape) != self.shapes[i]:
+            if tuple(src.shape) != self.whole_shapes[i]:
                 raise ValueError(f"params/{name}: saved shape {tuple(src.shape)}, "
-                                 f"expected {self.shapes[i]}")
+                                 f"expected {self.whole_shapes[i]}")
+            src = src.to(self.params[i].device)
             if self.kinds[i] in (REPLICATED, ZERO1):
-                self.params[i].copy_(src)
+                self.params[i].copy_(self._model_block(i, src))
             if self.masters[i] is not self.params[i]:
                 self.masters[i].copy_(self.block_of(i, src))
             elif self.kinds[i] == EXPERT:

@@ -21,14 +21,18 @@ gradients.  Every rank builds every group, in the same order
 (``dist.new_group`` is collective, and a group built out of order
 deadlocks).
 
-Multislice (``dcn_dp=N``, JAX's hybrid ICI x DCN mesh): the group must
-span N nodes with dp/N ranks each.  A rank's node is its host name,
-gathered from every rank (:func:`rank_records`; its ``slice_index`` is the
-node's place in rank order), or records a caller passes, as JAX's tests
-pass mock devices.  :func:`hybrid_mesh_shapes` and
+Multislice (``dcn_dp=N``, JAX's hybrid ICI x DCN mesh), beside any tp,
+sp and pp: only the data axis spans nodes, so the group must span N nodes
+with ``(dp/N) * tp * sp * pp`` ranks each (``data`` is outermost in the
+rank order, so a node holds that many consecutive ranks).  A rank's node
+is its host name, gathered from every rank (:func:`rank_records`; its
+``slice_index`` is the node's place in rank order), or records a caller
+passes, as JAX's tests pass mock devices.  :func:`hybrid_mesh_shapes` and
 :func:`pick_multislice_devices` are JAX's, over those records; the mesh
-records the node-major rank order and the ``(dp/N, N)`` ici/dcn factors.
-The data axis's collectives stay the flat ones over the whole group: NCCL
+records the node-major rank order and the ``(dp/N, tp, sp, pp)`` /
+``(N, 1, 1, 1)`` ici/dcn factors; on node-major records no model, seq or
+pipe group crosses a node (:func:`node_crossings` reads which do).
+The data axis's collectives stay the flat ones over its group: NCCL
 picks its own rings across nodes, as XLA does over JAX's hybrid mesh.
 
 The models that take JAX's ``axis_name="data"`` (cross-replica
@@ -44,12 +48,6 @@ import socket
 from typing import Any
 
 import torch.distributed as dist
-
-_PARALLEL = "ROADMAP.md queue 1, 'Remaining parallelism and utilities'"
-# multislice beside a pipe axis: ROADMAP.md queue 1's item 7.7
-PIPE_MULTISLICE = ("ROADMAP.md queue 1, item 7.7 ('Remaining parallelism and utilities': "
-                   "multislice beside sp, tp and pp)")
-
 
 def no_group_error(what: str) -> ValueError:
     return ValueError(
@@ -218,6 +216,18 @@ def _axis_members(dp: int, tp: int, sp: int, pp: int = 1) -> dict:
     }
 
 
+def node_crossings(records: list, dp: int, tp: int = 1, sp: int = 1, pp: int = 1
+                   ) -> dict[str, list[list[int]]]:
+    """The groups of each axis of a ``(dp, tp, sp, pp)`` grid whose ranks
+    sit on more than one node, by ``records`` (one a rank, in rank order,
+    each with a ``slice_index``): ``{"data_group": [...], ...}``.  On a
+    multislice mesh's node-major records only the data groups (and the
+    replica groups, which hold them) cross."""
+    node = [getattr(r, "slice_index", None) for r in records]
+    return {name: [g for g in groups if len({node[r] for r in g}) > 1]
+            for name, groups in _axis_members(dp, tp, sp, pp).items()}
+
+
 def _axis_groups(dp: int, tp: int, sp: int, rank: int, pp: int = 1) -> dict:
     """This rank's process group of each axis of a ``(dp, tp, sp, pp)`` grid
     (``{"data_group": ..., ...}``; an axis of one rank, or the whole world,
@@ -252,10 +262,10 @@ def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1,
     the data axis the devices the other axes leave; ``dp * tp * sp * pp``
     must equal the world size (one rank per process).  ``tp``, ``sp`` or
     ``pp`` above 1 builds the axes' process groups (module docstring).
-    ``dcn_dp > 1`` is multislice (module docstring), at ``tp = sp = pp = 1``
-    only: ``devices`` are the group's rank
-    records in rank order (default :func:`rank_records`); ``ValueError``
-    unless they span ``dcn_dp`` slices of ``dp / dcn_dp`` ranks each, laid
+    ``dcn_dp > 1`` is multislice (module docstring), beside any tp, sp
+    and pp: ``devices`` are the group's rank records in rank order
+    (default :func:`rank_records`); ``ValueError`` unless they span
+    ``dcn_dp`` slices of ``(dp / dcn_dp) * tp * sp * pp`` ranks each, laid
     out node-major (ranks of a node contiguous, as torchrun numbers them).
     The mesh becomes the one :func:`axis_mesh` returns."""
     if dcn_dp < 1:
@@ -264,13 +274,6 @@ def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1,
     for name, n in axes_in:
         if n < 1:
             raise ValueError(f"{name} must be >= 1, got {n}")
-    for name, n in axes_in:
-        if dcn_dp > 1 and n > 1:
-            axis = {"tp": "model", "sp": "seq", "pp": "pipe"}[name]
-            item = (PIPE_MULTISLICE if name == "pp" else _PARALLEL)
-            raise NotImplementedError(
-                f"dcn_dp={dcn_dp} with {name}={n} (a multislice data axis beside a "
-                f"{axis} axis) is not ported to the PyTorch package yet: {item}")
     if not (dist.is_available() and dist.is_initialized()):
         axes = "".join(f", {k}={v}" for k, v in axes_in if v > 1)
         raise no_group_error(f"make_mesh(dp={dp}{axes})")
@@ -289,23 +292,21 @@ def make_mesh(dp: int | None = None, tp: int = 1, sp: int = 1, pp: int = 1,
             f"runs one rank per process, so {axes} must equal the world size")
     shape = {"data": dp, "model": tp, "seq": sp, "pipe": pp}
     rank = dist.get_rank()
-    if inner > 1:
-        mesh = Mesh(shape=shape, rank=rank, **_axis_groups(dp, tp, sp, rank, pp))
-    elif dcn_dp == 1:
-        mesh = Mesh(shape=shape, rank=rank)
-    else:
+    slices: dict = {}
+    if dcn_dp > 1:
         ici, dcn = hybrid_mesh_shapes(dp, tp, sp, pp, dcn_dp)
         records = list(devices) if devices is not None else rank_records()
         if len(records) != world:
             raise ValueError(f"{len(records)} rank records for a group of {world}")
-        chosen = pick_multislice_devices(records, dcn_dp, dp // dcn_dp)
+        chosen = pick_multislice_devices(records, dcn_dp, (dp // dcn_dp) * inner)
         order = tuple(r.rank for r in chosen)
         if order != tuple(range(world)):
             raise ValueError(
                 f"dcn_dp={dcn_dp}: the ranks are not node-major (node-major order "
                 f"{list(order)}); number each node's ranks contiguously, as torchrun does")
-        mesh = Mesh(shape=shape, rank=rank, dcn_dp=dcn_dp, ici_shape=ici,
-                    dcn_shape=dcn, order=order)
+        slices = dict(dcn_dp=dcn_dp, ici_shape=ici, dcn_shape=dcn, order=order)
+    groups = _axis_groups(dp, tp, sp, rank, pp) if inner > 1 else {}
+    mesh = Mesh(shape=shape, rank=rank, **slices, **groups)
     _CURRENT[0] = mesh
     return mesh
 

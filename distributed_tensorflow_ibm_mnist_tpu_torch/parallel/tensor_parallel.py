@@ -19,7 +19,9 @@ permuted to OIHW.
 
 Placement is explicit here, not GSPMD's: ``fsdp.shard_train_state`` makes
 a state whose ranks each keep their block of every sharded leaf, and
-``parallel/fsdp.py`` has the step that runs on it.
+``parallel/fsdp.py`` has the step that runs on it; specs over both
+``data`` and ``model`` (fsdp beside tp) give a ``fsdp.ShardPlan`` over
+each model rank's :class:`TPPlan` blocks (:func:`shard_train_state`).
 
 The ``model`` axis (tensor parallelism in training).  JAX jits the
 unchanged single-device step under ``megatron_rule(tp)``'s shardings and
@@ -104,11 +106,6 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.collectives import (
     unflatten_buckets,
 )
 from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.mesh import Mesh, no_group_error
-
-PARALLEL = "ROADMAP.md queue 1, item 7, 'Remaining parallelism and utilities'"
-BESIDE_TP = ("ROADMAP.md queue 1, item 7.7 ('Remaining parallelism and utilities': "
-             "fsdp, MoE blocks and multislice beside sp and tp)")
-
 
 class P(tuple):
     """A partition spec: one mesh-axis name (or ``None``) per leading dim
@@ -313,13 +310,10 @@ def model_param_specs(model, rule: SpecRule) -> dict[str, P]:
 
 def shard_dim(spec: P, axis: str = "data") -> int | None:
     """The one dim ``spec`` splits over ``axis`` (None when it splits none).
-    A spec may name ``data`` and ``model``; any other axis raises (a pipe
-    rank holds its stage by ``parallel.pipeline.stage_param_specs``'s
-    stage split, never by a spec over ``pipe``)."""
-    for ax in spec:
-        if ax is not None and ax not in ("data", "model"):
-            raise NotImplementedError(
-                f"a spec over the {ax!r} axis ({spec}) is not ported: {PARALLEL}")
+    The plans read ``data`` (``fsdp.ShardPlan``) and ``model``
+    (:class:`TPPlan`); a pipe rank holds its stage by
+    ``parallel.pipeline.stage_param_specs``'s stage split, so a spec's
+    ``pipe`` dim (JAX's ``pipeline_block_rule``) is read by no plan."""
     dims = [i for i, ax in enumerate(spec) if ax == axis]
     return dims[0] if dims else None
 
@@ -577,6 +571,11 @@ class TPPlan:
         """Elements of the whole parameter set."""
         return sum(int(np.prod(s)) for s in self.shapes)
 
+    def resident_bytes(self) -> int:
+        """Bytes this rank holds for the parameters: its blocks, and every
+        leaf the rule leaves whole."""
+        return sum(p.numel() * p.element_size() for p in self.params)
+
     # ---------------------------------------------------------------- step
 
     def gather(self) -> None:
@@ -709,21 +708,27 @@ def shard_train_state(mesh, state, param_specs: Mapping[str, P], opt_specs=None)
     ``shard_train_state``): specs over ``model`` give each model rank its
     blocks and their moments (:class:`TPPlan`); specs over ``data`` alone
     are ZeRO-3's (``fsdp.shard_train_state``).  Both at once (fsdp beside
-    tp) is not ported."""
+    tp: ``make_fsdp_specs(base_rule=megatron_rule(tp))``'s
+    ``P("data", "model")`` leaves), or ``opt_specs`` beside tp
+    (``make_fsdp_opt_specs``), cut the model to its tp blocks and put a
+    ``fsdp.ShardPlan`` over them on the data group."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import fsdp
+
     axes = {ax for spec in param_specs.values() for ax in spec if ax is not None}
     if "model" not in axes:
-        from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import fsdp
-
         return fsdp.shard_train_state(mesh, state, param_specs, opt_specs=opt_specs)
-    if axes != {"model"} or opt_specs is not None:
-        raise NotImplementedError(f"fsdp beside tp is not ported: {BESIDE_TP}")
-    TPPlan.shard(mesh, state.model, param_specs).adopt(state)
+    blocks = TPPlan.shard(mesh, state.model, param_specs)
+    if axes == {"model"} and opt_specs is None:
+        blocks.adopt(state)
+        return state
+    fsdp.ShardPlan.build(mesh, state.model, param_specs, opt_specs=opt_specs,
+                         tp=blocks).adopt(state)
     return state
 
 
-def _tp_state(mesh, state, param_specs):
+def _tp_state(mesh, state, param_specs, opt_specs=None):
     if getattr(state, "plan", None) is None:
-        shard_train_state(mesh, state, param_specs)
+        shard_train_state(mesh, state, param_specs, opt_specs)
     return state.plan
 
 
@@ -743,9 +748,7 @@ def make_tp_train_step(model, tx, mesh, param_specs, state, data_axis: str = "da
     )
 
     del tx, data_axis
-    if opt_specs is not None:
-        raise NotImplementedError(f"sharded moments beside tp are not ported: {BESIDE_TP}")
-    plan = _tp_state(mesh, state, param_specs)
+    plan = _tp_state(mesh, state, param_specs, opt_specs)
     step = make_train_step(model, state.optimizer, label_smoothing=label_smoothing,
                            fused_xent=fused_xent, remat=remat, grad_accum=grad_accum,
                            plan=plan)
@@ -770,16 +773,15 @@ def make_tp_epoch_runner(model, tx, mesh, param_specs, state, batch_size: int,
     """The Trainer's tp path: an epoch as JAX's GSPMD epoch runs it (one
     permutation of the whole set, data row ``d`` on its block of every
     global batch, ``data_parallel.make_global_epoch_runner``) on the
-    state's :class:`TPPlan`.  ``run_epoch(state, images, labels,
+    state's :class:`TPPlan` (a ``fsdp.ShardPlan`` over it under fsdp or
+    ``opt_specs``).  ``run_epoch(state, images, labels,
     perm=None)`` returns this rank's per-step metrics stacked."""
     from distributed_tensorflow_ibm_mnist_tpu_torch.parallel.data_parallel import (
         make_global_epoch_runner,
     )
 
     del tx, data_axis, img_ndim
-    if opt_specs is not None:
-        raise NotImplementedError(f"sharded moments beside tp are not ported: {BESIDE_TP}")
-    plan = _tp_state(mesh, state, param_specs)
+    plan = _tp_state(mesh, state, param_specs, opt_specs)
     return make_global_epoch_runner(model, state.optimizer, batch_size, mesh, plan=plan,
                                     label_smoothing=label_smoothing, fused_xent=fused_xent,
                                     remat=remat, grad_accum=grad_accum)

@@ -138,8 +138,13 @@ on a failed mesh again: a replica whose group failed cannot be restarted
 on it (a fault on the leader's host side, such as a chaos fault, leaves
 the group sound, and the replica restarts).  A router holds each
 replica's leader in its own process: the followers of a replica loop
-:func:`follow_engines` until :func:`release_followers`.  MoE blocks beside
-tp or cp are not ported (ROADMAP.md item 7.7).
+:func:`follow_engines` until :func:`release_followers`.  MoE blocks run
+whole on every rank of the mesh (``megatron_rule`` leaves the experts and
+the router whole), each on its whole activations, so every rank routes
+the same tokens; a cp prefill routes its prompt's whole rows, gathered
+over the cp row (``expert_parallel.MoEBlock``), with the capacity of the
+prefill's whole token count, and a decode window carries the same tokens
+on every rank.
 
 Context parallelism (``cp=N``; JAX's engine at ``cp > 1``,
 ``serving/engine.py:470-490, 529-547, 715-740`` there): the mesh is a ``(cp,
@@ -230,9 +235,6 @@ from distributed_tensorflow_ibm_mnist_tpu_torch.utils.flops import ring_hop_byte
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.metrics import MetricWriter
 from distributed_tensorflow_ibm_mnist_tpu_torch.utils.tracing import CompileTracker
 
-# what tp > 1 and cp > 1 leave to a later item of ROADMAP.md queue 1
-_TP_MOE = ("item 7.7 ('Remaining parallelism and utilities': MoE blocks beside tp "
-           "and cp)")
 # the device calls that run collectives over the mesh (the model and cp
 # groups): once one returns on the leader, every follower has read every
 # record sent before it
@@ -451,10 +453,6 @@ class InferenceEngine:
                     "attn_fn for prefill — a model that already carries a "
                     "custom attn_fn would be silently clobbered; pass the "
                     "base model and let the engine compose the ring")
-        if (tp > 1 or cp > 1) and getattr(model, "has_moe", False):
-            raise NotImplementedError(
-                f"InferenceEngine(tp={tp}, cp={cp}) over MoE blocks is not in the "
-                f"PyTorch port yet: ROADMAP.md queue 1, {_TP_MOE}")
         check_decodable(model)  # JAX's ValueError for pos="learned"
         if role not in ("both", "prefill", "decode"):
             raise ValueError(

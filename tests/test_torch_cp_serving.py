@@ -424,8 +424,9 @@ def _error(fn):
 def test_cp_refusals_are_jaxs():
     """JAX's refusals of cp > 1 (``tests/test_cp_serving.py:280-303``), word
     for word: cp=0, the dense layout, max_len % cp, an explicit kv_pages %
-    cp and a model that carries an attn_fn; MoE blocks beside cp name item
-    7.7, as beside tp."""
+    cp and a model that carries an attn_fn; MoE blocks beside cp are served
+    since item 7.7 (tests/test_torch_moe_mesh_serving.py), so outside a
+    spawned world they ask for the launcher, as a dense model does."""
     jm, params = _jax_model()
     tm = get_model("causal_lm", device="cpu", dtype=torch.float32, **KW)
     cases = [dict(cp=0), dict(cp=2), dict(cp=3, kv_page_size=8),
@@ -445,8 +446,8 @@ def test_cp_refusals_are_jaxs():
                                          cp=2, kv_page_size=8))
     assert want is not None and got == want
     moe = get_model("causal_lm", device="cpu", dtype=torch.float32, moe_every=2, **KW)
-    assert "item 7.7" in _error(lambda: InferenceEngine(moe, slots=2, max_len=MAX_LEN,
-                                                        device="cpu", cp=2, kv_page_size=8))
+    assert "launch.torchrun" in _error(lambda: InferenceEngine(
+        moe, slots=2, max_len=MAX_LEN, device="cpu", cp=2, kv_page_size=8))
 
 
 def test_tp_device_groups_cp_match_jaxs():

@@ -62,6 +62,8 @@ torch.set_num_threads(1)
 
 STEP_TOL = 1e-5  # JAX's own fsdp-vs-single-device step limit (tests/test_fsdp.py:76)
 MESH2 = Mesh(shape={"data": 2, "model": 1, "seq": 1, "pipe": 1}, rank=0)
+# a dp=2 x tp=2 grid's rank 0 (building a plan runs no collective)
+MESH2x2 = Mesh(shape={"data": 2, "model": 2, "seq": 1, "pipe": 1}, rank=0)
 
 # model -> (keywords both registries take, JAX's init sample)
 ZOO = {
@@ -142,11 +144,15 @@ def test_fsdp_composes_with_the_tp_rule_as_jax():
     for path, shape in ((("dense_0", "kernel"), (784, 64)), (("dense_1", "kernel"), (64, 784)),
                         (("logits", "kernel"), (64, 10)), (("dense_0", "kernel"), (17, 64))):
         assert tuple(pr(path, tp.Leaf(shape))) == tuple(jr(path, jnp.zeros(shape)))
-    # the Megatron dims beside fsdp's: not ported (tp alone is, item 7.1a)
-    with pytest.raises(NotImplementedError, match=r"item 7\.7"):
-        fsdp.ShardPlan.build(MESH2, get_model("mlp", device="cpu", hidden=(64,)),
-                             tp.model_param_specs(get_model("mlp", device="cpu", hidden=(64,)),
-                                                  pr))
+    # the Megatron dims beside fsdp's (item 7.7): the tp plan cuts each
+    # model block, the fsdp plan cuts that block again along its data dim
+    model = get_model("mlp", device="cpu", hidden=(64,))
+    specs = tp.model_param_specs(model, pr)
+    assert specs["dense_0.weight"] == tp.P("model", "data")  # flax's P("data", "model")
+    plan = fsdp.ShardPlan.build(MESH2x2, model, specs, tp=tp.TPPlan.shard(MESH2x2, model, specs))
+    got = dict(zip(plan.names, plan.masters))
+    assert tuple(got["dense_0.weight"].shape) == (32, 392)  # 1/4 of (64, 784)
+    assert plan.whole_shapes[plan.names.index("dense_0.weight")] == (64, 784)
 
 
 def test_fsdp_opt_specs_upgrade_small_leaves_as_jax():
@@ -177,13 +183,24 @@ def test_specs_like_matches_by_suffix_as_jax():
 def test_tensor_parallel_proper_is_refused_by_its_item():
     # the serving half is ported whole (tests/test_torch_tp_serving.py and
     # tests/test_torch_cp_serving.py hold it against JAX's): the cp rule
-    # splits a pool's pages as JAX's does, and what is left of the module's
-    # refusals is fsdp beside tp, item 7.7; the training half's step and
-    # epoch factories need JAX's arguments
+    # splits a pool's pages as JAX's does; specs over data and model (fsdp
+    # beside tp, item 7.7) put a ShardPlan over the tp blocks; the training
+    # half's step and epoch factories need JAX's arguments
     assert tp.kv_cache_rule(2, cp=2)(("pages_k",), tp.Leaf((8, 8, 4, 16))) == (
         "cp", None, "tp", None)
-    with pytest.raises(NotImplementedError, match=r"item 7\.7"):
-        tp.shard_train_state(None, None, {"w": tp.P("data", "model")})
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.optim import make_optimizer
+    from distributed_tensorflow_ibm_mnist_tpu_torch.core.state import TrainState
+
+    model = get_model("mlp", device="cpu", hidden=(64,))
+    state = TrainState(step=0, model=model, data_generator=torch.Generator(),
+                       optimizer=make_optimizer(RunConfig(model="mlp"), 10,
+                                                list(model.parameters())))
+    specs = tp.model_param_specs(model, fsdp.fsdp_rule(2, min_size=64,
+                                                       base_rule=tp.megatron_dense_rule()))
+    tp.shard_train_state(MESH2x2, state, specs)
+    assert isinstance(state.plan, fsdp.ShardPlan) and state.plan.tp is not None
+    assert tuple(state.plan.masters[0].shape) == (32, 392)
+    assert tuple(state.optimizer.mu[0].shape) == (32, 392)
     assert tp.serving_mesh(1).model_size == 1
     assert tp.tp_device_groups(2, 2, devices=range(4)) == [[0, 1], [2, 3]]
     assert tp.per_chip_bytes({"k": torch.zeros(2, 4), "index": torch.zeros(2, dtype=torch.int32)}) == 40

@@ -6,8 +6,8 @@ the CPU.
 The counterparts of JAX's ``tests/test_generate.py:473-520`` (tp=4),
 ``:756-788`` (tp=4, bf16 ragged + EOS, and sampled with the same key),
 ``:790`` (fsdp), ``:530`` (EP) and ``:886`` (int8 cache), at JAX's toy
-sizes; JAX's EP x tp test (``:571``) waits for ROADMAP.md item 7.7 (MoE
-blocks beside tp).  The ranks are four gloo processes
+sizes; JAX's EP x tp test (``:571``) is held in
+``tests/test_torch_moe_mesh_serving.py``.  The ranks are four gloo processes
 (``tests/torch_cp_ranks.py``, one spawn for the module): each run is a
 port ``Trainer`` holding the weights of a JAX model's initialisation
 (converted by ``convert.py``, each rank keeping its blocks by the run's

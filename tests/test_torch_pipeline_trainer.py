@@ -361,7 +361,9 @@ def test_refusals_in_the_ranks_are_jaxs(port):
     (dict(model="lenet5"), "needs a model with a pipelineable block stack"),
     (dict(model="vit", sp=2), "fsdp do not pipeline yet"),
     (dict(model="vit", dp=2, fsdp=True), "fsdp do not pipeline yet"),
-    (dict(model="vit", dp=2, dcn_dp=2), "item 7.7"),
+    # multislice beside pp is composed (item 7.7): without a group the mesh
+    # asks for the launcher, as every mesh of the port does
+    (dict(model="vit", dp=2, dcn_dp=2), "launch.torchrun"),
 ], ids=["no_block_stack", "sp", "fsdp", "multislice"])
 def test_refusals_before_any_group(kw, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):
@@ -378,7 +380,16 @@ def test_jax_refuses_the_same_compositions(eight_devices):
 
 
 def test_multislice_beside_pipe_names_item_7_7():
-    with pytest.raises(NotImplementedError, match="item 7.7"):
+    """Item 7.7 composed multislice with pp: on rank records of two nodes
+    each node holds one data row's two stages, so no pipe group crosses a
+    node; without a group the mesh asks for the launcher."""
+    from distributed_tensorflow_ibm_mnist_tpu_torch.parallel import mesh as pmesh
+
+    records = [pmesh.RankRecord(r, f"node-{r // 2}", r // 2) for r in range(4)]
+    chosen = pmesh.pick_multislice_devices(records, 2, 2)
+    crossing = pmesh.node_crossings(chosen, 2, pp=2)
+    assert crossing["pipe_group"] == [] and crossing["data_group"] == [[0, 2], [1, 3]]
+    with pytest.raises(ValueError, match="launch.torchrun"):
         make_mesh(2, pp=2, dcn_dp=2)
 
 

@@ -537,7 +537,8 @@ def test_what_tp_serving_leaves_names_its_item():
     """cp and roles beside tp are ported (tests/test_torch_cp_serving.py):
     cp on the dense layout takes JAX's refusal, and a role engine at tp=2,
     like a cp mesh, asks for the launcher outside a spawned world; MoE
-    blocks beside tp still name item 7.7."""
+    blocks beside tp are served since item 7.7 (tests/test_torch_moe_mesh_serving.py),
+    so they too ask for the launcher here."""
     jm, params = _jax_model()
     tm = get_model("causal_lm", device="cpu", dtype=torch.float32, **KW)
     want = _error(lambda: _jax_engine(jm, params, cp=2))
@@ -545,7 +546,7 @@ def test_what_tp_serving_leaves_names_its_item():
     assert "launch.torchrun" in _error(lambda: _port_engine(tm, tp=2, kv_page_size=8,
                                                             role="prefill"))
     moe = get_model("causal_lm", device="cpu", dtype=torch.float32, moe_every=2, **KW)
-    assert "item 7.7" in _error(lambda: _port_engine(moe, tp=2))
+    assert "launch.torchrun" in _error(lambda: _port_engine(moe, tp=2))
     # outside a spawned world a tp engine asks for the launcher, as the Trainer's tp does
     assert "launch.torchrun" in _error(lambda: _port_engine(tm, tp=2))
     with pytest.raises(ValueError, match="launch.torchrun"):

@@ -128,6 +128,7 @@ def _serve(job: dict, mesh) -> dict:
     reqs = [eng.submit(p, max_new=job.get("max_new", 6)) for p in job["prompts"]]
     eng.run()
     out["streams"] = [list(r.generated) for r in reqs]
+    out["logprobs"] = [list(r.logprobs) for r in reqs]
     out["statuses"] = [r.status for r in reqs]
     out["builds_after_prewarm"] = CompileTracker.delta(tracker.snapshot(),
                                                        before)["n_compiled_programs"]
@@ -202,9 +203,9 @@ def on_mesh(job: dict) -> dict:
     with Trainer(RunConfig(**job["config"]), device="cpu") as t:
         state = {k: torch.from_numpy(np.array(v)) for k, v in job["state"].items()}
         with torch.no_grad():
-            if t.tp > 1:
+            if hasattr(t._plan, "load_whole_state_dict"):  # a TPPlan
                 t._plan.load_whole_state_dict(t.model, state)
-            else:
+            else:  # a ShardPlan (fsdp, EP; over tp blocks under EP x tp)
                 t._plan.load_whole(state)
         calls, heads = {"n": 0}, []
         real_params, real_sown = t._decode_params, gen_mod._cache_from_sown
